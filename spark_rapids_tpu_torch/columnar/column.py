@@ -1,0 +1,57 @@
+"""Device-resident columns.
+
+Counterpart of ``spark_rapids_tpu/columnar/column.py``.  A column is a
+data plane and a validity plane (``torch.bool``, False = null or
+padding), both padded to a power-of-two bucket capacity.  The TPU
+package pads so that XLA compiles one kernel per bucket; the port keeps
+the same layout so that every operator, and the dense-slot kernel, sees
+the shapes the JAX package gives it.  Rows beyond ``num_rows`` are
+padding and never valid.
+
+The row count is a host integer.  Where the JAX package keeps a count on
+the device (``LazyRows``) to save a link round trip, the port reads it
+back: on a card on the host's PCIe bus one small read costs microseconds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+
+# the TPU package's smallest bucket (its f32 sublane count); kept so that
+# both packages pad every batch to the same capacity
+_MIN_BUCKET = 8
+
+
+def bucket_capacity(n: int) -> int:
+    """Smallest power of two >= ``n``, and at least 8."""
+    c = _MIN_BUCKET
+    while c < n:
+        c <<= 1
+    return c
+
+
+class DeviceColumn:
+    """One device column: ``data`` and ``validity`` of shape (capacity,)."""
+
+    __slots__ = ("dtype", "data", "validity", "num_rows")
+
+    def __init__(self, dtype: DataType, data: torch.Tensor,
+                 validity: torch.Tensor, num_rows: int):
+        self.dtype = dtype
+        self.data = data
+        self.validity = validity
+        self.num_rows = int(num_rows)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.data.shape[0])
+
+    def size_bytes(self) -> int:
+        return int(self.data.numel() * self.data.element_size()
+                   + self.validity.numel() * self.validity.element_size())
+
+    def __repr__(self):
+        return (f"DeviceColumn({self.dtype}, rows={self.num_rows}, "
+                f"cap={self.capacity})")

@@ -1,0 +1,269 @@
+"""Hash aggregate exec.
+
+Counterpart of ``spark_rapids_tpu/exec/aggregate.py``.  Per input batch
+an update phase reduces the batch to one partial row per group; the
+partials are concatenated and a merge phase combines them; a final
+evaluate turns the buffers into output columns.
+
+The update phase takes the dense-slot path (``exec/pallas_agg.py``, the
+Hopper kernel on the card) when ``_try_pallas_update`` routes the batch
+there, by the JAX package's rules; otherwise, and for the merge, it takes
+the sorted-segment path of ``make_agg_body``: sort rows by their group
+keys, mark segment boundaries where a key changes, number the segments
+with a prefix sum, and reduce every buffer slot per segment.
+
+Each path reads one or two numbers back to the host per batch (the key
+range, the group count); ``hostSyncs`` counts them.  The JAX package
+stops probing key ranges after two batches of fresh input, because each
+probe costs it a round trip over a remote link; on the card a probe
+costs microseconds, so every batch is probed.  Only grouped aggregation
+is in this slice.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Sequence, Tuple
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.dtypes import DataType, Field, Schema
+from spark_rapids_tpu_torch.exec import pallas_agg as pag
+from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
+from spark_rapids_tpu_torch.exec.coalesce import concat_batches
+from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
+    sort_permutation
+from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
+from spark_rapids_tpu_torch.exprs.base import Alias, ColVal, EvalContext, \
+    Expression
+
+
+def unwrap_aggregate(e: Expression) -> Tuple[str, AggregateFunction]:
+    """Aggregate output expression -> (output name, function)."""
+    if isinstance(e, Alias) and isinstance(e.children[0], AggregateFunction):
+        return e.out_name, e.children[0]
+    if isinstance(e, AggregateFunction):
+        return e.name, e
+    raise TypeError(f"not an aggregate expression: {e!r}")
+
+
+def _segment(op: str, contrib: torch.Tensor, gid: torch.Tensor,
+             num_segments: int) -> torch.Tensor:
+    """Per-segment add/min/max; empty segments hold the op's identity."""
+    if op == "add":
+        out = torch.zeros(num_segments, dtype=contrib.dtype,
+                          device=contrib.device)
+        return out.index_add_(0, gid, contrib)
+    out = torch.full((num_segments,), pag.neutral(op, contrib.dtype),
+                     dtype=contrib.dtype, device=contrib.device)
+    return out.scatter_reduce_(0, gid, contrib,
+                               reduce="amin" if op == "min" else "amax")
+
+
+def _segment_reduce(op: str, vals: torch.Tensor, valid: torch.Tensor,
+                    gid: torch.Tensor, num_segments: int,
+                    live: torch.Tensor) -> torch.Tensor:
+    """Masked segment reduction over sorted rows."""
+    m = valid & live
+    if op == "count":
+        return _segment("add", m.to(torch.int64), gid, num_segments)
+    if op == "sum":
+        return _segment("add", torch.where(m, vals, torch.zeros_like(vals)),
+                        gid, num_segments)
+    if vals.dtype.is_floating_point:
+        # Spark order: NaN is greatest.  min ignores NaN unless the group
+        # is all NaN; max is NaN when any NaN is present.
+        nan = torch.isnan(vals)
+        sentinel = float("inf") if op == "min" else float("-inf")
+        base = _segment(op, torch.where(m & ~nan, vals,
+                                        torch.full_like(vals, sentinel)),
+                        gid, num_segments)
+        has_nan = _segment("max", (m & nan).to(torch.int32), gid,
+                           num_segments) > 0
+        has_non = _segment("max", (m & ~nan).to(torch.int32), gid,
+                           num_segments) > 0
+        nan_v = torch.full_like(base, float("nan"))
+        if op == "min":
+            return torch.where(has_nan & ~has_non, nan_v, base)
+        return torch.where(has_nan, nan_v, base)
+    if vals.dtype == torch.bool:
+        v = vals.to(torch.int32)
+        sentinel = torch.full_like(v, 1 if op == "min" else 0)
+        return _segment(op, torch.where(m, v, sentinel), gid,
+                        num_segments).to(torch.bool)
+    sentinel = torch.full_like(vals, pag.neutral(op, vals.dtype))
+    return _segment(op, torch.where(m, vals, sentinel), gid, num_segments)
+
+
+class _AggSpec:
+    """Static description of one aggregation (shared by update & merge)."""
+
+    def __init__(self, groupings: Sequence[Expression],
+                 aggs: Sequence[Tuple[str, AggregateFunction]]):
+        self.groupings = list(groupings)
+        self.aggs = list(aggs)
+
+
+def make_agg_body(spec: _AggSpec, phase: str, capacity: int):
+    """The sorted-segment aggregation of one batch.  phase 'update'
+    (inputs = the child's columns) or 'merge' (inputs = key columns +
+    buffer columns of partials).  Returns ``run(cols, num_rows) ->
+    (n_groups, key ColVals, buffer ColVals)``, each plane of length
+    ``capacity``."""
+    nk = len(spec.groupings)
+    if nk == 0:
+        raise NotImplementedError("global aggregation: later slice")
+
+    def run(cols: Sequence[ColVal], num_rows: int):
+        device = cols[0].data.device
+        ctx = EvalContext(cols, num_rows, capacity, device)
+        pos = torch.arange(capacity, device=device)
+        live = pos < num_rows
+        if phase == "update":
+            key_cvs = [g.emit(ctx) for g in spec.groupings]
+            inputs: List[Tuple[ColVal, str]] = []
+            for _, f in spec.aggs:
+                cv = f.input_projection()[0].emit(ctx)
+                inputs.extend((cv, op) for op in f.update_ops())
+        else:
+            key_cvs = list(cols[:nk])
+            inputs = []
+            i = nk
+            for _, f in spec.aggs:
+                for op in f.merge_ops():
+                    inputs.append((cols[i], op))
+                    i += 1
+
+        keys = []
+        for g, cv in zip(spec.groupings, key_cvs):
+            keys.extend(colval_sort_keys(cv, g.dtype, True, True))
+        perm = sort_permutation(keys, live_first=live)
+        live_s = live[perm]
+        keys_s = [k[perm] for k in keys]
+
+        neq_prev = torch.zeros(capacity, dtype=torch.bool, device=device)
+        for ks in keys_s:
+            neq_prev[1:] |= ks[1:] != ks[:-1]
+        boundary = neq_prev & live_s
+        boundary[0] = live_s[0]
+        gid = (torch.cumsum(boundary.to(torch.int64), 0) - 1) \
+            .clamp(0, capacity - 1)
+        n_groups = int(boundary.sum())
+
+        bufs = [_segment_reduce(op, cv.data[perm], cv.validity[perm], gid,
+                                capacity, live_s) for cv, op in inputs]
+
+        # representative row of each group, for the key output
+        rep_sorted = _segment(
+            "min", torch.where(boundary, pos, torch.full_like(pos, capacity)),
+            gid, capacity)
+        rep = perm[rep_sorted.clamp(0, capacity - 1)]
+        group_valid = pos < n_groups
+        key_outs = tuple(ColVal(cv.data[rep], cv.validity[rep] & group_valid)
+                         for cv in key_cvs)
+        return n_groups, key_outs, tuple(ColVal(b, group_valid)
+                                         for b in bufs)
+
+    return run
+
+
+def evaluate(spec: _AggSpec, cols: Sequence[ColVal],
+             num_rows: int) -> List[ColVal]:
+    """Finalize: merged buffers -> output columns (keys + evaluated)."""
+    nk = len(spec.groupings)
+    live = torch.arange(cols[0].data.shape[0],
+                        device=cols[0].data.device) < num_rows
+    outs = list(cols[:nk])
+    i = nk
+    for _, f in spec.aggs:
+        nbuf = len(f.buffer_dtypes())
+        ev = f.evaluate(list(cols[i:i + nbuf]))
+        i += nbuf
+        outs.append(ColVal(ev.data, ev.validity & live))
+    return outs
+
+
+def _to_batch(cvs: Sequence[ColVal], dtypes: Sequence[DataType], n: int,
+              schema=None) -> ColumnarBatch:
+    cols = [DeviceColumn(dt, cv.data, cv.validity, n)
+            for cv, dt in zip(cvs, dtypes)]
+    return ColumnarBatch(cols, n, schema)
+
+
+class TorchHashAggregateExec(TorchExec):
+    def __init__(self, groupings: List[Expression],
+                 aggregates: List[Expression], child: TorchExec):
+        super().__init__()
+        self.groupings = list(groupings)
+        self.agg_pairs = [unwrap_aggregate(e) for e in aggregates]
+        self.children = [child]
+        self.spec = _AggSpec(self.groupings, self.agg_pairs)
+        fields = [Field(g.name, g.dtype, g.nullable) for g in self.groupings]
+        fields += [Field(n, f.dtype, f.nullable) for n, f in self.agg_pairs]
+        self._schema = Schema(fields)
+        self._pallas_off = False
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def _buffer_dtypes(self) -> List[DataType]:
+        out = [g.dtype for g in self.groupings]
+        for _, f in self.agg_pairs:
+            out.extend(f.buffer_dtypes())
+        return out
+
+    def _run_phase(self, phase: str, batch: ColumnarBatch,
+                   conf=None) -> ColumnarBatch:
+        cols = [ColVal(c.data, c.validity) for c in batch.columns]
+        if phase == "update" and conf is not None and batch.num_rows > 0:
+            out = self._try_pallas_update(cols, batch, conf)
+            if out is not None:
+                return out
+        fn = make_agg_body(self.spec, phase, batch.capacity)
+        n_groups, keys, bufs = fn(cols, batch.num_rows)
+        self.metrics["hostSyncs"] += 1
+        return _to_batch(list(keys) + list(bufs), self._buffer_dtypes(),
+                         n_groups)
+
+    def _try_pallas_update(self, cols, batch: ColumnarBatch, conf):
+        """The dense-slot path when the single integer key's observed
+        domain fits (see exec/pallas_agg.py); None -> the sorted path.
+        The first batch whose domain does not fit turns the probe off for
+        this exec, so a high-cardinality aggregate stops paying for it."""
+        if self._pallas_off:
+            return None
+        if batch.capacity > pag.max_capacity(self.spec):
+            return None
+        if not (pag.enabled(conf) and pag.supports(self.spec)):
+            self._pallas_off = True
+            return None
+        rng = pag.key_range(self.spec.groupings[0], cols, batch.num_rows,
+                            batch.capacity)
+        self.metrics["hostSyncs"] += 1
+        if rng is None:
+            return None
+        if not pag.fits(*rng):
+            self._pallas_off = True
+            return None
+        lo, hi = rng
+        fn = pag.make_update(self.spec, batch.capacity, lo, hi)
+        n_groups, keys, bufs = fn(cols, batch.num_rows, lo)
+        self.metrics["hostSyncs"] += 1
+        self.metrics["pallasAggBatches"] += 1
+        return _to_batch(list(keys) + list(bufs), self._buffer_dtypes(),
+                         n_groups)
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        partials = [self._run_phase("update", b, ctx.conf)
+                    for b in self.children[0].execute(ctx)]
+        if not partials:
+            return  # grouped aggregate of empty input -> no rows
+        merged = partials[0]
+        if len(partials) > 1:
+            merged = self._run_phase("merge", concat_batches(partials))
+        cols = [ColVal(c.data, c.validity) for c in merged.columns]
+        outs = evaluate(self.spec, cols, merged.num_rows)
+        yield _to_batch(outs, [f.dtype for f in self._schema],
+                        merged.num_rows, self._schema)

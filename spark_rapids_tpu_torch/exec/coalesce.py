@@ -1,0 +1,77 @@
+"""Batch coalescing and concatenation.
+
+Counterpart of ``spark_rapids_tpu/exec/coalesce.py``.  ``concat_batches``
+lays the live rows of several batches end to end in one batch whose
+capacity is the bucket of their total.  ``TorchCoalesceBatchesExec``
+accumulates batches up to the byte target and row cap the JAX package
+uses before an aggregate, so both packages hand the aggregate the same
+batches.  The port counts the rows a batch holds; the JAX package counts
+a filtered batch by its pre-filter bound, so after a filter the two can
+flush at different points.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
+    bucket_capacity
+from spark_rapids_tpu_torch.conf import BATCH_SIZE_BYTES, BATCH_SIZE_ROWS
+from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
+
+
+def concat_batches(batches: List[ColumnarBatch]) -> ColumnarBatch:
+    """Concatenate the live rows of device batches (padding zeroed)."""
+    if not batches:
+        raise ValueError("concat_batches of empty list needs a batch")
+    if len(batches) == 1:
+        return batches[0]
+    total = sum(b.num_rows for b in batches)
+    cap = bucket_capacity(max(1, total))
+    head = batches[0]
+    cols = []
+    for ci, hc in enumerate(head.columns):
+        data = torch.zeros(cap, dtype=hc.data.dtype, device=hc.data.device)
+        valid = torch.zeros(cap, dtype=torch.bool, device=hc.data.device)
+        off = 0
+        for b in batches:
+            c = b.columns[ci]
+            data[off:off + b.num_rows] = c.data[:b.num_rows]
+            valid[off:off + b.num_rows] = c.validity[:b.num_rows]
+            off += b.num_rows
+        cols.append(DeviceColumn(hc.dtype, data, valid, total))
+    return ColumnarBatch(cols, total, head.schema)
+
+
+class TorchCoalesceBatchesExec(TorchExec):
+    """Accumulate input batches up to ``batchSizeBytes`` bytes and
+    ``batchSizeRows`` rows, then concatenate them."""
+
+    def __init__(self, child: TorchExec):
+        super().__init__()
+        self.children = [child]
+
+    @property
+    def output_schema(self):
+        return self.children[0].output_schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        target = ctx.conf.get(BATCH_SIZE_BYTES)
+        max_rows = ctx.conf.get(BATCH_SIZE_ROWS)
+        pending: List[ColumnarBatch] = []
+        pending_bytes = pending_rows = 0
+        for b in self.children[0].execute(ctx):
+            if b.num_rows == 0:
+                continue
+            if pending and (pending_bytes + b.size_bytes() > target
+                            or pending_rows + b.num_rows > max_rows):
+                yield concat_batches(pending)
+                pending, pending_bytes, pending_rows = [], 0, 0
+            pending.append(b)
+            pending_bytes += b.size_bytes()
+            pending_rows += b.num_rows
+        if pending:
+            yield concat_batches(pending)

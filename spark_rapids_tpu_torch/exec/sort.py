@@ -1,0 +1,55 @@
+"""Global sort.
+
+Counterpart of ``spark_rapids_tpu/exec/sort.py:TpuSortExec``: the whole
+input is concatenated into one batch, sorted by the order keys
+(``exec/sortkeys.py``), and every column is gathered by the permutation.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Tuple
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.dtypes import Schema
+from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
+from spark_rapids_tpu_torch.exec.coalesce import concat_batches
+from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
+    sort_permutation
+from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
+    Expression
+
+
+def sort_batch(orders: List[Tuple[Expression, bool, bool]],
+               batch: ColumnarBatch) -> ColumnarBatch:
+    cap, dev = batch.capacity, batch.device
+    cols = [ColVal(c.data, c.validity) for c in batch.columns]
+    ctx = EvalContext(cols, batch.num_rows, cap, dev)
+    live = torch.arange(cap, device=dev) < batch.num_rows
+    keys = []
+    for expr, asc, nulls_first in orders:
+        keys.extend(colval_sort_keys(expr.emit(ctx), expr.dtype, asc,
+                                     nulls_first))
+    perm = sort_permutation(keys, live_first=live)
+    out = [DeviceColumn(c.dtype, c.data[perm], c.validity[perm] & live,
+                        batch.num_rows) for c in batch.columns]
+    return ColumnarBatch(out, batch.num_rows, batch.schema)
+
+
+class TorchSortExec(TorchExec):
+    def __init__(self, orders: List[Tuple[Expression, bool, bool]],
+                 child: TorchExec):
+        super().__init__()
+        self.orders = orders
+        self.children = [child]
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        batches = list(self.children[0].execute(ctx))
+        if batches:
+            yield sort_batch(self.orders, concat_batches(batches))

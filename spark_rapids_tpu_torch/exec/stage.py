@@ -1,0 +1,84 @@
+"""The fused filter + project stage.
+
+Counterpart of ``spark_rapids_tpu/exec/stage.py`` (``emit_steps``,
+``TpuStageExec``).  The planner collapses each maximal chain of project
+and filter operators into one ``TorchStageExec``, which runs the chain
+per batch.  The JAX package traces the chain into one XLA program; here
+the steps run eagerly, one after the other, on the batch's device.
+
+A filter computes the keep-mask and compacts every current column to the
+front with a gather, keeping the input capacity: rows past the new count
+are padding (invalid, holding the last row's data as in the JAX package),
+so the batches downstream operators see keep the JAX package's shapes.
+The new row count is read back to the host: one sync per filter.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Sequence, Tuple
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
+from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
+from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
+    Expression
+
+# a step is ("project", (expr, ...)) or ("filter", (pred,))
+Step = Tuple[str, Tuple[Expression, ...]]
+
+
+def emit_steps(steps: Sequence[Step], cols: List[ColVal], num_rows: int,
+               capacity: int, device) -> Tuple[List[ColVal], int]:
+    """Run the step chain over ``cols``; returns ``(cols, num_rows)``."""
+    n = num_rows
+    for kind, exprs in steps:
+        ctx = EvalContext(cols, n, capacity, device)
+        live = torch.arange(capacity, device=device) < n
+        if kind == "project":
+            cols = [ColVal(o.data, o.validity & live)
+                    for o in (e.emit(ctx) for e in exprs)]
+        else:
+            p = exprs[0].emit(ctx)
+            keep = p.data & p.validity & live
+            kept = torch.nonzero(keep).squeeze(1)
+            count = int(kept.numel())
+            idx = torch.full((capacity,), capacity - 1, dtype=torch.int64,
+                             device=device)
+            idx[:count] = kept
+            ok = torch.arange(capacity, device=device) < count
+            cols = [ColVal(cv.data[idx], cv.validity[idx] & ok)
+                    for cv in cols]
+            n = count
+    return cols, n
+
+
+class TorchStageExec(TorchExec):
+    """A fused chain of project/filter steps, run per input batch."""
+
+    def __init__(self, steps: Sequence[Step], child: TorchExec):
+        super().__init__()
+        self.steps: List[Step] = [(k, tuple(es)) for k, es in steps]
+        self.children = [child]
+        schema = child.output_schema
+        for kind, exprs in self.steps:
+            if kind == "project":
+                schema = Schema([Field(e.name, e.dtype, e.nullable)
+                                 for e in exprs])
+        self._schema = schema
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        for batch in self.children[0].execute(ctx):
+            cols = [ColVal(c.data, c.validity) for c in batch.columns]
+            cols, n = emit_steps(self.steps, cols, batch.num_rows,
+                                 batch.capacity, batch.device)
+            self.metrics["stageDispatches"] += 1
+            out = [DeviceColumn(f.dtype, cv.data, cv.validity, n)
+                   for f, cv in zip(self._schema, cols)]
+            yield ColumnarBatch(out, n, self._schema)

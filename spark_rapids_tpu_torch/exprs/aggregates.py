@@ -1,0 +1,157 @@
+"""Declarative aggregate functions.
+
+Counterpart of ``spark_rapids_tpu/exprs/aggregates.py`` (Count, Sum, Min,
+Max, Average).  Each function declares its ``input_projection``, one
+update op and one merge op per buffer slot ("sum" | "min" | "max" |
+"count"), the buffer types, and ``evaluate(bufs)``, the finalization
+over buffer ColVals.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.dtypes import DataType, FLOAT64, INT64
+from spark_rapids_tpu_torch.exprs.base import ColVal, Expression
+
+
+class AggregateFunction(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def child(self) -> Expression:
+        return self.children[0]
+
+    @property
+    def name(self) -> str:
+        return f"{type(self).__name__.lower()}({self.child.name})"
+
+    def input_projection(self) -> List[Expression]:
+        return [self.child]
+
+    def update_ops(self) -> List[str]:
+        raise NotImplementedError
+
+    def merge_ops(self) -> List[str]:
+        raise NotImplementedError
+
+    def buffer_dtypes(self) -> List[DataType]:
+        raise NotImplementedError
+
+    def evaluate(self, bufs: List[ColVal]) -> ColVal:
+        raise NotImplementedError
+
+    def emit(self, ctx):
+        raise RuntimeError(f"{type(self).__name__} must be evaluated by an "
+                           "aggregate exec, not a projection")
+
+
+def _cast_to(child: Expression, target: DataType) -> Expression:
+    from spark_rapids_tpu_torch.exprs.cast import Cast
+    return child if child.dtype == target else Cast(child, target)
+
+
+class Count(AggregateFunction):
+    """count(expr): the number of non-null values."""
+
+    @property
+    def dtype(self) -> DataType:
+        return INT64
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def update_ops(self):
+        return ["count"]
+
+    def merge_ops(self):
+        return ["sum"]
+
+    def buffer_dtypes(self):
+        return [INT64]
+
+    def evaluate(self, bufs):
+        return ColVal(bufs[0].data, torch.ones_like(bufs[0].validity))
+
+
+class Sum(AggregateFunction):
+    """Spark: sum of integral -> long; sum of fractional -> double."""
+
+    @property
+    def dtype(self) -> DataType:
+        return FLOAT64 if self.child.dtype.is_floating else INT64
+
+    def input_projection(self):
+        return [_cast_to(self.child, self.dtype)]
+
+    def update_ops(self):
+        return ["sum", "count"]
+
+    def merge_ops(self):
+        return ["sum", "sum"]
+
+    def buffer_dtypes(self):
+        return [self.dtype, INT64]
+
+    def evaluate(self, bufs):
+        s, c = bufs
+        return ColVal(s.data, c.data > 0)
+
+
+class _Extremum(AggregateFunction):
+    @property
+    def dtype(self) -> DataType:
+        return self.child.dtype
+
+    def buffer_dtypes(self):
+        return [self.child.dtype, INT64]
+
+    def evaluate(self, bufs):
+        v, c = bufs
+        return ColVal(v.data, c.data > 0)
+
+
+class Min(_Extremum):
+    def update_ops(self):
+        return ["min", "count"]
+
+    def merge_ops(self):
+        return ["min", "sum"]
+
+
+class Max(_Extremum):
+    def update_ops(self):
+        return ["max", "count"]
+
+    def merge_ops(self):
+        return ["max", "sum"]
+
+
+class Average(AggregateFunction):
+    """avg = sum / count, finalized."""
+
+    @property
+    def dtype(self) -> DataType:
+        return FLOAT64
+
+    def input_projection(self):
+        return [_cast_to(self.child, FLOAT64)]
+
+    def update_ops(self):
+        return ["sum", "count"]
+
+    def merge_ops(self):
+        return ["sum", "sum"]
+
+    def buffer_dtypes(self):
+        return [FLOAT64, INT64]
+
+    def evaluate(self, bufs):
+        s, c = bufs
+        nonzero = c.data > 0
+        denom = torch.where(nonzero, c.data, torch.ones_like(c.data))
+        return ColVal(s.data / denom.to(s.data.dtype), nonzero)

@@ -1,0 +1,101 @@
+"""Arithmetic expressions with Spark null semantics.
+
+Counterpart of ``spark_rapids_tpu/exprs/arithmetic.py`` (Add, Subtract,
+Multiply, Divide): any null operand gives null; x / 0 gives null.
+Integral overflow wraps (non-ANSI Spark), as torch integer arithmetic
+does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.dtypes import DataType, FLOAT64, \
+    common_type
+from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
+    Expression, fixed
+from spark_rapids_tpu_torch.exprs.cast import Cast
+
+
+class BinaryArithmetic(Expression):
+    symbol = "?"
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    @property
+    def dtype(self) -> DataType:
+        return self.left.dtype
+
+    @property
+    def name(self) -> str:
+        return f"({self.left.name} {self.symbol} {self.right.name})"
+
+    def coerce(self) -> Expression:
+        """Insert casts for numeric widening (findTightestCommonType)."""
+        lt, rt = self.left.dtype, self.right.dtype
+        if lt == rt:
+            return self
+        ct = common_type(lt, rt)
+        if ct is None:
+            raise TypeError(f"cannot apply {type(self).__name__} to "
+                            f"{lt.name} and {rt.name}")
+        left = self.left if lt == ct else Cast(self.left, ct)
+        right = self.right if rt == ct else Cast(self.right, ct)
+        return self.with_children([left, right])
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        a = self.left.emit(ctx)
+        b = self.right.emit(ctx)
+        return self.emit_binary(a, b)
+
+    def emit_binary(self, a: ColVal, b: ColVal) -> ColVal:
+        raise NotImplementedError
+
+
+class Add(BinaryArithmetic):
+    symbol = "+"
+
+    def emit_binary(self, a, b):
+        return fixed(a.data + b.data, a.validity & b.validity)
+
+
+class Subtract(BinaryArithmetic):
+    symbol = "-"
+
+    def emit_binary(self, a, b):
+        return fixed(a.data - b.data, a.validity & b.validity)
+
+
+class Multiply(BinaryArithmetic):
+    symbol = "*"
+
+    def emit_binary(self, a, b):
+        return fixed(a.data * b.data, a.validity & b.validity)
+
+
+class Divide(BinaryArithmetic):
+    """True division: DOUBLE output, x / 0 -> null."""
+    symbol = "/"
+
+    @property
+    def dtype(self) -> DataType:
+        return FLOAT64
+
+    def coerce(self) -> Expression:
+        return self.with_children(
+            [c if c.dtype == FLOAT64 else Cast(c, FLOAT64)
+             for c in self.children])
+
+    def emit_binary(self, a, b):
+        zero = b.data == 0
+        denom = torch.where(zero, torch.ones_like(b.data), b.data)
+        return fixed(a.data / denom, a.validity & b.validity & ~zero)

@@ -1,0 +1,219 @@
+"""Expression base classes and binding.
+
+Counterpart of ``spark_rapids_tpu/exprs/base.py``.  A bound expression
+tree ``emit``s torch operations on ``ColVal`` (data, validity) pairs.
+The JAX package traces the tree into one jitted kernel per operator;
+PyTorch runs eagerly, so here each ``emit`` runs its ops as it is
+called, on the device of the batch it reads.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch.columnar.dtypes import (
+    BOOLEAN, FLOAT64, INT32, INT64, DataType, Schema, device_dtype,
+)
+
+
+class ColVal(NamedTuple):
+    """A column value inside expression evaluation: the data plane and
+    the validity plane (False = null)."""
+    data: torch.Tensor
+    validity: torch.Tensor
+
+
+class EvalContext:
+    """Carries the batch being evaluated into ``Expression.emit``."""
+
+    __slots__ = ("cols", "num_rows", "capacity", "device")
+
+    def __init__(self, cols: Sequence[ColVal], num_rows: int, capacity: int,
+                 device):
+        self.cols = list(cols)
+        self.num_rows = num_rows
+        self.capacity = capacity
+        self.device = device
+
+
+class Expression:
+    """Immutable expression tree node."""
+
+    children: Tuple["Expression", ...] = ()
+
+    @property
+    def dtype(self) -> DataType:
+        raise NotImplementedError(type(self).__name__)
+
+    @property
+    def nullable(self) -> bool:
+        return any(c.nullable for c in self.children)
+
+    @property
+    def name(self) -> str:
+        return str(self)
+
+    def key(self) -> str:
+        args = ",".join(c.key() for c in self.children)
+        return f"{type(self).__name__}({args})"
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        raise NotImplementedError(type(self).__name__)
+
+    def with_children(self, children: Sequence["Expression"]) -> "Expression":
+        """Generic rebuild; subclasses with extra state must override."""
+        new = object.__new__(type(self))
+        new.__dict__.update(self.__dict__)
+        new.children = tuple(children)
+        return new
+
+    def __repr__(self):
+        return self.key()
+
+
+class UnresolvedAttribute(Expression):
+    """A by-name column reference prior to binding."""
+
+    def __init__(self, col_name: str):
+        self.col_name = col_name
+        self.children = ()
+
+    @property
+    def name(self) -> str:
+        return self.col_name
+
+    def key(self) -> str:
+        return f"attr[{self.col_name}]"
+
+    def emit(self, ctx):
+        raise RuntimeError(f"unresolved attribute {self.col_name!r}; "
+                           "bind_expression() first")
+
+
+class BoundReference(Expression):
+    """Input column by ordinal."""
+
+    def __init__(self, ordinal: int, dtype: DataType, nullable: bool = True,
+                 col_name: str = ""):
+        self.ordinal = ordinal
+        self._dtype = dtype
+        self._nullable = nullable
+        self.col_name = col_name
+        self.children = ()
+
+    @property
+    def dtype(self) -> DataType:
+        return self._dtype
+
+    @property
+    def nullable(self) -> bool:
+        return self._nullable
+
+    @property
+    def name(self) -> str:
+        return self.col_name or f"c{self.ordinal}"
+
+    def key(self) -> str:
+        return f"in[{self.ordinal}:{self._dtype.name}]"
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        return ctx.cols[self.ordinal]
+
+
+class Literal(Expression):
+    """A scalar constant broadcast to the batch capacity."""
+
+    def __init__(self, value, dtype: Optional[DataType] = None):
+        self.value = value
+        self._dtype = dtype if dtype is not None else \
+            _infer_literal_type(value)
+        self.children = ()
+
+    @property
+    def dtype(self) -> DataType:
+        return self._dtype
+
+    @property
+    def nullable(self) -> bool:
+        return self.value is None
+
+    @property
+    def name(self) -> str:
+        return repr(self.value)
+
+    def key(self) -> str:
+        return f"lit[{self.value!r}:{self._dtype.name}]"
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        cap, dev = ctx.capacity, ctx.device
+        dt = device_dtype(self._dtype)
+        if self.value is None:
+            return ColVal(torch.zeros(cap, dtype=dt, device=dev),
+                          torch.zeros(cap, dtype=torch.bool, device=dev))
+        # explicit dtype: torch.full would otherwise give a Python float
+        # the default float32
+        return ColVal(torch.full((cap,), self.value, dtype=dt, device=dev),
+                      torch.ones(cap, dtype=torch.bool, device=dev))
+
+
+def _infer_literal_type(value) -> DataType:
+    if value is None:
+        raise ValueError("untyped null literal; pass dtype explicitly")
+    if isinstance(value, bool):
+        return BOOLEAN
+    if isinstance(value, (int, np.integer)):
+        return INT32 if -(2 ** 31) <= int(value) < 2 ** 31 else INT64
+    if isinstance(value, (float, np.floating)):
+        return FLOAT64
+    raise TypeError(f"cannot infer literal type for {value!r}")
+
+
+class Alias(Expression):
+    """Named output column."""
+
+    def __init__(self, child: Expression, out_name: str):
+        self.children = (child,)
+        self.out_name = out_name
+
+    @property
+    def dtype(self) -> DataType:
+        return self.children[0].dtype
+
+    @property
+    def nullable(self) -> bool:
+        return self.children[0].nullable
+
+    @property
+    def name(self) -> str:
+        return self.out_name
+
+    def key(self) -> str:
+        return f"alias[{self.out_name}]({self.children[0].key()})"
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        return self.children[0].emit(ctx)
+
+    def with_children(self, children):
+        return Alias(children[0], self.out_name)
+
+
+def bind_expression(expr: Expression, schema: Schema) -> Expression:
+    """Resolve attributes to BoundReference and apply type coercion."""
+    if isinstance(expr, UnresolvedAttribute):
+        i = schema.field_index(expr.col_name)
+        f = schema[i]
+        return BoundReference(i, f.dtype, f.nullable, f.name)
+    if not expr.children:
+        return expr
+    rebuilt = expr.with_children(
+        [bind_expression(c, schema) for c in expr.children])
+    coerce = getattr(rebuilt, "coerce", None)
+    return coerce() if coerce is not None else rebuilt
+
+
+def fixed(data: torch.Tensor, validity: torch.Tensor) -> ColVal:
+    return ColVal(data, validity)
+

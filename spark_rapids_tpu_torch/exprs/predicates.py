@@ -1,0 +1,190 @@
+"""Comparison and boolean predicates.
+
+Counterpart of ``spark_rapids_tpu/exprs/predicates.py``.  AND/OR follow
+Kleene three-valued logic on the (data, validity) pair: ``false AND
+null = false``, ``true OR null = true``.  Float comparisons follow Spark:
+NaN = NaN is true and NaN is greater than every other value.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, DataType, \
+    common_type
+from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
+    Expression, fixed
+from spark_rapids_tpu_torch.exprs.cast import Cast
+
+
+class BinaryComparison(Expression):
+    symbol = "?"
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    @property
+    def dtype(self) -> DataType:
+        return BOOLEAN
+
+    @property
+    def name(self) -> str:
+        return f"({self.left.name} {self.symbol} {self.right.name})"
+
+    def coerce(self) -> Expression:
+        lt, rt = self.left.dtype, self.right.dtype
+        if lt == rt:
+            return self
+        ct = common_type(lt, rt)
+        if ct is None:
+            raise TypeError(f"cannot compare {lt.name} and {rt.name}")
+        left = self.left if lt == ct else Cast(self.left, ct)
+        right = self.right if rt == ct else Cast(self.right, ct)
+        return self.with_children([left, right])
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        a = self.left.emit(ctx)
+        b = self.right.emit(ctx)
+        valid = a.validity & b.validity
+        if self.left.dtype.is_floating:
+            # Spark's total order: derive (a < b, a == b) with NaN greatest
+            an, bn = torch.isnan(a.data), torch.isnan(b.data)
+            lt = ~an & (bn | (a.data < b.data))
+            eq = (an & bn) | (~an & ~bn & (a.data == b.data))
+            return fixed(self.from_total_order(lt, eq), valid)
+        return fixed(self.compare_op(a.data, b.data), valid)
+
+    def compare_op(self, a, b):
+        raise NotImplementedError
+
+    def from_total_order(self, lt, eq):
+        raise NotImplementedError
+
+
+class EqualTo(BinaryComparison):
+    symbol = "="
+
+    def compare_op(self, a, b):
+        return a == b
+
+    def from_total_order(self, lt, eq):
+        return eq
+
+
+class NotEqual(BinaryComparison):
+    symbol = "!="
+
+    def compare_op(self, a, b):
+        return a != b
+
+    def from_total_order(self, lt, eq):
+        return ~eq
+
+
+class LessThan(BinaryComparison):
+    symbol = "<"
+
+    def compare_op(self, a, b):
+        return a < b
+
+    def from_total_order(self, lt, eq):
+        return lt
+
+
+class LessThanOrEqual(BinaryComparison):
+    symbol = "<="
+
+    def compare_op(self, a, b):
+        return a <= b
+
+    def from_total_order(self, lt, eq):
+        return lt | eq
+
+
+class GreaterThan(BinaryComparison):
+    symbol = ">"
+
+    def compare_op(self, a, b):
+        return a > b
+
+    def from_total_order(self, lt, eq):
+        return ~(lt | eq)
+
+
+class GreaterThanOrEqual(BinaryComparison):
+    symbol = ">="
+
+    def compare_op(self, a, b):
+        return a >= b
+
+    def from_total_order(self, lt, eq):
+        return ~lt
+
+
+class And(Expression):
+    """Kleene AND."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+
+    @property
+    def dtype(self) -> DataType:
+        return BOOLEAN
+
+    @property
+    def name(self) -> str:
+        return f"({self.children[0].name} AND {self.children[1].name})"
+
+    def emit(self, ctx):
+        a = self.children[0].emit(ctx)
+        b = self.children[1].emit(ctx)
+        known_false = (a.validity & ~a.data) | (b.validity & ~b.data)
+        valid = (a.validity & b.validity) | known_false
+        return fixed(~known_false & a.data & b.data, valid)
+
+
+class Or(Expression):
+    """Kleene OR."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+
+    @property
+    def dtype(self) -> DataType:
+        return BOOLEAN
+
+    @property
+    def name(self) -> str:
+        return f"({self.children[0].name} OR {self.children[1].name})"
+
+    def emit(self, ctx):
+        a = self.children[0].emit(ctx)
+        b = self.children[1].emit(ctx)
+        known_true = (a.validity & a.data) | (b.validity & b.data)
+        valid = (a.validity & b.validity) | known_true
+        return fixed(known_true | a.data | b.data, valid)
+
+
+class Not(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self) -> DataType:
+        return BOOLEAN
+
+    @property
+    def name(self) -> str:
+        return f"(NOT {self.children[0].name})"
+
+    def emit(self, ctx):
+        c = self.children[0].emit(ctx)
+        return fixed(~c.data, c.validity)

@@ -1,0 +1,98 @@
+"""Logical plan nodes produced by the DataFrame API.
+
+Counterpart of ``spark_rapids_tpu/plan/logical.py``, trimmed to the nodes
+this slice lowers.  Expressions inside are unresolved (attributes by
+name); the planner binds them against the child's output schema.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+from spark_rapids_tpu_torch.columnar.batch import HostColumns
+from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
+from spark_rapids_tpu_torch.exprs.base import Expression, bind_expression
+
+
+class LogicalPlan:
+    children: List["LogicalPlan"] = []
+
+    @property
+    def node_name(self) -> str:
+        return type(self).__name__
+
+    def output_schema(self) -> Schema:
+        raise NotImplementedError(type(self).__name__)
+
+
+def _bound_schema(exprs: Sequence[Expression], child: LogicalPlan) -> Schema:
+    schema = child.output_schema()
+    bound = [bind_expression(e, schema) for e in exprs]
+    return Schema([Field(e.name, e.dtype, e.nullable) for e in bound])
+
+
+class LocalRelation(LogicalPlan):
+    """In-memory host columns."""
+
+    def __init__(self, schema: Schema, cols: HostColumns):
+        self.schema = schema
+        self.cols = cols
+        self.children = []
+
+    def output_schema(self) -> Schema:
+        return self.schema
+
+
+class ParquetRelation(LogicalPlan):
+    def __init__(self, paths, schema: Schema):
+        self.paths = paths
+        self.schema = schema
+        self.children = []
+
+    def output_schema(self) -> Schema:
+        return self.schema
+
+
+class Project(LogicalPlan):
+    def __init__(self, exprs: Sequence[Expression], child: LogicalPlan):
+        self.exprs = list(exprs)
+        self.children = [child]
+
+    def output_schema(self) -> Schema:
+        return _bound_schema(self.exprs, self.children[0])
+
+
+class Filter(LogicalPlan):
+    def __init__(self, pred: Expression, child: LogicalPlan):
+        self.pred = pred
+        self.children = [child]
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+
+class Sort(LogicalPlan):
+    """orders: [(expr, ascending, nulls_first)]"""
+
+    def __init__(self, orders: Sequence[Tuple[Expression, bool, bool]],
+                 child: LogicalPlan):
+        self.orders = list(orders)
+        self.children = [child]
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+
+class Aggregate(LogicalPlan):
+    """groupings: grouping expressions; aggregates: aggregate functions,
+    bare or under an Alias."""
+
+    def __init__(self, groupings: Sequence[Expression],
+                 aggregates: Sequence[Expression], child: LogicalPlan):
+        self.groupings = list(groupings)
+        self.aggregates = list(aggregates)
+        self.children = [child]
+
+    def output_schema(self) -> Schema:
+        return _bound_schema(self.groupings + self.aggregates,
+                             self.children[0])

@@ -1,0 +1,59 @@
+"""TorchSession, the user entry point.
+
+Counterpart of ``spark_rapids_tpu/session.py``.  A session holds its conf
+and the ``torch.device`` it runs on, taken from
+``spark.rapids.torch.device`` (default ``"cuda"``).  A session on the
+card when no card is usable fails at creation: nothing moves to the CPU
+because the GPU is absent.  Pass ``"cpu"`` to run every kernel's plain
+PyTorch version, as the tests do.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from spark_rapids_tpu_torch.conf import DEVICE, TorchConf
+
+
+class TorchSession:
+    def __init__(self, conf: Optional[Dict[str, Any]] = None):
+        self.conf = TorchConf(conf)
+        self.device = torch.device(self.conf.get(DEVICE))
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{DEVICE.key}={self.device} but torch.cuda.is_available() "
+                "is false; set it to 'cpu' to run on the CPU")
+        # the physical plan of the last query run, for its metrics
+        self._last_plan = None
+
+    @classmethod
+    def builder(cls) -> "_Builder":
+        return _Builder()
+
+    def set_conf(self, key: str, value) -> None:
+        self.conf = self.conf.set(key, value)
+
+    @property
+    def read(self):
+        from spark_rapids_tpu_torch.api import DataFrameReader
+        return DataFrameReader(self)
+
+    def create_dataframe(self, data, masks=None):
+        from spark_rapids_tpu_torch.api import create_dataframe
+        return create_dataframe(self, data, masks)
+
+
+class _Builder:
+    def __init__(self):
+        self._conf: Dict[str, Any] = {}
+
+    def config(self, key: str, value) -> "_Builder":
+        self._conf[key] = value
+        return self
+
+    def get_or_create(self) -> TorchSession:
+        """A new session with the conf given (the port keeps no
+        process-wide active session)."""
+        return TorchSession(self._conf)

@@ -1,0 +1,84 @@
+"""The torch port stands alone.
+
+It imports no jax, no module of the JAX package and, on its main path,
+no pyarrow; pyarrow may be imported only inside functions.  A session on
+the card fails when no card is usable: nothing moves to the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import spark_rapids_tpu_torch as st
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "spark_rapids_tpu_torch")
+
+_PROBE = """
+import sys
+import numpy as np
+import spark_rapids_tpu_torch as st
+from spark_rapids_tpu_torch import functions as F
+s = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+df = s.create_dataframe({"k": np.array([3, 1, 3, 2]),
+                         "v": np.array([1.0, 2.0, 3.0, 4.0])})
+cols, masks, n = (df.filter(st.col("v") > 1.0).group_by("k")
+                  .agg(F.sum(st.col("v")).alias("s")).order_by("k")
+                  .to_torch())
+assert n == 3 and cols["k"].tolist() == [1, 2, 3], cols
+assert cols["s"].tolist() == [2.0, 4.0, 3.0], cols
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
+                                    "spark_rapids_tpu"))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_main_path_imports_no_jax_or_pyarrow():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout, out.stdout
+
+
+def _sources():
+    for root, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", list(_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_stay_inside_the_port(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    top_level = set(id(n) for n in tree.body)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            where = f"{os.path.relpath(path, REPO)}:{node.lineno}"
+            assert root not in ("jax", "jaxlib", "spark_rapids_tpu"), where
+            if root == "pyarrow":
+                assert id(node) not in top_level, \
+                    f"{where}: pyarrow imported at module level"
+
+
+def test_default_session_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default session is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        st.TorchSession()
+    with pytest.raises(RuntimeError, match="cuda"):
+        st.TorchSession.builder().get_or_create()
