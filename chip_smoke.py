@@ -8,14 +8,19 @@ Phases, each printing one JSON line:
 1. device: the card's name, ``nvidia-smi``'s name and power limit, and
    the torch and CUDA versions;
 2. build: every hand-written kernel of the port, compiled from
-   ``spark_rapids_tpu_torch/csrc`` with nvcc (one process per source,
-   started together), with its seconds;
+   ``spark_rapids_tpu_torch/csrc`` with nvcc, with its seconds;
 3. kernel: the dense-slot kernel against its plain PyTorch version on
-   the same card tensors, at the main path's shape (capacity 2^20,
-   K = 1024, six planes) and on a spec with an int64 sum, a f64 min with
-   NaN flags, nulls and all-null groups.  Integer and min/max planes
+   the same card tensors: first on the inputs the main path gives it
+   (the aggregate's own plane construction on the first 2^20-row update
+   batch of hash_agg_sort_2m: K = 1024, eight planes), then on a spec
+   with an int64 sum, a f64 min with NaN flags, nulls, all-null groups
+   and rows whose slot lies outside [0, K).  Integer and min/max planes
    must match exactly, f64 sums within 1e-12 of each slot's sum of |v|.
-   Times are medians of 30 CUDA-event timed runs after 5 warm-up runs;
+   Each time is the median of 20 samples of 20 calls back to back
+   between one pair of CUDA events:
+   ``ms`` repeats only the kernel's launches (its host work done once),
+   ``wrapper_ms`` the whole wrapper; ``device_us`` is each CUDA
+   kernel's device time from torch.profiler;
 4. project_filter_1m and 5. hash_agg_sort_2m: ``bench.py``'s two
    headline queries through the port's session at 1,000,000 and
    2,000,000 rows of ``bench.py:gen_data``'s columns (seed 7), checked
@@ -66,19 +71,46 @@ def mem_rate(name: str) -> float:
     raise RuntimeError(f"no memory rate on record for {name!r}")
 
 
-def median_ms(torch, fn, iters: int = 30, warm: int = 5) -> float:
+def per_call_ms(torch, fn, calls: int = 20, samples: int = 20,
+                warm: int = 5) -> float:
+    """Milliseconds a call of ``fn``: ``calls`` calls back to back between
+    one pair of CUDA events, so the card's queue stays full when a call's
+    host work is shorter than its device work; median of ``samples``."""
     for _ in range(warm):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def device_us(torch, fn, prefix: str, calls: int = 20):
+    """Mean device microseconds of each CUDA kernel whose name starts with
+    ``prefix`` over ``calls`` calls of ``fn``, read with torch.profiler;
+    None when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None)
+        if total is None:
+            total = getattr(e, "cuda_time_total", 0)
+        if e.key.startswith(prefix) and total > 0:
+            out[e.key] = total / e.count
+    return out or None
 
 
 def group_stats(k: np.ndarray, v: np.ndarray, w: np.ndarray):
@@ -95,37 +127,59 @@ def group_stats(k: np.ndarray, v: np.ndarray, w: np.ndarray):
 
 # -- phase 3 ---------------------------------------------------------------
 
-def kernel_specs(torch, rng):
-    """(name, gid, planes, ops) at the main path's shape, and a spec with
-    an int64 sum, NaN flags, nulls and all-null groups."""
-    cap, dev = 1 << 20, "cuda"
-    keys = rng.integers(0, 1000, cap)
-    ones = np.ones(cap, np.int32)
-    w = rng.normal(size=cap).astype(np.float32)
-    main = (keys + 1).astype(np.int32), [
-        ones, ones, rng.normal(size=cap), w, np.zeros(cap, np.int32), ones
-    ], ["add", "add", "add", "max", "max", "max"]
+def agg_query(st, F, df):
+    """hash_agg_sort_2m's query."""
+    col = st.col
+    return (df.group_by(col("k"))
+              .agg(F.count(col("v")).alias("cnt"), F.sum(col("v")).alias("s"),
+                   F.max(col("w")).alias("mx"))
+              .order_by(col("k")))
 
+
+def main_path_inputs(st, F, pag, session, data):
+    """What the main path gives the kernel: the aggregate's own plane
+    construction on the first update batch of hash_agg_sort_2m's query
+    -> (gid, planes, ops, K)."""
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    from spark_rapids_tpu_torch.exprs.base import ColVal
+    from spark_rapids_tpu_torch.plan.planner import plan_query
+    root = plan_query(agg_query(st, F, session.create_dataframe(data)).plan)
+    agg = root.children[0]
+    check(type(agg).__name__ == "TorchHashAggregateExec", "plan shape")
+    batch = next(agg.children[0].execute(
+        ExecContext(session.conf, session.device)))
+    cols = [ColVal(c.data, c.validity) for c in batch.columns]
+    lo, hi = pag.key_range(agg.spec.groupings[0], cols, batch.num_rows,
+                           batch.capacity)
+    K = pag.slot_count(lo, hi)
+    gid, planes, ops, _ = pag.update_planes(agg.spec, cols, batch.num_rows,
+                                            batch.capacity, lo, K)
+    return gid, planes, ops, K
+
+
+def wide_inputs(torch, rng, K: int):
+    """A spec with an int64 sum, a f64 min with NaN flags, nulls,
+    all-null groups and rows outside [0, K), which both versions ignore
+    -> (gid, planes, ops, K)."""
+    cap = 1 << 20
     keys = rng.integers(0, 600, cap)
     null_key = rng.random(cap) < 0.1
     gid = np.where(null_key, 0, keys + 1).astype(np.int32)
+    gid[rng.random(cap) < 0.01] = -1
+    gid[rng.random(cap) < 0.01] = K + 3
     valid = (rng.random(cap) < 0.9) & ~((keys >= 100) & (keys < 110))
     big = rng.integers(-(1 << 62), 1 << 62, cap, dtype=np.int64)
     f = rng.normal(size=cap)
     f[rng.random(cap) < 0.05] = np.nan
     nan = np.isnan(f)
-    wide = gid, [
-        ones, np.where(valid, big, 0), np.where(valid & ~nan, f, np.inf),
-        (valid & nan).astype(np.int32), (valid & ~nan).astype(np.int32),
-        valid.astype(np.int32),
-    ], ["add", "add", "min", "max", "max", "add"]
-
-    out = []
-    for name, (g, planes, ops) in (("main_path", main), ("wide", wide)):
-        out.append((name, torch.from_numpy(g).to(dev),
-                    [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
-                     for p in planes], ops))
-    return out
+    planes = [np.ones(cap, np.int32), np.where(valid, big, 0),
+              np.where(valid & ~nan, f, np.inf),
+              (valid & nan).astype(np.int32),
+              (valid & ~nan).astype(np.int32), valid.astype(np.int32)]
+    return (torch.from_numpy(gid).cuda(),
+            [torch.from_numpy(np.ascontiguousarray(p)).cuda()
+             for p in planes],
+            ["add", "add", "min", "max", "max", "add"], K)
 
 
 def compare_kernel(torch, pag, gid, planes, ops, K: int) -> float:
@@ -150,40 +204,43 @@ def compare_kernel(torch, pag, gid, planes, ops, K: int) -> float:
     return worst
 
 
-def phase_kernel(torch, pag, rate: float) -> dict:
-    rng = np.random.default_rng(SEED)
-    K = 1024
-    result = {}
-    errs = []
-    for name, gid, planes, ops in kernel_specs(torch, rng):
-        errs.append(compare_kernel(torch, pag, gid, planes, ops, K))
-        if name != "main_path":
-            continue
-        idx = gid.to(torch.int64)
-        outs = [torch.empty(K, dtype=p.dtype, device="cuda") for p in planes]
-        reduce = {"add": "sum", "min": "amin", "max": "amax"}
+def phase_kernel(torch, st, F, pag, session, data, rate: float) -> dict:
+    gid, planes, ops, K = main_path_inputs(st, F, pag, session, data)
+    wide = wide_inputs(torch, np.random.default_rng(SEED), 1024)
+    errs = [compare_kernel(torch, pag, *spec)
+            for spec in ((gid, planes, ops, K), wide)]
 
-        def library():
-            for o, p, op in zip(outs, planes, ops):
-                o.scatter_reduce_(0, idx, p, reduce=reduce[op])
+    idx = gid.to(torch.int64)
+    outs = [torch.empty(K, dtype=p.dtype, device="cuda") for p in planes]
+    reduce = {"add": "sum", "min": "amin", "max": "amax"}
 
-        n = gid.numel()
-        nbytes = gid.element_size() * n + sum(
-            p.element_size() * (n + K) for p in planes)
-        bytes_ms = nbytes / rate * 1e3
-        ops_ms = n * len(planes) / _F32_RATE * 1e3
-        result = {
-            "ms": median_ms(torch, lambda: pag.dense_slot_reduce(
-                gid, planes, ops, K)),
-            "plain_ms": median_ms(torch, lambda: pag.dense_slot_reduce_reference(
-                gid, planes, ops, K)),
-            "library_ms": median_ms(torch, library),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes,
-        }
-    result["max_abs_err"] = max(errs)
-    emit("kernel", name="dense_slot_reduce", capacity=1 << 20, K=K,
+    def library():
+        for o, p, op in zip(outs, planes, ops):
+            o.scatter_reduce_(0, idx, p, reduce=reduce[op])
+
+    # the kernel's own time: its host work (checks, allocations, C
+    # arguments) is done once, then only the launches repeat
+    launch, _ = pag.prepare_launch(gid, planes, ops, K)
+    n = gid.numel()
+    # each input read once, each (K,) output written once
+    nbytes = gid.element_size() * n + sum(
+        p.element_size() * (n + K) for p in planes)
+    bytes_ms = nbytes / rate * 1e3
+    ops_ms = n * len(planes) / _F32_RATE * 1e3
+    result = {
+        "ms": per_call_ms(torch, launch),
+        "wrapper_ms": per_call_ms(torch, lambda: pag.dense_slot_reduce(
+            gid, planes, ops, K)),
+        "plain_ms": per_call_ms(torch, lambda: pag.dense_slot_reduce_reference(
+            gid, planes, ops, K)),
+        "library_ms": per_call_ms(torch, library),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "max_abs_err": max(errs),
+    }
+    emit("kernel", name="dense_slot_reduce", capacity=n, K=K,
+         planes=[f"{str(p.dtype)[6:]} {op}" for p, op in zip(planes, ops)],
+         bytes=nbytes, device_us=device_us(torch, launch, "dsr_"),
          **result)
     return result
 
@@ -236,12 +293,7 @@ def phase_project_filter(torch, st, session, data) -> None:
 
 def phase_agg(torch, st, F, native, session, data, name: str,
               runs: int) -> None:
-    col = st.col
-    df = session.create_dataframe(data)
-    q = (df.group_by(col("k"))
-           .agg(F.count(col("v")).alias("cnt"), F.sum(col("v")).alias("s"),
-                F.max(col("w")).alias("mx"))
-           .order_by(col("k")))
+    q = agg_query(st, F, session.create_dataframe(data))
     before = native.LAUNCHES["dense_slot_reduce"]
     (cols, masks, n), secs = run_timed(torch, q, runs)
     launches = native.LAUNCHES["dense_slot_reduce"] - before
@@ -249,7 +301,7 @@ def phase_agg(torch, st, F, native, session, data, name: str,
     check(type(agg).__name__ == "TorchHashAggregateExec", "plan shape")
     dense = agg.metrics["pallasAggBatches"]
     check(dense > 0, "no update batch took the dense-slot kernel")
-    # one launch per update batch (the six planes fit one plane group),
+    # one launch per update batch (the eight planes fit one plane group),
     # over the warm-up run and the timed runs
     check(launches == dense * (runs + 1),
           f"{launches} kernel launches for {dense} dense batches a run")
@@ -290,16 +342,16 @@ def main() -> int:
     rate = mem_rate(name)
 
     t0 = time.perf_counter()
-    reports = native.build()
+    reports = {k: native.build(k) for k in native.KERNELS}
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: [ln.strip() for ln in r.splitlines()
                     if "registers" in ln or "smem" in ln]
                 for k, r in reports.items()})
 
-    kern = phase_kernel(torch, pag, rate)
-
     main_data, agg_data = gen_data(1_000_000, 2_000_000)
     session = st.TorchSession.builder().get_or_create()
+    kern = phase_kernel(torch, st, F, pag, session, agg_data, rate)
+
     native.reset_launches()
     phase_project_filter(torch, st, session, main_data)
     phase_agg(torch, st, F, native, session, agg_data, "hash_agg_sort_2m", 3)

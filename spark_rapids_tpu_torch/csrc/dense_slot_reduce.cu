@@ -3,17 +3,21 @@
 // Replaces the TPU kernel spark_rapids_tpu/exec/pallas_agg.py:_pallas_reduce
 // (pallas_call at :182), with the contract its plain form _xla_reduce (:192)
 // states: for each of n planes, out[k] = add|min|max of plane[r] over the
-// rows r with gid[r] == k, for k in [0, K).  K <= 1024.  Slots no row hits
-// keep the op's neutral (0, the type's max, the type's min; +-inf for
-// floats).  Float min/max propagate NaN, as jnp.min/jnp.max do.
+// rows r with gid[r] == k, for k in [0, K).  K <= 1024.  Rows whose gid
+// lies outside [0, K) are ignored, as there and in the plain PyTorch
+// version.  Slots no row hits keep the op's neutral (0, the type's max, the
+// type's min; +-inf for floats).  Float min/max propagate NaN, as
+// jnp.min/jnp.max do.
 //
-// What bounds it.  At the main path's shape (capacity 2^20, K = 1024, six
-// planes: occupancy i32 add, count i32 add, sum f64 add, max f32 max and two
-// NaN-flag i32 max) the kernel must read 32 B a row, about 33.5 MB, and
-// does one atomic a row per plane, far below the card's operation rate.  So
-// it is bound by bytes: 33.5 MB / 3.35 TB/s = 10 us on an H100 SXM (the
-// card's name and power limit come from nvidia-smi; chip_smoke.py computes
-// the bound from the rate of the card it runs on).
+// What bounds it.  At the main path's shape (hash_agg_sort_2m's
+// group_by(k).agg(count(v), sum(v), max(w)) on a 2^20-row batch, K = 1024)
+// make_update passes eight planes: occupancy i32 add, count i32 add, sum f64
+// add, the sum's count i32 add, max f32 max, has-NaN and has-non-NaN i32 max
+// and the max's count i32 add.  With gid the kernel must read 40 B a row,
+// about 41.9 MB, and does one atomic a row per plane, far below the card's
+// operation rate.  So it is bound by bytes: 41.9 MB / 3.35 TB/s = 12.5 us on
+// an H100 SXM (the card's name and power limit come from nvidia-smi;
+// chip_smoke.py computes the bound from the rate of the card it runs on).
 //
 // Design.  The TPU kernel walks 256-row blocks in sequence and accumulates
 // its (K,) outputs in place, which only works because TPU grid steps run in
@@ -167,7 +171,7 @@ __global__ void dsr_partial(const int32_t* __restrict__ gid, long long n,
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += stride) {
     const int g = gid[r];
-    if ((unsigned)g >= (unsigned)K) continue;  // gid is clipped by caller
+    if ((unsigned)g >= (unsigned)K) continue;  // outside [0, K): ignored
     for (int j = 0; j < P.n; ++j) {
       unsigned char* base = smem + P.smem_off[j];
       switch (P.kind[j]) {

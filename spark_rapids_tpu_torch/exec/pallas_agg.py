@@ -25,7 +25,7 @@ does, so the same batches take the kernel in both.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,13 +64,19 @@ def dense_slot_reduce_reference(gid: torch.Tensor,
                                 ops: Sequence[str], K: int
                                 ) -> List[torch.Tensor]:
     """Plain PyTorch version of the kernel: one ``scatter_reduce_`` per
-    plane into a (K,) output that starts at the op's neutral."""
+    plane into a (K,) output that starts at the op's neutral.  Rows whose
+    gid lies outside [0, K) are ignored, as in the kernel (and as the JAX
+    package's one-hot kernel and ``segment_*`` ops drop them)."""
     idx = gid.to(torch.int64)
+    inside = (idx >= 0) & (idx < K)
+    idx = torch.where(inside, idx, torch.zeros_like(idx))
     outs = []
     for p, op in zip(planes, ops):
-        out = torch.full((K,), neutral(op, p.dtype), dtype=p.dtype,
-                         device=p.device)
-        out.scatter_reduce_(0, idx, p, reduce=_REDUCE[op], include_self=True)
+        fill = neutral(op, p.dtype)
+        out = torch.full((K,), fill, dtype=p.dtype, device=p.device)
+        out.scatter_reduce_(0, idx, torch.where(inside, p,
+                                                torch.full_like(p, fill)),
+                            reduce=_REDUCE[op], include_self=True)
         outs.append(out)
     return outs
 
@@ -124,15 +130,14 @@ def _kernel() -> ctypes.CDLL:
     return lib
 
 
-def dense_slot_reduce(gid: torch.Tensor, planes: Sequence[torch.Tensor],
-                      ops: Sequence[str], K: int) -> List[torch.Tensor]:
-    """Per-slot add/min/max of each (capacity,) plane over the rows whose
-    ``gid`` (int32 in [0, K)) names the slot -> one (K,) tensor a plane.
-    CUDA tensors launch the Hopper kernel; CPU tensors run the plain
-    version."""
+def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
+                   ops: Sequence[str], K: int
+                   ) -> Tuple[Callable[[], None], List[torch.Tensor]]:
+    """The wrapper's host work for CUDA tensors: checks, outputs, scratch
+    and the C arguments of every plane group -> ``(launch, outs)``.
+    ``launch()`` runs the kernel on the current stream, one call per plane
+    group, and fills ``outs``; it may be called again on the same inputs."""
     _check(gid, planes, ops, K)
-    if gid.device.type == "cpu":
-        return dense_slot_reduce_reference(gid, planes, ops, K)
     if gid.device.type != "cuda":
         raise RuntimeError(f"dense_slot_reduce: no kernel for "
                            f"{gid.device.type} tensors")
@@ -142,27 +147,47 @@ def dense_slot_reduce(gid: torch.Tensor, planes: Sequence[torch.Tensor],
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = max(1, min(-(-n // _THREADS), sms * _BLOCKS_PER_SM))
     outs = [torch.empty(K, dtype=p.dtype, device=dev) for p in planes]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for group in _plane_groups(planes, K):
-            parts = [torch.empty(blocks * K, dtype=planes[j].dtype,
-                                 device=dev) for j in group]
-            ptrs = ctypes.c_void_p * len(group)
-            ints = ctypes.c_int * len(group)
-            ins = ptrs(*[planes[j].data_ptr() for j in group])
-            part_ptrs = ptrs(*[p.data_ptr() for p in parts])
-            out_ptrs = ptrs(*[outs[j].data_ptr() for j in group])
-            kinds = ints(*[_KINDS[planes[j].dtype] for j in group])
-            op_ids = ints(*[_OPS[ops[j]] for j in group])
-            addr = [ctypes.cast(a, ctypes.c_void_p)
-                    for a in (ins, part_ptrs, out_ptrs, kinds, op_ids)]
-            rc = lib.dense_slot_reduce(gid.data_ptr(), n, K, len(group),
-                                       *addr, blocks, _THREADS, stream)
-            if rc != 0:
-                msg = lib.dense_slot_reduce_error(rc).decode()
-                raise RuntimeError(f"dense_slot_reduce launch failed: CUDA "
-                                   f"error {rc} ({msg})")
-            native.LAUNCHES["dense_slot_reduce"] += 1
+    calls = []
+    for group in _plane_groups(planes, K):
+        parts = [torch.empty(blocks * K, dtype=planes[j].dtype, device=dev)
+                 for j in group]
+        ptrs = ctypes.c_void_p * len(group)
+        ints = ctypes.c_int * len(group)
+        arrays = (ptrs(*[planes[j].data_ptr() for j in group]),
+                  ptrs(*[p.data_ptr() for p in parts]),
+                  ptrs(*[outs[j].data_ptr() for j in group]),
+                  ints(*[_KINDS[planes[j].dtype] for j in group]),
+                  ints(*[_OPS[ops[j]] for j in group]))
+        # parts and arrays ride along so they outlive every launch
+        calls.append((len(group), arrays, parts))
+
+    def launch() -> None:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for n_planes, arrays, _parts in calls:
+                addr = [ctypes.cast(a, ctypes.c_void_p) for a in arrays]
+                rc = lib.dense_slot_reduce(gid.data_ptr(), n, K, n_planes,
+                                           *addr, blocks, _THREADS, stream)
+                if rc != 0:
+                    msg = lib.dense_slot_reduce_error(rc).decode()
+                    raise RuntimeError(f"dense_slot_reduce launch failed: "
+                                       f"CUDA error {rc} ({msg})")
+                native.LAUNCHES["dense_slot_reduce"] += 1
+
+    return launch, outs
+
+
+def dense_slot_reduce(gid: torch.Tensor, planes: Sequence[torch.Tensor],
+                      ops: Sequence[str], K: int) -> List[torch.Tensor]:
+    """Per-slot add/min/max of each (capacity,) plane over the rows whose
+    ``gid`` names the slot -> one (K,) tensor a plane; rows whose gid lies
+    outside [0, K) are ignored.  CUDA tensors launch the Hopper kernel;
+    CPU tensors run the plain version."""
+    if gid.device.type == "cpu":
+        _check(gid, planes, ops, K)
+        return dense_slot_reduce_reference(gid, planes, ops, K)
+    launch, outs = prepare_launch(gid, planes, ops, K)
+    launch()
     return outs
 
 
@@ -232,78 +257,88 @@ def fits(lo: int, hi: int) -> bool:
     return hi - lo + 2 <= MAX_K  # +1 null slot
 
 
-def _round_k(span: int) -> int:
+def slot_count(lo: int, hi: int) -> int:
+    """K for keys in [lo, hi]: the null slot plus the span, rounded up to
+    a power of two of at least 128."""
     k = 128
-    while k < span:
+    while k < hi - lo + 2:
         k *= 2
     return k
+
+
+def update_planes(spec, cols: Sequence[ColVal], num_rows: int,
+                  capacity: int, lo: int, K: int):
+    """The kernel's inputs for one update batch -> ``(gid, planes, ops,
+    post)``: gid, one plane per update op (after the occupancy plane) and
+    the post-processing that turns the reduced planes into buffers."""
+    grouping = spec.groupings[0]
+    device = cols[0].data.device
+    ctx = EvalContext(cols, num_rows, capacity, device)
+    live = torch.arange(capacity, device=device) < num_rows
+    kcv = grouping.emit(ctx)
+    kvalid = kcv.validity & live
+    # int64 key - lo + 1, clipped to [0, K-1], then int32: that order
+    gid = torch.where(kvalid, kcv.data.to(torch.int64) - lo + 1,
+                      torch.zeros((), dtype=torch.int64, device=device))
+    gid = gid.clamp(0, K - 1).to(torch.int32)
+
+    planes: List[torch.Tensor] = [live.to(torch.int32)]  # occupancy
+    ops: List[str] = ["add"]
+    post: List[tuple] = []  # (kind, plane indices..., cast dtype)
+    for _, f in spec.aggs:
+        cv = f.input_projection()[0].emit(ctx)
+        m = cv.validity & live
+        for op in f.update_ops():
+            if op == "count":
+                planes.append(m.to(torch.int32))
+                ops.append("add")
+                post.append(("cast", len(planes) - 1, torch.int64))
+            elif op == "sum":
+                # a float sum adds in its own type; an integral sum is
+                # one int64 plane (Sum's projection casts to long)
+                planes.append(torch.where(m, cv.data,
+                                          torch.zeros_like(cv.data)))
+                ops.append("add")
+                post.append(("plain", len(planes) - 1))
+            elif cv.data.dtype.is_floating_point:
+                # Spark NaN order: min ignores NaN unless all-NaN;
+                # max is NaN when any value is
+                nan = torch.isnan(cv.data)
+                planes.append(torch.where(
+                    m & ~nan, cv.data,
+                    torch.full_like(cv.data, neutral(op, cv.data.dtype))))
+                ops.append(op)
+                i_val = len(planes) - 1
+                planes.append((m & nan).to(torch.int32))
+                ops.append("max")
+                planes.append((m & ~nan).to(torch.int32))
+                ops.append("max")
+                post.append(("nan" + op, i_val, len(planes) - 2,
+                             len(planes) - 1))
+            else:
+                # int8/16/32/date reduce in int32; the neutral is the
+                # NARROW type's extreme, widened, so an empty group's
+                # sentinel survives the cast back and still loses
+                # every merge
+                v32 = cv.data.to(torch.int32)
+                planes.append(torch.where(
+                    m, v32, torch.full_like(v32, neutral(op, cv.data.dtype))))
+                ops.append(op)
+                post.append(("cast", len(planes) - 1, cv.data.dtype))
+    return gid, planes, ops, post
 
 
 def make_update(spec, capacity: int, lo_hint: int, hi_hint: int):
     """``(cols, num_rows, lo) -> (n_groups, keys, buffers)`` matching the
     sorted path's update contract (same group order).  K is derived here,
     the one owner of the null-slot layout."""
-    K = _round_k(hi_hint - lo_hint + 2)
-    grouping = spec.groupings[0]
-    kdt = grouping.dtype
+    K = slot_count(lo_hint, hi_hint)
+    kdt = spec.groupings[0].dtype
 
     def run(cols: Sequence[ColVal], num_rows: int, lo: int):
         device = cols[0].data.device
-        ctx = EvalContext(cols, num_rows, capacity, device)
-        live = torch.arange(capacity, device=device) < num_rows
-        kcv = grouping.emit(ctx)
-        kvalid = kcv.validity & live
-        # int64 key - lo + 1, clipped to [0, K-1], then int32: that order
-        gid = torch.where(kvalid, kcv.data.to(torch.int64) - lo + 1,
-                          torch.zeros((), dtype=torch.int64, device=device))
-        gid = gid.clamp(0, K - 1).to(torch.int32)
-
-        planes: List[torch.Tensor] = [live.to(torch.int32)]  # occupancy
-        ops: List[str] = ["add"]
-        post: List[tuple] = []  # (kind, plane indices..., cast dtype)
-        for _, f in spec.aggs:
-            cv = f.input_projection()[0].emit(ctx)
-            m = cv.validity & live
-            for op in f.update_ops():
-                if op == "count":
-                    planes.append(m.to(torch.int32))
-                    ops.append("add")
-                    post.append(("cast", len(planes) - 1, torch.int64))
-                elif op == "sum":
-                    # a float sum adds in its own type; an integral sum is
-                    # one int64 plane (Sum's projection casts to long)
-                    planes.append(torch.where(m, cv.data,
-                                              torch.zeros_like(cv.data)))
-                    ops.append("add")
-                    post.append(("plain", len(planes) - 1))
-                elif cv.data.dtype.is_floating_point:
-                    # Spark NaN order: min ignores NaN unless all-NaN;
-                    # max is NaN when any value is
-                    nan = torch.isnan(cv.data)
-                    planes.append(torch.where(
-                        m & ~nan, cv.data,
-                        torch.full_like(cv.data,
-                                        neutral(op, cv.data.dtype))))
-                    ops.append(op)
-                    i_val = len(planes) - 1
-                    planes.append((m & nan).to(torch.int32))
-                    ops.append("max")
-                    planes.append((m & ~nan).to(torch.int32))
-                    ops.append("max")
-                    post.append(("nan" + op, i_val, len(planes) - 2,
-                                 len(planes) - 1))
-                else:
-                    # int8/16/32/date reduce in int32; the neutral is the
-                    # NARROW type's extreme, widened, so an empty group's
-                    # sentinel survives the cast back and still loses
-                    # every merge
-                    v32 = cv.data.to(torch.int32)
-                    planes.append(torch.where(
-                        m, v32,
-                        torch.full_like(v32, neutral(op, cv.data.dtype))))
-                    ops.append(op)
-                    post.append(("cast", len(planes) - 1, cv.data.dtype))
-
+        gid, planes, ops, post = update_planes(spec, cols, num_rows,
+                                               capacity, lo, K)
         reds = dense_slot_reduce(gid, planes, ops, K)
 
         seen = reds[0] > 0

@@ -18,7 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, List
+from typing import Dict
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(_PKG, "_build")
@@ -60,51 +60,32 @@ def library_path(name: str) -> str:
     return os.path.join(_BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def _start(name: str):
-    """Start nvcc for one kernel; None when its library is up to date."""
+def build(name: str) -> str:
+    """Compile one kernel's library unless it is up to date -> nvcc's
+    ``-Xptxas -v`` report ('' when it was already built).  Raises with
+    nvcc's stderr on failure."""
     out = library_path(name)
     if os.path.exists(out):
-        return None
+        return ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v", "-o", tmp,
            os.path.join(_PKG, KERNELS[name]["source"])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    return proc, tmp, out
-
-
-def build(names: List[str] = None) -> Dict[str, str]:
-    """Build the named kernels (all by default), one nvcc each, started
-    together.  Returns each kernel's ``-Xptxas -v`` report ('' when the
-    library was already built).  Raises with nvcc's stderr on failure."""
-    names = list(KERNELS) if names is None else names
-    started = {n: _start(n) for n in names}
-    reports, errors = {}, []
-    for name, job in started.items():
-        if job is None:
-            reports[name] = ""
-            continue
-        proc, tmp, out = job
-        _stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name} "
-                          f"(exit {proc.returncode}):\n{stderr}")
-            continue
-        os.replace(tmp, out)
-        reports[name] = stderr
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return reports
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stderr
 
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, built at first use."""
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
+        build(name)
         lib = ctypes.CDLL(library_path(name))
         _LOADED[name] = lib
     return lib

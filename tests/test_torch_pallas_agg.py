@@ -75,6 +75,11 @@ def test_dense_slot_reduce_reference_matches_jax(K):
     capacity = 1024
     # leave some slots empty so the neutrals are compared too
     gid = rng.integers(0, K - K // 8, capacity).astype(np.int32)
+    # rows outside [0, K) add to no slot, in both packages
+    out_of_range = rng.random(capacity) < 0.1
+    gid[out_of_range] = rng.choice(
+        np.array([-1, -7, K, K + 5, 1 << 30], np.int32),
+        int(out_of_range.sum()))
     planes = _planes(rng, capacity)
     ops = tuple(op for _, op in COMBOS)
     jplanes = tuple(jnp.asarray(p) for p in planes)
@@ -98,6 +103,37 @@ def test_dense_slot_reduce_int64_sum_wraps():
     got = tpag.dense_slot_reduce(torch.from_numpy(gid),
                                  [torch.from_numpy(v)], ["add"], 128)[0]
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_update_planes_of_the_headline_aggregate():
+    """hash_agg_sort_2m's query gives the kernel gid and eight planes
+    (Sum and Max each carry a count plane), which fit one launch."""
+    rng = np.random.default_rng(7)
+    n = 3000
+    data = {"k": rng.integers(0, 1000, n), "v": rng.normal(size=n),
+            "w": rng.normal(size=n).astype(np.float32)}
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    from spark_rapids_tpu_torch.plan.planner import plan_query
+    s = _tsession()
+    c = st.col
+    q = s.create_dataframe(data).group_by(c("k")).agg(
+        TF.count(c("v")).alias("cnt"), TF.sum(c("v")).alias("s"),
+        TF.max(c("w")).alias("mx")).order_by(c("k"))
+    agg = plan_query(q.plan).children[0]
+    batch = next(agg.children[0].execute(ExecContext(s.conf, s.device)))
+    cols = [ColVal(x.data, x.validity) for x in batch.columns]
+    lo, hi = tpag.key_range(agg.spec.groupings[0], cols, batch.num_rows,
+                            batch.capacity)
+    K = tpag.slot_count(lo, hi)
+    assert K == 1024
+    gid, planes, ops, _ = tpag.update_planes(agg.spec, cols, batch.num_rows,
+                                             batch.capacity, lo, K)
+    assert gid.dtype == torch.int32
+    i32, f32, f64 = torch.int32, torch.float32, torch.float64
+    assert [(p.dtype, op) for p, op in zip(planes, ops)] == [
+        (i32, "add"), (i32, "add"), (f64, "add"), (i32, "add"),
+        (f32, "max"), (i32, "max"), (i32, "max"), (i32, "add")]
+    assert tpag._plane_groups(planes, K) == [list(range(8))]
 
 
 @pytest.mark.parametrize("dtype,n,K,sizes", [
@@ -395,8 +431,10 @@ def test_dense_slot_kernel_matches_plain_version_on_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     rng = np.random.default_rng(0)
     capacity, K = 1 << 16, 1024
-    gid = torch.from_numpy(rng.integers(0, K - 24, capacity)
-                           .astype(np.int32)).cuda()
+    gid_np = rng.integers(0, K - 24, capacity).astype(np.int32)
+    gid_np[rng.random(capacity) < 0.01] = -3    # ignored, as is K + 7
+    gid_np[rng.random(capacity) < 0.01] = K + 7
+    gid = torch.from_numpy(gid_np).cuda()
     planes = [torch.from_numpy(p).cuda() for p in _planes(rng, capacity)]
     planes.append(torch.from_numpy(
         rng.integers(-(1 << 62), 1 << 62, capacity, dtype=np.int64)).cuda())
