@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
 1. device: the card's name, ``nvidia-smi``'s name and power limit, and
    the torch and CUDA versions;
 2. build: every hand-written kernel of the port, compiled from
-   ``spark_rapids_tpu_torch/csrc`` with nvcc, with its seconds;
+   ``spark_rapids_tpu_torch/csrc`` with nvcc, one process a source, all
+   started together, with their seconds;
 3. kernel: the dense-slot kernel against its plain PyTorch version on
    the same card tensors: first on the inputs the main path gives it
    (the aggregate's own plane construction on the first 2^20-row update
@@ -21,16 +22,31 @@ Phases, each printing one JSON line:
    ``ms`` repeats only the kernel's launches (its host work done once),
    ``wrapper_ms`` the whole wrapper; ``device_us`` is each CUDA
    kernel's device time from torch.profiler;
-4. project_filter_1m and 5. hash_agg_sort_2m: ``bench.py``'s two
+4. kernel: the contains kernel against its plain version, exactly: on
+   the first 2^20-row batch of text_filter_agg_6m's ``l_comment`` from
+   the port's own ingest (W = 64, the 16-byte needle), and on an edge
+   spec (W = 512, k = 16 and k = W, junk bytes past the lengths, UTF-8
+   bytes >= 0x80), timed the same way;
+5. project_filter_1m and 6. hash_agg_sort_2m: ``bench.py``'s two
    headline queries through the port's session at 1,000,000 and
    2,000,000 rows of ``bench.py:gen_data``'s columns (seed 7), checked
    against numpy; rows/s is over a whole query, upload and result
    included, median of 3 runs after one warm-up;
-6. hash_agg_32m: the same aggregate at 32,000,000 rows (31 batches of
-   2^20 rows, about 640 MB of columns on the card), checked the same way.
+7. hash_agg_32m: the same aggregate at 32,000,000 rows (31 batches of
+   2^20 rows, about 640 MB of columns on the card), checked the same way;
+8. text_filter_agg_6m and 9. text_filter_project_6m: a lineitem-shaped
+   table of 6,001,215 rows (TPC-H SF1's lineitem count; ``l_comment`` is
+   synthetic text of 10 to 43 bytes, 2 % of it holding the phrase
+   "special requests") through TPC-H Q1's grouping and aggregates over a
+   contains filter with a 16-byte needle (the contains kernel, once a
+   batch), and through a 7-byte needle's filter and a projection whose
+   strings come back whole; checked against numpy, timed as phase 5.
 
-The launch counts are reset just before phase 4 and read after phase 6,
-so they show that the main path went through each kernel.  Then one JSON
+The launch counts are reset just before phase 5 and read after phase 9,
+so they show that the main path went through each kernel.  A trace
+phase then runs each text query once more under torch.profiler and
+prints its wall time, the card's busy time and its largest device
+entries.  Then one JSON
 line lists every kernel, the ``nvidia-smi`` line follows, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits nonzero without that line; it also exits nonzero when
@@ -48,6 +64,20 @@ import time
 import numpy as np
 
 SEED = 7
+LINEITEM_ROWS = 6_001_215
+NEEDLE = "special requests"   # TPC-H Q13's two words as one 16-byte needle
+SHORT_NEEDLE = "special"
+# lowercase words for the synthetic l_comment text; neither needle word
+# is among them, so every needle in the text was planted
+WORDS = ("the quick final furious pending regular express ironic bold even "
+         "silent careful blithe slyly fluffily quickly carefully deposits "
+         "accounts packages theodolites instructions foxes pinto beans "
+         "dolphins platelets asymptotes courts dependencies excuses ideas "
+         "sauternes somas warthogs frays sheaves tithes epitaphs dugouts "
+         "across about above after against along among around before "
+         "behind beneath beside between beyond during except from inside "
+         "into near outside over past since through toward under until "
+         "upon within without").split()
 # device memory rates from NVIDIA's data sheets, bytes/s
 _MEM_RATE = (("H200", 4.8e12), ("H100 PCIE", 2.0e12), ("H100 NVL", 3.9e12),
              ("H100", 3.35e12))
@@ -245,7 +275,154 @@ def phase_kernel(torch, st, F, pag, session, data, rate: float) -> dict:
     return result
 
 
-# -- phases 4 to 6 ---------------------------------------------------------
+# -- phase 4 ---------------------------------------------------------------
+
+def gen_lineitem(n: int, seed: int):
+    """A lineitem-shaped table at TPC-H's widths, from numpy -> (columns
+    as numpy arrays, the l_comment byte matrix (n, 43), its lengths, the
+    returnflag and linestatus codes).  l_comment is synthetic: each row
+    takes 10 to 43 bytes of a stream of WORDS at a random offset, and
+    about 2 % of the rows get NEEDLE at a random offset that fits (drawn
+    among the rows long enough to hold it)."""
+    rng = np.random.default_rng(seed)
+    vocab = [w.encode() + b" " for w in WORDS]
+    vbytes = np.frombuffer(b"".join(vocab), np.uint8)
+    vlen = np.array([len(w) for w in vocab])
+    voff = np.cumsum(vlen) - vlen
+    ids = rng.integers(0, len(vocab), max(4096, n // 2))
+    wl = vlen[ids]
+    stream = vbytes[np.repeat(voff[ids] - (np.cumsum(wl) - wl), wl)
+                    + np.arange(int(wl.sum()))]
+    lengths = rng.integers(10, 44, n)
+    chars = np.zeros((n, 43), np.uint8)
+    start = rng.integers(0, stream.size - 43, n)
+    for a in range(0, n, 1 << 20):
+        b = min(n, a + (1 << 20))
+        idx = start[a:b, None] + np.arange(43)[None, :]
+        chars[a:b] = np.where(np.arange(43)[None, :] < lengths[a:b, None],
+                              stream[idx], 0)
+    needle = np.frombuffer(NEEDLE.encode(), np.uint8)
+    fits = lengths >= needle.size
+    planted = np.flatnonzero(fits & (rng.random(n) < 0.02 / fits.mean()))
+    at = (rng.random(planted.size)
+          * (lengths[planted] - needle.size + 1)).astype(np.int64)
+    chars[planted[:, None], at[:, None] + np.arange(needle.size)] = needle
+    rf = rng.integers(0, 3, n)
+    ls = rng.integers(0, 2, n)
+    qty = rng.integers(1, 51, n).astype(np.float64)
+    price = np.round(qty * rng.uniform(900.0, 2100.0, n), 2)
+    data = {"l_returnflag": np.array(list("ANR"))[rf],
+            "l_linestatus": np.array(list("FO"))[ls],
+            "l_quantity": qty, "l_extendedprice": price,
+            "l_comment": chars.view("S43").ravel().astype("U43")}
+    return data, chars, lengths, rf, ls
+
+
+def text_agg_query(st, F, df):
+    """TPC-H Q1's grouping and aggregates over the long-needle filter."""
+    col = st.col
+    return (df.filter(F.contains(col("l_comment"), NEEDLE))
+              .group_by("l_returnflag", "l_linestatus")
+              .agg(F.count(col("l_quantity")).alias("count_order"),
+                   F.sum(col("l_quantity")).alias("sum_qty"),
+                   F.sum(col("l_extendedprice")).alias("sum_base_price"),
+                   F.avg(col("l_extendedprice")).alias("avg_price"))
+              .order_by("l_returnflag", "l_linestatus"))
+
+
+def text_project_query(st, F, df):
+    col = st.col
+    return (df.filter(F.contains(col("l_comment"), SHORT_NEEDLE)
+                      & (col("l_quantity") < 25.0))
+              .select("l_returnflag", "l_comment", "l_extendedprice"))
+
+
+def contains_edge_inputs(torch, rng):
+    """W = 512, UTF-8 bytes >= 0x80, junk past every length (the needle
+    itself planted just past some), and needles of 16 bytes and of W ->
+    [(chars, lengths, needle)]."""
+    rows, W = 1 << 16, 512
+    chars = rng.integers(0x61, 0x64, (rows, W)).astype(np.uint8)
+    chars[rng.random((rows, W)) < 0.1] = 0xC3
+    chars[rng.random((rows, W)) < 0.05] = 0xA9
+    lengths = rng.integers(0, W + 1, rows).astype(np.int32)
+    specs = []
+    for pat in (b"ab\xc3\xa9" * 4, bytes(rng.integers(0x61, 0x63, W)
+                                        .astype(np.uint8))):
+        c = chars.copy()
+        p = np.frombuffer(pat, np.uint8)
+        k = p.size
+        for r in range(0, rows, 5):
+            if lengths[r] >= k:        # inside the length: a hit
+                j = rng.integers(0, lengths[r] - k + 1)
+                c[r, j:j + k] = p
+            elif lengths[r] + k <= W:  # past it: must not count
+                c[r, lengths[r]:lengths[r] + k] = p
+        specs.append((torch.from_numpy(c).cuda(),
+                      torch.from_numpy(lengths).cuda(), pat))
+    return specs
+
+
+def scan_batch(session, df):
+    """The first batch the port's own local scan uploads for ``df``."""
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    from spark_rapids_tpu_torch.plan.planner import plan_query
+    node = plan_query(df.plan)
+    while node.children:
+        node = node.children[0]
+    check(type(node).__name__ == "TorchLocalScanExec", "plan shape")
+    return next(node.execute(ExecContext(session.conf, session.device)))
+
+
+def phase_contains(torch, ps, session, df, rate: float) -> dict:
+    batch = scan_batch(session, df)
+    comment = batch.columns[batch.schema.field_index("l_comment")]
+    chars, lengths = comment.chars, comment.data
+    pat = NEEDLE.encode()
+    specs = [(chars, lengths, pat)] + contains_edge_inputs(
+        torch, np.random.default_rng(SEED + 3))
+    hits = []
+    for c, ln, p in specs:
+        got = ps.run_contains(c, ln, p)
+        torch.cuda.synchronize()
+        want = ps.contains_reference(c, ln, p)
+        check(torch.equal(got, want),
+              f"contains kernel differs from its plain version (width "
+              f"{c.shape[1]}, {len(p)}-byte needle)")
+        hits.append(int(want.sum()))
+
+    launch, _ = ps.prepare_contains(chars, lengths, pat)
+    rows, W = chars.shape
+    k = len(pat)
+    # what the function must move: each length read once, the first
+    # len[r] bytes of every row that can hold the needle, the needle,
+    # and one output byte a row; the full char plane beside it
+    ln = lengths.clamp(0, W).to(torch.int64)
+    need = int(ln[ln >= k].sum())
+    nbytes = 4 * rows + need + k + rows
+    full = 4 * rows + rows * W + k + rows
+    windows = int((ln - k + 1).clamp(min=0).sum())
+    bytes_ms = nbytes / rate * 1e3
+    ops_ms = windows / _F32_RATE * 1e3
+    result = {
+        "ms": per_call_ms(torch, launch),
+        "wrapper_ms": per_call_ms(torch, lambda: ps.run_contains(
+            chars, lengths, pat)),
+        "plain_ms": per_call_ms(torch, lambda: ps.contains_reference(
+            chars, lengths, pat)),
+        "library_ms": None,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "max_abs_err": 0.0,
+    }
+    emit("kernel", name="contains", rows=rows, width=W, needle_bytes=k,
+         hits=hits[0], edge_hits=hits[1:], bytes=nbytes, full_bytes=full,
+         full_bound_ms=full / rate * 1e3,
+         device_us=device_us(torch, launch, "contains_"), **result)
+    return result
+
+
+# -- phases 5 to 9 ---------------------------------------------------------
 
 def gen_data(n_main: int, n_agg: int):
     """bench.py:gen_data's main and main4 columns, from seed 7."""
@@ -320,6 +497,113 @@ def phase_agg(torch, st, F, native, session, data, name: str,
          rows_per_s=rows / float(np.median(secs)))
 
 
+def string_keys(torch, lengths_chars, n: int) -> np.ndarray:
+    """A one-byte string column from to_torch -> its bytes (checking
+    that every string is one byte long)."""
+    lengths, chars = lengths_chars
+    check(bool(torch.all(lengths == 1)), "a key is not one byte long")
+    return chars[:n, 0].cpu().numpy()
+
+
+def phase_text_agg(torch, st, F, native, session, df, line, name: str,
+                   runs: int = 3) -> None:
+    data, chars, lengths, rf, ls = line
+    q = text_agg_query(st, F, df)
+    before = native.LAUNCHES["contains"]
+    (cols, masks, n), secs = run_timed(torch, q, runs)
+    launches = native.LAUNCHES["contains"] - before
+    stage = session._last_plan
+    while type(stage).__name__ != "TorchStageExec":
+        stage = stage.children[0]
+    batches = stage.metrics["stageDispatches"]
+    check(launches == batches * (runs + 1),
+          f"{launches} contains launches for {batches} batches a run")
+    # numpy: np.char.find over the raw bytes, the groups by code
+    raw = chars.view("S43").ravel()
+    hit = np.char.find(raw, NEEDLE.encode()) >= 0
+    key = (rf * 2 + ls)[hit]
+    qty = data["l_quantity"][hit]
+    price = data["l_extendedprice"][hit]
+    present = np.flatnonzero(np.bincount(key, minlength=6))
+    counts = np.bincount(key, minlength=6)[present]
+    sum_qty = np.bincount(key, qty, minlength=6)[present]
+    sum_price = np.bincount(key, price, minlength=6)[present]
+    check(n == present.size, f"{n} groups, numpy has {present.size}")
+    check(np.array_equal(string_keys(torch, cols["l_returnflag"], n),
+                         np.frombuffer(b"ANR", np.uint8)[present // 2]),
+          "l_returnflag keys")
+    check(np.array_equal(string_keys(torch, cols["l_linestatus"], n),
+                         np.frombuffer(b"FO", np.uint8)[present % 2]),
+          "l_linestatus keys")
+    check(np.array_equal(cols["count_order"].cpu().numpy(), counts),
+          "counts")
+    check(np.array_equal(cols["sum_qty"].cpu().numpy(), sum_qty),
+          "quantity sums")
+    check(np.allclose(cols["sum_base_price"].cpu().numpy(), sum_price,
+                      rtol=1e-9, atol=0), "price sums beyond rtol 1e-9")
+    check(np.allclose(cols["avg_price"].cpu().numpy(), sum_price / counts,
+                      rtol=1e-9, atol=0), "price averages beyond rtol 1e-9")
+    rows = len(rf)
+    emit(name, rows=rows, matched=int(hit.sum()), groups=n, batches=batches,
+         contains_launches=launches, seconds=secs,
+         rows_per_s=rows / float(np.median(secs)))
+
+
+def phase_text_project(torch, st, F, native, session, df, line, name: str,
+                       runs: int = 3) -> None:
+    data, chars, lengths, rf, _ = line
+    q = text_project_query(st, F, df)
+    before = native.LAUNCHES["contains"]
+    (cols, masks, n), secs = run_timed(torch, q, runs)
+    check(native.LAUNCHES["contains"] == before,
+          "the 7-byte needle launched the contains kernel")
+    raw = chars.view("S43").ravel()
+    keep = (np.char.find(raw, SHORT_NEEDLE.encode()) >= 0) \
+        & (data["l_quantity"] < 25.0)
+    check(n == int(keep.sum()), f"row count {n} != {int(keep.sum())}")
+    check(all(bool(m.all()) for m in masks.values()), "unexpected nulls")
+    check(np.array_equal(string_keys(torch, cols["l_returnflag"], n),
+                         np.frombuffer(b"ANR", np.uint8)[rf[keep]]),
+          "l_returnflag")
+    got_len, got_chars = (t.cpu().numpy() for t in cols["l_comment"])
+    check(np.array_equal(got_len, lengths[keep]), "l_comment lengths")
+    width = got_chars.shape[1]
+    inside = np.arange(width)[None, :] < got_len[:, None]
+    want = np.zeros((n, width), np.uint8)
+    want[:, :min(43, width)] = chars[keep][:, :width]
+    check(np.array_equal(np.where(inside, got_chars, 0), want),
+          "l_comment bytes")
+    check(np.array_equal(cols["l_extendedprice"].cpu().numpy(),
+                         data["l_extendedprice"][keep]), "l_extendedprice")
+    rows = len(rf)
+    emit(name, rows=rows, out_rows=n, string_width=width, seconds=secs,
+         rows_per_s=rows / float(np.median(secs)))
+
+
+def phase_trace(torch, query, name: str, top: int = 8) -> None:
+    """One run of ``query`` under torch.profiler: its wall seconds, the
+    card's busy seconds (kernels and copies) and the largest device
+    entries, so the device's idle share shows how far the host holds the
+    card back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        query.to_torch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    emit("trace", query=name, wall_s=wall, device_busy_s=busy,
+         device_idle_share=1.0 - busy / wall,
+         top_device_us={e.key[:80]: e.self_device_time_total
+                        for e in dev[:top]})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -331,6 +615,7 @@ def main() -> int:
     from spark_rapids_tpu_torch import functions as F
     from spark_rapids_tpu_torch import native
     from spark_rapids_tpu_torch.exec import pallas_agg as pag
+    from spark_rapids_tpu_torch.exprs import pallas_strings as ps
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -342,15 +627,21 @@ def main() -> int:
     rate = mem_rate(name)
 
     t0 = time.perf_counter()
-    reports = {k: native.build(k) for k in native.KERNELS}
+    reports = native.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: [ln.strip() for ln in r.splitlines()
                     if "registers" in ln or "smem" in ln]
                 for k, r in reports.items()})
 
     main_data, agg_data = gen_data(1_000_000, 2_000_000)
+    t0 = time.perf_counter()
+    line = gen_lineitem(LINEITEM_ROWS, SEED + 2)
     session = st.TorchSession.builder().get_or_create()
-    kern = phase_kernel(torch, st, F, pag, session, agg_data, rate)
+    line_df = session.create_dataframe(line[0])
+    emit("lineitem", rows=LINEITEM_ROWS, seconds=time.perf_counter() - t0)
+    kern = {"dense_slot_reduce": phase_kernel(torch, st, F, pag, session,
+                                              agg_data, rate),
+            "contains": phase_contains(torch, ps, session, line_df, rate)}
 
     native.reset_launches()
     phase_project_filter(torch, st, session, main_data)
@@ -360,19 +651,28 @@ def main() -> int:
     big = {"k": rng.integers(0, 1000, n), "v": rng.normal(size=n),
            "w": rng.normal(size=n).astype(np.float32)}
     phase_agg(torch, st, F, native, session, big, "hash_agg_32m", 1)
+    del big
+    phase_text_agg(torch, st, F, native, session, line_df, line,
+                   "text_filter_agg_6m")
+    phase_text_project(torch, st, F, native, session, line_df, line,
+                       "text_filter_project_6m")
     launches = dict(native.LAUNCHES)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    phase_trace(torch, text_agg_query(st, F, line_df), "text_filter_agg_6m")
+    phase_trace(torch, text_project_query(st, F, line_df),
+                "text_filter_project_6m")
 
     kernels = []
     for kname, info in native.KERNELS.items():
+        k = kern[kname]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "spark_rapids_tpu_torch/" + info["source"],
             "replaces": info["replaces"], "launches": launches[kname],
-            "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-            "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-            "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

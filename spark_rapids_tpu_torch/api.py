@@ -1,9 +1,10 @@
 """DataFrame API, the user surface.
 
 Counterpart of ``spark_rapids_tpu/api.py``, trimmed to this slice:
-``select``, ``filter``, ``group_by(...).agg(...)``, ``order_by`` and the
-actions ``collect``, ``to_arrow`` and ``to_torch``.  Actions plan the
-query (``plan/planner.py``) and run it on the session's device.
+``select``, ``filter``, ``group_by(...).agg(...)``, ``order_by``, the
+string predicates of ``Column`` and the actions ``collect``, ``to_arrow``
+and ``to_torch``.  Actions plan the query (``plan/planner.py``) and run
+it on the session's device.
 """
 
 from __future__ import annotations
@@ -15,15 +16,17 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import (
-    HostColumns, device_batch_to_host, host_columns_from_arrow,
-    host_columns_from_numpy, host_columns_to_arrow,
+    HostColumns, concat_host_values, device_batch_to_host,
+    empty_host_values, host_columns_from_arrow, host_columns_from_numpy,
+    host_columns_to_arrow,
 )
-from spark_rapids_tpu_torch.columnar.dtypes import DATE, DataType, \
+from spark_rapids_tpu_torch.columnar.dtypes import DATE, STRING, DataType, \
     Schema, device_dtype
 from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exprs import arithmetic as ar
 from spark_rapids_tpu_torch.exprs import predicates as pr
+from spark_rapids_tpu_torch.exprs import strings as ss
 from spark_rapids_tpu_torch.exprs.base import Alias, Expression, Literal, \
     UnresolvedAttribute
 from spark_rapids_tpu_torch.plan import logical as lp
@@ -95,6 +98,19 @@ class Column:
     def __invert__(self):
         return Column(pr.Not(self.expr))
 
+    # string predicates; the pattern must be a literal
+    def startswith(self, other) -> "Column":
+        return Column(ss.StartsWith(self.expr, _to_expr(other)))
+
+    def endswith(self, other) -> "Column":
+        return Column(ss.EndsWith(self.expr, _to_expr(other)))
+
+    def contains(self, other) -> "Column":
+        """Always the unrolled ``Contains``, whatever the needle's length,
+        as in the JAX package; ``functions.contains`` routes long needles
+        to the kernel."""
+        return Column(ss.Contains(self.expr, _to_expr(other)))
+
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name))
 
@@ -158,11 +174,12 @@ class DataFrame:
         cols = {}
         for f in schema:
             if parts:
-                cols[f.name] = (np.concatenate([p[f.name][0] for p in parts]),
-                                np.concatenate([p[f.name][1] for p in parts]))
+                cols[f.name] = (
+                    concat_host_values([p[f.name][0] for p in parts]),
+                    np.concatenate([p[f.name][1] for p in parts]))
             else:
-                empty = torch.empty(0, dtype=device_dtype(f.dtype)).numpy()
-                cols[f.name] = (empty, np.zeros(0, np.bool_))
+                cols[f.name] = (empty_host_values(f.dtype),
+                                np.zeros(0, np.bool_))
         return schema, cols
 
     def to_arrow(self):
@@ -171,12 +188,15 @@ class DataFrame:
 
     def collect(self) -> List[dict]:
         """The result as a list of row dicts (None for null); dates come
-        back as ``datetime.date``."""
+        back as ``datetime.date``, strings as ``str``."""
         schema, cols = self._host()
         out_cols = []
         for f in schema:
             values, valid = cols[f.name]
-            vals = values.tolist()
+            if f.dtype == STRING:
+                vals = values.to_pylist()
+            else:
+                vals = values.tolist()
             if f.dtype == DATE:
                 epoch = datetime.date(1970, 1, 1)
                 vals = [epoch + datetime.timedelta(days=d) for d in vals]
@@ -184,22 +204,28 @@ class DataFrame:
                              for v, ok in zip(vals, valid.tolist())])
         return [dict(zip(schema.names, row)) for row in zip(*out_cols)]
 
-    def to_torch(self) -> Tuple[Dict[str, torch.Tensor],
-                                Dict[str, torch.Tensor], int]:
+    def to_torch(self) -> Tuple[Dict[str, object], Dict[str, torch.Tensor],
+                                int]:
         """-> (columns, masks, num_rows): the result's data planes and
         validity masks, still on the session's device, trimmed to the
-        row count (the counterpart of the JAX package's ``to_jax``)."""
+        row count (the counterpart of the JAX package's ``to_jax``).  A
+        string column comes back as ``(lengths, chars)``."""
         schema, batches = self._execute()
         if not batches:
             dev = self.session.device
-            cols = {f.name: torch.empty(0, dtype=device_dtype(f.dtype),
-                                        device=dev) for f in schema}
+            cols = {}
+            for f in schema:
+                data = torch.empty(0, dtype=device_dtype(f.dtype), device=dev)
+                cols[f.name] = data if f.dtype != STRING else \
+                    (data, torch.zeros((0, 1), dtype=torch.uint8, device=dev))
             masks = {f.name: torch.empty(0, dtype=torch.bool, device=dev)
                      for f in schema}
             return cols, masks, 0
         batch = concat_batches(batches)
         n = batch.num_rows
-        cols = {f.name: c.data[:n] for f, c in zip(schema, batch.columns)}
+        cols = {f.name: c.data[:n] if c.chars is None else
+                (c.data[:n], c.chars[:n])
+                for f, c in zip(schema, batch.columns)}
         masks = {f.name: c.validity[:n]
                  for f, c in zip(schema, batch.columns)}
         return cols, masks, n

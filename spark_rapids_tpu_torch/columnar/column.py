@@ -2,7 +2,11 @@
 
 Counterpart of ``spark_rapids_tpu/columnar/column.py``.  A column is a
 data plane and a validity plane (``torch.bool``, False = null or
-padding), both padded to a power-of-two bucket capacity.  The TPU
+padding), both padded to a power-of-two bucket capacity.  A STRING
+column adds ``chars``, a (capacity, width) uint8 char matrix holding each
+row's UTF-8 bytes from column 0, with ``data`` holding the int32 byte
+lengths; the width is the bucket of the batch's longest string, and
+padding bytes and padding rows are 0 when a batch is uploaded.  The TPU
 package pads so that XLA compiles one kernel per bucket; the port keeps
 the same layout so that every operator, and the dense-slot kernel, sees
 the shapes the JAX package gives it.  Rows beyond ``num_rows`` are
@@ -14,6 +18,8 @@ back: on a card on the host's PCIe bus one small read costs microseconds.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -33,24 +39,34 @@ def bucket_capacity(n: int) -> int:
 
 
 class DeviceColumn:
-    """One device column: ``data`` and ``validity`` of shape (capacity,)."""
+    """One device column: ``data`` and ``validity`` of shape (capacity,),
+    and for STRING the (capacity, width) uint8 ``chars``."""
 
-    __slots__ = ("dtype", "data", "validity", "num_rows")
+    __slots__ = ("dtype", "data", "validity", "num_rows", "chars")
 
     def __init__(self, dtype: DataType, data: torch.Tensor,
-                 validity: torch.Tensor, num_rows: int):
+                 validity: torch.Tensor, num_rows: int,
+                 chars: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.num_rows = int(num_rows)
+        self.chars = chars
 
     @property
     def capacity(self) -> int:
         return int(self.data.shape[0])
 
+    @property
+    def string_width(self) -> int:
+        return int(self.chars.shape[1]) if self.chars is not None else 0
+
     def size_bytes(self) -> int:
-        return int(self.data.numel() * self.data.element_size()
-                   + self.validity.numel() * self.validity.element_size())
+        total = (self.data.numel() * self.data.element_size()
+                 + self.validity.numel() * self.validity.element_size())
+        if self.chars is not None:
+            total += self.chars.numel()
+        return int(total)
 
     def __repr__(self):
         return (f"DeviceColumn({self.dtype}, rows={self.num_rows}, "

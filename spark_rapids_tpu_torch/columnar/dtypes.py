@@ -5,9 +5,10 @@ scalar types, with date as days-since-epoch int32.  DOUBLE is always
 ``torch.float64``: the card computes f64 natively, so the TPU package's
 ``double_as_float`` demotion has no counterpart here.
 
-STRING and TIMESTAMP exist as types so that schemas read from Arrow or
-parquet can name them, but a STRING column cannot be uploaded yet
-(``columnar/batch.py`` raises), and TIMESTAMP is not mapped from Arrow.
+A STRING column's data plane holds the int32 byte lengths; its bytes
+sit beside it in a (capacity, width) uint8 char matrix
+(``columnar/column.py``).  TIMESTAMP exists as a type, but is not mapped
+from Arrow yet.
 """
 
 from __future__ import annotations
@@ -92,6 +93,7 @@ _TORCH = {
     "boolean": torch.bool, "byte": torch.int8, "short": torch.int16,
     "int": torch.int32, "long": torch.int64, "float": torch.float32,
     "double": torch.float64, "date": torch.int32, "timestamp": torch.int64,
+    "string": torch.int32,  # the lengths plane; the bytes are in chars
 }
 
 

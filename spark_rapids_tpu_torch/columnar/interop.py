@@ -16,22 +16,35 @@ import torch
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import (
-    DataType, Field, Schema, device_dtype,
+    STRING, DataType, Field, Schema, device_dtype,
 )
 
 
-def batch_from_planes(planes: Sequence[Tuple[np.ndarray, np.ndarray]],
+def batch_from_planes(planes: Sequence[Tuple[np.ndarray, ...]],
                       dtypes: Sequence[DataType], num_rows: int,
                       capacity: int, device,
                       names: Optional[Sequence[str]] = None
                       ) -> ColumnarBatch:
-    """``(data, validity)`` numpy planes of shape (capacity,) -> a port
-    batch holding the same bits on ``device``."""
+    """``(data, validity)`` numpy planes of shape (capacity,), and for a
+    STRING column ``(lengths, validity, chars)`` with chars of shape
+    (capacity, width) uint8 -> a port batch holding the same bits on
+    ``device``."""
     names = list(names) if names is not None else \
         [f"c{i}" for i in range(len(dtypes))]
     cols = []
-    for (data, valid), dt in zip(planes, dtypes):
-        data, valid = np.asarray(data), np.asarray(valid)
+    for plane, dt in zip(planes, dtypes):
+        data, valid = np.asarray(plane[0]), np.asarray(plane[1])
+        chars = None
+        if dt == STRING:
+            if len(plane) != 3:
+                raise ValueError("a string column needs (lengths, validity, "
+                                 "chars) planes")
+            chars = np.asarray(plane[2])
+            if chars.dtype != np.uint8 or chars.ndim != 2 \
+                    or chars.shape[0] != capacity:
+                raise TypeError(f"chars must be ({capacity}, width) uint8, "
+                                f"got {chars.dtype}{chars.shape}")
+            chars = torch.from_numpy(chars.copy()).to(device)
         want = torch.empty(0, dtype=device_dtype(dt)).numpy().dtype
         if data.shape != (capacity,) or valid.shape != (capacity,):
             raise ValueError(f"planes of shape {data.shape}/{valid.shape}, "
@@ -41,6 +54,6 @@ def batch_from_planes(planes: Sequence[Tuple[np.ndarray, np.ndarray]],
                             f"{data.dtype}/{valid.dtype}")
         cols.append(DeviceColumn(
             dt, torch.from_numpy(data.copy()).to(device),
-            torch.from_numpy(valid.copy()).to(device), num_rows))
+            torch.from_numpy(valid.copy()).to(device), num_rows, chars))
     schema = Schema([Field(n, dt, True) for n, dt in zip(names, dtypes)])
     return ColumnarBatch(cols, num_rows, schema)

@@ -61,6 +61,12 @@ READER_BATCH_SIZE_ROWS = register(
     "spark.rapids.sql.reader.batchSizeRows", 1 << 20,
     "Row cap of one batch a file scan uploads.", int, _positive)
 
+MAX_STRING_WIDTH = register(
+    "spark.rapids.sql.maxDeviceStringWidth", 512,
+    "Widest string column (bytes, after rounding up to a power of two) "
+    "that a batch may hold on the device; uploading a wider one raises, "
+    "as in the JAX package.", int, _positive)
+
 PALLAS_AGG = register(
     "spark.rapids.sql.tpu.pallas.agg.enabled", True,
     "Run the update phase of a single-integer-key aggregate whose key "

@@ -18,6 +18,13 @@ stops probing key ranges after two batches of fresh input, because each
 probe costs it a round trip over a remote link; on the card a probe
 costs microseconds, so every batch is probed.  Only grouped aggregation
 is in this slice.
+
+String grouping keys take the sorted-segment path (the dense-slot router
+rejects them, as the JAX package's does): their sort keys are the packed
+byte blocks of ``exec/sortkeys.py``, and each group's key is gathered,
+chars and all, from its first row.  ``count`` takes a string input; the
+other aggregates over strings (min, max, first, last) are not in the
+port yet.
 """
 
 from __future__ import annotations
@@ -28,15 +35,17 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
-from spark_rapids_tpu_torch.columnar.dtypes import DataType, Field, Schema
+from spark_rapids_tpu_torch.columnar.dtypes import STRING, DataType, Field, \
+    Schema
 from spark_rapids_tpu_torch.exec import pallas_agg as pag
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
     sort_permutation
-from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
+from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction, \
+    Count
 from spark_rapids_tpu_torch.exprs.base import Alias, ColVal, EvalContext, \
-    Expression
+    Expression, colvals
 
 
 def unwrap_aggregate(e: Expression) -> Tuple[str, AggregateFunction]:
@@ -160,7 +169,8 @@ def make_agg_body(spec: _AggSpec, phase: str, capacity: int):
             gid, capacity)
         rep = perm[rep_sorted.clamp(0, capacity - 1)]
         group_valid = pos < n_groups
-        key_outs = tuple(ColVal(cv.data[rep], cv.validity[rep] & group_valid)
+        key_outs = tuple(ColVal(cv.data[rep], cv.validity[rep] & group_valid,
+                                None if cv.chars is None else cv.chars[rep])
                          for cv in key_cvs)
         return n_groups, key_outs, tuple(ColVal(b, group_valid)
                                          for b in bufs)
@@ -186,7 +196,7 @@ def evaluate(spec: _AggSpec, cols: Sequence[ColVal],
 
 def _to_batch(cvs: Sequence[ColVal], dtypes: Sequence[DataType], n: int,
               schema=None) -> ColumnarBatch:
-    cols = [DeviceColumn(dt, cv.data, cv.validity, n)
+    cols = [DeviceColumn(dt, cv.data, cv.validity, n, cv.chars)
             for cv, dt in zip(cvs, dtypes)]
     return ColumnarBatch(cols, n, schema)
 
@@ -197,6 +207,11 @@ class TorchHashAggregateExec(TorchExec):
         super().__init__()
         self.groupings = list(groupings)
         self.agg_pairs = [unwrap_aggregate(e) for e in aggregates]
+        for _, f in self.agg_pairs:
+            if f.child.dtype == STRING and not isinstance(f, Count):
+                raise NotImplementedError(
+                    f"{type(f).__name__} over strings is not in the torch "
+                    "port yet")
         self.children = [child]
         self.spec = _AggSpec(self.groupings, self.agg_pairs)
         fields = [Field(g.name, g.dtype, g.nullable) for g in self.groupings]
@@ -216,7 +231,7 @@ class TorchHashAggregateExec(TorchExec):
 
     def _run_phase(self, phase: str, batch: ColumnarBatch,
                    conf=None) -> ColumnarBatch:
-        cols = [ColVal(c.data, c.validity) for c in batch.columns]
+        cols = colvals(batch.columns)
         if phase == "update" and conf is not None and batch.num_rows > 0:
             out = self._try_pallas_update(cols, batch, conf)
             if out is not None:
@@ -263,7 +278,6 @@ class TorchHashAggregateExec(TorchExec):
         merged = partials[0]
         if len(partials) > 1:
             merged = self._run_phase("merge", concat_batches(partials))
-        cols = [ColVal(c.data, c.validity) for c in merged.columns]
-        outs = evaluate(self.spec, cols, merged.num_rows)
+        outs = evaluate(self.spec, colvals(merged.columns), merged.num_rows)
         yield _to_batch(outs, [f.dtype for f in self._schema],
                         merged.num_rows, self._schema)

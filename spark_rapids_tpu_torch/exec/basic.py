@@ -14,6 +14,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch, HostColumns, host_batch_to_device,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
+from spark_rapids_tpu_torch.conf import MAX_STRING_WIDTH
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 
 BATCH_ROWS = 1 << 20
@@ -33,8 +34,9 @@ class TorchLocalScanExec(TorchExec):
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         n = len(self.cols[self._schema[0].name][0]) if len(self._schema) \
             else 0
+        max_w = ctx.conf.get(MAX_STRING_WIDTH)
         for start in range(0, n, BATCH_ROWS):
             part = {name: (v[start:start + BATCH_ROWS],
                            m[start:start + BATCH_ROWS])
                     for name, (v, m) in self.cols.items()}
-            yield host_batch_to_device(self._schema, part, ctx.device)
+            yield host_batch_to_device(self._schema, part, ctx.device, max_w)

@@ -2,12 +2,13 @@
 
 Counterpart of ``spark_rapids_tpu/exec/coalesce.py``.  ``concat_batches``
 lays the live rows of several batches end to end in one batch whose
-capacity is the bucket of their total.  ``TorchCoalesceBatchesExec``
-accumulates batches up to the byte target and row cap the JAX package
-uses before an aggregate, so both packages hand the aggregate the same
-batches.  The port counts the rows a batch holds; the JAX package counts
-a filtered batch by its pre-filter bound, so after a filter the two can
-flush at different points.
+capacity is the bucket of their total; a string column's char matrices
+are padded to the widest of them, as in the JAX package.
+``TorchCoalesceBatchesExec`` accumulates batches up to the byte target
+and row cap the JAX package uses before an aggregate, so both packages
+hand the aggregate the same batches.  The port counts the rows a batch
+holds; the JAX package counts a filtered batch by its pre-filter bound,
+so after a filter the two can flush at different points.
 """
 
 from __future__ import annotations
@@ -34,15 +35,22 @@ def concat_batches(batches: List[ColumnarBatch]) -> ColumnarBatch:
     head = batches[0]
     cols = []
     for ci, hc in enumerate(head.columns):
-        data = torch.zeros(cap, dtype=hc.data.dtype, device=hc.data.device)
-        valid = torch.zeros(cap, dtype=torch.bool, device=hc.data.device)
+        dev = hc.data.device
+        data = torch.zeros(cap, dtype=hc.data.dtype, device=dev)
+        valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+        chars = None
+        if hc.chars is not None:
+            width = max(b.columns[ci].string_width for b in batches)
+            chars = torch.zeros((cap, width), dtype=torch.uint8, device=dev)
         off = 0
         for b in batches:
-            c = b.columns[ci]
-            data[off:off + b.num_rows] = c.data[:b.num_rows]
-            valid[off:off + b.num_rows] = c.validity[:b.num_rows]
-            off += b.num_rows
-        cols.append(DeviceColumn(hc.dtype, data, valid, total))
+            c, n = b.columns[ci], b.num_rows
+            data[off:off + n] = c.data[:n]
+            valid[off:off + n] = c.validity[:n]
+            if chars is not None:
+                chars[off:off + n, :c.string_width] = c.chars[:n]
+            off += n
+        cols.append(DeviceColumn(hc.dtype, data, valid, total, chars))
     return ColumnarBatch(cols, total, head.schema)
 
 

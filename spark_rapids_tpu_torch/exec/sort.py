@@ -2,7 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/exec/sort.py:TpuSortExec``: the whole
 input is concatenated into one batch, sorted by the order keys
-(``exec/sortkeys.py``), and every column is gathered by the permutation.
+(``exec/sortkeys.py``), and every column, a string column's chars
+included, is gathered by the permutation.
 """
 
 from __future__ import annotations
@@ -18,15 +19,14 @@ from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
     sort_permutation
-from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
-    Expression
+from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression, \
+    colvals
 
 
 def sort_batch(orders: List[Tuple[Expression, bool, bool]],
                batch: ColumnarBatch) -> ColumnarBatch:
     cap, dev = batch.capacity, batch.device
-    cols = [ColVal(c.data, c.validity) for c in batch.columns]
-    ctx = EvalContext(cols, batch.num_rows, cap, dev)
+    ctx = EvalContext(colvals(batch.columns), batch.num_rows, cap, dev)
     live = torch.arange(cap, device=dev) < batch.num_rows
     keys = []
     for expr, asc, nulls_first in orders:
@@ -34,7 +34,9 @@ def sort_batch(orders: List[Tuple[Expression, bool, bool]],
                                      nulls_first))
     perm = sort_permutation(keys, live_first=live)
     out = [DeviceColumn(c.dtype, c.data[perm], c.validity[perm] & live,
-                        batch.num_rows) for c in batch.columns]
+                        batch.num_rows,
+                        None if c.chars is None else c.chars[perm])
+           for c in batch.columns]
     return ColumnarBatch(out, batch.num_rows, batch.schema)
 
 

@@ -24,7 +24,7 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
-    Expression
+    Expression, colvals
 
 # a step is ("project", (expr, ...)) or ("filter", (pred,))
 Step = Tuple[str, Tuple[Expression, ...]]
@@ -38,7 +38,7 @@ def emit_steps(steps: Sequence[Step], cols: List[ColVal], num_rows: int,
         ctx = EvalContext(cols, n, capacity, device)
         live = torch.arange(capacity, device=device) < n
         if kind == "project":
-            cols = [ColVal(o.data, o.validity & live)
+            cols = [ColVal(o.data, o.validity & live, o.chars)
                     for o in (e.emit(ctx) for e in exprs)]
         else:
             p = exprs[0].emit(ctx)
@@ -49,7 +49,9 @@ def emit_steps(steps: Sequence[Step], cols: List[ColVal], num_rows: int,
                              device=device)
             idx[:count] = kept
             ok = torch.arange(capacity, device=device) < count
-            cols = [ColVal(cv.data[idx], cv.validity[idx] & ok)
+            # a string column's chars move with its rows
+            cols = [ColVal(cv.data[idx], cv.validity[idx] & ok,
+                           None if cv.chars is None else cv.chars[idx])
                     for cv in cols]
             n = count
     return cols, n
@@ -75,10 +77,9 @@ class TorchStageExec(TorchExec):
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         for batch in self.children[0].execute(ctx):
-            cols = [ColVal(c.data, c.validity) for c in batch.columns]
-            cols, n = emit_steps(self.steps, cols, batch.num_rows,
-                                 batch.capacity, batch.device)
+            cols, n = emit_steps(self.steps, colvals(batch.columns),
+                                 batch.num_rows, batch.capacity, batch.device)
             self.metrics["stageDispatches"] += 1
-            out = [DeviceColumn(f.dtype, cv.data, cv.validity, n)
+            out = [DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars)
                    for f, cv in zip(self._schema, cols)]
             yield ColumnarBatch(out, n, self._schema)

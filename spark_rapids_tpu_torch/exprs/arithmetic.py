@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, FLOAT64, \
-    common_type
+    STRING, common_type
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, fixed
 from spark_rapids_tpu_torch.exprs.cast import Cast
@@ -42,6 +42,10 @@ class BinaryArithmetic(Expression):
     def coerce(self) -> Expression:
         """Insert casts for numeric widening (findTightestCommonType)."""
         lt, rt = self.left.dtype, self.right.dtype
+        if STRING in (lt, rt):
+            raise NotImplementedError(
+                f"{type(self).__name__} over strings is not in the torch "
+                "port yet")
         if lt == rt:
             return self
         ct = common_type(lt, rt)

@@ -9,21 +9,29 @@ called, on the device of the batch it reads.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch.columnar.column import bucket_capacity
 from spark_rapids_tpu_torch.columnar.dtypes import (
-    BOOLEAN, FLOAT64, INT32, INT64, DataType, Schema, device_dtype,
+    BOOLEAN, FLOAT64, INT32, INT64, STRING, DataType, Schema, device_dtype,
 )
 
 
 class ColVal(NamedTuple):
-    """A column value inside expression evaluation: the data plane and
-    the validity plane (False = null)."""
+    """A column value inside expression evaluation: the data plane (for
+    STRING the int32 byte lengths), the validity plane (False = null),
+    and for STRING the (capacity, width) uint8 char matrix."""
     data: torch.Tensor
     validity: torch.Tensor
+    chars: Optional[torch.Tensor] = None
+
+
+def colvals(columns) -> List[ColVal]:
+    """A batch's ``DeviceColumn``s -> their ColVals."""
+    return [ColVal(c.data, c.validity, c.chars) for c in columns]
 
 
 class EvalContext:
@@ -150,6 +158,17 @@ class Literal(Expression):
     def emit(self, ctx: EvalContext) -> ColVal:
         cap, dev = ctx.capacity, ctx.device
         dt = device_dtype(self._dtype)
+        if self._dtype == STRING:
+            # width bucket_capacity(len), the row broadcast over capacity
+            b = b"" if self.value is None else self.value.encode("utf-8")
+            row = torch.zeros(bucket_capacity(max(1, len(b))),
+                              dtype=torch.uint8)
+            row[:len(b)] = torch.tensor(list(b), dtype=torch.uint8)
+            return ColVal(
+                torch.full((cap,), len(b), dtype=dt, device=dev),
+                torch.full((cap,), self.value is not None, dtype=torch.bool,
+                           device=dev),
+                row.to(dev).expand(cap, row.shape[0]))
         if self.value is None:
             return ColVal(torch.zeros(cap, dtype=dt, device=dev),
                           torch.zeros(cap, dtype=torch.bool, device=dev))
@@ -168,6 +187,8 @@ def _infer_literal_type(value) -> DataType:
         return INT32 if -(2 ** 31) <= int(value) < 2 ** 31 else INT64
     if isinstance(value, (float, np.floating)):
         return FLOAT64
+    if isinstance(value, str):
+        return STRING
     raise TypeError(f"cannot infer literal type for {value!r}")
 
 

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, DataType, \
-    common_type
+from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, \
+    DataType, common_type
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, fixed
 from spark_rapids_tpu_torch.exprs.cast import Cast
@@ -41,6 +41,10 @@ class BinaryComparison(Expression):
 
     def coerce(self) -> Expression:
         lt, rt = self.left.dtype, self.right.dtype
+        if STRING in (lt, rt):
+            raise NotImplementedError(
+                f"{type(self).__name__} over strings is not in the torch "
+                "port yet")
         if lt == rt:
             return self
         ct = common_type(lt, rt)

@@ -1,4 +1,5 @@
-"""Column functions: ``col``, ``lit`` and the aggregates of this slice.
+"""Column functions: ``col``, ``lit``, the aggregates of this slice and
+``contains``.
 
 Counterpart of ``spark_rapids_tpu/functions.py``.
 """
@@ -7,9 +8,11 @@ from __future__ import annotations
 
 from spark_rapids_tpu_torch.api import Column, _expr_or_name, col, lit
 from spark_rapids_tpu_torch.exprs import aggregates as ag
+from spark_rapids_tpu_torch.exprs import pallas_strings as ps
+from spark_rapids_tpu_torch.exprs import strings as ss
 from spark_rapids_tpu_torch.exprs.base import Literal
 
-__all__ = ["col", "lit", "count", "sum", "min", "max", "avg"]
+__all__ = ["col", "lit", "count", "sum", "min", "max", "avg", "contains"]
 
 
 def count(c) -> Column:
@@ -33,3 +36,13 @@ def max(c) -> Column:  # noqa: A001
 def avg(c) -> Column:
     return Column(ag.Average(_expr_or_name(c)))
 
+
+def contains(c, substr) -> Column:
+    """Substring predicate.  A literal needle of at least
+    ``PALLAS_PATTERN_MIN`` bytes runs the contains kernel; anything else
+    keeps the unrolled compare, as in the JAX package."""
+    pe = (substr if isinstance(substr, Column) else lit(substr)).expr
+    is_static, pb = ss._static_pattern(pe)
+    if is_static and pb is not None and len(pb) >= ps.PALLAS_PATTERN_MIN:
+        return Column(ps.PallasContains(_expr_or_name(c), pe))
+    return Column(ss.Contains(_expr_or_name(c), pe))

@@ -20,7 +20,8 @@ from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch, host_batch_to_device, host_columns_from_arrow,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
-from spark_rapids_tpu_torch.conf import READER_BATCH_SIZE_ROWS
+from spark_rapids_tpu_torch.conf import MAX_STRING_WIDTH, \
+    READER_BATCH_SIZE_ROWS
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 
 
@@ -82,6 +83,7 @@ class TorchParquetScanExec(TorchExec):
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         import pyarrow.parquet as pq
         rows = ctx.conf.get(READER_BATCH_SIZE_ROWS)
+        max_w = ctx.conf.get(MAX_STRING_WIDTH)
         names = self._schema.names
         for path in self.paths:
             f = pq.ParquetFile(path)
@@ -89,4 +91,5 @@ class TorchParquetScanExec(TorchExec):
                   if b.num_rows)
             for rb in coalesce_host_batches(it, rows):
                 _, cols = host_columns_from_arrow(rb)
-                yield host_batch_to_device(self._schema, cols, ctx.device)
+                yield host_batch_to_device(self._schema, cols, ctx.device,
+                                           max_w)

@@ -6,6 +6,7 @@ a plain C interface, which is loaded with ``ctypes``.  The library lands
 in ``_build/`` (listed in ``.gitignore``) under a name that carries the
 hash of its source, so an edited source is never served a stale build.
 A failed build raises with nvcc's stderr: there is no fallback.
+``build_all`` starts one nvcc a source, all together, and waits for them.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
 resets it to show that its main path went through the kernels.
@@ -28,6 +29,10 @@ KERNELS: Dict[str, Dict[str, str]] = {
     "dense_slot_reduce": {
         "source": "csrc/dense_slot_reduce.cu",
         "replaces": "spark_rapids_tpu/exec/pallas_agg.py:139",
+    },
+    "contains": {
+        "source": "csrc/contains.cu",
+        "replaces": "spark_rapids_tpu/exprs/pallas_strings.py:69",
     },
 }
 
@@ -60,25 +65,44 @@ def library_path(name: str) -> str:
     return os.path.join(_BUILD_DIR, f"lib{name}-{digest}.so")
 
 
+def build_all(names=None) -> Dict[str, str]:
+    """Compile the kernels' libraries that are not up to date, one nvcc
+    each, all started together -> each kernel's ``-Xptxas -v`` report
+    ('' when it was already built).  Raises with nvcc's stderr when any
+    build fails, after every nvcc has ended."""
+    names = list(KERNELS) if names is None else list(names)
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", tmp,
+               os.path.join(_PKG, KERNELS[name]["source"])]
+        procs[name] = (out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    reports = {name: "" for name in names}
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} "
+                          f"(exit {proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
 def build(name: str) -> str:
     """Compile one kernel's library unless it is up to date -> nvcc's
-    ``-Xptxas -v`` report ('' when it was already built).  Raises with
-    nvcc's stderr on failure."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp,
-           os.path.join(_PKG, KERNELS[name]["source"])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return proc.stderr
+    ``-Xptxas -v`` report ('' when it was already built)."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -91,10 +91,15 @@ def test_empty_arrow_table_roundtrip():
 
 
 def test_string_columns_are_refused():
-    with pytest.raises(NotImplementedError, match="string columns"):
-        schema, cols = host_columns_from_numpy(
-            {"s": np.array(["a", "b"])})
-        host_batch_to_device(schema, cols, "cpu")
+    """Strings upload now; a batch whose string width (the bucket of its
+    longest string) passes maxDeviceStringWidth is refused, as in the
+    JAX package."""
+    schema, cols = host_columns_from_numpy(
+        {"s": np.array(["a", "b" * 513])})
+    with pytest.raises(ValueError, match="maxDeviceStringWidth"):
+        host_batch_to_device(schema, cols, "cpu", max_string_width=512)
+    batch = host_batch_to_device(schema, cols, "cpu", max_string_width=1024)
+    assert batch.columns[0].string_width == 1024
 
 
 def test_interop_reproduces_jax_planes_bit_for_bit():
