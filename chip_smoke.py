@@ -122,9 +122,32 @@ def per_call_ms(torch, fn, calls: int = 20, samples: int = 20,
     return float(np.median(times))
 
 
-def device_us(torch, fn, prefix: str, calls: int = 20):
-    """Mean device microseconds of each CUDA kernel whose name starts with
-    ``prefix`` over ``calls`` calls of ``fn``, read with torch.profiler;
+def cold_ms(torch, fn, samples: int = 20, flush_bytes: int = 128 << 20
+            ) -> float:
+    """Milliseconds of one call of ``fn`` with its inputs out of L2:
+    before each call, outside the events, a write of ``flush_bytes``
+    (more than twice the 50 MB L2) evicts them; one pair of CUDA events a
+    call, median of ``samples``."""
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(samples):
+        flush.fill_(i & 0xFF)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    del flush
+    return float(np.median(times))
+
+
+def device_us(torch, fn, name: str, calls: int = 20):
+    """Mean device microseconds of each CUDA kernel whose name holds
+    ``name`` over ``calls`` calls of ``fn``, read with torch.profiler;
     None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -138,9 +161,52 @@ def device_us(torch, fn, prefix: str, calls: int = 20):
         total = getattr(e, "device_time_total", None)
         if total is None:
             total = getattr(e, "cuda_time_total", 0)
-        if e.key.startswith(prefix) and total > 0:
+        if name in e.key and total > 0:
             out[e.key] = total / e.count
     return out or None
+
+
+def _toolkit(tool: str):
+    """A CUDA toolkit program, from PATH or CUDA_HOME; None if missing."""
+    import shutil
+    found = shutil.which(tool)
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        tool)
+    return path if os.path.exists(path) else None
+
+
+def sass_summary(native, sass_dir=None) -> dict:
+    """Each kernel library's atomic and CAS instructions, counted by
+    opcode for each of its CUDA functions, from ``cuobjdump -sass``; the
+    whole listing goes to ``sass_dir`` when one is given."""
+    import re
+    tool = _toolkit("cuobjdump")
+    if tool is None:
+        return {"error": "cuobjdump not found"}
+    op_re = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)")
+    out = {}
+    for name in native.KERNELS:
+        text = subprocess.run([tool, "-sass", native.library_path(name)],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        if sass_dir:
+            os.makedirs(sass_dir, exist_ok=True)
+            with open(os.path.join(sass_dir, f"{name}.sass"), "w") as f:
+                f.write(text)
+        funcs, cur = {}, None
+        for line in text.splitlines():
+            if "Function :" in line:
+                cur = funcs.setdefault(line.split("Function :")[1].strip(), {})
+                continue
+            m = op_re.match(line)
+            if cur is not None and m and m.group(1).startswith(
+                    ("ATOM", "RED", "CAS")):
+                cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+        out[name] = funcs
+    return out
 
 
 def group_stats(k: np.ndarray, v: np.ndarray, w: np.ndarray):
@@ -212,8 +278,13 @@ def wide_inputs(torch, rng, K: int):
             ["add", "add", "min", "max", "max", "add"], K)
 
 
-def compare_kernel(torch, pag, gid, planes, ops, K: int) -> float:
-    got = pag.dense_slot_reduce(gid, planes, ops, K)
+def compare_kernel(torch, pag, gid, planes, ops, K: int, got=None) -> float:
+    """The kernel's outputs (``got``, else a call of the wrapper) against
+    the plain version: f64 sums within 1e-12 of each slot's sum of |v|,
+    every other plane equal under ``==`` with NaN matching NaN -> the
+    largest f64 sum error."""
+    if got is None:
+        got = pag.dense_slot_reduce(gid, planes, ops, K)
     torch.cuda.synchronize()
     want = pag.dense_slot_reduce_reference(gid, planes, ops, K)
     worst = 0.0
@@ -234,11 +305,95 @@ def compare_kernel(torch, pag, gid, planes, ops, K: int) -> float:
     return worst
 
 
-def phase_kernel(torch, st, F, pag, session, data, rate: float) -> dict:
+def _main_like(rng, gid: np.ndarray):
+    """The main path's eight planes and ops, drawn at random for ``gid``."""
+    n = gid.size
+    valid = rng.random(n) < 0.9
+    f = rng.normal(size=n).astype(np.float32)
+    planes = [np.ones(n, np.int32), valid.astype(np.int32),
+              np.where(valid, rng.normal(size=n), 0.0),
+              valid.astype(np.int32),
+              np.where(valid, f, -np.inf).astype(np.float32),
+              np.zeros(n, np.int32), valid.astype(np.int32),
+              valid.astype(np.int32)]
+    return planes, ["add", "add", "add", "add", "max", "max", "max", "add"]
+
+
+def dsr_edge_specs(torch, rng):
+    """The dense-slot kernel's edge specs -> [(name, gid, planes, ops, K)]
+    on the card: all rows on one slot, K = 128, a spec that splits into
+    plane groups, float min/max over NaN, signed zeros and infinities,
+    int64 sums that wrap, gids of -1 and K + 3, a row count that is not a
+    multiple of the tile, and planes that are not 16-byte aligned."""
+    def card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                for a in arrays]
+
+    K, n = 1024, 1 << 18
+    specs = []
+    f = rng.normal(size=n)
+    gid, *planes = card(np.full(n, 7, np.int32), np.ones(n, np.int32),
+                        rng.integers(-1000, 1000, n).astype(np.int32), f,
+                        f.astype(np.float32), (-f).astype(np.float32))
+    specs.append(("one_slot", gid, planes, ["add", "max", "add", "max",
+                                            "min"], K))
+
+    g = rng.integers(0, 128, 1 << 20).astype(np.int32)
+    planes, ops = _main_like(rng, g)
+    specs.append(("K128", *card(g), card(*planes), ops, 128))
+
+    g = rng.integers(0, K, n >> 1).astype(np.int32)
+    wide = [rng.normal(size=n >> 1) for _ in range(40)]
+    wide += [np.ones(n >> 1, np.int32), rng.normal(size=n >> 1)
+             .astype(np.float32)]
+    specs.append(("plane_groups", *card(g), card(*wide),
+                  ["add"] * 41 + ["max"], K))
+
+    nan_neg = np.copysign(np.nan, -1.0)
+    special = np.array([np.nan, nan_neg, -0.0, 0.0, np.inf, -np.inf])
+    g = rng.integers(0, 1000, n + 5).astype(np.int32)
+    v = rng.normal(size=n + 5)
+    pick = rng.random(n + 5) < 0.3
+    v[pick] = rng.choice(special, int(pick.sum()))
+    # slots 1000-1009 see only signed zeros, 1010-1019 only infinities,
+    # 1020-1023 only NaN and zeros
+    for lo, pool in ((1000, special[2:4]), (1010, special[4:]),
+                     (1020, special[:4])):
+        rows = rng.random(n + 5) < 0.01
+        g[rows] = rng.integers(lo, min(lo + 10, K), int(rows.sum()))
+        v[rows] = rng.choice(pool, int(rows.sum()))
+    specs.append(("float_specials", *card(g),
+                  card(v.astype(np.float32), v.astype(np.float32), v, v),
+                  ["min", "max", "min", "max"], K))
+
+    g = rng.integers(0, K, n).astype(np.int32)
+    big = rng.integers(1 << 61, (1 << 63) - 1, n, dtype=np.int64)
+    big[rng.random(n) < 0.3] *= -1
+    specs.append(("int64_wrap", *card(g), card(big, big, big),
+                  ["add", "min", "max"], K))
+
+    g = rng.integers(0, K, n).astype(np.int32)
+    g[rng.random(n) < 0.15] = -1
+    g[rng.random(n) < 0.15] = K + 3
+    planes, ops = _main_like(rng, g)
+    specs.append(("gid_outside", *card(g), card(*planes), ops, K))
+
+    g = rng.integers(0, 1000, (1 << 20) - 37).astype(np.int32)
+    planes, ops = _main_like(rng, g)
+    specs.append(("ragged_rows", *card(g), card(*planes), ops, K))
+
+    # views one element into their storage: 4 or 8 bytes off alignment
+    g = rng.integers(0, 1000, n).astype(np.int32)
+    planes, ops = _main_like(rng, g)
+    gid, *planes = card(g, *planes)
+    specs.append(("unaligned", gid[1:], [p[1:] for p in planes], ops, K))
+    return specs
+
+
+def phase_kernel(torch, st, F, pag, session, data, rate: float,
+                 edges: bool = True) -> dict:
     gid, planes, ops, K = main_path_inputs(st, F, pag, session, data)
-    wide = wide_inputs(torch, np.random.default_rng(SEED), 1024)
-    errs = [compare_kernel(torch, pag, *spec)
-            for spec in ((gid, planes, ops, K), wide)]
+    err = compare_kernel(torch, pag, gid, planes, ops, K)
 
     idx = gid.to(torch.int64)
     outs = [torch.empty(K, dtype=p.dtype, device="cuda") for p in planes]
@@ -259,6 +414,7 @@ def phase_kernel(torch, st, F, pag, session, data, rate: float) -> dict:
     ops_ms = n * len(planes) / _F32_RATE * 1e3
     result = {
         "ms": per_call_ms(torch, launch),
+        "cold_ms": cold_ms(torch, launch),
         "wrapper_ms": per_call_ms(torch, lambda: pag.dense_slot_reduce(
             gid, planes, ops, K)),
         "plain_ms": per_call_ms(torch, lambda: pag.dense_slot_reduce_reference(
@@ -266,13 +422,46 @@ def phase_kernel(torch, st, F, pag, session, data, rate: float) -> dict:
         "library_ms": per_call_ms(torch, library),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "max_abs_err": max(errs),
+        "max_abs_err": err,
     }
     emit("kernel", name="dense_slot_reduce", capacity=n, K=K,
          planes=[f"{str(p.dtype)[6:]} {op}" for p, op in zip(planes, ops)],
-         bytes=nbytes, device_us=device_us(torch, launch, "dsr_"),
-         **result)
+         bytes=nbytes, device_us=device_us(torch, launch, "dsr_"), **result)
+    if hasattr(pag, "launch_plan"):
+        emit("kernel_shapes", name="dense_slot_reduce",
+             shapes=kernel_shapes(torch, pag, gid, planes, ops, K))
+    if edges:
+        checked = []
+        for name, g, p, o, k in [("wide", *wide_inputs(
+                torch, np.random.default_rng(SEED), 1024))] + dsr_edge_specs(
+                    torch, np.random.default_rng(SEED + 4)):
+            result["max_abs_err"] = max(result["max_abs_err"],
+                                        compare_kernel(torch, pag, g, p, o, k))
+            checked.append({"spec": name, "rows": g.numel(), "K": k,
+                            "planes": len(p)})
+        emit("kernel_edges", name="dense_slot_reduce", specs=checked,
+             max_abs_err=result["max_abs_err"])
     return result
+
+
+def kernel_shapes(torch, pag, gid, planes, ops, K: int):
+    """The dense-slot kernel's time at other launch shapes (threads a
+    block, blocks an SM, blocks a cluster) on the main path's inputs,
+    each checked against the plain version first."""
+    out = []
+    for threads, per_sm, cluster in ((1024, 1, 1), (1024, 1, 2), (1024, 1, 4),
+                                     (1024, 1, 8), (512, 2, 1), (512, 2, 4),
+                                     (256, 4, 1), (256, 8, 1)):
+        launch, got = pag.prepare_launch(gid, planes, ops, K, threads=threads,
+                                         blocks_per_sm=per_sm, cluster=cluster)
+        launch()
+        compare_kernel(torch, pag, gid, planes, ops, K, got)
+        out.append({"threads": threads, "blocks_per_sm": per_sm,
+                    "cluster": cluster,
+                    "grid": [p.grid for p in launch.plans],
+                    "ms": per_call_ms(torch, launch),
+                    "cold_ms": cold_ms(torch, launch)})
+    return out
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -374,22 +563,67 @@ def scan_batch(session, df):
     return next(node.execute(ExecContext(session.conf, session.device)))
 
 
-def phase_contains(torch, ps, session, df, rate: float) -> dict:
+def planted(torch, rng, rows: int, W: int, pat: bytes, text=None):
+    """A (rows, W) char matrix of random lowercase letters (or ``text``),
+    lengths from -2 to W + 8 (some negative, some past W), and ``pat``
+    planted at window 0 of a quarter of the rows that can hold it, at the
+    last window ``len - k`` of another quarter, and one byte past the
+    length of a third, where it must not count -> (chars, lengths, pat)
+    on the card."""
+    k = len(pat)
+    chars = rng.integers(0x61, 0x7B, (rows, W)).astype(np.uint8) \
+        if text is None else text
+    lengths = rng.integers(-2, W + 9, rows).astype(np.int32)
+    ln = np.clip(lengths, 0, W)
+    p = np.frombuffer(pat, np.uint8)
+    r = np.arange(rows)
+    for which, start, ok in ((0, 0 * ln, ln >= k), (1, ln - k, ln >= k),
+                             (2, ln - k + 1, (ln >= k - 1) & (ln < W))):
+        sel = np.flatnonzero((r % 4 == which) & ok)
+        chars[sel[:, None], start[sel, None] + np.arange(k)] = p
+    return (torch.from_numpy(chars).cuda(), torch.from_numpy(lengths).cuda(),
+            pat)
+
+
+def contains_specs(torch, rng):
+    """The contains kernel's edge specs -> [(name, chars, lengths, pat)]:
+    needles at window 0, at the last window and one byte past the length;
+    k = 1, 3, 4, 5, 31, 32, 33, 63, 64, 65 and k = W (both Shift-And
+    states and the long path); repetitive text (``aaaa...ab``); W = 8,
+    16, 512 and 1024; lengths past W; row counts that are not a multiple
+    of a tile; and the W = 512 spec with UTF-8 bytes."""
+    rows = (1 << 14) + 5
+
+    def needle(k):
+        return bytes(rng.integers(0x61, 0x7B, k).astype(np.uint8))
+
+    specs = [(f"W128_k{k}", *planted(torch, rng, rows, 128, needle(k)))
+             for k in (1, 3, 4, 5, 31, 32, 33, 63, 64, 65, 128)]
+    for k in (16, 40):
+        text = np.full((rows, 64), ord("a"), np.uint8)
+        text[np.arange(rows), rng.integers(0, 64, rows)] = ord("b")
+        specs.append((f"repetitive_k{k}", *planted(
+            torch, rng, rows, 64, b"a" * (k - 1) + b"b", text)))
+    for W, k in ((8, 5), (8, 8), (16, 3), (16, 16), (64, 16), (512, 16),
+                 (512, 200), (1024, 16), (1024, 1024)):
+        specs.append((f"W{W}_k{k}", *planted(torch, rng, rows, W,
+                                             needle(k))))
+    specs += [(f"utf8_W512_k{len(p)}", c, ln, p)
+              for c, ln, p in contains_edge_inputs(torch, rng)]
+    return specs
+
+
+def phase_contains(torch, ps, session, df, rate: float,
+                   edges: bool = True) -> dict:
     batch = scan_batch(session, df)
     comment = batch.columns[batch.schema.field_index("l_comment")]
     chars, lengths = comment.chars, comment.data
     pat = NEEDLE.encode()
-    specs = [(chars, lengths, pat)] + contains_edge_inputs(
-        torch, np.random.default_rng(SEED + 3))
-    hits = []
-    for c, ln, p in specs:
-        got = ps.run_contains(c, ln, p)
-        torch.cuda.synchronize()
-        want = ps.contains_reference(c, ln, p)
-        check(torch.equal(got, want),
-              f"contains kernel differs from its plain version (width "
-              f"{c.shape[1]}, {len(p)}-byte needle)")
-        hits.append(int(want.sum()))
+    got = ps.run_contains(chars, lengths, pat)
+    torch.cuda.synchronize()
+    want = ps.contains_reference(chars, lengths, pat)
+    check(torch.equal(got, want), "contains kernel differs from its plain "
+          "version on the main path's batch")
 
     launch, _ = ps.prepare_contains(chars, lengths, pat)
     rows, W = chars.shape
@@ -406,6 +640,7 @@ def phase_contains(torch, ps, session, df, rate: float) -> dict:
     ops_ms = windows / _F32_RATE * 1e3
     result = {
         "ms": per_call_ms(torch, launch),
+        "cold_ms": cold_ms(torch, launch),
         "wrapper_ms": per_call_ms(torch, lambda: ps.run_contains(
             chars, lengths, pat)),
         "plain_ms": per_call_ms(torch, lambda: ps.contains_reference(
@@ -416,9 +651,21 @@ def phase_contains(torch, ps, session, df, rate: float) -> dict:
         "max_abs_err": 0.0,
     }
     emit("kernel", name="contains", rows=rows, width=W, needle_bytes=k,
-         hits=hits[0], edge_hits=hits[1:], bytes=nbytes, full_bytes=full,
+         hits=int(want.sum()), bytes=nbytes, full_bytes=full,
          full_bound_ms=full / rate * 1e3,
          device_us=device_us(torch, launch, "contains_"), **result)
+    if edges:
+        checked = []
+        for name, c, ln, p in contains_specs(torch,
+                                             np.random.default_rng(SEED + 3)):
+            got = ps.run_contains(c, ln, p)
+            torch.cuda.synchronize()
+            want = ps.contains_reference(c, ln, p)
+            check(torch.equal(got, want),
+                  f"contains kernel differs from its plain version on {name}")
+            checked.append({"spec": name, "rows": c.shape[0],
+                            "hits": int(want.sum())})
+        emit("kernel_edges", name="contains", specs=checked)
     return result
 
 
@@ -604,13 +851,31 @@ def phase_trace(torch, query, name: str, top: int = 8) -> None:
                         for e in dev[:top]})
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="Drive the torch port's main path on one NVIDIA card.")
+    ap.add_argument("--package-root",
+                    default=os.path.dirname(os.path.abspath(__file__)),
+                    help="directory that holds the spark_rapids_tpu_torch "
+                         "package to drive (default: this script's)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, compare and time the kernels on the main "
+                         "path's inputs, then stop: no edge specs, no "
+                         "queries")
+    ap.add_argument("--sass-dir",
+                    help="write each kernel library's SASS listing there")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "runs on an NVIDIA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(args.package_root))
     import spark_rapids_tpu_torch as st
     from spark_rapids_tpu_torch import functions as F
     from spark_rapids_tpu_torch import native
@@ -623,15 +888,18 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     emit("device", kind=name, nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda, count=torch.cuda.device_count())
+         cuda=torch.version.cuda, count=torch.cuda.device_count(),
+         package=os.path.dirname(os.path.abspath(st.__file__)))
     rate = mem_rate(name)
 
     t0 = time.perf_counter()
     reports = native.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: [ln.strip() for ln in r.splitlines()
-                    if "registers" in ln or "smem" in ln]
+                    if any(w in ln for w in ("registers", "smem", "spill",
+                                             "stack", "Compiling"))]
                 for k, r in reports.items()})
+    emit("sass", atomics=sass_summary(native, args.sass_dir))
 
     main_data, agg_data = gen_data(1_000_000, 2_000_000)
     t0 = time.perf_counter()
@@ -639,9 +907,16 @@ def main() -> int:
     session = st.TorchSession.builder().get_or_create()
     line_df = session.create_dataframe(line[0])
     emit("lineitem", rows=LINEITEM_ROWS, seconds=time.perf_counter() - t0)
+    edges = not args.kernels_only
     kern = {"dense_slot_reduce": phase_kernel(torch, st, F, pag, session,
-                                              agg_data, rate),
-            "contains": phase_contains(torch, ps, session, line_df, rate)}
+                                              agg_data, rate, edges),
+            "contains": phase_contains(torch, ps, session, line_df, rate,
+                                       edges)}
+    if args.kernels_only:
+        print(json.dumps({"ok": True, "kernels_only": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     native.reset_launches()
     phase_project_filter(torch, st, session, main_data)
@@ -671,7 +946,7 @@ def main() -> int:
             "source": "spark_rapids_tpu_torch/" + info["source"],
             "replaces": info["replaces"], "launches": launches[kname],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "cold_ms": k["cold_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,112 +11,292 @@
 // whatever they hold, so a gathered or concatenated char matrix needs no
 // zeroing.
 //
-// What bounds it.  One comparison chain per window, most of them ending at
-// the first byte, is a few operations a byte: far below the card's rate.  So
-// it is bound by bytes.  At the main path's shape (a 2^20-row batch of
-// l_comment, W = 64, k = 16) the full planes are 67.1 MB of chars, 4.2 MB of
-// lengths and 1.0 MB of output; the bytes a match can need are fewer, since
-// only the first len[r] bytes of a row with len[r] >= k take part.
-// chip_smoke.py computes the bound from the data it runs and the rate of the
-// card it runs on.
+// What bounds it.  A match needs only the first len[r] bytes of each row
+// that can hold the needle (len[r] >= k), each length once and one output
+// byte a row; a bit-parallel scan is a few operations a byte, below the
+// card's rate.  So it is bound by bytes.  At the main path's shape (a
+// 2^20-row batch of l_comment, W = 64, k = 16, lengths 10 to 43) that is
+// 30.72 MB, 9.2 us at 3.35 TB/s; the full planes are 72.35 MB.
+// chip_smoke.py computes the bound from the data it runs and the rate of
+// the card it runs on.
 //
-// Design.  The TPU kernel loops over window starts j and compares a
-// (rows, k) slice of the whole block at once.  Here a warp takes a group of
-// R = min(32, 512 / W) consecutive rows (one row when W >= 512): R * W
-// contiguous bytes that the 32 lanes stage into shared memory with 16-byte
-// loads, so the reads coalesce (8-byte loads for the last 8 bytes when
-// W = 8 and the row count is odd).  When W >= 512 only the bytes up to the
-// row's length, rounded up to 16, are staged.  The needle sits in shared
-// memory too.  Then for each row of the group lane t tests windows
-// j = t, t + 32, ... up to len - k, each with an early-exit byte compare;
-// __any_sync gives the row's answer, lane i keeps row i's, and the lanes
-// write the group's answers as consecutive bytes.  One thread per row
-// walking its own row was not taken: adjacent threads would read addresses
-// W bytes apart.
+// The first design (PR 2) took 99.8 us on an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit: a warp staged eight whole 64-byte rows (the full
+// planes) and walked them one after another, each lane testing a window
+// with a byte-at-a-time early-exit compare and the row ending in a shuffle
+// and a vote.
+//
+// This design:
+//   * A block takes a tile of R consecutive rows (256 at W = 64; fewer for
+//     wide rows, so a tile stays near 48 KB).  It reads the tile's lengths,
+//     then stages into shared memory only the 16-byte chunks below each
+//     row's length, and none of a row shorter than the needle: no DRAM
+//     sector past a length is asked for.  Rows sit at a stride of W + 4
+//     bytes, an odd number of words, so thread t reading row t word by
+//     word meets no bank conflict.
+//   * Needles of up to 64 bytes: thread t scans row t with Shift-And.  The
+//     state is one 32-bit (k <= 32) or 64-bit register; the needle's
+//     256-entry byte-mask table is built by each block in shared memory
+//     from the needle, which comes by value in the launch's parameters.
+//     The thread reads 4 bytes a shared-memory load and stops at the first
+//     hit.  No vote, no shuffle, no row after row.
+//   * Longer needles (right, not tuned; no routed query has one): the same
+//     staging, then a 4-byte prefilter on each window and a full compare;
+//     the needle comes from a card buffer the wrapper makes once a needle.
+//   * The answers of a tile are consecutive bytes, so the stores coalesce.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
-#define FULL_MASK 0xffffffffu
+#define CT_SMEM_MAX 232448    // bytes of shared memory a Hopper block may use
+#define CT_SHIFT_AND_MAX 64   // longest needle of the Shift-And paths
+#define CT_MAX_THREADS 256
+#define CT_MAX_DEVICES 64
 
-__global__ void contains_rows(const unsigned char* __restrict__ chars,
-                              const int32_t* __restrict__ lens, long long rows,
-                              int W, int R, const unsigned char* __restrict__ pat,
-                              int k, unsigned char* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int pat_pad = (k + 15) & ~15;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  unsigned char* spat = smem;
-  unsigned char* stage = smem + pat_pad + (size_t)warp * R * W;
-  for (int i = threadIdx.x; i < k; i += blockDim.x) spat[i] = pat[i];
-  __syncthreads();
+enum { PATH_SHIFT_AND32 = 0, PATH_SHIFT_AND64 = 1, PATH_LONG = 2 };
 
-  const long long groups = (rows + R - 1) / R;
-  for (long long g = (long long)blockIdx.x * warps + warp; g < groups;
-       g += (long long)gridDim.x * warps) {
-    const long long r0 = g * R;
-    const int nrows = (int)(rows - r0 < R ? rows - r0 : R);
-    int len = 0;  // lane i < nrows: the length of row r0 + i
-    if (lane < nrows) {
-      len = lens[r0 + lane];
-      len = len < 0 ? 0 : (len > W ? W : len);
-    }
-    int bytes = nrows * W;
-    if (R == 1) bytes = min(W, (__shfl_sync(FULL_MASK, len, 0) + 15) & ~15);
-    const unsigned char* src = chars + r0 * W;
-    for (int off = lane * 16; off < bytes; off += 32 * 16) {
-      if (off + 16 <= bytes)
-        *reinterpret_cast<uint4*>(stage + off) =
-            *reinterpret_cast<const uint4*>(src + off);
-      else
-        *reinterpret_cast<uint2*>(stage + off) =
-            *reinterpret_cast<const uint2*>(src + off);
-    }
-    __syncwarp();
+struct Needle {
+  unsigned char b[CT_SHIFT_AND_MAX];
+};
 
-    bool mine = false;
-    for (int i = 0; i < nrows; ++i) {
-      const int last = __shfl_sync(FULL_MASK, len, i) - k;
-      const unsigned char* row = stage + i * W;
-      bool hit = false;
-      for (int j = lane; j <= last && !hit; j += 32) {
-        int t = 0;
-        while (t < k && row[j + t] == spat[t]) ++t;
-        hit = (t == k);
-      }
-      const bool any = __any_sync(FULL_MASK, hit);
-      if (lane == i) mine = any;
-    }
-    if (lane < nrows) out[r0 + lane] = mine ? 1 : 0;
-    __syncwarp();  // the next group overwrites the stage
+// A row's length clamped to [0, W]; 0 past the last row and for a row too
+// short to hold the needle: such a row needs no byte.
+__device__ __forceinline__ int row_len(const int32_t* __restrict__ lens,
+                                       long long row, long long rows, int W,
+                                       int k) {
+  if (row >= rows) return 0;
+  int l = lens[row];
+  l = l < 0 ? 0 : (l > W ? W : l);
+  return l < k ? 0 : l;
+}
+
+// cp.async the 16-byte chunks of a row below its length (the one 8-byte
+// chunk when W == 8, into a 16-byte stage row) into the thread's own
+// stage row.
+__device__ __forceinline__ void copy_row(const unsigned char* __restrict__ src,
+                                         unsigned char* dst, int len, int W) {
+  if (W >= 16) {
+    for (int c = 0; c < len; c += 16)
+      __pipeline_memcpy_async(dst + c, src + c, 16);
+  } else if (len > 0) {
+    __pipeline_memcpy_async(dst, src, 8);
   }
+}
+
+// Thread t takes row t of each tile of R rows, tile after tile
+// (grid-stride): it copies its own row into its stage row and scans only
+// that, so the loop needs no barrier.  A copy needs its row's length, so
+// lengths are loaded three tiles ahead; with two stages the next tile's
+// copies are in flight while this one is scanned, with one (the widest
+// rows) they follow the scan.
+template <typename Scan>
+__device__ __forceinline__ void scan_tiles(
+    const unsigned char* __restrict__ chars, const int32_t* __restrict__ lens,
+    long long rows, int W, int R, int stride, int stages, int k,
+    unsigned char* stage, unsigned char* __restrict__ out, const Scan& scan) {
+  const int t = threadIdx.x;
+  const bool active = t < R;
+  const long long tiles = (rows + R - 1) / R;
+  const long long step = gridDim.x;
+  auto length = [&](long long tile) {
+    return active && tile < tiles ? row_len(lens, tile * R + t, rows, W, k)
+                                  : 0;
+  };
+  auto copy = [&](long long tile, int len, int buf) {
+    if (active && tile < tiles)
+      copy_row(chars + (tile * R + t) * W, stage + (buf * R + t) * stride,
+               len, W);
+    __pipeline_commit();
+  };
+  long long tile = blockIdx.x;
+  int len0 = length(tile), len1 = length(tile + step);
+  int len2 = length(tile + 2 * step);
+  copy(tile, len0, 0);
+  for (int i = 0; tile < tiles; ++i, tile += step) {
+    const int len3 = length(tile + 3 * step);
+    const int cur = stages == 2 ? (i & 1) : 0;
+    if (stages == 2) {
+      copy(tile + step, len1, cur ^ 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    const long long row = tile * R + t;
+    if (active && row < rows)
+      out[row] = scan(stage + (cur * R + t) * stride, len0) ? 1 : 0;
+    if (stages == 1) copy(tile + step, len1, 0);
+    len0 = len1;
+    len1 = len2;
+    len2 = len3;
+  }
+}
+
+// Shift-And: bit i of the state is set when the needle's first i + 1
+// bytes end at the current byte; table[c] has bit i set when pat[i] == c.
+template <typename M> struct ShiftAnd {
+  const M* table;
+  M last;  // bit k - 1: a whole match
+  // the word's bytes at or past `left` leave the state as it is
+  __device__ __forceinline__ void step(uint32_t w, int left, M& d,
+                                       M& seen) const {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const M next = ((d << 1) | 1) & table[(w >> (8 * b)) & 0xff];
+      d = b < left ? next : d;
+      seen |= d;
+    }
+  }
+  // 16 bytes a shared-memory load; the last, partial chunk is read whole
+  // (its bytes past the length were copied with it) and masked
+  __device__ __forceinline__ bool operator()(const unsigned char* row,
+                                             int len) const {
+    M d = 0, seen = 0;  // seen: every state so far, for the match bit
+    for (int i = 0; i < len; i += 16) {
+      const uint4 q = *reinterpret_cast<const uint4*>(row + i);
+      const int left = len - i;
+      if (left >= 16) {
+        step(q.x, 4, d, seen);
+        step(q.y, 4, d, seen);
+        step(q.z, 4, d, seen);
+        step(q.w, 4, d, seen);
+      } else {
+        step(q.x, left, d, seen);
+        step(q.y, left - 4, d, seen);
+        step(q.z, left - 8, d, seen);
+        step(q.w, left - 12, d, seen);
+      }
+      if (seen & last) return true;
+    }
+    return false;
+  }
+};
+
+// Needles past 64 bytes: the window's first 4 bytes against the needle's,
+// then the rest byte by byte.  j + k <= len and k > 64, so word
+// (j >> 2) + 1 lies below the length.
+struct Prefilter {
+  const unsigned char* pat;
+  int k;
+  uint32_t first;
+  __device__ __forceinline__ bool operator()(const unsigned char* row,
+                                             int len) const {
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(row);
+    for (int j = 0; j + k <= len; ++j) {
+      const uint32_t w =
+          __funnelshift_r(words[j >> 2], words[(j >> 2) + 1], 8 * (j & 3));
+      if (w == first) {
+        int t = 4;
+        while (t < k && row[j + t] == __ldg(pat + t)) ++t;
+        if (t == k) return true;
+      }
+    }
+    return false;
+  }
+};
+
+// M: unsigned int for k <= 32, unsigned long long for k <= 64
+template <typename M>
+__global__ void __launch_bounds__(CT_MAX_THREADS)
+    contains_shift_and(const unsigned char* __restrict__ chars,
+                       const int32_t* __restrict__ lens, long long rows,
+                       int W, int R, int stride, int stages,
+                       const __grid_constant__ Needle nd, int k,
+                       unsigned char* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  M* table = reinterpret_cast<M*>(smem);
+  for (int c = threadIdx.x; c < 256; c += blockDim.x) table[c] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < k; i += blockDim.x)
+    atomicOr(&table[nd.b[i]], (M)1 << i);
+  __syncthreads();
+  const ShiftAnd<M> scan{table, (M)1 << (k - 1)};
+  scan_tiles(chars, lens, rows, W, R, stride, stages, k,
+             smem + 256 * sizeof(M), out, scan);
+}
+
+__global__ void __launch_bounds__(CT_MAX_THREADS)
+    contains_long(const unsigned char* __restrict__ chars,
+                  const int32_t* __restrict__ lens, long long rows, int W,
+                  int R, int stride, int stages,
+                  const unsigned char* __restrict__ pat, int k,
+                  unsigned char* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Prefilter scan{pat, k,
+                       (uint32_t)__ldg(pat) | ((uint32_t)__ldg(pat + 1) << 8) |
+                           ((uint32_t)__ldg(pat + 2) << 16) |
+                           ((uint32_t)__ldg(pat + 3) << 24)};
+  scan_tiles(chars, lens, rows, W, R, stride, stages, k, smem, out, scan);
 }
 
 // ---- C interface -----------------------------------------------------------
 
+// The kernels' largest dynamic shared memory, set once a device.
+static cudaError_t setup_once() {
+  static bool ready[CT_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < CT_MAX_DEVICES && ready[dev]) return cudaSuccess;
+  const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  if ((e = cudaFuncSetAttribute(contains_shift_and<unsigned int>, a,
+                                CT_SMEM_MAX)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(contains_shift_and<unsigned long long>, a,
+                                CT_SMEM_MAX)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(contains_long, a, CT_SMEM_MAX)) !=
+          cudaSuccess)
+    return e;
+  if (dev < CT_MAX_DEVICES) ready[dev] = true;
+  return cudaSuccess;
+}
+
 // out[r] (one byte, 0 or 1) for r in [0, rows): whether the k-byte needle
-// pat occurs in row r of the (rows, W) char matrix before len[r].  R rows a
-// warp, `threads` threads a block (a multiple of 32), `smem` bytes of
-// dynamic shared memory: the needle rounded up to 16 plus R * W a warp.
-// Launches on `stream` and returns cudaGetLastError() (0 when it launched).
+// occurs in row r of the (rows, W) char matrix before len[r].  `grid`
+// blocks of `threads` threads take tiles of R rows, `stages` (1 or 2)
+// stages of rows `stride` bytes apart; `smem` bytes of dynamic shared
+// memory a block.  path 0 and 1 (Shift-And, k <= 32 and k <= 64) take the
+// needle from `pat`, a host pointer, by value; path 2 (k > 64) from
+// `pat_dev`, on the card.  Launches on `stream` and returns
+// cudaGetLastError() (0 when it launched).
 extern "C" int contains_launch(const void* chars, const void* lens,
-                               long long rows, int W, int R, const void* pat,
-                               int k, void* out, int blocks, int threads,
-                               int smem, void* stream) {
-  if (rows < 1 || W < 8 || (W & (W - 1)) != 0 || R < 1 || R > 32 || k < 1 ||
-      k > W || blocks < 1 || threads < 32 || threads % 32 != 0)
+                               long long rows, int W, int R, int stride,
+                               int stages, int grid, int threads, int smem,
+                               int path, const void* pat, const void* pat_dev,
+                               int k, void* out, void* stream) {
+  const int k_max = path == PATH_SHIFT_AND32 ? 32
+                    : path == PATH_SHIFT_AND64 ? CT_SHIFT_AND_MAX : W;
+  const int k_min = path == PATH_LONG ? CT_SHIFT_AND_MAX + 1 : 1;
+  const long long table = path == PATH_SHIFT_AND32 ? 256 * 4
+                          : path == PATH_SHIFT_AND64 ? 256 * 8 : 0;
+  if (rows < 1 || W < 8 || (W & (W - 1)) != 0 || R < 1 || R > threads ||
+      threads > CT_MAX_THREADS || threads % 32 != 0 || stride % 16 != 0 ||
+      stride < (W < 16 ? 16 : W) || stages < 1 || stages > 2 || grid < 1 ||
+      table + (long long)stages * R * stride > smem || smem > CT_SMEM_MAX ||
+      path < 0 || path > 2 || k < k_min || k > k_max || k > W ||
+      (path == PATH_LONG ? pat_dev == nullptr : pat == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      contains_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = setup_once();
   if (e != cudaSuccess) return (int)e;
-  contains_rows<<<blocks, threads, smem,
-                  reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const unsigned char*>(chars),
-      reinterpret_cast<const int32_t*>(lens), rows, W, R,
-      reinterpret_cast<const unsigned char*>(pat), k,
-      reinterpret_cast<unsigned char*>(out));
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const unsigned char* c = reinterpret_cast<const unsigned char*>(chars);
+  const int32_t* l = reinterpret_cast<const int32_t*>(lens);
+  unsigned char* o = reinterpret_cast<unsigned char*>(out);
+  if (path == PATH_LONG) {
+    contains_long<<<grid, threads, smem, s>>>(
+        c, l, rows, W, R, stride, stages,
+        reinterpret_cast<const unsigned char*>(pat_dev), k, o);
+  } else {
+    Needle nd;
+    memset(nd.b, 0, sizeof(nd.b));
+    memcpy(nd.b, pat, k);
+    if (path == PATH_SHIFT_AND32)
+      contains_shift_and<unsigned int><<<grid, threads, smem, s>>>(
+          c, l, rows, W, R, stride, stages, nd, k, o);
+    else
+      contains_shift_and<unsigned long long><<<grid, threads, smem, s>>>(
+          c, l, rows, W, R, stride, stages, nd, k, o);
+  }
   return (int)cudaGetLastError();
 }
 

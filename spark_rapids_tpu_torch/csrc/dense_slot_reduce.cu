@@ -7,50 +7,75 @@
 // lies outside [0, K) are ignored, as there and in the plain PyTorch
 // version.  Slots no row hits keep the op's neutral (0, the type's max, the
 // type's min; +-inf for floats).  Float min/max propagate NaN, as
-// jnp.min/jnp.max do.
+// jnp.min/jnp.max do; int64 add wraps as Java's does.
 //
 // What bounds it.  At the main path's shape (hash_agg_sort_2m's
 // group_by(k).agg(count(v), sum(v), max(w)) on a 2^20-row batch, K = 1024)
 // make_update passes eight planes: occupancy i32 add, count i32 add, sum f64
 // add, the sum's count i32 add, max f32 max, has-NaN and has-non-NaN i32 max
 // and the max's count i32 add.  With gid the kernel must read 40 B a row,
-// about 41.9 MB, and does one atomic a row per plane, far below the card's
-// operation rate.  So it is bound by bytes: 41.9 MB / 3.35 TB/s = 12.5 us on
-// an H100 SXM (the card's name and power limit come from nvidia-smi;
-// chip_smoke.py computes the bound from the rate of the card it runs on).
+// 41.98 MB, and does one shared-memory atomic a row per plane, far below
+// the card's operation rate.  So it is bound by bytes: 41.98 MB / 3.35 TB/s
+// = 12.5 us on an H100 SXM (chip_smoke.py computes the bound from the rate
+// of the card it runs on).
 //
-// Design.  The TPU kernel walks 256-row blocks in sequence and accumulates
-// its (K,) outputs in place, which only works because TPU grid steps run in
-// order.  Here blocks run in parallel, so:
-//   1. dsr_partial: a grid-stride loop over rows, a few blocks per SM.  Each
-//      block keeps its (K x n) accumulators in shared memory, initialised to
-//      the neutrals, and applies one shared-memory atomic per row and plane.
-//      It then writes its accumulators to a (blocks, K) scratch per plane.
-//   2. dsr_final: one thread per (slot, plane) reduces the scratch over the
-//      blocks in block order, so the cross-block float order is fixed and no
-//      global float CAS is needed.
-// int64 add wraps like Java (unsigned atomicAdd); float min/max are CAS
-// loops that compare values, so -0.0 and 0.0 compare equal.  The caller
-// splits a spec whose accumulators pass the shared-memory budget into plane
-// groups, one call each.
+// The first design (PR 1) took 72.5 us on an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit: a partial pass of 45.4 us that switched on each
+// plane's kind and op inside the row loop, with float min/max as CAS loops
+// and one 4-byte load a row and plane, then a final pass of 23.3 us in
+// which one thread a (slot, plane) read the 264 blocks' partials from a
+// (blocks, K) scratch one after another.
+//
+// This design, in one pass with no scratch:
+//   1. dsr_init sets every (K,) output to its op's neutral.
+//   2. dsr_reduce: a block keeps (K x n) accumulators in shared memory.  It
+//      takes tiles of 8 * blockDim rows in turn (grid-stride); a thread
+//      holds 8 gids of a tile in registers (two 16-byte loads), then for
+//      each plane resolves the (kind, op) once and runs a row loop
+//      specialised for it: two or four 16-byte loads (scalar loads when a
+//      plane is not 16-byte aligned, and for the ragged last tile), then
+//      one shared-memory atomic a row.  Float min/max map the value to an
+//      ordered unsigned integer (all bits flipped for a negative float, the
+//      sign bit set for a positive one) and take native unsigned
+//      atomicMin/atomicMax; a NaN maps to the end of the order that wins
+//      under the op and decodes to a quiet NaN, so NaN wins as before.
+//      Under that order +0.0 > -0.0: when both occur, max returns +0.0
+//      and min -0.0 (they compare equal to the plain version's).
+//   3. The block then merges its accumulators into the outputs with global
+//      atomics, skipping slots still at the neutral: native RED for i32,
+//      i64 and f32/f64 add; float min/max split on the sign bit (signed
+//      max or unsigned min of the bits for max, the converse for min), so
+//      no CAS loop anywhere.  With a thread-block cluster of C blocks the
+//      blocks of a cluster first combine their accumulators through
+//      distributed shared memory, each block a K / C slice, so each output
+//      address takes grid / C global atomics instead of grid.
+// Float sums add in no fixed order, as the first design's shared-memory
+// atomics already did.  The caller splits a spec whose accumulators pass
+// the shared-memory budget into plane groups, one call each.
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+namespace cg = cooperative_groups;
 
 #define DSR_MAX_PLANES 32
+#define DSR_ROWS 8            // rows a thread takes from each tile
+#define DSR_SMEM_MAX 232448   // bytes of shared memory a Hopper block may use
+#define DSR_MAX_DEVICES 64
 
 enum { KIND_I32 = 0, KIND_I64 = 1, KIND_F32 = 2, KIND_F64 = 3 };
 enum { OP_ADD = 0, OP_MIN = 1, OP_MAX = 2 };
 
 struct Planes {
   const void* in[DSR_MAX_PLANES];
-  void* part[DSR_MAX_PLANES];
   void* out[DSR_MAX_PLANES];
   int kind[DSR_MAX_PLANES];
   int op[DSR_MAX_PLANES];
-  int smem_off[DSR_MAX_PLANES];
+  int smem_off[DSR_MAX_PLANES];  // the plane's accumulators
   int n;
 };
 
@@ -58,200 +83,342 @@ __host__ __device__ static inline int kind_bytes(int kind) {
   return (kind == KIND_I64 || kind == KIND_F64) ? 8 : 4;
 }
 
-// ---- neutrals --------------------------------------------------------------
+// ---- float order as unsigned integers --------------------------------------
 
-template <typename T> __device__ inline T neutral(int op);
-template <> __device__ inline int32_t neutral<int32_t>(int op) {
-  return op == OP_ADD ? 0 : (op == OP_MIN ? INT32_MAX : INT32_MIN);
+__device__ __forceinline__ uint32_t ordered(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
-template <> __device__ inline long long neutral<long long>(int op) {
-  return op == OP_ADD ? 0LL : (op == OP_MIN ? LLONG_MAX : LLONG_MIN);
+__device__ __forceinline__ unsigned long long ordered(double f) {
+  const unsigned long long u = (unsigned long long)__double_as_longlong(f);
+  return (u >> 63) ? ~u : (u | 0x8000000000000000ull);
 }
-template <> __device__ inline float neutral<float>(int op) {
-  return op == OP_ADD ? 0.0f : (op == OP_MIN ? INFINITY : -INFINITY);
+__device__ __forceinline__ float unordered(uint32_t u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
-template <> __device__ inline double neutral<double>(int op) {
-  return op == OP_ADD ? 0.0 : (op == OP_MIN ? (double)INFINITY
-                                            : -(double)INFINITY);
-}
-
-// ---- combine (used by the final pass) --------------------------------------
-
-// v replaces cur under min/max: NaN wins over a number, as jnp.min/max do
-template <typename T> __device__ inline bool replaces(T v, T cur, int op) {
-  if (isnan(v)) return !isnan(cur);
-  if (isnan(cur)) return false;
-  return op == OP_MIN ? v < cur : v > cur;
+__device__ __forceinline__ double unordered(unsigned long long u) {
+  return __longlong_as_double(
+      (long long)((u >> 63) ? (u & 0x7fffffffffffffffull) : ~u));
 }
 
-__device__ inline int32_t combine(int32_t a, int32_t b, int op) {
-  if (op == OP_ADD) return (int32_t)((uint32_t)a + (uint32_t)b);
-  return op == OP_MIN ? min(a, b) : max(a, b);
-}
-__device__ inline long long combine(long long a, long long b, int op) {
-  if (op == OP_ADD)
-    return (long long)((unsigned long long)a + (unsigned long long)b);
-  return op == OP_MIN ? min(a, b) : max(a, b);
-}
-__device__ inline float combine(float a, float b, int op) {
-  if (op == OP_ADD) return a + b;
-  return replaces(b, a, op) ? b : a;
-}
-__device__ inline double combine(double a, double b, int op) {
-  if (op == OP_ADD) return a + b;
-  return replaces(b, a, op) ? b : a;
-}
+// ---- how each (type, op) accumulates ---------------------------------------
+//
+// S is the shared-memory accumulator's type; enc maps a value to it, smem
+// and global apply it with native atomics, combine merges two accumulators
+// and out_neutral is the output's starting value.
 
-// ---- shared-memory atomics (used by the partial pass) ----------------------
+template <typename In, int OP> struct Acc;
 
-__device__ inline void atomic_apply(int32_t* p, int32_t v, int op) {
-  if (op == OP_ADD) atomicAdd(p, v);
-  else if (op == OP_MIN) atomicMin(p, v);
-  else atomicMax(p, v);
-}
-__device__ inline void atomic_apply(long long* p, long long v, int op) {
-  if (op == OP_ADD)
-    atomicAdd(reinterpret_cast<unsigned long long*>(p),
-              (unsigned long long)v);
-  else if (op == OP_MIN) atomicMin(p, v);
-  else atomicMax(p, v);
-}
-__device__ inline void atomic_apply(float* p, float v, int op) {
-  if (op == OP_ADD) { atomicAdd(p, v); return; }
-  unsigned int* a = reinterpret_cast<unsigned int*>(p);
-  unsigned int old = *a;
-  while (replaces(v, __uint_as_float(old), op)) {
-    unsigned int assumed = old;
-    old = atomicCAS(a, assumed, __float_as_uint(v));
-    if (old == assumed) break;
+template <int OP> struct Acc<int32_t, OP> {
+  typedef int32_t S;
+  static __device__ __forceinline__ S neutral() {
+    return OP == OP_ADD ? 0 : (OP == OP_MIN ? INT32_MAX : INT32_MIN);
+  }
+  static __device__ __forceinline__ int32_t out_neutral() { return neutral(); }
+  static __device__ __forceinline__ S enc(int32_t v) { return v; }
+  static __device__ __forceinline__ S combine(S a, S b) {
+    if (OP == OP_ADD) return (S)((uint32_t)a + (uint32_t)b);
+    return OP == OP_MIN ? min(a, b) : max(a, b);
+  }
+  static __device__ __forceinline__ void smem(S* p, S v) {
+    if (OP == OP_ADD) atomicAdd(p, v);
+    else if (OP == OP_MIN) atomicMin(p, v);
+    else atomicMax(p, v);
+  }
+  static __device__ __forceinline__ void global(int32_t* p, S v) { smem(p, v); }
+};
+
+template <int OP> struct Acc<long long, OP> {
+  typedef long long S;
+  static __device__ __forceinline__ S neutral() {
+    return OP == OP_ADD ? 0LL : (OP == OP_MIN ? LLONG_MAX : LLONG_MIN);
+  }
+  static __device__ __forceinline__ long long out_neutral() { return neutral(); }
+  static __device__ __forceinline__ S enc(long long v) { return v; }
+  static __device__ __forceinline__ S combine(S a, S b) {
+    if (OP == OP_ADD)
+      return (S)((unsigned long long)a + (unsigned long long)b);
+    return OP == OP_MIN ? min(a, b) : max(a, b);
+  }
+  static __device__ __forceinline__ void smem(S* p, S v) {
+    if (OP == OP_ADD)
+      atomicAdd(reinterpret_cast<unsigned long long*>(p),
+                (unsigned long long)v);
+    else if (OP == OP_MIN) atomicMin(p, v);
+    else atomicMax(p, v);
+  }
+  static __device__ __forceinline__ void global(long long* p, S v) {
+    smem(p, v);
+  }
+};
+
+template <typename F> struct FloatAdd {
+  typedef F S;
+  static __device__ __forceinline__ S neutral() { return (F)0; }
+  static __device__ __forceinline__ F out_neutral() { return (F)0; }
+  static __device__ __forceinline__ S enc(F v) { return v; }
+  static __device__ __forceinline__ S combine(S a, S b) { return a + b; }
+  static __device__ __forceinline__ void smem(S* p, S v) { atomicAdd(p, v); }
+  static __device__ __forceinline__ void global(F* p, S v) { atomicAdd(p, v); }
+};
+template <> struct Acc<float, OP_ADD> : FloatAdd<float> {};
+template <> struct Acc<double, OP_ADD> : FloatAdd<double> {};
+
+// float min/max: U is the ordered integer, I the signed integer of the
+// same width
+template <typename F, typename U, typename I, int OP> struct FloatMinMax {
+  typedef U S;
+  static __device__ __forceinline__ S neutral() {
+    return ordered(OP == OP_MIN ? (F)INFINITY : -(F)INFINITY);
+  }
+  static __device__ __forceinline__ F out_neutral() {
+    return OP == OP_MIN ? (F)INFINITY : -(F)INFINITY;
+  }
+  // a NaN takes the end of the order that wins under the op
+  static __device__ __forceinline__ S enc(F v) {
+    return isnan(v) ? (OP == OP_MAX ? ~(U)0 : (U)0) : ordered(v);
+  }
+  static __device__ __forceinline__ S combine(S a, S b) {
+    return OP == OP_MIN ? min(a, b) : max(a, b);
+  }
+  static __device__ __forceinline__ void smem(S* p, S v) {
+    if (OP == OP_MIN) atomicMin(p, v);
+    else atomicMax(p, v);
+  }
+  // On the output's own float bits: a non-negative float orders as its
+  // signed integer, a negative one in reverse as its unsigned integer.
+  static __device__ __forceinline__ void global(F* p, S v) {
+    const F f = unordered(v);
+    I bits;
+    memcpy(&bits, &f, sizeof(F));
+    if (bits >= 0) {
+      if (OP == OP_MAX) atomicMax(reinterpret_cast<I*>(p), bits);
+      else atomicMin(reinterpret_cast<I*>(p), bits);
+    } else {
+      if (OP == OP_MAX) atomicMin(reinterpret_cast<U*>(p), (U)bits);
+      else atomicMax(reinterpret_cast<U*>(p), (U)bits);
+    }
+  }
+};
+template <int OP> struct Acc<float, OP>
+    : FloatMinMax<float, unsigned int, int, OP> {};
+template <int OP> struct Acc<double, OP>
+    : FloatMinMax<double, unsigned long long, long long, OP> {};
+
+// ---- dispatch on (kind, op), once per plane --------------------------------
+
+template <typename T, int O> struct Spec {
+  typedef T In;
+  static constexpr int op = O;
+};
+
+template <typename Fn>
+__device__ __forceinline__ void with_spec(int kind, int op, Fn fn) {
+  switch (kind * 3 + op) {
+    case 0: fn(Spec<int32_t, OP_ADD>()); break;
+    case 1: fn(Spec<int32_t, OP_MIN>()); break;
+    case 2: fn(Spec<int32_t, OP_MAX>()); break;
+    case 3: fn(Spec<long long, OP_ADD>()); break;
+    case 4: fn(Spec<long long, OP_MIN>()); break;
+    case 5: fn(Spec<long long, OP_MAX>()); break;
+    case 6: fn(Spec<float, OP_ADD>()); break;
+    case 7: fn(Spec<float, OP_MIN>()); break;
+    case 8: fn(Spec<float, OP_MAX>()); break;
+    case 9: fn(Spec<double, OP_ADD>()); break;
+    case 10: fn(Spec<double, OP_MIN>()); break;
+    default: fn(Spec<double, OP_MAX>()); break;
   }
 }
-__device__ inline void atomic_apply(double* p, double v, int op) {
-  if (op == OP_ADD) { atomicAdd(p, v); return; }
-  unsigned long long* a = reinterpret_cast<unsigned long long*>(p);
-  unsigned long long old = *a;
-  while (replaces(v, __longlong_as_double(old), op)) {
-    unsigned long long assumed = old;
-    old = atomicCAS(a, assumed, __double_as_longlong(v));
-    if (old == assumed) break;
+
+// The thread's DSR_ROWS rows of the tile at `base`: rows
+// base + h * 4 * threads + 4 * threadIdx.x + i for h in {0, 1}, i < 4, so
+// each half is one 16-byte load of a 4-byte plane (two of an 8-byte one)
+// and a warp's loads are contiguous.  `full`: the tile lies inside [0, n)
+// and every plane is 16-byte aligned; otherwise scalar loads, and rows at
+// or past n read as `fill`.
+template <typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ p,
+                                          T (&v)[DSR_ROWS], long long base,
+                                          long long n, int threads,
+                                          bool full, T fill) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long r0 = base + (long long)h * 4 * threads + 4 * threadIdx.x;
+    if (full) {
+      const uint4* q = reinterpret_cast<const uint4*>(p + r0);
+      if constexpr (sizeof(T) == 4) {
+        const uint4 a = __ldg(q);
+        memcpy(&v[4 * h], &a, 16);
+      } else {
+        const uint4 a = __ldg(q);
+        const uint4 b = __ldg(q + 1);
+        memcpy(&v[4 * h], &a, 16);
+        memcpy(&v[4 * h + 2], &b, 16);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[4 * h + i] = r0 + i < n ? p[r0 + i] : fill;
+    }
   }
+}
+
+// One shared-memory atomic a row: rows whose gid lies outside [0, K) are
+// ignored.
+template <typename In, int OP, int N>
+__device__ __forceinline__ void apply(unsigned char* accb, const int (&g)[N],
+                                      const In (&v)[N], int K) {
+  typedef Acc<In, OP> A;
+  typename A::S* acc = reinterpret_cast<typename A::S*>(accb);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if ((unsigned)g[i] < (unsigned)K) A::smem(acc + g[i], A::enc(v[i]));
 }
 
 // ---- kernels ---------------------------------------------------------------
 
-template <typename T>
-__device__ inline void init_plane(unsigned char* base, int K, int op) {
-  T* acc = reinterpret_cast<T*>(base);
-  T v = neutral<T>(op);
-  for (int k = threadIdx.x; k < K; k += blockDim.x) acc[k] = v;
-}
-
-template <typename T>
-__device__ inline void store_plane(const unsigned char* base, void* part,
-                                   int K) {
-  const T* acc = reinterpret_cast<const T*>(base);
-  T* dst = reinterpret_cast<T*>(part) + (size_t)blockIdx.x * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) dst[k] = acc[k];
-}
-
-__global__ void dsr_partial(const int32_t* __restrict__ gid, long long n,
-                            int K, Planes P) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  for (int j = 0; j < P.n; ++j) {
-    unsigned char* base = smem + P.smem_off[j];
-    switch (P.kind[j]) {
-      case KIND_I32: init_plane<int32_t>(base, K, P.op[j]); break;
-      case KIND_I64: init_plane<long long>(base, K, P.op[j]); break;
-      case KIND_F32: init_plane<float>(base, K, P.op[j]); break;
-      default: init_plane<double>(base, K, P.op[j]); break;
-    }
-  }
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride) {
-    const int g = gid[r];
-    if ((unsigned)g >= (unsigned)K) continue;  // outside [0, K): ignored
-    for (int j = 0; j < P.n; ++j) {
-      unsigned char* base = smem + P.smem_off[j];
-      switch (P.kind[j]) {
-        case KIND_I32:
-          atomic_apply(reinterpret_cast<int32_t*>(base) + g,
-                       reinterpret_cast<const int32_t*>(P.in[j])[r],
-                       P.op[j]);
-          break;
-        case KIND_I64:
-          atomic_apply(reinterpret_cast<long long*>(base) + g,
-                       reinterpret_cast<const long long*>(P.in[j])[r],
-                       P.op[j]);
-          break;
-        case KIND_F32:
-          atomic_apply(reinterpret_cast<float*>(base) + g,
-                       reinterpret_cast<const float*>(P.in[j])[r], P.op[j]);
-          break;
-        default:
-          atomic_apply(reinterpret_cast<double*>(base) + g,
-                       reinterpret_cast<const double*>(P.in[j])[r], P.op[j]);
-          break;
-      }
-    }
-  }
-  __syncthreads();
-  for (int j = 0; j < P.n; ++j) {
-    const unsigned char* base = smem + P.smem_off[j];
-    switch (P.kind[j]) {
-      case KIND_I32: store_plane<int32_t>(base, P.part[j], K); break;
-      case KIND_I64: store_plane<long long>(base, P.part[j], K); break;
-      case KIND_F32: store_plane<float>(base, P.part[j], K); break;
-      default: store_plane<double>(base, P.part[j], K); break;
-    }
-  }
-}
-
-template <typename T>
-__device__ inline void final_plane(const void* part, void* out, int K,
-                                   int blocks, int k, int op) {
-  const T* src = reinterpret_cast<const T*>(part);
-  T acc = src[k];
-  for (int b = 1; b < blocks; ++b) acc = combine(acc, src[(size_t)b * K + k],
-                                                 op);
-  reinterpret_cast<T*>(out)[k] = acc;
-}
-
-__global__ void dsr_final(int K, int blocks, Planes P) {
+__global__ void dsr_init(const __grid_constant__ Planes P, int K) {
   const int j = blockIdx.y;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K || j >= P.n) return;
-  switch (P.kind[j]) {
-    case KIND_I32: final_plane<int32_t>(P.part[j], P.out[j], K, blocks, k,
-                                        P.op[j]); break;
-    case KIND_I64: final_plane<long long>(P.part[j], P.out[j], K, blocks, k,
-                                          P.op[j]); break;
-    case KIND_F32: final_plane<float>(P.part[j], P.out[j], K, blocks, k,
-                                      P.op[j]); break;
-    default: final_plane<double>(P.part[j], P.out[j], K, blocks, k,
-                                 P.op[j]); break;
+  if (j >= P.n || k >= K) return;
+  void* out = P.out[j];
+  with_spec(P.kind[j], P.op[j], [&](auto s) {
+    typedef typename decltype(s)::In In;
+    reinterpret_cast<In*>(out)[k] = Acc<In, decltype(s)::op>::out_neutral();
+  });
+}
+
+__global__ void __launch_bounds__(1024)
+    dsr_reduce(const int32_t* __restrict__ gid, long long n, int K,
+               const __grid_constant__ Planes P, int vec, int cluster) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = blockDim.x;
+  for (int j = 0; j < P.n; ++j) {
+    unsigned char* accb = smem + P.smem_off[j];
+    with_spec(P.kind[j], P.op[j], [&](auto s) {
+      typedef Acc<typename decltype(s)::In, decltype(s)::op> A;
+      typename A::S* acc = reinterpret_cast<typename A::S*>(accb);
+      for (int k = threadIdx.x; k < K; k += T) acc[k] = A::neutral();
+    });
+  }
+  __syncthreads();
+
+  const long long tile = (long long)DSR_ROWS * T;
+  const long long tiles = (n + tile - 1) / tile;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long base = t * tile;
+    const bool full = vec && base + tile <= n;
+    int g[DSR_ROWS];
+    load_rows(gid, g, base, n, T, full, -1);
+    for (int j = 0; j < P.n; ++j) {
+      unsigned char* accb = smem + P.smem_off[j];
+      const void* in = P.in[j];
+      with_spec(P.kind[j], P.op[j], [&](auto s) {
+        typedef typename decltype(s)::In In;
+        In v[DSR_ROWS];
+        load_rows(reinterpret_cast<const In*>(in), v, base, n, T, full, In(0));
+        apply<In, decltype(s)::op>(accb, g, v, K);
+      });
+    }
+  }
+
+  if (cluster > 1) {
+    // each block of the cluster merges a K / C slice of every plane over
+    // the cluster's blocks, then one global atomic a slot
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    const int C = (int)cl.num_blocks();
+    const int rank = (int)cl.block_rank();
+    const int per = (K + C - 1) / C;
+    const int k0 = rank * per;
+    const int k1 = min(K, k0 + per);
+    for (int j = 0; j < P.n; ++j) {
+      unsigned char* accb = smem + P.smem_off[j];
+      void* out = P.out[j];
+      with_spec(P.kind[j], P.op[j], [&](auto s) {
+        typedef typename decltype(s)::In In;
+        typedef Acc<In, decltype(s)::op> A;
+        typedef typename A::S S;
+        S* acc = reinterpret_cast<S*>(accb);
+        for (int k = k0 + threadIdx.x; k < k1; k += T) {
+          S v = acc[k];
+          for (int q = 0; q < C; ++q)
+            if (q != rank) v = A::combine(v, cl.map_shared_rank(acc, q)[k]);
+          if (v != A::neutral()) A::global(reinterpret_cast<In*>(out) + k, v);
+        }
+      });
+    }
+    cl.sync();  // no block leaves while another reads its accumulators
+  } else {
+    __syncthreads();
+    for (int j = 0; j < P.n; ++j) {
+      unsigned char* accb = smem + P.smem_off[j];
+      void* out = P.out[j];
+      with_spec(P.kind[j], P.op[j], [&](auto s) {
+        typedef typename decltype(s)::In In;
+        typedef Acc<In, decltype(s)::op> A;
+        typedef typename A::S S;
+        const S* acc = reinterpret_cast<const S*>(accb);
+        for (int k = threadIdx.x; k < K; k += T) {
+          const S v = acc[k];
+          if (v != A::neutral()) A::global(reinterpret_cast<In*>(out) + k, v);
+        }
+      });
+    }
   }
 }
 
 // ---- C interface -----------------------------------------------------------
 
-// Reduces n_planes planes of n rows by gid into outs[j] (K,), using parts[j]
-// (blocks * K,) as scratch.  kinds: 0 i32, 1 i64, 2 f32, 3 f64; ops: 0 add,
-// 1 min, 2 max.  Launches both passes on `stream` and returns
-// cudaGetLastError() (0 when both launched).
+// The kernel's attributes, set once a device: the largest dynamic shared
+// memory and clusters past the portable 8 blocks.
+static cudaError_t setup_once() {
+  static bool ready[DSR_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < DSR_MAX_DEVICES && ready[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(dsr_reduce,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DSR_SMEM_MAX);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(dsr_reduce,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  if (dev < DSR_MAX_DEVICES) ready[dev] = true;
+  return cudaSuccess;
+}
+
+static void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           int cluster) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = cluster > 1 ? 1 : 0;
+}
+
+// Reduces n_planes planes of n rows by gid into outs[j] (K,).  kinds: 0 i32,
+// 1 i64, 2 f32, 3 f64; ops: 0 add, 1 min, 2 max.  vec: every plane and gid
+// are 16-byte aligned.  `grid` blocks of `threads` threads, in clusters
+// of `cluster` blocks (grid a multiple of it).  Launches the init and the
+// reduction on `stream` and returns cudaGetLastError() (0 when both
+// launched).
 extern "C" int dense_slot_reduce(const void* gid, long long n, int K,
                                  int n_planes, const void* const* ins,
-                                 void* const* parts, void* const* outs,
-                                 const int* kinds, const int* ops, int blocks,
-                                 int threads, void* stream) {
-  if (n_planes < 1 || n_planes > DSR_MAX_PLANES || K < 1 || blocks < 1)
+                                 void* const* outs, const int* kinds,
+                                 const int* ops, int vec, int grid,
+                                 int threads, int cluster, void* stream) {
+  if (n_planes < 1 || n_planes > DSR_MAX_PLANES || K < 1 || K > 1024 ||
+      n < 0 || grid < 1 || threads < 32 || threads > 1024 ||
+      threads % 32 != 0 || cluster < 1 || grid % cluster != 0)
     return (int)cudaErrorInvalidValue;
   Planes P;
   int off = 0;
   for (int j = 0; j < n_planes; ++j) {
+    if (kinds[j] < 0 || kinds[j] > 3 || ops[j] < 0 || ops[j] > 2)
+      return (int)cudaErrorInvalidValue;
     P.in[j] = ins[j];
-    P.part[j] = parts[j];
     P.out[j] = outs[j];
     P.kind[j] = kinds[j];
     P.op[j] = ops[j];
@@ -259,16 +426,45 @@ extern "C" int dense_slot_reduce(const void* gid, long long n, int K,
     off += (K * kind_bytes(kinds[j]) + 15) / 16 * 16;
   }
   P.n = n_planes;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      dsr_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, off);
+  if (off > DSR_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = setup_once();
   if (e != cudaSuccess) return (int)e;
-  dsr_partial<<<blocks, threads, off, s>>>(
-      reinterpret_cast<const int32_t*>(gid), n, K, P);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  dsr_init<<<dim3((K + 255) / 256, n_planes), 256, 0, s>>>(P, K);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dsr_final<<<dim3((K + 255) / 256, n_planes), 256, 0, s>>>(K, blocks, P);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = off;
+  cfg.stream = s;
+  cluster_config(&cfg, attr, cluster);
+  e = cudaLaunchKernelEx(&cfg, dsr_reduce,
+                         reinterpret_cast<const int32_t*>(gid), n, K, P, vec,
+                         cluster);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks (`threads` threads, `smem` bytes of
+// dynamic shared memory each) the card holds at once -> the count, or a
+// negative CUDA error code.
+extern "C" int dense_slot_reduce_max_clusters(int threads, int smem,
+                                              int cluster) {
+  cudaError_t e = setup_once();
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cluster_config(&cfg, attr, cluster);
+  cfg.numAttrs = 1;  // the query takes a cluster shape, 1 included
+  int count = 0;
+  e = cudaOccupancyMaxActiveClusters(&count, dsr_reduce, &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  return count;
 }
 
 extern "C" const char* dense_slot_reduce_error(int code) {

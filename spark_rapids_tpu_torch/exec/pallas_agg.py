@@ -25,6 +25,8 @@ does, so the same batches take the kernel in both.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -43,10 +45,14 @@ _REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
 _OPS = {"add": 0, "min": 1, "max": 2}
 _KINDS = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
           torch.float64: 3}
-_THREADS = 512
-_BLOCKS_PER_SM = 2
 _SMEM_BUDGET = 232448  # bytes of shared memory one Hopper block may use
+_SMEM_PER_SM = 233472  # bytes of shared memory one SM holds for its blocks
+_SMEM_PER_BLOCK = 1024  # of which the card keeps this much for each block
 _MAX_PLANES = 32       # DSR_MAX_PLANES in the CUDA source
+_ROWS = 8              # DSR_ROWS: rows a thread takes from each tile
+_THREADS = 1024        # threads a block
+_BLOCKS_PER_SM = 1
+_CLUSTER = 1           # blocks a cluster merges through distributed smem
 
 
 def neutral(op: str, dtype: torch.dtype):
@@ -81,13 +87,17 @@ def dense_slot_reduce_reference(gid: torch.Tensor,
     return outs
 
 
-def _plane_groups(planes: Sequence[torch.Tensor], K: int) -> List[List[int]]:
-    """Split the planes, in order, into groups whose shared-memory
-    accumulators (K slots each, 16-byte aligned) fit one block."""
+def _plane_bytes(itemsize: int, K: int) -> int:
+    """Shared memory of one plane's accumulators: K slots, 16-byte
+    aligned, as the CUDA source lays them out."""
+    return (K * itemsize + 15) // 16 * 16
+
+
+def _groups_by_size(itemsizes: Sequence[int], K: int) -> List[List[int]]:
     groups: List[List[int]] = [[]]
     used = 0
-    for j, p in enumerate(planes):
-        need = (K * p.element_size() + 15) // 16 * 16
+    for j, size in enumerate(itemsizes):
+        need = _plane_bytes(size, K)
         if groups[-1] and (used + need > _SMEM_BUDGET
                            or len(groups[-1]) == _MAX_PLANES):
             groups.append([])
@@ -95,6 +105,51 @@ def _plane_groups(planes: Sequence[torch.Tensor], K: int) -> List[List[int]]:
         groups[-1].append(j)
         used += need
     return groups
+
+
+def _plane_groups(planes: Sequence[torch.Tensor], K: int) -> List[List[int]]:
+    """Split the planes, in order, into groups whose shared-memory
+    accumulators (K slots each, 16-byte aligned) fit one block."""
+    return _groups_by_size([p.element_size() for p in planes], K)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """One kernel launch: a plane group and its grid."""
+    planes: Tuple[int, ...]  # indices into the spec's planes
+    smem: int                # bytes of shared memory a block
+    threads: int             # threads a block
+    tile: int                # rows a block takes at a time
+    grid: int                # blocks, a multiple of ``cluster``
+    cluster: int             # blocks a cluster
+
+
+def launch_plan(itemsizes: Sequence[int], K: int, n: int, sms: int, *,
+                threads: int = _THREADS, blocks_per_sm: int = _BLOCKS_PER_SM,
+                cluster: int = _CLUSTER,
+                max_clusters: Optional[Callable[[int, int, int], int]] = None
+                ) -> List[LaunchPlan]:
+    """The launches of a spec of planes of ``itemsizes`` bytes, ``n`` rows,
+    on a card of ``sms`` SMs: one a plane group.  A group's grid is one
+    wave: ``blocks_per_sm`` blocks an SM, fewer when the accumulators
+    leave room for fewer, never more blocks than tiles (rounded up to
+    whole clusters), and at most what ``max_clusters(threads, smem,
+    cluster)`` says the card holds at once."""
+    tile = _ROWS * threads
+    tiles = max(1, -(-n // tile))
+    plans = []
+    for group in _groups_by_size(itemsizes, K):
+        smem = sum(_plane_bytes(itemsizes[j], K) for j in group)
+        per_sm = max(1, min(blocks_per_sm, 2048 // threads,
+                            _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK)))
+        cap = sms * per_sm
+        if max_clusters is not None:
+            cap = min(cap, max(1, max_clusters(threads, smem, cluster))
+                      * cluster)
+        grid = max(1, min(cap // cluster, -(-tiles // cluster))) * cluster
+        plans.append(LaunchPlan(tuple(group), smem, threads, tile, grid,
+                                cluster))
+    return plans
 
 
 def _check(gid: torch.Tensor, planes: Sequence[torch.Tensor],
@@ -123,57 +178,79 @@ def _kernel() -> ctypes.CDLL:
     if lib.dense_slot_reduce.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.dense_slot_reduce.argtypes = [
-            vp, ctypes.c_longlong, i, i, vp, vp, vp, vp, vp, i, i, vp]
+            vp, ctypes.c_longlong, i, i, vp, vp, vp, vp, i, i, i, i, vp]
         lib.dense_slot_reduce.restype = i
+        lib.dense_slot_reduce_max_clusters.argtypes = [i, i, i]
+        lib.dense_slot_reduce_max_clusters.restype = i
         lib.dense_slot_reduce_error.argtypes = [i]
         lib.dense_slot_reduce_error.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _max_clusters(device: int, threads: int, smem: int, cluster: int) -> int:
+    """How many clusters the card holds at once (the occupancy query,
+    made once a launch shape)."""
+    lib = _kernel()
+    with torch.cuda.device(device):
+        count = lib.dense_slot_reduce_max_clusters(threads, smem, cluster)
+    if count < 0:
+        msg = lib.dense_slot_reduce_error(-count).decode()
+        raise RuntimeError(f"dense_slot_reduce occupancy query failed: CUDA "
+                           f"error {-count} ({msg})")
+    return count
+
+
 def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
-                   ops: Sequence[str], K: int
+                   ops: Sequence[str], K: int, **shape
                    ) -> Tuple[Callable[[], None], List[torch.Tensor]]:
-    """The wrapper's host work for CUDA tensors: checks, outputs, scratch
-    and the C arguments of every plane group -> ``(launch, outs)``.
-    ``launch()`` runs the kernel on the current stream, one call per plane
-    group, and fills ``outs``; it may be called again on the same inputs."""
+    """The wrapper's host work for CUDA tensors: checks, outputs and the C
+    arguments of every plane group -> ``(launch, outs)``.  ``launch()``
+    runs the kernel on the current stream, one call per plane group, and
+    fills ``outs``; it may be called again on the same inputs.  ``shape``
+    (``threads``, ``blocks_per_sm``, ``cluster``) overrides
+    ``launch_plan``'s defaults, to measure them."""
     _check(gid, planes, ops, K)
     if gid.device.type != "cuda":
         raise RuntimeError(f"dense_slot_reduce: no kernel for "
                            f"{gid.device.type} tensors")
     lib = _kernel()
     dev = gid.device
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
     n = gid.numel()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // _THREADS), sms * _BLOCKS_PER_SM))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (gid, *planes))
+    plans = launch_plan([p.element_size() for p in planes], K, n, sms,
+                        max_clusters=functools.partial(_max_clusters, index),
+                        **shape)
     outs = [torch.empty(K, dtype=p.dtype, device=dev) for p in planes]
     calls = []
-    for group in _plane_groups(planes, K):
-        parts = [torch.empty(blocks * K, dtype=planes[j].dtype, device=dev)
-                 for j in group]
-        ptrs = ctypes.c_void_p * len(group)
-        ints = ctypes.c_int * len(group)
-        arrays = (ptrs(*[planes[j].data_ptr() for j in group]),
-                  ptrs(*[p.data_ptr() for p in parts]),
-                  ptrs(*[outs[j].data_ptr() for j in group]),
-                  ints(*[_KINDS[planes[j].dtype] for j in group]),
-                  ints(*[_OPS[ops[j]] for j in group]))
-        # parts and arrays ride along so they outlive every launch
-        calls.append((len(group), arrays, parts))
+    for plan in plans:
+        ptrs = ctypes.c_void_p * len(plan.planes)
+        ints = ctypes.c_int * len(plan.planes)
+        arrays = (ptrs(*[planes[j].data_ptr() for j in plan.planes]),
+                  ptrs(*[outs[j].data_ptr() for j in plan.planes]),
+                  ints(*[_KINDS[planes[j].dtype] for j in plan.planes]),
+                  ints(*[_OPS[ops[j]] for j in plan.planes]))
+        # the arrays ride along so that they outlive every launch
+        args = (gid.data_ptr(), n, K, len(plan.planes),
+                *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
+                int(aligned), plan.grid, plan.threads, plan.cluster)
+        calls.append((args, arrays))
 
     def launch() -> None:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            for n_planes, arrays, _parts in calls:
-                addr = [ctypes.cast(a, ctypes.c_void_p) for a in arrays]
-                rc = lib.dense_slot_reduce(gid.data_ptr(), n, K, n_planes,
-                                           *addr, blocks, _THREADS, stream)
+            for args, _arrays in calls:
+                rc = lib.dense_slot_reduce(*args, stream)
                 if rc != 0:
                     msg = lib.dense_slot_reduce_error(rc).decode()
                     raise RuntimeError(f"dense_slot_reduce launch failed: "
                                        f"CUDA error {rc} ({msg})")
                 native.LAUNCHES["dense_slot_reduce"] += 1
 
+    launch.plans = plans
     return launch, outs
 
 

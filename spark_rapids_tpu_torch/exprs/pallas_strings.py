@@ -19,6 +19,8 @@ counterpart here.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Callable, Tuple
 
 import torch
@@ -31,11 +33,62 @@ from spark_rapids_tpu_torch.exprs.strings import Contains, contains_unrolled
 # reads it
 PALLAS_PATTERN_MIN = 16
 
-_THREADS = 256          # 8 warps a block
-_STAGE_BYTES = 512      # bytes a warp stages at once: 32 lanes x 16 B
-_SMEM_DEFAULT = 48 * 1024
+SHIFT_AND_MAX = 64      # longest needle of the Shift-And paths
+_TILE_ROWS = 256        # rows a block takes at a time, at most
+_TILE_SMEM = 48 * 1024  # shared memory a block aims at, so blocks share an SM
 _SMEM_MAX = 232448      # bytes of shared memory one Hopper block may use
-_THREADS_PER_SM = 2048
+_SMEM_PER_SM = 233472   # bytes of shared memory one SM holds for its blocks
+_SMEM_PER_BLOCK = 1024  # of which the card keeps this much for each block
+_STAGES = 2             # stage rows a thread
+_PATHS = {"shift_and32": 0, "shift_and64": 1, "long": 2}
+
+
+@dataclass(frozen=True)
+class ContainsPlan:
+    """One launch's shape."""
+    path: str      # "shift_and32", "shift_and64" or "long"
+    rows: int      # rows a tile: thread t takes row t of each tile
+    stride: int    # bytes of a thread's stage row
+    stages: int    # stage rows a thread: 2 overlap a tile's copies
+    threads: int   # threads a block
+    smem: int      # bytes of dynamic shared memory a block
+    grid: int      # blocks, one wave that walks the tiles
+
+
+def plan_contains(width: int, k: int, rows: int, sms: int, *,
+                  stages: int = _STAGES, tile_rows: int = _TILE_ROWS
+                  ) -> ContainsPlan:
+    """The kernel's launch shape for a (``rows``, ``width``) char matrix
+    and a ``k``-byte needle, ``1 <= k <= width``, on a card of ``sms``
+    SMs: Shift-And with a 32-bit state up to 32 bytes and a 64-bit one up
+    to 64, the prefilter-and-compare path beyond.  A block holds the
+    needle's 256-entry mask table and ``stages`` stages of a tile's rows,
+    ``width + 16`` bytes apart (16 at width 8): an odd number of 16-byte
+    units from width 32 up, so 16-byte reads of rows t and t + 1 never
+    share a bank; tiles of up to ``tile_rows`` rows near 48 KB; one stage
+    when two would not fit.  Raises when one row does not fit a block's shared
+    memory."""
+    if k <= 32:
+        path, table = "shift_and32", 256 * 4
+    elif k <= SHIFT_AND_MAX:
+        path, table = "shift_and64", 256 * 8
+    else:
+        path, table = "long", 0
+    stride = width + 16 if width >= 16 else 16
+    tile = min(tile_rows, (_TILE_SMEM - table) // (stages * stride))
+    if tile < 1:
+        tile = 1
+        if table + stages * stride > _SMEM_MAX:
+            stages = 1
+    smem = table + stages * tile * stride
+    if smem > _SMEM_MAX:
+        raise ValueError(f"string width {width} needs {smem} bytes of shared "
+                         f"memory a block, over {_SMEM_MAX}")
+    threads = -(-tile // 32) * 32
+    per_sm = max(1, min(2048 // threads,
+                        _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK)))
+    grid = max(1, min(-(-rows // tile), sms * per_sm))
+    return ContainsPlan(path, tile, stride, stages, threads, smem, grid)
 
 
 def contains_reference(chars: torch.Tensor, lengths: torch.Tensor,
@@ -63,50 +116,58 @@ def _kernel() -> ctypes.CDLL:
     lib = native.load("contains")
     if lib.contains_launch.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.contains_launch.argtypes = [vp, vp, ctypes.c_longlong, i, i, vp,
-                                        i, vp, i, i, i, vp]
+        lib.contains_launch.argtypes = [vp, vp, ctypes.c_longlong, i, i, i,
+                                        i, i, i, i, i, ctypes.c_char_p, vp,
+                                        i, vp, vp]
         lib.contains_launch.restype = i
         lib.contains_error.argtypes = [i]
         lib.contains_error.restype = ctypes.c_char_p
     return lib
 
 
-def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes
-                     ) -> Tuple[Callable[[], None], torch.Tensor]:
+@functools.lru_cache(maxsize=64)
+def _needle_on_card(pat: bytes, device: int) -> torch.Tensor:
+    """A needle longer than the Shift-And paths take by value, copied to
+    the card once."""
+    return torch.tensor(list(pat), dtype=torch.uint8,
+                        device=torch.device("cuda", device))
+
+
+def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes,
+                     **shape) -> Tuple[Callable[[], None], torch.Tensor]:
     """The wrapper's host work for CUDA tensors, for ``1 <= len(pat) <=
-    width``: checks, a contiguous 16-byte aligned char matrix, the needle
-    on the card, the output and the launch shape -> ``(launch, out)``.
-    ``launch()`` runs the kernel on the current stream and fills ``out``
-    (``torch.bool``); it may be called again on the same inputs."""
+    width``: checks, a contiguous 16-byte aligned char matrix, the output
+    and the launch shape -> ``(launch, out)``.  ``launch()`` runs the
+    kernel on the current stream and fills ``out`` (``torch.bool``); it
+    may be called again on the same inputs.  A needle of up to 64 bytes
+    goes to the kernel by value; a longer one from a card buffer made once
+    a needle.  ``shape`` (``stages``, ``tile_rows``) overrides
+    ``plan_contains``' defaults, to measure them."""
     _check(chars, lengths)
     if chars.device.type != "cuda":
         raise RuntimeError(f"contains: no kernel for {chars.device.type} "
                            "tensors")
     rows, w = chars.shape
+    pat = bytes(pat)
     k = len(pat)
     if not 1 <= k <= w:
         raise ValueError(f"needle of {k} bytes for width {w}: the caller "
                          "answers k == 0 and k > width without the kernel")
     lib = _kernel()
     dev = chars.device
+    plan = plan_contains(w, k, rows, torch.cuda.get_device_properties(
+        dev).multi_processor_count, **shape)
     chars = chars.contiguous()
     if chars.data_ptr() % 16:
         chars = chars.clone()
     lengths = lengths.contiguous()
-    needle = torch.tensor(list(pat), dtype=torch.uint8).to(dev)
+    needle = None
+    if plan.path == "long":
+        index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        needle = _needle_on_card(pat, index)
+    pat_dev = needle.data_ptr() if needle is not None else None
     out = torch.empty(rows, dtype=torch.bool, device=dev)
-    per_warp = min(32, max(1, _STAGE_BYTES // w))
-    stage = per_warp * w
-    pat_pad = (k + 15) // 16 * 16
-    warps = max(1, min(_THREADS // 32, (_SMEM_DEFAULT - pat_pad) // stage))
-    smem = pat_pad + warps * stage
-    if smem > _SMEM_MAX:
-        raise ValueError(f"string width {w} needs {smem} bytes of shared "
-                         f"memory a block, over {_SMEM_MAX}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = -(-rows // per_warp)
-    blocks = max(1, min(-(-groups // warps),
-                        sms * (_THREADS_PER_SM // (32 * warps))))
 
     def launch() -> None:
         if rows == 0:
@@ -114,9 +175,10 @@ def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.contains_launch(chars.data_ptr(), lengths.data_ptr(),
-                                     rows, w, per_warp, needle.data_ptr(), k,
-                                     out.data_ptr(), blocks, 32 * warps,
-                                     smem, stream)
+                                     rows, w, plan.rows, plan.stride,
+                                     plan.stages, plan.grid, plan.threads,
+                                     plan.smem, _PATHS[plan.path], pat,
+                                     pat_dev, k, out.data_ptr(), stream)
         if rc != 0:
             msg = lib.contains_error(rc).decode()
             raise RuntimeError(f"contains launch failed: CUDA error {rc} "
