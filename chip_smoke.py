@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the torch port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--package-root DIR] [--kernels-only]
+                          [--sass-dir DIR]
 
 Phases, each printing one JSON line:
 
@@ -9,24 +10,31 @@ Phases, each printing one JSON line:
    the torch and CUDA versions;
 2. build: every hand-written kernel of the port, compiled from
    ``spark_rapids_tpu_torch/csrc`` with nvcc, one process a source, all
-   started together, with their seconds;
+   started together, with their seconds and ptxas' registers, spills
+   and stack; sass: each library's atomic and CAS instructions counted
+   by opcode (``cuobjdump -sass``; the listings go to ``--sass-dir``);
 3. kernel: the dense-slot kernel against its plain PyTorch version on
-   the same card tensors: first on the inputs the main path gives it
-   (the aggregate's own plane construction on the first 2^20-row update
-   batch of hash_agg_sort_2m: K = 1024, eight planes), then on a spec
-   with an int64 sum, a f64 min with NaN flags, nulls, all-null groups
-   and rows whose slot lies outside [0, K).  Integer and min/max planes
-   must match exactly, f64 sums within 1e-12 of each slot's sum of |v|.
-   Each time is the median of 20 samples of 20 calls back to back
-   between one pair of CUDA events:
+   the same card tensors, on the inputs the main path gives it (the
+   aggregate's own plane construction on the first 2^20-row update
+   batch of hash_agg_sort_2m: K = 1024, eight planes).  Integer and
+   min/max planes must match exactly (NaN matching NaN), f64 sums within
+   1e-12 of each slot's sum of |v|.  Each warm time is the median of 20
+   samples of 20 calls back to back between one pair of CUDA events:
    ``ms`` repeats only the kernel's launches (its host work done once),
-   ``wrapper_ms`` the whole wrapper; ``device_us`` is each CUDA
-   kernel's device time from torch.profiler;
-4. kernel: the contains kernel against its plain version, exactly: on
+   ``wrapper_ms`` the whole wrapper; ``cold_ms`` is the median of 20
+   single launches, each after a 134 MB write that evicts the inputs
+   from L2; ``device_us`` is each CUDA kernel's device time from
+   torch.profiler.  kernel_shapes: the same at other launch shapes.
+   kernel_edges: the edge specs (a spec with an int64 sum and NaN flags,
+   all rows on one slot, K = 128, plane groups, NaN / signed zeros /
+   infinities under float min and max, wrapping int64 sums, gids of -1
+   and K + 3, a ragged row count, planes off 16-byte alignment);
+4. kernel: the contains kernel against its plain version, exactly, on
    the first 2^20-row batch of text_filter_agg_6m's ``l_comment`` from
-   the port's own ingest (W = 64, the 16-byte needle), and on an edge
-   spec (W = 512, k = 16 and k = W, junk bytes past the lengths, UTF-8
-   bytes >= 0x80), timed the same way;
+   the port's own ingest (W = 64, the 16-byte needle), timed the same
+   way; kernel_edges: needles at window 0, at the last window and one
+   byte past the length, k = 1 to 65 and k = W, repetitive text, widths
+   8 to 1024, lengths past W, row counts off the tile, UTF-8 bytes;
 5. project_filter_1m and 6. hash_agg_sort_2m: ``bench.py``'s two
    headline queries through the port's session at 1,000,000 and
    2,000,000 rows of ``bench.py:gen_data``'s columns (seed 7), checked
@@ -51,6 +59,11 @@ line lists every kernel, the ``nvidia-smi`` line follows, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits nonzero without that line; it also exits nonzero when
 no card is usable or the port's package is not beside it.
+
+``--package-root DIR`` drives the package under DIR instead (another
+checkout, to time an older commit's kernels the same way);
+``--kernels-only`` stops after phase 4's main-path comparisons and
+times, without edge specs or queries.
 """
 
 from __future__ import annotations
@@ -446,19 +459,20 @@ def phase_kernel(torch, st, F, pag, session, data, rate: float,
 
 def kernel_shapes(torch, pag, gid, planes, ops, K: int):
     """The dense-slot kernel's time at other launch shapes (threads a
-    block, blocks an SM, blocks a cluster) on the main path's inputs,
-    each checked against the plain version first."""
+    block, blocks an SM) on the main path's inputs, each checked against
+    the plain version first."""
     out = []
-    for threads, per_sm, cluster in ((1024, 1, 1), (1024, 1, 2), (1024, 1, 4),
-                                     (1024, 1, 8), (512, 2, 1), (512, 2, 4),
-                                     (256, 4, 1), (256, 8, 1)):
+    for threads, per_sm in ((1024, 1), (512, 2), (256, 4)):
         launch, got = pag.prepare_launch(gid, planes, ops, K, threads=threads,
-                                         blocks_per_sm=per_sm, cluster=cluster)
+                                         blocks_per_sm=per_sm)
         launch()
         compare_kernel(torch, pag, gid, planes, ops, K, got)
+        plans = pag.launch_plan(
+            [p.element_size() for p in planes], K, gid.numel(),
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            threads=threads, blocks_per_sm=per_sm)
         out.append({"threads": threads, "blocks_per_sm": per_sm,
-                    "cluster": cluster,
-                    "grid": [p.grid for p in launch.plans],
+                    "grid": [p.grid for p in plans],
                     "ms": per_call_ms(torch, launch),
                     "cold_ms": cold_ms(torch, launch)})
     return out

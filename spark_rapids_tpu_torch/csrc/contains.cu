@@ -20,30 +20,41 @@
 // chip_smoke.py computes the bound from the data it runs and the rate of
 // the card it runs on.
 //
-// The first design (PR 2) took 99.8 us on an NVIDIA H100 80GB HBM3 at a
-// 700 W power limit: a warp staged eight whole 64-byte rows (the full
-// planes) and walked them one after another, each lane testing a window
-// with a byte-at-a-time early-exit compare and the row ending in a shuffle
-// and a vote.
+// The first design took 99.8 us on an NVIDIA H100 80GB HBM3 at a 700 W
+// power limit: a warp staged eight whole 64-byte rows (the full planes)
+// and walked them one after another, each lane testing a window with a
+// byte-at-a-time early-exit compare and the row ending in a shuffle and a
+// vote.
 //
 // This design:
-//   * A block takes a tile of R consecutive rows (256 at W = 64; fewer for
-//     wide rows, so a tile stays near 48 KB).  It reads the tile's lengths,
-//     then stages into shared memory only the 16-byte chunks below each
-//     row's length, and none of a row shorter than the needle: no DRAM
-//     sector past a length is asked for.  Rows sit at a stride of W + 4
-//     bytes, an odd number of words, so thread t reading row t word by
-//     word meets no bank conflict.
-//   * Needles of up to 64 bytes: thread t scans row t with Shift-And.  The
-//     state is one 32-bit (k <= 32) or 64-bit register; the needle's
-//     256-entry byte-mask table is built by each block in shared memory
+//   * Thread t takes row t of each tile of R rows (256 at W = 64; fewer
+//     for wide rows, so a block stays near 48 KB), tile after tile in a
+//     grid of one wave.  It loads its rows' lengths three tiles ahead and
+//     copies, with cp.async, only the 16-byte chunks below its row's
+//     length into its own stage row, none of a row shorter than the
+//     needle: no sector past a length is asked for.  Two stages: the next
+//     tile's copies are in flight while this one is scanned.  A thread
+//     reads only what it copied, so the loop has no barrier.  Stage rows
+//     are W + 16 bytes apart, an odd number of 16-byte units, so the
+//     16-byte reads of threads t and t + 1 meet no bank conflict.
+//   * Needles of up to 64 bytes: the thread scans its row with Shift-And.
+//     The state is one 32-bit (k <= 32) or 64-bit register; the needle's
+//     256-entry byte-mask table is built once a block in shared memory
 //     from the needle, which comes by value in the launch's parameters.
-//     The thread reads 4 bytes a shared-memory load and stops at the first
-//     hit.  No vote, no shuffle, no row after row.
-//   * Longer needles (right, not tuned; no routed query has one): the same
-//     staging, then a 4-byte prefilter on each window and a full compare;
-//     the needle comes from a card buffer the wrapper makes once a needle.
+//     16 bytes a shared-memory load, the last partial chunk masked, and a
+//     stop at the first hit.  No vote, no shuffle, no row after row.
+//   * Longer needles (right, not tuned; no routed query has one): a 4-byte
+//     prefilter on each window, then a full compare; the needle comes from
+//     a card buffer the wrapper makes once a needle.
 //   * The answers of a tile are consecutive bytes, so the stores coalesce.
+//
+// On the card (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 37.6 us with
+// the batch partly in L2, 50.7 us cold, 35.1 us of device time, against
+// the 9.2 us bound of the bytes a match needs.  The scan is about six
+// instructions and one table load a byte, and a warp runs to its longest
+// row; the copies of 16 to 48 bytes a row run near the rate of whole rows.
+// Neither coalesced copies (other threads' rows, with barriers) nor one
+// stage, nor smaller tiles did better (see PERF.md).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>

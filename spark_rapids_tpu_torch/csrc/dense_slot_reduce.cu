@@ -19,48 +19,52 @@
 // = 12.5 us on an H100 SXM (chip_smoke.py computes the bound from the rate
 // of the card it runs on).
 //
-// The first design (PR 1) took 72.5 us on an NVIDIA H100 80GB HBM3 at a
-// 700 W power limit: a partial pass of 45.4 us that switched on each
-// plane's kind and op inside the row loop, with float min/max as CAS loops
-// and one 4-byte load a row and plane, then a final pass of 23.3 us in
-// which one thread a (slot, plane) read the 264 blocks' partials from a
-// (blocks, K) scratch one after another.
+// The first design took 72.5 us on an NVIDIA H100 80GB HBM3 at a 700 W
+// power limit: a partial pass of 45.4 us that switched on each plane's kind
+// and op inside the row loop, with float min/max as CAS loops and one
+// 4-byte load a row and plane, then a final pass of 23.3 us in which one
+// thread a (slot, plane) read the 264 blocks' partials from a (blocks, K)
+// scratch one after another.
 //
 // This design, in one pass with no scratch:
 //   1. dsr_init sets every (K,) output to its op's neutral.
-//   2. dsr_reduce: a block keeps (K x n) accumulators in shared memory.  It
-//      takes tiles of 8 * blockDim rows in turn (grid-stride); a thread
-//      holds 8 gids of a tile in registers (two 16-byte loads), then for
-//      each plane resolves the (kind, op) once and runs a row loop
-//      specialised for it: two or four 16-byte loads (scalar loads when a
-//      plane is not 16-byte aligned, and for the ragged last tile), then
-//      one shared-memory atomic a row.  Float min/max map the value to an
-//      ordered unsigned integer (all bits flipped for a negative float, the
-//      sign bit set for a positive one) and take native unsigned
+//   2. dsr_reduce: one block of 1024 threads an SM keeps (K x n)
+//      accumulators in shared memory.  It takes tiles of 8 * 1024 rows in
+//      turn; a thread holds 8 gids of a tile in registers (two 16-byte
+//      loads), then for each plane resolves the (kind, op) once and runs a
+//      row loop specialised for it: two or four 16-byte loads (scalar loads
+//      when a plane is not 16-byte aligned, and for the ragged last tile),
+//      then one shared-memory atomic a row.  Float min/max map the value to
+//      an ordered unsigned integer (all bits flipped for a negative float,
+//      the sign bit set for a positive one) and take native unsigned
 //      atomicMin/atomicMax; a NaN maps to the end of the order that wins
 //      under the op and decodes to a quiet NaN, so NaN wins as before.
-//      Under that order +0.0 > -0.0: when both occur, max returns +0.0
-//      and min -0.0 (they compare equal to the plain version's).
-//   3. The block then merges its accumulators into the outputs with global
-//      atomics, skipping slots still at the neutral: native RED for i32,
-//      i64 and f32/f64 add; float min/max split on the sign bit (signed
-//      max or unsigned min of the bits for max, the converse for min), so
-//      no CAS loop anywhere.  With a thread-block cluster of C blocks the
-//      blocks of a cluster first combine their accumulators through
-//      distributed shared memory, each block a K / C slice, so each output
-//      address takes grid / C global atomics instead of grid.
+//      Under that order +0.0 > -0.0: when both occur, max returns +0.0 and
+//      min -0.0 (they compare equal to the plain version's).
+//   3. The block then merges its accumulators into the outputs with one
+//      global atomic a (slot, plane), skipping slots still at the neutral:
+//      native RED for integers and float adds; float min/max split on the
+//      sign bit (signed max or unsigned min of the bits for max, the
+//      converse for min), so no CAS loop.
 // Float sums add in no fixed order, as the first design's shared-memory
 // atomics already did.  The caller splits a spec whose accumulators pass
 // the shared-memory budget into plane groups, one call each.
+//
+// On the card (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 23.4 us with
+// the inputs warm in L2, 35.6 us cold, 20.0 us of device time in
+// dsr_reduce and 1.2 us in dsr_init.  What bounds it is the shared-memory
+// atomics: one a row and plane, at random slots, so a warp's 32 atomics
+// meet bank conflicts; the SASS has native ATOMS for 32-bit integers and
+// for the ordered float min/max, and a CAS loop (ATOMS.CAST.SPIN.64) for
+// every 64-bit shared atomic, the main path's f64 sum among them.  Neither
+// a cluster merge through distributed shared memory nor staging the tiles
+// with cp.async paid (see PERF.md).
 
 #include <climits>
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
-
-namespace cg = cooperative_groups;
 
 #define DSR_MAX_PLANES 32
 #define DSR_ROWS 8            // rows a thread takes from each tile
@@ -79,7 +83,7 @@ struct Planes {
   int n;
 };
 
-__host__ __device__ static inline int kind_bytes(int kind) {
+static int kind_bytes(int kind) {
   return (kind == KIND_I64 || kind == KIND_F64) ? 8 : 4;
 }
 
@@ -104,8 +108,8 @@ __device__ __forceinline__ double unordered(unsigned long long u) {
 // ---- how each (type, op) accumulates ---------------------------------------
 //
 // S is the shared-memory accumulator's type; enc maps a value to it, smem
-// and global apply it with native atomics, combine merges two accumulators
-// and out_neutral is the output's starting value.
+// and global apply it with atomics, and out_neutral is the output's
+// starting value.
 
 template <typename In, int OP> struct Acc;
 
@@ -116,10 +120,6 @@ template <int OP> struct Acc<int32_t, OP> {
   }
   static __device__ __forceinline__ int32_t out_neutral() { return neutral(); }
   static __device__ __forceinline__ S enc(int32_t v) { return v; }
-  static __device__ __forceinline__ S combine(S a, S b) {
-    if (OP == OP_ADD) return (S)((uint32_t)a + (uint32_t)b);
-    return OP == OP_MIN ? min(a, b) : max(a, b);
-  }
   static __device__ __forceinline__ void smem(S* p, S v) {
     if (OP == OP_ADD) atomicAdd(p, v);
     else if (OP == OP_MIN) atomicMin(p, v);
@@ -135,11 +135,6 @@ template <int OP> struct Acc<long long, OP> {
   }
   static __device__ __forceinline__ long long out_neutral() { return neutral(); }
   static __device__ __forceinline__ S enc(long long v) { return v; }
-  static __device__ __forceinline__ S combine(S a, S b) {
-    if (OP == OP_ADD)
-      return (S)((unsigned long long)a + (unsigned long long)b);
-    return OP == OP_MIN ? min(a, b) : max(a, b);
-  }
   static __device__ __forceinline__ void smem(S* p, S v) {
     if (OP == OP_ADD)
       atomicAdd(reinterpret_cast<unsigned long long*>(p),
@@ -157,7 +152,6 @@ template <typename F> struct FloatAdd {
   static __device__ __forceinline__ S neutral() { return (F)0; }
   static __device__ __forceinline__ F out_neutral() { return (F)0; }
   static __device__ __forceinline__ S enc(F v) { return v; }
-  static __device__ __forceinline__ S combine(S a, S b) { return a + b; }
   static __device__ __forceinline__ void smem(S* p, S v) { atomicAdd(p, v); }
   static __device__ __forceinline__ void global(F* p, S v) { atomicAdd(p, v); }
 };
@@ -177,9 +171,6 @@ template <typename F, typename U, typename I, int OP> struct FloatMinMax {
   // a NaN takes the end of the order that wins under the op
   static __device__ __forceinline__ S enc(F v) {
     return isnan(v) ? (OP == OP_MAX ? ~(U)0 : (U)0) : ordered(v);
-  }
-  static __device__ __forceinline__ S combine(S a, S b) {
-    return OP == OP_MIN ? min(a, b) : max(a, b);
   }
   static __device__ __forceinline__ void smem(S* p, S v) {
     if (OP == OP_MIN) atomicMin(p, v);
@@ -289,7 +280,7 @@ __global__ void dsr_init(const __grid_constant__ Planes P, int K) {
 
 __global__ void __launch_bounds__(1024)
     dsr_reduce(const int32_t* __restrict__ gid, long long n, int K,
-               const __grid_constant__ Planes P, int vec, int cluster) {
+               const __grid_constant__ Planes P, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = blockDim.x;
   for (int j = 0; j < P.n; ++j) {
@@ -321,56 +312,26 @@ __global__ void __launch_bounds__(1024)
     }
   }
 
-  if (cluster > 1) {
-    // each block of the cluster merges a K / C slice of every plane over
-    // the cluster's blocks, then one global atomic a slot
-    cg::cluster_group cl = cg::this_cluster();
-    cl.sync();
-    const int C = (int)cl.num_blocks();
-    const int rank = (int)cl.block_rank();
-    const int per = (K + C - 1) / C;
-    const int k0 = rank * per;
-    const int k1 = min(K, k0 + per);
-    for (int j = 0; j < P.n; ++j) {
-      unsigned char* accb = smem + P.smem_off[j];
-      void* out = P.out[j];
-      with_spec(P.kind[j], P.op[j], [&](auto s) {
-        typedef typename decltype(s)::In In;
-        typedef Acc<In, decltype(s)::op> A;
-        typedef typename A::S S;
-        S* acc = reinterpret_cast<S*>(accb);
-        for (int k = k0 + threadIdx.x; k < k1; k += T) {
-          S v = acc[k];
-          for (int q = 0; q < C; ++q)
-            if (q != rank) v = A::combine(v, cl.map_shared_rank(acc, q)[k]);
-          if (v != A::neutral()) A::global(reinterpret_cast<In*>(out) + k, v);
-        }
-      });
-    }
-    cl.sync();  // no block leaves while another reads its accumulators
-  } else {
-    __syncthreads();
-    for (int j = 0; j < P.n; ++j) {
-      unsigned char* accb = smem + P.smem_off[j];
-      void* out = P.out[j];
-      with_spec(P.kind[j], P.op[j], [&](auto s) {
-        typedef typename decltype(s)::In In;
-        typedef Acc<In, decltype(s)::op> A;
-        typedef typename A::S S;
-        const S* acc = reinterpret_cast<const S*>(accb);
-        for (int k = threadIdx.x; k < K; k += T) {
-          const S v = acc[k];
-          if (v != A::neutral()) A::global(reinterpret_cast<In*>(out) + k, v);
-        }
-      });
-    }
+  __syncthreads();
+  for (int j = 0; j < P.n; ++j) {
+    unsigned char* accb = smem + P.smem_off[j];
+    void* out = P.out[j];
+    with_spec(P.kind[j], P.op[j], [&](auto s) {
+      typedef typename decltype(s)::In In;
+      typedef Acc<In, decltype(s)::op> A;
+      typedef typename A::S S;
+      const S* acc = reinterpret_cast<const S*>(accb);
+      for (int k = threadIdx.x; k < K; k += T) {
+        const S v = acc[k];
+        if (v != A::neutral()) A::global(reinterpret_cast<In*>(out) + k, v);
+      }
+    });
   }
 }
 
 // ---- C interface -----------------------------------------------------------
 
-// The kernel's attributes, set once a device: the largest dynamic shared
-// memory and clusters past the portable 8 blocks.
+// The kernel's largest dynamic shared memory, set once a device.
 static cudaError_t setup_once() {
   static bool ready[DSR_MAX_DEVICES];
   int dev = 0;
@@ -381,37 +342,23 @@ static cudaError_t setup_once() {
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            DSR_SMEM_MAX);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(dsr_reduce,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return e;
   if (dev < DSR_MAX_DEVICES) ready[dev] = true;
   return cudaSuccess;
 }
 
-static void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                           int cluster) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = cluster > 1 ? 1 : 0;
-}
-
 // Reduces n_planes planes of n rows by gid into outs[j] (K,).  kinds: 0 i32,
 // 1 i64, 2 f32, 3 f64; ops: 0 add, 1 min, 2 max.  vec: every plane and gid
-// are 16-byte aligned.  `grid` blocks of `threads` threads, in clusters
-// of `cluster` blocks (grid a multiple of it).  Launches the init and the
-// reduction on `stream` and returns cudaGetLastError() (0 when both
-// launched).
+// are 16-byte aligned.  `grid` blocks of `threads` threads.  Launches the
+// init and the reduction on `stream` and returns cudaGetLastError() (0 when
+// both launched).
 extern "C" int dense_slot_reduce(const void* gid, long long n, int K,
                                  int n_planes, const void* const* ins,
                                  void* const* outs, const int* kinds,
                                  const int* ops, int vec, int grid,
-                                 int threads, int cluster, void* stream) {
+                                 int threads, void* stream) {
   if (n_planes < 1 || n_planes > DSR_MAX_PLANES || K < 1 || K > 1024 ||
       n < 0 || grid < 1 || threads < 32 || threads > 1024 ||
-      threads % 32 != 0 || cluster < 1 || grid % cluster != 0)
+      threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   Planes P;
   int off = 0;
@@ -433,38 +380,9 @@ extern "C" int dense_slot_reduce(const void* gid, long long n, int K,
   dsr_init<<<dim3((K + 255) / 256, n_planes), 256, 0, s>>>(P, K);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = off;
-  cfg.stream = s;
-  cluster_config(&cfg, attr, cluster);
-  e = cudaLaunchKernelEx(&cfg, dsr_reduce,
-                         reinterpret_cast<const int32_t*>(gid), n, K, P, vec,
-                         cluster);
-  if (e != cudaSuccess) return (int)e;
+  dsr_reduce<<<grid, threads, off, s>>>(reinterpret_cast<const int32_t*>(gid),
+                                        n, K, P, vec);
   return (int)cudaGetLastError();
-}
-
-// How many clusters of `cluster` blocks (`threads` threads, `smem` bytes of
-// dynamic shared memory each) the card holds at once -> the count, or a
-// negative CUDA error code.
-extern "C" int dense_slot_reduce_max_clusters(int threads, int smem,
-                                              int cluster) {
-  cudaError_t e = setup_once();
-  if (e != cudaSuccess) return -(int)e;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cluster_config(&cfg, attr, cluster);
-  cfg.numAttrs = 1;  // the query takes a cluster shape, 1 included
-  int count = 0;
-  e = cudaOccupancyMaxActiveClusters(&count, dsr_reduce, &cfg);
-  if (e != cudaSuccess) return -(int)e;
-  return count;
 }
 
 extern "C" const char* dense_slot_reduce_error(int code) {

@@ -25,7 +25,6 @@ does, so the same batches take the kernel in both.
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -52,7 +51,6 @@ _MAX_PLANES = 32       # DSR_MAX_PLANES in the CUDA source
 _ROWS = 8              # DSR_ROWS: rows a thread takes from each tile
 _THREADS = 1024        # threads a block
 _BLOCKS_PER_SM = 1
-_CLUSTER = 1           # blocks a cluster merges through distributed smem
 
 
 def neutral(op: str, dtype: torch.dtype):
@@ -120,21 +118,16 @@ class LaunchPlan:
     smem: int                # bytes of shared memory a block
     threads: int             # threads a block
     tile: int                # rows a block takes at a time
-    grid: int                # blocks, a multiple of ``cluster``
-    cluster: int             # blocks a cluster
+    grid: int                # blocks
 
 
 def launch_plan(itemsizes: Sequence[int], K: int, n: int, sms: int, *,
-                threads: int = _THREADS, blocks_per_sm: int = _BLOCKS_PER_SM,
-                cluster: int = _CLUSTER,
-                max_clusters: Optional[Callable[[int, int, int], int]] = None
+                threads: int = _THREADS, blocks_per_sm: int = _BLOCKS_PER_SM
                 ) -> List[LaunchPlan]:
     """The launches of a spec of planes of ``itemsizes`` bytes, ``n`` rows,
     on a card of ``sms`` SMs: one a plane group.  A group's grid is one
     wave: ``blocks_per_sm`` blocks an SM, fewer when the accumulators
-    leave room for fewer, never more blocks than tiles (rounded up to
-    whole clusters), and at most what ``max_clusters(threads, smem,
-    cluster)`` says the card holds at once."""
+    leave room for fewer, and never more blocks than tiles."""
     tile = _ROWS * threads
     tiles = max(1, -(-n // tile))
     plans = []
@@ -142,13 +135,8 @@ def launch_plan(itemsizes: Sequence[int], K: int, n: int, sms: int, *,
         smem = sum(_plane_bytes(itemsizes[j], K) for j in group)
         per_sm = max(1, min(blocks_per_sm, 2048 // threads,
                             _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK)))
-        cap = sms * per_sm
-        if max_clusters is not None:
-            cap = min(cap, max(1, max_clusters(threads, smem, cluster))
-                      * cluster)
-        grid = max(1, min(cap // cluster, -(-tiles // cluster))) * cluster
-        plans.append(LaunchPlan(tuple(group), smem, threads, tile, grid,
-                                cluster))
+        plans.append(LaunchPlan(tuple(group), smem, threads, tile,
+                                min(tiles, sms * per_sm)))
     return plans
 
 
@@ -178,27 +166,11 @@ def _kernel() -> ctypes.CDLL:
     if lib.dense_slot_reduce.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.dense_slot_reduce.argtypes = [
-            vp, ctypes.c_longlong, i, i, vp, vp, vp, vp, i, i, i, i, vp]
+            vp, ctypes.c_longlong, i, i, vp, vp, vp, vp, i, i, i, vp]
         lib.dense_slot_reduce.restype = i
-        lib.dense_slot_reduce_max_clusters.argtypes = [i, i, i]
-        lib.dense_slot_reduce_max_clusters.restype = i
         lib.dense_slot_reduce_error.argtypes = [i]
         lib.dense_slot_reduce_error.restype = ctypes.c_char_p
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _max_clusters(device: int, threads: int, smem: int, cluster: int) -> int:
-    """How many clusters the card holds at once (the occupancy query,
-    made once a launch shape)."""
-    lib = _kernel()
-    with torch.cuda.device(device):
-        count = lib.dense_slot_reduce_max_clusters(threads, smem, cluster)
-    if count < 0:
-        msg = lib.dense_slot_reduce_error(-count).decode()
-        raise RuntimeError(f"dense_slot_reduce occupancy query failed: CUDA "
-                           f"error {-count} ({msg})")
-    return count
 
 
 def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
@@ -208,21 +180,18 @@ def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
     arguments of every plane group -> ``(launch, outs)``.  ``launch()``
     runs the kernel on the current stream, one call per plane group, and
     fills ``outs``; it may be called again on the same inputs.  ``shape``
-    (``threads``, ``blocks_per_sm``, ``cluster``) overrides
-    ``launch_plan``'s defaults, to measure them."""
+    (``threads``, ``blocks_per_sm``) overrides ``launch_plan``'s defaults,
+    to measure them."""
     _check(gid, planes, ops, K)
     if gid.device.type != "cuda":
         raise RuntimeError(f"dense_slot_reduce: no kernel for "
                            f"{gid.device.type} tensors")
     lib = _kernel()
     dev = gid.device
-    index = dev.index if dev.index is not None \
-        else torch.cuda.current_device()
     n = gid.numel()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     aligned = all(t.data_ptr() % 16 == 0 for t in (gid, *planes))
     plans = launch_plan([p.element_size() for p in planes], K, n, sms,
-                        max_clusters=functools.partial(_max_clusters, index),
                         **shape)
     outs = [torch.empty(K, dtype=p.dtype, device=dev) for p in planes]
     calls = []
@@ -236,7 +205,7 @@ def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
         # the arrays ride along so that they outlive every launch
         args = (gid.data_ptr(), n, K, len(plan.planes),
                 *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
-                int(aligned), plan.grid, plan.threads, plan.cluster)
+                int(aligned), plan.grid, plan.threads)
         calls.append((args, arrays))
 
     def launch() -> None:
@@ -250,7 +219,6 @@ def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
                                        f"CUDA error {rc} ({msg})")
                 native.LAUNCHES["dense_slot_reduce"] += 1
 
-    launch.plans = plans
     return launch, outs
 
 

@@ -19,7 +19,6 @@ counterpart here.
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 from typing import Callable, Tuple
 
@@ -39,7 +38,6 @@ _TILE_SMEM = 48 * 1024  # shared memory a block aims at, so blocks share an SM
 _SMEM_MAX = 232448      # bytes of shared memory one Hopper block may use
 _SMEM_PER_SM = 233472   # bytes of shared memory one SM holds for its blocks
 _SMEM_PER_BLOCK = 1024  # of which the card keeps this much for each block
-_STAGES = 2             # stage rows a thread
 _PATHS = {"shift_and32": 0, "shift_and64": 1, "long": 2}
 
 
@@ -55,18 +53,16 @@ class ContainsPlan:
     grid: int      # blocks, one wave that walks the tiles
 
 
-def plan_contains(width: int, k: int, rows: int, sms: int, *,
-                  stages: int = _STAGES, tile_rows: int = _TILE_ROWS
-                  ) -> ContainsPlan:
+def plan_contains(width: int, k: int, rows: int, sms: int) -> ContainsPlan:
     """The kernel's launch shape for a (``rows``, ``width``) char matrix
     and a ``k``-byte needle, ``1 <= k <= width``, on a card of ``sms``
     SMs: Shift-And with a 32-bit state up to 32 bytes and a 64-bit one up
     to 64, the prefilter-and-compare path beyond.  A block holds the
-    needle's 256-entry mask table and ``stages`` stages of a tile's rows,
+    needle's 256-entry mask table and two stages of a tile's rows,
     ``width + 16`` bytes apart (16 at width 8): an odd number of 16-byte
     units from width 32 up, so 16-byte reads of rows t and t + 1 never
-    share a bank; tiles of up to ``tile_rows`` rows near 48 KB; one stage
-    when two would not fit.  Raises when one row does not fit a block's shared
+    share a bank; tiles of up to 256 rows near 48 KB; one stage when two
+    would not fit.  Raises when one row does not fit a block's shared
     memory."""
     if k <= 32:
         path, table = "shift_and32", 256 * 4
@@ -75,7 +71,8 @@ def plan_contains(width: int, k: int, rows: int, sms: int, *,
     else:
         path, table = "long", 0
     stride = width + 16 if width >= 16 else 16
-    tile = min(tile_rows, (_TILE_SMEM - table) // (stages * stride))
+    stages = 2
+    tile = min(_TILE_ROWS, (_TILE_SMEM - table) // (stages * stride))
     if tile < 1:
         tile = 1
         if table + stages * stride > _SMEM_MAX:
@@ -125,24 +122,14 @@ def _kernel() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=64)
-def _needle_on_card(pat: bytes, device: int) -> torch.Tensor:
-    """A needle longer than the Shift-And paths take by value, copied to
-    the card once."""
-    return torch.tensor(list(pat), dtype=torch.uint8,
-                        device=torch.device("cuda", device))
-
-
-def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes,
-                     **shape) -> Tuple[Callable[[], None], torch.Tensor]:
+def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes
+                     ) -> Tuple[Callable[[], None], torch.Tensor]:
     """The wrapper's host work for CUDA tensors, for ``1 <= len(pat) <=
     width``: checks, a contiguous 16-byte aligned char matrix, the output
     and the launch shape -> ``(launch, out)``.  ``launch()`` runs the
     kernel on the current stream and fills ``out`` (``torch.bool``); it
     may be called again on the same inputs.  A needle of up to 64 bytes
-    goes to the kernel by value; a longer one from a card buffer made once
-    a needle.  ``shape`` (``stages``, ``tile_rows``) overrides
-    ``plan_contains``' defaults, to measure them."""
+    goes to the kernel by value; a longer one from a card buffer."""
     _check(chars, lengths)
     if chars.device.type != "cuda":
         raise RuntimeError(f"contains: no kernel for {chars.device.type} "
@@ -156,17 +143,13 @@ def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes,
     lib = _kernel()
     dev = chars.device
     plan = plan_contains(w, k, rows, torch.cuda.get_device_properties(
-        dev).multi_processor_count, **shape)
+        dev).multi_processor_count)
     chars = chars.contiguous()
     if chars.data_ptr() % 16:
         chars = chars.clone()
     lengths = lengths.contiguous()
-    needle = None
-    if plan.path == "long":
-        index = dev.index if dev.index is not None \
-            else torch.cuda.current_device()
-        needle = _needle_on_card(pat, index)
-    pat_dev = needle.data_ptr() if needle is not None else None
+    needle = (torch.tensor(list(pat), dtype=torch.uint8, device=dev)
+              if plan.path == "long" else None)
     out = torch.empty(rows, dtype=torch.bool, device=dev)
 
     def launch() -> None:
@@ -178,7 +161,9 @@ def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes,
                                      rows, w, plan.rows, plan.stride,
                                      plan.stages, plan.grid, plan.threads,
                                      plan.smem, _PATHS[plan.path], pat,
-                                     pat_dev, k, out.data_ptr(), stream)
+                                     None if needle is None
+                                     else needle.data_ptr(), k,
+                                     out.data_ptr(), stream)
         if rc != 0:
             msg = lib.contains_error(rc).decode()
             raise RuntimeError(f"contains launch failed: CUDA error {rc} "

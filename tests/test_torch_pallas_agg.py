@@ -31,6 +31,7 @@ from spark_rapids_tpu.exprs.base import BoundReference as JRef
 from spark_rapids_tpu.exprs.base import _batch_signature, _flatten_batch
 from tests.compare import assert_tables_equal, tpu_session
 
+import chip_smoke
 import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch import functions as TF
 from spark_rapids_tpu_torch import native
@@ -148,6 +149,43 @@ def test_plane_groups_split_wide_specs(dtype, n, K, sizes):
     groups = tpag._plane_groups(planes, K)
     assert [len(g) for g in groups] == sizes
     assert [j for g in groups for j in g] == list(range(n))
+
+
+# the main path's eight planes: occupancy, count, sum (f64), the sum's
+# count, max (f32), has-NaN, has-non-NaN, the max's count
+MAIN_PATH_SIZES = [4, 4, 8, 4, 4, 4, 4, 4]
+
+
+@pytest.mark.parametrize("K", [128, 1024])
+@pytest.mark.parametrize("sizes", [MAIN_PATH_SIZES, [4] * 32, [8] * 32,
+                                   [8, 4] * 16, [8] * 40 + [4, 4], [4]])
+def test_launch_plan_fits_shared_memory(K, sizes):
+    """Every launch of a spec fits one Hopper block's shared memory
+    (232,448 bytes), takes at most 32 planes, covers the planes in order,
+    and its grid is at most one wave of a 132-SM card and no more blocks
+    than tiles."""
+    for n in (1, 4099, (1 << 20) - 37, 1 << 20):
+        for shape in ({}, {"threads": 512, "blocks_per_sm": 2},
+                      {"threads": 256, "blocks_per_sm": 4}):
+            plans = tpag.launch_plan(sizes, K, n, 132, **shape)
+            assert [j for p in plans for j in p.planes] == \
+                list(range(len(sizes)))
+            for p in plans:
+                assert len(p.planes) <= 32
+                assert p.smem == sum((K * sizes[j] + 15) // 16 * 16
+                                     for j in p.planes) <= 232448
+                assert p.tile == 8 * p.threads
+                assert 1 <= p.grid <= 132 * (2048 // p.threads)
+                assert p.grid <= -(-n // p.tile)
+
+
+def test_launch_plan_of_the_main_path():
+    """The main path's spec is one launch of one 1024-thread block an SM,
+    each block one tile of 8192 rows of the 2^20-row batch."""
+    (plan,) = tpag.launch_plan(MAIN_PATH_SIZES, 1024, 1 << 20, 132)
+    assert plan.planes == tuple(range(8))
+    assert (plan.threads, plan.tile, plan.grid) == (1024, 8192, 128)
+    assert plan.smem == 1024 * 36
 
 
 def _jax_batch(table):
@@ -451,3 +489,15 @@ def test_dense_slot_kernel_matches_plain_version_on_card():
             assert torch.all((g - w).abs() <= 1e-12 * scale + 1e-300)
         else:
             assert torch.equal(g, w), (p.dtype, op)
+    # the edge specs chip_smoke.py holds on the card: all rows on one slot,
+    # K = 128, plane groups, NaN / signed zeros / infinities under min and
+    # max, wrapping int64 sums, gids of -1 and K + 3, a ragged row count
+    # and planes off 16-byte alignment; one launch a plane group
+    for name, g, p, o, k in chip_smoke.dsr_edge_specs(
+            torch, np.random.default_rng(1)):
+        before = native.LAUNCHES["dense_slot_reduce"]
+        got = tpag.dense_slot_reduce(g, p, o, k)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["dense_slot_reduce"] == \
+            before + len(tpag._plane_groups(p, k)), name
+        chip_smoke.compare_kernel(torch, tpag, g, p, o, k, got)

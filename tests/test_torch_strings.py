@@ -260,6 +260,76 @@ def test_contains_kernel_matches_plain_version_on_card():
         torch.cuda.synchronize()
         assert native.LAUNCHES["contains"] == before + 1
         assert torch.equal(got, tps.contains_reference(c, ln, needle))
+    # the edge specs chip_smoke.py holds on the card: needles at window 0,
+    # at the last window and one byte past the length; k = 1 to 65 and
+    # k = width; repetitive text; widths 8 to 1024; lengths past the width
+    # and row counts off the tile
+    for name, c, ln, p in chip_smoke.contains_specs(
+            torch, np.random.default_rng(2)):
+        got = tps.run_contains(c, ln, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tps.contains_reference(c, ln, p)), name
+
+
+def _first_design_smem(width: int, k: int) -> int:
+    """Shared memory a block of the first contains kernel took."""
+    per_warp = min(32, max(1, 512 // width))
+    pat = (k + 15) // 16 * 16
+    warps = max(1, min(8, (48 * 1024 - pat) // (per_warp * width)))
+    return pat + warps * per_warp * width
+
+
+@pytest.mark.parametrize("width", [8 << i for i in range(10)])
+def test_contains_plan_fits_shared_memory(width):
+    """For every width from 8 to 4096 and needles of 1 to 65 bytes and
+    of the width: the block fits 232,448 bytes of shared memory, rows
+    are 16-byte aligned at an odd number of 16-byte units from width 32
+    up (thread t's and t + 1's 16-byte reads meet no bank conflict), the
+    path follows the needle's length, and the grid is one wave."""
+    rows = 1 << 20
+    for k in sorted({1, 3, 16, 32, 33, 64, 65, width}):
+        if k > width:
+            continue
+        p = tps.plan_contains(width, k, rows, 132)
+        table = {"shift_and32": 1024, "shift_and64": 2048, "long": 0}
+        assert p.path == ("shift_and32" if k <= 32 else
+                          "shift_and64" if k <= 64 else "long")
+        assert p.smem == table[p.path] + p.stages * p.rows * p.stride
+        assert p.smem <= 232448
+        assert p.stride % 16 == 0 and p.stride >= max(width, 16)
+        if width >= 32:
+            assert (p.stride // 16) % 2 == 1
+        assert p.stages == 2
+        assert 1 <= p.rows <= p.threads <= 256 and p.threads % 32 == 0
+        assert 1 <= p.grid <= -(-rows // p.rows)
+
+
+def test_contains_plan_paths_by_needle_length():
+    """Shift-And takes needles up to 64 bytes (a 32-bit state up to 32),
+    the prefilter-and-compare path longer ones."""
+    paths = [tps.plan_contains(128, k, 100, 132).path
+             for k in (1, 32, 33, 64, 65, 128)]
+    assert paths == ["shift_and32", "shift_and32", "shift_and64",
+                     "shift_and64", "long", "long"]
+    assert tps.SHIFT_AND_MAX == 64
+
+
+def test_contains_plan_raises_past_shared_memory_as_before():
+    """The widths whose block passes the shared-memory budget are the
+    first design's: up to 2^17 fit (one row a tile, one stage at 2^17),
+    2^18 raises."""
+    for width in (8 << i for i in range(16)):
+        old_raises = _first_design_smem(width, 16) > 232448
+        try:
+            tps.plan_contains(width, 16, 4, 132)
+            raised = False
+        except ValueError as e:
+            assert "shared memory" in str(e)
+            raised = True
+        assert raised == old_raises, width
+    assert tps.plan_contains(1 << 17, 16, 4, 132).stages == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        tps.plan_contains(1 << 18, 16, 4, 132)
 
 
 # ---------------------------------------------------------------------------
