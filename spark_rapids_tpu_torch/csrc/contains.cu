@@ -48,13 +48,14 @@
 //     a card buffer the wrapper makes once a needle.
 //   * The answers of a tile are consecutive bytes, so the stores coalesce.
 //
-// On the card (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 37.6 us with
-// the batch partly in L2, 50.7 us cold, 35.1 us of device time, against
-// the 9.2 us bound of the bytes a match needs.  The scan is about six
-// instructions and one table load a byte, and a warp runs to its longest
-// row; the copies of 16 to 48 bytes a row run near the rate of whole rows.
-// Neither coalesced copies (other threads' rows, with barriers) nor one
-// stage, nor smaller tiles did better (see PERF.md).
+// On the card (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 37.5 to
+// 37.8 us with the batch partly in L2, 47.6 to 47.8 us cold, 35.1 to
+// 35.5 us of device time, against 98.5 to 100.6 us for the first design
+// in the same call and the 9.2 us bound of the bytes a match needs.  The
+// scan is about six instructions and one table load a byte, a warp runs
+// to its longest row, and the copies of 16 to 48 bytes a row overlap it
+// only in part.  Neither coalesced copies (other threads' rows, with
+// barriers) nor one stage, nor smaller tiles did better.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>

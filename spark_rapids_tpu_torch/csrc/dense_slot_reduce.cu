@@ -50,15 +50,16 @@
 // atomics already did.  The caller splits a spec whose accumulators pass
 // the shared-memory budget into plane groups, one call each.
 //
-// On the card (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 23.4 us with
-// the inputs warm in L2, 35.6 us cold, 20.0 us of device time in
-// dsr_reduce and 1.2 us in dsr_init.  What bounds it is the shared-memory
-// atomics: one a row and plane, at random slots, so a warp's 32 atomics
-// meet bank conflicts; the SASS has native ATOMS for 32-bit integers and
-// for the ordered float min/max, and a CAS loop (ATOMS.CAST.SPIN.64) for
-// every 64-bit shared atomic, the main path's f64 sum among them.  Neither
-// a cluster merge through distributed shared memory nor staging the tiles
-// with cp.async paid (see PERF.md).
+// On the card (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 23.0 to
+// 24.7 us with the inputs warm in L2, 35.1 to 39.8 us cold, 20.0 to 20.4 us
+// of device time in dsr_reduce and 1.2 us in dsr_init, against 72.1 to
+// 72.9 us for the first design in the same call.  What bounds it is the
+// shared-memory atomics: one a row and plane, at random slots, so a warp's
+// 32 atomics meet bank conflicts; the SASS has native ATOMS for 32-bit
+// integers and for the ordered float min/max, and a CAS loop
+// (ATOMS.CAST.SPIN.64) for every 64-bit shared atomic, the main path's
+// f64 sum among them.  Neither a cluster merge through distributed shared
+// memory nor staging the tiles with cp.async paid.
 
 #include <climits>
 #include <cuda_runtime.h>
