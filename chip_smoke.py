@@ -603,9 +603,10 @@ def contains_specs(torch, rng):
     """The contains kernel's edge specs -> [(name, chars, lengths, pat)]:
     needles at window 0, at the last window and one byte past the length;
     k = 1, 3, 4, 5, 31, 32, 33, 63, 64, 65 and k = W (both Shift-And
-    states and the long path); repetitive text (``aaaa...ab``); W = 8,
-    16, 512 and 1024; lengths past W; row counts that are not a multiple
-    of a tile; and the W = 512 spec with UTF-8 bytes."""
+    states and the long path); a needle past 1 KB (the card-buffer
+    path); repetitive text (``aaaa...ab``); W = 8, 16, 512, 1024 and
+    2048; lengths past W; row counts that are not a multiple of a tile;
+    and the W = 512 spec with UTF-8 bytes."""
     rows = (1 << 14) + 5
 
     def needle(k):
@@ -619,7 +620,7 @@ def contains_specs(torch, rng):
         specs.append((f"repetitive_k{k}", *planted(
             torch, rng, rows, 64, b"a" * (k - 1) + b"b", text)))
     for W, k in ((8, 5), (8, 8), (16, 3), (16, 16), (64, 16), (512, 16),
-                 (512, 200), (1024, 16), (1024, 1024)):
+                 (512, 200), (1024, 16), (1024, 1024), (2048, 1100)):
         specs.append((f"W{W}_k{k}", *planted(torch, rng, rows, W,
                                              needle(k))))
     specs += [(f"utf8_W512_k{len(p)}", c, ln, p)

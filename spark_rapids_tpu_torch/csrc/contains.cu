@@ -44,8 +44,8 @@
 //     16 bytes a shared-memory load, the last partial chunk masked, and a
 //     stop at the first hit.  No vote, no shuffle, no row after row.
 //   * Longer needles (right, not tuned; no routed query has one): a 4-byte
-//     prefilter on each window, then a full compare; the needle comes from
-//     a card buffer the wrapper makes once a needle.
+//     prefilter on each window, then a full compare.  Needles of up to 1 KB
+//     come by value too; longer ones from a card buffer.
 //   * The answers of a tile are consecutive bytes, so the stores coalesce.
 //
 // On the card (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 37.5 to
@@ -64,13 +64,14 @@
 
 #define CT_SMEM_MAX 232448    // bytes of shared memory a Hopper block may use
 #define CT_SHIFT_AND_MAX 64   // longest needle of the Shift-And paths
+#define CT_NEEDLE_BYTES 1024  // longest needle that goes by value
 #define CT_MAX_THREADS 256
 #define CT_MAX_DEVICES 64
 
 enum { PATH_SHIFT_AND32 = 0, PATH_SHIFT_AND64 = 1, PATH_LONG = 2 };
 
 struct Needle {
-  unsigned char b[CT_SHIFT_AND_MAX];
+  unsigned char b[CT_NEEDLE_BYTES];
 };
 
 // A row's length clamped to [0, W]; 0 past the last row and for a row too
@@ -189,7 +190,7 @@ template <typename M> struct ShiftAnd {
 // then the rest byte by byte.  j + k <= len and k > 64, so word
 // (j >> 2) + 1 lies below the length.
 struct Prefilter {
-  const unsigned char* pat;
+  const unsigned char* pat;  // the launch's parameters or a card buffer
   int k;
   uint32_t first;
   __device__ __forceinline__ bool operator()(const unsigned char* row,
@@ -200,7 +201,7 @@ struct Prefilter {
           __funnelshift_r(words[j >> 2], words[(j >> 2) + 1], 8 * (j & 3));
       if (w == first) {
         int t = 4;
-        while (t < k && row[j + t] == __ldg(pat + t)) ++t;
+        while (t < k && row[j + t] == pat[t]) ++t;
         if (t == k) return true;
       }
     }
@@ -232,13 +233,15 @@ __global__ void __launch_bounds__(CT_MAX_THREADS)
     contains_long(const unsigned char* __restrict__ chars,
                   const int32_t* __restrict__ lens, long long rows, int W,
                   int R, int stride, int stages,
-                  const unsigned char* __restrict__ pat, int k,
+                  const __grid_constant__ Needle nd,
+                  const unsigned char* __restrict__ pat_dev, int k,
                   unsigned char* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const unsigned char* pat = k <= CT_NEEDLE_BYTES ? nd.b : pat_dev;
   const Prefilter scan{pat, k,
-                       (uint32_t)__ldg(pat) | ((uint32_t)__ldg(pat + 1) << 8) |
-                           ((uint32_t)__ldg(pat + 2) << 16) |
-                           ((uint32_t)__ldg(pat + 3) << 24)};
+                       (uint32_t)pat[0] | ((uint32_t)pat[1] << 8) |
+                           ((uint32_t)pat[2] << 16) |
+                           ((uint32_t)pat[3] << 24)};
   scan_tiles(chars, lens, rows, W, R, stride, stages, k, smem, out, scan);
 }
 
@@ -267,10 +270,10 @@ static cudaError_t setup_once() {
 // occurs in row r of the (rows, W) char matrix before len[r].  `grid`
 // blocks of `threads` threads take tiles of R rows, `stages` (1 or 2)
 // stages of rows `stride` bytes apart; `smem` bytes of dynamic shared
-// memory a block.  path 0 and 1 (Shift-And, k <= 32 and k <= 64) take the
-// needle from `pat`, a host pointer, by value; path 2 (k > 64) from
-// `pat_dev`, on the card.  Launches on `stream` and returns
-// cudaGetLastError() (0 when it launched).
+// memory a block.  path 0 and 1 (Shift-And, k <= 32 and k <= 64), path 2
+// beyond.  A needle of up to 1024 bytes goes by value from `pat`, a host
+// pointer; a longer one from `pat_dev`, on the card.  Launches on `stream`
+// and returns cudaGetLastError() (0 when it launched).
 extern "C" int contains_launch(const void* chars, const void* lens,
                                long long rows, int W, int R, int stride,
                                int stages, int grid, int threads, int smem,
@@ -286,7 +289,7 @@ extern "C" int contains_launch(const void* chars, const void* lens,
       stride < (W < 16 ? 16 : W) || stages < 1 || stages > 2 || grid < 1 ||
       table + (long long)stages * R * stride > smem || smem > CT_SMEM_MAX ||
       path < 0 || path > 2 || k < k_min || k > k_max || k > W ||
-      (path == PATH_LONG ? pat_dev == nullptr : pat == nullptr))
+      (k <= CT_NEEDLE_BYTES ? pat == nullptr : pat_dev == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = setup_once();
   if (e != cudaSuccess) return (int)e;
@@ -294,21 +297,19 @@ extern "C" int contains_launch(const void* chars, const void* lens,
   const unsigned char* c = reinterpret_cast<const unsigned char*>(chars);
   const int32_t* l = reinterpret_cast<const int32_t*>(lens);
   unsigned char* o = reinterpret_cast<unsigned char*>(out);
-  if (path == PATH_LONG) {
+  Needle nd;
+  memset(nd.b, 0, sizeof(nd.b));
+  if (k <= CT_NEEDLE_BYTES) memcpy(nd.b, pat, k);
+  if (path == PATH_LONG)
     contains_long<<<grid, threads, smem, s>>>(
-        c, l, rows, W, R, stride, stages,
+        c, l, rows, W, R, stride, stages, nd,
         reinterpret_cast<const unsigned char*>(pat_dev), k, o);
-  } else {
-    Needle nd;
-    memset(nd.b, 0, sizeof(nd.b));
-    memcpy(nd.b, pat, k);
-    if (path == PATH_SHIFT_AND32)
-      contains_shift_and<unsigned int><<<grid, threads, smem, s>>>(
-          c, l, rows, W, R, stride, stages, nd, k, o);
-    else
-      contains_shift_and<unsigned long long><<<grid, threads, smem, s>>>(
-          c, l, rows, W, R, stride, stages, nd, k, o);
-  }
+  else if (path == PATH_SHIFT_AND32)
+    contains_shift_and<unsigned int><<<grid, threads, smem, s>>>(
+        c, l, rows, W, R, stride, stages, nd, k, o);
+  else
+    contains_shift_and<unsigned long long><<<grid, threads, smem, s>>>(
+        c, l, rows, W, R, stride, stages, nd, k, o);
   return (int)cudaGetLastError();
 }
 

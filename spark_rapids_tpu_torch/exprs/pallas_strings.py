@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.exprs.strings import Contains, contains_unrolled
 PALLAS_PATTERN_MIN = 16
 
 SHIFT_AND_MAX = 64      # longest needle of the Shift-And paths
+NEEDLE_BYTES = 1024     # longest needle that goes to the kernel by value
 _TILE_ROWS = 256        # rows a block takes at a time, at most
 _TILE_SMEM = 48 * 1024  # shared memory a block aims at, so blocks share an SM
 _SMEM_MAX = 232448      # bytes of shared memory one Hopper block may use
@@ -128,8 +129,8 @@ def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes
     width``: checks, a contiguous 16-byte aligned char matrix, the output
     and the launch shape -> ``(launch, out)``.  ``launch()`` runs the
     kernel on the current stream and fills ``out`` (``torch.bool``); it
-    may be called again on the same inputs.  A needle of up to 64 bytes
-    goes to the kernel by value; a longer one from a card buffer."""
+    may be called again on the same inputs.  A needle of up to 1 KB goes
+    to the kernel by value; a longer one from a card buffer."""
     _check(chars, lengths)
     if chars.device.type != "cuda":
         raise RuntimeError(f"contains: no kernel for {chars.device.type} "
@@ -149,7 +150,7 @@ def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes
         chars = chars.clone()
     lengths = lengths.contiguous()
     needle = (torch.tensor(list(pat), dtype=torch.uint8, device=dev)
-              if plan.path == "long" else None)
+              if k > NEEDLE_BYTES else None)
     out = torch.empty(rows, dtype=torch.bool, device=dev)
 
     def launch() -> None:
