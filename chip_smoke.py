@@ -48,14 +48,29 @@ Phases, each printing one JSON line:
    "special requests") through TPC-H Q1's grouping and aggregates over a
    contains filter with a 16-byte needle (the contains kernel, once a
    batch), and through a 7-byte needle's filter and a projection whose
-   strings come back whole; checked against numpy, timed as phase 5.
+   strings come back whole; checked against numpy, timed as phase 5
+   over 2 runs;
+10. hash_join_1m: ``bench.py``'s join query, the 1,000,000-row fact
+   table of phase 5 against its 10,000-row dimension (the next draw of
+   the seed-7 stream) on ``k``, then ``group_by(grp)`` with a sum: the
+   dimension broadcast on the dense FK route, the update through the
+   dense-slot kernel; checked against numpy, its launches and host syncs
+   counted, timed as phase 5;
+11. tpch_q1 to tpch_q18: the bench's six TPC-H queries (q1, q3, q5, q6,
+   q10, q18) over ``gen_tpch_numpy(6_001_215)`` (SF1's lineitem count;
+   orders 1,500,303, customer 150,030, part 120,024, supplier 60,012,
+   partsupp 480,096 rows), each checked against a numpy version of the
+   query (keys, counts, dates and strings exact, f64 within rtol 1e-9, a
+   top-N's order exact but among revenues tied within that tolerance),
+   one warm-up and 2 timed runs, with the host syncs of a run.
 
-The launch counts are reset just before phase 5 and read after phase 9,
-so they show that the main path went through each kernel.  A trace
-phase then runs each text query once more under torch.profiler and
-prints its wall time, the card's busy time and its largest device
-entries.  Then one JSON
-line lists every kernel, the ``nvidia-smi`` line follows, and the last
+Each path of phases 5 to 11 runs with the launch counts set to 0 just
+before it and read just after (one ``launches`` line each), so they
+show that the main path went through each kernel.  A trace phase then
+runs the text queries, hash_join_1m and tpch_q3 once more under
+torch.profiler and prints each one's wall time, the card's busy time,
+its largest device entries and its longest idle gaps.  Then one JSON
+line lists every kernel (its launches summed over the paths), the ``nvidia-smi`` line follows, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits nonzero without that line; it also exits nonzero when
 no card is usable or the port's package is not beside it.
@@ -78,6 +93,8 @@ import numpy as np
 
 SEED = 7
 LINEITEM_ROWS = 6_001_215
+RANGES = "join."  # prefix of the port's torch.profiler ranges
+DIM_ROWS = 10_000
 NEEDLE = "special requests"   # TPC-H Q13's two words as one 16-byte needle
 SHORT_NEEDLE = "special"
 # lowercase words for the synthetic l_comment text; neither needle word
@@ -687,13 +704,16 @@ def phase_contains(torch, ps, session, df, rate: float,
 # -- phases 5 to 9 ---------------------------------------------------------
 
 def gen_data(n_main: int, n_agg: int):
-    """bench.py:gen_data's main and main4 columns, from seed 7."""
+    """bench.py:gen_data's main, main4 and dim columns, from seed 7 (the
+    fact table of hash_join_1m is main, as JOIN_ROWS == N_ROWS there)."""
     rng = np.random.default_rng(SEED)
     main = {"k": rng.integers(0, 1000, n_main), "v": rng.normal(size=n_main),
             "w": rng.normal(size=n_main).astype(np.float32)}
     agg = {"k": rng.integers(0, 1000, n_agg), "v": rng.normal(size=n_agg),
            "w": rng.normal(size=n_agg).astype(np.float32)}
-    return main, agg
+    dim = {"k": np.arange(DIM_ROWS, dtype=np.int64),
+           "grp": rng.integers(0, 50, DIM_ROWS)}
+    return main, agg, dim
 
 
 def run_timed(torch, query, runs: int):
@@ -842,11 +862,243 @@ def phase_text_project(torch, st, F, native, session, df, line, name: str,
          rows_per_s=rows / float(np.median(secs)))
 
 
+# -- hash_join_1m and the TPC-H queries --------------------------------------
+
+def hash_join_query(st, F, fact, dim):
+    """bench.py:q_hash_join."""
+    return (fact.join(dim, on="k", how="inner")
+                .group_by(st.col("grp"))
+                .agg(F.sum(st.col("v")).alias("s")))
+
+
+def _plan_nodes(plan, name: str):
+    out = [plan] if type(plan).__name__ == name else []
+    for c in plan.children:
+        out += _plan_nodes(c, name)
+    return out
+
+
+def host_syncs(plan) -> int:
+    """The host syncs of one run: every operator's ``hostSyncs``."""
+    return plan.metrics.get("hostSyncs", 0) + sum(host_syncs(c)
+                                                  for c in plan.children)
+
+
+def phase_hash_join(torch, st, F, native, session, main, dim,
+                    runs: int = 3) -> None:
+    fact_df = session.create_dataframe(main)
+    dim_df = session.create_dataframe(dim)
+    q = hash_join_query(st, F, fact_df, dim_df)
+    before = native.LAUNCHES["dense_slot_reduce"]
+    (cols, masks, n), secs = run_timed(torch, q, runs)
+    launches = native.LAUNCHES["dense_slot_reduce"] - before
+    plan = session._last_plan
+    (join,) = _plan_nodes(plan, "TorchBroadcastHashJoinExec")
+    check(join.route == "dense_fk",
+          f"the join took the {join.route} route, not dense_fk")
+    check(type(join.children[1]).__name__ == "TorchBroadcastExchangeExec"
+          and join.children[1].output_schema.names == ["k", "grp"],
+          "the dimension is not the broadcast build side")
+    (agg,) = _plan_nodes(plan, "TorchHashAggregateExec")
+    dense = agg.metrics["pallasAggBatches"]
+    check(dense > 0, "no update batch took the dense-slot kernel")
+    check(launches == dense * (runs + 1),
+          f"{launches} kernel launches for {dense} dense batches a run")
+    fk = join.metrics["fkFastPathBatches"]
+    syncs = host_syncs(plan)
+    # the build probe, one row count a stream batch, and the key range
+    # and group count of each dense batch (plus the merge's count)
+    want_syncs = 1 + fk + 2 * dense + (1 if dense > 1 else 0)
+    check(syncs == want_syncs, f"{syncs} host syncs a run, not {want_syncs}")
+    grp = dim["grp"][main["k"]]
+    want_s = np.bincount(grp, main["v"], minlength=50)
+    present = np.flatnonzero(np.bincount(grp, minlength=50))
+    got_g = cols["grp"].cpu().numpy()
+    order = np.argsort(got_g)
+    check(n == present.size and np.array_equal(got_g[order], present),
+          "groups differ from numpy's")
+    check(bool(all(m.all() for m in masks.values())), "unexpected nulls")
+    check(np.allclose(cols["s"].cpu().numpy()[order], want_s[present],
+                      rtol=1e-9, atol=0), "sums beyond rtol 1e-9")
+    rows = len(main["k"])
+    emit("hash_join_1m", rows=rows + len(dim["k"]), fact_rows=rows,
+         dim_rows=len(dim["k"]), groups=n, route=join.route,
+         fk_batches=fk, update_batches=dense, kernel_launches=launches,
+         host_syncs_per_run=syncs, seconds=secs,
+         rows_per_s=(rows + len(dim["k"])) / float(np.median(secs)))
+
+
+def _day(text: str) -> int:
+    return int(np.datetime64(text, "D").astype(np.int64))
+
+
+def _texts(torch, lengths_chars, n: int):
+    """A string column from to_torch -> its first ``n`` values."""
+    lengths, chars = (t[:n].cpu().numpy() for t in lengths_chars)
+    return [bytes(r[:ln]).decode("utf-8") for r, ln in zip(chars, lengths)]
+
+
+def _top(order_keys, limit: int):
+    """Row indices of the first ``limit`` rows under ``np.lexsort``'s
+    ``order_keys`` (last key most significant)."""
+    return np.lexsort(order_keys)[:limit]
+
+
+def tpch_reference(T, qname: str):
+    """numpy's answer to the query over the same tables -> (columns in
+    the query's output order, the number of leading rows whose order a
+    top-N fixes, or None for a full ordered result)."""
+    li, o, c = T["lineitem"], T["orders"], T["customer"]
+    ship = li["l_shipdate"].astype(np.int64)
+    odate = o["o_orderdate"].astype(np.int64)
+    price, disc = li["l_extendedprice"], li["l_discount"]
+    vol = price * (1.0 - disc)
+    okey = li["l_orderkey"]
+    if qname == "q1":
+        m = ship <= _day("1998-09-02")
+        rf = np.searchsorted(["A", "N", "R"], li["l_returnflag"][m])
+        ls = np.searchsorted(["F", "O"], li["l_linestatus"][m])
+        g = rf * 2 + ls
+        cnt = np.bincount(g, minlength=6)
+        keep = np.flatnonzero(cnt)
+        qty, p, d = li["l_quantity"][m], price[m], disc[m]
+
+        def s(x):
+            return np.bincount(g, x, minlength=6)[keep]
+        cnt = cnt[keep]
+        dp = p * (1.0 - d)
+        return {"l_returnflag": [["A", "N", "R"][k // 2] for k in keep],
+                "l_linestatus": [["F", "O"][k % 2] for k in keep],
+                "sum_qty": s(qty), "sum_base_price": s(p),
+                "sum_disc_price": s(dp),
+                "sum_charge": s(dp * (1.0 + li["l_tax"][m])),
+                "avg_qty": s(qty) / cnt, "avg_price": s(p) / cnt,
+                "avg_disc": s(d) / cnt, "count_order": cnt}, None
+    if qname == "q3":
+        cust_ok = c["c_mktsegment"] == "BUILDING"
+        ord_ok = (odate < _day("1995-03-15")) & cust_ok[o["o_custkey"]]
+        m = (ship > _day("1995-03-15")) & ord_ok[okey]
+        n_orders = len(odate)
+        rev = np.bincount(okey[m], vol[m], minlength=n_orders)
+        has = np.bincount(okey[m], minlength=n_orders) > 0
+        keys = np.flatnonzero(has)
+        top = keys[_top((odate[keys], -rev[keys]), 10)]
+        return {"o_orderkey": top, "o_orderdate": odate[top],
+                "o_shippriority": o["o_shippriority"][top],
+                "revenue": rev[top]}, 10
+    if qname == "q5":
+        s_nat = T["supplier"]["s_nationkey"][li["l_suppkey"]]
+        c_nat = c["c_nationkey"][o["o_custkey"][okey]]
+        ord_ok = (odate >= _day("1994-01-01")) & (odate < _day("1995-01-01"))
+        asia = T["nation"]["n_regionkey"][s_nat] == 2  # r_name ASIA
+        m = ord_ok[okey] & (c_nat == s_nat) & asia
+        rev = np.bincount(s_nat[m], vol[m], minlength=25)
+        nations = np.flatnonzero(np.bincount(s_nat[m], minlength=25))
+        nations = nations[np.argsort(-rev[nations], kind="stable")]
+        return {"n_name": [T["nation"]["n_name"][k] for k in nations],
+                "revenue": rev[nations]}, None
+    if qname == "q6":
+        m = ((ship >= _day("1994-01-01")) & (ship < _day("1995-01-01"))
+             & (disc >= 0.05) & (disc <= 0.07) & (li["l_quantity"] < 24.0))
+        return {"revenue": np.array([np.sum(price[m] * disc[m])])}, None
+    if qname == "q10":
+        ord_ok = (odate >= _day("1993-10-01")) & (odate < _day("1994-01-01"))
+        m = (li["l_returnflag"] == "R") & ord_ok[okey]
+        cust = o["o_custkey"][okey[m]]
+        n_cust = len(c["c_custkey"])
+        rev = np.bincount(cust, vol[m], minlength=n_cust)
+        keys = np.flatnonzero(np.bincount(cust, minlength=n_cust))
+        top = keys[_top((-rev[keys],), 20)]
+        nation = T["nation"]["n_name"]
+        return {"c_custkey": top, "c_name": list(c["c_name"][top]),
+                "c_acctbal": c["c_acctbal"][top],
+                "n_name": list(nation[c["c_nationkey"][top]]),
+                "revenue": rev[top]}, 20
+    if qname == "q18":
+        qty = np.bincount(okey, li["l_quantity"], minlength=len(odate))
+        big = np.flatnonzero(qty > 212.0)
+        top = big[_top((big, -qty[big]), 100)]
+        cust = o["o_custkey"][top]
+        return {"c_name": list(c["c_name"][cust]), "c_custkey": cust,
+                "o_orderkey": top, "o_orderdate": odate[top],
+                "total_qty": qty[top]}, 100
+    raise KeyError(qname)
+
+
+def check_tpch(torch, cols, masks, n: int, want, limit, qname: str) -> None:
+    """The port's result against numpy's: row count, no nulls, floats
+    within rtol 1e-9, everything else exact.  In a top-N (``limit``)
+    ordered by revenue, rows whose revenue ties with a neighbour's within
+    rtol 1e-9 may come in either order, so they compare as a set; every
+    other row compares in place."""
+    rows = len(next(iter(want.values())))
+    check(n == rows, f"{qname}: {n} rows, numpy has {rows}")
+    check(bool(all(m[:n].all() for m in masks.values())),
+          f"{qname}: unexpected nulls")
+    tied = np.zeros(rows, bool)
+    if limit is not None and "revenue" in want:
+        near = np.isclose(want["revenue"][1:], want["revenue"][:-1],
+                          rtol=1e-9, atol=0)
+        tied[1:] |= near
+        tied[:-1] |= near
+    for name, w in want.items():
+        g = cols[name]
+        g = np.asarray(_texts(torch, g, n)) if isinstance(g, tuple) \
+            else g[:n].cpu().numpy()
+        w = np.asarray(w)
+        if w.dtype.kind == "f":
+            if tied.any():
+                g, w = np.sort(g), np.sort(w)
+            check(np.allclose(g, w, rtol=1e-9, atol=0),
+                  f"{qname}: {name} beyond rtol 1e-9")
+            continue
+        check(np.array_equal(g[~tied], w[~tied])
+              and sorted(g[tied].tolist()) == sorted(w[tied].tolist()),
+              f"{qname}: {name} differs from numpy's")
+
+
+def phase_tpch(torch, st, native, session, T, tables, qname: str,
+               runs: int = 2) -> None:
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
+    q = TPCH_QUERIES[qname](tables)
+    (cols, masks, n), secs = run_timed(torch, q, runs)
+    want, limit = tpch_reference(T, qname)
+    check_tpch(torch, cols, masks, n, want, limit, qname)
+    plan = session._last_plan
+    joins = [(type(j).__name__, j.join_type, j.route)
+             for j in _plan_nodes(plan, "TorchBroadcastHashJoinExec")
+             + _plan_nodes(plan, "TorchHashJoinExec")]
+    rows = len(T["lineitem"]["l_orderkey"])
+    emit(f"tpch_{qname}", lineitem_rows=rows, out_rows=n, joins=joins,
+         host_syncs_per_run=host_syncs(plan), seconds=secs,
+         rows_per_s=rows / float(np.median(secs)))
+
+
+def idle_gaps(events, top: int = 5):
+    """The longest stretches between device entries of a trace in which
+    the card ran nothing -> [{ms, after, before}], longest first."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events)
+    gaps = []
+    if spans:
+        end, last = spans[0][1], spans[0][2]
+        for start, stop, what in spans[1:]:
+            if start > end:
+                gaps.append((start - end, last, what))
+            if stop > end:
+                end, last = stop, what
+    gaps.sort(reverse=True)
+    return [{"ms": g / 1e3, "after": a[:60], "before": b[:60]}
+            for g, a, b in gaps[:top]]
+
+
 def phase_trace(torch, query, name: str, top: int = 8) -> None:
     """One run of ``query`` under torch.profiler: its wall seconds, the
-    card's busy seconds (kernels and copies) and the largest device
-    entries, so the device's idle share shows how far the host holds the
-    card back."""
+    card's busy seconds (kernels and copies), the largest device entries,
+    the longest idle gaps between them, and the host time and device span
+    of each of the port's named ranges (the join's build and route), so
+    the device's idle share shows how far the host holds the card back
+    and the ranges what the join takes of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -856,14 +1108,34 @@ def phase_trace(torch, query, name: str, top: int = 8) -> None:
         query.to_torch()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    # the port's named ranges (join.build, join.<route>) appear twice: as
+    # host ranges, and as device spans around what they launched, which
+    # are not device work of their own
+    dev = [e for e in averages if e.device_type == DeviceType.CUDA
+           and not e.key.startswith(RANGES)]
     busy = sum(e.self_device_time_total for e in dev) / 1e6
-    dev.sort(key=lambda e: -e.self_device_time_total)
+    # kernels whose names share their first 80 characters add up
+    by_name = {}
+    for e in dev:
+        by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) \
+            + e.self_device_time_total
+    tops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    ranges = {}
+    for e in averages:
+        if e.key.startswith(RANGES):
+            r = ranges.setdefault(e.key, {})
+            if e.device_type == DeviceType.CUDA:
+                r["device_span_ms"] = e.self_device_time_total / 1e3
+            else:
+                r["count"] = e.count
+                r["host_ms"] = e.cpu_time_total / 1e3
     emit("trace", query=name, wall_s=wall, device_busy_s=busy,
-         device_idle_share=1.0 - busy / wall,
-         top_device_us={e.key[:80]: e.self_device_time_total
-                        for e in dev[:top]})
+         device_idle_share=1.0 - busy / wall, top_device_us=dict(tops),
+         ranges=ranges,
+         idle_gaps=idle_gaps([e for e in prof.events()
+                              if e.device_type == DeviceType.CUDA
+                              and not e.name.startswith(RANGES)]))
 
 
 def parse_args(argv):
@@ -916,7 +1188,7 @@ def main(argv=None) -> int:
                 for k, r in reports.items()})
     emit("sass", atomics=sass_summary(native, args.sass_dir))
 
-    main_data, agg_data = gen_data(1_000_000, 2_000_000)
+    main_data, agg_data, dim_data = gen_data(1_000_000, 2_000_000)
     t0 = time.perf_counter()
     line = gen_lineitem(LINEITEM_ROWS, SEED + 2)
     session = st.TorchSession.builder().get_or_create()
@@ -933,25 +1205,54 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
-    native.reset_launches()
-    phase_project_filter(torch, st, session, main_data)
-    phase_agg(torch, st, F, native, session, agg_data, "hash_agg_sort_2m", 3)
+    # each path of the main path runs with the launch counts set to 0
+    # just before it and read just after; the kernels line adds them up
+    launches = {k: 0 for k in native.KERNELS}
+
+    def drive(path: str, fn, *fn_args) -> None:
+        native.reset_launches()
+        fn(*fn_args)
+        emit("launches", path=path, counts=dict(native.LAUNCHES))
+        for k, v in native.LAUNCHES.items():
+            launches[k] += v
+
+    drive("project_filter_1m", phase_project_filter, torch, st, session,
+          main_data)
+    drive("hash_agg_sort_2m", phase_agg, torch, st, F, native, session,
+          agg_data, "hash_agg_sort_2m", 3)
     rng = np.random.default_rng(SEED + 1)
     n = 32_000_000
     big = {"k": rng.integers(0, 1000, n), "v": rng.normal(size=n),
            "w": rng.normal(size=n).astype(np.float32)}
-    phase_agg(torch, st, F, native, session, big, "hash_agg_32m", 1)
+    drive("hash_agg_32m", phase_agg, torch, st, F, native, session, big,
+          "hash_agg_32m", 1)
     del big
-    phase_text_agg(torch, st, F, native, session, line_df, line,
-                   "text_filter_agg_6m")
-    phase_text_project(torch, st, F, native, session, line_df, line,
-                       "text_filter_project_6m")
-    launches = dict(native.LAUNCHES)
+    drive("text_filter_agg_6m", phase_text_agg, torch, st, F, native,
+          session, line_df, line, "text_filter_agg_6m", 2)
+    drive("text_filter_project_6m", phase_text_project, torch, st, F,
+          native, session, line_df, line, "text_filter_project_6m", 2)
+    drive("hash_join_1m", phase_hash_join, torch, st, F, native, session,
+          main_data, dim_data)
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy, \
+        load_tables
+    t0 = time.perf_counter()
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    tpch_dfs = load_tables(session, tpch)
+    emit("tpch_data", lineitem_rows=LINEITEM_ROWS,
+         rows={t: len(next(iter(c.values()))) for t, c in tpch.items()},
+         seconds=time.perf_counter() - t0)
+    for qname in ("q1", "q3", "q5", "q6", "q10", "q18"):
+        drive(f"tpch_{qname}", phase_tpch, torch, st, native, session, tpch,
+              tpch_dfs, qname)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     phase_trace(torch, text_agg_query(st, F, line_df), "text_filter_agg_6m")
     phase_trace(torch, text_project_query(st, F, line_df),
                 "text_filter_project_6m")
+    phase_trace(torch, hash_join_query(st, F, session.create_dataframe(
+        main_data), session.create_dataframe(dim_data)), "hash_join_1m")
+    from spark_rapids_tpu_torch.bench.tpch import q3
+    phase_trace(torch, q3(tpch_dfs), "tpch_q3")
 
     kernels = []
     for kname, info in native.KERNELS.items():

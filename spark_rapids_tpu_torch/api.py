@@ -1,10 +1,11 @@
 """DataFrame API, the user surface.
 
-Counterpart of ``spark_rapids_tpu/api.py``, trimmed to this slice:
-``select``, ``filter``, ``group_by(...).agg(...)``, ``order_by``, the
-string predicates of ``Column`` and the actions ``collect``, ``to_arrow``
-and ``to_torch``.  Actions plan the query (``plan/planner.py``) and run
-it on the session's device.
+Counterpart of ``spark_rapids_tpu/api.py``, trimmed to what the port
+runs: ``select``, ``filter``, ``group_by(...).agg(...)`` and the global
+``agg``, ``order_by`` (with ``Column.asc()`` / ``desc()``), ``limit``,
+``join`` on key names, the string predicates of ``Column`` and the
+actions ``collect``, ``to_arrow`` and ``to_torch``.  Actions plan the
+query (``plan/planner.py``) and run it on the session's device.
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exprs import arithmetic as ar
 from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs import strings as ss
-from spark_rapids_tpu_torch.exprs.base import Alias, Expression, Literal, \
-    UnresolvedAttribute
+from spark_rapids_tpu_torch.exprs.base import Alias, BoundReference, \
+    Expression, Literal, UnresolvedAttribute
+from spark_rapids_tpu_torch.exprs.nullexprs import Coalesce
 from spark_rapids_tpu_torch.plan import logical as lp
 from spark_rapids_tpu_torch.plan.planner import plan_query
 
@@ -114,8 +116,26 @@ class Column:
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name))
 
+    # sort-direction markers read by order_by
+    def asc(self) -> "_SortCol":
+        return _SortCol(self.expr, True)
+
+    def desc(self) -> "_SortCol":
+        return _SortCol(self.expr, False)
+
     def __repr__(self):
         return f"Column<{self.expr.name}>"
+
+
+class _SortCol:
+    """(expression, direction) marker made by ``Column.asc()`` and
+    ``desc()``."""
+
+    __slots__ = ("expr", "ascending")
+
+    def __init__(self, expr: Expression, ascending: bool):
+        self.expr = expr
+        self.ascending = ascending
 
 
 def col(name: str) -> Column:
@@ -150,10 +170,56 @@ class DataFrame:
     def order_by(self, *cols_, ascending=True) -> "DataFrame":
         ascs = ascending if isinstance(ascending, (list, tuple)) \
             else [ascending] * len(cols_)
-        # Spark's default null order: first when ascending, else last
-        orders = [(_expr_or_name(c), bool(a), bool(a))
-                  for c, a in zip(cols_, ascs)]
+        orders = []
+        for c, asc in zip(cols_, ascs):
+            if isinstance(c, _SortCol):
+                # an asc()/desc() marker overrides the keyword
+                c, asc = c.expr, c.ascending
+            # Spark's default null order: first when ascending, else last
+            orders.append((_expr_or_name(c), bool(asc), bool(asc)))
         return DataFrame(self.session, lp.Sort(orders, self.plan))
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, lp.Limit(n, self.plan))
+
+    def agg(self, *agg_cols) -> "DataFrame":
+        """A global aggregation: one row over the whole input."""
+        return GroupedData(self, []).agg(*agg_cols)
+
+    def join(self, other: "DataFrame", on, how: str = "inner"
+             ) -> "DataFrame":
+        """Equi-join on the columns named in ``on`` (one name or a list),
+        of type inner, left, right, full, semi or anti (pyspark's
+        aliases accepted).  As in pyspark's USING join, each key appears
+        once in the output: the left one for inner and left joins, the
+        right one for right joins, and the first non-null of the two for
+        full joins."""
+        on = [on] if isinstance(on, str) else list(on)
+        how = {"left_outer": "left", "right_outer": "right",
+               "outer": "full", "full_outer": "full", "leftsemi": "semi",
+               "left_semi": "semi", "leftanti": "anti",
+               "left_anti": "anti"}.get(how, how)
+        plan = lp.Join(self.plan, other.plan,
+                       [UnresolvedAttribute(k) for k in on],
+                       [UnresolvedAttribute(k) for k in on], how)
+        if how in ("inner", "left", "right", "full"):
+            lfields = self.plan.output_schema().fields
+            rfields = other.plan.output_schema().fields
+            nl = len(lfields)
+            rpos = {f.name: i for i, f in enumerate(rfields)}
+            exprs = []
+            for i, f in enumerate(lfields + rfields):
+                if f.name in on and i >= nl:
+                    continue
+                ref = BoundReference(i, f.dtype, True, f.name)
+                if f.name in on and how in ("right", "full"):
+                    rf = rfields[rpos[f.name]]
+                    rref = BoundReference(nl + rpos[f.name], rf.dtype, True,
+                                          rf.name)
+                    ref = rref if how == "right" else Coalesce(ref, rref)
+                exprs.append(Alias(ref, f.name))
+            plan = lp.Project(exprs, plan)
+        return DataFrame(self.session, plan)
 
     def group_by(self, *cols_) -> "GroupedData":
         return GroupedData(self, [_expr_or_name(c) for c in cols_])
@@ -162,7 +228,7 @@ class DataFrame:
 
     def _execute(self):
         """Plan and run the query; the device batches of its result."""
-        root = plan_query(self.plan)
+        root = plan_query(self.plan, self.session.conf)
         ctx = ExecContext(self.session.conf, self.session.device)
         batches = list(root.execute(ctx))
         self.session._last_plan = root

@@ -260,6 +260,16 @@ def host_batch_to_device(schema: Schema, cols: HostColumns, device,
     return ColumnarBatch(out, n, schema)
 
 
+def empty_batch(schema: Schema, device) -> ColumnarBatch:
+    """A batch of no rows: every column all null at the smallest
+    capacity (an empty build side, a global aggregate's empty input)."""
+    cap = bucket_capacity(0)
+    cols = [upload_column(f.dtype, empty_host_values(f.dtype),
+                          np.zeros(0, np.bool_), cap, device)
+            for f in schema]
+    return ColumnarBatch(cols, 0, schema)
+
+
 def host_columns_from_numpy(data: Dict[str, np.ndarray],
                             masks: Optional[Dict[str, np.ndarray]] = None
                             ) -> Tuple[Schema, HostColumns]:

@@ -1,7 +1,7 @@
 """Typed configuration registry.
 
-Counterpart of ``spark_rapids_tpu/conf.py``, trimmed to the keys this
-slice reads.  Keys the two packages share keep the JAX package's names,
+Counterpart of ``spark_rapids_tpu/conf.py``, trimmed to the keys the
+port reads.  Keys the two packages share keep the JAX package's names,
 so one conf dict drives both in the tests; keys the port does not know
 are kept and ignored.
 """
@@ -66,6 +66,11 @@ MAX_STRING_WIDTH = register(
     "Widest string column (bytes, after rounding up to a power of two) "
     "that a batch may hold on the device; uploading a wider one raises, "
     "as in the JAX package.", int, _positive)
+
+BROADCAST_THRESHOLD = register(
+    "spark.sql.autoBroadcastJoinThreshold", 10 * 1024 * 1024,
+    "Largest estimated size in bytes of a join side that is broadcast "
+    "(built once into one device batch); -1 disables broadcast.", int)
 
 PALLAS_AGG = register(
     "spark.rapids.sql.tpu.pallas.agg.enabled", True,

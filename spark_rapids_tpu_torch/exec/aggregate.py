@@ -33,7 +33,7 @@ from typing import Iterator, List, Sequence, Tuple
 
 import torch
 
-from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import STRING, DataType, Field, \
     Schema
@@ -121,8 +121,6 @@ def make_agg_body(spec: _AggSpec, phase: str, capacity: int):
     (n_groups, key ColVals, buffer ColVals)``, each plane of length
     ``capacity``."""
     nk = len(spec.groupings)
-    if nk == 0:
-        raise NotImplementedError("global aggregation: later slice")
 
     def run(cols: Sequence[ColVal], num_rows: int):
         device = cols[0].data.device
@@ -143,6 +141,13 @@ def make_agg_body(spec: _AggSpec, phase: str, capacity: int):
                 for op in f.merge_ops():
                     inputs.append((cols[i], op))
                     i += 1
+
+        if nk == 0:
+            # one segment of every live row, even of none
+            bufs = [_segment_reduce(op, cv.data, cv.validity,
+                                    torch.zeros_like(pos), capacity, live)
+                    for cv, op in inputs]
+            return 1, (), tuple(ColVal(b, pos < 1) for b in bufs)
 
         keys = []
         for g, cv in zip(spec.groupings, key_cvs):
@@ -238,7 +243,8 @@ class TorchHashAggregateExec(TorchExec):
                 return out
         fn = make_agg_body(self.spec, phase, batch.capacity)
         n_groups, keys, bufs = fn(cols, batch.num_rows)
-        self.metrics["hostSyncs"] += 1
+        if self.groupings:  # the group count was read back
+            self.metrics["hostSyncs"] += 1
         return _to_batch(list(keys) + list(bufs), self._buffer_dtypes(),
                          n_groups)
 
@@ -274,7 +280,11 @@ class TorchHashAggregateExec(TorchExec):
         partials = [self._run_phase("update", b, ctx.conf)
                     for b in self.children[0].execute(ctx)]
         if not partials:
-            return  # grouped aggregate of empty input -> no rows
+            if self.groupings:
+                return  # grouped aggregate of empty input -> no rows
+            # a global aggregate of empty input -> its initial values
+            partials = [self._run_phase("update", empty_batch(
+                self.children[0].output_schema, ctx.device))]
         merged = partials[0]
         if len(partials) > 1:
             merged = self._run_phase("merge", concat_batches(partials))

@@ -1,9 +1,12 @@
-"""Global sort.
+"""Global sort and top-N.
 
-Counterpart of ``spark_rapids_tpu/exec/sort.py:TpuSortExec``: the whole
-input is concatenated into one batch, sorted by the order keys
-(``exec/sortkeys.py``), and every column, a string column's chars
-included, is gathered by the permutation.
+Counterpart of ``spark_rapids_tpu/exec/sort.py``.  ``TorchSortExec``
+concatenates the whole input into one batch, sorts it by the order keys
+(``exec/sortkeys.py``) and gathers every column, a string column's chars
+included, by the permutation.  ``TorchTopNExec`` (a limit over a sort)
+keeps the first ``limit`` rows of the sorted concatenation of what it
+kept so far and the next batch, so it never holds more than the limit
+and one batch.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
+from spark_rapids_tpu_torch.exec.basic import head
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
     sort_permutation
@@ -55,3 +59,26 @@ class TorchSortExec(TorchExec):
         batches = list(self.children[0].execute(ctx))
         if batches:
             yield sort_batch(self.orders, concat_batches(batches))
+
+
+class TorchTopNExec(TorchExec):
+    """The first ``limit`` rows of the child in the order of ``orders``."""
+
+    def __init__(self, orders: List[Tuple[Expression, bool, bool]],
+                 limit: int, child: TorchExec):
+        super().__init__()
+        self.orders = orders
+        self.limit = int(limit)
+        self.children = [child]
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        top = None
+        for b in self.children[0].execute(ctx):
+            cand = b if top is None else concat_batches([top, b])
+            top = head(sort_batch(self.orders, cand), self.limit)
+        if top is not None and top.num_rows:
+            yield top

@@ -70,6 +70,7 @@ class TorchStageExec(TorchExec):
                 schema = Schema([Field(e.name, e.dtype, e.nullable)
                                  for e in exprs])
         self._schema = schema
+        self._filters = sum(kind == "filter" for kind, _ in self.steps)
 
     @property
     def output_schema(self) -> Schema:
@@ -80,6 +81,7 @@ class TorchStageExec(TorchExec):
             cols, n = emit_steps(self.steps, colvals(batch.columns),
                                  batch.num_rows, batch.capacity, batch.device)
             self.metrics["stageDispatches"] += 1
+            self.metrics["hostSyncs"] += self._filters
             out = [DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars)
                    for f, cv in zip(self._schema, cols)]
             yield ColumnarBatch(out, n, self._schema)

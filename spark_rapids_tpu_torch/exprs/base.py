@@ -9,6 +9,7 @@ called, on the device of the batch it reads.
 
 from __future__ import annotations
 
+import datetime
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -16,7 +17,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.column import bucket_capacity
 from spark_rapids_tpu_torch.columnar.dtypes import (
-    BOOLEAN, FLOAT64, INT32, INT64, STRING, DataType, Schema, device_dtype,
+    BOOLEAN, DATE, FLOAT64, INT32, INT64, STRING, DataType, Schema,
+    device_dtype,
 )
 
 
@@ -135,6 +137,13 @@ class Literal(Expression):
     """A scalar constant broadcast to the batch capacity."""
 
     def __init__(self, value, dtype: Optional[DataType] = None):
+        if isinstance(value, datetime.datetime):
+            raise NotImplementedError(
+                "timestamp literals are not in the torch port yet")
+        if isinstance(value, datetime.date):
+            # days since the epoch, as a DATE column holds them
+            value = (value - datetime.date(1970, 1, 1)).days
+            dtype = dtype or DATE
         self.value = value
         self._dtype = dtype if dtype is not None else \
             _infer_literal_type(value)
@@ -237,4 +246,13 @@ def bind_expression(expr: Expression, schema: Schema) -> Expression:
 
 def fixed(data: torch.Tensor, validity: torch.Tensor) -> ColVal:
     return ColVal(data, validity)
+
+
+def align_chars(a_chars: torch.Tensor, b_chars: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad the narrower of two char matrices with zero bytes so that both
+    share the wider width."""
+    w = max(a_chars.shape[1], b_chars.shape[1])
+    return tuple(torch.nn.functional.pad(c, (0, w - c.shape[1]))
+                 if c.shape[1] < w else c for c in (a_chars, b_chars))
 

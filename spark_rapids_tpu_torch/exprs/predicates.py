@@ -3,7 +3,8 @@
 Counterpart of ``spark_rapids_tpu/exprs/predicates.py``.  AND/OR follow
 Kleene three-valued logic on the (data, validity) pair: ``false AND
 null = false``, ``true OR null = true``.  Float comparisons follow Spark:
-NaN = NaN is true and NaN is greater than every other value.
+NaN = NaN is true and NaN is greater than every other value.  Strings
+compare by their UTF-8 bytes (``string_compare``).
 """
 
 from __future__ import annotations
@@ -13,8 +14,25 @@ import torch
 from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, \
     DataType, common_type
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
-    Expression, fixed
+    Expression, align_chars, fixed
 from spark_rapids_tpu_torch.exprs.cast import Cast
+
+
+def string_compare(a: ColVal, b: ColVal) -> torch.Tensor:
+    """Per-row lexicographic compare of two string ColVals -> int32 in
+    {-1, 0, 1}.  Bytes past a string's length count as -1, so a shorter
+    string sorts before any extension of it and NUL bytes inside a string
+    still compare as bytes."""
+    ac, bc = align_chars(a.chars, b.chars)
+    pos = torch.arange(ac.shape[1], device=ac.device)[None, :]
+    av = torch.where(pos < a.data[:, None], ac.to(torch.int16), -1)
+    bv = torch.where(pos < b.data[:, None], bc.to(torch.int16), -1)
+    neq = av != bv
+    # argmax returns the first of equal maxima: the first differing byte
+    first = torch.argmax(neq.to(torch.uint8), dim=1, keepdim=True)
+    d = (av.gather(1, first) - bv.gather(1, first))[:, 0]
+    return torch.where(neq.any(dim=1), torch.sign(d),
+                       torch.zeros_like(d)).to(torch.int32)
 
 
 class BinaryComparison(Expression):
@@ -41,10 +59,6 @@ class BinaryComparison(Expression):
 
     def coerce(self) -> Expression:
         lt, rt = self.left.dtype, self.right.dtype
-        if STRING in (lt, rt):
-            raise NotImplementedError(
-                f"{type(self).__name__} over strings is not in the torch "
-                "port yet")
         if lt == rt:
             return self
         ct = common_type(lt, rt)
@@ -58,6 +72,8 @@ class BinaryComparison(Expression):
         a = self.left.emit(ctx)
         b = self.right.emit(ctx)
         valid = a.validity & b.validity
+        if self.left.dtype == STRING:
+            return fixed(self.compare_op(string_compare(a, b), 0), valid)
         if self.left.dtype.is_floating:
             # Spark's total order: derive (a < b, a == b) with NaN greatest
             an, bn = torch.isnan(a.data), torch.isnan(b.data)

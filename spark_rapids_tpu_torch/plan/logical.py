@@ -1,7 +1,7 @@
 """Logical plan nodes produced by the DataFrame API.
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py``, trimmed to the nodes
-this slice lowers.  Expressions inside are unresolved (attributes by
+the port lowers.  Expressions inside are unresolved (attributes by
 name); the planner binds them against the child's output schema.
 """
 
@@ -81,6 +81,41 @@ class Sort(LogicalPlan):
 
     def output_schema(self) -> Schema:
         return self.children[0].output_schema()
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = int(n)
+        self.children = [child]
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+
+class Join(LogicalPlan):
+    """An equi-join on ``left_keys[i] == right_keys[i]``; join_type is
+    inner, left, right, full, semi or anti."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], join_type: str = "inner"):
+        self.children = [left, right]
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.join_type = join_type
+
+    def output_schema(self) -> Schema:
+        left, right = self.children
+        jt = self.join_type
+        if jt in ("semi", "anti"):
+            return left.output_schema()
+        lf = list(left.output_schema().fields)
+        rf = list(right.output_schema().fields)
+        if jt in ("right", "full"):
+            lf = [Field(f.name, f.dtype, True) for f in lf]
+        if jt in ("left", "full"):
+            rf = [Field(f.name, f.dtype, True) for f in rf]
+        return Schema(lf + rf)
 
 
 class Aggregate(LogicalPlan):

@@ -1,25 +1,46 @@
 """Logical plan -> port operators.
 
 Counterpart of ``spark_rapids_tpu/plan/planner.py:plan_query``, trimmed
-to this slice.  It lowers LocalRelation, ParquetRelation, Project,
-Filter, Aggregate and Sort; each maximal chain of Project and Filter
-becomes one fused ``TorchStageExec`` (the JAX package's fusion pass),
-and an Aggregate reads its input through the coalesce the JAX package
-inserts there.  Any other node raises: there is no CPU engine to route
-it to, so a result always comes from the device.
+to what the port runs.  It lowers LocalRelation, ParquetRelation,
+Project, Filter, Aggregate (grouped or global), Sort, Limit and Join;
+each maximal chain of Project and Filter becomes one fused
+``TorchStageExec`` (the JAX package's fusion pass), an Aggregate and the
+stream side of a join read their input through the coalesce the JAX
+package inserts there, and a Limit over a Sort becomes a top-N.  A join
+takes the JAX package's static strategy (``_plan_join``): broadcast the
+right side when its estimated size is under
+``spark.sql.autoBroadcastJoinThreshold``, else the left behind a swap,
+else a hash join that builds on the right.  Any other node raises: there
+is no CPU engine to route it to, so a result always comes from the
+device.
 """
 
 from __future__ import annotations
 
+import os
+from typing import List, Optional
+
+import numpy as np
+
+from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, Field
+from spark_rapids_tpu_torch.conf import BROADCAST_THRESHOLD, TorchConf
 from spark_rapids_tpu_torch.exec.aggregate import TorchHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import TorchExec
-from spark_rapids_tpu_torch.exec.basic import TorchLocalScanExec
+from spark_rapids_tpu_torch.exec.basic import TorchLocalLimitExec, \
+    TorchLocalScanExec
+from spark_rapids_tpu_torch.exec.broadcast import \
+    TorchBroadcastExchangeExec, TorchBroadcastHashJoinExec
 from spark_rapids_tpu_torch.exec.coalesce import TorchCoalesceBatchesExec
-from spark_rapids_tpu_torch.exec.sort import TorchSortExec
+from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
+from spark_rapids_tpu_torch.exec.sort import TorchSortExec, TorchTopNExec
 from spark_rapids_tpu_torch.exec.stage import TorchStageExec
-from spark_rapids_tpu_torch.exprs.base import bind_expression
-from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec
+from spark_rapids_tpu_torch.exprs.base import BoundReference, \
+    bind_expression
+from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec, \
+    expand_paths
 from spark_rapids_tpu_torch.plan import logical as lp
+
+_NODES = (lp.Project, lp.Filter, lp.Aggregate, lp.Sort, lp.Limit, lp.Join)
 
 
 def _stage(step, child: TorchExec) -> TorchStageExec:
@@ -28,15 +49,28 @@ def _stage(step, child: TorchExec) -> TorchStageExec:
     return TorchStageExec([step], child)
 
 
-def plan_query(node: lp.LogicalPlan) -> TorchExec:
+def plan_query(node: lp.LogicalPlan,
+               conf: Optional[TorchConf] = None) -> TorchExec:
+    conf = conf if conf is not None else TorchConf()
     if isinstance(node, lp.LocalRelation):
         return TorchLocalScanExec(node.schema, node.cols)
     if isinstance(node, lp.ParquetRelation):
         return TorchParquetScanExec(node.paths, node.schema)
-    if not isinstance(node, (lp.Project, lp.Filter, lp.Aggregate, lp.Sort)):
+    if not isinstance(node, _NODES):
         raise NotImplementedError(
             f"{node.node_name} is not in the torch port yet")
-    child = plan_query(node.children[0])
+    if isinstance(node, lp.Join):
+        return _plan_join(node, conf)
+    if isinstance(node, lp.Limit) and isinstance(node.children[0], lp.Sort):
+        # limit over sort: a top-N that never holds more than the limit
+        # and one batch
+        sort = node.children[0]
+        schema = sort.children[0].output_schema()
+        return TorchTopNExec(
+            [(bind_expression(e, schema), asc, nf)
+             for e, asc, nf in sort.orders], node.n,
+            plan_query(sort.children[0], conf))
+    child = plan_query(node.children[0], conf)
     schema = node.children[0].output_schema()
 
     def bind(e):
@@ -47,13 +81,104 @@ def plan_query(node: lp.LogicalPlan) -> TorchExec:
                       child)
     if isinstance(node, lp.Filter):
         return _stage(("filter", (bind(node.pred),)), child)
+    if isinstance(node, lp.Limit):
+        return TorchLocalLimitExec(node.n, child)
     if isinstance(node, lp.Aggregate):
-        if not node.groupings:
-            raise NotImplementedError(
-                "global aggregation is not in the torch port yet")
         return TorchHashAggregateExec(
             [bind(e) for e in node.groupings],
             [bind(e) for e in node.aggregates],
             TorchCoalesceBatchesExec(child))
     return TorchSortExec([(bind(e), asc, nf) for e, asc, nf in node.orders],
                          child)
+
+
+def _plan_join(n: lp.Join, conf: TorchConf) -> TorchExec:
+    """The JAX package's static join strategy (its ``_plan_join`` without
+    adaptive execution): broadcast the right side when its estimated size
+    is under the threshold, else the left side (not for semi and anti
+    joins, which must stream the left), the smaller one when both
+    qualify; else a hash join that builds on the right."""
+    left, right = (plan_query(c, conf) for c in n.children)
+    lkeys = [bind_expression(e, n.children[0].output_schema())
+             for e in n.left_keys]
+    rkeys = [bind_expression(e, n.children[1].output_schema())
+             for e in n.right_keys]
+    jt = n.join_type
+    thresh = conf.get(BROADCAST_THRESHOLD)
+    if thresh >= 0:
+        r_est = estimate_logical_size(n.children[1])
+        l_est = estimate_logical_size(n.children[0])
+        r_ok = r_est is not None and r_est <= thresh
+        l_ok = l_est is not None and l_est <= thresh and jt in (
+            "inner", "left", "right", "full")
+        if r_ok and l_ok:
+            if l_est < r_est:
+                r_ok = False
+            else:
+                l_ok = False
+        if r_ok:
+            return TorchBroadcastHashJoinExec(
+                TorchCoalesceBatchesExec(left),
+                TorchBroadcastExchangeExec(right), lkeys, rkeys, jt)
+        if l_ok:
+            return swapped_broadcast_join(
+                right, TorchBroadcastExchangeExec(left), lkeys, rkeys, jt,
+                len(n.children[0].output_schema()),
+                n.output_schema().fields)
+    return TorchHashJoinExec(TorchCoalesceBatchesExec(left), right, lkeys,
+                             rkeys, jt)
+
+
+def swapped_broadcast_join(stream: TorchExec,
+                           build: TorchBroadcastExchangeExec, lkeys, rkeys,
+                           jt: str, nl: int,
+                           out_fields: List[Field]) -> TorchExec:
+    """The build-left broadcast: mirror the join type, stream the right
+    side against the broadcast left side, and restore the original column
+    order with a projection.  ``nl``: the left input's field count;
+    ``out_fields``: the unswapped join's output fields."""
+    mirror = {"inner": "inner", "left": "right", "right": "left",
+              "full": "full"}[jt]
+    swapped = TorchBroadcastHashJoinExec(
+        TorchCoalesceBatchesExec(stream), build, rkeys, lkeys, mirror)
+    nr = len(out_fields) - nl
+    reorder = tuple(BoundReference(nr + i if i < nl else i - nl, f.dtype,
+                                   f.nullable, f.name)
+                    for i, f in enumerate(out_fields))
+    return _stage(("project", reorder), swapped)
+
+
+def _host_bytes(dtype, values, valid) -> int:
+    """Bytes an Arrow array of these host values holds: a string column
+    its UTF-8 bytes and int32 offsets, a boolean one a bit a row, any
+    other its fixed width; plus a validity bitmap when a value is
+    null."""
+    n = len(valid)
+    if dtype == STRING:
+        size = int(values.lengths.astype(np.int64).sum()) + 4 * (n + 1)
+    elif dtype == BOOLEAN:
+        size = (n + 7) // 8
+    else:
+        size = n * np.dtype(dtype.numpy_dtype).itemsize
+    return size + ((n + 7) // 8 if not valid.all() else 0)
+
+
+def estimate_logical_size(node: lp.LogicalPlan) -> Optional[int]:
+    """Build-side size estimate in bytes for the join strategy, as the
+    JAX package estimates it: a local relation the bytes its Arrow table
+    would hold (so a numpy source and its Arrow twin choose alike), a
+    parquet relation its files' sizes, Filter, Limit and Project their
+    child's (an upper bound); anything else unknown (None)."""
+    if isinstance(node, lp.LocalRelation):
+        return sum(_host_bytes(f.dtype, *node.cols[f.name])
+                   for f in node.schema)
+    if isinstance(node, lp.ParquetRelation):
+        try:
+            files = expand_paths(node.paths)
+            # no files is an unknown size, never a size of zero
+            return sum(os.path.getsize(f) for f in files) if files else None
+        except OSError:
+            return None
+    if isinstance(node, (lp.Filter, lp.Limit, lp.Project)):
+        return estimate_logical_size(node.children[0])
+    return None

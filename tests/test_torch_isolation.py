@@ -1,7 +1,8 @@
 """The torch port stands alone.
 
-It imports no jax, no module of the JAX package and, on its main path,
-no pyarrow; pyarrow may be imported only inside functions.  A session on
+It imports no jax, no module of the JAX package and, on its main path
+(the TPC-H queries from numpy tables included), no pyarrow; pyarrow may
+be imported only inside functions.  A session on
 the card fails when no card is usable: nothing moves to the CPU.
 """
 
@@ -31,6 +32,10 @@ cols, masks, n = (df.filter(st.col("v") > 1.0).group_by("k")
                   .to_torch())
 assert n == 3 and cols["k"].tolist() == [1, 2, 3], cols
 assert cols["s"].tolist() == [2.0, 4.0, 3.0], cols
+from spark_rapids_tpu_torch.bench import tpch
+tables = tpch.load_tables(s, tpch.gen_tpch_numpy(400))
+for q in tpch.TPCH_QUERIES.values():
+    q(tables).to_torch()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
                                     "spark_rapids_tpu"))

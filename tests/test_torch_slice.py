@@ -204,8 +204,8 @@ def test_order_by_matches_jax(ascending):
 
 
 def test_planner_refuses_what_the_slice_lacks():
-    """No CPU engine to route to: a global aggregate is refused by name."""
+    """No CPU engine to route to: a cross join is refused by name."""
     s = st.TorchSession({"spark.rapids.torch.device": "cpu"})
-    df = s.create_dataframe({"v": np.arange(4.0)})
-    with pytest.raises(NotImplementedError, match="global aggregation"):
-        df.group_by().agg(TF.sum(st.col("v"))).collect()
+    df = s.create_dataframe({"k": np.arange(4), "v": np.arange(4.0)})
+    with pytest.raises(NotImplementedError, match="cross join"):
+        df.join(df, on="k", how="cross").collect()
