@@ -29,6 +29,9 @@ Phases, each printing one JSON line:
    all rows on one slot, K = 128, plane groups, NaN / signed zeros /
    infinities under float min and max, wrapping int64 sums, gids of -1
    and K + 3, a ragged row count, planes off 16-byte alignment);
+   kernel_path: the same comparison, and the warm and plain times, on
+   the inputs hash_join_1m gives the kernel (its first update batch: the
+   join's output, the slots of grp, three planes);
 4. kernel: the contains kernel against its plain version, exactly, on
    the first 2^20-row batch of text_filter_agg_6m's ``l_comment`` from
    the port's own ingest (W = 64, the 16-byte needle), timed the same
@@ -66,7 +69,14 @@ Phases, each printing one JSON line:
 
 Each path of phases 5 to 11 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
-show that the main path went through each kernel.  A trace phase then
+show that the main path went through each kernel.  Two checks follow
+that hold the joins' device-dependent work on the card to the same
+calls on the CPU, exactly: hash_device (the join hash of every key
+type, with float specials and strings at three widths, key equality
+over every pair of specials, and a three-key hash with nulls) and
+join_routes (the dense FK, hashed FK and general routes, and inner,
+left, right, full, semi and anti joins, over a stream side of two
+batches).  A trace phase then
 runs the text queries, hash_join_1m and tpch_q3 once more under
 torch.profiler and prints each one's wall time, the card's busy time,
 its largest device entries and its longest idle gaps.  Then one JSON
@@ -262,16 +272,15 @@ def agg_query(st, F, df):
               .order_by(col("k")))
 
 
-def main_path_inputs(st, F, pag, session, data):
-    """What the main path gives the kernel: the aggregate's own plane
-    construction on the first update batch of hash_agg_sort_2m's query
-    -> (gid, planes, ops, K)."""
+def main_path_inputs(pag, session, query):
+    """What a path gives the kernel: the aggregate's own plane
+    construction on the first update batch of ``query`` (its one
+    aggregate's input, a join's output included) -> (gid, planes, ops,
+    K)."""
     from spark_rapids_tpu_torch.exec.base import ExecContext
     from spark_rapids_tpu_torch.exprs.base import ColVal
     from spark_rapids_tpu_torch.plan.planner import plan_query
-    root = plan_query(agg_query(st, F, session.create_dataframe(data)).plan)
-    agg = root.children[0]
-    check(type(agg).__name__ == "TorchHashAggregateExec", "plan shape")
+    (agg,) = _plan_nodes(plan_query(query.plan), "TorchHashAggregateExec")
     batch = next(agg.children[0].execute(
         ExecContext(session.conf, session.device)))
     cols = [ColVal(c.data, c.validity) for c in batch.columns]
@@ -420,9 +429,9 @@ def dsr_edge_specs(torch, rng):
     return specs
 
 
-def phase_kernel(torch, st, F, pag, session, data, rate: float,
+def phase_kernel(torch, pag, session, query, rate: float,
                  edges: bool = True) -> dict:
-    gid, planes, ops, K = main_path_inputs(st, F, pag, session, data)
+    gid, planes, ops, K = main_path_inputs(pag, session, query)
     err = compare_kernel(torch, pag, gid, planes, ops, K)
 
     idx = gid.to(torch.int64)
@@ -472,6 +481,22 @@ def phase_kernel(torch, st, F, pag, session, data, rate: float,
         emit("kernel_edges", name="dense_slot_reduce", specs=checked,
              max_abs_err=result["max_abs_err"])
     return result
+
+
+def phase_kernel_path(torch, pag, session, query, path: str) -> float:
+    """The dense-slot kernel against its plain version on the inputs
+    another path gives it (``query``'s first update batch), timed as
+    phase 3 -> the largest f64 sum error."""
+    gid, planes, ops, K = main_path_inputs(pag, session, query)
+    err = compare_kernel(torch, pag, gid, planes, ops, K)
+    launch, _ = pag.prepare_launch(gid, planes, ops, K)
+    emit("kernel_path", name="dense_slot_reduce", path=path,
+         capacity=gid.numel(), K=K,
+         planes=[f"{str(p.dtype)[6:]} {op}" for p, op in zip(planes, ops)],
+         max_abs_err=err, ms=per_call_ms(torch, launch),
+         plain_ms=per_call_ms(torch, lambda: pag.dense_slot_reduce_reference(
+             gid, planes, ops, K)))
+    return err
 
 
 def kernel_shapes(torch, pag, gid, planes, ops, K: int):
@@ -928,6 +953,241 @@ def phase_hash_join(torch, st, F, native, session, main, dim,
          rows_per_s=(rows + len(dim["k"])) / float(np.median(secs)))
 
 
+# strings the join hash and key equality must treat alike on every
+# device: 0 to 40 bytes, on both sides of each 8-byte block, with NULs
+# and multi-byte UTF-8
+HASH_STRINGS = ["", "a", "ab", "abc", "abcd", "abcde", "abcdef", "abcdefg",
+                "abcdefgh", "abcdefghi", "x" * 16, "y" * 17, "a\x00b",
+                "\x00", "h\u00e9llo", "\u4e2d\u6587\u5b57\u7b26",
+                "0123456789abcdef", "0123456789abcdefg", "z" * 40]
+
+
+def _float_bits(bits: int, dtype):
+    udt = np.uint64 if dtype == np.float64 else np.uint32
+    return np.array([bits], udt).view(dtype)[0]
+
+
+def float_keys(rng, dtype, n: int = 4000):
+    """Random floats over the whole exponent range, led by the specials:
+    signed zeros, NaN of both signs and other payloads, infinities,
+    subnormals and (for f64) values past f32's range."""
+    if dtype == np.float64:
+        x = rng.normal(size=n) * 10.0 ** rng.integers(-320, 308, n)
+        special = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 5e-324,
+                   -5e-324, 1e-310, -2.2e-308, 3.5e38, -1e300, 1e-39,
+                   _float_bits(0x7FF0000000000123, dtype),
+                   _float_bits(0xFFF8000000000042, dtype)]
+    else:
+        x = rng.normal(size=n) * 10.0 ** rng.integers(-45, 38, n)
+        special = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
+                   -1e-40, 1.17e-38, 3e38, _float_bits(0x7F800123, dtype),
+                   _float_bits(0xFFC00042, dtype)]
+    with np.errstate(over="ignore"):
+        x = x.astype(dtype)
+    x[:len(special)] = np.array(special, dtype)
+    return x
+
+
+def string_planes(values, width: int):
+    """(lengths int32, chars uint8 (rows, width)) of ``values``."""
+    enc = [v.encode("utf-8") for v in values]
+    chars = np.zeros((len(enc), width), np.uint8)
+    for i, b in enumerate(enc):
+        chars[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return np.array([len(b) for b in enc], np.int32), chars
+
+
+def phase_hash_device(torch, device: str = "cuda") -> None:
+    """The join hash and key equality on the card against the same calls
+    on the CPU, bit for bit: every key type, the float specials, strings
+    at widths 8, 16 and 64, every pair of specials under ``keys_equal``,
+    and a three-key hash with nulls.  The CPU result is the one the tests
+    hold equal to the JAX package's; the card keeps subnormals and views
+    bytes its own way, so only a run there shows the hash unchanged."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.exec import joins
+    from spark_rapids_tpu_torch.exprs.base import BoundReference, ColVal, \
+        EvalContext
+
+    def colval(arrays, device, valid=None):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+             for a in arrays]
+        v = torch.ones(t[0].shape[0], dtype=torch.bool) if valid is None \
+            else torch.from_numpy(valid)
+        return ColVal(t[0], v.to(device), t[1] if len(t) > 1 else None)
+
+    rng = np.random.default_rng(SEED + 5)
+    n = 4000
+    i64 = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    i64[:4] = [-(1 << 63), (1 << 63) - 1, 0, -1]
+    i32 = rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)
+    i32[:3] = [-(1 << 31), (1 << 31) - 1, -1]
+    cases = {"int32": ([i32], dt.INT32), "int64": ([i64], dt.INT64),
+             "date": ([rng.integers(-30000, 30000, n).astype(np.int32)],
+                      dt.DATE),
+             "bool": ([rng.random(n) < 0.5], dt.BOOLEAN),
+             "float32": ([float_keys(rng, np.float32)], dt.FLOAT32),
+             "float64": ([float_keys(rng, np.float64)], dt.FLOAT64)}
+    for w in (8, 16, 64):
+        cases[f"string_w{w}"] = (string_planes(
+            [v for v in HASH_STRINGS if len(v.encode()) <= w], w), dt.STRING)
+    for name, (arrays, dtype) in cases.items():
+        want = joins.hash_colval(colval(arrays, "cpu"), dtype)
+        got = joins.hash_colval(colval(arrays, device), dtype).cpu()
+        check(torch.equal(got, want),
+              f"the hash of {name} keys differs between the card and the CPU")
+
+    pairs = {}
+    m = len(HASH_STRINGS)
+    lengths, chars = string_planes(HASH_STRINGS, 64)
+    a, b = np.repeat(np.arange(m), m), np.tile(np.arange(m), m)
+    pairs["string"] = ([lengths[a], chars[a]], [lengths[b], chars[b]],
+                       dt.STRING)
+    for name in ("float32", "float64"):
+        (v,), dtype = cases[name]
+        v = v[:15]
+        pairs[name] = ([np.repeat(v, v.size)], [np.tile(v, v.size)], dtype)
+    for name, (x, y, dtype) in pairs.items():
+        want = joins.keys_equal(colval(x, "cpu"), colval(y, "cpu"), dtype)
+        got = joins.keys_equal(colval(x, device), colval(y, device),
+                               dtype).cpu()
+        check(torch.equal(got, want), f"keys_equal over {name} pairs "
+              "differs between the card and the CPU")
+
+    k = 64
+    strings = string_planes([HASH_STRINGS[i] for i in
+                             rng.integers(0, m, k)], 64)
+    arrays = [[rng.integers(-50, 50, k).astype(np.int64)], list(strings),
+              [cases["float64"][0][0][:k]]]
+    valids = [rng.random(k) < 0.8 for _ in arrays]
+    keys = [BoundReference(0, dt.INT64), BoundReference(1, dt.STRING),
+            BoundReference(2, dt.FLOAT64)]
+    out = []
+    for dev in (device, "cpu"):
+        cvs = [colval(x, dev, v) for x, v in zip(arrays, valids)]
+        h, valid, _ = joins.hash_keys(keys, EvalContext(cvs, k, k, dev))
+        out.append((h.cpu(), valid.cpu()))
+    check(all(torch.equal(g, w) for g, w in zip(*out)),
+          "the three-key hash differs between the card and the CPU")
+    emit("hash_device", hash_cases=list(cases), rows_per_case=n,
+         keys_equal_pairs={p: len(x[0]) for p, (x, _, _) in pairs.items()},
+         multi_key_rows=k)
+
+
+def join_tables(rng, n_stream: int):
+    """A stream side and two build sides, as numpy columns with masks:
+    ``unique`` (300 rows, each key once) and ``dup`` (420 rows,
+    duplicate keys, NaN of both signs and -0.0 among the float keys),
+    with null keys on both sides -> {name: (data, masks)}."""
+    n = n_stream
+    kf = rng.integers(0, 320, n).astype(np.float64) / 4
+    kf[rng.random(n) < 0.05] = np.nan
+    kf[rng.random(n) < 0.05] = -0.0
+    stream = ({"k": rng.integers(-5, 320, n),
+               "ks": np.char.add("key", rng.integers(0, 320, n).astype(str)),
+               "kf": kf, "sv": np.arange(n)},
+              {"k": rng.random(n) >= 0.05, "ks": rng.random(n) >= 0.05,
+               "kf": rng.random(n) >= 0.03})
+    u = 300
+    perm = rng.permutation(u)
+    unique = ({"k": perm.astype(np.int64),
+               "ks": np.char.add("key", perm.astype(str)), "kf": perm / 4.0,
+               "bv": rng.normal(size=u),
+               "bs": np.char.add("b", np.arange(u).astype(str)),
+               "bi": np.arange(u)}, None)
+    d = 420
+    kf = rng.integers(0, 200, d).astype(np.float64) / 4
+    kf[:6] = [np.nan, -np.nan, 0.0, -0.0, 0.0, np.nan]
+    dup = ({"k": rng.integers(0, 200, d),
+            "ks": np.char.add("key", rng.integers(0, 200, d).astype(str)),
+            "kf": kf, "bv": rng.normal(size=d),
+            "bs": np.char.add("d", np.arange(d).astype(str)),
+            "bi": np.arange(d)},
+           {"k": rng.random(d) >= 0.05, "ks": rng.random(d) >= 0.05,
+            "kf": np.r_[np.ones(6, bool), rng.random(d - 6) >= 0.05]})
+    # the last three rows repeat rows 6 to 8 under every key, so each
+    # key of the dup build holds a duplicate
+    for c in ("k", "ks", "kf"):
+        dup[0][c][-3:] = dup[0][c][6:9]
+        dup[1][c][6:9] = dup[1][c][-3:] = True
+    return {"stream": stream, "unique": unique, "dup": dup}
+
+
+def _canonical(torch, result):
+    """to_torch's result -> ({name: [tensors on the host]}, n), rows
+    ordered by the stream row ``sv`` and the build row ``bi`` (which
+    together name each output row): floats as their bits, strings as
+    lengths and chars zeroed past each length, null rows zeroed.  The
+    work runs where the result lies."""
+    cols, masks, n = result
+    out = {}
+    for name, c in cols.items():
+        mask = masks[name][:n]
+        if isinstance(c, tuple):
+            lengths, chars = c[0][:n].to(torch.int64), c[1][:n]
+            inside = torch.arange(chars.shape[1], device=chars.device)[
+                None, :] < lengths[:, None]
+            planes = [lengths, torch.where(inside & mask[:, None], chars, 0)]
+        else:
+            data = c[:n]
+            if data.dtype.is_floating_point:
+                data = data.view(torch.int64 if data.element_size() == 8
+                                 else torch.int32)
+            planes = [data]
+        out[name] = [torch.where(mask.view(-1, *[1] * (p.dim() - 1)), p, 0)
+                     for p in planes[:1]] + planes[1:] + [mask]
+    key = torch.zeros(n, dtype=torch.int64, device=mask.device)
+    for c in ("sv", "bi"):
+        if c in out:
+            data, mask = out[c][0], out[c][-1]
+            key = key * (1 << 21) + torch.where(mask, data + 1, 0)
+    order = torch.argsort(key)
+    return {k: [p[order].cpu() for p in v] for k, v in out.items()}, n
+
+
+def phase_join_routes(torch, st, session, n_stream: int = (1 << 20) + 3000
+                      ) -> None:
+    """Every join route and type on the card against the same query in a
+    CPU session: the dense FK route, the hashed FK route with a string
+    key, and the general route over an integer, a float and a two-key
+    (integer and string) key under inner, left, right, full, semi and
+    anti joins.  The stream side spans two batches, so right and full
+    joins carry their matched-build mask across batches.  Results equal
+    exactly, row for row, and each join takes the expected route."""
+    cpu = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+    tables = join_tables(np.random.default_rng(SEED + 6), n_stream)
+    cases = [("unique", "k", "inner", "dense_fk"),
+             ("unique", "ks", "inner", "fk")] + [
+        ("dup", on, how, "general") for on in ("k", "kf", ("k", "ks"))
+        for how in ("inner", "left", "right", "full", "semi", "anti")]
+    dfs = {s: {t: s.create_dataframe(*tables[t]) for t in tables}
+           for s in (session, cpu)}
+    done = []
+    for build, on, how, route in cases:
+        keys = [on] if isinstance(on, str) else list(on)
+        results = {}
+        for s in (session, cpu):
+            b = dfs[s][build].select(*keys, "bv", "bs", "bi")
+            results[s] = _canonical(torch, dfs[s]["stream"].join(
+                b, on=on if isinstance(on, str) else keys,
+                how=how).to_torch())
+        (joins,) = _plan_nodes(session._last_plan,
+                               "TorchBroadcastHashJoinExec")
+        what = f"{how} join on {'+'.join(keys)} ({build} build)"
+        check(joins.route == route,
+              f"{what} took the {joins.route} route, not {route}")
+        (got, n), (want, n_cpu) = results[session], results[cpu]
+        check(n == n_cpu and n > 0, f"{what}: {n} rows, the CPU has {n_cpu}")
+        check(list(got) == list(want) and all(
+            len(got[c]) == len(want[c]) and all(
+                torch.equal(g, w) for g, w in zip(got[c], want[c]))
+            for c in got),
+            f"{what} differs between the card and the CPU")
+        done.append({"on": "+".join(keys), "how": how, "route": route,
+                     "rows": n})
+    emit("join_routes", stream_rows=n_stream, cases=done)
+
+
 def _day(text: str) -> int:
     return int(np.datetime64(text, "D").astype(np.int64))
 
@@ -1047,9 +1307,9 @@ def check_tpch(torch, cols, masks, n: int, want, limit, qname: str) -> None:
             else g[:n].cpu().numpy()
         w = np.asarray(w)
         if w.dtype.kind == "f":
-            if tied.any():
-                g, w = np.sort(g), np.sort(w)
-            check(np.allclose(g, w, rtol=1e-9, atol=0),
+            check(np.allclose(g[~tied], w[~tied], rtol=1e-9, atol=0)
+                  and np.allclose(np.sort(g[tied]), np.sort(w[tied]),
+                                  rtol=1e-9, atol=0),
                   f"{qname}: {name} beyond rtol 1e-9")
             continue
         check(np.array_equal(g[~tied], w[~tied])
@@ -1195,10 +1455,18 @@ def main(argv=None) -> int:
     line_df = session.create_dataframe(line[0])
     emit("lineitem", rows=LINEITEM_ROWS, seconds=time.perf_counter() - t0)
     edges = not args.kernels_only
-    kern = {"dense_slot_reduce": phase_kernel(torch, st, F, pag, session,
-                                              agg_data, rate, edges),
+    kern = {"dense_slot_reduce": phase_kernel(
+                torch, pag, session, agg_query(
+                    st, F, session.create_dataframe(agg_data)), rate, edges),
             "contains": phase_contains(torch, ps, session, line_df, rate,
                                        edges)}
+    # hash_join_1m gives the dense-slot kernel a shape of its own: the
+    # join's output batch, the slots of grp, three planes
+    dsr = kern["dense_slot_reduce"]
+    dsr["max_abs_err"] = max(dsr["max_abs_err"], phase_kernel_path(
+        torch, pag, session, hash_join_query(
+            st, F, session.create_dataframe(main_data),
+            session.create_dataframe(dim_data)), "hash_join_1m"))
     if args.kernels_only:
         print(json.dumps({"ok": True, "kernels_only": True, "device": {
             "platform": "gpu", "kind": name,
@@ -1246,6 +1514,8 @@ def main(argv=None) -> int:
               tpch_dfs, qname)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    phase_hash_device(torch)
+    phase_join_routes(torch, st, session)
     phase_trace(torch, text_agg_query(st, F, line_df), "text_filter_agg_6m")
     phase_trace(torch, text_project_query(st, F, line_df),
                 "text_filter_project_6m")

@@ -1,8 +1,10 @@
 """Broadcast exchange and broadcast hash join.
 
 Counterpart of ``spark_rapids_tpu/exec/broadcast.py``.  On one card the
-exchange concatenates its child into one device batch, once, and keeps it
-for the life of the plan; the join is the shared hash-join core
+exchange concatenates its child into one device batch (the plan is built
+anew for each action and the join executes its build side once, so
+there is nothing to keep between executions); the join is the shared
+hash-join core
 (``exec/joins.py``) with that batch as its build side, streaming the
 other side's batches through it.  The planner picks the side to
 broadcast by its estimated size (``spark.sql.autoBroadcastJoinThreshold``)
@@ -14,36 +16,30 @@ and multi-process executors, which the port does not have yet.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+from typing import Iterator, List
 
-from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
-from spark_rapids_tpu_torch.exec.coalesce import concat_batches
-from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
+from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec, one_batch
 from spark_rapids_tpu_torch.exprs.base import Expression
 
 
 class TorchBroadcastExchangeExec(TorchExec):
-    """Materializes its child once into one device batch; every execution
-    yields that batch."""
+    """Yields its child's output as one device batch."""
 
     def __init__(self, child: TorchExec):
         super().__init__()
         self.children = [child]
-        self._batch: Optional[ColumnarBatch] = None
 
     @property
     def output_schema(self) -> Schema:
         return self.children[0].output_schema
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        if self._batch is None:
-            batches = list(self.children[0].execute(ctx))
-            self._batch = concat_batches(batches) if batches else \
-                empty_batch(self.output_schema, ctx.device)
-            self.metrics["dataSize"] = self._batch.size_bytes()
-        yield self._batch
+        batch = one_batch(self.children[0], ctx)
+        self.metrics["dataSize"] = batch.size_bytes()
+        yield batch
 
 
 class TorchBroadcastHashJoinExec(TorchHashJoinExec):

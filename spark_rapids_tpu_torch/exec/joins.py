@@ -3,9 +3,10 @@
 Counterpart of ``spark_rapids_tpu/exec/joins.py``.  The build side (the
 right child) is concatenated into one batch; each stream batch (the left
 child) is joined against it.  Three routes, chosen as the JAX package
-chooses them from one probe of the build side (``_Build._probe``: the
-longest run of equal key hashes and, for a single integer-like key, the
-observed key range; one host sync):
+chooses them from one probe of an inner join's build side
+(``_Build._probe``: the longest run of equal key hashes and, for a
+single integer-like key, the observed key range; one host sync; other
+join types take the general route unprobed):
 
 - **dense FK** (inner join, unique build keys, a single integer or date
   key whose observed range spans at most 2^24 values): a lookup table of
@@ -185,9 +186,11 @@ class _Build:
     """The build batch and what every route reads of it: the hashes of
     its keys sorted (unusable rows, null keys or padding, sentinelled to
     INT64_MAX so they sort last), the permutation that sorts them, the
-    keys' ColVals, and the probe's (max_run, key_lo, key_hi)."""
+    keys' ColVals, and, when ``probe`` is set, the probe's (max_run,
+    key_lo, key_hi)."""
 
-    def __init__(self, batch: ColumnarBatch, keys: Sequence[Expression]):
+    def __init__(self, batch: ColumnarBatch, keys: Sequence[Expression],
+                 probe: bool):
         self.batch = batch
         cap, dev = batch.capacity, batch.device
         ctx = EvalContext(colvals(batch.columns), batch.num_rows, cap, dev)
@@ -196,8 +199,9 @@ class _Build:
         usable = valid & self.live
         h = torch.where(usable, h, torch.full_like(h, _I64_MAX))
         self.sorted_h, self.perm = torch.sort(h, stable=True)
+        # only an inner join reads the probe (the FK routes)
         self.max_run, self.key_lo, self.key_hi = self._probe(
-            keys, usable)
+            keys, usable) if probe else (None, 0, -1)
         self._lut = None
 
     def _probe(self, keys, usable) -> Tuple[int, int, int]:
@@ -234,6 +238,15 @@ class _Build:
                                                device=off.device))
             self._lut = lut
         return self._lut
+
+
+def one_batch(child: TorchExec, ctx: ExecContext) -> ColumnarBatch:
+    """``child``'s output concatenated into one device batch, or an
+    empty batch of its schema when it yields none."""
+    batches = list(child.execute(ctx))
+    if batches:
+        return concat_batches(batches)
+    return empty_batch(child.output_schema, ctx.device)
 
 
 def _select(batch: ColumnarBatch, rows: torch.Tensor,
@@ -320,27 +333,24 @@ class TorchHashJoinExec(TorchExec):
             rf = [Field(f.name, f.dtype, True) for f in rf]
         return Schema(lf + rf)
 
-    def _build_batch(self, ctx: ExecContext) -> ColumnarBatch:
-        batches = list(self.children[1].execute(ctx))
-        if batches:
-            return concat_batches(batches)
-        return empty_batch(self.children[1].output_schema, ctx.device)
-
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        b_batch = self._build_batch(ctx)
+        b_batch = one_batch(self.children[1], ctx)
+        inner = self.join_type == "inner"
         # the join's own work runs inside named ranges (join.build,
         # join.<route>) that a torch.profiler trace attributes time to;
         # the children's work and the consumers' stay outside them
         with record_function("join.build"):
-            build = _Build(b_batch, self.right_keys)
-        self.metrics["hostSyncs"] += 1
-        fk = self.join_type == "inner" and build.max_run <= 1
+            build = _Build(b_batch, self.right_keys, probe=inner)
+        if inner:
+            self.metrics["hostSyncs"] += 1
+        fk = inner and build.max_run <= 1
         span = build.key_hi - build.key_lo + 1
         dense_cap = bucket_capacity(max(8, span)) \
             if fk and 0 < span <= _DENSE_SPAN else 0
         self.route = "dense_fk" if dense_cap else "fk" if fk else "general"
         m_build = torch.zeros(build.batch.capacity, dtype=torch.int32,
-                              device=build.batch.device)
+                              device=build.batch.device) \
+            if self.join_type in ("right", "full") else None
         for sb in self.children[0].execute(ctx):
             with record_function(f"join.{self.route}"):
                 if fk:

@@ -28,6 +28,7 @@ from spark_rapids_tpu.exprs.base import EvalContext as JEvalContext
 from spark_rapids_tpu.exprs.predicates import string_compare as jcompare
 from tests.compare import assert_tables_equal, tpu_session
 
+import chip_smoke
 import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch.columnar import dtypes as tdt
 from spark_rapids_tpu_torch.exec import joins as tj
@@ -54,43 +55,11 @@ def _find_all(plan, name):
 # the hash, bit for bit
 # ---------------------------------------------------------------------------
 
-def _bits(x: np.ndarray, dt) -> np.ndarray:
-    return np.frombuffer(np.asarray(x, dt).tobytes(), dt)
-
-
-def _float_values(rng, dtype):
-    """Random floats over the whole exponent range, with the specials:
-    signed zeros, NaN of both signs and other payloads, infinities,
-    subnormals and (for f64) values past f32's range."""
-    if dtype == np.float64:
-        x = rng.normal(size=4000) * 10.0 ** rng.integers(-320, 308, 4000)
-        special = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 5e-324,
-                   -5e-324, 1e-310, -2.2e-308, 3.5e38, -1e300, 1e-39,
-                   _bits(0x7FF0000000000123, np.uint64).view(np.float64)[0],
-                   _bits(0xFFF8000000000042, np.uint64).view(np.float64)[0]]
-    else:
-        x = rng.normal(size=4000) * 10.0 ** rng.integers(-45, 38, 4000)
-        special = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
-                   -1e-40, 1.17e-38, 3e38,
-                   _bits(0x7F800123, np.uint32).view(np.float32)[0],
-                   _bits(0xFFC00042, np.uint32).view(np.float32)[0]]
-    x = x.astype(dtype)
-    x[:len(special)] = np.array(special, dtype)
-    return x
-
-
-def _string_planes(values, width):
-    enc = [v.encode("utf-8") for v in values]
-    chars = np.zeros((len(enc), width), np.uint8)
-    for i, b in enumerate(enc):
-        chars[i, :len(b)] = np.frombuffer(b, np.uint8)
-    return np.array([len(b) for b in enc], np.int32), chars
-
-
-STRINGS = ["", "a", "ab", "abc", "abcd", "abcde", "abcdef", "abcdefg",
-           "abcdefgh", "abcdefghi", "x" * 16,
-           "y" * 17, "a\x00b", "\x00", "héllo", "中文字符", "0123456789abcdef",
-           "0123456789abcdefg", "z" * 40]
+# the same float specials and strings chip_smoke.py's hash_device check
+# holds on the card
+_float_values = chip_smoke.float_keys
+_string_planes = chip_smoke.string_planes
+STRINGS = chip_smoke.HASH_STRINGS
 
 
 def _key_cases():
