@@ -65,9 +65,25 @@ Phases, each printing one JSON line:
    partsupp 480,096 rows), each checked against a numpy version of the
    query (keys, counts, dates and strings exact, f64 within rtol 1e-9, a
    top-N's order exact but among revenues tied within that tolerance),
-   one warm-up and 2 timed runs, with the host syncs of a run.
+   one warm-up and 2 timed runs, with the host syncs of a run;
+12. window_1m: ``bench.py:q_window`` on phase 5's 1,000,000-row table
+   (row_number and a running sum of v over partition_by(k).order_by(v),
+   then rn <= 5), checked against numpy (a lexsort by (k, v)): the
+   5,000 rows and rn exact, each running sum within 1e-10 of the sum of
+   |v| over the sorted rows up to it (a prefix sum's n * eps bound at
+   2^20 rows); timed as phase 5;
+13. tpch_q2 to tpch_q22: the other sixteen TPC-H queries over the same
+   tables, each timed as phase 11 and checked against the same query
+   through the port on a CPU session over the same tables, run once
+   (integers and strings exact, f64 within rtol 1e-9, q11's top-N order
+   exact but among values tied within that tolerance); repeat_sums runs
+   q15's revenue subquery 5 times on the card, its float sums bit for bit
+   alike (q15 keeps the suppliers whose sum equals their maximum);
+   kernel_path holds the dense-slot kernel against its plain version on
+   the first update batch of q8 (by year) and of q13's outer aggregate
+   (by c_count).
 
-Each path of phases 5 to 11 runs with the launch counts set to 0 just
+Each path of phases 5 to 13 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -77,9 +93,10 @@ over every pair of specials, and a three-key hash with nulls) and
 join_routes (the dense FK, hashed FK and general routes, and inner,
 left, right, full, semi and anti joins, over a stream side of two
 batches).  A trace phase then
-runs the text queries, hash_join_1m and tpch_q3 once more under
-torch.profiler and prints each one's wall time, the card's busy time,
-its largest device entries and its longest idle gaps.  Then one JSON
+runs the text queries, hash_join_1m, tpch_q3 and window_1m once more
+under torch.profiler and prints each one's wall time, the card's busy
+time, its largest device entries, its longest idle gaps and the port's
+named ranges (``join.*``, ``window.*``).  Then one JSON
 line lists every kernel (its launches summed over the paths), the ``nvidia-smi`` line follows, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits nonzero without that line; it also exits nonzero when
@@ -103,7 +120,7 @@ import numpy as np
 
 SEED = 7
 LINEITEM_ROWS = 6_001_215
-RANGES = "join."  # prefix of the port's torch.profiler ranges
+RANGES = ("join.", "window.")  # the port's torch.profiler ranges
 DIM_ROWS = 10_000
 NEEDLE = "special requests"   # TPC-H Q13's two words as one 16-byte needle
 SHORT_NEEDLE = "special"
@@ -274,18 +291,20 @@ def agg_query(st, F, df):
 
 def main_path_inputs(pag, session, query):
     """What a path gives the kernel: the aggregate's own plane
-    construction on the first update batch of ``query`` (its one
-    aggregate's input, a join's output included) -> (gid, planes, ops,
-    K)."""
+    construction on the first update batch of ``query``'s root-most
+    aggregate (its input, a join's output included) -> (gid, planes,
+    ops, K)."""
     from spark_rapids_tpu_torch.exec.base import ExecContext
-    from spark_rapids_tpu_torch.exprs.base import ColVal
+    from spark_rapids_tpu_torch.exprs.base import colvals
     from spark_rapids_tpu_torch.plan.planner import plan_query
-    (agg,) = _plan_nodes(plan_query(query.plan), "TorchHashAggregateExec")
+    agg = _plan_nodes(plan_query(query.plan), "TorchHashAggregateExec")[0]
     batch = next(agg.children[0].execute(
         ExecContext(session.conf, session.device)))
-    cols = [ColVal(c.data, c.validity) for c in batch.columns]
+    cols = colvals(batch.columns)
     lo, hi = pag.key_range(agg.spec.groupings[0], cols, batch.num_rows,
                            batch.capacity)
+    check(pag.supports(agg.spec) and pag.fits(lo, hi),
+          "the aggregate's first batch does not take the dense-slot path")
     K = pag.slot_count(lo, hi)
     gid, planes, ops, _ = pag.update_planes(agg.spec, cols, batch.num_rows,
                                             batch.capacity, lo, K)
@@ -463,9 +482,18 @@ def phase_kernel(torch, pag, session, query, rate: float,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "max_abs_err": err,
     }
+    # the kernel merges with atomics, so its float sums may round
+    # differently from call to call: count the distinct results
+    sums = [j for j, (p, op) in enumerate(zip(planes, ops))
+            if p.is_floating_point() and op == "add"]
+    results = {b"".join(o[j].view(torch.int64).cpu().numpy().tobytes()
+                        for j in sums)
+               for o in (pag.dense_slot_reduce(gid, planes, ops, K)
+                         for _ in range(5))}
     emit("kernel", name="dense_slot_reduce", capacity=n, K=K,
          planes=[f"{str(p.dtype)[6:]} {op}" for p, op in zip(planes, ops)],
-         bytes=nbytes, device_us=device_us(torch, launch, "dsr_"), **result)
+         bytes=nbytes, device_us=device_us(torch, launch, "dsr_"),
+         float_sum_results_of_5=len(results), **result)
     if hasattr(pag, "launch_plan"):
         emit("kernel_shapes", name="dense_slot_reduce",
              shapes=kernel_shapes(torch, pag, gid, planes, ops, K))
@@ -1285,19 +1313,21 @@ def tpch_reference(T, qname: str):
     raise KeyError(qname)
 
 
-def check_tpch(torch, cols, masks, n: int, want, limit, qname: str) -> None:
-    """The port's result against numpy's: row count, no nulls, floats
-    within rtol 1e-9, everything else exact.  In a top-N (``limit``)
-    ordered by revenue, rows whose revenue ties with a neighbour's within
-    rtol 1e-9 may come in either order, so they compare as a set; every
-    other row compares in place."""
+def check_tpch(torch, cols, masks, n: int, want, limit, qname: str,
+               tie_key: str = "revenue") -> None:
+    """The port's result against the reference's (numpy's, or the CPU
+    session's): row count, no nulls, floats within rtol 1e-9, everything
+    else exact.  In a top-N (``limit``) ordered by the float ``tie_key``,
+    rows whose value ties with a neighbour's within rtol 1e-9 may come in
+    either order, so they compare as a set; every other row compares in
+    place."""
     rows = len(next(iter(want.values())))
-    check(n == rows, f"{qname}: {n} rows, numpy has {rows}")
+    check(n == rows, f"{qname}: {n} rows, the reference has {rows}")
     check(bool(all(m[:n].all() for m in masks.values())),
           f"{qname}: unexpected nulls")
     tied = np.zeros(rows, bool)
-    if limit is not None and "revenue" in want:
-        near = np.isclose(want["revenue"][1:], want["revenue"][:-1],
+    if limit is not None and tie_key in want:
+        near = np.isclose(want[tie_key][1:], want[tie_key][:-1],
                           rtol=1e-9, atol=0)
         tied[1:] |= near
         tied[:-1] |= near
@@ -1314,24 +1344,156 @@ def check_tpch(torch, cols, masks, n: int, want, limit, qname: str) -> None:
             continue
         check(np.array_equal(g[~tied], w[~tied])
               and sorted(g[tied].tolist()) == sorted(w[tied].tolist()),
-              f"{qname}: {name} differs from numpy's")
+              f"{qname}: {name} differs from the reference's")
+
+
+# the float a top-N of the CPU-checked queries orders by, and its limit
+TIE_KEYS = {"q11": ("part_value", 100)}
+
+
+def host_result(torch, result, what: str) -> dict:
+    """to_torch's result -> {name: numpy values (strings as str)}, with
+    no null allowed."""
+    cols, masks, n = result
+    check(bool(all(m[:n].all() for m in masks.values())),
+          f"{what}: unexpected nulls")
+    return {name: np.asarray(_texts(torch, c, n)) if isinstance(c, tuple)
+            else c[:n].cpu().numpy() for name, c in cols.items()}
 
 
 def phase_tpch(torch, st, native, session, T, tables, qname: str,
-               runs: int = 2) -> None:
+               runs: int = 2, cpu_tables=None) -> None:
+    """One TPC-H query on the card, checked against numpy's version
+    (``tpch_reference``) or, given ``cpu_tables``, against the same
+    query on a CPU session, run once."""
     from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
     q = TPCH_QUERIES[qname](tables)
     (cols, masks, n), secs = run_timed(torch, q, runs)
-    want, limit = tpch_reference(T, qname)
-    check_tpch(torch, cols, masks, n, want, limit, qname)
     plan = session._last_plan
+    cpu_s = None
+    if cpu_tables is None:
+        want, limit = tpch_reference(T, qname)
+        tie_key = "revenue"
+    else:
+        t0 = time.perf_counter()
+        want = host_result(torch, TPCH_QUERIES[qname](cpu_tables).to_torch(),
+                           f"{qname} on the CPU")
+        cpu_s = time.perf_counter() - t0
+        tie_key, limit = TIE_KEYS.get(qname, ("", None))
+    check_tpch(torch, cols, masks, n, want, limit, qname, tie_key)
     joins = [(type(j).__name__, j.join_type, j.route)
              for j in _plan_nodes(plan, "TorchBroadcastHashJoinExec")
              + _plan_nodes(plan, "TorchHashJoinExec")]
+    aggs = _plan_nodes(plan, "TorchHashAggregateExec")
     rows = len(T["lineitem"]["l_orderkey"])
     emit(f"tpch_{qname}", lineitem_rows=rows, out_rows=n, joins=joins,
+         dense_slot_batches=sum(a.metrics["pallasAggBatches"] for a in aggs),
          host_syncs_per_run=host_syncs(plan), seconds=secs,
-         rows_per_s=rows / float(np.median(secs)))
+         rows_per_s=rows / float(np.median(secs)), cpu_seconds=cpu_s)
+
+
+def phase_repeat_sums(torch, st, F, session, tables, runs: int = 5) -> None:
+    """TPC-H Q15's revenue subquery (a float sum a supplier, on the sorted
+    path at SF1) several times on the card: the sums must agree bit for
+    bit, or Q15's equality with their maximum drops rows.  Beside it, the
+    sorted path's segment sum and ``index_add_`` (the atomic add it
+    replaced) on 2^18 sorted rows in 60,000 groups, each ``runs`` times:
+    the distinct results of each."""
+    import datetime
+    from spark_rapids_tpu_torch.exec.aggregate import _segment
+    rng = np.random.default_rng(SEED + 7)
+    gid = torch.from_numpy(np.sort(rng.integers(0, 60_000, 1 << 18))).cuda()
+    v = torch.from_numpy(rng.uniform(900, 105_000, 1 << 18)).cuda()
+
+    def distinct(fn):
+        return len({fn().view(torch.int64).cpu().numpy().tobytes()
+                    for _ in range(runs)})
+    segment = distinct(lambda: _segment("add", v, gid, 60_000))
+    atomic = distinct(lambda: torch.zeros(60_000, dtype=torch.float64,
+                                          device="cuda").index_add_(0, gid, v))
+    check(segment == 1, f"the sorted path's sums differ between calls: "
+          f"{segment} results of {runs}")
+    col, lit = st.col, st.lit
+    rev = (tables["lineitem"].filter(
+        (col("l_shipdate") >= lit(datetime.date(1996, 1, 1)))
+        & (col("l_shipdate") < lit(datetime.date(1996, 4, 1))))
+        .select(col("l_suppkey").alias("s_suppkey"),
+                (col("l_extendedprice")
+                 * (lit(1.0) - col("l_discount"))).alias("v"))
+        .group_by("s_suppkey").agg(F.sum(col("v")).alias("total_revenue")))
+    seen = set()
+    for _ in range(runs):
+        cols, _, n = rev.to_torch()
+        seen.add(cols["total_revenue"][:n].view(torch.int64).cpu().numpy()
+                 .tobytes())
+    check(len(seen) == 1, f"q15's revenue sums differ between runs: "
+          f"{len(seen)} results of {runs}")
+    emit("repeat_sums", query="tpch_q15 revenue", groups=n, runs=runs,
+         distinct_results=len(seen), segment_sum_results=segment,
+         index_add_results=atomic)
+
+
+# -- window_1m ---------------------------------------------------------------
+
+def window_query(st, F, df):
+    """bench.py:q_window: row_number and a running sum of v over each
+    partition of k in the order of v, then each partition's first five
+    rows."""
+    w = st.Window.partition_by("k").order_by("v")
+    return (df.with_column("rn", F.row_number().over(w))
+              .with_column("run", F.sum(st.col("v")).over(w))
+              .filter(st.col("rn") <= 5))
+
+
+def window_reference(main):
+    """numpy's answer to window_query -> (the input rows of the result, in
+    input order; their rn; their running sums; the sum of |v| over the
+    sorted rows up to each)."""
+    k, v = main["k"], main["v"]
+    order = np.lexsort((v, k))  # stable, as the port's sort is
+    ks, vs = k[order], v[order]
+    # no two rows tie on (k, v), so each row's frame ends at itself
+    check(not np.any((ks[1:] == ks[:-1]) & (vs[1:] == vs[:-1])),
+          "rows tie on (k, v)")
+    start = np.r_[True, ks[1:] != ks[:-1]]
+    first = np.flatnonzero(start)
+    rn = np.arange(len(k)) - first[np.cumsum(start) - 1] + 1
+    idx = np.flatnonzero(rn <= 5)
+    run = vs[idx].copy()
+    for j in range(2, 6):  # each partition's rows 2 to 5 follow row j - 1
+        at = np.flatnonzero(rn[idx] == j)
+        run[at] += run[at - 1]
+    scale = np.cumsum(np.abs(vs))[idx]
+    back = np.argsort(order[idx])
+    return order[idx][back], rn[idx][back], run[back], scale[back]
+
+
+def phase_window(torch, st, F, session, main, runs: int = 3) -> None:
+    q = window_query(st, F, session.create_dataframe(main))
+    (cols, masks, n), secs = run_timed(torch, q, runs)
+    rows, rn, run, scale = window_reference(main)
+    check(n == len(rows), f"window_1m: {n} rows, numpy has {len(rows)}")
+    check(bool(all(m[:n].all() for m in masks.values())),
+          "window_1m: unexpected nulls")
+    for c in ("k", "v", "w"):
+        check(np.array_equal(cols[c][:n].cpu().numpy(), main[c][rows]),
+              f"window_1m: {c} differs from numpy's rows")
+    check(np.array_equal(cols["rn"][:n].cpu().numpy(), rn),
+          "window_1m: rn differs from numpy's")
+    err = np.abs(cols["run"][:n].cpu().numpy() - run)
+    check(bool(np.all(err <= 1e-10 * scale)),
+          "window_1m: a running sum is off by more than 1e-10 of its "
+          "prefix of |v|")
+    plan = session._last_plan
+    check(len(_plan_nodes(plan, "TorchWindowExec")) == 2,
+          "window_1m: not two window execs")
+    rows_in = len(main["k"])
+    emit("window_1m", rows=rows_in, out_rows=n,
+         partitions=int(np.unique(main["k"]).size),
+         max_run_err=float(err.max()), max_run_rel=float(
+             (err / scale).max()),
+         host_syncs_per_run=host_syncs(plan), seconds=secs,
+         rows_per_s=rows_in / float(np.median(secs)))
 
 
 def idle_gaps(events, top: int = 5):
@@ -1356,9 +1518,10 @@ def phase_trace(torch, query, name: str, top: int = 8) -> None:
     """One run of ``query`` under torch.profiler: its wall seconds, the
     card's busy seconds (kernels and copies), the largest device entries,
     the longest idle gaps between them, and the host time and device span
-    of each of the port's named ranges (the join's build and route), so
-    the device's idle share shows how far the host holds the card back
-    and the ranges what the join takes of it."""
+    of each of the port's named ranges (the join's build and route, the
+    window's sort and evaluation), so the device's idle share shows how
+    far the host holds the card back and the ranges what a join or a
+    window takes of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1369,7 +1532,7 @@ def phase_trace(torch, query, name: str, top: int = 8) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     averages = prof.key_averages()
-    # the port's named ranges (join.build, join.<route>) appear twice: as
+    # the port's named ranges (join.build, window.sort, ...) appear twice: as
     # host ranges, and as device spans around what they launched, which
     # are not device work of their own
     dev = [e for e in averages if e.device_type == DeviceType.CUDA
@@ -1501,19 +1664,32 @@ def main(argv=None) -> int:
           native, session, line_df, line, "text_filter_project_6m", 2)
     drive("hash_join_1m", phase_hash_join, torch, st, F, native, session,
           main_data, dim_data)
-    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy, \
-        load_tables
+    from spark_rapids_tpu_torch.bench.tpch import BENCH_QUERIES, \
+        TPCH_QUERIES, gen_tpch_numpy, load_tables
     t0 = time.perf_counter()
     tpch = gen_tpch_numpy(LINEITEM_ROWS)
     tpch_dfs = load_tables(session, tpch)
     emit("tpch_data", lineitem_rows=LINEITEM_ROWS,
          rows={t: len(next(iter(c.values()))) for t, c in tpch.items()},
          seconds=time.perf_counter() - t0)
-    for qname in ("q1", "q3", "q5", "q6", "q10", "q18"):
+    for qname in BENCH_QUERIES:
         drive(f"tpch_{qname}", phase_tpch, torch, st, native, session, tpch,
               tpch_dfs, qname)
+    drive("window_1m", phase_window, torch, st, F, session, main_data)
+    cpu_dfs = load_tables(st.TorchSession({"spark.rapids.torch.device":
+                                           "cpu"}), tpch)
+    for qname in TPCH_QUERIES:
+        if qname not in BENCH_QUERIES:
+            drive(f"tpch_{qname}", phase_tpch, torch, st, native, session,
+                  tpch, tpch_dfs, qname, 2, cpu_dfs)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    phase_repeat_sums(torch, st, F, session, tpch_dfs)
+    # q8 and q13 give the dense-slot kernel shapes of their own
+    for qname in ("q8", "q13"):
+        dsr["max_abs_err"] = max(dsr["max_abs_err"], phase_kernel_path(
+            torch, pag, session, TPCH_QUERIES[qname](tpch_dfs),
+            f"tpch_{qname}"))
     phase_hash_device(torch)
     phase_join_routes(torch, st, session)
     phase_trace(torch, text_agg_query(st, F, line_df), "text_filter_agg_6m")
@@ -1521,8 +1697,9 @@ def main(argv=None) -> int:
                 "text_filter_project_6m")
     phase_trace(torch, hash_join_query(st, F, session.create_dataframe(
         main_data), session.create_dataframe(dim_data)), "hash_join_1m")
-    from spark_rapids_tpu_torch.bench.tpch import q3
-    phase_trace(torch, q3(tpch_dfs), "tpch_q3")
+    phase_trace(torch, TPCH_QUERIES["q3"](tpch_dfs), "tpch_q3")
+    phase_trace(torch, window_query(st, F, session.create_dataframe(
+        main_data)), "window_1m")
 
     kernels = []
     for kname, info in native.KERNELS.items():

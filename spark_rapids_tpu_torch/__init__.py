@@ -13,7 +13,7 @@ that read parquet or produce Arrow tables.
     df.group_by("k").agg(F.sum(st.col("v")).alias("s")).order_by("k")
 """
 
-from spark_rapids_tpu_torch.api import DataFrame, col, lit
+from spark_rapids_tpu_torch.api import DataFrame, Window, col, lit, when
 from spark_rapids_tpu_torch.session import TorchSession
 
-__all__ = ["DataFrame", "TorchSession", "col", "lit"]
+__all__ = ["DataFrame", "TorchSession", "Window", "col", "lit", "when"]

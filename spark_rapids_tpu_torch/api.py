@@ -1,11 +1,15 @@
 """DataFrame API, the user surface.
 
 Counterpart of ``spark_rapids_tpu/api.py``, trimmed to what the port
-runs: ``select``, ``filter``, ``group_by(...).agg(...)`` and the global
-``agg``, ``order_by`` (with ``Column.asc()`` / ``desc()``), ``limit``,
-``join`` on key names, the string predicates of ``Column`` and the
-actions ``collect``, ``to_arrow`` and ``to_torch``.  Actions plan the
-query (``plan/planner.py``) and run it on the session's device.
+runs: ``select``, ``with_column``, ``filter``, ``group_by(...).agg(...)``
+and the global ``agg``, ``distinct``, ``order_by`` (with
+``Column.asc()`` / ``desc()``), ``limit``, ``join`` on key names, the
+string predicates, ``isin`` and null tests of ``Column``, ``when``,
+window functions (``Column.over`` with a ``Window`` spec; each window
+expression in a select, filter or sort list moves into an ``lp.Window``
+node below it) and the actions ``collect``, ``to_arrow`` and
+``to_torch``.  Actions plan the query (``plan/planner.py``) and run it
+on the session's device.
 """
 
 from __future__ import annotations
@@ -26,11 +30,14 @@ from spark_rapids_tpu_torch.columnar.dtypes import DATE, STRING, DataType, \
 from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exprs import arithmetic as ar
+from spark_rapids_tpu_torch.exprs import conditional as cond
 from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs import strings as ss
 from spark_rapids_tpu_torch.exprs.base import Alias, BoundReference, \
     Expression, Literal, UnresolvedAttribute
 from spark_rapids_tpu_torch.exprs.nullexprs import Coalesce
+from spark_rapids_tpu_torch.exprs.windows import WindowExpression, \
+    WindowFrame, WindowFunction
 from spark_rapids_tpu_torch.plan import logical as lp
 from spark_rapids_tpu_torch.plan.planner import plan_query
 
@@ -100,6 +107,18 @@ class Column:
     def __invert__(self):
         return Column(pr.Not(self.expr))
 
+    def is_null(self) -> "Column":
+        return Column(pr.IsNull(self.expr))
+
+    def is_not_null(self) -> "Column":
+        return Column(pr.IsNotNull(self.expr))
+
+    def isin(self, *values) -> "Column":
+        """IN a list of literals, given one by one or as one list."""
+        vals = values[0] if len(values) == 1 and \
+            isinstance(values[0], (list, tuple)) else values
+        return Column(pr.In(self.expr, list(vals)))
+
     # string predicates; the pattern must be a literal
     def startswith(self, other) -> "Column":
         return Column(ss.StartsWith(self.expr, _to_expr(other)))
@@ -123,6 +142,14 @@ class Column:
     def desc(self) -> "_SortCol":
         return _SortCol(self.expr, False)
 
+    def over(self, window: "WindowSpec") -> "Column":
+        """This aggregate or window function over ``window``."""
+        func = self.expr
+        if isinstance(func, Alias):
+            func = func.children[0]
+        return Column(WindowExpression(
+            func, window._partition, window._orders, window._frame))
+
     def __repr__(self):
         return f"Column<{self.expr.name}>"
 
@@ -138,12 +165,162 @@ class _SortCol:
         self.ascending = ascending
 
 
+class WindowSpec:
+    """An immutable window specification (pyspark's ``WindowSpec``)."""
+
+    def __init__(self, partition=None, orders=None, frame=None):
+        self._partition = list(partition or [])
+        self._orders = list(orders or [])
+        self._frame = frame
+
+    @staticmethod
+    def _to_order(c):
+        if isinstance(c, _SortCol):
+            # Spark's default null order: first ascending, last descending
+            return (c.expr, c.ascending, c.ascending)
+        return (_expr_or_name(c), True, True)
+
+    def partition_by(self, *cols_) -> "WindowSpec":
+        return WindowSpec(self._partition + [_expr_or_name(c) for c in cols_],
+                          self._orders, self._frame)
+
+    partitionBy = partition_by
+
+    def order_by(self, *cols_) -> "WindowSpec":
+        return WindowSpec(self._partition,
+                          self._orders + [self._to_order(c) for c in cols_],
+                          self._frame)
+
+    orderBy = order_by
+
+    def rows_between(self, start: int, end: int) -> "WindowSpec":
+        return WindowSpec(self._partition, self._orders,
+                          WindowFrame("rows", start, end))
+
+    rowsBetween = rows_between
+
+    def range_between(self, start: int, end: int) -> "WindowSpec":
+        return WindowSpec(self._partition, self._orders,
+                          WindowFrame("range", start, end))
+
+    rangeBetween = range_between
+
+
+class Window:
+    """Entry points of a window spec, as pyspark's ``Window``."""
+
+    unboundedPreceding = -(1 << 63)
+    unboundedFollowing = (1 << 63) - 1
+    currentRow = 0
+    unbounded_preceding = unboundedPreceding
+    unbounded_following = unboundedFollowing
+    current_row = currentRow
+
+    @staticmethod
+    def partition_by(*cols_) -> WindowSpec:
+        return WindowSpec().partition_by(*cols_)
+
+    partitionBy = partition_by
+
+    @staticmethod
+    def order_by(*cols_) -> WindowSpec:
+        return WindowSpec().order_by(*cols_)
+
+    orderBy = order_by
+
+    @staticmethod
+    def rows_between(start: int, end: int) -> WindowSpec:
+        return WindowSpec().rows_between(start, end)
+
+    rowsBetween = rows_between
+
+    @staticmethod
+    def range_between(start: int, end: int) -> WindowSpec:
+        return WindowSpec().range_between(start, end)
+
+    rangeBetween = range_between
+
+
+def _extract_window_exprs(exprs: List[Expression], plan: lp.LogicalPlan):
+    """Move the window expressions of ``exprs`` into ``lp.Window`` nodes
+    over ``plan``, one node per (partition, order) spec, and replace each
+    with a reference to its column (Spark's ExtractWindowExpressions).
+    A window expression that is a projected column (aliased or not) keeps
+    its display name; one nested inside another expression gets
+    ``__w<i>``.  -> (new exprs, new plan)."""
+    found: dict = {}  # key -> (window expression, projected as a column)
+
+    def scan(e: Expression, top: bool) -> None:
+        if isinstance(e, Alias):
+            scan(e.children[0], top)
+            return
+        if isinstance(e, WindowExpression):
+            prev = found.get(e.key())
+            found[e.key()] = (e, top or (prev is not None and prev[1]))
+            return
+        if isinstance(e, WindowFunction):
+            raise ValueError(
+                f"{e.name} is a window function and requires "
+                ".over(Window.partition_by(...).order_by(...))")
+        for c in e.children:
+            scan(c, False)
+
+    for e in exprs:
+        scan(e, top=True)
+    if not found:
+        return exprs, plan
+    assigned: dict = {}  # key -> column name
+    groups: dict = {}    # spec key -> [(name, window expression)]
+    for i, (wk, (w, top)) in enumerate(found.items()):
+        name = w.name if top else f"__w{i}"
+        assigned[wk] = name
+        groups.setdefault(w.spec_key(), []).append((name, w))
+
+    def walk(e: Expression) -> Expression:
+        if isinstance(e, WindowExpression):
+            return UnresolvedAttribute(assigned[e.key()])
+        if not e.children:
+            return e
+        new = [walk(c) for c in e.children]
+        if all(a is b for a, b in zip(new, e.children)):
+            return e
+        return e.with_children(new)
+
+    for group in groups.values():
+        plan = lp.Window(group, plan)
+    return [walk(e) for e in exprs], plan
+
+
+def _names(plan: lp.LogicalPlan) -> List[Expression]:
+    return [UnresolvedAttribute(f.name) for f in plan.output_schema()]
+
+
 def col(name: str) -> Column:
     return Column(UnresolvedAttribute(name))
 
 
 def lit(value, dtype: Optional[DataType] = None) -> Column:
     return Column(Literal(value, dtype))
+
+
+def when(cond_col: Column, value) -> "CaseWhenBuilder":
+    """CASE WHEN: ``when(c1, v1).when(c2, v2).otherwise(e)``."""
+    return CaseWhenBuilder([(cond_col.expr, _to_expr(value))])
+
+
+class CaseWhenBuilder(Column):
+    """A CASE WHEN with no ELSE yet (its unmatched rows are null)."""
+
+    def __init__(self, branches):
+        self._branches = branches
+        super().__init__(cond.CaseWhen(branches))
+
+    def when(self, cond_col: Column, value) -> "CaseWhenBuilder":
+        return CaseWhenBuilder(
+            self._branches + [(cond_col.expr, _to_expr(value))])
+
+    def otherwise(self, value) -> Column:
+        return Column(cond.CaseWhen(self._branches, _to_expr(value)))
 
 
 def _expr_or_name(c) -> Expression:
@@ -160,12 +337,26 @@ class DataFrame:
     # -- transformations ----------------------------------------------------
 
     def select(self, *cols_) -> "DataFrame":
-        return DataFrame(self.session,
-                         lp.Project([_expr_or_name(c) for c in cols_],
-                                    self.plan))
+        exprs, plan = _extract_window_exprs(
+            [_expr_or_name(c) for c in cols_], self.plan)
+        return DataFrame(self.session, lp.Project(exprs, plan))
+
+    def with_column(self, name: str, c: Column) -> "DataFrame":
+        """Every column, with ``name`` replaced by ``c`` or appended."""
+        exprs = [Alias(_to_expr(c), name) if e.col_name == name else e
+                 for e in _names(self.plan)]
+        if name not in self.plan.output_schema().names:
+            exprs.append(Alias(_to_expr(c), name))
+        exprs, plan = _extract_window_exprs(exprs, self.plan)
+        return DataFrame(self.session, lp.Project(exprs, plan))
 
     def filter(self, cond) -> "DataFrame":
-        return DataFrame(self.session, lp.Filter(_to_expr(cond), self.plan))
+        (e,), plan = _extract_window_exprs([_to_expr(cond)], self.plan)
+        out = lp.Filter(e, plan)
+        if plan is not self.plan:
+            # drop the window columns the predicate read
+            out = lp.Project(_names(self.plan), out)
+        return DataFrame(self.session, out)
 
     def order_by(self, *cols_, ascending=True) -> "DataFrame":
         ascs = ascending if isinstance(ascending, (list, tuple)) \
@@ -177,7 +368,14 @@ class DataFrame:
                 c, asc = c.expr, c.ascending
             # Spark's default null order: first when ascending, else last
             orders.append((_expr_or_name(c), bool(asc), bool(asc)))
-        return DataFrame(self.session, lp.Sort(orders, self.plan))
+        keys, plan = _extract_window_exprs([e for e, _, _ in orders],
+                                           self.plan)
+        out = lp.Sort([(k, asc, nf) for k, (_, asc, nf) in zip(keys, orders)],
+                      plan)
+        if plan is not self.plan:
+            # drop the window columns the sort read
+            out = lp.Project(_names(self.plan), out)
+        return DataFrame(self.session, out)
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, lp.Limit(n, self.plan))
@@ -223,6 +421,12 @@ class DataFrame:
 
     def group_by(self, *cols_) -> "GroupedData":
         return GroupedData(self, [_expr_or_name(c) for c in cols_])
+
+    def distinct(self) -> "DataFrame":
+        """The distinct rows: an aggregate by every column, with no
+        functions."""
+        return DataFrame(self.session,
+                         lp.Aggregate(_names(self.plan), [], self.plan))
 
     # -- actions ------------------------------------------------------------
 

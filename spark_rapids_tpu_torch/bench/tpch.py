@@ -1,13 +1,15 @@
-"""TPC-H-like corpus: a numpy generator and the bench's six queries.
+"""TPC-H-like corpus: a numpy generator and the 22 queries.
 
 Counterpart of ``spark_rapids_tpu/bench/tpch.py``.  ``gen_tpch_numpy``
 makes the same eight tables as the JAX package's ``gen_tpch``, column for
 column, from the same seed: it draws from one ``np.random.default_rng``
 in ``gen_tpch``'s order, per-row draws included, but returns numpy
 arrays (strings as ``U`` arrays, dates as ``datetime64[D]``) instead of
-writing parquet, so it needs no pyarrow.  q1, q3, q5, q6, q10 and q18
-follow the JAX package's text on the port's API; monetary values are
-float64.
+writing parquet, so it needs no pyarrow.  q1 to q22 follow the JAX
+package's text on the port's API (correlated and scalar subqueries
+become joins, as there: a constant key ``_const_key`` joins a one-row
+aggregate to every row); monetary values are float64.  ``BENCH_QUERIES``
+names the six that ``bench.py`` runs.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict
 import numpy as np
 
 from spark_rapids_tpu_torch import functions as F
-from spark_rapids_tpu_torch.api import col, lit
+from spark_rapids_tpu_torch.api import col, lit, when
 
 _SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY",
              "HOUSEHOLD"]
@@ -279,5 +281,401 @@ def q18(t):
             .limit(100))
 
 
-TPCH_QUERIES = {"q1": q1, "q3": q3, "q5": q5, "q6": q6, "q10": q10,
-                "q18": q18}
+def q4(t):
+    """TPC-H Q4: order priority checking (semi join on late lineitems)."""
+    late = t["lineitem"].filter(
+        col("l_commitdate") < col("l_receiptdate")) \
+        .select(col("l_orderkey").alias("o_orderkey"))
+    return (t["orders"]
+            .filter((col("o_orderdate") >= lit(dt.date(1993, 7, 1)))
+                    & (col("o_orderdate") < lit(dt.date(1993, 10, 1))))
+            .join(late, "o_orderkey", "semi")
+            .group_by("o_orderpriority")
+            .agg(F.count(lit(1)).alias("order_count"))
+            .order_by("o_orderpriority"))
+
+
+def q12(t):
+    """TPC-H Q12: shipmode / order priority (conditional CASE sums)."""
+    li = t["lineitem"].filter(
+        ((col("l_shipmode") == lit("MAIL"))
+         | (col("l_shipmode") == lit("SHIP")))
+        & (col("l_commitdate") < col("l_receiptdate"))
+        & (col("l_shipdate") < col("l_commitdate"))
+        & (col("l_receiptdate") >= lit(dt.date(1994, 1, 1)))
+        & (col("l_receiptdate") < lit(dt.date(1995, 1, 1)))) \
+        .select(col("l_orderkey").alias("o_orderkey"), "l_shipmode")
+    high = when((col("o_orderpriority") == lit("1-URGENT"))
+                | (col("o_orderpriority") == lit("2-HIGH")), 1) \
+        .otherwise(0)
+    low = when((col("o_orderpriority") != lit("1-URGENT"))
+               & (col("o_orderpriority") != lit("2-HIGH")), 1) \
+        .otherwise(0)
+    return (t["orders"].join(li, "o_orderkey")
+            .group_by("l_shipmode")
+            .agg(F.sum(high).alias("high_line_count"),
+                 F.sum(low).alias("low_line_count"))
+            .order_by("l_shipmode"))
+
+
+def q14(t):
+    """TPC-H Q14: promotion effect (conditional revenue share)."""
+    li = t["lineitem"].filter(
+        (col("l_shipdate") >= lit(dt.date(1995, 9, 1)))
+        & (col("l_shipdate") < lit(dt.date(1995, 10, 1)))) \
+        .select("l_partkey",
+                (col("l_extendedprice")
+                 * (lit(1.0) - col("l_discount"))).alias("volume"))
+    part = t["part"].select(col("p_partkey").alias("l_partkey"),
+                            "p_type")
+    joined = li.join(part, "l_partkey")
+    promo = when(col("p_type").startswith("PROMO"),
+                 col("volume")).otherwise(0.0)
+    agged = joined.agg(F.sum(promo).alias("promo"),
+                       F.sum(col("volume")).alias("total"))
+    return agged.select(
+        (lit(100.0) * col("promo") / col("total"))
+        .alias("promo_revenue"))
+
+
+def _const_key(df, name="_jk"):
+    """Append a constant join key (the scalar-subquery join idiom)."""
+    return df.with_column(name, lit(1))
+
+
+def q2(t):
+    """TPC-H Q2: minimum-cost supplier (correlated min via groupby
+    join)."""
+    supp_eu = (t["supplier"]
+               .join(t["nation"]
+                     .join(t["region"]
+                           .filter(col("r_name") == lit("EUROPE"))
+                           .select(col("r_regionkey")
+                                   .alias("n_regionkey")),
+                           "n_regionkey")
+                     .select(col("n_nationkey").alias("s_nationkey"),
+                             "n_name"),
+                     "s_nationkey"))
+    ps = (t["partsupp"].select(col("ps_partkey").alias("p_partkey"),
+                               col("ps_suppkey").alias("s_suppkey"),
+                               "ps_supplycost")
+          .join(supp_eu, "s_suppkey"))
+    part_f = t["part"].filter(
+        (col("p_size") == lit(15)) & col("p_type").endswith("STEEL")) \
+        .select("p_partkey", "p_mfgr")
+    joined = part_f.join(ps, "p_partkey")
+    mn = (joined.group_by("p_partkey")
+          .agg(F.min(col("ps_supplycost")).alias("min_cost")))
+    return (joined.join(mn, "p_partkey")
+            .filter(col("ps_supplycost") == col("min_cost"))
+            .select("s_acctbal", "s_name", "n_name", "p_partkey",
+                    "p_mfgr")
+            .order_by(col("s_acctbal").desc(), "n_name", "s_name",
+                      "p_partkey")
+            .limit(100))
+
+
+def q7(t):
+    """TPC-H Q7: volume shipping between two nations by year."""
+    n1 = t["nation"].select(col("n_nationkey").alias("s_nationkey"),
+                            col("n_name").alias("supp_nation"))
+    n2 = t["nation"].select(col("n_nationkey").alias("c_nationkey"),
+                            col("n_name").alias("cust_nation"))
+    li = t["lineitem"].filter(
+        (col("l_shipdate") >= lit(dt.date(1995, 1, 1)))
+        & (col("l_shipdate") <= lit(dt.date(1996, 12, 31)))) \
+        .select(col("l_orderkey").alias("o_orderkey"),
+                col("l_suppkey").alias("s_suppkey"),
+                F.year(col("l_shipdate")).alias("l_year"),
+                (col("l_extendedprice")
+                 * (lit(1.0) - col("l_discount"))).alias("volume"))
+    orders = t["orders"].select("o_orderkey",
+                                col("o_custkey").alias("c_custkey"))
+    cust = t["customer"].select("c_custkey", "c_nationkey").join(
+        n2, "c_nationkey")
+    supp = t["supplier"].select("s_suppkey", "s_nationkey").join(
+        n1, "s_nationkey")
+    j = (li.join(orders, "o_orderkey").join(cust, "c_custkey")
+         .join(supp, "s_suppkey")
+         .filter(((col("supp_nation") == lit("FRANCE"))
+                  & (col("cust_nation") == lit("GERMANY")))
+                 | ((col("supp_nation") == lit("GERMANY"))
+                    & (col("cust_nation") == lit("FRANCE")))))
+    return (j.group_by("supp_nation", "cust_nation", "l_year")
+            .agg(F.sum(col("volume")).alias("revenue"))
+            .order_by("supp_nation", "cust_nation", "l_year"))
+
+
+def q8(t):
+    """TPC-H Q8: national market share within a region by year."""
+    region = t["region"].filter(col("r_name") == lit("AMERICA")) \
+        .select(col("r_regionkey").alias("n_regionkey"))
+    n_cust = t["nation"].join(region, "n_regionkey").select(
+        col("n_nationkey").alias("c_nationkey"))
+    n_supp = t["nation"].select(col("n_nationkey").alias("s_nationkey"),
+                                col("n_name").alias("supp_nation"))
+    orders = t["orders"].filter(
+        (col("o_orderdate") >= lit(dt.date(1995, 1, 1)))
+        & (col("o_orderdate") <= lit(dt.date(1996, 12, 31)))) \
+        .select(col("o_orderkey").alias("l_orderkey"),
+                col("o_custkey").alias("c_custkey"),
+                F.year(col("o_orderdate")).alias("o_year"))
+    part_f = t["part"].filter(
+        col("p_type") == lit("ECONOMY POLISHED BRASS")) \
+        .select(col("p_partkey").alias("l_partkey"))
+    li = t["lineitem"].select(
+        "l_orderkey", "l_partkey",
+        col("l_suppkey").alias("s_suppkey"),
+        (col("l_extendedprice")
+         * (lit(1.0) - col("l_discount"))).alias("volume"))
+    j = (li.join(part_f, "l_partkey")
+         .join(orders, "l_orderkey")
+         .join(t["customer"].select("c_custkey", "c_nationkey")
+               .join(n_cust, "c_nationkey"), "c_custkey")
+         .join(t["supplier"].select("s_suppkey", "s_nationkey")
+               .join(n_supp, "s_nationkey"), "s_suppkey"))
+    brazil = when(col("supp_nation") == lit("BRAZIL"),
+                  col("volume")).otherwise(0.0)
+    return (j.group_by("o_year")
+            .agg(F.sum(brazil).alias("brazil_volume"),
+                 F.sum(col("volume")).alias("total_volume"))
+            .select("o_year", (col("brazil_volume")
+                               / col("total_volume")).alias("mkt_share"))
+            .order_by("o_year"))
+
+
+def q9(t):
+    """TPC-H Q9: product-type profit measure by nation and year."""
+    part_f = t["part"].filter(col("p_name").contains("green")) \
+        .select(col("p_partkey").alias("l_partkey"))
+    supp = t["supplier"].select(col("s_suppkey").alias("l_suppkey"),
+                                col("s_nationkey").alias("n_nationkey"))
+    ps = t["partsupp"].select(col("ps_partkey").alias("l_partkey"),
+                              col("ps_suppkey").alias("l_suppkey"),
+                              "ps_supplycost")
+    orders = t["orders"].select(col("o_orderkey").alias("l_orderkey"),
+                                F.year(col("o_orderdate"))
+                                .alias("o_year"))
+    li = t["lineitem"].select(
+        "l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+        (col("l_extendedprice")
+         * (lit(1.0) - col("l_discount"))).alias("gross"))
+    j = (li.join(part_f, "l_partkey")
+         .join(supp, "l_suppkey")
+         .join(ps, ["l_partkey", "l_suppkey"])
+         .join(orders, "l_orderkey")
+         .join(t["nation"].select("n_nationkey", "n_name"),
+               "n_nationkey"))
+    profit = col("gross") - col("ps_supplycost") * col("l_quantity")
+    return (j.select("n_name", "o_year", profit.alias("amount"))
+            .group_by("n_name", "o_year")
+            .agg(F.sum(col("amount")).alias("sum_profit"))
+            .order_by("n_name", col("o_year").desc()))
+
+
+def q11(t):
+    """TPC-H Q11: important stock identification (value share of one
+    nation's partsupp, scalar-subquery threshold via const-key join)."""
+    germany = t["nation"].filter(col("n_name") == lit("GERMANY")) \
+        .select(col("n_nationkey").alias("s_nationkey"))
+    ps = (t["partsupp"].select(col("ps_partkey"),
+                               col("ps_suppkey").alias("s_suppkey"),
+                               (col("ps_supplycost")
+                                * col("ps_availqty")).alias("value"))
+          .join(t["supplier"].select("s_suppkey", "s_nationkey")
+                .join(germany, "s_nationkey"), "s_suppkey"))
+    per_part = (ps.group_by("ps_partkey")
+                .agg(F.sum(col("value")).alias("part_value")))
+    total = _const_key(ps.agg(F.sum(col("value")).alias("total_value")))
+    return (_const_key(per_part).join(total, "_jk")
+            .filter(col("part_value")
+                    > col("total_value") * lit(0.001))
+            .select("ps_partkey", "part_value")
+            .order_by(col("part_value").desc(), "ps_partkey")
+            .limit(100))
+
+
+def q13(t):
+    """TPC-H Q13: customer order-count distribution (left join +
+    double aggregation)."""
+    o = t["orders"].filter(
+        ~col("o_comment").contains("special")) \
+        .select(col("o_custkey").alias("c_custkey"), "o_orderkey")
+    j = t["customer"].select("c_custkey").join(o, "c_custkey", "left")
+    per_c = (j.group_by("c_custkey")
+             .agg(F.count(col("o_orderkey")).alias("c_count")))
+    return (per_c.group_by("c_count")
+            .agg(F.count(lit(1)).alias("custdist"))
+            .order_by(col("custdist").desc(), col("c_count").desc()))
+
+
+def q15(t):
+    """TPC-H Q15: top supplier (max-revenue scalar subquery)."""
+    rev = (t["lineitem"].filter(
+        (col("l_shipdate") >= lit(dt.date(1996, 1, 1)))
+        & (col("l_shipdate") < lit(dt.date(1996, 4, 1))))
+        .select(col("l_suppkey").alias("s_suppkey"),
+                (col("l_extendedprice")
+                 * (lit(1.0) - col("l_discount"))).alias("v"))
+        .group_by("s_suppkey")
+        .agg(F.sum(col("v")).alias("total_revenue")))
+    mx = _const_key(rev.agg(F.max(col("total_revenue")).alias("mx")))
+    top = (_const_key(rev).join(mx, "_jk")
+           .filter(col("total_revenue") == col("mx"))
+           .select("s_suppkey", "total_revenue"))
+    return (top.join(t["supplier"].select("s_suppkey", "s_name"),
+                     "s_suppkey")
+            .select("s_suppkey", "s_name", "total_revenue")
+            .order_by("s_suppkey"))
+
+
+def q16(t):
+    """TPC-H Q16: parts/supplier relationship (distinct supplier counts
+    per brand/type/size)."""
+    part_f = t["part"].filter(
+        (col("p_brand") != lit("Brand#45"))
+        & ~col("p_type").startswith("MEDIUM")
+        & col("p_size").isin(1, 4, 7, 10, 14, 19, 25, 39, 45, 49)) \
+        .select(col("p_partkey").alias("ps_partkey"), "p_brand",
+                "p_type", "p_size")
+    j = (t["partsupp"].select("ps_partkey", "ps_suppkey")
+         .join(part_f, "ps_partkey")
+         .select("p_brand", "p_type", "p_size", "ps_suppkey")
+         .distinct())
+    return (j.group_by("p_brand", "p_type", "p_size")
+            .agg(F.count(lit(1)).alias("supplier_cnt"))
+            .order_by(col("supplier_cnt").desc(), "p_brand", "p_type",
+                      "p_size"))
+
+
+def q17(t):
+    """TPC-H Q17: small-quantity-order revenue (per-part avg quantity
+    correlated subquery via groupby join)."""
+    li = t["lineitem"].select("l_partkey", "l_quantity",
+                              "l_extendedprice")
+    avg_q = (li.group_by("l_partkey")
+             .agg(F.avg(col("l_quantity")).alias("avg_qty")))
+    part_f = t["part"].filter(
+        (col("p_brand") == lit("Brand#23"))
+        & (col("p_container") == lit("MED BOX"))) \
+        .select(col("p_partkey").alias("l_partkey"))
+    j = (li.join(part_f, "l_partkey").join(avg_q, "l_partkey")
+         .filter(col("l_quantity") < col("avg_qty") * lit(0.8)))
+    return (j.agg(F.sum(col("l_extendedprice")).alias("total"))
+            .select((col("total") / lit(7.0)).alias("avg_yearly")))
+
+
+def q19(t):
+    """TPC-H Q19: discounted revenue (OR-of-ANDs over part attrs)."""
+    li = t["lineitem"].select(
+        "l_partkey", "l_quantity",
+        (col("l_extendedprice")
+         * (lit(1.0) - col("l_discount"))).alias("v"))
+    part = t["part"].select(col("p_partkey").alias("l_partkey"),
+                            "p_brand", "p_container", "p_size")
+    j = li.join(part, "l_partkey")
+    c1 = ((col("p_brand") == lit("Brand#12"))
+          & col("p_container").startswith("SM")
+          & (col("l_quantity") >= lit(1.0))
+          & (col("l_quantity") <= lit(11.0))
+          & (col("p_size") <= lit(5)))
+    c2 = ((col("p_brand") == lit("Brand#23"))
+          & col("p_container").startswith("MED")
+          & (col("l_quantity") >= lit(10.0))
+          & (col("l_quantity") <= lit(20.0))
+          & (col("p_size") <= lit(10)))
+    c3 = ((col("p_brand") == lit("Brand#34"))
+          & col("p_container").startswith("LG")
+          & (col("l_quantity") >= lit(20.0))
+          & (col("l_quantity") <= lit(30.0))
+          & (col("p_size") <= lit(15)))
+    return (j.filter(c1 | c2 | c3)
+            .agg(F.sum(col("v")).alias("revenue")))
+
+
+def q20(t):
+    """TPC-H Q20: potential part promotion (availqty vs half of shipped
+    quantity; nested semi joins)."""
+    pk = t["part"].filter(col("p_name").startswith("forest")) \
+        .select(col("p_partkey").alias("ps_partkey"))
+    liq = (t["lineitem"].filter(
+        (col("l_shipdate") >= lit(dt.date(1994, 1, 1)))
+        & (col("l_shipdate") < lit(dt.date(1995, 1, 1))))
+        .select(col("l_partkey").alias("ps_partkey"),
+                col("l_suppkey").alias("ps_suppkey"), "l_quantity")
+        .group_by("ps_partkey", "ps_suppkey")
+        .agg(F.sum(col("l_quantity")).alias("ship_qty"))
+        .select("ps_partkey", "ps_suppkey",
+                (col("ship_qty") * lit(0.5)).alias("half_qty")))
+    cand = (t["partsupp"].select("ps_partkey", "ps_suppkey",
+                                 "ps_availqty")
+            .join(pk, "ps_partkey")
+            .join(liq, ["ps_partkey", "ps_suppkey"])
+            .filter(col("ps_availqty") > col("half_qty"))
+            .select(col("ps_suppkey").alias("s_suppkey")))
+    return (t["supplier"].select("s_suppkey", "s_name")
+            .join(cand, "s_suppkey", "semi")
+            .order_by("s_name"))
+
+
+def q21(t):
+    """TPC-H Q21: suppliers who kept orders waiting (the only late
+    supplier on multi-supplier 'F' orders; exists/not-exists expressed
+    as aggregated joins)."""
+    pairs = t["lineitem"].select("l_orderkey", "l_suppkey").distinct()
+    n_supp = (pairs.group_by("l_orderkey")
+              .agg(F.count(lit(1)).alias("n_suppliers")))
+    late_pairs = (t["lineitem"]
+                  .filter(col("l_receiptdate") > col("l_commitdate"))
+                  .select("l_orderkey", "l_suppkey").distinct())
+    n_late = (late_pairs.group_by("l_orderkey")
+              .agg(F.count(lit(1)).alias("n_late")))
+    orders_f = t["orders"].filter(
+        col("o_orderstatus") == lit("F")) \
+        .select(col("o_orderkey").alias("l_orderkey"))
+    saudi = t["nation"].filter(col("n_name") == lit("SAUDI ARABIA")) \
+        .select(col("n_nationkey").alias("s_nationkey"))
+    supp = (t["supplier"].select(col("s_suppkey").alias("l_suppkey"),
+                                 "s_name", "s_nationkey")
+            .join(saudi, "s_nationkey"))
+    j = (late_pairs.join(orders_f, "l_orderkey")
+         .join(n_supp, "l_orderkey").join(n_late, "l_orderkey")
+         .filter((col("n_suppliers") >= lit(2))
+                 & (col("n_late") == lit(1)))
+         .join(supp, "l_suppkey"))
+    return (j.group_by("s_name")
+            .agg(F.count(lit(1)).alias("numwait"))
+            .order_by(col("numwait").desc(), "s_name")
+            .limit(100))
+
+
+def q22(t):
+    """TPC-H Q22: global sales opportunity (acctbal above the positive
+    average, customers with no orders; anti join + const-key avg)."""
+    cc = F.substring(col("c_phone"), 1, 2)
+    cust = t["customer"].select("c_custkey", "c_acctbal",
+                                cc.alias("cntrycode"))
+    cust = cust.filter(
+        col("cntrycode").isin("13", "31", "23", "29", "30", "18", "17"))
+    avg_bal = _const_key(
+        cust.filter(col("c_acctbal") > lit(0.0))
+        .agg(F.avg(col("c_acctbal")).alias("avg_bal")))
+    cand = (_const_key(cust).join(avg_bal, "_jk")
+            .filter(col("c_acctbal") > col("avg_bal"))
+            .select("c_custkey", "cntrycode", "c_acctbal"))
+    no_orders = cand.join(
+        t["orders"].select(col("o_custkey").alias("c_custkey")),
+        "c_custkey", "anti")
+    return (no_orders.group_by("cntrycode")
+            .agg(F.count(lit(1)).alias("numcust"),
+                 F.sum(col("c_acctbal")).alias("totacctbal"))
+            .order_by("cntrycode"))
+
+
+TPCH_QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5,
+                "q6": q6, "q7": q7, "q8": q8, "q9": q9, "q10": q10,
+                "q11": q11, "q12": q12, "q13": q13, "q14": q14,
+                "q15": q15, "q16": q16, "q17": q17, "q18": q18,
+                "q19": q19, "q20": q20, "q21": q21, "q22": q22}
+# the queries bench.py:_tpch_suites runs
+BENCH_QUERIES = ("q1", "q3", "q5", "q6", "q10", "q18")

@@ -10,14 +10,16 @@ Hopper kernel on the card) when ``_try_pallas_update`` routes the batch
 there, by the JAX package's rules; otherwise, and for the merge, it takes
 the sorted-segment path of ``make_agg_body``: sort rows by their group
 keys, mark segment boundaries where a key changes, number the segments
-with a prefix sum, and reduce every buffer slot per segment.
+with a prefix sum, and reduce every buffer slot per segment (float sums
+in a fixed order, so a sum comes out the same on every run).
 
 Each path reads one or two numbers back to the host per batch (the key
 range, the group count); ``hostSyncs`` counts them.  The JAX package
 stops probing key ranges after two batches of fresh input, because each
 probe costs it a round trip over a remote link; on the card a probe
-costs microseconds, so every batch is probed.  Only grouped aggregation
-is in this slice.
+costs microseconds, so every batch is probed.  An aggregate with no
+functions (``DataFrame.distinct``) outputs its groups' keys alone, in
+the same order.
 
 String grouping keys take the sorted-segment path (the dense-slot router
 rejects them, as the JAX package's does): their sort keys are the packed
@@ -43,7 +45,7 @@ from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
     sort_permutation
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction, \
-    Count
+    Count, First
 from spark_rapids_tpu_torch.exprs.base import Alias, ColVal, EvalContext, \
     Expression, colvals
 
@@ -59,8 +61,19 @@ def unwrap_aggregate(e: Expression) -> Tuple[str, AggregateFunction]:
 
 def _segment(op: str, contrib: torch.Tensor, gid: torch.Tensor,
              num_segments: int) -> torch.Tensor:
-    """Per-segment add/min/max; empty segments hold the op's identity."""
+    """Per-segment add/min/max over rows whose ``gid`` never decreases;
+    empty segments hold the op's identity.  A float sum reduces each
+    run of rows in a fixed order (``segment_reduce``): the card's
+    ``index_add_`` adds with atomics, so two runs of the same sum round
+    differently, and a query that compares two evaluations of one sum
+    (TPC-H Q15's revenue against its maximum) would drop rows.  On the
+    CPU both add in row order, bit for bit alike."""
     if op == "add":
+        if contrib.dtype.is_floating_point:
+            offsets = torch.searchsorted(gid, torch.arange(
+                num_segments + 1, dtype=gid.dtype, device=gid.device))
+            return torch.segment_reduce(contrib, "sum", offsets=offsets,
+                                        unsafe=True)
         out = torch.zeros(num_segments, dtype=contrib.dtype,
                           device=contrib.device)
         return out.index_add_(0, gid, contrib)
@@ -213,6 +226,10 @@ class TorchHashAggregateExec(TorchExec):
         self.groupings = list(groupings)
         self.agg_pairs = [unwrap_aggregate(e) for e in aggregates]
         for _, f in self.agg_pairs:
+            if isinstance(f, First):
+                raise NotImplementedError(
+                    f"{type(f).__name__} is not in the torch port's "
+                    "aggregate yet")
             if f.child.dtype == STRING and not isinstance(f, Count):
                 raise NotImplementedError(
                     f"{type(f).__name__} over strings is not in the torch "

@@ -1,7 +1,9 @@
 """Declarative aggregate functions.
 
 Counterpart of ``spark_rapids_tpu/exprs/aggregates.py`` (Count, Sum, Min,
-Max, Average).  Each function declares its ``input_projection``, one
+Max, Average; First and Last are declared, but no exec of the port
+evaluates them yet, and the planner raises on them).  Each function
+declares its ``input_projection``, one
 update op and one merge op per buffer slot ("sum" | "min" | "max" |
 "count"), the buffer types, and ``evaluate(bufs)``, the finalization
 over buffer ColVals.
@@ -155,3 +157,28 @@ class Average(AggregateFunction):
         nonzero = c.data > 0
         denom = torch.where(nonzero, c.data, torch.ones_like(c.data))
         return ColVal(s.data / denom.to(s.data.dtype), nonzero)
+
+
+class First(AggregateFunction):
+    """first(expr): the first non-null value (Spark's ignoreNulls=true).
+    Declared so that queries can name it; the port's aggregate and window
+    execs do not evaluate it yet."""
+
+    def __init__(self, child: Expression, ignore_nulls: bool = True):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    def key(self) -> str:
+        name = type(self).__name__
+        return f"{name}[{self.ignore_nulls}]({self.child.key()})"
+
+    def with_children(self, children):
+        return type(self)(children[0], self.ignore_nulls)
+
+    @property
+    def dtype(self) -> DataType:
+        return self.child.dtype
+
+
+class Last(First):
+    """last(expr): the last non-null value."""

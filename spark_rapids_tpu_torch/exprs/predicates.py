@@ -4,17 +4,20 @@ Counterpart of ``spark_rapids_tpu/exprs/predicates.py``.  AND/OR follow
 Kleene three-valued logic on the (data, validity) pair: ``false AND
 null = false``, ``true OR null = true``.  Float comparisons follow Spark:
 NaN = NaN is true and NaN is greater than every other value.  Strings
-compare by their UTF-8 bytes (``string_compare``).
+compare by their UTF-8 bytes (``string_compare``).  ``IsNull`` and
+``IsNotNull`` are never null; ``In`` tests a list of literals.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, \
-    DataType, common_type
+    DataType, common_type, device_dtype
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
-    Expression, align_chars, fixed
+    Expression, Literal, align_chars, fixed
 from spark_rapids_tpu_torch.exprs.cast import Cast
 
 
@@ -208,3 +211,87 @@ class Not(Expression):
     def emit(self, ctx):
         c = self.children[0].emit(ctx)
         return fixed(~c.data, c.validity)
+
+
+class IsNull(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self) -> DataType:
+        return BOOLEAN
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    @property
+    def name(self) -> str:
+        return f"({self.children[0].name} IS NULL)"
+
+    def emit(self, ctx):
+        c = self.children[0].emit(ctx)
+        return fixed(~c.validity, torch.ones_like(c.validity))
+
+
+class IsNotNull(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self) -> DataType:
+        return BOOLEAN
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    @property
+    def name(self) -> str:
+        return f"({self.children[0].name} IS NOT NULL)"
+
+    def emit(self, ctx):
+        c = self.children[0].emit(ctx)
+        return fixed(c.validity, torch.ones_like(c.validity))
+
+
+class In(Expression):
+    """value IN (literal, ...).  A null value gives null; a null in the
+    list gives null where nothing matched (true where something did).
+    A number in the list takes the value's type first, as the JAX
+    package converts it; a string compares by its bytes."""
+
+    def __init__(self, child: Expression, values: Sequence):
+        self.children = (child,)
+        self.values = tuple(values)
+
+    @property
+    def dtype(self) -> DataType:
+        return BOOLEAN
+
+    @property
+    def name(self) -> str:
+        return f"({self.children[0].name} IN {self.values!r})"
+
+    def key(self) -> str:
+        return f"in_set[{self.values!r}]({self.children[0].key()})"
+
+    def with_children(self, children):
+        return In(children[0], self.values)
+
+    def emit(self, ctx):
+        c = self.children[0].emit(ctx)
+        child_t = self.children[0].dtype
+        hit = torch.zeros(ctx.capacity, dtype=torch.bool, device=ctx.device)
+        for v in self.values:
+            if v is None:
+                continue  # never matches; decides the validity below
+            if child_t == STRING:
+                hit = hit | (string_compare(c, Literal(v).emit(ctx)) == 0)
+            else:
+                hit = hit | (c.data == torch.tensor(
+                    v, dtype=device_dtype(child_t), device=ctx.device))
+        valid = c.validity
+        if any(v is None for v in self.values):
+            valid = valid & hit
+        return fixed(hit, valid)

@@ -131,3 +131,22 @@ class Aggregate(LogicalPlan):
     def output_schema(self) -> Schema:
         return _bound_schema(self.groupings + self.aggregates,
                              self.children[0])
+
+
+class Window(LogicalPlan):
+    """Appends one column per window expression to the child's columns;
+    every expression of one node shares a (partition, order) spec (the
+    API groups them).  window_cols: [(output name, WindowExpression)]."""
+
+    def __init__(self, window_cols: Sequence[Tuple[str, Expression]],
+                 child: LogicalPlan):
+        self.window_cols = list(window_cols)
+        self.children = [child]
+
+    def output_schema(self) -> Schema:
+        child_schema = self.children[0].output_schema()
+        fields = list(child_schema.fields)
+        for name, w in self.window_cols:
+            b = bind_expression(w, child_schema)
+            fields.append(Field(name, b.dtype, b.nullable))
+        return Schema(fields)

@@ -2,7 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/plan/planner.py:plan_query``, trimmed
 to what the port runs.  It lowers LocalRelation, ParquetRelation,
-Project, Filter, Aggregate (grouped or global), Sort, Limit and Join;
+Project, Filter, Aggregate (grouped, global or distinct), Sort, Limit,
+Join and Window (``TorchWindowExec``, after checking each bound window
+expression's ``unsupported``);
 each maximal chain of Project and Filter becomes one fused
 ``TorchStageExec`` (the JAX package's fusion pass), an Aggregate and the
 stream side of a join read their input through the coalesce the JAX
@@ -34,13 +36,15 @@ from spark_rapids_tpu_torch.exec.coalesce import TorchCoalesceBatchesExec
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec, TorchTopNExec
 from spark_rapids_tpu_torch.exec.stage import TorchStageExec
+from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.exprs.base import BoundReference, \
     bind_expression
 from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec, \
     expand_paths
 from spark_rapids_tpu_torch.plan import logical as lp
 
-_NODES = (lp.Project, lp.Filter, lp.Aggregate, lp.Sort, lp.Limit, lp.Join)
+_NODES = (lp.Project, lp.Filter, lp.Aggregate, lp.Sort, lp.Limit, lp.Join,
+          lp.Window)
 
 
 def _stage(step, child: TorchExec) -> TorchStageExec:
@@ -83,6 +87,12 @@ def plan_query(node: lp.LogicalPlan,
         return _stage(("filter", (bind(node.pred),)), child)
     if isinstance(node, lp.Limit):
         return TorchLocalLimitExec(node.n, child)
+    if isinstance(node, lp.Window):
+        bound = [(name, bind(w)) for name, w in node.window_cols]
+        for _, w in bound:
+            if w.unsupported is not None:
+                raise NotImplementedError(f"{w.name}: {w.unsupported}")
+        return TorchWindowExec(bound, child)
     if isinstance(node, lp.Aggregate):
         return TorchHashAggregateExec(
             [bind(e) for e in node.groupings],

@@ -24,7 +24,8 @@ from tests.compare import assert_tables_equal, tpu_session
 
 import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch import functions as TF
-from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, gen_tpch_numpy
+from spark_rapids_tpu_torch.bench.tpch import BENCH_QUERIES, TPCH_QUERIES, \
+    gen_tpch_numpy
 from spark_rapids_tpu_torch.bench.tpch import load_tables as tload
 
 LINEITEM = 4000
@@ -70,7 +71,7 @@ def test_gen_tpch_numpy_equals_gen_tpch(tpch):
                 np.testing.assert_array_equal(got[c], w, err_msg=c)
 
 
-@pytest.mark.parametrize("qname", list(TPCH_QUERIES))
+@pytest.mark.parametrize("qname", BENCH_QUERIES)
 def test_tpch_query_matches_jax(tpch, qname):
     paths, tables = tpch
     want = JAX_QUERIES[qname](jload(tpu_session(), paths)).to_arrow()
