@@ -81,9 +81,25 @@ Phases, each printing one JSON line:
    alike (q15 keeps the suppliers whose sum equals their maximum);
    kernel_path holds the dense-slot kernel against its plain version on
    the first update batch of q8 (by year) and of q13's outer aggregate
-   (by c_count).
+   (by c_count);
+14. mortgage_etl: ``bench.py``'s mortgage pipeline (a per-loan aggregate
+   of conditional max and min, a left join, ``coalesce``, a rollup by two
+   string keys) over ``gen_mortgage_numpy(600_000)`` (bench.py:68's
+   size), checked against the same pipeline on a CPU session over the
+   same tables, timed as phase 11;
+15. tpcxbb_q1 to tpcxbb_q30: the 25 TPCx-BB queries through
+   ``session.sql`` over views of ``gen_tpcxbb_numpy(750_000)`` (bench.py:
+   69's store_sales rows), the bench's lead queries first, each checked
+   against the same SQL on a CPU session over the same tables, timed as
+   phase 11 (f64 within rtol 1e-9; rows tied on the float sum that q6,
+   q13 and q25 order their top 100 by compare as a set).
 
-Each path of phases 5 to 13 runs with the launch counts set to 0 just
+The dense-slot kernel's float sums take one fixed order: every
+comparison of it with its plain version (phase 3, its edge specs and
+kernel_path) also calls it 5 times and fails unless the float-add planes
+come out bit for bit alike (``float_sum_results_of_5``).
+
+Each path of phases 5 to 15 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -93,7 +109,9 @@ over every pair of specials, and a three-key hash with nulls) and
 join_routes (the dense FK, hashed FK and general routes, and inner,
 left, right, full, semi and anti joins, over a stream side of two
 batches).  A trace phase then
-runs the text queries, hash_join_1m, tpch_q3 and window_1m once more
+runs the text queries, hash_join_1m, tpch_q3, window_1m, tpcxbb_q3 (the
+largest join: about 11 M key pairs before its date band) and
+mortgage_etl once more
 under torch.profiler and prints each one's wall time, the card's busy
 time, its largest device entries, its longest idle gaps and the port's
 named ranges (``join.*``, ``window.*``).  Then one JSON
@@ -448,6 +466,20 @@ def dsr_edge_specs(torch, rng):
     return specs
 
 
+def float_sum_repeats(torch, pag, gid, planes, ops, K: int, calls: int = 5):
+    """The kernel's float-add planes over ``calls`` calls on the same
+    inputs -> (how many planes, how many distinct results, bit for bit):
+    the sums take one fixed order, so one result is right."""
+    sums = [j for j, (p, op) in enumerate(zip(planes, ops))
+            if p.is_floating_point() and op == "add"]
+    results = {b"".join(o[j].view(torch.int64 if o[j].element_size() == 8
+                                  else torch.int32).cpu().numpy().tobytes()
+                        for j in sums)
+               for o in (pag.dense_slot_reduce(gid, planes, ops, K)
+                         for _ in range(calls))}
+    return len(sums), len(results)
+
+
 def phase_kernel(torch, pag, session, query, rate: float,
                  edges: bool = True) -> dict:
     gid, planes, ops, K = main_path_inputs(pag, session, query)
@@ -482,18 +514,14 @@ def phase_kernel(torch, pag, session, query, rate: float,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "max_abs_err": err,
     }
-    # the kernel merges with atomics, so its float sums may round
-    # differently from call to call: count the distinct results
-    sums = [j for j, (p, op) in enumerate(zip(planes, ops))
-            if p.is_floating_point() and op == "add"]
-    results = {b"".join(o[j].view(torch.int64).cpu().numpy().tobytes()
-                        for j in sums)
-               for o in (pag.dense_slot_reduce(gid, planes, ops, K)
-                         for _ in range(5))}
+    fsum_planes, repeats = float_sum_repeats(torch, pag, gid, planes, ops, K)
     emit("kernel", name="dense_slot_reduce", capacity=n, K=K,
          planes=[f"{str(p.dtype)[6:]} {op}" for p, op in zip(planes, ops)],
          bytes=nbytes, device_us=device_us(torch, launch, "dsr_"),
-         float_sum_results_of_5=len(results), **result)
+         float_sum_planes=fsum_planes, float_sum_results_of_5=repeats,
+         **result)
+    check(repeats == 1, f"the kernel's float sums differ between calls: "
+          f"{repeats} results of 5")
     if hasattr(pag, "launch_plan"):
         emit("kernel_shapes", name="dense_slot_reduce",
              shapes=kernel_shapes(torch, pag, gid, planes, ops, K))
@@ -504,6 +532,9 @@ def phase_kernel(torch, pag, session, query, rate: float,
                     torch, np.random.default_rng(SEED + 4)):
             result["max_abs_err"] = max(result["max_abs_err"],
                                         compare_kernel(torch, pag, g, p, o, k))
+            _, repeats = float_sum_repeats(torch, pag, g, p, o, k)
+            check(repeats == 1, f"{name}: the kernel's float sums differ "
+                  f"between calls: {repeats} results of 5")
             checked.append({"spec": name, "rows": g.numel(), "K": k,
                             "planes": len(p)})
         emit("kernel_edges", name="dense_slot_reduce", specs=checked,
@@ -518,12 +549,17 @@ def phase_kernel_path(torch, pag, session, query, path: str) -> float:
     gid, planes, ops, K = main_path_inputs(pag, session, query)
     err = compare_kernel(torch, pag, gid, planes, ops, K)
     launch, _ = pag.prepare_launch(gid, planes, ops, K)
+    fsum_planes, repeats = float_sum_repeats(torch, pag, gid, planes, ops, K)
     emit("kernel_path", name="dense_slot_reduce", path=path,
          capacity=gid.numel(), K=K,
          planes=[f"{str(p.dtype)[6:]} {op}" for p, op in zip(planes, ops)],
          max_abs_err=err, ms=per_call_ms(torch, launch),
+         cold_ms=cold_ms(torch, launch),
          plain_ms=per_call_ms(torch, lambda: pag.dense_slot_reduce_reference(
-             gid, planes, ops, K)))
+             gid, planes, ops, K)),
+         float_sum_planes=fsum_planes, float_sum_results_of_5=repeats)
+    check(repeats == 1, f"{path}: the kernel's float sums differ between "
+          f"calls: {repeats} results of 5")
     return err
 
 
@@ -1433,6 +1469,69 @@ def phase_repeat_sums(torch, st, F, session, tables, runs: int = 5) -> None:
          index_add_results=atomic)
 
 
+# -- mortgage_etl and the TPCx-BB queries -------------------------------------
+
+MORTGAGE_PERF_ROWS = 600_000   # bench.py:68
+TPCXBB_SALES_ROWS = 750_000    # bench.py:69
+# a float the TPCx-BB queries order a top-N by, and the limit
+TPCXBB_TIE_KEYS = {"q6": ("web_amt", 100), "q13": ("amt_2002", 100),
+                   "q25": ("monetary", 100)}
+
+
+def phase_mortgage(torch, session, cpu, tables, runs: int = 2) -> None:
+    """mortgage_etl on the card, checked against the same pipeline on a
+    CPU session over the same tables, run once."""
+    from spark_rapids_tpu_torch.bench.mortgage import mortgage_etl
+    q = mortgage_etl(session, tables)
+    (cols, masks, n), secs = run_timed(torch, q, runs)
+    plan = session._last_plan
+    t0 = time.perf_counter()
+    want = host_result(torch, mortgage_etl(cpu, tables).to_torch(),
+                       "mortgage_etl on the CPU")
+    cpu_s = time.perf_counter() - t0
+    check(n > 0, "mortgage_etl: no rows")
+    check_tpch(torch, cols, masks, n, want, None, "mortgage_etl")
+    loans = len(tables["acq"]["loan_id"])
+    check(int(cols["loans"][:n].sum()) == loans,
+          "mortgage_etl: the rollup does not count every loan")
+    rows = len(tables["perf"]["loan_id"])
+    aggs = _plan_nodes(plan, "TorchHashAggregateExec")
+    emit("mortgage_etl", perf_rows=rows, loans=loans, out_rows=n,
+         joins=[(type(j).__name__, j.join_type, j.route)
+                for j in _plan_nodes(plan, "TorchBroadcastHashJoinExec")
+                + _plan_nodes(plan, "TorchHashJoinExec")],
+         dense_slot_batches=sum(a.metrics["pallasAggBatches"] for a in aggs),
+         host_syncs_per_run=host_syncs(plan), seconds=secs,
+         rows_per_s=rows / float(np.median(secs)), cpu_seconds=cpu_s)
+
+
+def phase_tpcxbb(torch, session, cpu, qname: str, sales_rows: int,
+                 runs: int = 2) -> None:
+    """One TPCx-BB query through ``session.sql`` on the card, checked
+    against the same SQL on a CPU session over the same tables, run
+    once: integers and strings exact, f64 within rtol 1e-9, rows tied on
+    the float a top-N orders by compared as a set."""
+    from spark_rapids_tpu_torch.bench.tpcxbb import TPCXBB_QUERIES
+    sql = TPCXBB_QUERIES[qname]
+    (cols, masks, n), secs = run_timed(torch, session.sql(sql), runs)
+    plan = session._last_plan
+    t0 = time.perf_counter()
+    want = host_result(torch, cpu.sql(sql).to_torch(), f"{qname} on the CPU")
+    cpu_s = time.perf_counter() - t0
+    tie_key, limit = TPCXBB_TIE_KEYS.get(qname, ("", None))
+    check_tpch(torch, cols, masks, n, want, limit, f"tpcxbb_{qname}",
+               tie_key)
+    joins = _plan_nodes(plan, "TorchBroadcastHashJoinExec") \
+        + _plan_nodes(plan, "TorchHashJoinExec")
+    aggs = _plan_nodes(plan, "TorchHashAggregateExec")
+    emit(f"tpcxbb_{qname}", sales_rows=sales_rows, out_rows=n,
+         joins=[(type(j).__name__, j.join_type, j.route,
+                 j.condition is not None) for j in joins],
+         dense_slot_batches=sum(a.metrics["pallasAggBatches"] for a in aggs),
+         host_syncs_per_run=host_syncs(plan), seconds=secs,
+         rows_per_s=sales_rows / float(np.median(secs)), cpu_seconds=cpu_s)
+
+
 # -- window_1m ---------------------------------------------------------------
 
 def window_query(st, F, df):
@@ -1579,6 +1678,7 @@ def parse_args(argv):
 
 
 def main(argv=None) -> int:
+    start = time.perf_counter()
     args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
     if not torch.cuda.is_available():
@@ -1682,6 +1782,25 @@ def main(argv=None) -> int:
         if qname not in BENCH_QUERIES:
             drive(f"tpch_{qname}", phase_tpch, torch, st, native, session,
                   tpch, tpch_dfs, qname, 2, cpu_dfs)
+    from spark_rapids_tpu_torch.bench.mortgage import gen_mortgage_numpy
+    from spark_rapids_tpu_torch.bench.tpcxbb import LEAD_QUERIES, \
+        TPCXBB_QUERIES, gen_tpcxbb_numpy, register_views
+    cpu = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+    t0 = time.perf_counter()
+    mortgage = gen_mortgage_numpy(MORTGAGE_PERF_ROWS)
+    xbb = gen_tpcxbb_numpy(TPCXBB_SALES_ROWS)
+    register_views(session, xbb)
+    register_views(cpu, xbb)
+    emit("sql_data", mortgage_perf_rows=MORTGAGE_PERF_ROWS,
+         tpcxbb_sales_rows=TPCXBB_SALES_ROWS,
+         rows={t: len(next(iter(c.values()))) for t, c in xbb.items()},
+         seconds=time.perf_counter() - t0)
+    drive("mortgage_etl", phase_mortgage, torch, session, cpu, mortgage)
+    # the bench's lead queries first, as bench.py:_tpcxbb_suites runs them
+    for qname in list(LEAD_QUERIES) + [q for q in TPCXBB_QUERIES
+                                       if q not in LEAD_QUERIES]:
+        drive(f"tpcxbb_{qname}", phase_tpcxbb, torch, session, cpu, qname,
+              TPCXBB_SALES_ROWS)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     phase_repeat_sums(torch, st, F, session, tpch_dfs)
@@ -1700,7 +1819,11 @@ def main(argv=None) -> int:
     phase_trace(torch, TPCH_QUERIES["q3"](tpch_dfs), "tpch_q3")
     phase_trace(torch, window_query(st, F, session.create_dataframe(
         main_data)), "window_1m")
+    from spark_rapids_tpu_torch.bench.mortgage import mortgage_etl
+    phase_trace(torch, session.sql(TPCXBB_QUERIES["q3"]), "tpcxbb_q3")
+    phase_trace(torch, mortgage_etl(session, mortgage), "mortgage_etl")
 
+    emit("total", seconds=time.perf_counter() - start)
     kernels = []
     for kname, info in native.KERNELS.items():
         k = kern[kname]

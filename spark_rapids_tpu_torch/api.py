@@ -7,8 +7,8 @@ and the global ``agg``, ``distinct``, ``order_by`` (with
 string predicates, ``isin`` and null tests of ``Column``, ``when``,
 window functions (``Column.over`` with a ``Window`` spec; each window
 expression in a select, filter or sort list moves into an ``lp.Window``
-node below it) and the actions ``collect``, ``to_arrow`` and
-``to_torch``.  Actions plan the query (``plan/planner.py``) and run it
+node below it), temp views for ``session.sql`` and the actions
+``collect``, ``to_arrow`` and ``to_torch``.  Actions plan the query (``plan/planner.py``) and run it
 on the session's device.
 """
 
@@ -421,6 +421,12 @@ class DataFrame:
 
     def group_by(self, *cols_) -> "GroupedData":
         return GroupedData(self, [_expr_or_name(c) for c in cols_])
+
+    def create_or_replace_temp_view(self, name: str) -> None:
+        """Register this DataFrame as view ``name`` for ``session.sql``."""
+        self.session.register_view(name, self)
+
+    createOrReplaceTempView = create_or_replace_temp_view
 
     def distinct(self) -> "DataFrame":
         """The distinct rows: an aggregate by every column, with no

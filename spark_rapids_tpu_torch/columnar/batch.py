@@ -101,13 +101,13 @@ def strings_from_bytes(offsets: np.ndarray, data: np.ndarray) -> HostStrings:
     return HostStrings(chars, lengths.astype(np.int32))
 
 
-def _trailing_len(units: np.ndarray) -> np.ndarray:
-    """(rows, L) code units -> each row's length up to its last non-zero
-    unit (numpy's fixed-width strings end where the trailing zeros
-    begin; zeros inside a string stay)."""
-    nz = units != 0
-    last = units.shape[1] - np.argmax(nz[:, ::-1], axis=1)
-    return np.where(nz.any(axis=1), last, 0).astype(np.int64)
+def _first_nul(units: np.ndarray) -> np.ndarray:
+    """(rows, L) code units -> each row's length up to its first zero
+    unit: pyarrow cuts a numpy string there, and numpy's fixed-width
+    strings end where their trailing zeros begin."""
+    zero = units == 0
+    return np.where(zero.any(axis=1), np.argmax(zero, axis=1),
+                    units.shape[1]).astype(np.int64)
 
 
 def _utf8_matrix(cp: np.ndarray, ulen: np.ndarray) -> HostStrings:
@@ -139,14 +139,20 @@ def _utf8_matrix(cp: np.ndarray, ulen: np.ndarray) -> HostStrings:
 
 def strings_from_numpy(values: np.ndarray) -> Tuple[HostStrings, np.ndarray]:
     """A numpy ``U`` array, or an ``S`` or object array of strings ->
-    (HostStrings, validity).  A ``U`` array converts with array
-    operations (an ASCII one in one cast); the others' values are
-    encoded one by one, and an object array's ``None`` is null."""
+    (HostStrings, validity).  A ``U`` or ``S`` value ends at its first
+    NUL, as pyarrow (and so the JAX package) reads it; an object array's
+    values stay whole.  A ``U`` array converts with array operations (an
+    ASCII one in one cast); the others' values are encoded one by one,
+    and an object array's ``None`` is null."""
     n = values.shape[0]
     if values.dtype.kind == "U":
         L = values.dtype.itemsize // 4
         cp = np.ascontiguousarray(values).view(np.uint32).reshape(n, L)
-        ulen = _trailing_len(cp)
+        ulen = _first_nul(cp)
+        past = np.arange(L)[None, :] >= ulen[:, None]
+        if np.any(past & (cp != 0)):
+            # a value holds units after a NUL: drop them (in a copy)
+            cp = np.where(past, np.uint32(0), cp)
         lengths = ulen.astype(np.int32)
         # rows of ASCII take their code points as bytes; only the others
         # go through the UTF-8 encoder
@@ -163,6 +169,8 @@ def strings_from_numpy(values: np.ndarray) -> Tuple[HostStrings, np.ndarray]:
             chars[wide, :enc.width] = enc.chars[:, :width]
         return HostStrings(chars, lengths), np.ones(n, np.bool_)
     items = values.tolist()
+    if values.dtype.kind == "S":
+        items = [v.split(b"\x00", 1)[0] for v in items]
     enc = [b"" if v is None else
            (v.encode("utf-8") if isinstance(v, str) else bytes(v))
            for v in items]

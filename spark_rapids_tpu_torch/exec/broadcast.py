@@ -16,7 +16,7 @@ and multi-process executors, which the port does not have yet.
 
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
@@ -47,8 +47,10 @@ class TorchBroadcastHashJoinExec(TorchHashJoinExec):
 
     def __init__(self, left: TorchExec, broadcast: TorchBroadcastExchangeExec,
                  left_keys: List[Expression], right_keys: List[Expression],
-                 join_type: str = "inner"):
+                 join_type: str = "inner",
+                 condition: Optional[Expression] = None):
         if not isinstance(broadcast, TorchBroadcastExchangeExec):
             raise TypeError("the build side of a broadcast join must be a "
                             "broadcast exchange")
-        super().__init__(left, broadcast, left_keys, right_keys, join_type)
+        super().__init__(left, broadcast, left_keys, right_keys, join_type,
+                         condition)

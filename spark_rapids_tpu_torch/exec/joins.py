@@ -36,8 +36,12 @@ Each output batch's row count is read back to the host (``hostSyncs``
 counts every read).  Not carried over: the bitonic sort, the unrolled
 binary search and matmul prefix sums (TPU workarounds), the memoized
 build probe (a remote-link workaround), the retry on out-of-memory and
-the compressed code views (later slices), band joins, join conditions
-and cross joins.
+the compressed code views (later slices), band joins and cross joins.
+An inner join's ``condition`` (the non-equi terms of ``ON``, or a
+predicate the planner pushed into the join) filters each joined batch
+after the probe, as the JAX package does; the planner raises on a
+condition on any other join type, since a filter after the probe cannot
+null-extend the rows whose matches all fail it.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import FLOAT32, FLOAT64, \
     STRING, DataType, Field, Schema, device_dtype
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
+from spark_rapids_tpu_torch.exec.stage import emit_steps
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, colvals
 from spark_rapids_tpu_torch.exprs.predicates import string_compare
@@ -302,11 +307,14 @@ def _side_with_nulls(batch: ColumnarBatch, mask: torch.Tensor,
 
 class TorchHashJoinExec(TorchExec):
     """Equi-join of the left child (stream) with the right child (build),
-    of type inner, left, right, full, semi or anti."""
+    of type inner, left, right, full, semi or anti; an inner join may
+    carry a ``condition`` bound against its output columns (the planner
+    refuses one on any other type)."""
 
     def __init__(self, left: TorchExec, right: TorchExec,
                  left_keys: List[Expression], right_keys: List[Expression],
-                 join_type: str = "inner"):
+                 join_type: str = "inner",
+                 condition: Optional[Expression] = None):
         super().__init__()
         if join_type not in ("inner", "left", "right", "full", "semi",
                              "anti"):
@@ -316,6 +324,7 @@ class TorchHashJoinExec(TorchExec):
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         self.join_type = join_type
+        self.condition = condition
         # the route the last run took: "dense_fk", "fk" or "general"
         self.route: Optional[str] = None
 
@@ -360,6 +369,8 @@ class TorchHashJoinExec(TorchExec):
                     outs, mb = self._general(sb, build)
                     if mb is not None:
                         m_build += mb
+                if self.condition is not None:
+                    outs = [self._keep_where(o) for o in outs if o.num_rows]
             yield from (o for o in outs if o.num_rows)
         if self.join_type in ("right", "full"):
             with record_function(f"join.{self.route}"):
@@ -370,6 +381,18 @@ class TorchHashJoinExec(TorchExec):
             self.metrics["hostSyncs"] += 1
             if out.num_rows:
                 yield out
+
+    def _keep_where(self, out: ColumnarBatch) -> ColumnarBatch:
+        """The joined rows of ``out`` where the condition holds; one host
+        sync."""
+        cols, n = emit_steps([("filter", (self.condition,))],
+                             colvals(out.columns), out.num_rows,
+                             out.capacity, out.device)
+        self.metrics["hostSyncs"] += 1
+        return ColumnarBatch(
+            [DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars)
+             for f, cv in zip(self.output_schema, cols)], n,
+            self.output_schema)
 
     def _fk(self, sb: ColumnarBatch, build: _Build,
             dense_cap: int) -> ColumnarBatch:

@@ -7,7 +7,8 @@ keys map to dense slots (slot 0 for nulls, ``key - lo + 1`` for the rest)
 and one pass reduces every aggregate plane per slot.  Slot order (null,
 lo, lo+1, ...) is the sorted path's group order (nulls first, ascending),
 so counts, integer sums and min/max are identical to it; float sums
-accumulate in another order.
+accumulate in another order, but in one fixed order: on a given card the
+kernel's float sums come out bit for bit the same on every call.
 
 The reduction is ``dense_slot_reduce``: on a CUDA tensor it launches the
 hand-written Hopper kernel (``csrc/dense_slot_reduce.cu``, which
@@ -51,6 +52,8 @@ _MAX_PLANES = 32       # DSR_MAX_PLANES in the CUDA source
 _ROWS = 8              # DSR_ROWS: rows a thread takes from each tile
 _THREADS = 1024        # threads a block
 _BLOCKS_PER_SM = 1
+_FS_TILE = 16 * 512    # FS_ROWS * FS_THREADS: rows a block of the
+                       # fixed-order float-add pass takes at a time
 
 
 def neutral(op: str, dtype: torch.dtype):
@@ -119,6 +122,7 @@ class LaunchPlan:
     threads: int             # threads a block
     tile: int                # rows a block takes at a time
     grid: int                # blocks
+    fsum_grid: int           # blocks of the fixed-order float-add pass
 
 
 def launch_plan(itemsizes: Sequence[int], K: int, n: int, sms: int, *,
@@ -127,16 +131,20 @@ def launch_plan(itemsizes: Sequence[int], K: int, n: int, sms: int, *,
     """The launches of a spec of planes of ``itemsizes`` bytes, ``n`` rows,
     on a card of ``sms`` SMs: one a plane group.  A group's grid is one
     wave: ``blocks_per_sm`` blocks an SM, fewer when the accumulators
-    leave room for fewer, and never more blocks than tiles."""
+    leave room for fewer, and never more blocks than tiles.  The float
+    adds' fixed-order pass takes one block an SM, never more blocks than
+    its tiles; its grid fixes the order of the sums, so it depends only
+    on ``n`` and the card."""
     tile = _ROWS * threads
     tiles = max(1, -(-n // tile))
+    fsum_grid = min(max(1, -(-n // _FS_TILE)), sms)
     plans = []
     for group in _groups_by_size(itemsizes, K):
         smem = sum(_plane_bytes(itemsizes[j], K) for j in group)
         per_sm = max(1, min(blocks_per_sm, 2048 // threads,
                             _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK)))
         plans.append(LaunchPlan(tuple(group), smem, threads, tile,
-                                min(tiles, sms * per_sm)))
+                                min(tiles, sms * per_sm), fsum_grid))
     return plans
 
 
@@ -166,7 +174,7 @@ def _kernel() -> ctypes.CDLL:
     if lib.dense_slot_reduce.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.dense_slot_reduce.argtypes = [
-            vp, ctypes.c_longlong, i, i, vp, vp, vp, vp, i, i, i, vp]
+            vp, ctypes.c_longlong, i, i, vp, vp, vp, vp, vp, i, i, i, i, vp]
         lib.dense_slot_reduce.restype = i
         lib.dense_slot_reduce_error.argtypes = [i]
         lib.dense_slot_reduce_error.restype = ctypes.c_char_p
@@ -194,6 +202,10 @@ def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
     plans = launch_plan([p.element_size() for p in planes], K, n, sms,
                         **shape)
     outs = [torch.empty(K, dtype=p.dtype, device=dev) for p in planes]
+    # a (fsum_grid, K) scratch of block partials for each float add
+    parts = [torch.empty((plans[0].fsum_grid, K), dtype=p.dtype, device=dev)
+             if p.is_floating_point() and op == "add" else None
+             for p, op in zip(planes, ops)]
     calls = []
     for plan in plans:
         ptrs = ctypes.c_void_p * len(plan.planes)
@@ -201,12 +213,15 @@ def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
         arrays = (ptrs(*[planes[j].data_ptr() for j in plan.planes]),
                   ptrs(*[outs[j].data_ptr() for j in plan.planes]),
                   ints(*[_KINDS[planes[j].dtype] for j in plan.planes]),
-                  ints(*[_OPS[ops[j]] for j in plan.planes]))
-        # the arrays ride along so that they outlive every launch
+                  ints(*[_OPS[ops[j]] for j in plan.planes]),
+                  ptrs(*[None if parts[j] is None else parts[j].data_ptr()
+                         for j in plan.planes]))
+        # the arrays and the scratch ride along so that they outlive
+        # every launch
         args = (gid.data_ptr(), n, K, len(plan.planes),
                 *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
-                int(aligned), plan.grid, plan.threads)
-        calls.append((args, arrays))
+                int(aligned), plan.grid, plan.threads, plan.fsum_grid)
+        calls.append((args, (arrays, parts)))
 
     def launch() -> None:
         with torch.cuda.device(dev):

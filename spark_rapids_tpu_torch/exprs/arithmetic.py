@@ -1,9 +1,9 @@
 """Arithmetic expressions with Spark null semantics.
 
 Counterpart of ``spark_rapids_tpu/exprs/arithmetic.py`` (Add, Subtract,
-Multiply, Divide): any null operand gives null; x / 0 gives null.
-Integral overflow wraps (non-ANSI Spark), as torch integer arithmetic
-does.
+Multiply, Divide, Remainder, UnaryMinus): any null operand gives null;
+x / 0 and x % 0 give null.  Integral overflow wraps (non-ANSI Spark), as
+torch integer arithmetic does.
 """
 
 from __future__ import annotations
@@ -94,6 +94,10 @@ class Divide(BinaryArithmetic):
     def dtype(self) -> DataType:
         return FLOAT64
 
+    @property
+    def nullable(self) -> bool:
+        return True  # x / 0
+
     def coerce(self) -> Expression:
         return self.with_children(
             [c if c.dtype == FLOAT64 else Cast(c, FLOAT64)
@@ -103,3 +107,39 @@ class Divide(BinaryArithmetic):
         zero = b.data == 0
         denom = torch.where(zero, torch.ones_like(b.data), b.data)
         return fixed(a.data / denom, a.validity & b.validity & ~zero)
+
+
+class Remainder(BinaryArithmetic):
+    """``%`` with Java semantics: the sign follows the dividend; x % 0 is
+    null."""
+    symbol = "%"
+
+    @property
+    def nullable(self) -> bool:
+        return True  # x % 0
+
+    def emit_binary(self, a, b):
+        zero = b.data == 0
+        # x % -1 is 0 like x % 1, which spares the integer division of
+        # the type's minimum by -1 (a trap on the CPU)
+        one = (b.data == -1) | zero
+        denom = torch.where(one, torch.ones_like(b.data), b.data)
+        return fixed(torch.fmod(a.data, denom), a.validity & b.validity
+                     & ~zero)
+
+
+class UnaryMinus(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self) -> DataType:
+        return self.children[0].dtype
+
+    @property
+    def name(self) -> str:
+        return f"(- {self.children[0].name})"
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        c = self.children[0].emit(ctx)
+        return fixed(-c.data, c.validity)

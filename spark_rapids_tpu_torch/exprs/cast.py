@@ -37,15 +37,20 @@ class Cast(Expression):
     def with_children(self, children):
         return Cast(children[0], self.to)
 
+    def coerce(self) -> Expression:
+        """Raises when the query is planned on a cast the port lacks."""
+        frm, to = self.children[0].dtype, self.to
+        if frm != to and not ((frm.is_numeric or frm == BOOLEAN)
+                              and (to.is_numeric or to == BOOLEAN)):
+            raise NotImplementedError(
+                f"cast {frm.name} -> {to.name}: later slice")
+        return self
+
     def emit(self, ctx: EvalContext) -> ColVal:
         src = self.children[0].emit(ctx)
         frm, to = self.children[0].dtype, self.to
         if frm == to:
             return src
-        if not ((frm.is_numeric or frm == BOOLEAN)
-                and (to.is_numeric or to == BOOLEAN)):
-            raise NotImplementedError(
-                f"cast {frm.name} -> {to.name}: later slice")
         data, valid = src.data, src.validity
         if to == BOOLEAN:
             out = data != 0

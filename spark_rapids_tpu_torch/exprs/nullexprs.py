@@ -1,14 +1,16 @@
 """Null-handling expressions.
 
 Counterpart of ``spark_rapids_tpu/exprs/nullexprs.py``, trimmed to
-``Coalesce``, which the full outer USING join needs for its key column.
+``Coalesce`` (``functions.coalesce``, and the full outer USING join's key
+column) and ``NullOf`` (SQL's untyped ``NULL``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from spark_rapids_tpu_torch.columnar.dtypes import DataType, common_type
+from spark_rapids_tpu_torch.columnar.dtypes import STRING, DataType, \
+    common_type, device_dtype
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, align_chars
 from spark_rapids_tpu_torch.exprs.cast import Cast
@@ -59,3 +61,33 @@ class Coalesce(Expression):
         for c in self.children[1:]:
             acc = _merge_colval(acc, c.emit(ctx))
         return acc
+
+
+class NullOf(Expression):
+    """A NULL whose type follows its sibling expression: the SQL front
+    end's untyped NULL (``CASE ... ELSE NULL``, ``coalesce(x, NULL)``)
+    takes the sibling's type at binding.  Its planes come from that type
+    alone; the sibling is not evaluated."""
+
+    def __init__(self, sibling: Expression):
+        self.children = (sibling,)
+
+    @property
+    def dtype(self) -> DataType:
+        return self.children[0].dtype
+
+    @property
+    def nullable(self) -> bool:
+        return True
+
+    @property
+    def name(self) -> str:
+        return "NULL"
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        cap, dev = ctx.capacity, ctx.device
+        valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+        data = torch.zeros(cap, dtype=device_dtype(self.dtype), device=dev)
+        chars = torch.zeros((cap, 8), dtype=torch.uint8, device=dev) \
+            if self.dtype == STRING else None
+        return ColVal(data, valid, chars)

@@ -1,6 +1,6 @@
 """Column functions: ``col``, ``lit``, ``when``, the aggregates, the date
-parts, ``length``, ``substring``, ``contains``, ``isnull`` and the window
-functions.
+parts, ``length``, ``substring``, ``contains``, ``isnull``, ``coalesce``
+and the window functions.
 
 Counterpart of ``spark_rapids_tpu/functions.py``.
 """
@@ -11,6 +11,7 @@ from spark_rapids_tpu_torch.api import Column, _expr_or_name, _to_expr, \
     col, lit, when
 from spark_rapids_tpu_torch.exprs import aggregates as ag
 from spark_rapids_tpu_torch.exprs import datetime as dte
+from spark_rapids_tpu_torch.exprs import nullexprs as ne
 from spark_rapids_tpu_torch.exprs import pallas_strings as ps
 from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs import strings as ss
@@ -18,7 +19,7 @@ from spark_rapids_tpu_torch.exprs import windows as wn
 from spark_rapids_tpu_torch.exprs.base import Literal
 
 __all__ = ["col", "lit", "when", "count", "sum", "min", "max", "avg",
-           "first", "last", "isnull", "year", "month", "dayofmonth",
+           "first", "last", "isnull", "coalesce", "year", "month", "dayofmonth",
            "dayofweek", "dayofyear", "quarter", "date_add", "date_sub",
            "datediff", "last_day", "length", "substring", "contains",
            "row_number", "rank", "dense_rank", "lag", "lead"]
@@ -58,6 +59,11 @@ def last(c, ignore_nulls: bool = True) -> Column:
 
 def isnull(c) -> Column:
     return Column(pr.IsNull(_expr_or_name(c)))
+
+
+def coalesce(*cols) -> Column:
+    """The first non-null of ``cols``."""
+    return Column(ne.Coalesce(*[_to_expr(c) for c in cols]))
 
 
 # dates (DATE columns; the TIMESTAMP parts wait for TIMESTAMP columns)

@@ -7,7 +7,7 @@ name); the planner binds them against the child's output schema.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch.columnar.batch import HostColumns
 from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
@@ -94,15 +94,19 @@ class Limit(LogicalPlan):
 
 class Join(LogicalPlan):
     """An equi-join on ``left_keys[i] == right_keys[i]``; join_type is
-    inner, left, right, full, semi or anti."""
+    inner, left, right, full, semi or anti.  ``condition``, over the
+    join's output columns, keeps only the joined rows where it holds
+    (inner joins only; the planner raises on any other)."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],
-                 right_keys: Sequence[Expression], join_type: str = "inner"):
+                 right_keys: Sequence[Expression], join_type: str = "inner",
+                 condition: Optional[Expression] = None):
         self.children = [left, right]
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         self.join_type = join_type
+        self.condition = condition
 
     def output_schema(self) -> Schema:
         left, right = self.children

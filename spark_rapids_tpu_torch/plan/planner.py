@@ -12,13 +12,16 @@ package inserts there, and a Limit over a Sort becomes a top-N.  A join
 takes the JAX package's static strategy (``_plan_join``): broadcast the
 right side when its estimated size is under
 ``spark.sql.autoBroadcastJoinThreshold``, else the left behind a swap,
-else a hash join that builds on the right.  Any other node raises: there
-is no CPU engine to route it to, so a result always comes from the
-device.
+else a hash join that builds on the right.  Before lowering,
+``push_join_conditions`` moves the conjuncts of a Filter over an inner
+join to the side they name, or into the join's condition.  Any other
+node raises: there is no CPU engine to route it to, so a result always
+comes from the device.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import List, Optional
 
@@ -37,8 +40,9 @@ from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec, TorchTopNExec
 from spark_rapids_tpu_torch.exec.stage import TorchStageExec
 from spark_rapids_tpu_torch.exec.window import TorchWindowExec
-from spark_rapids_tpu_torch.exprs.base import BoundReference, \
-    bind_expression
+from spark_rapids_tpu_torch.exprs import predicates as pr
+from spark_rapids_tpu_torch.exprs.base import BoundReference, Expression, \
+    UnresolvedAttribute, bind_expression
 from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec, \
     expand_paths
 from spark_rapids_tpu_torch.plan import logical as lp
@@ -55,7 +59,12 @@ def _stage(step, child: TorchExec) -> TorchStageExec:
 
 def plan_query(node: lp.LogicalPlan,
                conf: Optional[TorchConf] = None) -> TorchExec:
+    """The query's operators, after ``push_join_conditions``."""
     conf = conf if conf is not None else TorchConf()
+    return _lower(push_join_conditions(node), conf)
+
+
+def _lower(node: lp.LogicalPlan, conf: TorchConf) -> TorchExec:
     if isinstance(node, lp.LocalRelation):
         return TorchLocalScanExec(node.schema, node.cols)
     if isinstance(node, lp.ParquetRelation):
@@ -73,8 +82,8 @@ def plan_query(node: lp.LogicalPlan,
         return TorchTopNExec(
             [(bind_expression(e, schema), asc, nf)
              for e, asc, nf in sort.orders], node.n,
-            plan_query(sort.children[0], conf))
-    child = plan_query(node.children[0], conf)
+            _lower(sort.children[0], conf))
+    child = _lower(node.children[0], conf)
     schema = node.children[0].output_schema()
 
     def bind(e):
@@ -107,13 +116,20 @@ def _plan_join(n: lp.Join, conf: TorchConf) -> TorchExec:
     adaptive execution): broadcast the right side when its estimated size
     is under the threshold, else the left side (not for semi and anti
     joins, which must stream the left), the smaller one when both
-    qualify; else a hash join that builds on the right."""
-    left, right = (plan_query(c, conf) for c in n.children)
+    qualify; else a hash join that builds on the right.  A condition
+    binds against the join's output columns."""
+    jt = n.join_type
+    if n.condition is not None and jt != "inner":
+        raise NotImplementedError(
+            f"a join condition on a {jt} join is not supported (inner "
+            "joins only)")
+    left, right = (_lower(c, conf) for c in n.children)
     lkeys = [bind_expression(e, n.children[0].output_schema())
              for e in n.left_keys]
     rkeys = [bind_expression(e, n.children[1].output_schema())
              for e in n.right_keys]
-    jt = n.join_type
+    cond = None if n.condition is None else \
+        bind_expression(n.condition, n.output_schema())
     thresh = conf.get(BROADCAST_THRESHOLD)
     if thresh >= 0:
         r_est = estimate_logical_size(n.children[1])
@@ -129,33 +145,110 @@ def _plan_join(n: lp.Join, conf: TorchConf) -> TorchExec:
         if r_ok:
             return TorchBroadcastHashJoinExec(
                 TorchCoalesceBatchesExec(left),
-                TorchBroadcastExchangeExec(right), lkeys, rkeys, jt)
+                TorchBroadcastExchangeExec(right), lkeys, rkeys, jt, cond)
         if l_ok:
             return swapped_broadcast_join(
                 right, TorchBroadcastExchangeExec(left), lkeys, rkeys, jt,
                 len(n.children[0].output_schema()),
-                n.output_schema().fields)
+                n.output_schema().fields, cond)
     return TorchHashJoinExec(TorchCoalesceBatchesExec(left), right, lkeys,
-                             rkeys, jt)
+                             rkeys, jt, cond)
 
 
 def swapped_broadcast_join(stream: TorchExec,
                            build: TorchBroadcastExchangeExec, lkeys, rkeys,
-                           jt: str, nl: int,
-                           out_fields: List[Field]) -> TorchExec:
+                           jt: str, nl: int, out_fields: List[Field],
+                           cond: Optional[Expression] = None) -> TorchExec:
     """The build-left broadcast: mirror the join type, stream the right
-    side against the broadcast left side, and restore the original column
+    side against the broadcast left side (the condition's ordinals moved
+    onto that [right, left] layout), and restore the original column
     order with a projection.  ``nl``: the left input's field count;
     ``out_fields``: the unswapped join's output fields."""
     mirror = {"inner": "inner", "left": "right", "right": "left",
               "full": "full"}[jt]
-    swapped = TorchBroadcastHashJoinExec(
-        TorchCoalesceBatchesExec(stream), build, rkeys, lkeys, mirror)
     nr = len(out_fields) - nl
+
+    def swap(e: Expression) -> Expression:
+        if isinstance(e, BoundReference):
+            o = e.ordinal
+            return BoundReference(o + nr if o < nl else o - nl, e.dtype,
+                                  e.nullable, e.col_name)
+        return e.with_children([swap(c) for c in e.children]) \
+            if e.children else e
+
+    swapped = TorchBroadcastHashJoinExec(
+        TorchCoalesceBatchesExec(stream), build, rkeys, lkeys, mirror,
+        None if cond is None else swap(cond))
     reorder = tuple(BoundReference(nr + i if i < nl else i - nl, f.dtype,
                                    f.nullable, f.name)
                     for i, f in enumerate(out_fields))
     return _stage(("project", reorder), swapped)
+
+
+def push_join_conditions(node: lp.LogicalPlan) -> lp.LogicalPlan:
+    """Predicate pushdown through inner joins, as the JAX package's
+    planner does it (Catalyst's PushPredicateThroughJoin): each conjunct
+    of a Filter directly over an inner Join moves to the side whose
+    columns it names alone, or, naming both sides, into the join's
+    condition.  A conjunct that names a column both sides hold, or no
+    column, stays in the Filter.  Nodes are rebuilt, never changed."""
+    new_children = [push_join_conditions(c) for c in node.children]
+    if any(a is not b for a, b in zip(new_children, node.children)):
+        node = copy.copy(node)
+        node.children = new_children
+    if not (isinstance(node, lp.Filter)
+            and isinstance(node.children[0], lp.Join)
+            and node.children[0].join_type == "inner"):
+        return node
+    join = node.children[0]
+
+    def conjuncts(e):
+        if isinstance(e, pr.And):
+            return conjuncts(e.children[0]) + conjuncts(e.children[1])
+        return [e]
+
+    def attr_names(e):
+        out = {e.col_name} if isinstance(e, UnresolvedAttribute) else set()
+        for c in e.children:
+            out |= attr_names(c)
+        return out
+
+    def and_all(terms):
+        acc = terms[0]
+        for t in terms[1:]:
+            acc = pr.And(acc, t)
+        return acc
+
+    lnames = set(join.children[0].output_schema().names)
+    rnames = set(join.children[1].output_schema().names)
+    ambiguous = lnames & rnames
+    left_p, right_p, cond_p, keep = [], [], [], []
+    for c in conjuncts(node.pred):
+        refs = attr_names(c)
+        if not refs or refs & ambiguous:
+            keep.append(c)
+        elif refs <= lnames:
+            left_p.append(c)
+        elif refs <= rnames:
+            right_p.append(c)
+        elif refs <= (lnames | rnames):
+            cond_p.append(c)
+        else:
+            keep.append(c)
+    if not (left_p or right_p or cond_p):
+        return node
+    new_left, new_right = join.children
+    if left_p:
+        new_left = push_join_conditions(lp.Filter(and_all(left_p), new_left))
+    if right_p:
+        new_right = push_join_conditions(
+            lp.Filter(and_all(right_p), new_right))
+    cond = join.condition
+    for t in cond_p:
+        cond = t if cond is None else pr.And(cond, t)
+    new_join = lp.Join(new_left, new_right, join.left_keys,
+                       join.right_keys, join.join_type, condition=cond)
+    return lp.Filter(and_all(keep), new_join) if keep else new_join
 
 
 def _host_bytes(dtype, values, valid) -> int:

@@ -5,7 +5,10 @@ and the ``torch.device`` it runs on, taken from
 ``spark.rapids.torch.device`` (default ``"cuda"``).  A session on the
 card when no card is usable fails at creation: nothing moves to the CPU
 because the GPU is absent.  Pass ``"cpu"`` to run every kernel's plain
-PyTorch version, as the tests do.
+PyTorch version, as the tests do.  ``sql`` runs a SELECT over the views
+registered with ``DataFrame.create_or_replace_temp_view``
+(``spark_rapids_tpu_torch/sql.py`` says which SQL it takes; the rest
+raises).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ class TorchSession:
                 "is false; set it to 'cpu' to run on the CPU")
         # the physical plan of the last query run, for its metrics
         self._last_plan = None
+        self._views: Dict[str, Any] = {}  # temp views, by lower-case name
 
     @classmethod
     def builder(cls) -> "_Builder":
@@ -43,6 +47,30 @@ class TorchSession:
     def create_dataframe(self, data, masks=None):
         from spark_rapids_tpu_torch.api import create_dataframe
         return create_dataframe(self, data, masks)
+
+    # -- the SQL catalog ----------------------------------------------------
+
+    def register_view(self, name: str, df) -> None:
+        self._views[name.lower()] = df
+
+    def drop_view(self, name: str) -> None:
+        self._views.pop(name.lower(), None)
+
+    def table(self, name: str):
+        """The DataFrame registered as view ``name``."""
+        df = self._views.get(name.lower())
+        if df is None:
+            raise ValueError(
+                f"table or view not found: {name} (register with "
+                "df.create_or_replace_temp_view)")
+        return df
+
+    def sql(self, query: str):
+        """A SQL SELECT over the session's views -> DataFrame.  What the
+        port cannot run raises ``SqlError`` here, or
+        ``NotImplementedError`` when the query is planned."""
+        from spark_rapids_tpu_torch.sql import parse_sql
+        return parse_sql(query, self)
 
 
 class _Builder:

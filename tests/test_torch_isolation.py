@@ -1,8 +1,9 @@
 """The torch port stands alone.
 
 It imports no jax, no module of the JAX package and, on its main path
-(the TPC-H queries from numpy tables included), no pyarrow; pyarrow may
-be imported only inside functions.  A session on
+(the TPC-H and TPCx-BB queries and the mortgage ETL from numpy tables
+included, the SQL front end with them), no pyarrow; pyarrow may be
+imported only inside functions.  A session on
 the card fails when no card is usable: nothing moves to the CPU.
 """
 
@@ -36,6 +37,11 @@ from spark_rapids_tpu_torch.bench import tpch
 tables = tpch.load_tables(s, tpch.gen_tpch_numpy(400))
 for q in tpch.TPCH_QUERIES.values():
     q(tables).to_torch()
+from spark_rapids_tpu_torch.bench import mortgage, tpcxbb
+mortgage.mortgage_etl(s, mortgage.gen_mortgage_numpy(2400)).to_torch()
+tpcxbb.register_views(s, tpcxbb.gen_tpcxbb_numpy(1200))
+for sql in tpcxbb.TPCXBB_QUERIES.values():
+    s.sql(sql).to_torch()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
                                     "spark_rapids_tpu"))

@@ -188,6 +188,19 @@ def test_launch_plan_of_the_main_path():
     assert plan.smem == 1024 * 36
 
 
+@pytest.mark.parametrize("n,sms,grid", [
+    (1 << 20, 132, 128), ((1 << 20) - 37, 132, 128), (32_000_000, 132, 132),
+    (1, 132, 1), (0, 132, 1), (1 << 20, 114, 114)])
+def test_fixed_order_grid_depends_on_rows_and_card(n, sms, grid):
+    """The float adds' fixed-order pass takes one block a tile of 8,192
+    rows, at most one an SM: its grid, and so the order of each float
+    sum, follows from the row count and the card alone."""
+    for sizes in (MAIN_PATH_SIZES, [8] * 40 + [4, 4], [4]):
+        for shape in ({}, {"threads": 256, "blocks_per_sm": 4}):
+            plans = tpag.launch_plan(sizes, 1024, n, sms, **shape)
+            assert {p.fsum_grid for p in plans} == {grid}
+
+
 def _jax_batch(table):
     return host_batch_to_device(table, jdt.Schema.from_arrow(table.schema))
 
@@ -501,3 +514,35 @@ def test_dense_slot_kernel_matches_plain_version_on_card():
         assert native.LAUNCHES["dense_slot_reduce"] == \
             before + len(tpag._plane_groups(p, k)), name
         chip_smoke.compare_kernel(torch, tpag, g, p, o, k, got)
+
+
+@pytest.mark.cuda
+def test_dense_slot_kernel_float_sums_repeat_on_card():
+    """The kernel's float sums take one fixed order: f64 and f32 add
+    planes come out bit for bit alike over 5 calls, with every row on two
+    slots (TPC-H q8's batch) and over 1,024 slots with a ragged row
+    count; the f64 sums stay within 1e-12 of each slot's sum of |v| from
+    the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(2)
+    for n, K, slots in ((1 << 20, 128, 2), ((1 << 20) - 37, 1024, 1024)):
+        gid = torch.from_numpy(rng.integers(1, 1 + slots, n)
+                               .astype(np.int32)).cuda()
+        v = rng.normal(size=n) * 10.0 ** rng.integers(-3, 4, n)
+        planes = [torch.ones(n, dtype=torch.int32, device="cuda"),
+                  torch.from_numpy(v).cuda(),
+                  torch.from_numpy(v.astype(np.float32)).cuda(),
+                  torch.from_numpy(-v).cuda()]
+        ops = ["add", "add", "add", "add"]
+        first = tpag.dense_slot_reduce(gid, planes, ops, K)
+        for _ in range(4):
+            again = tpag.dense_slot_reduce(gid, planes, ops, K)
+            for a, b in zip(first, again):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        # the plain version's f64 sums, with the f32 plane left out (its
+        # rounding has no bound compare_kernel states)
+        keep = [0, 1, 3]
+        chip_smoke.compare_kernel(torch, tpag, gid, [planes[j] for j in keep],
+                                  [ops[j] for j in keep], K,
+                                  [first[j] for j in keep])

@@ -109,16 +109,15 @@ def test_too_wide_strings_raise_in_both_packages():
 @pytest.mark.parametrize("kind", ["U", "S", "object"])
 def test_numpy_ingest_roundtrip(kind):
     """numpy U, S and object arrays through upload and pull give back
-    numpy's own strings: embedded NUL bytes stay, and only an object
-    array can hold a null or a trailing NUL."""
-    vals = [v for v in EDGE if v is not None and v != "\x00"
-            and not v.endswith("\x00")]
+    their strings: a U or S value up to its first NUL (as pyarrow reads
+    it), an object array's whole, nulls and NULs included."""
+    vals = [v for v in EDGE if v is not None]
     if kind == "S":
         arr = np.array([v.encode("utf-8") for v in vals])
-        want = [v.decode("utf-8") for v in arr.tolist()]
+        want = [v.split("\x00")[0] for v in vals]
     elif kind == "U":
         arr = np.array(vals)
-        want = arr.tolist()
+        want = [v.split("\x00")[0] for v in vals]
     else:
         arr = np.array(EDGE, dtype=object)
         want = EDGE
@@ -130,12 +129,13 @@ def test_numpy_ingest_roundtrip(kind):
 
 
 def test_numpy_ingest_matches_jax_planes():
-    """A ``U`` array without embedded NULs gives the JAX package's planes
-    (which reads it through ``pa.table``) bit for bit.  pyarrow cuts a
-    ``U`` value at its first NUL, so such values are left out here."""
+    """A ``U`` array gives the JAX package's planes (which reads it
+    through ``pa.table``) bit for bit, values with a NUL inside or at
+    either end included: both cut such a value at its first NUL."""
     rng = np.random.default_rng(5)
     words = np.array(["", "a", "héllo", "中文", "special requests",
-                      "🎉", "x" * 40])
+                      "🎉", "x" * 40, "a\x00b", "\x00tail", "é\x00中文",
+                      "z\x00", "x" * 30 + "\x00" + "y" * 9])
     arr = words[rng.integers(0, len(words), 3000)]
     _, [(lengths, valid, chars)] = _jax_planes(pa.table({"s": arr}))
     schema, cols = host_columns_from_numpy({"s": arr})
