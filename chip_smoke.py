@@ -309,24 +309,34 @@ def agg_query(st, F, df):
 
 def main_path_inputs(pag, session, query):
     """What a path gives the kernel: the aggregate's own plane
-    construction on the first update batch of ``query``'s root-most
-    aggregate (its input, a join's output included) -> (gid, planes,
-    ops, K)."""
+    construction on the first update batch of ``query`` that takes the
+    dense-slot path, from the root-most aggregate down (its input, a
+    join's output included) -> (gid, planes, ops, K)."""
     from spark_rapids_tpu_torch.exec.base import ExecContext
     from spark_rapids_tpu_torch.exprs.base import colvals
     from spark_rapids_tpu_torch.plan.planner import plan_query
-    agg = _plan_nodes(plan_query(query.plan), "TorchHashAggregateExec")[0]
-    batch = next(agg.children[0].execute(
-        ExecContext(session.conf, session.device)))
-    cols = colvals(batch.columns)
-    lo, hi = pag.key_range(agg.spec.groupings[0], cols, batch.num_rows,
-                           batch.capacity)
-    check(pag.supports(agg.spec) and pag.fits(lo, hi),
-          "the aggregate's first batch does not take the dense-slot path")
-    K = pag.slot_count(lo, hi)
-    gid, planes, ops, _ = pag.update_planes(agg.spec, cols, batch.num_rows,
-                                            batch.capacity, lo, K)
-    return gid, planes, ops, K
+    # the batch the aggregate exec's own routing would send
+    # (TorchHashAggregateExec._try_pallas_update)
+    for agg in _plan_nodes(plan_query(query.plan), "TorchHashAggregateExec"):
+        if not pag.supports(agg.spec):
+            continue
+        for batch in agg.children[0].execute(
+                ExecContext(session.conf, session.device)):
+            if batch.capacity > pag.max_capacity(agg.spec):
+                continue
+            cols = colvals(batch.columns)
+            rng = pag.key_range(agg.spec.groupings[0], cols, batch.num_rows,
+                                batch.capacity)
+            if rng is None:
+                continue
+            if not pag.fits(*rng):
+                break
+            lo, _ = rng
+            K = pag.slot_count(*rng)
+            gid, planes, ops, _ = pag.update_planes(
+                agg.spec, cols, batch.num_rows, batch.capacity, lo, K)
+            return gid, planes, ops, K
+    check(False, "no batch of the query takes the dense-slot path")
 
 
 def wide_inputs(torch, rng, K: int):
@@ -1804,11 +1814,13 @@ def main(argv=None) -> int:
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     phase_repeat_sums(torch, st, F, session, tpch_dfs)
-    # q8 and q13 give the dense-slot kernel shapes of their own
-    for qname in ("q8", "q13"):
+    # q8, q13 and TPCx-BB q2 give the dense-slot kernel shapes of their
+    # own
+    for path, query in [("tpch_q8", TPCH_QUERIES["q8"](tpch_dfs)),
+                        ("tpch_q13", TPCH_QUERIES["q13"](tpch_dfs)),
+                        ("tpcxbb_q2", session.sql(TPCXBB_QUERIES["q2"]))]:
         dsr["max_abs_err"] = max(dsr["max_abs_err"], phase_kernel_path(
-            torch, pag, session, TPCH_QUERIES[qname](tpch_dfs),
-            f"tpch_{qname}"))
+            torch, pag, session, query, path))
     phase_hash_device(torch)
     phase_join_routes(torch, st, session)
     phase_trace(torch, text_agg_query(st, F, line_df), "text_filter_agg_6m")

@@ -19,14 +19,7 @@
 // = 12.5 us on an H100 SXM (chip_smoke.py computes the bound from the rate
 // of the card it runs on).
 //
-// The first design took 72.5 us on an NVIDIA H100 80GB HBM3 at a 700 W
-// power limit: a partial pass of 45.4 us that switched on each plane's kind
-// and op inside the row loop, with float min/max as CAS loops and one
-// 4-byte load a row and plane, then a final pass of 23.3 us in which one
-// thread a (slot, plane) read the 264 blocks' partials from a (blocks, K)
-// scratch one after another.
-//
-// This design:
+// Design:
 //   1. dsr_init sets every (K,) output of an integer plane or a float
 //      min/max plane to its op's neutral.
 //   2. dsr_reduce: one block of 1024 threads an SM keeps (K x n)
@@ -39,7 +32,8 @@
 //      an ordered unsigned integer (all bits flipped for a negative float,
 //      the sign bit set for a positive one) and take native unsigned
 //      atomicMin/atomicMax; a NaN maps to the end of the order that wins
-//      under the op and decodes to a quiet NaN, so NaN wins as before.
+//      under the op and decodes to a quiet NaN, so NaN wins, as in the
+//      plain version.
 //      Under that order +0.0 > -0.0: when both occur, max returns +0.0 and
 //      min -0.0 (they compare equal to the plain version's).  The block
 //      then merges its accumulators into the outputs with one global
@@ -69,20 +63,12 @@
 // The caller splits a spec whose accumulators pass the shared-memory
 // budget into plane groups, one call each.
 //
-// On the card (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W), before the
-// float adds took a fixed order: 23.0 to 24.7 us with the inputs warm in
-// L2, 35.1 to 39.8 us cold, 20.0 to 20.4 us of device time in dsr_reduce
-// and 1.2 us in dsr_init, against 72.1 to 72.9 us for the first design in
-// the same call.  What bounds dsr_reduce is the shared-memory atomics: one
-// a row and plane, at random slots, so a warp's 32 atomics meet bank
-// conflicts; the SASS has native ATOMS for 32-bit integers and for the
-// ordered float min/max.  Neither a cluster merge through distributed
-// shared memory nor staging the tiles with cp.async paid.  dsr_fsum does
-// no atomic: a 32-row run costs one match, one staging store and, in each
-// leader, as many shared loads and adds as its group has rows.  Its
-// first form summed each group through shuffles whose masks diverged by
-// group, so a run of 32 distinct slots took about 32 serial shuffle
-// rounds: 21.7 us for hash_agg_sort_2m's one f64 sum plane.
+// What bounds dsr_reduce is the shared-memory atomics: one a row and
+// plane, at random slots, so a warp's 32 atomics meet bank conflicts; the
+// SASS has native ATOMS for 32-bit integers and for the ordered float
+// min/max.  dsr_fsum does no atomic: a 32-row run costs one match, one
+// staging store and, in each leader, as many shared loads and adds as its
+// group has rows.  Times on the card are in PERF.md.
 
 #include <climits>
 #include <cuda_runtime.h>

@@ -122,7 +122,6 @@ class LaunchPlan:
     threads: int             # threads a block
     tile: int                # rows a block takes at a time
     grid: int                # blocks
-    fsum_grid: int           # blocks of the fixed-order float-add pass
 
 
 def launch_plan(itemsizes: Sequence[int], K: int, n: int, sms: int, *,
@@ -131,21 +130,24 @@ def launch_plan(itemsizes: Sequence[int], K: int, n: int, sms: int, *,
     """The launches of a spec of planes of ``itemsizes`` bytes, ``n`` rows,
     on a card of ``sms`` SMs: one a plane group.  A group's grid is one
     wave: ``blocks_per_sm`` blocks an SM, fewer when the accumulators
-    leave room for fewer, and never more blocks than tiles.  The float
-    adds' fixed-order pass takes one block an SM, never more blocks than
-    its tiles; its grid fixes the order of the sums, so it depends only
-    on ``n`` and the card."""
+    leave room for fewer, and never more blocks than tiles."""
     tile = _ROWS * threads
     tiles = max(1, -(-n // tile))
-    fsum_grid = min(max(1, -(-n // _FS_TILE)), sms)
     plans = []
     for group in _groups_by_size(itemsizes, K):
         smem = sum(_plane_bytes(itemsizes[j], K) for j in group)
         per_sm = max(1, min(blocks_per_sm, 2048 // threads,
                             _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK)))
         plans.append(LaunchPlan(tuple(group), smem, threads, tile,
-                                min(tiles, sms * per_sm), fsum_grid))
+                                min(tiles, sms * per_sm)))
     return plans
+
+
+def fsum_grid(n: int, sms: int) -> int:
+    """Blocks of the float adds' fixed-order pass over ``n`` rows on a
+    card of ``sms`` SMs: one an SM, never more than its tiles.  The grid
+    fixes the order of the sums, so it depends on nothing else."""
+    return min(max(1, -(-n // _FS_TILE)), sms)
 
 
 def _check(gid: torch.Tensor, planes: Sequence[torch.Tensor],
@@ -202,8 +204,9 @@ def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
     plans = launch_plan([p.element_size() for p in planes], K, n, sms,
                         **shape)
     outs = [torch.empty(K, dtype=p.dtype, device=dev) for p in planes]
-    # a (fsum_grid, K) scratch of block partials for each float add
-    parts = [torch.empty((plans[0].fsum_grid, K), dtype=p.dtype, device=dev)
+    fgrid = fsum_grid(n, sms)
+    # a (fgrid, K) scratch of block partials for each float add
+    parts = [torch.empty((fgrid, K), dtype=p.dtype, device=dev)
              if p.is_floating_point() and op == "add" else None
              for p, op in zip(planes, ops)]
     calls = []
@@ -220,7 +223,7 @@ def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
         # every launch
         args = (gid.data_ptr(), n, K, len(plan.planes),
                 *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
-                int(aligned), plan.grid, plan.threads, plan.fsum_grid)
+                int(aligned), plan.grid, plan.threads, fgrid)
         calls.append((args, (arrays, parts)))
 
     def launch() -> None:

@@ -17,6 +17,7 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, FLOAT64, INT64
 from spark_rapids_tpu_torch.exprs.base import ColVal, Expression
+from spark_rapids_tpu_torch.exprs.cast import cast_to
 
 
 class AggregateFunction(Expression):
@@ -51,11 +52,6 @@ class AggregateFunction(Expression):
                            "aggregate exec, not a projection")
 
 
-def _cast_to(child: Expression, target: DataType) -> Expression:
-    from spark_rapids_tpu_torch.exprs.cast import Cast
-    return child if child.dtype == target else Cast(child, target)
-
-
 class Count(AggregateFunction):
     """count(expr): the number of non-null values."""
 
@@ -88,7 +84,7 @@ class Sum(AggregateFunction):
         return FLOAT64 if self.child.dtype.is_floating else INT64
 
     def input_projection(self):
-        return [_cast_to(self.child, self.dtype)]
+        return [cast_to(self.child, self.dtype)]
 
     def update_ops(self):
         return ["sum", "count"]
@@ -141,7 +137,7 @@ class Average(AggregateFunction):
         return FLOAT64
 
     def input_projection(self):
-        return [_cast_to(self.child, FLOAT64)]
+        return [cast_to(self.child, FLOAT64)]
 
     def update_ops(self):
         return ["sum", "count"]

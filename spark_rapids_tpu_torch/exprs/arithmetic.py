@@ -14,7 +14,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import DataType, FLOAT64, \
     STRING, common_type
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, fixed
-from spark_rapids_tpu_torch.exprs.cast import Cast
+from spark_rapids_tpu_torch.exprs.cast import cast_to
 
 
 class BinaryArithmetic(Expression):
@@ -52,8 +52,7 @@ class BinaryArithmetic(Expression):
         if ct is None:
             raise TypeError(f"cannot apply {type(self).__name__} to "
                             f"{lt.name} and {rt.name}")
-        left = self.left if lt == ct else Cast(self.left, ct)
-        right = self.right if rt == ct else Cast(self.right, ct)
+        left, right = cast_to(self.left, ct), cast_to(self.right, ct)
         return self.with_children([left, right])
 
     def emit(self, ctx: EvalContext) -> ColVal:
@@ -100,8 +99,7 @@ class Divide(BinaryArithmetic):
 
     def coerce(self) -> Expression:
         return self.with_children(
-            [c if c.dtype == FLOAT64 else Cast(c, FLOAT64)
-             for c in self.children])
+            [cast_to(c, FLOAT64) for c in self.children])
 
     def emit_binary(self, a, b):
         zero = b.data == 0

@@ -18,6 +18,22 @@ from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, fixed
 
 
+def _check_supported(frm: DataType, to: DataType) -> None:
+    """Raises on a cast the port lacks (string parsing among them)."""
+    if frm != to and not ((frm.is_numeric or frm == BOOLEAN)
+                          and (to.is_numeric or to == BOOLEAN)):
+        raise NotImplementedError(f"cast {frm.name} -> {to.name}: later slice")
+
+
+def cast_to(child: Expression, target: DataType) -> Expression:
+    """``child`` as ``target``; raises when the plan is built on a cast the
+    port lacks, so an implicit cast can never reinterpret a column."""
+    if child.dtype == target:
+        return child
+    _check_supported(child.dtype, target)
+    return Cast(child, target)
+
+
 class Cast(Expression):
     def __init__(self, child: Expression, to: DataType):
         self.children = (child,)
@@ -38,17 +54,13 @@ class Cast(Expression):
         return Cast(children[0], self.to)
 
     def coerce(self) -> Expression:
-        """Raises when the query is planned on a cast the port lacks."""
-        frm, to = self.children[0].dtype, self.to
-        if frm != to and not ((frm.is_numeric or frm == BOOLEAN)
-                              and (to.is_numeric or to == BOOLEAN)):
-            raise NotImplementedError(
-                f"cast {frm.name} -> {to.name}: later slice")
+        _check_supported(self.children[0].dtype, self.to)
         return self
 
     def emit(self, ctx: EvalContext) -> ColVal:
-        src = self.children[0].emit(ctx)
         frm, to = self.children[0].dtype, self.to
+        _check_supported(frm, to)
+        src = self.children[0].emit(ctx)
         if frm == to:
             return src
         data, valid = src.data, src.validity

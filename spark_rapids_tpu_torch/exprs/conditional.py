@@ -16,7 +16,7 @@ import torch
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, common_type
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, Literal, align_chars
-from spark_rapids_tpu_torch.exprs.cast import Cast
+from spark_rapids_tpu_torch.exprs.cast import cast_to
 
 
 def _select(pred_true: torch.Tensor, a: ColVal, b: ColVal) -> ColVal:
@@ -52,9 +52,7 @@ class If(Expression):
         ct = common_type(a.dtype, b.dtype)
         if ct is None:
             raise TypeError(f"if branches differ: {a.dtype} vs {b.dtype}")
-        a = a if a.dtype == ct else Cast(a, ct)
-        b = b if b.dtype == ct else Cast(b, ct)
-        return self.with_children([p, a, b])
+        return self.with_children([p, cast_to(a, ct), cast_to(b, ct)])
 
     def emit(self, ctx: EvalContext) -> ColVal:
         p = self.children[0].emit(ctx)
@@ -132,8 +130,7 @@ class CaseWhen(Expression):
         if self.has_else:
             value_slots.append(len(children) - 1)
         for i in value_slots:
-            if children[i].dtype != target:
-                children[i] = Cast(children[i], target)
+            children[i] = cast_to(children[i], target)
         return self.with_children(children)
 
     def emit(self, ctx: EvalContext) -> ColVal:

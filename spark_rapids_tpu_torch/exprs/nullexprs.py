@@ -13,7 +13,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import STRING, DataType, \
     common_type, device_dtype
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, align_chars
-from spark_rapids_tpu_torch.exprs.cast import Cast
+from spark_rapids_tpu_torch.exprs.cast import cast_to
 
 
 def _merge_colval(acc: ColVal, nxt: ColVal) -> ColVal:
@@ -53,7 +53,7 @@ class Coalesce(Expression):
                 raise TypeError(f"coalesce type mismatch: {target} vs "
                                 f"{c.dtype}")
             target = ct or target
-        return self.with_children([c if c.dtype == target else Cast(c, target)
+        return self.with_children([cast_to(c, target)
                                    for c in self.children])
 
     def emit(self, ctx: EvalContext) -> ColVal:

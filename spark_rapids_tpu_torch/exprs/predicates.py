@@ -18,7 +18,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, \
     DataType, common_type, device_dtype
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, Literal, align_chars, fixed
-from spark_rapids_tpu_torch.exprs.cast import Cast
+from spark_rapids_tpu_torch.exprs.cast import cast_to
 
 
 def string_compare(a: ColVal, b: ColVal) -> torch.Tensor:
@@ -67,8 +67,7 @@ class BinaryComparison(Expression):
         ct = common_type(lt, rt)
         if ct is None:
             raise TypeError(f"cannot compare {lt.name} and {rt.name}")
-        left = self.left if lt == ct else Cast(self.left, ct)
-        right = self.right if rt == ct else Cast(self.right, ct)
+        left, right = cast_to(self.left, ct), cast_to(self.right, ct)
         return self.with_children([left, right])
 
     def emit(self, ctx: EvalContext) -> ColVal:

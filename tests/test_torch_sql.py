@@ -25,7 +25,14 @@ from spark_rapids_tpu.plan import planner as jplanner
 from tests.compare import assert_tables_equal, tpu_session
 
 import spark_rapids_tpu_torch as st
+from spark_rapids_tpu_torch import functions as F
+from spark_rapids_tpu_torch.columnar.batch import host_batch_to_device, \
+    host_columns_from_numpy
+from spark_rapids_tpu_torch.columnar.dtypes import FLOAT64, STRING
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
+from spark_rapids_tpu_torch.exprs.base import BoundReference, EvalContext, \
+    colvals
+from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs import predicates as tpr
 from spark_rapids_tpu_torch.plan import logical as tlp
 from spark_rapids_tpu_torch.plan import planner as tplanner
@@ -295,6 +302,52 @@ def test_cast_the_port_lacks_raises_when_planned(sessions):
     df = ts.sql("SELECT CAST(d AS INT) di FROM items")
     with pytest.raises(NotImplementedError, match="cast date"):
         tplanner.plan_query(df.plan, ts.conf)
+
+
+STRING_AS_NUMBER_SQL = [
+    "SELECT SUM(name) s FROM items",
+    "SELECT k, AVG(name) a FROM items GROUP BY k",
+    "SELECT name / 2 h FROM items",
+    "SELECT id, SUM(name) OVER (PARTITION BY k ORDER BY id) s FROM items",
+]
+
+
+@pytest.mark.parametrize("sql", STRING_AS_NUMBER_SQL)
+def test_string_read_as_number_raises_through_sql(sessions, sql):
+    """The JAX package parses a string that an aggregate or a division
+    reads as a number; the port has no string parsing and must raise
+    rather than read the string plane's lengths."""
+    _, ts = sessions
+    with pytest.raises(NotImplementedError, match="string"):
+        ts.sql(sql).collect()
+
+
+STRING_AS_NUMBER_API = {
+    "sum": lambda df: df.agg(F.sum(st.col("name"))),
+    "grouped_avg": lambda df: df.group_by("k").agg(F.avg(st.col("name"))),
+    "divide": lambda df: df.select((st.col("name") / 2).alias("h")),
+    "window_sum": lambda df: df.select(F.sum(st.col("name")).over(
+        st.Window.partition_by("k").order_by("id")).alias("s")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STRING_AS_NUMBER_API))
+def test_string_read_as_number_raises_through_api(sessions, name):
+    _, ts = sessions
+    with pytest.raises(NotImplementedError, match="string"):
+        STRING_AS_NUMBER_API[name](ts.table("items")).collect()
+
+
+def test_cast_the_port_lacks_raises_when_emitted():
+    """A Cast that a plan builds after binding, and so never coerces,
+    still refuses when it is evaluated."""
+    schema, cols = host_columns_from_numpy({"s": np.array(["1", "22"])})
+    batch = host_batch_to_device(schema, cols, "cpu")
+    ctx = EvalContext(colvals(batch.columns), batch.num_rows,
+                      batch.columns[0].capacity, "cpu")
+    cast = Cast(BoundReference(0, STRING), FLOAT64)
+    with pytest.raises(NotImplementedError, match="cast string"):
+        cast.emit(ctx)
 
 
 def test_unknown_view_raises(sessions):

@@ -4,8 +4,10 @@
 with its nulls; then each of the 25 queries (their texts are the JAX
 package's, verbatim) through both packages' ``session.sql`` over views
 of the same parquet files, and through the port over views of the numpy
-tables, at 10,000 store_sales rows.  q2's result is empty at that size:
-no clickstream session holds item 3 beside another item.  Tolerance:
+tables, at 10,000 store_sales rows.  q2's result is empty at that size and
+seed (no clickstream session holds item 3 beside another item), so q2
+runs once more on seed 44, where four items were viewed beside item 3
+and its aggregate takes the dense-slot path.  Tolerance:
 exact, except f64 sums and averages (relative 1e-9, ``approx_float``),
 since the two packages add in different orders.
 """
@@ -21,9 +23,11 @@ from tests.compare import assert_tables_equal, tpu_session
 import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch.bench.tpcxbb import LEAD_QUERIES, \
     TPCXBB_QUERIES, gen_tpcxbb_numpy, register_views
+from spark_rapids_tpu_torch.exec.aggregate import TorchHashAggregateExec
 
 SALES = 10_000
 EMPTY_AT_THIS_SIZE = {"q2"}
+Q2_SEED = 44
 
 
 @pytest.fixture(scope="module")
@@ -32,6 +36,14 @@ def xbb(tmp_path_factory):
     paths = gen_tpcxbb(str(tmp_path_factory.mktemp("tpcxbb")),
                        sales_rows=SALES)
     return paths, gen_tpcxbb_numpy(SALES)
+
+
+@pytest.fixture(scope="module")
+def xbb_q2(tmp_path_factory):
+    """The corpus of seed ``Q2_SEED``, where q2's result is not empty."""
+    paths = gen_tpcxbb(str(tmp_path_factory.mktemp("tpcxbb_q2")),
+                       sales_rows=SALES, seed=Q2_SEED)
+    return paths, gen_tpcxbb_numpy(SALES, seed=Q2_SEED)
 
 
 def test_gen_tpcxbb_numpy_equals_gen_tpcxbb(xbb):
@@ -68,3 +80,28 @@ def test_tpcxbb_query_matches_jax(xbb, qname):
         got = ts.sql(TPCXBB_QUERIES[qname]).to_arrow()
         assert_tables_equal(got, want, ignore_order=False,
                             approx_float=True)
+
+
+def test_tpcxbb_q2_matches_jax_where_not_empty(xbb_q2):
+    """q2's ``ia = 3`` join filter and its aggregate by ``ib`` on rows
+    that reach them; the aggregate takes the dense-slot path."""
+    paths, tables = xbb_q2
+    js = tpu_session()
+    jregister(js, paths)
+    want = js.sql(JAX_QUERIES["q2"]).to_arrow()
+    assert want.num_rows == 4
+    for source in (paths, tables):
+        ts = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+        register_views(ts, source)
+        got = ts.sql(TPCXBB_QUERIES["q2"]).to_arrow()
+        assert_tables_equal(got, want, ignore_order=False,
+                            approx_float=True)
+        aggs = [n for n in _nodes(ts._last_plan)
+                if isinstance(n, TorchHashAggregateExec)]
+        assert [a.metrics["pallasAggBatches"] for a in aggs] == [1]
+
+
+def _nodes(plan):
+    yield plan
+    for c in plan.children:
+        yield from _nodes(c)
