@@ -2,7 +2,7 @@
 """Drive the torch port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--package-root DIR] [--kernels-only]
-                          [--sass-dir DIR]
+                          [--sass-dir DIR] [--layer-cost]
 
 Phases, each printing one JSON line:
 
@@ -92,14 +92,39 @@ Phases, each printing one JSON line:
    69's store_sales rows), the bench's lead queries first, each checked
    against the same SQL on a CPU session over the same tables, timed as
    phase 11 (f64 within rtol 1e-9; rows tied on the float sum that q6,
-   q13 and q25 order their top 100 by compare as a set).
+   q13 and q25 order their top 100 by compare as a set);
+16. memory: the device runtime, the tiered spill and the out-of-memory
+   retry.  memory_tiers: window_1m and tpch_q18 (SF1) on a fresh runtime
+   at the default budget, then with the device budget at a quarter of
+   the first run's spill-catalog peak and the host tier at an eighth of
+   it, so bytes reach the host and the disk; each run checked against
+   numpy as phases 11 and 12 check them, the two runs' integers,
+   strings and nulls equal, the tier counters and both times printed.
+   oom_retry: a function whose peak is two (2^20, 512) int64
+   temporaries, under a ballast that leaves three quarters of it free:
+   ``with_retry`` catches two real ``torch.OutOfMemoryError``s (the whole
+   batch, then after relief) and splits; the halves equal the unsplit
+   call, the failed attempt's memory is back before the retry, and the
+   ballast's after it.  oom_query: hash_agg_32m's aggregate with 2^24-row
+   update batches, its first update under a ballast that leaves three
+   quarters of that update's peak (measured on a run without it): a
+   real error caught, the batch split onto the dense-slot kernel, the
+   result equal to the run without it (sums within rtol 1e-9).  inject:
+   every retry site (stage, the aggregate on both routes, the FK and
+   general join probes, sort, window) raises ``torch.OutOfMemoryError``
+   twice where a split follows, once where the input stays whole, and
+   each query equals its run without the error.  memory_threads: no
+   thread of the port's is left.  After it, kernel_path also holds the
+   dense-slot kernel against its plain version on the first half of
+   hash_agg_sort_2m's first update batch (2^19 rows at capacity 2^19),
+   as an out-of-memory split hands it over.
 
 The dense-slot kernel's float sums take one fixed order: every
 comparison of it with its plain version (phase 3, its edge specs and
 kernel_path) also calls it 5 times and fails unless the float-add planes
 come out bit for bit alike (``float_sum_results_of_5``).
 
-Each path of phases 5 to 15 runs with the launch counts set to 0 just
+Each path of phases 5 to 16 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -123,7 +148,12 @@ no card is usable or the port's package is not beside it.
 ``--package-root DIR`` drives the package under DIR instead (another
 checkout, to time an older commit's kernels the same way);
 ``--kernels-only`` stops after phase 4's main-path comparisons and
-times, without edge specs or queries.
+times, without edge specs or queries.  ``--layer-cost`` builds the
+kernels, times hash_agg_sort_2m, hash_join_1m, tpch_q3 and window_1m as
+phases 6, 10, 11 and 12 do (with the coalesce's background pull on, off,
+and on with a 0.1 ms thread switch interval) and stops; with
+``--package-root`` it sets another commit's times beside these in one
+call.
 """
 
 from __future__ import annotations
@@ -132,6 +162,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -307,11 +338,13 @@ def agg_query(st, F, df):
               .order_by(col("k")))
 
 
-def main_path_inputs(pag, session, query):
+def main_path_inputs(pag, session, query, half: bool = False):
     """What a path gives the kernel: the aggregate's own plane
     construction on the first update batch of ``query`` that takes the
     dense-slot path, from the root-most aggregate down (its input, a
-    join's output included) -> (gid, planes, ops, K)."""
+    join's output included); with ``half``, on the first half of that
+    batch that an out-of-memory split would give it -> (gid, planes,
+    ops, K)."""
     from spark_rapids_tpu_torch.exec.base import ExecContext
     from spark_rapids_tpu_torch.exprs.base import colvals
     from spark_rapids_tpu_torch.plan.planner import plan_query
@@ -322,6 +355,10 @@ def main_path_inputs(pag, session, query):
             continue
         for batch in agg.children[0].execute(
                 ExecContext(session.conf, session.device)):
+            if half:
+                from spark_rapids_tpu_torch.utils.retry import \
+                    split_batch_half
+                batch = split_batch_half(batch)[0]
             if batch.capacity > pag.max_capacity(agg.spec):
                 continue
             cols = colvals(batch.columns)
@@ -552,15 +589,17 @@ def phase_kernel(torch, pag, session, query, rate: float,
     return result
 
 
-def phase_kernel_path(torch, pag, session, query, path: str) -> float:
+def phase_kernel_path(torch, pag, session, query, path: str,
+                      half: bool = False) -> float:
     """The dense-slot kernel against its plain version on the inputs
-    another path gives it (``query``'s first update batch), timed as
-    phase 3 -> the largest f64 sum error."""
-    gid, planes, ops, K = main_path_inputs(pag, session, query)
+    another path gives it (``query``'s first update batch, or with
+    ``half`` that batch's first half), timed as phase 3 -> the largest
+    f64 sum error."""
+    gid, planes, ops, K = main_path_inputs(pag, session, query, half)
     err = compare_kernel(torch, pag, gid, planes, ops, K)
     launch, _ = pag.prepare_launch(gid, planes, ops, K)
     fsum_planes, repeats = float_sum_repeats(torch, pag, gid, planes, ops, K)
-    emit("kernel_path", name="dense_slot_reduce", path=path,
+    emit("kernel_path", name="dense_slot_reduce", path=path, half=half,
          capacity=gid.numel(), K=K,
          planes=[f"{str(p.dtype)[6:]} {op}" for p, op in zip(planes, ops)],
          max_abs_err=err, ms=per_call_ms(torch, launch),
@@ -813,6 +852,89 @@ def gen_data(n_main: int, n_agg: int):
     dim = {"k": np.arange(DIM_ROWS, dtype=np.int64),
            "grp": rng.integers(0, 50, DIM_ROWS)}
     return main, agg, dim
+
+
+def gen_big(n: int = 32_000_000):
+    """hash_agg_32m's columns (seed 8)."""
+    rng = np.random.default_rng(SEED + 1)
+    return {"k": rng.integers(0, 1000, n), "v": rng.normal(size=n),
+            "w": rng.normal(size=n).astype(np.float32)}
+
+
+def layer_cost(torch, st, F, native, main, agg_data, dim, name) -> int:
+    """``--layer-cost``: hash_agg_sort_2m, hash_join_1m, tpch_q3 and
+    window_1m at the default budget, each timed and its host syncs
+    counted as in the full run; then again with the coalesce's
+    background pull off (``spark.rapids.sql.io.prefetch.enabled``, a key
+    a package without it ignores), and with it on but the interpreter's
+    thread switch interval at 0.1 ms instead of 5 ms, to show how much
+    of the pull's cost is a thread waiting for the GIL."""
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy, \
+        load_tables
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    default_switch = sys.getswitchinterval()
+    for conf, switch in (({}, default_switch),
+                         ({"spark.rapids.sql.io.prefetch.enabled": False},
+                          default_switch),
+                         ({}, 1e-4)):
+        emit("layer_cost", conf=conf, switch_interval_s=switch)
+        sys.setswitchinterval(switch)
+        try:
+            session = st.TorchSession(conf)
+            phase_agg(torch, st, F, native, session, agg_data,
+                      "hash_agg_sort_2m", 3)
+            phase_hash_join(torch, st, F, native, session, main, dim)
+            phase_tpch(torch, st, native, session, tpch,
+                       load_tables(session, tpch), "q3")
+            phase_window(torch, st, F, session, main)
+        finally:
+            sys.setswitchinterval(default_switch)
+    pull_cost(torch, st, main)
+    print(json.dumps({"ok": True, "layer_cost": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def pull_cost(torch, st, main, samples: int = 20) -> None:
+    """The background pull's own cost (a package without
+    ``io/prefetch.py`` skips it): milliseconds, median of ``samples``, of
+    a pull over nothing (thread start, join, and on the card the thread's
+    device context), with and without the device; and of the local scan
+    of ``main`` (1,000,000 rows, one batch) read serially and through a
+    pull."""
+    try:
+        from spark_rapids_tpu_torch.io.prefetch import PrefetchIterator
+    except ImportError:
+        return
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    from spark_rapids_tpu_torch.plan.planner import plan_query
+    session = st.TorchSession()
+    scan = plan_query(session.create_dataframe(main).plan)
+    ctx = ExecContext(session.conf, session.device)
+
+    def timed(fn):
+        fn()
+        times = []
+        for _ in range(samples):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    def pull(source, device):
+        it = PrefetchIterator(source, depth=1, device=device)
+        for _ in it:
+            pass
+        it.close()
+
+    emit("pull_cost", plan=type(scan).__name__,
+         empty_ms=timed(lambda: pull(iter(()), None)),
+         empty_on_device_ms=timed(lambda: pull(iter(()), "cuda")),
+         scan_serial_ms=timed(lambda: list(scan.execute(ctx))),
+         scan_pulled_ms=timed(lambda: pull(scan.execute(ctx), "cuda")))
 
 
 def run_timed(torch, query, runs: int):
@@ -1577,9 +1699,11 @@ def window_reference(main):
     return order[idx][back], rn[idx][back], run[back], scale[back]
 
 
-def phase_window(torch, st, F, session, main, runs: int = 3) -> None:
-    q = window_query(st, F, session.create_dataframe(main))
-    (cols, masks, n), secs = run_timed(torch, q, runs)
+def check_window(result, main) -> np.ndarray:
+    """window_query's result against numpy's (``window_reference``): the
+    rows and rn exact, each running sum within 1e-10 of its prefix of
+    |v| -> the running sums' errors."""
+    cols, masks, n = result
     rows, rn, run, scale = window_reference(main)
     check(n == len(rows), f"window_1m: {n} rows, numpy has {len(rows)}")
     check(bool(all(m[:n].all() for m in masks.values())),
@@ -1593,6 +1717,15 @@ def phase_window(torch, st, F, session, main, runs: int = 3) -> None:
     check(bool(np.all(err <= 1e-10 * scale)),
           "window_1m: a running sum is off by more than 1e-10 of its "
           "prefix of |v|")
+    return err / scale
+
+
+def phase_window(torch, st, F, session, main, runs: int = 3) -> None:
+    q = window_query(st, F, session.create_dataframe(main))
+    (cols, masks, n), secs = run_timed(torch, q, runs)
+    rows, _, run, scale = window_reference(main)
+    check_window((cols, masks, n), main)
+    err = np.abs(cols["run"][:n].cpu().numpy() - run)
     plan = session._last_plan
     check(len(_plan_nodes(plan, "TorchWindowExec")) == 2,
           "window_1m: not two window execs")
@@ -1670,6 +1803,390 @@ def phase_trace(torch, query, name: str, top: int = 8) -> None:
                               and not e.name.startswith(RANGES)]))
 
 
+# -- the memory phase --------------------------------------------------------
+
+def fresh_session(st, conf=None):
+    """A session on a runtime of its own (every runtime reset first), so
+    its spill catalog's budget and counters are this run's."""
+    from spark_rapids_tpu_torch.runtime import TorchRuntime
+    TorchRuntime.reset()
+    return st.TorchSession(conf or {})
+
+
+def same_result(torch, a, b, what: str, float_rtol=0.0) -> bool:
+    """Two ``to_torch`` results alike: the same rows, and every plane
+    bit for bit (strings: lengths and chars), except the float planes
+    when ``float_rtol`` is a tolerance (they agree within it) or None
+    (the caller checks them another way) -> whether every plane is bit
+    for bit alike."""
+    (ca, ma, na), (cb, mb, nb) = a, b
+    check(na == nb, f"{what}: {na} rows against {nb}")
+    bitwise = True
+    for name in ca:
+        check(torch.equal(ma[name][:na], mb[name][:nb]),
+              f"{what}: the nulls of {name} differ")
+        x, y = ca[name], cb[name]
+        if isinstance(x, tuple):
+            check(torch.equal(x[0][:na], y[0][:nb])
+                  and torch.equal(x[1][:na], y[1][:nb]),
+                  f"{what}: the strings of {name} differ")
+        elif x.dtype.is_floating_point:
+            bits = torch.int32 if x.element_size() == 4 else torch.int64
+            same = torch.equal(x[:na].view(bits), y[:nb].view(bits))
+            bitwise = bitwise and same
+            if float_rtol == 0.0:
+                check(same, f"{what}: {name} differs bit for bit")
+            elif float_rtol is not None:
+                check(bool(torch.allclose(x[:na], y[:nb], rtol=float_rtol,
+                                          atol=0.0, equal_nan=True)),
+                      f"{what}: {name} beyond rtol {float_rtol}")
+        else:
+            check(torch.equal(x[:na], y[:nb]), f"{what}: {name} differs")
+    return bitwise
+
+
+def tier_runs(torch, st, build, name: str, verify) -> None:
+    """``build(session)``'s query at the default budget, then with the
+    device budget at a quarter of the first run's catalog peak and the
+    host tier at an eighth of it: bytes reach the host and the disk.
+    ``verify`` holds each run to the reference; the two runs' integers,
+    strings and nulls are equal, and whether their floats are bit for
+    bit alike is printed (a float sum on the card may take another order
+    from run to run: the window's prefix sums do)."""
+    runs = []
+    conf = None
+    for budget in ("default", "quarter"):
+        s = fresh_session(st, conf)
+        q = build(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = q.to_torch()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        verify(out)
+        cat = s.runtime.catalog
+        check(cat.audit_leaks() == 0, f"{name}: handles left registered")
+        runs.append({"budget": budget,
+                     "device_budget_bytes": cat.device_budget,
+                     "host_budget_bytes": cat.host_budget,
+                     "seconds": secs, **cat.stats()})
+        if budget == "default":
+            want, peak = out, cat.peak_device_bytes
+            check(cat.spill_to_host_count == 0,
+                  f"{name}: spilled at the default budget")
+            conf = {"spark.rapids.memory.tpu.budgetBytes": peak // 4,
+                    "spark.rapids.memory.host.spillStorageSize": peak // 8}
+        else:
+            bitwise = same_result(torch, want, out, f"{name} spilled",
+                                  float_rtol=None)
+            check(cat.spill_to_host_bytes > 0 and cat.spill_to_disk_bytes > 0
+                  and cat.unspill_count > 0,
+                  f"{name}: the quarter budget moved no bytes to the host "
+                  f"and the disk: {cat.stats()}")
+    emit("memory_tiers", query=name, peak_device_bytes=peak,
+         floats_bit_for_bit=bitwise, runs=runs)
+
+
+class OomCounter:
+    """Wraps the port's ``is_device_oom`` to count the real
+    ``torch.OutOfMemoryError``s ``with_retry`` catches (instrumentation of
+    this script; the package counts nothing of the kind)."""
+
+    def __init__(self, torch, retry):
+        self.torch, self.retry = torch, retry
+        self.real = retry.is_device_oom
+        self.caught = 0
+
+    def __enter__(self):
+        def counting(e):
+            ok = self.real(e)
+            if ok and isinstance(e, self.torch.OutOfMemoryError):
+                self.caught += 1
+            return ok
+        self.retry.is_device_oom = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.retry.is_device_oom = self.real
+        return False
+
+
+def phase_oom_retry(torch, st, session) -> None:
+    """A real out-of-memory error inside ``with_retry``: a function whose
+    peak is two (rows, 512) int64 temporaries (8 GiB for 2^20 rows, 4 GiB
+    for a half) under a ballast that leaves 6 GiB free.  The whole batch
+    fails, relief does not help, the halves fit; their results equal the
+    unsplit call's off the ballast, the failed attempt's memory is back
+    before the next attempt starts, and the ballast's memory is back
+    after it is freed."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.columnar.dtypes import INT64
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    from spark_rapids_tpu_torch.utils import retry
+    n, width = 1 << 20, 512
+    temp = n * width * 8
+    x = torch.arange(n, dtype=torch.int64, device="cuda") % 1999 - 999
+    w = torch.arange(1, width + 1, dtype=torch.int64, device="cuda")
+    batch = ColumnarBatch([DeviceColumn(
+        INT64, x, torch.ones(n, dtype=torch.bool, device="cuda"), n)], n)
+    entry, rows, splits = [], [], []
+
+    def fn(b):
+        entry.append(torch.cuda.memory_allocated())
+        rows.append(b.num_rows)
+        v = b.columns[0].data[:b.num_rows]
+        t1 = v[:, None] * w[None, :]
+        t2 = t1 + v[:, None]
+        return t2.sum(1) - t1.sum(1) * 2
+
+    def split(b):
+        splits.append(b.num_rows)
+        return retry.split_batch_half(b)
+
+    want = fn(batch)
+    entry.clear()
+    rows.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0, total = torch.cuda.mem_get_info()
+    ballast = torch.empty(free0 - temp * 3 // 2, dtype=torch.uint8,
+                          device="cuda")
+    left = torch.cuda.mem_get_info()[0]
+    ctx = ExecContext(session.conf, session.device)
+    with OomCounter(torch, retry) as oom:
+        got = retry.with_retry(fn, batch, ctx, split=split)
+    torch.cuda.synchronize()
+    del ballast
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    check(oom.caught == 2, f"with_retry caught {oom.caught} real "
+          "out-of-memory errors, not 2 (the whole batch, then after relief)")
+    check(splits == [n] and rows == [n, n, n // 2, n // 2],
+          f"attempts over {rows} rows, splits of {splits}")
+    check(entry[1] <= entry[0], "the failed attempt's memory was not back "
+          f"before the next attempt: {entry[0]} then {entry[1]} bytes")
+    check(torch.equal(torch.cat(got), want),
+          "the halves' results differ from the unsplit call's")
+    check(free1 >= free0 - (256 << 20), f"{free0 - free1} bytes not back "
+          "after the ballast was freed")
+    emit("oom_retry", rows=n, temp_bytes=temp, total_bytes=total,
+         free_bytes=free0, free_under_ballast=left, caught=oom.caught,
+         attempt_rows=rows, allocated_at_attempts=entry,
+         free_after_bytes=free1)
+
+
+def phase_oom_query(torch, st, F, data) -> None:
+    """A real out-of-memory error in hash_agg_32m's aggregate: with
+    2^24-row update batches, the first batch's update runs under a
+    ballast that leaves three quarters of that update's peak (measured
+    on a run without it), so the whole batch fails and its halves, views
+    of it, fit.  The result equals the run without a ballast: keys,
+    counts and maxima exact, sums within rtol 1e-9 (the halves' partials
+    add in another order)."""
+    from spark_rapids_tpu_torch.exec import aggregate as agg_mod
+    from spark_rapids_tpu_torch.utils import retry
+    real = agg_mod.with_retry
+    conf = {"spark.rapids.sql.batchSizeRows": 1 << 24}
+    peaks = []
+
+    def measuring(fn, batch, ctx=None, split=None, max_depth=3):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = real(fn, batch, ctx, split, max_depth)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    state = {"first": True, "left": 0}
+
+    def ballasted(fn, batch, ctx=None, split=None, max_depth=3):
+        if not state["first"]:
+            return real(fn, batch, ctx, split, max_depth)
+        state["first"] = False
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        ballast = torch.empty(max(0, free - peaks[0] * 3 // 4),
+                              dtype=torch.uint8, device="cuda")
+        state["left"] = torch.cuda.mem_get_info()[0]
+        try:
+            return real(fn, batch, ctx, split, max_depth)
+        finally:
+            del ballast
+
+    results, secs, dense = [], [], []
+    for hook in (measuring, ballasted):
+        s = fresh_session(st, conf)
+        q = agg_query(st, F, s.create_dataframe(data))
+        agg_mod.with_retry = hook
+        try:
+            with OomCounter(torch, retry) as oom:
+                t0 = time.perf_counter()
+                results.append(q.to_torch())
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        finally:
+            agg_mod.with_retry = real
+        (agg,) = _plan_nodes(s._last_plan, "TorchHashAggregateExec")
+        dense.append(agg.metrics["pallasAggBatches"])
+        if hook is measuring:
+            check(oom.caught == 0, "an out-of-memory error without ballast")
+    check(oom.caught >= 1, "no out-of-memory error caught under the ballast")
+    check(dense == [2, 3], f"dense-slot update batches {dense}: the first "
+          "batch did not split into two halves on the kernel")
+    same_result(torch, results[0], results[1], "hash_agg_32m under ballast",
+                float_rtol=1e-9)
+    emit("oom_query", query="hash_agg_32m", rows=len(data["k"]),
+         batch_rows=1 << 24, update_peak_bytes=peaks[0],
+         free_under_ballast=state["left"], caught=oom.caught,
+         dense_batches=dense, seconds=secs)
+
+
+class Inject:
+    """Makes a retry site raise ``torch.OutOfMemoryError`` on its first
+    ``fails`` calls, by wrapping the function the site runs (``owner``'s
+    ``attr``; ``made``: wrap what that factory returns instead); records
+    the rows of each call."""
+
+    def __init__(self, torch, owner, attr, fails: int, rows_at,
+                 made: bool = False):
+        self.torch, self.owner, self.attr = torch, owner, attr
+        self.left, self.rows_at, self.made = fails, rows_at, made
+        self.real = getattr(owner, attr)
+        self.rows = []
+
+    def _wrap(self, fn):
+        def wrapper(*a, **k):
+            self.rows.append(self.rows_at(a))
+            if self.left > 0:
+                self.left -= 1
+                raise self.torch.OutOfMemoryError(
+                    "CUDA out of memory (injected by chip_smoke)")
+            return fn(*a, **k)
+        return wrapper
+
+    def __enter__(self):
+        if self.made:
+            real = self.real
+
+            def factory(*a, **k):
+                fn = real(*a, **k)
+                # the aggregate's merge makes its function here too
+                if len(a) > 1 and a[1] == "merge":
+                    return fn
+                return self._wrap(fn)
+            setattr(self.owner, self.attr, factory)
+        else:
+            setattr(self.owner, self.attr, self._wrap(self.real))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.real)
+        return False
+
+
+def sorted_agg_query(st, F, df):
+    """An aggregate by two keys, so it takes the sorted-segment route."""
+    col = st.col
+    return (df.group_by(col("k"), (col("v") > 0.0).alias("pos"))
+              .agg(F.count(col("v")).alias("cnt"), F.sum(col("v")).alias("s"),
+                   F.max(col("w")).alias("mx")))
+
+
+def phase_inject(torch, st, F, session, main, agg_data, dim) -> None:
+    """Every retry site raises ``torch.OutOfMemoryError`` on the card,
+    twice where a split follows (the attempt and the one after relief),
+    once where the input must stay whole; each query equals its run
+    without the error (bit for bit; an aggregate's float sums within
+    rtol 1e-9, since its halves' partials add in another order)."""
+    from spark_rapids_tpu_torch.exec import aggregate as agg_mod
+    from spark_rapids_tpu_torch.exec import pallas_agg as pag_mod
+    from spark_rapids_tpu_torch.exec import sort as sort_mod
+    from spark_rapids_tpu_torch.exec import stage as stage_mod
+    from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
+    from spark_rapids_tpu_torch.exec.window import TorchWindowExec
+    col = st.col
+    main_df = session.create_dataframe(main)
+    agg_df = session.create_dataframe(agg_data)
+    dim_df = session.create_dataframe(dim)
+
+    def project(df):
+        return (df.filter((col("v") > 0.0) & (col("k") < 900))
+                  .select((col("v") * 2.0 + 1.0).alias("a"), col("k")))
+
+    def batch_rows(i):
+        return lambda a: a[i].num_rows
+
+    sites = [
+        ("stage", project(main_df), stage_mod, "emit_steps", 2,
+         lambda a: a[2], False),
+        ("aggregate_dense", agg_query(st, F, agg_df), pag_mod,
+         "make_update", 2, lambda a: a[1], True),
+        ("aggregate_sorted", sorted_agg_query(st, F, agg_df), agg_mod,
+         "make_agg_body", 2, lambda a: a[1], True),
+        ("join_fk", hash_join_query(st, F, main_df, dim_df),
+         TorchHashJoinExec, "_fk", 2, batch_rows(1), False),
+        ("join_general", main_df.join(dim_df, on="k", how="left")
+         .group_by(col("grp")).agg(F.sum(col("v")).alias("s")),
+         TorchHashJoinExec, "_general", 2, batch_rows(1), False),
+        ("sort", agg_df.order_by(col("v")), sort_mod, "sort_batch", 1,
+         batch_rows(1), False),
+        ("window", window_query(st, F, main_df), TorchWindowExec, "_window",
+         1, batch_rows(1), False),
+    ]
+    out = []
+    for name, q, owner, attr, fails, rows_at, made in sites:
+        want = q.to_torch()
+        with Inject(torch, owner, attr, fails, rows_at, made) as inj:
+            got = q.to_torch()
+        torch.cuda.synchronize()
+        check(inj.left == 0, f"{name}: the injected error never fired")
+        if fails == 2:
+            whole = inj.rows[0]
+            check(inj.rows[1] == whole and sorted(inj.rows[2:4]) == sorted(
+                [whole // 2, whole - whole // 2]),
+                f"{name}: attempts over {inj.rows} rows, not a split")
+        else:
+            check(inj.rows[:2] == [inj.rows[0]] * 2,
+                  f"{name}: attempts over {inj.rows} rows")
+        if name == "window":  # its prefix sums may vary from run to run
+            check_window(want, main)
+            check_window(got, main)
+        bitwise = same_result(
+            torch, want, got, f"{name} after an injected error",
+            float_rtol=1e-9 if name.startswith("aggregate")
+            else None if name == "window" else 0.0)
+        out.append({"site": name, "fails": fails,
+                    "attempt_rows": inj.rows[:4], "out_rows": got[2],
+                    "floats_bit_for_bit": bitwise})
+    emit("inject", sites=out)
+
+
+def phase_memory(torch, st, F, session, main, agg_data, dim, big, tpch
+                 ) -> None:
+    """The memory phase: tiers at full size, a real out-of-memory error
+    inside ``with_retry`` and inside hash_agg_32m's aggregate, injected
+    errors at every retry site; no thread of the port's left after it."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    from spark_rapids_tpu_torch.io.prefetch import THREAD_PREFIX
+    tier_runs(torch, st, lambda s: window_query(
+        st, F, s.create_dataframe(main)), "window_1m",
+        lambda out: check_window(out, main))
+    want, limit = tpch_reference(tpch, "q18")
+    tier_runs(torch, st, lambda s: TPCH_QUERIES["q18"](
+        load_tables(s, tpch)), "tpch_q18",
+        lambda out: check_tpch(torch, *out, want, limit, "q18"))
+    phase_oom_retry(torch, st, session)
+    phase_oom_query(torch, st, F, big)
+    phase_inject(torch, st, F, fresh_session(st), main, agg_data, dim)
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(THREAD_PREFIX)]
+    check(not left, f"threads of the port left: {left}")
+    emit("memory_threads", port_threads_left=left)
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(
@@ -1684,6 +2201,11 @@ def parse_args(argv):
                          "queries")
     ap.add_argument("--sass-dir",
                     help="write each kernel library's SASS listing there")
+    ap.add_argument("--layer-cost", action="store_true",
+                    help="build the kernels, then time hash_agg_sort_2m, "
+                         "hash_join_1m, tpch_q3 and window_1m as the full "
+                         "run does, and stop (to set one package's times "
+                         "beside another's in one call)")
     return ap.parse_args(argv)
 
 
@@ -1722,6 +2244,9 @@ def main(argv=None) -> int:
     emit("sass", atomics=sass_summary(native, args.sass_dir))
 
     main_data, agg_data, dim_data = gen_data(1_000_000, 2_000_000)
+    if args.layer_cost:
+        return layer_cost(torch, st, F, native, main_data, agg_data,
+                          dim_data, name)
     t0 = time.perf_counter()
     line = gen_lineitem(LINEITEM_ROWS, SEED + 2)
     session = st.TorchSession.builder().get_or_create()
@@ -1761,10 +2286,7 @@ def main(argv=None) -> int:
           main_data)
     drive("hash_agg_sort_2m", phase_agg, torch, st, F, native, session,
           agg_data, "hash_agg_sort_2m", 3)
-    rng = np.random.default_rng(SEED + 1)
-    n = 32_000_000
-    big = {"k": rng.integers(0, 1000, n), "v": rng.normal(size=n),
-           "w": rng.normal(size=n).astype(np.float32)}
+    big = gen_big()
     drive("hash_agg_32m", phase_agg, torch, st, F, native, session, big,
           "hash_agg_32m", 1)
     del big
@@ -1811,6 +2333,8 @@ def main(argv=None) -> int:
                                        if q not in LEAD_QUERIES]:
         drive(f"tpcxbb_{qname}", phase_tpcxbb, torch, session, cpu, qname,
               TPCXBB_SALES_ROWS)
+    drive("memory", phase_memory, torch, st, F, session, main_data,
+          agg_data, dim_data, gen_big(), tpch)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     phase_repeat_sums(torch, st, F, session, tpch_dfs)
@@ -1821,6 +2345,11 @@ def main(argv=None) -> int:
                         ("tpcxbb_q2", session.sql(TPCXBB_QUERIES["q2"]))]:
         dsr["max_abs_err"] = max(dsr["max_abs_err"], phase_kernel_path(
             torch, pag, session, query, path))
+    # the first half of hash_agg_sort_2m's first update batch, at the
+    # half's capacity, as an out-of-memory split hands it to the kernel
+    dsr["max_abs_err"] = max(dsr["max_abs_err"], phase_kernel_path(
+        torch, pag, session, agg_query(st, F, session.create_dataframe(
+            agg_data)), "hash_agg_sort_2m", half=True))
     phase_hash_device(torch)
     phase_join_routes(torch, st, session)
     phase_trace(torch, text_agg_query(st, F, line_df), "text_filter_agg_6m")

@@ -14,6 +14,7 @@ on the session's device.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 from typing import Dict, List, Optional, Tuple
 
@@ -439,8 +440,12 @@ class DataFrame:
     def _execute(self):
         """Plan and run the query; the device batches of its result."""
         root = plan_query(self.plan, self.session.conf)
-        ctx = ExecContext(self.session.conf, self.session.device)
-        batches = list(root.execute(ctx))
+        ctx = ExecContext(self.session.conf, self.session.device,
+                          self.session.runtime)
+        # closing the stream ends every operator's generator, and with
+        # them the handles and threads they hold, on an error as well
+        with contextlib.closing(root.execute(ctx)) as stream:
+            batches = list(stream)
         self.session._last_plan = root
         return root.output_schema, batches
 

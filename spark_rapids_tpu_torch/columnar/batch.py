@@ -209,6 +209,32 @@ class ColumnarBatch:
     def size_bytes(self) -> int:
         return sum(c.size_bytes() for c in self.columns)
 
+    def slice_rows(self, start: int, n: int) -> "ColumnarBatch":
+        """Rows ``start`` to ``start + n`` at the bucket capacity of
+        ``n``; padding rows are zero and invalid, and a string column
+        keeps its width.  Rows that fill their bucket exactly (the halves
+        of a full batch) are views of this batch's planes, so the split
+        of an out-of-memory retry allocates nothing for them."""
+        if start < 0 or n < 0 or start + n > self.num_rows:
+            raise ValueError(f"rows [{start}, {start + n}) are not inside "
+                             f"a batch of {self.num_rows}")
+        cap = bucket_capacity(max(1, n))
+        cols = []
+        for c in self.columns:
+            planes = []
+            for a in (c.data, c.validity, c.chars):
+                if a is None:
+                    planes.append(None)
+                    continue
+                out = a[start:start + n]
+                if n < cap:
+                    out = a.new_zeros((cap,) + tuple(a.shape[1:]))
+                    out[:n] = a[start:start + n]
+                planes.append(out)
+            cols.append(DeviceColumn(c.dtype, planes[0], planes[1], n,
+                                     planes[2]))
+        return ColumnarBatch(cols, n, self.schema)
+
     def __repr__(self):
         return (f"ColumnarBatch(rows={self.num_rows}, "
                 f"cols={len(self.columns)}, cap={self.capacity})")

@@ -79,6 +79,38 @@ PALLAS_AGG = register(
     "the sorted-segment path.", bool)
 
 
+def _fraction(v) -> Optional[str]:
+    return None if 0.0 < v <= 1.0 else "must be in (0, 1]"
+
+
+CONCURRENT_TASKS = register(
+    "spark.rapids.tpu.concurrentTasks", 2,
+    "Number of tasks the device semaphore admits at once (runtime.py; "
+    "the JAX package's key and default).", int, _positive)
+
+ALLOC_FRACTION = register(
+    "spark.rapids.memory.tpu.allocFraction", 0.9,
+    "Fraction of the card's total memory the spill catalog budgets for "
+    "the batches it tracks.", float, _fraction)
+
+BUDGET_BYTES = register(
+    "spark.rapids.memory.tpu.budgetBytes", 0,
+    "Explicit device budget of the spill catalog in bytes; 0 derives it "
+    "from the card's total memory x allocFraction.", int)
+
+HOST_SPILL_STORAGE_SIZE = register(
+    "spark.rapids.memory.host.spillStorageSize", 1 << 30,
+    "Bytes of pinned host memory holding spilled device batches before "
+    "they demote to disk.", int)
+
+IO_PREFETCH_ENABLED = register(
+    "spark.rapids.sql.io.prefetch.enabled", True,
+    "Pull the child of a coalesce on a background thread one batch "
+    "ahead of the concat (io/prefetch.py: device_lookahead); false runs "
+    "the child in the consumer's thread.  Both give the same batches in "
+    "the same order.", bool)
+
+
 class TorchConf:
     """Immutable view over a conf dict."""
 

@@ -21,6 +21,14 @@ costs microseconds, so every batch is probed.  An aggregate with no
 functions (``DataFrame.distinct``) outputs its groups' keys alone, in
 the same order.
 
+The update runs under ``with_retry`` on both routes: on a device
+out-of-memory error the spill catalog is relieved, then the batch is
+split in half, each half its own partial (a half's keys take K1 at the
+half's smaller capacity).  Partials wait for the merge as
+``SpillableBatch``es, read back by ``materialize_all``.  A split changes
+the order of float sums only, within the class ``exec/pallas_agg.py``
+documents; counts, integer sums, min and max stay exact.
+
 String grouping keys take the sorted-segment path (the dense-slot router
 rejects them, as the JAX package's does): their sort keys are the packed
 byte blocks of ``exec/sortkeys.py``, and each group's key is gathered,
@@ -48,6 +56,9 @@ from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction, \
     Count, First
 from spark_rapids_tpu_torch.exprs.base import Alias, ColVal, EvalContext, \
     Expression, colvals
+from spark_rapids_tpu_torch.memory.spill import SpillableBatch, close_all, \
+    materialize_all
+from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
 
 
 def unwrap_aggregate(e: Expression) -> Tuple[str, AggregateFunction]:
@@ -294,17 +305,30 @@ class TorchHashAggregateExec(TorchExec):
                          n_groups)
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        partials = [self._run_phase("update", b, ctx.conf)
-                    for b in self.children[0].execute(ctx)]
-        if not partials:
-            if self.groupings:
-                return  # grouped aggregate of empty input -> no rows
-            # a global aggregate of empty input -> its initial values
-            partials = [self._run_phase("update", empty_batch(
-                self.children[0].output_schema, ctx.device))]
-        merged = partials[0]
-        if len(partials) > 1:
-            merged = self._run_phase("merge", concat_batches(partials))
+        cat = ctx.runtime.catalog
+        # the update partials wait for the merge as spillable handles
+        partials: List[SpillableBatch] = []
+        try:
+            for batch in self.children[0].execute(ctx):
+                # on a device out-of-memory error: relief, then halves
+                for part in with_retry(
+                        lambda b: self._run_phase("update", b, ctx.conf),
+                        batch, ctx, split=split_batch_half):
+                    partials.append(SpillableBatch(part, cat))
+            if not partials:
+                if self.groupings:
+                    return  # grouped aggregate of empty input -> no rows
+                # a global aggregate of empty input -> its initial values
+                partials.append(SpillableBatch(self._run_phase(
+                    "update", empty_batch(self.children[0].output_schema,
+                                          ctx.device)), cat))
+        except BaseException:
+            close_all(partials)
+            raise
+        merged_in = materialize_all(partials, ctx)
+        merged = merged_in[0]
+        if len(merged_in) > 1:
+            merged = self._run_phase("merge", concat_batches(merged_in))
         outs = evaluate(self.spec, colvals(merged.columns), merged.num_rows)
         yield _to_batch(outs, [f.dtype for f in self._schema],
                         merged.num_rows, self._schema)

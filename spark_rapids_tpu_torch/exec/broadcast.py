@@ -9,9 +9,12 @@ hash-join core
 other side's batches through it.  The planner picks the side to
 broadcast by its estimated size (``spark.sql.autoBroadcastJoinThreshold``)
 and swaps the sides behind a reordering projection when only the left
-side is small (``plan/planner.py``).  The JAX package's spill-catalog
-registration and Arrow serialization of the table serve its memory tiers
-and multi-process executors, which the port does not have yet.
+side is small (``plan/planner.py``).  The build is a ``SpillableBatch``
+at ``PRIORITY_RETAIN``, so it demotes after every working batch, and
+``get()`` promotes it back; where the JAX package hands the handle to
+its query lifecycle, the port closes it when the join's stream ends or
+is closed.  The Arrow serialization of the table, for multi-process
+executors, waits for the exchange slice (queue A8).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec, one_batch
 from spark_rapids_tpu_torch.exprs.base import Expression
+from spark_rapids_tpu_torch.memory.spill import PRIORITY_RETAIN, \
+    SpillableBatch
 
 
 class TorchBroadcastExchangeExec(TorchExec):
@@ -36,10 +41,21 @@ class TorchBroadcastExchangeExec(TorchExec):
     def output_schema(self) -> Schema:
         return self.children[0].output_schema
 
-    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+    def materialize(self, ctx: ExecContext) -> SpillableBatch:
+        """The build: the child's output as one batch, registered with
+        the spill catalog in the class that demotes last.  The caller
+        closes the handle."""
         batch = one_batch(self.children[0], ctx)
         self.metrics["dataSize"] = batch.size_bytes()
-        yield batch
+        return SpillableBatch(batch, ctx.runtime.catalog,
+                              priority=PRIORITY_RETAIN)
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        handle = self.materialize(ctx)
+        try:
+            yield handle.get()
+        finally:
+            handle.close()
 
 
 class TorchBroadcastHashJoinExec(TorchHashJoinExec):
@@ -54,3 +70,12 @@ class TorchBroadcastHashJoinExec(TorchHashJoinExec):
                             "broadcast exchange")
         super().__init__(left, broadcast, left_keys, right_keys, join_type,
                          condition)
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        # the build's handle lives as long as this query's stream: the
+        # generator's end, or its close, releases it
+        handle = self.children[1].materialize(ctx)
+        try:
+            yield from self._join(ctx, handle.get())
+        finally:
+            handle.close()

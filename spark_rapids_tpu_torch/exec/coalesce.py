@@ -8,7 +8,12 @@ are padded to the widest of them, as in the JAX package.
 and row cap the JAX package uses before an aggregate, so both packages
 hand the aggregate the same batches.  The port counts the rows a batch
 holds; the JAX package counts a filtered batch by its pre-filter bound,
-so after a filter the two can flush at different points.
+so after a filter the two can flush at different points.  The pending
+batches are ``SpillableBatch``es, brought back by ``materialize_all``
+before the concat, which holds a permit of the device's semaphore; the
+child is pulled one batch ahead on a background thread
+(``io/prefetch.py: device_lookahead``) unless
+``spark.rapids.sql.io.prefetch.enabled`` is off.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
     bucket_capacity
 from spark_rapids_tpu_torch.conf import BATCH_SIZE_BYTES, BATCH_SIZE_ROWS
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
+from spark_rapids_tpu_torch.io.prefetch import device_lookahead
+from spark_rapids_tpu_torch.memory.spill import SpillableBatch, close_all, \
+    materialize_all
 
 
 def concat_batches(batches: List[ColumnarBatch]) -> ColumnarBatch:
@@ -69,17 +77,37 @@ class TorchCoalesceBatchesExec(TorchExec):
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         target = ctx.conf.get(BATCH_SIZE_BYTES)
         max_rows = ctx.conf.get(BATCH_SIZE_ROWS)
-        pending: List[ColumnarBatch] = []
+        cat = ctx.runtime.catalog
+        # pending batches are spillable while they wait for the goal
+        pending: List[SpillableBatch] = []
         pending_bytes = pending_rows = 0
-        for b in self.children[0].execute(ctx):
-            if b.num_rows == 0:
-                continue
-            if pending and (pending_bytes + b.size_bytes() > target
-                            or pending_rows + b.num_rows > max_rows):
-                yield concat_batches(pending)
-                pending, pending_bytes, pending_rows = [], 0, 0
-            pending.append(b)
-            pending_bytes += b.size_bytes()
-            pending_rows += b.num_rows
-        if pending:
-            yield concat_batches(pending)
+        src = device_lookahead(self.children[0].execute(ctx), ctx,
+                               self.metrics)
+        try:
+            for b in src:
+                if b.num_rows == 0:
+                    continue
+                if pending and (pending_bytes + b.size_bytes() > target
+                                or pending_rows + b.num_rows > max_rows):
+                    yield self._flush(pending, ctx)
+                    pending, pending_bytes, pending_rows = [], 0, 0
+                pending_bytes += b.size_bytes()
+                pending_rows += b.num_rows
+                pending.append(SpillableBatch(b, cat))
+            if pending:
+                yield self._flush(pending, ctx)
+                pending = []
+        except BaseException:
+            close_all(pending)
+            raise
+        finally:
+            src.close()
+
+    def _flush(self, pending: List[SpillableBatch],
+               ctx: ExecContext) -> ColumnarBatch:
+        # staging before the permit: the promotion of a spilled batch may
+        # wait on host staging, which must never happen while a permit
+        # is held, or every other task waiting for one would starve
+        flushed = materialize_all(pending, ctx)
+        with ctx.runtime.acquire_device():
+            return concat_batches(flushed)

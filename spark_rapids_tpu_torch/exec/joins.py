@@ -35,8 +35,10 @@ split defines the reference's hash value.
 Each output batch's row count is read back to the host (``hostSyncs``
 counts every read).  Not carried over: the bitonic sort, the unrolled
 binary search and matmul prefix sums (TPU workarounds), the memoized
-build probe (a remote-link workaround), the retry on out-of-memory and
-the compressed code views (later slices), band joins and cross joins.
+build probe (a remote-link workaround), the compressed code views (a
+later slice), band joins and cross joins.  Each stream batch's probe, on
+either route, runs under ``with_retry`` (``utils/retry.py``) and splits
+in halves when relief is not enough.
 An inner join's ``condition`` (the non-equi terms of ``ON``, or a
 predicate the planner pushed into the join) filters each joined batch
 after the probe, as the JAX package does; the planner raises on a
@@ -62,6 +64,7 @@ from spark_rapids_tpu_torch.exec.stage import emit_steps
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, colvals
 from spark_rapids_tpu_torch.exprs.predicates import string_compare
+from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
 
 _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
@@ -343,7 +346,10 @@ class TorchHashJoinExec(TorchExec):
         return Schema(lf + rf)
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        b_batch = one_batch(self.children[1], ctx)
+        yield from self._join(ctx, one_batch(self.children[1], ctx))
+
+    def _join(self, ctx: ExecContext,
+              b_batch: ColumnarBatch) -> Iterator[ColumnarBatch]:
         inner = self.join_type == "inner"
         # the join's own work runs inside named ranges (join.build,
         # join.<route>) that a torch.profiler trace attributes time to;
@@ -362,13 +368,21 @@ class TorchHashJoinExec(TorchExec):
             if self.join_type in ("right", "full") else None
         for sb in self.children[0].execute(ctx):
             with record_function(f"join.{self.route}"):
+                # each stream batch's probe: on a device out-of-memory
+                # error, relief, then the stream batch in halves
                 if fk:
-                    outs = [self._fk(sb, build, dense_cap)]
-                    self.metrics["fkFastPathBatches"] += 1
+                    outs = with_retry(
+                        lambda b: self._fk(b, build, dense_cap), sb, ctx,
+                        split=split_batch_half)
+                    self.metrics["fkFastPathBatches"] += len(outs)
                 else:
-                    outs, mb = self._general(sb, build)
-                    if mb is not None:
-                        m_build += mb
+                    outs = []
+                    for part, mb in with_retry(
+                            lambda b: self._general(b, build), sb, ctx,
+                            split=split_batch_half):
+                        outs += part
+                        if mb is not None:
+                            m_build += mb
                 if self.condition is not None:
                     outs = [self._keep_where(o) for o in outs if o.num_rows]
             yield from (o for o in outs if o.num_rows)

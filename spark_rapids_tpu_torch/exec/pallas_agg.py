@@ -20,7 +20,11 @@ Not carried over from the TPU package: the one-time Mosaic probe and its
 XLA fallback, and the f64-limb split of int64 sums (an int64 sum is one
 int64 plane added with two's-complement wraparound, as Java does).
 ``supports`` and ``max_capacity`` still route exactly as the JAX package
-does, so the same batches take the kernel in both.
+does, so the same batches take the kernel in both.  Nothing here is
+cached by capacity: ``prepare_launch`` sizes each launch (``launch_plan``,
+``fsum_grid``) from the rows of the call in hand, so the half of a batch
+that an out-of-memory split hands the kernel launches at its own,
+smaller capacity.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ concatenates the whole input into one batch, sorts it by the order keys
 included, by the permutation.  ``TorchTopNExec`` (a limit over a sort)
 keeps the first ``limit`` rows of the sorted concatenation of what it
 kept so far and the next batch, so it never holds more than the limit
-and one batch.
+and one batch.  The sort's input collects through the spill catalog
+(``collect_spillable``); every sort runs under ``with_retry`` without a
+split, since it needs its whole input at once.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
     sort_permutation
 from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression, \
     colvals
+from spark_rapids_tpu_torch.memory.spill import collect_spillable, \
+    materialize_all
+from spark_rapids_tpu_torch.utils.retry import with_retry
 
 
 def sort_batch(orders: List[Tuple[Expression, bool, bool]],
@@ -56,9 +61,14 @@ class TorchSortExec(TorchExec):
         return self.children[0].output_schema
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        batches = list(self.children[0].execute(ctx))
-        if batches:
-            yield sort_batch(self.orders, concat_batches(batches))
+        # the input collects as spillable handles, within the budget
+        handles = collect_spillable(self.children[0].execute(ctx), ctx)
+        if not handles:
+            return
+        batch = concat_batches(materialize_all(handles, ctx))
+        # a global sort needs its whole input at once: relief, no split
+        yield from with_retry(lambda b: sort_batch(self.orders, b), batch,
+                              ctx)
 
 
 class TorchTopNExec(TorchExec):
@@ -79,6 +89,8 @@ class TorchTopNExec(TorchExec):
         top = None
         for b in self.children[0].execute(ctx):
             cand = b if top is None else concat_batches([top, b])
-            top = head(sort_batch(self.orders, cand), self.limit)
+            # one batch's sort: relief on a device out-of-memory error
+            top = head(with_retry(lambda bb: sort_batch(self.orders, bb),
+                                  cand, ctx)[0], self.limit)
         if top is not None and top.num_rows:
             yield top

@@ -11,6 +11,10 @@ front with a gather, keeping the input capacity: rows past the new count
 are padding (invalid, holding the last row's data as in the JAX package),
 so the batches downstream operators see keep the JAX package's shapes.
 The new row count is read back to the host: one sync per filter.
+
+Each batch runs under ``with_retry`` (``utils/retry.py``): on a device
+out-of-memory error the spill catalog is relieved and the batch runs
+again, then in halves, each half its own output batch.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, colvals
+from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
 
 # a step is ("project", (expr, ...)) or ("filter", (pred,))
 Step = Tuple[str, Tuple[Expression, ...]]
@@ -71,17 +76,27 @@ class TorchStageExec(TorchExec):
                                  for e in exprs])
         self._schema = schema
         self._filters = sum(kind == "filter" for kind, _ in self.steps)
+        self._deterministic = all(e.deterministic for _, es in self.steps
+                                  for e in es)
 
     @property
     def output_schema(self) -> Schema:
         return self._schema
 
+    def _run(self, batch: ColumnarBatch) -> ColumnarBatch:
+        cols, n = emit_steps(self.steps, colvals(batch.columns),
+                             batch.num_rows, batch.capacity, batch.device)
+        out = [DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars)
+               for f, cv in zip(self._schema, cols)]
+        return ColumnarBatch(out, n, self._schema)
+
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        # rows split freely under per-row project and filter steps, but a
+        # value that depends on the row's position would change: such a
+        # stage retries without splitting
+        split = split_batch_half if self._deterministic else None
         for batch in self.children[0].execute(ctx):
-            cols, n = emit_steps(self.steps, colvals(batch.columns),
-                                 batch.num_rows, batch.capacity, batch.device)
-            self.metrics["stageDispatches"] += 1
-            self.metrics["hostSyncs"] += self._filters
-            out = [DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars)
-                   for f, cv in zip(self._schema, cols)]
-            yield ColumnarBatch(out, n, self._schema)
+            results = with_retry(self._run, batch, ctx, split=split)
+            self.metrics["stageDispatches"] += len(results)
+            self.metrics["hostSyncs"] += self._filters * len(results)
+            yield from results

@@ -24,9 +24,10 @@ keep their order and gain one column per function.  The exec reads
 nothing back to the host (its ``hostSyncs`` stays 0); ``window.sort``
 and ``window.eval`` name its two halves in a torch.profiler trace.
 
-Not carried over: the matmul prefix sums, the bitonic sort and the
-compiled-kernel cache (TPU workarounds), and the spill-and-retry
-wrapping.  Min, max, first and last over a frame (the JAX package's
+The input collects through the spill catalog (``collect_spillable``),
+and the window runs under ``with_retry`` without a split, since a split
+would cut partitions.  Not carried over: the matmul prefix sums, the
+bitonic sort and the compiled-kernel cache (TPU workarounds).  Min, max, first and last over a frame (the JAX package's
 arg-select scans and sparse-table range query) are not in the port yet:
 the planner raises on them.
 """
@@ -50,6 +51,9 @@ from spark_rapids_tpu_torch.exprs.aggregates import Average, Count, Sum
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, colvals
 from spark_rapids_tpu_torch.exprs.windows import DenseRank, Lag, Lead, \
     Rank, RowNumber, WindowExpression, WindowFrame
+from spark_rapids_tpu_torch.memory.spill import collect_spillable, \
+    materialize_all
+from spark_rapids_tpu_torch.utils.retry import with_retry
 
 
 class _Geometry:
@@ -269,10 +273,15 @@ class TorchWindowExec(TorchExec):
         return self._schema
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        batches = list(self.children[0].execute(ctx))
-        if not batches:
+        # the input collects as spillable handles, within the budget
+        handles = collect_spillable(self.children[0].execute(ctx), ctx)
+        if not handles:
             return
-        batch = concat_batches(batches)
+        batch = concat_batches(materialize_all(handles, ctx))
+        # relief without a split: a partition must stay whole
+        yield from with_retry(self._window, batch, ctx)
+
+    def _window(self, batch: ColumnarBatch) -> ColumnarBatch:
         cap, n, dev = batch.capacity, batch.num_rows, batch.device
         ectx = EvalContext(colvals(batch.columns), n, cap, dev)
         spec = self.window_cols[0][1]
@@ -305,4 +314,4 @@ class TorchWindowExec(TorchExec):
                 valid = torch.empty_like(valid_s)
                 valid[perm] = valid_s & g.live
                 cols.append(DeviceColumn(wexpr.dtype, data, valid, n))
-        yield ColumnarBatch(cols, n, self._schema)
+        return ColumnarBatch(cols, n, self._schema)

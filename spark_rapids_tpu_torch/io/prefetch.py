@@ -1,0 +1,218 @@
+"""Background pull of a batch iterator, one thread a stream.
+
+Counterpart of ``spark_rapids_tpu/io/prefetch.py`` (``PrefetchIterator``,
+``device_lookahead``).  ``PrefetchIterator`` drives a source iterator on
+a thread of its own, up to ``depth`` items ahead of its consumer,
+through a bounded queue:
+
+- one producer keeps the source's order, so a run with the pull on and
+  one with it off give the same batches in the same order;
+- an error in the producer is raised, the same exception object, at
+  the consumer's next ``__next__``;
+- ``close()`` (or the end of the stream) stops the producer, drains the
+  queue and joins the thread; the source is closed on the producer's
+  thread, which is the one running it.
+
+The producer runs on the consumer's device (the current device is per
+thread in PyTorch).  On a card, it records an event on its stream after
+each item, and the consumer's stream waits on that event before the
+consumer touches the item; if the two streams differ, the item's tensors
+are also recorded on the consumer's stream, so the allocator does not
+reuse their memory while the consumer's work is pending.  No host sync
+is added.
+
+``device_lookahead`` is the use the port has: the coalesce exec pulls
+its child one batch ahead, so the child's next upload overlaps the
+current concat, when ``spark.rapids.sql.io.prefetch.enabled`` is on.
+The file readers' ``maybe_prefetch`` waits for their slice (queue A12).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+import time
+from typing import Iterator
+
+import torch
+
+from spark_rapids_tpu_torch.conf import IO_PREFETCH_ENABLED
+
+# every thread the port starts has a name with this prefix
+THREAD_PREFIX = "spark-rapids-torch-"
+
+
+class _Done:
+    __slots__ = ()
+
+
+_DONE = _Done()
+
+
+class _Failure:
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def _item_tensors(item):
+    for c in getattr(item, "columns", ()):
+        for t in (c.data, c.validity, c.chars):
+            if t is not None:
+                yield t
+
+
+class PrefetchIterator:
+    """A bounded single-producer background iterator over ``source``
+    (see the module docstring).  ``metrics``, a dict of counters, gets
+    the items pulled (``prefetchBatches``) and the consumer's waits for
+    them, the first one apart (``prefetchFillMs``, ``prefetchStallMs``)."""
+
+    _JOIN_TIMEOUT_S = 60.0
+    _POLL_S = 0.05
+
+    def __init__(self, source: Iterator, depth: int = 2,
+                 name: str = "prefetch", device=None, metrics=None):
+        self.depth = max(1, int(depth))
+        self._source = source
+        self._device = None if device is None else torch.device(device)
+        self._metrics = metrics
+        self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        self._stop = threading.Event()
+        self._done = False
+        self.batches = 0
+        # the first wait fills the pipe: nothing ran yet to overlap it
+        self._filled = False
+        self.fill_ns = 0
+        self.stall_ns = 0
+        self._thread = threading.Thread(target=self._run,
+                                        name=THREAD_PREFIX + name,
+                                        daemon=True)
+        self._thread.start()
+
+    @property
+    def _cuda(self) -> bool:
+        return self._device is not None and self._device.type == "cuda"
+
+    # -- producer -----------------------------------------------------------
+
+    def _run(self) -> None:
+        ctx = torch.cuda.device(self._device) if self._cuda \
+            else contextlib.nullcontext()
+        with ctx:
+            try:
+                while not self._stop.is_set():
+                    item = next(self._source)
+                    if not self._put((item,) + self._mark()):
+                        break
+            except StopIteration:
+                pass
+            except BaseException as e:  # raised again by the consumer
+                self._put((_Failure(e), None, None))
+            finally:
+                close = getattr(self._source, "close", None)
+                if close is not None:
+                    try:
+                        close()
+                    except BaseException as e:  # raised by the consumer
+                        self._put((_Failure(e), None, None))
+                self._put((_DONE, None, None))
+
+    def _mark(self):
+        """(event, stream): where the item's device work ends."""
+        if not self._cuda:
+            return None, None
+        stream = torch.cuda.current_stream(self._device)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        return ev, stream
+
+    def _put(self, wrapped) -> bool:
+        """Put, unless the consumer stopped the stream."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(wrapped, timeout=self._POLL_S)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    # -- consumer -----------------------------------------------------------
+
+    def __iter__(self) -> "PrefetchIterator":
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        t0 = time.perf_counter_ns()
+        while True:
+            try:
+                item, ev, stream = self._q.get(timeout=self._POLL_S)
+                break
+            except queue.Empty:
+                if not self._thread.is_alive() and self._q.empty():
+                    self._finish()
+                    raise RuntimeError("the prefetch producer ended "
+                                       "without a result")
+        waited = time.perf_counter_ns() - t0
+        if self._filled:
+            self.stall_ns += waited
+        else:
+            self.fill_ns += waited
+            self._filled = True
+        if item is _DONE:
+            self._finish()
+            raise StopIteration
+        if isinstance(item, _Failure):
+            self._stop.set()
+            self._finish()
+            raise item.exc
+        if ev is not None:
+            cur = torch.cuda.current_stream(self._device)
+            cur.wait_event(ev)
+            if cur != stream:
+                for t in _item_tensors(item):
+                    t.record_stream(cur)
+        self.batches += 1
+        return item
+
+    def _finish(self) -> None:
+        if self._done:
+            return
+        self._done = True
+        if self._metrics is not None:
+            self._metrics["prefetchBatches"] += self.batches
+            self._metrics["prefetchFillMs"] += self.fill_ns // 1_000_000
+            self._metrics["prefetchStallMs"] += self.stall_ns // 1_000_000
+
+    def _drain(self) -> None:
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                return
+
+    def close(self) -> None:
+        """Stop the producer, drop what it queued and join its thread."""
+        self._stop.set()
+        self._drain()
+        self._thread.join(timeout=self._JOIN_TIMEOUT_S)
+        self._drain()
+        self._finish()
+        if self._thread.is_alive():
+            raise RuntimeError(f"prefetch thread {self._thread.name} did "
+                               f"not stop within {self._JOIN_TIMEOUT_S} s")
+
+
+def device_lookahead(source: Iterator, ctx, metrics=None,
+                     name: str = "coalesce-pull") -> Iterator:
+    """``source`` pulled one batch ahead on a background thread, on the
+    context's device; ``source`` itself when
+    ``spark.rapids.sql.io.prefetch.enabled`` is off."""
+    if not ctx.conf.get(IO_PREFETCH_ENABLED):
+        return source
+    return PrefetchIterator(source, depth=1, name=name, device=ctx.device,
+                            metrics=metrics)

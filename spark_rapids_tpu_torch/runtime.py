@@ -1,0 +1,163 @@
+"""Device runtime: the memory budget and the task admission semaphore.
+
+Counterpart of ``spark_rapids_tpu/runtime.py``.  One ``TorchRuntime``
+per process and device holds the two control points the JAX package
+has: a budget (the card's total memory x
+``spark.rapids.memory.tpu.allocFraction``, or
+``spark.rapids.memory.tpu.budgetBytes``) that the spill catalog
+(``memory/spill.py``) keeps the batches it tracks under, and a counted
+semaphore (``spark.rapids.tpu.concurrentTasks``) that bounds the tasks
+using the device at once.  PyTorch's caching allocator owns the card's
+memory, as XLA owns the TPU's, so the budget is advisory: what exceeds
+it demotes to the host, and an allocation that fails anyway raises
+``torch.OutOfMemoryError``, which ``utils/retry.py`` handles.
+
+On the CPU the budget assumes 16 GiB of device memory, as the JAX
+package does, so both packages budget alike under one conf dict.  Not
+carried over: the compile cache, the DOUBLE-as-float policy, the
+compile service, the cost probe and the device scan cache (each waits
+for the slice of ``ROADMAP.md`` that needs it), and the semaphore's
+resize and cancel polling (the serving stack's).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+import warnings
+from typing import Dict
+
+import torch
+
+from spark_rapids_tpu_torch.conf import (
+    ALLOC_FRACTION, BUDGET_BYTES, CONCURRENT_TASKS, HOST_SPILL_STORAGE_SIZE,
+    TorchConf,
+)
+
+# device memory the budget assumes where the device reports none (the
+# CPU), as the JAX package assumes on its CPU platform
+_CPU_DEVICE_BYTES = 16 * 1024 ** 3
+
+
+class TorchSemaphore:
+    """Counted admission of tasks to the device, re-entrant per thread:
+    a thread that holds a permit takes it again without waiting, and
+    gives it back when its outermost hold ends.  ``wait_count`` and
+    ``wait_ns`` record the waits, so contention shows apart from work."""
+
+    def __init__(self, permits: int):
+        self.permits = max(1, int(permits))
+        self._cv = threading.Condition()
+        self._in_use = 0
+        self._held = threading.local()
+        self.acquire_count = 0
+        self.wait_count = 0
+        self.wait_ns = 0
+
+    def acquire(self) -> None:
+        depth = getattr(self._held, "depth", 0)
+        if depth == 0:
+            with self._cv:
+                self.acquire_count += 1
+                if self._in_use >= self.permits:
+                    t0 = time.perf_counter_ns()
+                    while self._in_use >= self.permits:
+                        self._cv.wait()
+                    self.wait_count += 1
+                    self.wait_ns += time.perf_counter_ns() - t0
+                self._in_use += 1
+        self._held.depth = depth + 1
+
+    def release(self) -> None:
+        depth = getattr(self._held, "depth", 0)
+        if depth <= 0:
+            return
+        self._held.depth = depth - 1
+        if depth == 1:
+            with self._cv:
+                self._in_use -= 1
+                self._cv.notify()
+
+    def available(self) -> int:
+        """Free permits now (advisory: another thread may take one)."""
+        with self._cv:
+            return max(0, self.permits - self._in_use)
+
+    @contextlib.contextmanager
+    def held(self):
+        self.acquire()
+        try:
+            yield
+        finally:
+            self.release()
+
+
+def device_total_bytes(device: torch.device) -> int:
+    """The card's total memory (``torch.cuda.mem_get_info``'s second
+    value); the JAX package's 16 GiB on the CPU."""
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[1])
+    return _CPU_DEVICE_BYTES
+
+
+class TorchRuntime:
+    """The runtime of one device in this process: its budget, its spill
+    catalog and its semaphore.  ``get_or_create`` returns the one made
+    for the device first, with that first conf, as the JAX package's
+    singleton does; ``reset`` drops them all (tests, and a new budget)."""
+
+    _instances: Dict[str, "TorchRuntime"] = {}
+    _lock = threading.Lock()
+
+    def __init__(self, conf: TorchConf, device: torch.device):
+        from spark_rapids_tpu_torch.memory.spill import BufferCatalog
+        self.conf = conf
+        self.device = torch.device(device)
+        self.semaphore = TorchSemaphore(conf.get(CONCURRENT_TASKS))
+        self.budget_bytes = int(device_total_bytes(self.device)
+                                * conf.get(ALLOC_FRACTION))
+        override = conf.get(BUDGET_BYTES)
+        self.catalog = BufferCatalog(
+            override if override > 0 else self.budget_bytes,
+            conf.get(HOST_SPILL_STORAGE_SIZE))
+
+    @staticmethod
+    def _key(device: torch.device) -> str:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return str(device)
+
+    @classmethod
+    def get_or_create(cls, conf: TorchConf,
+                      device: torch.device) -> "TorchRuntime":
+        key = cls._key(device)
+        with cls._lock:
+            rt = cls._instances.get(key)
+            if rt is None:
+                rt = cls._instances[key] = TorchRuntime(conf, device)
+            return rt
+
+    @classmethod
+    def reset(cls) -> None:
+        """Shut every runtime down and forget it."""
+        with cls._lock:
+            runtimes = list(cls._instances.values())
+            cls._instances.clear()
+        for rt in runtimes:
+            rt.shutdown()
+
+    def acquire_device(self):
+        """A section that holds one of the device's permits."""
+        return self.semaphore.held()
+
+    def shutdown(self) -> None:
+        """Warn of handles still registered (an operator's leak), then
+        close the catalog, which removes its spill directory."""
+        leaked = self.catalog.audit_leaks()
+        if leaked:
+            warnings.warn(f"{leaked} spillable batch(es) still registered "
+                          "at runtime shutdown (operator leak)",
+                          ResourceWarning)
+        self.catalog.close()

@@ -5,7 +5,9 @@ and the ``torch.device`` it runs on, taken from
 ``spark.rapids.torch.device`` (default ``"cuda"``).  A session on the
 card when no card is usable fails at creation: nothing moves to the CPU
 because the GPU is absent.  Pass ``"cpu"`` to run every kernel's plain
-PyTorch version, as the tests do.  ``sql`` runs a SELECT over the views
+PyTorch version, as the tests do.  Sessions on one device share its
+``TorchRuntime`` (``runtime.py``), made with the conf of the first of
+them.  ``sql`` runs a SELECT over the views
 registered with ``DataFrame.create_or_replace_temp_view``
 (``spark_rapids_tpu_torch/sql.py`` says which SQL it takes; the rest
 raises).
@@ -18,6 +20,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from spark_rapids_tpu_torch.conf import DEVICE, TorchConf
+from spark_rapids_tpu_torch.runtime import TorchRuntime
 
 
 class TorchSession:
@@ -28,6 +31,8 @@ class TorchSession:
             raise RuntimeError(
                 f"{DEVICE.key}={self.device} but torch.cuda.is_available() "
                 "is false; set it to 'cpu' to run on the CPU")
+        # the device's runtime: the spill catalog and the semaphore
+        self.runtime = TorchRuntime.get_or_create(self.conf, self.device)
         # the physical plan of the last query run, for its metrics
         self._last_plan = None
         self._views: Dict[str, Any] = {}  # temp views, by lower-case name
