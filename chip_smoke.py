@@ -113,8 +113,11 @@ Phases, each printing one JSON line:
    every retry site (stage, the aggregate on both routes, the FK and
    general join probes, sort, window) raises ``torch.OutOfMemoryError``
    twice where a split follows, once where the input stays whole, and
-   each query equals its run without the error.  memory_threads: no
-   thread of the port's is left.  After it, kernel_path also holds the
+   each query equals its run without the error.  lookahead:
+   hash_agg_sort_2m and hash_join_1m with the coalesce's background pull
+   on (it is off by default) equal to their default runs, with batches
+   pulled on the pull's thread.  memory_threads: no thread of the port's
+   is left.  After it, kernel_path also holds the
    dense-slot kernel against its plain version on the first half of
    hash_agg_sort_2m's first update batch (2^19 rows at capacity 2^19),
    as an out-of-memory split hands it over.
@@ -139,7 +142,9 @@ largest join: about 11 M key pairs before its date band) and
 mortgage_etl once more
 under torch.profiler and prints each one's wall time, the card's busy
 time, its largest device entries, its longest idle gaps and the port's
-named ranges (``join.*``, ``window.*``).  Then one JSON
+named ranges (``join.*``, ``window.*``); a join query's trace without a
+``join.*`` range, or window_1m's without a ``window.*`` one, fails the
+run.  Then one JSON
 line lists every kernel (its launches summed over the paths), the ``nvidia-smi`` line follows, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits nonzero without that line; it also exits nonzero when
@@ -150,8 +155,9 @@ checkout, to time an older commit's kernels the same way);
 ``--kernels-only`` stops after phase 4's main-path comparisons and
 times, without edge specs or queries.  ``--layer-cost`` builds the
 kernels, times hash_agg_sort_2m, hash_join_1m, tpch_q3 and window_1m as
-phases 6, 10, 11 and 12 do (with the coalesce's background pull on, off,
-and on with a 0.1 ms thread switch interval) and stops; with
+phases 6, 10, 11 and 12 do (with the coalesce's background pull off, as
+by default, on, and on with a 0.1 ms thread switch interval) and stops;
+with
 ``--package-root`` it sets another commit's times beside these in one
 call.
 """
@@ -863,20 +869,19 @@ def gen_big(n: int = 32_000_000):
 
 def layer_cost(torch, st, F, native, main, agg_data, dim, name) -> int:
     """``--layer-cost``: hash_agg_sort_2m, hash_join_1m, tpch_q3 and
-    window_1m at the default budget, each timed and its host syncs
+    window_1m at the default conf, each timed and its host syncs
     counted as in the full run; then again with the coalesce's
-    background pull off (``spark.rapids.sql.io.prefetch.enabled``, a key
-    a package without it ignores), and with it on but the interpreter's
+    background pull on (``spark.rapids.sql.io.prefetch.enabled``, a key
+    a package without it ignores), and with it on and the interpreter's
     thread switch interval at 0.1 ms instead of 5 ms, to show how much
     of the pull's cost is a thread waiting for the GIL."""
     from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy, \
         load_tables
     tpch = gen_tpch_numpy(LINEITEM_ROWS)
     default_switch = sys.getswitchinterval()
-    for conf, switch in (({}, default_switch),
-                         ({"spark.rapids.sql.io.prefetch.enabled": False},
-                          default_switch),
-                         ({}, 1e-4)):
+    pull = {"spark.rapids.sql.io.prefetch.enabled": True}
+    for conf, switch in (({}, default_switch), (pull, default_switch),
+                         (pull, 1e-4)):
         emit("layer_cost", conf=conf, switch_interval_s=switch)
         sys.setswitchinterval(switch)
         try:
@@ -1756,14 +1761,16 @@ def idle_gaps(events, top: int = 5):
             for g, a, b in gaps[:top]]
 
 
-def phase_trace(torch, query, name: str, top: int = 8) -> None:
+def phase_trace(torch, query, name: str, top: int = 8,
+                expect: str = "") -> None:
     """One run of ``query`` under torch.profiler: its wall seconds, the
     card's busy seconds (kernels and copies), the largest device entries,
     the longest idle gaps between them, and the host time and device span
     of each of the port's named ranges (the join's build and route, the
     window's sort and evaluation), so the device's idle share shows how
     far the host holds the card back and the ranges what a join or a
-    window takes of it."""
+    window takes of it.  Fails when no host range starting with
+    ``expect`` (``join.``, ``window.``) shows in the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1801,6 +1808,9 @@ def phase_trace(torch, query, name: str, top: int = 8) -> None:
          idle_gaps=idle_gaps([e for e in prof.events()
                               if e.device_type == DeviceType.CUDA
                               and not e.name.startswith(RANGES)]))
+    check(not expect or any(k.startswith(expect) and "host_ms" in r
+                            for k, r in ranges.items()),
+          f"{name}: no {expect}* range in the trace")
 
 
 # -- the memory phase --------------------------------------------------------
@@ -2164,11 +2174,39 @@ def phase_inject(torch, st, F, session, main, agg_data, dim) -> None:
     emit("inject", sites=out)
 
 
+def phase_lookahead(torch, st, F, main, agg_data, dim) -> None:
+    """The coalesce's background pull (off by default) turned on:
+    hash_agg_sort_2m and hash_join_1m through it equal to the default
+    run, each with batches pulled on the pull's thread."""
+    def pulled(plan):
+        return plan.metrics.get("prefetchBatches", 0) + sum(
+            pulled(c) for c in plan.children)
+
+    out = []
+    for name, make in (
+            ("hash_agg_sort_2m",
+             lambda s: agg_query(st, F, s.create_dataframe(agg_data))),
+            ("hash_join_1m",
+             lambda s: hash_join_query(st, F, s.create_dataframe(main),
+                                       s.create_dataframe(dim)))):
+        want = make(st.TorchSession()).to_torch()
+        on = st.TorchSession({"spark.rapids.sql.io.prefetch.enabled": True})
+        got = make(on).to_torch()
+        n = pulled(on._last_plan)
+        check(n > 0, f"{name}: no batch went through the pull")
+        bitwise = same_result(torch, want, got, f"{name} with the pull on",
+                              float_rtol=1e-9)
+        out.append({"query": name, "batches_pulled": n,
+                    "floats_bit_for_bit": bitwise})
+    emit("lookahead", queries=out)
+
+
 def phase_memory(torch, st, F, session, main, agg_data, dim, big, tpch
                  ) -> None:
     """The memory phase: tiers at full size, a real out-of-memory error
     inside ``with_retry`` and inside hash_agg_32m's aggregate, injected
-    errors at every retry site; no thread of the port's left after it."""
+    errors at every retry site, two queries through the background pull;
+    no thread of the port's left after it."""
     from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
     from spark_rapids_tpu_torch.io.prefetch import THREAD_PREFIX
     tier_runs(torch, st, lambda s: window_query(
@@ -2181,6 +2219,7 @@ def phase_memory(torch, st, F, session, main, agg_data, dim, big, tpch
     phase_oom_retry(torch, st, session)
     phase_oom_query(torch, st, F, big)
     phase_inject(torch, st, F, fresh_session(st), main, agg_data, dim)
+    phase_lookahead(torch, st, F, main, agg_data, dim)
     left = [t.name for t in threading.enumerate()
             if t.name.startswith(THREAD_PREFIX)]
     check(not left, f"threads of the port left: {left}")
@@ -2356,13 +2395,17 @@ def main(argv=None) -> int:
     phase_trace(torch, text_project_query(st, F, line_df),
                 "text_filter_project_6m")
     phase_trace(torch, hash_join_query(st, F, session.create_dataframe(
-        main_data), session.create_dataframe(dim_data)), "hash_join_1m")
-    phase_trace(torch, TPCH_QUERIES["q3"](tpch_dfs), "tpch_q3")
+        main_data), session.create_dataframe(dim_data)), "hash_join_1m",
+        expect="join.")
+    phase_trace(torch, TPCH_QUERIES["q3"](tpch_dfs), "tpch_q3",
+                expect="join.")
     phase_trace(torch, window_query(st, F, session.create_dataframe(
-        main_data)), "window_1m")
+        main_data)), "window_1m", expect="window.")
     from spark_rapids_tpu_torch.bench.mortgage import mortgage_etl
-    phase_trace(torch, session.sql(TPCXBB_QUERIES["q3"]), "tpcxbb_q3")
-    phase_trace(torch, mortgage_etl(session, mortgage), "mortgage_etl")
+    phase_trace(torch, session.sql(TPCXBB_QUERIES["q3"]), "tpcxbb_q3",
+                expect="join.")
+    phase_trace(torch, mortgage_etl(session, mortgage), "mortgage_etl",
+                expect="join.")
 
     emit("total", seconds=time.perf_counter() - start)
     kernels = []

@@ -104,11 +104,13 @@ HOST_SPILL_STORAGE_SIZE = register(
     "they demote to disk.", int)
 
 IO_PREFETCH_ENABLED = register(
-    "spark.rapids.sql.io.prefetch.enabled", True,
+    "spark.rapids.sql.io.prefetch.enabled", False,
     "Pull the child of a coalesce on a background thread one batch "
     "ahead of the concat (io/prefetch.py: device_lookahead); false runs "
     "the child in the consumer's thread.  Both give the same batches in "
-    "the same order.", bool)
+    "the same order.  Off by default, unlike the JAX package: the local "
+    "scan uploads on the thread that pulls it, so the pull has nothing "
+    "to overlap and only adds a thread hand-off a batch (PERF.md).", bool)
 
 
 class TorchConf:

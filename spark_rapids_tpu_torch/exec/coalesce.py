@@ -10,10 +10,10 @@ hand the aggregate the same batches.  The port counts the rows a batch
 holds; the JAX package counts a filtered batch by its pre-filter bound,
 so after a filter the two can flush at different points.  The pending
 batches are ``SpillableBatch``es, brought back by ``materialize_all``
-before the concat, which holds a permit of the device's semaphore; the
+before the concat, which holds a permit of the device's semaphore.  When
+``spark.rapids.sql.io.prefetch.enabled`` is on (it is off by default) the
 child is pulled one batch ahead on a background thread
-(``io/prefetch.py: device_lookahead``) unless
-``spark.rapids.sql.io.prefetch.enabled`` is off.
+(``io/prefetch.py: device_lookahead``).
 """
 
 from __future__ import annotations

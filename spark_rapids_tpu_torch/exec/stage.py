@@ -76,8 +76,6 @@ class TorchStageExec(TorchExec):
                                  for e in exprs])
         self._schema = schema
         self._filters = sum(kind == "filter" for kind, _ in self.steps)
-        self._deterministic = all(e.deterministic for _, es in self.steps
-                                  for e in es)
 
     @property
     def output_schema(self) -> Schema:
@@ -91,12 +89,11 @@ class TorchStageExec(TorchExec):
         return ColumnarBatch(out, n, self._schema)
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        # rows split freely under per-row project and filter steps, but a
-        # value that depends on the row's position would change: such a
-        # stage retries without splitting
-        split = split_batch_half if self._deterministic else None
+        # rows split freely under per-row project and filter steps (the
+        # port has no expression whose value depends on the row's position)
         for batch in self.children[0].execute(ctx):
-            results = with_retry(self._run, batch, ctx, split=split)
+            results = with_retry(self._run, batch, ctx,
+                                 split=split_batch_half)
             self.metrics["stageDispatches"] += len(results)
             self.metrics["hostSyncs"] += self._filters * len(results)
             yield from results

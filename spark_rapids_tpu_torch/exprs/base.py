@@ -70,13 +70,6 @@ class Expression:
         args = ",".join(c.key() for c in self.children)
         return f"{type(self).__name__}({args})"
 
-    @property
-    def deterministic(self) -> bool:
-        """False where a value depends on the row's position in its batch
-        (the JAX package's ``rand`` and partition ids, not ported yet): a
-        stage holding one is never split on an out-of-memory retry."""
-        return all(c.deterministic for c in self.children)
-
     def emit(self, ctx: EvalContext) -> ColVal:
         raise NotImplementedError(type(self).__name__)
 

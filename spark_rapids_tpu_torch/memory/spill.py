@@ -24,8 +24,10 @@ over a spill it could not make.
 
 Not carried over yet: the encoded columns' planes (queue A6), per-query
 budgets and the journal and observability hooks (the serving stack,
-A10), the device scan cache's entries (A7a), and the conf-driven
-allocation log.
+A10), the device scan cache's entries (A7a), the conf-driven
+allocation log, and the JAX package's ``HostStagingLimiter`` on tier
+transitions: every transition here runs under the catalog's lock, so no
+two of them stage at once and a cap on them could never make one wait.
 """
 
 from __future__ import annotations
@@ -116,28 +118,24 @@ class SpillableBatch:
         assert self.tier == TIER_DEVICE
         cuda = self._cuda
         host, packed = [], []
-        with self._catalog.staging.limit(self.size) as limited:
-            for triple in self._device:
-                planes, rows = [], []
-                for a in triple:
-                    if a is None:
-                        planes.append(None)
-                        rows.append(0)
-                        continue
-                    rows.append(a.shape[0] if a.dtype == torch.bool else 0)
-                    if a.dtype == torch.bool:
-                        a = bitpack(a)
-                    h = torch.empty(a.shape, dtype=a.dtype, pin_memory=cuda)
-                    h.copy_(a, non_blocking=cuda)
-                    planes.append(h)
-                host.append(tuple(planes))
-                packed.append(tuple(rows))
-            if cuda:
-                self._ready = torch.cuda.Event()
-                self._ready.record(torch.cuda.current_stream(self.device))
-                if limited:
-                    # a staging grant covers the copies until they land
-                    self._ready.synchronize()
+        for triple in self._device:
+            planes, rows = [], []
+            for a in triple:
+                if a is None:
+                    planes.append(None)
+                    rows.append(0)
+                    continue
+                rows.append(a.shape[0] if a.dtype == torch.bool else 0)
+                if a.dtype == torch.bool:
+                    a = bitpack(a)
+                h = torch.empty(a.shape, dtype=a.dtype, pin_memory=cuda)
+                h.copy_(a, non_blocking=cuda)
+                planes.append(h)
+            host.append(tuple(planes))
+            packed.append(tuple(rows))
+        if cuda:
+            self._ready = torch.cuda.Event()
+            self._ready.record(torch.cuda.current_stream(self.device))
         self._host, self._packed = host, packed
         self._device = None
         self.tier = TIER_HOST
@@ -271,49 +269,6 @@ def _unlink(path: str) -> None:
         os.unlink(path)
 
 
-class HostStagingLimiter:
-    """At most ``cap`` bytes of device <-> host tier transfers stage at
-    once, so a burst of spills cannot double the host's footprint; a
-    request over the cap is clamped to it, so one transfer always fits.
-    ``cap`` 0 admits everything."""
-
-    def __init__(self, cap_bytes: int = 0):
-        self.cap = max(0, int(cap_bytes))
-        self._inflight = 0
-        self._cv = threading.Condition()
-        self.wait_count = 0
-
-    def acquire(self, nbytes: int) -> int:
-        """Wait until ``nbytes`` (clamped to the cap) are admitted; the
-        grant to hand to ``release``."""
-        if self.cap <= 0:
-            return 0
-        ask = min(int(nbytes), self.cap)
-        with self._cv:
-            if self._inflight + ask > self.cap:
-                self.wait_count += 1
-            while self._inflight + ask > self.cap:
-                self._cv.wait()
-            self._inflight += ask
-        return ask
-
-    def release(self, granted: int) -> None:
-        if granted <= 0:
-            return
-        with self._cv:
-            self._inflight -= granted
-            self._cv.notify_all()
-
-    @contextlib.contextmanager
-    def limit(self, nbytes: int):
-        """Holds a grant; yields whether the limiter is on."""
-        granted = self.acquire(nbytes)
-        try:
-            yield self.cap > 0
-        finally:
-            self.release(granted)
-
-
 class BufferCatalog:
     """The registry of spillable handles and the budget over them: a
     device budget, then a host budget past which host handles go to
@@ -321,11 +276,9 @@ class BufferCatalog:
 
     def __init__(self, device_budget_bytes: int,
                  host_budget_bytes: int = 1 << 30,
-                 spill_dir: Optional[str] = None,
-                 staging_bytes: int = 0):
+                 spill_dir: Optional[str] = None):
         self.device_budget = int(device_budget_bytes)
         self.host_budget = int(host_budget_bytes)
-        self.staging = HostStagingLimiter(staging_bytes)
         self._owns_dir = spill_dir is None
         self._spill_dir = spill_dir
         self._file_ids = itertools.count()

@@ -12,7 +12,7 @@ and the code paths are the card's but for pinning and events:
   tier one ``.npy`` a plane, in a directory the catalog removes;
 - demotion by priority class, then least recently used, never a pinned
   handle; ``spill_all``; a spill that fails raises and leaves the handle
-  whole; the leak warning; the staging limiter's bound;
+  whole; the leak warning;
 - the runtime's budget (16 GiB x allocFraction on the CPU, as in the
   JAX package, or budgetBytes) and one runtime a device;
 - the aggregate, the sort, the window and a broadcast join under the
@@ -22,8 +22,8 @@ and the code paths are the card's but for pinning and events:
 - the semaphore: re-entrant in a thread, one permit shared by two
   threads' queries with no deadlock;
 - ``device_lookahead``: order kept, the producer's exception raised in
-  the consumer, no thread of the port's left, and the pull off giving
-  the same result.
+  the consumer, no thread of the port's left, the pull off giving the
+  same result, and off unless the conf turns it on.
 
 Tolerance: exact, except the aggregate's float sums (relative 1e-9,
 ``approx_float``: a spilled run sums its partials in the same order, but
@@ -53,13 +53,13 @@ import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch import functions as TF
 from spark_rapids_tpu_torch.columnar.batch import host_batch_to_device, \
     host_columns_from_numpy
-from spark_rapids_tpu_torch.conf import TorchConf
+from spark_rapids_tpu_torch.conf import IO_PREFETCH_ENABLED, TorchConf
 from spark_rapids_tpu_torch.io.prefetch import THREAD_PREFIX, \
     PrefetchIterator, device_lookahead
 from spark_rapids_tpu_torch.memory import spill
 from spark_rapids_tpu_torch.memory.spill import (
     PRIORITY_RECREATABLE, PRIORITY_RETAIN, TIER_DEVICE, TIER_DISK,
-    TIER_HOST, BufferCatalog, HostStagingLimiter, SpillableBatch,
+    TIER_HOST, BufferCatalog, SpillableBatch,
 )
 from spark_rapids_tpu_torch.runtime import TorchRuntime, TorchSemaphore
 
@@ -323,36 +323,6 @@ def test_tier_transition_requires_catalog_lock():
     sb.close()
 
 
-def test_staging_limiter_bounds_inflight():
-    lim = HostStagingLimiter(1000)
-    order = []
-
-    def worker(tag, nbytes, hold):
-        with lim.limit(nbytes):
-            order.append(("in", tag))
-            time.sleep(hold)
-        order.append(("out", tag))
-
-    t1 = threading.Thread(target=worker, args=("a", 800, 0.2))
-    t1.start()
-    time.sleep(0.05)
-    t2 = threading.Thread(target=worker, args=("b", 800, 0.0))
-    t2.start()
-    t1.join(timeout=10)
-    t2.join(timeout=10)
-    assert not t1.is_alive() and not t2.is_alive()
-    assert order.index(("out", "a")) < order.index(("in", "b"))
-    assert lim.wait_count == 1 and lim._inflight == 0
-    with lim.limit(10_000):  # over the cap: clamped, not stuck
-        assert lim._inflight == 1000
-    # a catalog whose staging is capped demotes through it
-    cat = BufferCatalog(1 << 40, staging_bytes=4096)
-    sb = _handle(cat)
-    cat.spill_all()
-    assert sb.tier == TIER_HOST and cat.staging._inflight == 0
-    sb.close()
-
-
 # ---------------------------------------------------------------------------
 # the runtime
 # ---------------------------------------------------------------------------
@@ -603,6 +573,29 @@ def test_lookahead_off_gives_the_same_result(fresh_runtimes, tables):
     ctx.conf = TorchConf({"spark.rapids.sql.io.prefetch.enabled": "false"})
     src = iter([1, 2])
     assert device_lookahead(src, ctx) is src
+
+
+def test_lookahead_is_off_by_default(fresh_runtimes, tables):
+    # the local scan uploads on the thread that pulls it, so a pull ahead
+    # has nothing to overlap: the coalesce pulls its child itself
+    s = st.TorchSession({**CPU, "spark.rapids.sql.reader.batchSizeRows":
+                         "4096"})
+    assert s.conf.get(IO_PREFETCH_ENABLED) is False
+    started = []
+    real = PrefetchIterator.__init__
+
+    def spy(self, *args, **kwargs):
+        started.append(kwargs.get("name"))
+        real(self, *args, **kwargs)
+
+    PrefetchIterator.__init__ = spy
+    try:
+        q_agg(TF, st.Window, s, tables).to_arrow()
+    finally:
+        PrefetchIterator.__init__ = real
+    coalesce = _find(s._last_plan, "TorchCoalesceBatchesExec")
+    assert coalesce.metrics["prefetchBatches"] == 0 and not started
+    assert not _port_threads()
 
 
 def test_an_error_in_the_child_leaves_no_thread(fresh_runtimes, tables):
