@@ -2,7 +2,7 @@
 """Drive the torch port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--package-root DIR] [--kernels-only]
-                          [--sass-dir DIR] [--layer-cost]
+                          [--sass-dir DIR] [--layer-cost] [--string-paths]
 
 Phases, each printing one JSON line:
 
@@ -92,14 +92,36 @@ Phases, each printing one JSON line:
    69's store_sales rows), the bench's lead queries first, each checked
    against the same SQL on a CPU session over the same tables, timed as
    phase 11 (f64 within rtol 1e-9; rows tied on the float sum that q6,
-   q13 and q25 order their top 100 by compare as a set);
-16. memory: the device runtime, the tiered spill and the out-of-memory
+   q13 and q25 order their top 100 by compare as a set), with the
+   candidate pairs the joins laid out a run (q3 and q8 through the
+   band-aware probe);
+16. breadth: the expressions behind SQL and ``functions``, through
+   ``session.sql`` with ``incompatibleOps`` and the cast gates on
+   (``BREADTH_CONF``): TPC-H's own text predicates (q9 ``LIKE
+   '%green%'``, q13 ``NOT LIKE '%special%requests%'``, q14 ``LIKE
+   'PROMO%'``, q16 ``NOT LIKE 'MEDIUM POLISHED%'``, q22's customer side
+   with ``substring`` and a CROSS JOIN to its average) over phase 11's
+   tables, and over all 6,001,215 lineitem rows, each grouped to a small
+   result: case conversion, concat_ws/trim/replace, substring_index,
+   regexp_replace and RLIKE on phase 8's ``l_comment``, casts to and from
+   strings, a TIMESTAMP column built from l_shipdate and l_orderkey as
+   numpy datetime64[us] (hour/minute/second, unix_timestamp, a TIMESTAMP
+   literal, ``GROUP BY hour(ts)`` through the dense-slot kernel), math,
+   isnan/nanvl/``<=>``, first/last and string min/max by l_orderkey
+   (1.5 M groups), and the first 2^20 values of rand(42) and
+   monotonically_increasing_id(); each timed as phase 11 and checked
+   against a CPU session over the same tables (integers, strings,
+   booleans exact; rand and the case and comment queries bit for bit;
+   other f64 within rtol 1e-9); kernel_path holds the dense-slot kernel
+   on the hour(ts) aggregate's batch;
+17. memory: the device runtime, the tiered spill and the out-of-memory
    retry.  memory_tiers: window_1m and tpch_q18 (SF1) on a fresh runtime
    at the default budget, then with the device budget at a quarter of
    the first run's spill-catalog peak and the host tier at an eighth of
    it, so bytes reach the host and the disk; each run checked against
    numpy as phases 11 and 12 check them, the two runs' integers,
-   strings and nulls equal, the tier counters and both times printed.
+   strings and nulls equal (window_1m's running sums bit for bit, as
+   they add in a fixed order), the tier counters and both times printed.
    oom_retry: a function whose peak is two (2^20, 512) int64
    temporaries, under a ballast that leaves three quarters of it free:
    ``with_retry`` catches two real ``torch.OutOfMemoryError``s (the whole
@@ -113,7 +135,8 @@ Phases, each printing one JSON line:
    every retry site (stage, the aggregate on both routes, the FK and
    general join probes, sort, window) raises ``torch.OutOfMemoryError``
    twice where a split follows, once where the input stays whole, and
-   each query equals its run without the error.  lookahead:
+   each query equals its run without the error (the window's running
+   sums bit for bit).  lookahead:
    hash_agg_sort_2m and hash_join_1m with the coalesce's background pull
    on (it is off by default) equal to their default runs, with batches
    pulled on the pull's thread.  memory_threads: no thread of the port's
@@ -127,7 +150,7 @@ comparison of it with its plain version (phase 3, its edge specs and
 kernel_path) also calls it 5 times and fails unless the float-add planes
 come out bit for bit alike (``float_sum_results_of_5``).
 
-Each path of phases 5 to 16 runs with the launch counts set to 0 just
+Each path of phases 5 to 17 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -138,7 +161,7 @@ join_routes (the dense FK, hashed FK and general routes, and inner,
 left, right, full, semi and anti joins, over a stream side of two
 batches).  A trace phase then
 runs the text queries, hash_join_1m, tpch_q3, window_1m, tpcxbb_q3 (the
-largest join: about 11 M key pairs before its date band) and
+largest join, through the band-aware probe) and
 mortgage_etl once more
 under torch.profiler and prints each one's wall time, the card's busy
 time, its largest device entries, its longest idle gaps and the port's
@@ -156,10 +179,15 @@ checkout, to time an older commit's kernels the same way);
 times, without edge specs or queries.  ``--layer-cost`` builds the
 kernels, times hash_agg_sort_2m, hash_join_1m, tpch_q3 and window_1m as
 phases 6, 10, 11 and 12 do (with the coalesce's background pull off, as
-by default, on, and on with a 0.1 ms thread switch interval) and stops;
+by default, on, and on with a 0.1 ms thread switch interval), and
+tpcxbb_q3 and tpcxbb_q8 as phase 15 does (pull off), and stops;
 with
 ``--package-root`` it sets another commit's times beside these in one
-call.
+call.  ``--string-paths`` builds nothing: it holds LIKE/RLIKE's literal
+run search against the code-point NFA and replace's in-place path
+against its spread path on the breadth queries' own columns, times
+each, then times those queries with the general paths forced and not,
+and stops.
 """
 
 from __future__ import annotations
@@ -868,16 +896,23 @@ def gen_big(n: int = 32_000_000):
 
 
 def layer_cost(torch, st, F, native, main, agg_data, dim, name) -> int:
-    """``--layer-cost``: hash_agg_sort_2m, hash_join_1m, tpch_q3 and
-    window_1m at the default conf, each timed and its host syncs
-    counted as in the full run; then again with the coalesce's
+    """``--layer-cost``: hash_agg_sort_2m, hash_join_1m, tpch_q3,
+    window_1m, tpcxbb_q3 and tpcxbb_q8 (the band-aware probe's queries,
+    with their candidate pairs) at the default conf, each timed and its
+    host syncs counted as in the full run; then the first four again
+    with the coalesce's
     background pull on (``spark.rapids.sql.io.prefetch.enabled``, a key
     a package without it ignores), and with it on and the interpreter's
     thread switch interval at 0.1 ms instead of 5 ms, to show how much
     of the pull's cost is a thread waiting for the GIL."""
     from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy, \
         load_tables
+    from spark_rapids_tpu_torch.bench.tpcxbb import gen_tpcxbb_numpy, \
+        register_views
     tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    xbb = gen_tpcxbb_numpy(TPCXBB_SALES_ROWS)
+    cpu = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+    register_views(cpu, xbb)
     default_switch = sys.getswitchinterval()
     pull = {"spark.rapids.sql.io.prefetch.enabled": True}
     for conf, switch in (({}, default_switch), (pull, default_switch),
@@ -892,10 +927,126 @@ def layer_cost(torch, st, F, native, main, agg_data, dim, name) -> int:
             phase_tpch(torch, st, native, session, tpch,
                        load_tables(session, tpch), "q3")
             phase_window(torch, st, F, session, main)
+            if not conf:
+                # the band-aware probe's queries (the parent lays out
+                # every equi pair)
+                register_views(session, xbb)
+                for qname in ("q3", "q8"):
+                    phase_tpcxbb(torch, session, cpu, qname,
+                                 TPCXBB_SALES_ROWS)
+                band_off(torch, session, cpu)
         finally:
             sys.setswitchinterval(default_switch)
     pull_cost(torch, st, main)
     print(json.dumps({"ok": True, "layer_cost": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def band_off(torch, session, cpu) -> None:
+    """tpcxbb_q3 and q8 with the band extraction turned off, in a package
+    that has it: the equi pairs the parent lays out, against the same
+    query's banded run (``phase_tpcxbb``'s line before this one)."""
+    from spark_rapids_tpu_torch.exec import joins
+    real = getattr(joins, "extract_band", None)
+    if real is None:
+        return
+    joins.extract_band = lambda *a: None
+    try:
+        for qname in ("q3", "q8"):
+            emit("band_off", query=qname)
+            phase_tpcxbb(torch, session, cpu, qname, TPCXBB_SALES_ROWS)
+    finally:
+        joins.extract_band = real
+
+
+# the LIKE/RLIKE inputs of the breadth queries: (table, column, query,
+# operator, pattern)
+LIKE_INPUTS = (("part", "p_name", "tpch_q9_like", "LIKE", "%green%"),
+               ("orders", "o_comment", "tpch_q13_not_like", "LIKE",
+                "%special%requests%"),
+               ("part", "p_type", "tpch_q14_like", "LIKE", "PROMO%"),
+               ("part", "p_type", "tpch_q16_not_like", "LIKE",
+                "MEDIUM POLISHED%"),
+               ("lineitem_text", "l_comment", "comment_regex", "RLIKE",
+                "special.*requests"))
+
+
+def string_paths(torch, st, name) -> int:
+    """``--string-paths``: LIKE/RLIKE's two matchers (a search per
+    literal run, ``_segment_match``, and the code-point NFA,
+    ``_nfa_match``) and replace's two paths (in place when the
+    replacement is as long as the search, else spread) on the card, on
+    the breadth queries' own columns at SF1: each pair held equal and
+    timed in one call, then the queries themselves with the second of
+    each pair forced."""
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy
+    from spark_rapids_tpu_torch.exprs import strings as S
+    from spark_rapids_tpu_torch.exprs.base import colvals
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    line = gen_lineitem(LINEITEM_ROWS, SEED + 2)[0]
+    session = st.TorchSession.builder().get_or_create()
+    text = dict(tpch, lineitem_text=line)
+
+    def column(table, col):
+        df = session.create_dataframe({col: text[table][col]})
+        return colvals(scan_batch(session, df).columns)[0]
+
+    for table, col, qname, op, pattern in LIKE_INPUTS:
+        c = column(table, col)
+        toks = S._parse_like(pattern, "\\") if op == "LIKE" \
+            else S._parse_regex_lite(pattern)
+        plan = S._segments(toks)
+        check(plan is not None, f"{pattern!r}: not a pattern of runs")
+        seg = S._segment_match(c, *plan)
+        check(torch.equal(seg, S._nfa_match(c, toks)),
+              f"{col} {op} {pattern!r}: the matchers disagree")
+        emit("like_matchers", query=qname, column=col, rows=c.data.shape[0],
+             width=c.chars.shape[1], pattern=pattern,
+             matches=int(seg.sum()),
+             segment_ms=per_call_ms(torch, lambda: S._segment_match(
+                 c, *plan), calls=5, samples=10),
+             nfa_ms=per_call_ms(torch, lambda: S._nfa_match(c, toks),
+                                calls=5, samples=10))
+    c = column("lineitem", "l_shipmode")
+    sel = S._greedy_select(S._match_windows(c.chars, c.data, b"AIR"), b"AIR")
+    a, b = S._replace_in_place(c, sel, b"air"), \
+        S._replace_spread(c, sel, 3, b"air")
+    check(torch.equal(a.data, b.data) and torch.equal(
+        a.chars[:, :b.chars.shape[1]], b.chars),
+        "replace: the two paths disagree")
+    emit("replace_paths", column="l_shipmode", rows=c.data.shape[0],
+         width=c.chars.shape[1], matches=int(sel.sum()),
+         in_place_ms=per_call_ms(
+             torch, lambda: S._replace_in_place(c, sel, b"air"), calls=5,
+             samples=10),
+         spread_ms=per_call_ms(
+             torch, lambda: S._replace_spread(c, sel, 3, b"air"), calls=5,
+             samples=10))
+    # the queries end to end, each path in turn, in one session pair
+    gpu, cpu = breadth_sessions(st, tpch, line)
+    sqls = dict((q, sql) for q, sql, _ in BREADTH_QUERIES)
+    queries = [q for _, _, q, _, _ in LIKE_INPUTS] + ["concat_trim_replace"]
+    segments, in_place = S._segments, S._replace_in_place
+    forced = {"fast": {},
+              "nfa_spread": {"_segments": lambda toks: None,
+                             "_replace_in_place": lambda c, sel, rep:
+                             S._replace_spread(c, sel, len(rep), rep)}}
+    want = {q: cpu.sql(sqls[q]).to_torch() for q in queries}
+    try:
+        for mode in ("fast", "nfa_spread", "nfa_spread", "fast"):
+            for attr, fn in forced[mode].items():
+                setattr(S, attr, fn)
+            for q in queries:
+                got, secs = run_timed(torch, gpu.sql(sqls[q]), 2)
+                same_result(torch, to_device(want[q], "cuda"), got,
+                            f"string paths {q} ({mode})", float_rtol=1e-9)
+                emit("string_paths_query", query=q, mode=mode, seconds=secs)
+            S._segments, S._replace_in_place = segments, in_place
+    finally:
+        S._segments, S._replace_in_place = segments, in_place
+    print(json.dumps({"ok": True, "string_paths": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -1664,9 +1815,216 @@ def phase_tpcxbb(torch, session, cpu, qname: str, sales_rows: int,
     emit(f"tpcxbb_{qname}", sales_rows=sales_rows, out_rows=n,
          joins=[(type(j).__name__, j.join_type, j.route,
                  j.condition is not None) for j in joins],
+         # pairs the general and cross routes laid out in the last run
+         # (each run plans anew), and the batches it probed with a band
+         join_candidates_per_run=sum(j.metrics["joinCandidates"]
+                                     for j in joins),
+         band_probes=sum(j.metrics["bandJoinProbes"] for j in joins),
          dense_slot_batches=sum(a.metrics["pallasAggBatches"] for a in aggs),
          host_syncs_per_run=host_syncs(plan), seconds=secs,
          rows_per_s=sales_rows / float(np.median(secs)), cpu_seconds=cpu_s)
+
+
+# -- breadth: the expressions behind SQL and functions, at SF1 --------------
+
+# what the breadth phase turns on: the incompatible expressions (upper,
+# initcap, rand) and every cast gate that has a device cast
+BREADTH_CONF = {"spark.rapids.sql.incompatibleOps.enabled": True,
+                "spark.rapids.sql.castStringToInteger.enabled": True,
+                "spark.rapids.sql.castStringToFloat.enabled": True,
+                "spark.rapids.sql.castStringToTimestamp.enabled": True,
+                "spark.rapids.sql.castFloatToString.enabled": True}
+BREADTH_CODES = "('13', '31', '23', '29', '30', '18', '17')"
+
+# (name, SQL, whether its floats must repeat bit for bit): TPC-H's own
+# text predicates, then each expression family over every lineitem row,
+# grouped to a small result
+BREADTH_QUERIES = [
+    ("tpch_q9_like", """
+        SELECT n_name, year(o_orderdate) AS o_year,
+               SUM(l_extendedprice * (1 - l_discount)
+                   - ps_supplycost * l_quantity) AS sum_profit
+        FROM lineitem JOIN part ON l_partkey = p_partkey
+          JOIN supplier ON l_suppkey = s_suppkey
+          JOIN partsupp ON l_suppkey = ps_suppkey AND l_partkey = ps_partkey
+          JOIN orders ON l_orderkey = o_orderkey
+          JOIN nation ON s_nationkey = n_nationkey
+        WHERE p_name LIKE '%green%'
+        GROUP BY n_name, year(o_orderdate)
+        ORDER BY n_name, o_year DESC""", False),
+    ("tpch_q13_not_like", """
+        SELECT c_count, COUNT(*) AS custdist FROM (
+          SELECT c_custkey, COUNT(o_orderkey) AS c_count
+          FROM customer LEFT JOIN (
+            SELECT o_custkey, o_orderkey FROM orders
+            WHERE o_comment NOT LIKE '%special%requests%') o
+            ON c_custkey = o_custkey
+          GROUP BY c_custkey) c_orders
+        GROUP BY c_count ORDER BY custdist DESC, c_count DESC""", False),
+    ("tpch_q14_like", """
+        SELECT 100.0 * SUM(CASE WHEN p_type LIKE 'PROMO%'
+                                THEN l_extendedprice * (1 - l_discount)
+                                ELSE 0.0 END)
+               / SUM(l_extendedprice * (1 - l_discount)) AS promo_revenue
+        FROM lineitem JOIN part ON l_partkey = p_partkey
+        WHERE l_shipdate >= DATE '1995-09-01'
+          AND l_shipdate < DATE '1995-10-01'""", False),
+    ("tpch_q16_not_like", """
+        SELECT p_brand, p_type, p_size, COUNT(*) AS supplier_cnt FROM (
+          SELECT DISTINCT p_brand, p_type, p_size, ps_suppkey
+          FROM partsupp JOIN part ON ps_partkey = p_partkey
+          WHERE p_brand <> 'Brand#45'
+            AND p_type NOT LIKE 'MEDIUM POLISHED%'
+            AND p_size IN (49, 14, 23, 45, 19, 3, 36, 9)) ps
+        GROUP BY p_brand, p_type, p_size
+        ORDER BY supplier_cnt DESC, p_brand, p_type, p_size""", False),
+    ("tpch_q22_cross", f"""
+        SELECT cntrycode, COUNT(*) AS numcust, SUM(c_acctbal) AS totacctbal
+        FROM (
+          SELECT substring(c_phone, 1, 2) AS cntrycode, c_acctbal
+          FROM customer CROSS JOIN (
+            SELECT AVG(c_acctbal) AS avg_bal FROM customer
+            WHERE c_acctbal > 0.0
+              AND substring(c_phone, 1, 2) IN {BREADTH_CODES}) a
+          WHERE substring(c_phone, 1, 2) IN {BREADTH_CODES}
+            AND c_acctbal > avg_bal) custsale
+        GROUP BY cntrycode ORDER BY cntrycode""", False),
+    ("case", """
+        SELECT m, ic, COUNT(*) AS n FROM (
+          SELECT upper(l_shipmode) AS m, initcap(lower(l_shipmode)) AS ic
+          FROM lineitem) x
+        GROUP BY m, ic ORDER BY m, ic""", True),
+    ("concat_trim_replace", """
+        SELECT flags, COUNT(*) AS n, SUM(l_quantity) AS q, MAX(t) AS t,
+               MIN(r) AS r, SUM(length(t) + length(r)) AS chars FROM (
+          SELECT concat_ws('|', l_returnflag, l_linestatus) AS flags,
+                 trim(concat('  ', l_shipmode, ' ')) AS t,
+                 replace(l_shipmode, 'AIR', 'air') AS r,
+                 l_quantity
+          FROM lineitem) x
+        GROUP BY flags ORDER BY flags""", False),
+    ("comment_regex", """
+        SELECT w, COUNT(*) AS n, SUM(sr) AS special, MAX(rr) AS mx,
+               SUM(length(rr)) AS chars FROM (
+          SELECT substring_index(l_comment, ' ', 1) AS w,
+                 CASE WHEN l_comment RLIKE 'special.*requests'
+                      THEN 1 ELSE 0 END AS sr,
+                 regexp_replace(l_comment, 'the', 'THE') AS rr
+          FROM lineitem_text) x
+        GROUP BY w ORDER BY w""", True),
+    ("casts", """
+        SELECT ym, COUNT(*) AS n, SUM(qd) AS q, SUM(same) AS same FROM (
+          SELECT substring(CAST(l_shipdate AS STRING), 1, 7) AS ym,
+                 CAST(CAST(CAST(l_quantity AS INT) AS STRING) AS DOUBLE)
+                   AS qd,
+                 CASE WHEN CAST(CAST(l_shipdate AS STRING) AS DATE)
+                           = l_shipdate THEN 1 ELSE 0 END AS same
+          FROM lineitem) x
+        GROUP BY ym ORDER BY ym""", False),
+    ("timestamp_hour", """
+        SELECT hour(l_ts) AS h, SUM(l_quantity) AS q,
+               MAX(l_extendedprice) AS mx, COUNT(*) AS n
+        FROM lineitem_ts GROUP BY hour(l_ts) ORDER BY h""", False),
+    ("timestamp_parts", """
+        SELECT COUNT(*) AS n, SUM(minute(l_ts)) AS mi, SUM(second(l_ts)) AS se,
+               MIN(unix_timestamp(l_ts)) AS lo, MAX(unix_timestamp(l_ts)) AS hi,
+               SUM(CASE WHEN l_ts >= TIMESTAMP '1995-06-17 12:00:00'
+                        THEN 1 ELSE 0 END) AS later,
+               MIN(CAST(l_ts AS STRING)) AS first_ts
+        FROM lineitem_ts""", False),
+    ("math_nan_null_safe", """
+        SELECT pm, COUNT(*) AS n, SUM(sq) AS sq, SUM(lg) AS lg, SUM(pw) AS pw,
+               MIN(fl) AS fl, MAX(ce) AS ce, SUM(ab) AS ab, SUM(nan) AS nan,
+               SUM(nv) AS nv, SUM(eq) AS eq FROM (
+          SELECT pmod(l_orderkey, 7) AS pm, sqrt(l_quantity) AS sq,
+                 log(l_extendedprice) AS lg, pow(l_tax, 2) AS pw,
+                 floor(l_extendedprice / 7) AS fl,
+                 ceil(l_extendedprice / 7) AS ce,
+                 abs(l_quantity - 25) AS ab,
+                 CASE WHEN isnan(sqrt(l_quantity - 25.5)) THEN 1 ELSE 0 END
+                   AS nan,
+                 nanvl(sqrt(l_quantity - 25.5), -1.0) AS nv,
+                 CASE WHEN l_discount <=> 0.05 THEN 1 ELSE 0 END AS eq
+          FROM lineitem) x
+        GROUP BY pm ORDER BY pm""", False),
+    ("first_last_extrema", """
+        SELECT COUNT(*) AS groups, SUM(fq) AS fq, SUM(lq) AS lq,
+               MIN(fm) AS fm, MAX(lm) AS lm, MIN(mn) AS mn, MAX(mx) AS mx,
+               SUM(CASE WHEN mn = mx THEN 1 ELSE 0 END) AS one_mode
+        FROM (
+          SELECT l_orderkey, first(l_quantity) AS fq, last(l_quantity) AS lq,
+                 first(l_shipmode) AS fm, last(l_shipmode) AS lm,
+                 min(l_shipmode) AS mn, max(l_shipmode) AS mx
+          FROM lineitem GROUP BY l_orderkey) g""", False),
+    ("rand_ids", """
+        SELECT rand(42) AS r, monotonically_increasing_id() AS id,
+               spark_partition_id() AS p
+        FROM lineitem LIMIT 1048576""", True),
+]
+
+
+def breadth_sessions(st, tpch, line, device: str = "cuda"):
+    """(card session, CPU session), each with BREADTH_CONF and the views
+    of the SF1 tables, ``lineitem_text`` (the text queries' lineitem,
+    with l_comment) and ``lineitem_ts`` (a TIMESTAMP built here as numpy
+    datetime64[us] from l_shipdate and l_orderkey)."""
+    from spark_rapids_tpu_torch.bench.tpch import load_tables
+    li = tpch["lineitem"]
+    days = li["l_shipdate"].astype("datetime64[D]").astype(np.int64)
+    okey = li["l_orderkey"]
+    us = days * 86_400_000_000 + (okey * 7919 % 86_400) * 1_000_000 \
+        + okey % 1_000_000
+    ts_table = {"l_orderkey": okey, "l_quantity": li["l_quantity"],
+                "l_extendedprice": li["l_extendedprice"],
+                "l_ts": us.astype("datetime64[us]")}
+    out = []
+    for dev in (device, "cpu"):
+        s = st.TorchSession({**BREADTH_CONF, "spark.rapids.torch.device": dev})
+        for name, df in load_tables(s, tpch).items():
+            df.create_or_replace_temp_view(name)
+        s.create_dataframe(line).create_or_replace_temp_view("lineitem_text")
+        s.create_dataframe(ts_table).create_or_replace_temp_view(
+            "lineitem_ts")
+        out.append(s)
+    return out
+
+
+def to_device(result, device):
+    """A ``to_torch`` result's planes moved to ``device``."""
+    cols, masks, n = result
+    move = (lambda t: tuple(x.to(device) for x in t)
+            if isinstance(t, tuple) else t.to(device))
+    return ({k: move(v) for k, v in cols.items()},
+            {k: v.to(device) for k, v in masks.items()}, n)
+
+
+def phase_breadth(torch, st, gpu, cpu, runs: int = 2) -> None:
+    """Each breadth query through ``session.sql`` on the card (one
+    warm-up, ``runs`` timed) against the same SQL on the CPU session:
+    integers, strings, booleans, dates and timestamps exact; rand and
+    the queries marked so bit for bit; other f64 within rtol 1e-9 (the
+    two devices' sums and transcendental functions may round apart)."""
+    for qname, sql, bitwise in BREADTH_QUERIES:
+        (cols, masks, n), secs = run_timed(torch, gpu.sql(sql), runs)
+        plan = gpu._last_plan
+        t0 = time.perf_counter()
+        device = next(iter(masks.values())).device
+        want = to_device(cpu.sql(sql).to_torch(), device)
+        cpu_s = time.perf_counter() - t0
+        check(n > 0, f"breadth {qname}: no rows")
+        floats_alike = same_result(torch, want, (cols, masks, n),
+                                   f"breadth {qname}",
+                                   float_rtol=0.0 if bitwise else 1e-9)
+        joins = _plan_nodes(plan, "TorchBroadcastHashJoinExec") \
+            + _plan_nodes(plan, "TorchHashJoinExec")
+        aggs = _plan_nodes(plan, "TorchHashAggregateExec")
+        emit("breadth", query=qname, out_rows=n,
+             joins=[(j.join_type, j.route) for j in joins],
+             dense_slot_batches=sum(a.metrics["pallasAggBatches"]
+                                    for a in aggs),
+             floats_bit_for_bit=floats_alike,
+             host_syncs_per_run=host_syncs(plan), seconds=secs,
+             cpu_seconds=cpu_s)
 
 
 # -- window_1m ---------------------------------------------------------------
@@ -1855,14 +2213,15 @@ def same_result(torch, a, b, what: str, float_rtol=0.0) -> bool:
     return bitwise
 
 
-def tier_runs(torch, st, build, name: str, verify) -> None:
+def tier_runs(torch, st, build, name: str, verify,
+              float_rtol=None) -> None:
     """``build(session)``'s query at the default budget, then with the
     device budget at a quarter of the first run's catalog peak and the
     host tier at an eighth of it: bytes reach the host and the disk.
     ``verify`` holds each run to the reference; the two runs' integers,
-    strings and nulls are equal, and whether their floats are bit for
-    bit alike is printed (a float sum on the card may take another order
-    from run to run: the window's prefix sums do)."""
+    strings and nulls are equal, and their floats too with
+    ``float_rtol=0.0`` (else whether they are bit for bit alike is
+    printed)."""
     runs = []
     conf = None
     for budget in ("default", "quarter"):
@@ -1888,7 +2247,7 @@ def tier_runs(torch, st, build, name: str, verify) -> None:
                     "spark.rapids.memory.host.spillStorageSize": peak // 8}
         else:
             bitwise = same_result(torch, want, out, f"{name} spilled",
-                                  float_rtol=None)
+                                  float_rtol=float_rtol)
             check(cat.spill_to_host_bytes > 0 and cat.spill_to_disk_bytes > 0
                   and cat.unspill_count > 0,
                   f"{name}: the quarter budget moved no bytes to the host "
@@ -2109,8 +2468,9 @@ def phase_inject(torch, st, F, session, main, agg_data, dim) -> None:
     """Every retry site raises ``torch.OutOfMemoryError`` on the card,
     twice where a split follows (the attempt and the one after relief),
     once where the input must stay whole; each query equals its run
-    without the error (bit for bit; an aggregate's float sums within
-    rtol 1e-9, since its halves' partials add in another order)."""
+    without the error (bit for bit, the window's running sums too; an
+    aggregate's float sums within rtol 1e-9, since its halves' partials
+    add in another order)."""
     from spark_rapids_tpu_torch.exec import aggregate as agg_mod
     from spark_rapids_tpu_torch.exec import pallas_agg as pag_mod
     from spark_rapids_tpu_torch.exec import sort as sort_mod
@@ -2161,13 +2521,12 @@ def phase_inject(torch, st, F, session, main, agg_data, dim) -> None:
         else:
             check(inj.rows[:2] == [inj.rows[0]] * 2,
                   f"{name}: attempts over {inj.rows} rows")
-        if name == "window":  # its prefix sums may vary from run to run
+        if name == "window":
             check_window(want, main)
             check_window(got, main)
         bitwise = same_result(
             torch, want, got, f"{name} after an injected error",
-            float_rtol=1e-9 if name.startswith("aggregate")
-            else None if name == "window" else 0.0)
+            float_rtol=1e-9 if name.startswith("aggregate") else 0.0)
         out.append({"site": name, "fails": fails,
                     "attempt_rows": inj.rows[:4], "out_rows": got[2],
                     "floats_bit_for_bit": bitwise})
@@ -2209,9 +2568,10 @@ def phase_memory(torch, st, F, session, main, agg_data, dim, big, tpch
     no thread of the port's left after it."""
     from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
     from spark_rapids_tpu_torch.io.prefetch import THREAD_PREFIX
+    # the window's float running sums add in a fixed order: bit for bit
     tier_runs(torch, st, lambda s: window_query(
         st, F, s.create_dataframe(main)), "window_1m",
-        lambda out: check_window(out, main))
+        lambda out: check_window(out, main), float_rtol=0.0)
     want, limit = tpch_reference(tpch, "q18")
     tier_runs(torch, st, lambda s: TPCH_QUERIES["q18"](
         load_tables(s, tpch)), "tpch_q18",
@@ -2245,6 +2605,10 @@ def parse_args(argv):
                          "hash_join_1m, tpch_q3 and window_1m as the full "
                          "run does, and stop (to set one package's times "
                          "beside another's in one call)")
+    ap.add_argument("--string-paths", action="store_true",
+                    help="time LIKE/RLIKE's two matchers and replace's "
+                         "two paths on the breadth queries' columns and "
+                         "the queries with each, and stop")
     return ap.parse_args(argv)
 
 
@@ -2272,6 +2636,8 @@ def main(argv=None) -> int:
          cuda=torch.version.cuda, count=torch.cuda.device_count(),
          package=os.path.dirname(os.path.abspath(st.__file__)))
     rate = mem_rate(name)
+    if args.string_paths:
+        return string_paths(torch, st, name)
 
     t0 = time.perf_counter()
     reports = native.build_all()
@@ -2372,6 +2738,9 @@ def main(argv=None) -> int:
                                        if q not in LEAD_QUERIES]:
         drive(f"tpcxbb_{qname}", phase_tpcxbb, torch, session, cpu, qname,
               TPCXBB_SALES_ROWS)
+    gpu_b, cpu_b = breadth_sessions(st, tpch, line[0])
+    emit("breadth_conf", conf=BREADTH_CONF)
+    drive("breadth", phase_breadth, torch, st, gpu_b, cpu_b)
     drive("memory", phase_memory, torch, st, F, session, main_data,
           agg_data, dim_data, gen_big(), tpch)
     check(all(v > 0 for v in launches.values()),
@@ -2379,9 +2748,12 @@ def main(argv=None) -> int:
     phase_repeat_sums(torch, st, F, session, tpch_dfs)
     # q8, q13 and TPCx-BB q2 give the dense-slot kernel shapes of their
     # own
+    hour_sql = dict((q, sql) for q, sql, _ in BREADTH_QUERIES)[
+        "timestamp_hour"]
     for path, query in [("tpch_q8", TPCH_QUERIES["q8"](tpch_dfs)),
                         ("tpch_q13", TPCH_QUERIES["q13"](tpch_dfs)),
-                        ("tpcxbb_q2", session.sql(TPCXBB_QUERIES["q2"]))]:
+                        ("tpcxbb_q2", session.sql(TPCXBB_QUERIES["q2"])),
+                        ("breadth_timestamp_hour", gpu_b.sql(hour_sql))]:
         dsr["max_abs_err"] = max(dsr["max_abs_err"], phase_kernel_path(
             torch, pag, session, query, path))
     # the first half of hash_agg_sort_2m's first update batch, at the

@@ -3,8 +3,10 @@
 Counterpart of ``spark_rapids_tpu/api.py``, trimmed to what the port
 runs: ``select``, ``with_column``, ``filter``, ``group_by(...).agg(...)``
 and the global ``agg``, ``distinct``, ``order_by`` (with
-``Column.asc()`` / ``desc()``), ``limit``, ``join`` on key names, the
-string predicates, ``isin`` and null tests of ``Column``, ``when``,
+``Column.asc()`` / ``desc()``), ``limit``, ``join`` on key names or key
+expressions and the cross join, the string predicates, ``like`` and
+``rlike``, ``cast`` to every type, ``eq_null_safe``, ``isin``, ``is_nan``
+and null tests of ``Column``, ``when``,
 window functions (``Column.over`` with a ``Window`` spec; each window
 expression in a select, filter or sort list moves into an ``lp.Window``
 node below it), temp views for ``session.sql`` and the actions
@@ -26,8 +28,8 @@ from spark_rapids_tpu_torch.columnar.batch import (
     empty_host_values, host_columns_from_arrow, host_columns_from_numpy,
     host_columns_to_arrow,
 )
-from spark_rapids_tpu_torch.columnar.dtypes import DATE, STRING, DataType, \
-    Schema, device_dtype
+from spark_rapids_tpu_torch.columnar.dtypes import DATE, STRING, \
+    TIMESTAMP, DataType, Schema, device_dtype, from_name
 from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exprs import arithmetic as ar
@@ -36,6 +38,7 @@ from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs import strings as ss
 from spark_rapids_tpu_torch.exprs.base import Alias, BoundReference, \
     Expression, Literal, UnresolvedAttribute
+from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.nullexprs import Coalesce
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression, \
     WindowFrame, WindowFunction
@@ -78,6 +81,12 @@ class Column:
     def __truediv__(self, o):
         return Column(ar.Divide(self.expr, _to_expr(o)))
 
+    def __mod__(self, o):
+        return Column(ar.Remainder(self.expr, _to_expr(o)))
+
+    def __neg__(self):
+        return Column(ar.UnaryMinus(self.expr))
+
     def __rtruediv__(self, o):
         return Column(ar.Divide(_to_expr(o), self.expr))
 
@@ -110,6 +119,35 @@ class Column:
 
     def is_null(self) -> "Column":
         return Column(pr.IsNull(self.expr))
+
+    def is_nan(self) -> "Column":
+        return Column(pr.IsNaN(self.expr))
+
+    isNaN = is_nan
+
+    def eq_null_safe(self, o) -> "Column":
+        """``<=>``: null-safe equality, never null."""
+        return Column(pr.EqualNullSafe(self.expr, _to_expr(o)))
+
+    eqNullSafe = eq_null_safe
+
+    def cast(self, dtype) -> "Column":
+        """Cast to a DataType or a Spark type name ("string", "date",
+        ...); a gated cast raises at planning unless its key is on."""
+        if isinstance(dtype, str):
+            dtype = from_name(dtype)
+        return Column(Cast(self.expr, dtype))
+
+    def like(self, pattern: str) -> "Column":
+        return Column(ss.Like(self.expr, _to_expr(pattern)))
+
+    def rlike(self, pattern: str) -> "Column":
+        return Column(ss.RLike(self.expr, _to_expr(pattern)))
+
+    def substr(self, pos, length=None) -> "Column":
+        """``pos`` and ``length`` may be ints or integer columns."""
+        ln = None if length is None else _to_expr(length)
+        return Column(ss.Substring(self.expr, _to_expr(pos), ln))
 
     def is_not_null(self) -> "Column":
         return Column(pr.IsNotNull(self.expr))
@@ -385,23 +423,30 @@ class DataFrame:
         """A global aggregation: one row over the whole input."""
         return GroupedData(self, []).agg(*agg_cols)
 
-    def join(self, other: "DataFrame", on, how: str = "inner"
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
              ) -> "DataFrame":
-        """Equi-join on the columns named in ``on`` (one name or a list),
-        of type inner, left, right, full, semi or anti (pyspark's
-        aliases accepted).  As in pyspark's USING join, each key appears
-        once in the output: the left one for inner and left joins, the
-        right one for right joins, and the first non-null of the two for
-        full joins."""
-        on = [on] if isinstance(on, str) else list(on)
+        """Equi-join on ``on``: one key or a list, each a column name
+        (the same name on both sides) or an expression bound against each
+        side, of type inner, left, right, full, semi, anti or cross
+        (pyspark's aliases accepted; a cross join pairs every row and
+        takes no keys, or ignores them as the JAX package does).  As in
+        pyspark's USING join, each named key appears once in the output:
+        the left one for inner and left joins, the right one for right
+        joins, and the first non-null of the two for full joins."""
+        on = [] if on is None else [on] if isinstance(on, (str, Column,
+                                                          Expression)) \
+            else list(on)
         how = {"left_outer": "left", "right_outer": "right",
                "outer": "full", "full_outer": "full", "leftsemi": "semi",
                "left_semi": "semi", "leftanti": "anti",
                "left_anti": "anti"}.get(how, how)
-        plan = lp.Join(self.plan, other.plan,
-                       [UnresolvedAttribute(k) for k in on],
-                       [UnresolvedAttribute(k) for k in on], how)
-        if how in ("inner", "left", "right", "full"):
+        if not on and how != "cross":
+            raise ValueError(f"a {how} join needs keys (on=...)")
+        keys = [_expr_or_name(k) for k in on]
+        plan = lp.Join(self.plan, other.plan, keys, list(keys), how)
+        names = [k for k in on if isinstance(k, str)]
+        if names and len(names) == len(on) and how in ("inner", "left",
+                                                        "right", "full"):
             lfields = self.plan.output_schema().fields
             rfields = other.plan.output_schema().fields
             nl = len(lfields)
@@ -469,7 +514,8 @@ class DataFrame:
 
     def collect(self) -> List[dict]:
         """The result as a list of row dicts (None for null); dates come
-        back as ``datetime.date``, strings as ``str``."""
+        back as ``datetime.date``, timestamps as UTC
+        ``datetime.datetime``, strings as ``str``."""
         schema, cols = self._host()
         out_cols = []
         for f in schema:
@@ -478,11 +524,17 @@ class DataFrame:
                 vals = values.to_pylist()
             else:
                 vals = values.tolist()
+            ok = valid.tolist()
             if f.dtype == DATE:
                 epoch = datetime.date(1970, 1, 1)
-                vals = [epoch + datetime.timedelta(days=d) for d in vals]
-            out_cols.append([v if ok else None
-                             for v, ok in zip(vals, valid.tolist())])
+                vals = [epoch + datetime.timedelta(days=d) if o else None
+                        for d, o in zip(vals, ok)]
+            elif f.dtype == TIMESTAMP:
+                epoch = datetime.datetime(1970, 1, 1,
+                                          tzinfo=datetime.timezone.utc)
+                vals = [epoch + datetime.timedelta(microseconds=u) if o
+                        else None for u, o in zip(vals, ok)]
+            out_cols.append([v if o else None for v, o in zip(vals, ok)])
         return [dict(zip(schema.names, row)) for row in zip(*out_cols)]
 
     def to_torch(self) -> Tuple[Dict[str, object], Dict[str, torch.Tensor],

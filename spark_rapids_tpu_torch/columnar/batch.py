@@ -24,7 +24,7 @@ from spark_rapids_tpu_torch.columnar.column import (
     DeviceColumn, bucket_capacity,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import (
-    DATE, STRING, Field, Schema, from_numpy_dtype, to_arrow_type,
+    DATE, STRING, TIMESTAMP, Field, Schema, from_numpy_dtype, to_arrow_type,
 )
 
 
@@ -249,6 +249,8 @@ def host_values(values: np.ndarray, dtype) -> np.ndarray:
     representation."""
     if dtype == DATE and np.issubdtype(values.dtype, np.datetime64):
         values = values.astype("datetime64[D]").astype(np.int64)
+    if dtype == TIMESTAMP and np.issubdtype(values.dtype, np.datetime64):
+        values = values.astype("datetime64[us]").astype(np.int64)
     return np.ascontiguousarray(values, dtype=dtype.numpy_dtype)
 
 
@@ -344,6 +346,8 @@ def host_columns_from_arrow(table) -> Tuple[Schema, HostColumns]:
             continue
         if pa.types.is_date32(arr.type):
             arr = arr.cast(pa.int32())
+        elif pa.types.is_timestamp(arr.type):
+            arr = arr.cast(pa.timestamp("us")).cast(pa.int64())
         if arr.null_count:
             arr = pc.fill_null(arr, False if f.dtype.name == "boolean"
                                else 0)

@@ -7,8 +7,10 @@ scalar types, with date as days-since-epoch int32.  DOUBLE is always
 
 A STRING column's data plane holds the int32 byte lengths; its bytes
 sit beside it in a (capacity, width) uint8 char matrix
-(``columnar/column.py``).  TIMESTAMP exists as a type, but is not mapped
-from Arrow yet.
+(``columnar/column.py``).  TIMESTAMP is microseconds since the epoch in
+an int64 plane, UTC only: it comes from Arrow timestamps (UTC or naive)
+and from numpy ``datetime64`` arrays, and goes back to Arrow as
+``timestamp[us, tz=UTC]``.
 """
 
 from __future__ import annotations
@@ -172,6 +174,10 @@ def from_numpy_dtype(dtype: np.dtype) -> DataType:
             return dt
     if dtype == np.dtype("datetime64[D]"):
         return DATE
+    if dtype.kind == "M":
+        # any finer datetime64 unit: microseconds since the epoch, as the
+        # JAX package takes such an array through Arrow
+        return TIMESTAMP
     if dtype.kind in ("U", "S", "O"):
         return STRING
     raise TypeError(f"unsupported numpy dtype {dtype}")
@@ -187,6 +193,10 @@ def from_arrow_type(t) -> DataType:
     }
     if t in table:
         return table[t]
+    if pa.types.is_timestamp(t):
+        if t.tz not in (None, "UTC", "+00:00"):
+            raise TypeError(f"only UTC timestamps supported, got tz={t.tz}")
+        return TIMESTAMP
     raise TypeError(f"unsupported arrow type {t}")
 
 
@@ -197,10 +207,31 @@ def to_arrow_type(dt: DataType):
         "int": pa.int32(), "long": pa.int64(), "float": pa.float32(),
         "double": pa.float64(), "date": pa.date32(), "string": pa.string(),
     }
+    if dt == TIMESTAMP:
+        return pa.timestamp("us", tz="UTC")
     try:
         return table[dt.name]
     except KeyError:
         raise TypeError(f"cannot map {dt} to arrow") from None
+
+
+def from_name(name: str) -> DataType:
+    """Spark SQL type name -> DataType (the names ``CAST`` and
+    ``Column.cast`` take)."""
+    names = {
+        "boolean": BOOLEAN, "bool": BOOLEAN,
+        "byte": INT8, "tinyint": INT8,
+        "short": INT16, "smallint": INT16,
+        "int": INT32, "integer": INT32,
+        "long": INT64, "bigint": INT64,
+        "float": FLOAT32, "real": FLOAT32, "double": FLOAT64,
+        "string": STRING, "varchar": STRING, "date": DATE,
+        "timestamp": TIMESTAMP,
+    }
+    try:
+        return names[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown type name {name!r}") from None
 
 
 def common_type(a: DataType, b: DataType) -> Optional[DataType]:

@@ -113,6 +113,31 @@ IO_PREFETCH_ENABLED = register(
     "to overlap and only adds a thread hand-off a batch (PERF.md).", bool)
 
 
+INCOMPATIBLE_OPS = register(
+    "spark.rapids.sql.incompatibleOps.enabled", False,
+    "Enable the expressions whose results differ from Spark in corner "
+    "cases: Upper, Lower and InitCap (ASCII only) and Rand (threefry, "
+    "not Spark's XORShift).  One of them is also enabled by its own key, "
+    "spark.rapids.sql.expression.<Name>.  With it off such an expression "
+    "raises when the query is planned (the JAX package runs it on its "
+    "CPU engine, which the port has not).", bool)
+
+CAST_STRING_TO_INTEGER = register(
+    "spark.rapids.sql.castStringToInteger.enabled", False,
+    "Enable the string -> integral cast; off, it raises at planning.",
+    bool)
+
+CAST_STRING_TO_FLOAT = register(
+    "spark.rapids.sql.castStringToFloat.enabled", False,
+    "Enable the string -> float cast (a result may sit a few ulp from "
+    "Java's parser); off, it raises at planning.", bool)
+
+CAST_STRING_TO_TIMESTAMP = register(
+    "spark.rapids.sql.castStringToTimestamp.enabled", False,
+    "Enable the string -> timestamp and string -> date casts; off, they "
+    "raise at planning.", bool)
+
+
 class TorchConf:
     """Immutable view over a conf dict."""
 
@@ -128,6 +153,14 @@ class TorchConf:
     def get(self, entry: ConfEntry) -> Any:
         raw = self._settings.get(entry.key)
         return entry.default if raw is None else entry.convert(raw)
+
+    def is_expression_enabled(self, name: str, incompat: bool) -> bool:
+        """The JAX package's rule: ``spark.rapids.sql.expression.<name>``
+        when set, else incompatibleOps for an incompatible expression."""
+        raw = self._settings.get(f"spark.rapids.sql.expression.{name}")
+        if raw is not None:
+            return str(raw).strip().lower() in ("true", "1", "yes")
+        return self.get(INCOMPATIBLE_OPS) if incompat else True
 
     def set(self, key: str, value: Any) -> "TorchConf":
         return TorchConf({**self._settings, key: value})

@@ -32,9 +32,12 @@ documents; counts, integer sums, min and max stay exact.
 String grouping keys take the sorted-segment path (the dense-slot router
 rejects them, as the JAX package's does): their sort keys are the packed
 byte blocks of ``exec/sortkeys.py``, and each group's key is gathered,
-chars and all, from its first row.  ``count`` takes a string input; the
-other aggregates over strings (min, max, first, last) are not in the
-port yet.
+chars and all, from its first row.  ``first`` and ``last`` gather each
+group's first or last (non-null, unless nulls are kept) row in input
+order, and ``min`` and ``max`` over a string gather the row that sorts
+first or last by (group, packed string keys) with nulls losing, as the
+JAX package does; their buffers carry the chars.  Sum and average over a
+string raise at planning.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
     sort_permutation
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction, \
-    Count, First
+    Count, First, Max, Min
 from spark_rapids_tpu_torch.exprs.base import Alias, ColVal, EvalContext, \
     Expression, colvals
 from spark_rapids_tpu_torch.memory.spill import SpillableBatch, close_all, \
@@ -168,10 +171,10 @@ def make_agg_body(spec: _AggSpec, phase: str, capacity: int):
 
         if nk == 0:
             # one segment of every live row, even of none
-            bufs = [_segment_reduce(op, cv.data, cv.validity,
-                                    torch.zeros_like(pos), capacity, live)
-                    for cv, op in inputs]
-            return 1, (), tuple(ColVal(b, pos < 1) for b in bufs)
+            gid0 = torch.zeros_like(pos)
+            return 1, (), tuple(_reduce_buffer(cv, op, gid0, capacity, live,
+                                               pos < 1)
+                                for cv, op in inputs)
 
         keys = []
         for g, cv in zip(spec.groupings, key_cvs):
@@ -189,22 +192,66 @@ def make_agg_body(spec: _AggSpec, phase: str, capacity: int):
             .clamp(0, capacity - 1)
         n_groups = int(boundary.sum())
 
-        bufs = [_segment_reduce(op, cv.data[perm], cv.validity[perm], gid,
-                                capacity, live_s) for cv, op in inputs]
+        group_valid = pos < n_groups
+        bufs = [_reduce_buffer(ColVal(cv.data[perm], cv.validity[perm],
+                                      None if cv.chars is None
+                                      else cv.chars[perm]),
+                               op, gid, capacity, live_s, group_valid)
+                for cv, op in inputs]
 
         # representative row of each group, for the key output
         rep_sorted = _segment(
             "min", torch.where(boundary, pos, torch.full_like(pos, capacity)),
             gid, capacity)
         rep = perm[rep_sorted.clamp(0, capacity - 1)]
-        group_valid = pos < n_groups
         key_outs = tuple(ColVal(cv.data[rep], cv.validity[rep] & group_valid,
                                 None if cv.chars is None else cv.chars[rep])
                          for cv in key_cvs)
-        return n_groups, key_outs, tuple(ColVal(b, group_valid)
-                                         for b in bufs)
+        return n_groups, key_outs, tuple(bufs)
 
     return run
+
+
+def _end_rows(mask: torch.Tensor, gid: torch.Tensor, cap: int,
+              first: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per segment, the first (or last) position where ``mask`` holds ->
+    (positions, found)."""
+    pos = torch.arange(cap, device=gid.device)
+    if first:
+        best = _segment("min", torch.where(mask, pos,
+                                           torch.full_like(pos, cap)),
+                        gid, cap)
+        return best.clamp(max=cap - 1), best < cap
+    best = _segment("max", torch.where(mask, pos, torch.full_like(pos, -1)),
+                    gid, cap)
+    return best.clamp(min=0), best >= 0
+
+
+def _reduce_buffer(cv: ColVal, op: str, gid: torch.Tensor, cap: int,
+                   live: torch.Tensor, group_valid: torch.Tensor) -> ColVal:
+    """One buffer slot over rows sorted by group -> a ColVal of one row
+    per group.  first/last take the first/last (valid, unless "_any")
+    row of each segment in input order; string min/max the first/last
+    valid row by (group, string order), nulls losing."""
+    if op in ("first", "last", "first_any", "last_any"):
+        keep_nulls = op.endswith("_any")
+        rows, found = _end_rows(live if keep_nulls else cv.validity & live,
+                                gid, cap, op.startswith("first"))
+        valid = found & group_valid
+        if keep_nulls:
+            valid = valid & cv.validity[rows]
+    elif cv.chars is not None and op in ("min", "max"):
+        mask = cv.validity & live
+        perm = sort_permutation(
+            [gid] + colval_sort_keys(cv, STRING, True, op == "max"),
+            live_first=mask)
+        at, found = _end_rows(mask[perm], gid[perm], cap, op == "min")
+        rows, valid = perm[at], found & group_valid
+    else:
+        return ColVal(_segment_reduce(op, cv.data, cv.validity, gid, cap,
+                                      live), group_valid)
+    return ColVal(cv.data[rows], valid, None if cv.chars is None
+                  else cv.chars[rows])
 
 
 def evaluate(spec: _AggSpec, cols: Sequence[ColVal],
@@ -219,7 +266,7 @@ def evaluate(spec: _AggSpec, cols: Sequence[ColVal],
         nbuf = len(f.buffer_dtypes())
         ev = f.evaluate(list(cols[i:i + nbuf]))
         i += nbuf
-        outs.append(ColVal(ev.data, ev.validity & live))
+        outs.append(ColVal(ev.data, ev.validity & live, ev.chars))
     return outs
 
 
@@ -237,11 +284,8 @@ class TorchHashAggregateExec(TorchExec):
         self.groupings = list(groupings)
         self.agg_pairs = [unwrap_aggregate(e) for e in aggregates]
         for _, f in self.agg_pairs:
-            if isinstance(f, First):
-                raise NotImplementedError(
-                    f"{type(f).__name__} is not in the torch port's "
-                    "aggregate yet")
-            if f.child.dtype == STRING and not isinstance(f, Count):
+            if f.child.dtype == STRING and not isinstance(
+                    f, (Count, Min, Max, First)):
                 raise NotImplementedError(
                     f"{type(f).__name__} over strings is not in the torch "
                     "port yet")

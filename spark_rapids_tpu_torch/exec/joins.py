@@ -35,15 +35,30 @@ split defines the reference's hash value.
 Each output batch's row count is read back to the host (``hostSyncs``
 counts every read).  Not carried over: the bitonic sort, the unrolled
 binary search and matmul prefix sums (TPU workarounds), the memoized
-build probe (a remote-link workaround), the compressed code views (a
-later slice), band joins and cross joins.  Each stream batch's probe, on
-either route, runs under ``with_retry`` (``utils/retry.py``) and splits
-in halves when relief is not enough.
-An inner join's ``condition`` (the non-equi terms of ``ON``, or a
-predicate the planner pushed into the join) filters each joined batch
+build probe (a remote-link workaround) and the compressed code views (a
+later slice).  Each stream batch's probe, on either route, runs under
+``with_retry`` (``utils/retry.py``) and splits in halves when relief is
+not enough.
+An inner or cross join's ``condition`` (the non-equi terms of ``ON``, or
+a predicate the planner pushed into the join) filters each joined batch
 after the probe, as the JAX package does; the planner raises on a
 condition on any other join type, since a filter after the probe cannot
 null-extend the rows whose matches all fail it.
+
+A cross join pairs every live stream row with every live build row.
+
+**Band joins.**  When an inner join's condition holds comparisons of one
+integer-like build column against stream-side expressions
+(``_extract_band``: ``lo < b.x AND b.x <= hi``, a constant added to the
+build column moved to the bound), the build sorts by (key hash, band
+column) and the general route narrows each stream row's run of equal
+hashes to the band's sub-range with two bounded binary searches, so a
+many-to-many join whose band drops most equi pairs (TPCx-BB q3 and q8)
+stops materializing them.  The range is conservative: rows of another
+key that share the hash ride along, and the key check and the
+condition's filter after the probe keep the result exact.
+``joinCandidates`` counts the pairs the general and cross routes lay
+out, ``bandJoinProbes`` the stream batches probed with a band.
 """
 
 from __future__ import annotations
@@ -56,13 +71,18 @@ from torch.profiler import record_function
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
     bucket_capacity
+import numpy as np
+
 from spark_rapids_tpu_torch.columnar.dtypes import FLOAT32, FLOAT64, \
     STRING, DataType, Field, Schema, device_dtype
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.stage import emit_steps
-from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
-    Expression, colvals
+from spark_rapids_tpu_torch.exprs import predicates as pr
+from spark_rapids_tpu_torch.exprs.arithmetic import Add, Subtract
+from spark_rapids_tpu_torch.exprs.base import BoundReference, ColVal, \
+    EvalContext, Expression, Literal, colvals
+from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.predicates import string_compare
 from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
 
@@ -71,6 +91,7 @@ _I64_MIN = -(1 << 63)
 # the widest key span the dense route gives a lookup table
 _DENSE_SPAN = 1 << 24
 _INT_LIKE = ("byte", "short", "int", "long", "date")
+_BAND_LIKE = _INT_LIKE + ("timestamp",)
 
 
 def _signed(c: int) -> int:
@@ -190,6 +211,142 @@ def _verify(keep: torch.Tensor, s_cvs: Sequence[ColVal],
     return keep
 
 
+class BandSpec:
+    """A band over one integer-like build column: ``lower (<|<=) build``
+    and ``build (<|<=) upper``, each side optional, the bounds
+    stream-side expressions; a constant ``c`` added to the build column
+    moves to the bound (``build + c > lo`` is ``build > lo - c``)."""
+
+    __slots__ = ("build_ord", "lower", "lower_strict", "lower_shift",
+                 "upper", "upper_strict", "upper_shift")
+
+    def __init__(self, build_ord, lower, lower_strict, upper, upper_strict,
+                 lower_shift=0, upper_shift=0):
+        self.build_ord = build_ord
+        self.lower, self.lower_strict = lower, lower_strict
+        self.lower_shift = lower_shift
+        self.upper, self.upper_strict = upper, upper_strict
+        self.upper_shift = upper_shift
+
+
+def _width(dt: DataType) -> int:
+    return np.dtype(dt.numpy_dtype).itemsize
+
+
+def extract_band(condition: Expression, n_stream: int,
+                 build_fields: Sequence[Field]) -> Optional[BandSpec]:
+    """The band of an inner join's condition, bound against the join's
+    output (stream columns first), or None.  Only the AND-ed comparisons
+    of one build column against stream-only expressions count; the
+    others stay for the filter after the probe, which runs anyway."""
+    terms = []
+
+    def flatten(e):
+        if isinstance(e, pr.And):
+            flatten(e.children[0])
+            flatten(e.children[1])
+        else:
+            terms.append(e)
+    flatten(condition)
+
+    def side(e) -> Optional[str]:
+        refs = []
+
+        def walk(x):
+            if isinstance(x, BoundReference):
+                refs.append(x.ordinal)
+            for c in x.children:
+                walk(c)
+        walk(e)
+        if all(r < n_stream for r in refs):
+            return "stream"  # constants too
+        if all(r >= n_stream for r in refs):
+            return "build"
+        return None
+
+    def unwrap(x):
+        # only value-preserving casts (integral widening); a cast that
+        # changes values must keep the band away, since the probe prunes
+        if isinstance(x, Cast):
+            frm = x.children[0].dtype
+            if frm.is_integral and x.to.is_integral and \
+                    _width(x.to) >= _width(frm):
+                return unwrap(x.children[0])
+        return x
+
+    def build_ref(e) -> Tuple[Optional[BoundReference], int]:
+        e = unwrap(e)
+        if isinstance(e, BoundReference):
+            return e, 0
+        if isinstance(e, (Add, Subtract)):
+            a, b = (unwrap(c) for c in e.children)
+            sign = 1 if isinstance(e, Add) else -1
+            if isinstance(a, BoundReference) and isinstance(b, Literal) \
+                    and isinstance(b.value, int):
+                return a, sign * b.value
+            if isinstance(e, Add) and isinstance(b, BoundReference) \
+                    and isinstance(a, Literal) and isinstance(a.value, int):
+                return b, a.value
+        return None, 0
+
+    ops = {pr.GreaterThan: ">", pr.GreaterThanOrEqual: ">=",
+           pr.LessThan: "<", pr.LessThanOrEqual: "<="}
+    build_ord = lower = upper = None
+    lower_strict = upper_strict = True
+    lower_shift = upper_shift = 0
+    for t in terms:
+        op = ops.get(type(t))
+        if op is None:
+            continue
+        a, b = t.children
+        sa, sb = side(a), side(b)
+        if sa == "build" and sb == "stream":
+            ref, shift = build_ref(a)
+            bound, is_lower = b, op in (">", ">=")
+        elif sb == "build" and sa == "stream":
+            ref, shift = build_ref(b)
+            bound, is_lower = a, op in ("<", "<=")
+        else:
+            continue
+        if ref is None:
+            continue
+        bo = ref.ordinal - n_stream
+        if build_fields[bo].dtype.name not in _BAND_LIKE or \
+                bound.dtype.name not in _BAND_LIKE:
+            continue
+        if build_ord is None:
+            build_ord = bo
+        elif build_ord != bo:
+            continue  # a band over a second build column: the first wins
+        strict = op in (">", "<")
+        if is_lower and lower is None:
+            lower, lower_strict, lower_shift = bound, strict, shift
+        elif not is_lower and upper is None:
+            upper, upper_strict, upper_shift = bound, strict, shift
+    if build_ord is None or (lower is None and upper is None):
+        return None
+    return BandSpec(build_ord, lower, lower_strict, upper, upper_strict,
+                    lower_shift, upper_shift)
+
+
+def _bounded_search(vals: torch.Tensor, targets: torch.Tensor,
+                    lo: torch.Tensor, hi: torch.Tensor, strict: bool,
+                    span: int) -> torch.Tensor:
+    """Per row, the first j in [lo, hi) with vals[j] > target (``strict``)
+    or >= target, else hi; ``vals`` ascend inside each row's range, and
+    no range is longer than ``span``, which bounds the halving steps."""
+    cap = vals.shape[0]
+    lo, hi = lo.clone(), hi.clone()
+    for _ in range(span.bit_length() + 1):
+        searching = lo < hi
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        mv = vals[mid.clamp(0, cap - 1)]
+        right = (mv <= targets) if strict else (mv < targets)
+        lo = torch.where(searching & right, mid + 1, lo)
+        hi = torch.where(searching & ~right, mid, hi)
+    return lo
+
+
 class _Build:
     """The build batch and what every route reads of it: the hashes of
     its keys sorted (unusable rows, null keys or padding, sentinelled to
@@ -198,15 +355,28 @@ class _Build:
     key_lo, key_hi)."""
 
     def __init__(self, batch: ColumnarBatch, keys: Sequence[Expression],
-                 probe: bool):
+                 probe: bool, band: Optional[BandSpec] = None):
         self.batch = batch
         cap, dev = batch.capacity, batch.device
         ctx = EvalContext(colvals(batch.columns), batch.num_rows, cap, dev)
         h, valid, self.key_cvs = hash_keys(keys, ctx)
         self.live = torch.arange(cap, device=dev) < batch.num_rows
         usable = valid & self.live
-        h = torch.where(usable, h, torch.full_like(h, _I64_MAX))
-        self.sorted_h, self.perm = torch.sort(h, stable=True)
+        self.sorted_band = None
+        if band is None:
+            h = torch.where(usable, h, torch.full_like(h, _I64_MAX))
+            self.sorted_h, self.perm = torch.sort(h, stable=True)
+        else:
+            # sorted by (hash, band column); a row whose band value is
+            # null can satisfy no band, so it sorts last with the rest
+            bcol = batch.columns[band.build_ord]
+            usable = usable & bcol.validity
+            bv = torch.where(usable, bcol.data.to(torch.int64),
+                             torch.full_like(h, _I64_MAX))
+            h = torch.where(usable, h, torch.full_like(h, _I64_MAX))
+            by_band = torch.sort(bv, stable=True).indices
+            self.perm = by_band[torch.sort(h[by_band], stable=True).indices]
+            self.sorted_h, self.sorted_band = h[self.perm], bv[self.perm]
         # only an inner join reads the probe (the FK routes)
         self.max_run, self.key_lo, self.key_hi = self._probe(
             keys, usable) if probe else (None, 0, -1)
@@ -319,8 +489,8 @@ class TorchHashJoinExec(TorchExec):
                  join_type: str = "inner",
                  condition: Optional[Expression] = None):
         super().__init__()
-        if join_type not in ("inner", "left", "right", "full", "semi",
-                             "anti"):
+        if join_type not in ("inner", "cross", "left", "right", "full",
+                             "semi", "anti"):
             raise NotImplementedError(
                 f"{join_type} join is not in the torch port yet")
         self.children = [left, right]
@@ -328,8 +498,14 @@ class TorchHashJoinExec(TorchExec):
         self.right_keys = list(right_keys)
         self.join_type = join_type
         self.condition = condition
-        # the route the last run took: "dense_fk", "fk" or "general"
+        # the route the last run took: "dense_fk", "fk", "general" or
+        # "cross"
         self.route: Optional[str] = None
+        self.band = None
+        if join_type == "inner" and condition is not None:
+            self.band = extract_band(condition,
+                                     len(left.output_schema.fields),
+                                     right.output_schema.fields)
 
     @property
     def output_schema(self) -> Schema:
@@ -338,7 +514,7 @@ class TorchHashJoinExec(TorchExec):
         rs = self.children[1].output_schema
         if jt in ("semi", "anti"):
             return ls
-        lf, rf = list(ls.fields), list(rs.fields)
+        lf, rf = list(ls.fields), list(rs.fields)  # inner and cross too
         if jt in ("right", "full"):
             lf = [Field(f.name, f.dtype, True) for f in lf]
         if jt in ("left", "full"):
@@ -350,12 +526,16 @@ class TorchHashJoinExec(TorchExec):
 
     def _join(self, ctx: ExecContext,
               b_batch: ColumnarBatch) -> Iterator[ColumnarBatch]:
+        if self.join_type == "cross":
+            yield from self._cross_join(ctx, b_batch)
+            return
         inner = self.join_type == "inner"
         # the join's own work runs inside named ranges (join.build,
         # join.<route>) that a torch.profiler trace attributes time to;
         # the children's work and the consumers' stay outside them
         with record_function("join.build"):
-            build = _Build(b_batch, self.right_keys, probe=inner)
+            build = _Build(b_batch, self.right_keys, probe=inner,
+                           band=self.band)
         if inner:
             self.metrics["hostSyncs"] += 1
         fk = inner and build.max_run <= 1
@@ -395,6 +575,32 @@ class TorchHashJoinExec(TorchExec):
             self.metrics["hostSyncs"] += 1
             if out.num_rows:
                 yield out
+
+    def _cross_join(self, ctx: ExecContext,
+                    b_batch: ColumnarBatch) -> Iterator[ColumnarBatch]:
+        """Every live stream row with every live build row, stream row
+        by stream row, then the condition's filter."""
+        self.route = "cross"
+        nb = b_batch.num_rows
+        for sb in self.children[0].execute(ctx):
+            with record_function("join.cross"):
+                outs = with_retry(lambda b: self._cross(b, b_batch), sb, ctx,
+                                  split=split_batch_half)
+                if self.condition is not None:
+                    outs = [self._keep_where(o) for o in outs if o.num_rows]
+            yield from (o for o in outs if o.num_rows)
+
+    def _cross(self, sb: ColumnarBatch,
+               b_batch: ColumnarBatch) -> ColumnarBatch:
+        ns, nb = sb.num_rows, b_batch.num_rows
+        total = ns * nb
+        self.metrics["joinCandidates"] += total
+        cap = bucket_capacity(max(1, total))
+        k = torch.arange(cap, device=sb.device).clamp(max=max(0, total - 1))
+        srow = torch.div(k, max(1, nb), rounding_mode="floor")
+        brow = torch.remainder(k, max(1, nb))
+        cols = _select(sb, srow, total) + _select(b_batch, brow, total)
+        return ColumnarBatch(cols, total, self.output_schema)
 
     def _keep_where(self, out: ColumnarBatch) -> ColumnarBatch:
         """The joined rows of ``out`` where the condition holds; one host
@@ -439,6 +645,36 @@ class TorchHashJoinExec(TorchExec):
         cols = _select(sb, pos, n) + _select(build.batch, brow[pos], n)
         return ColumnarBatch(cols, n, self.output_schema)
 
+    def _band_range(self, ctx: EvalContext, build: _Build, h, lo, hi,
+                    usable):
+        """Each stream row's run of equal hashes narrowed to the band's
+        sub-range of build rows -> (lo, hi, usable); a null bound
+        leaves the row nothing."""
+        band = self.band
+        self.metrics["bandJoinProbes"] += 1
+        vals = build.sorted_band
+        # a band join is inner, so the build's probe has read max_run,
+        # the longest run of one valid hash: it bounds every run and so
+        # the halving steps.  The sentinel's run also holds the unusable
+        # build rows, which sort after its valid ones (band value
+        # INT64_MAX), so a stream row with that hash keeps max_run rows.
+        span = build.max_run
+        hi = torch.where(h == _I64_MAX, torch.minimum(hi, lo + span), hi)
+        start, end = lo, hi
+        if band.lower is not None:
+            b = band.lower.emit(ctx)
+            usable = usable & b.validity
+            start = _bounded_search(vals, b.data.to(torch.int64)
+                                    - band.lower_shift, lo, hi,
+                                    band.lower_strict, span)
+        if band.upper is not None:
+            b = band.upper.emit(ctx)
+            usable = usable & b.validity
+            end = _bounded_search(vals, b.data.to(torch.int64)
+                                  - band.upper_shift, lo, hi,
+                                  not band.upper_strict, span)
+        return start, torch.maximum(end, start), usable
+
     def _general(self, sb: ColumnarBatch, build: _Build
                  ) -> Tuple[List[ColumnarBatch], Optional[torch.Tensor]]:
         """One stream batch through candidate expansion -> (output
@@ -451,10 +687,15 @@ class TorchHashJoinExec(TorchExec):
         h, valid, s_cvs = hash_keys(self.left_keys, ctx)
         lo = torch.searchsorted(build.sorted_h, h)
         hi = torch.searchsorted(build.sorted_h, h, right=True)
-        counts = torch.where(valid & live, hi - lo, torch.zeros_like(lo))
+        usable = valid & live
+        if build.sorted_band is not None:
+            lo, hi, usable = self._band_range(ctx, build, h, lo, hi,
+                                              usable)
+        counts = torch.where(usable, hi - lo, torch.zeros_like(lo))
         # the candidate total sizes the expansion: the join's host sync
         total = int(counts.sum())
         self.metrics["hostSyncs"] += 1
+        self.metrics["joinCandidates"] += total
         srow = torch.repeat_interleave(
             torch.arange(cap, device=dev), counts, output_size=total)
         start = torch.cumsum(counts, 0) - counts

@@ -14,7 +14,11 @@ The new row count is read back to the host: one sync per filter.
 
 Each batch runs under ``with_retry`` (``utils/retry.py``): on a device
 out-of-memory error the spill catalog is relieved and the batch runs
-again, then in halves, each half its own output batch.
+again, then in halves, each half its own output batch.  A stage that
+holds a nondeterministic expression (``rand``,
+``monotonically_increasing_id``, ``spark_partition_id``) retries without
+splitting, because their values depend on the row's position and the
+batch's ordinal (``partition_id``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, colvals
+from spark_rapids_tpu_torch.exprs.nondeterministic import \
+    contains_nondeterministic
 from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
 
 # a step is ("project", (expr, ...)) or ("filter", (pred,))
@@ -36,11 +42,12 @@ Step = Tuple[str, Tuple[Expression, ...]]
 
 
 def emit_steps(steps: Sequence[Step], cols: List[ColVal], num_rows: int,
-               capacity: int, device) -> Tuple[List[ColVal], int]:
+               capacity: int, device, partition_id: int = 0
+               ) -> Tuple[List[ColVal], int]:
     """Run the step chain over ``cols``; returns ``(cols, num_rows)``."""
     n = num_rows
     for kind, exprs in steps:
-        ctx = EvalContext(cols, n, capacity, device)
+        ctx = EvalContext(cols, n, capacity, device, partition_id)
         live = torch.arange(capacity, device=device) < n
         if kind == "project":
             cols = [ColVal(o.data, o.validity & live, o.chars)
@@ -76,24 +83,29 @@ class TorchStageExec(TorchExec):
                                  for e in exprs])
         self._schema = schema
         self._filters = sum(kind == "filter" for kind, _ in self.steps)
+        self.nondeterministic = any(contains_nondeterministic(e)
+                                    for _, es in self.steps for e in es)
 
     @property
     def output_schema(self) -> Schema:
         return self._schema
 
-    def _run(self, batch: ColumnarBatch) -> ColumnarBatch:
+    def _run(self, batch: ColumnarBatch,
+             partition_id: int = 0) -> ColumnarBatch:
         cols, n = emit_steps(self.steps, colvals(batch.columns),
-                             batch.num_rows, batch.capacity, batch.device)
+                             batch.num_rows, batch.capacity, batch.device,
+                             partition_id)
         out = [DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars)
                for f, cv in zip(self._schema, cols)]
         return ColumnarBatch(out, n, self._schema)
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        # rows split freely under per-row project and filter steps (the
-        # port has no expression whose value depends on the row's position)
-        for batch in self.children[0].execute(ctx):
-            results = with_retry(self._run, batch, ctx,
-                                 split=split_batch_half)
+        # rows split freely under per-row project and filter steps, but
+        # not under an expression that reads the row's position
+        split = None if self.nondeterministic else split_batch_half
+        for pid, batch in enumerate(self.children[0].execute(ctx)):
+            results = with_retry(lambda b: self._run(b, pid), batch, ctx,
+                                 split=split)
             self.metrics["stageDispatches"] += len(results)
             self.metrics["hostSyncs"] += self._filters * len(results)
             yield from results

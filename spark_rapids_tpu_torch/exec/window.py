@@ -17,7 +17,10 @@ function of the spec:
   a per-row binary search) as the difference of one global inclusive
   prefix sum at the frame's two ends.  A float sum's rounding error is
   therefore on the scale of the prefix of |v| up to the frame's end, as
-  in the JAX package; counts and integer sums are exact.
+  in the JAX package; counts and integer sums are exact.  The float
+  prefix sum adds in an order fixed by the batch's capacity alone
+  (``fixed_order_cumsum``), so a window's float results repeat bit for
+  bit from run to run on the card, as they do in the JAX package.
 
 The results scatter back through the permutation, so the input rows
 keep their order and gain one column per function.  The exec reads
@@ -188,12 +191,43 @@ def _frame_bounds(fr: WindowFrame, g: _Geometry, cap: int):
     return lo_c, hi_c, (lo_c <= hi_c) & g.live
 
 
+_SCAN_TILE = 1024
+
+
+def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D tensor whose float adds come in an
+    order fixed by the length alone: each tile of ``_SCAN_TILE`` scanned
+    on its own, and the tiles' totals scanned and added after, in tile
+    order.  ``torch.cumsum`` of one row on the card is CUB's decoupled
+    look-back scan, whose order of adds depends on which blocks finish
+    first, so two runs of a float sum differed in their last bits.
+    Integers are exact in any order and keep ``torch.cumsum``."""
+    if not x.is_floating_point():
+        return torch.cumsum(x, 0)
+    n = x.shape[0]
+    t = min(_SCAN_TILE, max(1, n))
+    nt = -(-n // t)
+    tiles = torch.nn.functional.pad(x, (0, nt * t - n)).view(nt, t)
+    # torch.cumsum along dim 1 of a 2-D tensor of two or more rows scans
+    # each row in one block in a fixed order (a tensor that is one row
+    # would go to CUB's single-pass scan); a zero row keeps even one tile
+    # on that path
+    inner = torch.cumsum(torch.cat([tiles, torch.zeros_like(tiles[:1])]),
+                         dim=1)[:nt]
+    totals = inner[:, -1]
+    carry = torch.cumsum(torch.stack([totals, torch.zeros_like(totals)]),
+                         dim=1)[0]
+    carry = torch.cat([torch.zeros_like(carry[:1]), carry[:-1]])
+    return (inner + carry[:, None]).reshape(-1)[:n]
+
+
 def _prefix_frame_sum(contrib: torch.Tensor, lo_c: torch.Tensor,
                       hi_c: torch.Tensor, cap: int) -> torch.Tensor:
     """sum(contrib[lo_c..hi_c]) as one global inclusive prefix sum at
     hi_c minus the prefix at lo_c - 1 (frames never cross a partition,
-    so the other partitions' terms cancel)."""
-    p = torch.cumsum(contrib, 0)
+    so the other partitions' terms cancel); float sums in a fixed order
+    (``fixed_order_cumsum``)."""
+    p = fixed_order_cumsum(contrib)
     hi_v = p[hi_c.clamp(0, cap - 1)]
     lo_v = torch.where(lo_c > 0, p[(lo_c - 1).clamp(0, cap - 1)],
                        torch.zeros_like(hi_v))

@@ -1,12 +1,12 @@
 """Declarative aggregate functions.
 
 Counterpart of ``spark_rapids_tpu/exprs/aggregates.py`` (Count, Sum, Min,
-Max, Average; First and Last are declared, but no exec of the port
-evaluates them yet, and the planner raises on them).  Each function
-declares its ``input_projection``, one
-update op and one merge op per buffer slot ("sum" | "min" | "max" |
-"count"), the buffer types, and ``evaluate(bufs)``, the finalization
-over buffer ColVals.
+Max, Average, First, Last).  Each function declares its
+``input_projection``, one update op and one merge op per buffer slot
+("sum" | "min" | "max" | "count" | "first" | "last", and "first_any" |
+"last_any" for First and Last that keep nulls), the buffer types, and
+``evaluate(bufs)``, the finalization over buffer ColVals.  Min, Max,
+First and Last take strings too: their value buffers carry the chars.
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ class _Extremum(AggregateFunction):
 
     def evaluate(self, bufs):
         v, c = bufs
-        return ColVal(v.data, c.data > 0)
+        return ColVal(v.data, c.data > 0, v.chars)
 
 
 class Min(_Extremum):
@@ -156,13 +156,15 @@ class Average(AggregateFunction):
 
 
 class First(AggregateFunction):
-    """first(expr): the first non-null value (Spark's ignoreNulls=true).
-    Declared so that queries can name it; the port's aggregate and window
-    execs do not evaluate it yet."""
+    """first(expr): the first value of each group in input order; with
+    ``ignore_nulls`` (Spark's default here, as in the JAX package) the
+    first non-null one, else the first row's, null or not."""
 
     def __init__(self, child: Expression, ignore_nulls: bool = True):
         super().__init__(child)
         self.ignore_nulls = ignore_nulls
+
+    _op = "first"
 
     def key(self) -> str:
         name = type(self).__name__
@@ -175,6 +177,27 @@ class First(AggregateFunction):
     def dtype(self) -> DataType:
         return self.child.dtype
 
+    def _value_op(self) -> str:
+        return self._op if self.ignore_nulls else self._op + "_any"
+
+    def update_ops(self):
+        return [self._value_op(), "count"]
+
+    def merge_ops(self):
+        return [self._value_op(), "sum"]
+
+    def buffer_dtypes(self):
+        return [self.child.dtype, INT64]
+
+    def evaluate(self, bufs):
+        v, c = bufs
+        if self.ignore_nulls:
+            return ColVal(v.data, c.data > 0, v.chars)
+        return ColVal(v.data, v.validity, v.chars)
+
 
 class Last(First):
-    """last(expr): the last non-null value."""
+    """last(expr): the last value of each group (non-null with
+    ``ignore_nulls``)."""
+
+    _op = "last"

@@ -17,8 +17,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.column import bucket_capacity
 from spark_rapids_tpu_torch.columnar.dtypes import (
-    BOOLEAN, DATE, FLOAT64, INT32, INT64, STRING, DataType, Schema,
-    device_dtype,
+    BOOLEAN, DATE, FLOAT64, INT32, INT64, STRING, TIMESTAMP, DataType,
+    Schema, device_dtype,
 )
 
 
@@ -39,14 +39,18 @@ def colvals(columns) -> List[ColVal]:
 class EvalContext:
     """Carries the batch being evaluated into ``Expression.emit``."""
 
-    __slots__ = ("cols", "num_rows", "capacity", "device")
+    __slots__ = ("cols", "num_rows", "capacity", "device", "partition_id")
 
     def __init__(self, cols: Sequence[ColVal], num_rows: int, capacity: int,
-                 device):
+                 device, partition_id: int = 0):
         self.cols = list(cols)
         self.num_rows = num_rows
         self.capacity = capacity
         self.device = device
+        # the ordinal of the batch in its stage's input, as the JAX
+        # package threads it: rand, monotonically_increasing_id and
+        # spark_partition_id read it
+        self.partition_id = partition_id
 
 
 class Expression:
@@ -138,9 +142,15 @@ class Literal(Expression):
 
     def __init__(self, value, dtype: Optional[DataType] = None):
         if isinstance(value, datetime.datetime):
-            raise NotImplementedError(
-                "timestamp literals are not in the torch port yet")
-        if isinstance(value, datetime.date):
+            # microseconds since the epoch, UTC (a naive value is UTC), in
+            # integer arithmetic: float seconds would lose the last micro
+            if value.tzinfo is None:
+                value = value.replace(tzinfo=datetime.timezone.utc)
+            epoch = datetime.datetime(1970, 1, 1,
+                                      tzinfo=datetime.timezone.utc)
+            value = (value - epoch) // datetime.timedelta(microseconds=1)
+            dtype = dtype or TIMESTAMP
+        elif isinstance(value, datetime.date):
             # days since the epoch, as a DATE column holds them
             value = (value - datetime.date(1970, 1, 1)).days
             dtype = dtype or DATE

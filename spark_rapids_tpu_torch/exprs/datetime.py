@@ -1,22 +1,25 @@
-"""Date expressions over DATE columns (int32 days since 1970-01-01).
+"""Date and time expressions over DATE (int32 days since 1970-01-01)
+and TIMESTAMP (int64 microseconds since the epoch, UTC) columns.
 
-Counterpart of the DATE part of ``spark_rapids_tpu/exprs/datetime.py``:
+Counterpart of ``spark_rapids_tpu/exprs/datetime.py``:
 ``days_to_civil`` / ``civil_to_days`` (Howard Hinnant's branch-free
-civil-date algorithms), the date parts ``Year`` to ``LastDay``, and
-``DateAdd``, ``DateSub`` and ``DateDiff``.  The algorithms divide
-negative day counts (dates before 1970), so every division floors
-explicitly (``torch.div(..., rounding_mode="floor")``), as ``jnp``'s
-``//`` does.  The port has no TIMESTAMP columns yet: a date part over a
-TIMESTAMP input raises ``NotImplementedError`` when the planner binds
-it, and the time-of-day parts are not here.
+civil-date algorithms), ``timestamp_to_days`` and
+``timestamp_time_of_day``, the date parts ``Year`` to ``LastDay`` (over
+a DATE or a TIMESTAMP's day), ``Hour``, ``Minute`` and ``Second``,
+``DateAdd``, ``DateSub`` and ``DateDiff`` (a TIMESTAMP operand cast to
+its DATE, as Spark casts it), ``UnixTimestampFromDateTime``, and
+``TimeAdd``/``TimeSub`` by a literal count of microseconds.  The
+algorithms divide negative counts (before 1970), so every division
+floors explicitly (``torch.div(..., rounding_mode="floor")``), as
+``jnp``'s ``//`` does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from spark_rapids_tpu_torch.columnar.dtypes import DATE, INT32, TIMESTAMP, \
-    DataType
+from spark_rapids_tpu_torch.columnar.dtypes import DATE, INT32, INT64, \
+    TIMESTAMP, DataType
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, fixed
 
@@ -55,8 +58,26 @@ def civil_to_days(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor
     return (era * 146097 + doe - 719468).to(torch.int32)
 
 
+MICROS_PER_SECOND = 1_000_000
+MICROS_PER_DAY = 86_400 * MICROS_PER_SECOND
+
+
+def timestamp_to_days(us: torch.Tensor) -> torch.Tensor:
+    return _fdiv(us, MICROS_PER_DAY).to(torch.int32)
+
+
+def timestamp_time_of_day(us: torch.Tensor):
+    """-> (hour, minute, second, micros) in UTC."""
+    tod = us - timestamp_to_days(us).to(torch.int64) * MICROS_PER_DAY
+    secs = _fdiv(tod, MICROS_PER_SECOND)
+    micro = tod - secs * MICROS_PER_SECOND
+    return (_fdiv(secs, 3600).to(torch.int32),
+            _fdiv(torch.remainder(secs, 3600), 60).to(torch.int32),
+            torch.remainder(secs, 60).to(torch.int32), micro)
+
+
 class _DatePart(Expression):
-    """A civil component of a DATE."""
+    """A civil component of a DATE, or of a TIMESTAMP's day."""
     fname = "?"
 
     def __init__(self, child: Expression):
@@ -70,16 +91,11 @@ class _DatePart(Expression):
     def name(self) -> str:
         return f"{self.fname}({self.children[0].name})"
 
-    def coerce(self) -> Expression:
-        if self.children[0].dtype == TIMESTAMP:
-            raise NotImplementedError(
-                f"{self.fname} over a TIMESTAMP: the torch port has no "
-                "TIMESTAMP columns yet")
-        return self
-
     def emit(self, ctx: EvalContext) -> ColVal:
         c = self.children[0].emit(ctx)
-        return fixed(self.part(c.data), c.validity)
+        days = timestamp_to_days(c.data) \
+            if self.children[0].dtype == TIMESTAMP else c.data
+        return fixed(self.part(days), c.validity)
 
     def part(self, days: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -173,11 +189,13 @@ class _DateArith(Expression):
         return f"{self.fname}({a.name}, {b.name})"
 
     def coerce(self) -> Expression:
-        if TIMESTAMP in (c.dtype for c in self.children):
-            raise NotImplementedError(
-                f"{self.fname} over a TIMESTAMP: the torch port has no "
-                "TIMESTAMP columns yet")
-        return self
+        from spark_rapids_tpu_torch.exprs.cast import cast_to
+        if TIMESTAMP not in (c.dtype for c in self.children):
+            return self
+        # Spark casts a TIMESTAMP operand to its DATE
+        return self.with_children([
+            cast_to(c, DATE) if c.dtype == TIMESTAMP else c
+            for c in self.children])
 
     def emit(self, ctx: EvalContext) -> ColVal:
         a = self.children[0].emit(ctx)
@@ -213,3 +231,104 @@ class DateDiff(_DateArith):
 
     def combine(self, a, b):
         return a - b
+
+
+class _TimePart(Expression):
+    """A time-of-day component of a TIMESTAMP, in UTC."""
+    fname = "?"
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self) -> DataType:
+        return INT32
+
+    @property
+    def name(self) -> str:
+        return f"{self.fname}({self.children[0].name})"
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        c = self.children[0].emit(ctx)
+        return fixed(self.pick(*timestamp_time_of_day(c.data)[:3]),
+                     c.validity)
+
+
+class Hour(_TimePart):
+    fname = "hour"
+
+    def pick(self, h, mi, s):
+        return h
+
+
+class Minute(_TimePart):
+    fname = "minute"
+
+    def pick(self, h, mi, s):
+        return mi
+
+
+class Second(_TimePart):
+    fname = "second"
+
+    def pick(self, h, mi, s):
+        return s
+
+
+class UnixTimestampFromDateTime(Expression):
+    """unix_timestamp over a DATE or TIMESTAMP: seconds since the epoch,
+    LONG."""
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self) -> DataType:
+        return INT64
+
+    @property
+    def name(self) -> str:
+        return f"unix_timestamp({self.children[0].name})"
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        c = self.children[0].emit(ctx)
+        if self.children[0].dtype == DATE:
+            secs = c.data.to(torch.int64) * 86_400
+        else:
+            secs = _fdiv(c.data, MICROS_PER_SECOND)
+        return fixed(secs, c.validity)
+
+
+class TimeSub(Expression):
+    """timestamp - a literal interval of microseconds."""
+    sign = -1
+
+    def __init__(self, start: Expression, interval_us: int):
+        self.children = (start,)
+        self.interval_us = int(interval_us)
+
+    @property
+    def dtype(self) -> DataType:
+        return TIMESTAMP
+
+    @property
+    def name(self) -> str:
+        op = "+" if self.sign > 0 else "-"
+        return (f"({self.children[0].name} {op} INTERVAL "
+                f"{self.interval_us}us)")
+
+    def key(self) -> str:
+        return (f"{type(self).__name__}[{self.interval_us}]"
+                f"({self.children[0].key()})")
+
+    def with_children(self, children):
+        return type(self)(children[0], self.interval_us)
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        c = self.children[0].emit(ctx)
+        return fixed(c.data + self.sign * self.interval_us, c.validity)
+
+
+class TimeAdd(TimeSub):
+    """timestamp + a literal interval of microseconds."""
+    sign = 1

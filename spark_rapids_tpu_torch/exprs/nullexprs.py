@@ -1,18 +1,19 @@
 """Null-handling expressions.
 
-Counterpart of ``spark_rapids_tpu/exprs/nullexprs.py``, trimmed to
-``Coalesce`` (``functions.coalesce``, and the full outer USING join's key
-column) and ``NullOf`` (SQL's untyped ``NULL``).
+Counterpart of ``spark_rapids_tpu/exprs/nullexprs.py``: ``Coalesce``
+(``functions.coalesce``, and the full outer USING join's key column),
+``NaNvl``, ``AtLeastNNonNulls`` (a NaN counts as null) and ``NullOf``
+(SQL's untyped ``NULL``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from spark_rapids_tpu_torch.columnar.dtypes import STRING, DataType, \
-    common_type, device_dtype
+from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, \
+    DataType, common_type, device_dtype
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
-    Expression, align_chars
+    Expression, align_chars, fixed
 from spark_rapids_tpu_torch.exprs.cast import cast_to
 
 
@@ -91,3 +92,70 @@ class NullOf(Expression):
         chars = torch.zeros((cap, 8), dtype=torch.uint8, device=dev) \
             if self.dtype == STRING else None
         return ColVal(data, valid, chars)
+
+
+class NaNvl(Expression):
+    """nanvl(a, b): a unless a is NaN, then b."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+
+    @property
+    def dtype(self) -> DataType:
+        return self.children[0].dtype
+
+    @property
+    def name(self) -> str:
+        return f"nanvl({self.children[0].name}, {self.children[1].name})"
+
+    def coerce(self) -> Expression:
+        t = self.children[0].dtype
+        return self.with_children([self.children[0],
+                                   cast_to(self.children[1], t)])
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        a = self.children[0].emit(ctx)
+        b = self.children[1].emit(ctx)
+        use_b = a.validity & torch.isnan(a.data)
+        return fixed(torch.where(use_b, b.data, a.data),
+                     torch.where(use_b, b.validity, a.validity))
+
+
+class AtLeastNNonNulls(Expression):
+    """Whether at least ``n`` of the children are neither null nor NaN
+    (``df.na.drop``); never null."""
+
+    def __init__(self, n: int, *children: Expression):
+        self.n = n
+        self.children = tuple(children)
+
+    @property
+    def dtype(self) -> DataType:
+        return BOOLEAN
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    @property
+    def name(self) -> str:
+        return (f"atleastnnonnulls({self.n}, "
+                + ", ".join(c.name for c in self.children) + ")")
+
+    def key(self) -> str:
+        args = ",".join(c.key() for c in self.children)
+        return f"AtLeastNNonNulls[{self.n}]({args})"
+
+    def with_children(self, children):
+        return AtLeastNNonNulls(self.n, *children)
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        count = torch.zeros(ctx.capacity, dtype=torch.int32,
+                            device=ctx.device)
+        for c in self.children:
+            v = c.emit(ctx)
+            ok = v.validity
+            if c.dtype.is_floating:
+                ok = ok & ~torch.isnan(v.data)
+            count = count + ok.to(torch.int32)
+        return fixed(count >= self.n, torch.ones_like(count, dtype=torch.bool))

@@ -4,8 +4,9 @@ Counterpart of ``spark_rapids_tpu/exprs/predicates.py``.  AND/OR follow
 Kleene three-valued logic on the (data, validity) pair: ``false AND
 null = false``, ``true OR null = true``.  Float comparisons follow Spark:
 NaN = NaN is true and NaN is greater than every other value.  Strings
-compare by their UTF-8 bytes (``string_compare``).  ``IsNull`` and
-``IsNotNull`` are never null; ``In`` tests a list of literals.
+compare by their UTF-8 bytes (``string_compare``).  ``EqualNullSafe``
+(``<=>``), ``IsNull`` and ``IsNotNull`` are never null; ``IsNaN`` is
+null on a null input; ``In`` tests a list of literals.
 """
 
 from __future__ import annotations
@@ -151,6 +152,29 @@ class GreaterThanOrEqual(BinaryComparison):
         return ~lt
 
 
+class EqualNullSafe(BinaryComparison):
+    """``<=>``: null <=> null is true, null <=> x false; never null."""
+    symbol = "<=>"
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        a = self.left.emit(ctx)
+        b = self.right.emit(ctx)
+        if self.left.dtype == STRING:
+            eq = string_compare(a, b) == 0
+        elif self.left.dtype.is_floating:
+            an, bn = torch.isnan(a.data), torch.isnan(b.data)
+            eq = (an & bn) | (~an & ~bn & (a.data == b.data))
+        else:
+            eq = a.data == b.data
+        out = torch.where(a.validity & b.validity, eq,
+                          ~a.validity & ~b.validity)
+        return fixed(out, torch.ones_like(out))
+
+
 class And(Expression):
     """Kleene AND."""
 
@@ -252,6 +276,25 @@ class IsNotNull(Expression):
     def emit(self, ctx):
         c = self.children[0].emit(ctx)
         return fixed(c.validity, torch.ones_like(c.validity))
+
+
+class IsNaN(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self) -> DataType:
+        return BOOLEAN
+
+    @property
+    def name(self) -> str:
+        return f"isnan({self.children[0].name})"
+
+    def emit(self, ctx: EvalContext) -> ColVal:
+        c = self.children[0].emit(ctx)
+        if not self.children[0].dtype.is_floating:
+            return fixed(torch.zeros_like(c.validity), c.validity)
+        return fixed(torch.isnan(c.data), c.validity)
 
 
 class In(Expression):

@@ -1,8 +1,13 @@
-"""Column functions: ``col``, ``lit``, ``when``, the aggregates, the date
-parts, ``length``, ``substring``, ``contains``, ``isnull``, ``coalesce``
-and the window functions.
+"""Column functions: ``col``, ``lit``, ``when``, the aggregates
+(``first``/``last`` too), math (``pmod`` ... ``ceil``, ``abs``), null
+and NaN tests, the date and time parts, the string functions (case,
+trim, concat, locate, replace, substring_index, regexp_replace, rlike,
+split_part, contains), the nondeterministic functions and the window
+functions.
 
-Counterpart of ``spark_rapids_tpu/functions.py``.
+Counterpart of ``spark_rapids_tpu/functions.py``.  ``upper``, ``lower``,
+``initcap`` and ``rand`` need ``spark.rapids.sql.incompatibleOps.enabled``
+when the query is planned.
 """
 
 from __future__ import annotations
@@ -10,7 +15,10 @@ from __future__ import annotations
 from spark_rapids_tpu_torch.api import Column, _expr_or_name, _to_expr, \
     col, lit, when
 from spark_rapids_tpu_torch.exprs import aggregates as ag
+from spark_rapids_tpu_torch.exprs import arithmetic as ar
 from spark_rapids_tpu_torch.exprs import datetime as dte
+from spark_rapids_tpu_torch.exprs import math as mt
+from spark_rapids_tpu_torch.exprs import nondeterministic as nd
 from spark_rapids_tpu_torch.exprs import nullexprs as ne
 from spark_rapids_tpu_torch.exprs import pallas_strings as ps
 from spark_rapids_tpu_torch.exprs import predicates as pr
@@ -19,9 +27,15 @@ from spark_rapids_tpu_torch.exprs import windows as wn
 from spark_rapids_tpu_torch.exprs.base import Literal
 
 __all__ = ["col", "lit", "when", "count", "sum", "min", "max", "avg",
-           "first", "last", "isnull", "coalesce", "year", "month", "dayofmonth",
-           "dayofweek", "dayofyear", "quarter", "date_add", "date_sub",
-           "datediff", "last_day", "length", "substring", "contains",
+           "first", "last", "pmod", "sqrt", "exp", "log", "pow", "floor",
+           "ceil", "abs", "isnull", "isnan", "nanvl", "coalesce", "year",
+           "month", "dayofmonth", "dayofweek", "dayofyear", "quarter",
+           "hour", "minute", "second", "date_add", "date_sub", "datediff",
+           "last_day", "unix_timestamp", "length", "substring", "upper",
+           "lower", "initcap", "trim", "ltrim", "rtrim", "concat",
+           "concat_ws", "locate", "instr", "replace", "substring_index",
+           "regexp_replace", "rlike", "split_part", "contains", "rand",
+           "monotonically_increasing_id", "spark_partition_id",
            "row_number", "rank", "dense_rank", "lag", "lead"]
 
 
@@ -48,17 +62,58 @@ def avg(c) -> Column:
 
 
 def first(c, ignore_nulls: bool = True) -> Column:
-    """Declared for the API; the port's execs do not evaluate it yet."""
+    """The first (non-null, with ``ignore_nulls``) value of each group;
+    not a window function in the port yet."""
     return Column(ag.First(_expr_or_name(c), ignore_nulls))
 
 
 def last(c, ignore_nulls: bool = True) -> Column:
-    """Declared for the API; the port's execs do not evaluate it yet."""
     return Column(ag.Last(_expr_or_name(c), ignore_nulls))
+
+
+# math
+def pmod(a, n) -> Column:
+    return Column(ar.Pmod(_expr_or_name(a), _expr_or_name(n)))
+
+
+def sqrt(c) -> Column:
+    return Column(mt.Sqrt(_expr_or_name(c)))
+
+
+def exp(c) -> Column:
+    return Column(mt.Exp(_expr_or_name(c)))
+
+
+def log(c) -> Column:
+    return Column(mt.Log(_expr_or_name(c)))
+
+
+def pow(c, p) -> Column:  # noqa: A001
+    return Column(mt.Pow(_expr_or_name(c), _expr_or_name(p)))
+
+
+def floor(c) -> Column:
+    return Column(mt.Floor(_expr_or_name(c)))
+
+
+def ceil(c) -> Column:
+    return Column(mt.Ceil(_expr_or_name(c)))
+
+
+def abs(c) -> Column:  # noqa: A001
+    return Column(ar.Abs(_expr_or_name(c)))
 
 
 def isnull(c) -> Column:
     return Column(pr.IsNull(_expr_or_name(c)))
+
+
+def isnan(c) -> Column:
+    return Column(pr.IsNaN(_expr_or_name(c)))
+
+
+def nanvl(a, b) -> Column:
+    return Column(ne.NaNvl(_expr_or_name(a), _expr_or_name(b)))
 
 
 def coalesce(*cols) -> Column:
@@ -107,16 +162,103 @@ def last_day(c) -> Column:
     return Column(dte.LastDay(_expr_or_name(c)))
 
 
+def hour(c) -> Column:
+    return Column(dte.Hour(_expr_or_name(c)))
+
+
+def minute(c) -> Column:
+    return Column(dte.Minute(_expr_or_name(c)))
+
+
+def second(c) -> Column:
+    return Column(dte.Second(_expr_or_name(c)))
+
+
+def unix_timestamp(c) -> Column:
+    """Seconds since the epoch of a DATE or TIMESTAMP."""
+    return Column(dte.UnixTimestampFromDateTime(_expr_or_name(c)))
+
+
 # strings
 def length(c) -> Column:
     return Column(ss.StringLength(_expr_or_name(c)))
 
 
 def substring(c, pos, length=None) -> Column:
-    """``pos`` and ``length`` must be literals: any other raises when the
-    query is planned."""
+    """``pos`` and ``length``: ints or integer columns."""
     ln = None if length is None else _to_expr(length)
     return Column(ss.Substring(_expr_or_name(c), _to_expr(pos), ln))
+
+
+def upper(c) -> Column:
+    return Column(ss.Upper(_expr_or_name(c)))
+
+
+def lower(c) -> Column:
+    return Column(ss.Lower(_expr_or_name(c)))
+
+
+def initcap(c) -> Column:
+    return Column(ss.InitCap(_expr_or_name(c)))
+
+
+def _trim_str(trim_str):
+    return None if trim_str is None else Literal(trim_str)
+
+
+def trim(c, trim_str: str = None) -> Column:
+    return Column(ss.StringTrim(_expr_or_name(c), _trim_str(trim_str)))
+
+
+def ltrim(c, trim_str: str = None) -> Column:
+    return Column(ss.StringTrimLeft(_expr_or_name(c), _trim_str(trim_str)))
+
+
+def rtrim(c, trim_str: str = None) -> Column:
+    return Column(ss.StringTrimRight(_expr_or_name(c), _trim_str(trim_str)))
+
+
+def concat(*cols) -> Column:
+    return Column(ss.Concat(*[_expr_or_name(x) for x in cols]))
+
+
+def concat_ws(sep: str, *cols) -> Column:
+    return Column(ss.ConcatWs(_to_expr(sep),
+                              *[_expr_or_name(x) for x in cols]))
+
+
+def locate(substr: str, c, pos: int = 1) -> Column:
+    return Column(ss.StringLocate(Literal(substr), _expr_or_name(c),
+                                  Literal(pos)))
+
+
+def instr(c, substr: str) -> Column:
+    return Column(ss.StringLocate(Literal(substr), _expr_or_name(c),
+                                  Literal(1)))
+
+
+def replace(c, search, rep="") -> Column:
+    return Column(ss.StringReplace(_expr_or_name(c), _to_expr(search),
+                                   _to_expr(rep)))
+
+
+def substring_index(c, delim: str, count: int) -> Column:
+    return Column(ss.SubstringIndex(_expr_or_name(c), Literal(delim),
+                                    Literal(count)))
+
+
+def regexp_replace(c, pattern, rep) -> Column:
+    return Column(ss.RegExpReplace(_expr_or_name(c), _to_expr(pattern),
+                                   _to_expr(rep)))
+
+
+def rlike(c, pattern) -> Column:
+    return Column(ss.RLike(_expr_or_name(c), _to_expr(pattern)))
+
+
+def split_part(c, delim: str, part: int) -> Column:
+    return Column(ss.SplitPart(_expr_or_name(c), Literal(delim),
+                               Literal(part)))
 
 
 def contains(c, substr) -> Column:
@@ -151,3 +293,21 @@ def lag(c, offset: int = 1, default=None) -> Column:
 def lead(c, offset: int = 1, default=None) -> Column:
     d = None if default is None else Literal(default)
     return Column(wn.Lead(_expr_or_name(c), offset, d))
+
+
+# nondeterministic
+def rand(seed=None) -> Column:
+    """Uniform in [0, 1) a row: the JAX package's threefry stream of
+    (seed, partition).  No seed draws one, as the JAX package does."""
+    if seed is None:
+        import random as _random
+        seed = _random.randint(0, 2 ** 31 - 1)
+    return Column(nd.Rand(seed))
+
+
+def monotonically_increasing_id() -> Column:
+    return Column(nd.MonotonicallyIncreasingID())
+
+
+def spark_partition_id() -> Column:
+    return Column(nd.SparkPartitionID())

@@ -94,9 +94,10 @@ class Limit(LogicalPlan):
 
 class Join(LogicalPlan):
     """An equi-join on ``left_keys[i] == right_keys[i]``; join_type is
-    inner, left, right, full, semi or anti.  ``condition``, over the
-    join's output columns, keeps only the joined rows where it holds
-    (inner joins only; the planner raises on any other)."""
+    inner, cross (every pair; the keys are ignored), left, right, full,
+    semi or anti.  ``condition``, over the join's output columns, keeps
+    only the joined rows where it holds (inner and cross joins only; the
+    planner raises on any other)."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],

@@ -17,6 +17,15 @@ else a hash join that builds on the right.  Before lowering,
 join to the side they name, or into the join's condition.  Any other
 node raises: there is no CPU engine to route it to, so a result always
 comes from the device.
+
+Every bound expression passes ``check_expression``: an incompatible
+expression (``Upper``, ``Lower``, ``InitCap``, ``Rand``) needs
+``spark.rapids.sql.incompatibleOps.enabled`` or its own
+``spark.rapids.sql.expression.<Name>`` key, a gated cast its
+``spark.rapids.sql.cast*`` key, and a nondeterministic expression may
+stand only in a projection or a filter; otherwise it raises
+``NotImplementedError`` (``ValueError`` for the placement, as in the JAX
+package) naming the key.
 """
 
 from __future__ import annotations
@@ -43,12 +52,57 @@ from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs.base import BoundReference, Expression, \
     UnresolvedAttribute, bind_expression
+from spark_rapids_tpu_torch.exprs.cast import Cast, gate_key
+from spark_rapids_tpu_torch.exprs.nondeterministic import \
+    contains_nondeterministic
 from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec, \
     expand_paths
 from spark_rapids_tpu_torch.plan import logical as lp
 
 _NODES = (lp.Project, lp.Filter, lp.Aggregate, lp.Sort, lp.Limit, lp.Join,
           lp.Window)
+
+# results that differ from Spark's in corner cases (the JAX package's
+# incompat notes)
+_INCOMPAT = {"Upper": "ASCII-only case conversion",
+             "Lower": "ASCII-only case conversion",
+             "InitCap": "ASCII-only case conversion",
+             "Rand": "threefry RNG sequence differs from Spark XORShift"}
+
+
+def check_expression(e: Expression, conf: TorchConf) -> None:
+    """Raise on a bound expression the conf does not enable."""
+    name = type(e).__name__
+    if name in _INCOMPAT and not conf.is_expression_enabled(name, True):
+        raise NotImplementedError(
+            f"{name} ({_INCOMPAT[name]}) needs "
+            "spark.rapids.sql.incompatibleOps.enabled or "
+            f"spark.rapids.sql.expression.{name} (the torch port has no "
+            "CPU engine to run it otherwise)")
+    if isinstance(e, Cast):
+        gate = gate_key(e.children[0].dtype, e.to)
+        if gate is not None and not conf.get(gate):
+            raise NotImplementedError(
+                f"cast {e.children[0].dtype.name} -> {e.to.name} needs "
+                f"{gate.key} (the torch port has no CPU engine to run it "
+                "otherwise)")
+    for c in e.children:
+        check_expression(c, conf)
+
+
+def _bind(e: Expression, schema, conf: TorchConf,
+          placed: bool = False) -> Expression:
+    """``bind_expression`` and ``check_expression``; ``placed``: the
+    expression stands in a projection or a filter, where a
+    nondeterministic one may."""
+    bound = bind_expression(e, schema)
+    check_expression(bound, conf)
+    if not placed and contains_nondeterministic(bound):
+        raise ValueError(
+            "nondeterministic expressions (rand, monotonically_increasing_id,"
+            " spark_partition_id) are only allowed in select()/"
+            "with_column()/filter()")
+    return bound
 
 
 def _stage(step, child: TorchExec) -> TorchStageExec:
@@ -80,20 +134,20 @@ def _lower(node: lp.LogicalPlan, conf: TorchConf) -> TorchExec:
         sort = node.children[0]
         schema = sort.children[0].output_schema()
         return TorchTopNExec(
-            [(bind_expression(e, schema), asc, nf)
+            [(_bind(e, schema, conf), asc, nf)
              for e, asc, nf in sort.orders], node.n,
             _lower(sort.children[0], conf))
     child = _lower(node.children[0], conf)
     schema = node.children[0].output_schema()
 
-    def bind(e):
-        return bind_expression(e, schema)
+    def bind(e, placed=False):
+        return _bind(e, schema, conf, placed)
 
     if isinstance(node, lp.Project):
-        return _stage(("project", tuple(bind(e) for e in node.exprs)),
+        return _stage(("project", tuple(bind(e, True) for e in node.exprs)),
                       child)
     if isinstance(node, lp.Filter):
-        return _stage(("filter", (bind(node.pred),)), child)
+        return _stage(("filter", (bind(node.pred, True),)), child)
     if isinstance(node, lp.Limit):
         return TorchLocalLimitExec(node.n, child)
     if isinstance(node, lp.Window):
@@ -119,24 +173,24 @@ def _plan_join(n: lp.Join, conf: TorchConf) -> TorchExec:
     qualify; else a hash join that builds on the right.  A condition
     binds against the join's output columns."""
     jt = n.join_type
-    if n.condition is not None and jt != "inner":
+    if n.condition is not None and jt not in ("inner", "cross"):
         raise NotImplementedError(
             f"a join condition on a {jt} join is not supported (inner "
-            "joins only)")
+            "joins only, and cross joins)")
     left, right = (_lower(c, conf) for c in n.children)
-    lkeys = [bind_expression(e, n.children[0].output_schema())
+    lkeys = [_bind(e, n.children[0].output_schema(), conf)
              for e in n.left_keys]
-    rkeys = [bind_expression(e, n.children[1].output_schema())
+    rkeys = [_bind(e, n.children[1].output_schema(), conf)
              for e in n.right_keys]
     cond = None if n.condition is None else \
-        bind_expression(n.condition, n.output_schema())
+        _bind(n.condition, n.output_schema(), conf)
     thresh = conf.get(BROADCAST_THRESHOLD)
     if thresh >= 0:
         r_est = estimate_logical_size(n.children[1])
         l_est = estimate_logical_size(n.children[0])
         r_ok = r_est is not None and r_est <= thresh
         l_ok = l_est is not None and l_est <= thresh and jt in (
-            "inner", "left", "right", "full")
+            "inner", "cross", "left", "right", "full")
         if r_ok and l_ok:
             if l_est < r_est:
                 r_ok = False
@@ -164,8 +218,8 @@ def swapped_broadcast_join(stream: TorchExec,
     onto that [right, left] layout), and restore the original column
     order with a projection.  ``nl``: the left input's field count;
     ``out_fields``: the unswapped join's output fields."""
-    mirror = {"inner": "inner", "left": "right", "right": "left",
-              "full": "full"}[jt]
+    mirror = {"inner": "inner", "cross": "cross", "left": "right",
+              "right": "left", "full": "full"}[jt]
     nr = len(out_fields) - nl
 
     def swap(e: Expression) -> Expression:

@@ -7,23 +7,24 @@ parser take
 
   SELECT [DISTINCT] exprs | * FROM t [alias]
     [ [INNER|LEFT|RIGHT|FULL|SEMI|ANTI] JOIN t2 ON a = b [AND ...]
-      | JOIN t2 USING (c, ...) ] ...
+      | JOIN t2 USING (c, ...) | CROSS JOIN t2 ] ...
     [WHERE pred] [GROUP BY exprs | ordinals] [HAVING pred]
     [ORDER BY e [ASC|DESC] [NULLS FIRST|LAST], ...] [LIMIT n]
 
-with arithmetic (``%`` and unary minus included), comparisons,
-AND/OR/NOT, IN lists, BETWEEN, IS [NOT] NULL, CASE (searched and
-simple), CAST to a numeric or boolean type, DATE 'yyyy-mm-dd' literals,
-window functions with OVER (...), subqueries in FROM, and the functions
-the port has.  Views come from ``DataFrame.create_or_replace_temp_view``.
+with arithmetic (``%`` and unary minus included), comparisons, ``<=>``,
+AND/OR/NOT, IN lists, [NOT] LIKE, [NOT] RLIKE, BETWEEN, IS [NOT] NULL, CASE
+(searched and simple), CAST to every type, ``||``, DATE 'yyyy-mm-dd'
+and TIMESTAMP 'yyyy-mm-dd hh:mm:ss' literals, window functions with
+OVER (...), subqueries in FROM, and the JAX package's function table
+(aggregates with ``first``/``last``, math, strings, date and time,
+``rand``).  Views come from ``DataFrame.create_or_replace_temp_view``.
 
-What the port cannot run raises ``SqlError`` while the text is parsed:
-a function it lacks (``rand``, ``upper``, ``concat``, ``regexp_*``, the
-math functions, ...), LIKE, ``||``, CROSS JOIN, TIMESTAMP literals, a
-CAST to a string, date or timestamp, ``?`` parameters (they belong to
-the serving stack), and non-equality ON terms on a join that is not
-inner.  Anything else it cannot lower raises ``NotImplementedError``
-when the query is planned.  There is no fallback.
+What the port cannot run raises ``SqlError`` while the text is parsed
+(``?`` parameters, which belong to the serving stack, an unknown
+function, and non-equality ON terms on a join that is neither inner nor
+cross) or ``NotImplementedError`` when the query is planned (a gated
+expression or cast whose key is off, a non-literal LIKE pattern, a
+window ``first``).  There is no fallback.
 
 Column references resolve by name against the FROM scope (a qualified
 ``t.col`` is checked against t's columns); a name in more than one
@@ -43,6 +44,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import STRING, Schema
 from spark_rapids_tpu_torch.exprs import arithmetic as ar
 from spark_rapids_tpu_torch.exprs import nullexprs as ne
 from spark_rapids_tpu_torch.exprs import predicates as pr
+from spark_rapids_tpu_torch.exprs import strings as ss
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.base import Alias, Expression, Literal, \
     UnresolvedAttribute
@@ -89,7 +91,7 @@ _TOKEN_RE = re.compile(r"""
   | (?P<str>'(?:[^']|'')*')
   | (?P<qid>`[^`]+`|"[^"]+")
   | (?P<ident>[A-Za-z_][A-Za-z_0-9]*)
-  | (?P<op><=|>=|<>|!=|\|\||[=<>+\-*/%(),.?])
+  | (?P<op><=>|<=|>=|<>|!=|\|\||[=<>+\-*/%(),.?])
 """, re.X)
 
 
@@ -132,26 +134,87 @@ def _fns():
     def coalesce_fn(args):
         return ne.Coalesce(*_retype_nulls(args))
 
+    def lit_args(f, n_lit):
+        # the trailing n_lit arguments must be literals
+        def build(args):
+            head = [Column(a) for a in args[:-n_lit]]
+            tail = []
+            for a in args[-n_lit:]:
+                if not isinstance(a, Literal):
+                    raise SqlError("argument must be a literal")
+                tail.append(a.value)
+            return f(*head, *tail).expr
+        return build
+
+    def rand_fn(args):
+        if len(args) > 1:
+            raise SqlError("rand() takes at most one seed argument")
+        if args and not isinstance(args[0], Literal):
+            raise SqlError("rand() seed must be a literal")
+        return F.rand(*[a.value for a in args]).expr
+
+    def locate_fn(args):
+        if not isinstance(args[0], Literal):
+            raise SqlError("locate() substring must be a literal")
+        start = 1
+        if len(args) > 2:
+            if not isinstance(args[2], Literal):
+                raise SqlError("locate() start must be a literal")
+            start = args[2].value
+        return F.locate(args[0].value, Column(args[1]), start).expr
+
+    def concat_ws_fn(args):
+        if not isinstance(args[0], Literal):
+            raise SqlError("concat_ws() separator must be a literal")
+        return F.concat_ws(args[0].value,
+                           *[Column(a) for a in args[1:]]).expr
+
     return {
         "count": lambda args: F.count(
             "*" if args == ["*"] else Column(args[0])).expr,
         "sum": col_fn(F.sum), "min": col_fn(F.min), "max": col_fn(F.max),
         "avg": col_fn(F.avg), "mean": col_fn(F.avg),
+        "first": col_fn(F.first), "last": col_fn(F.last),
+        "abs": col_fn(F.abs), "sqrt": col_fn(F.sqrt), "exp": col_fn(F.exp),
+        "ln": col_fn(F.log), "log": col_fn(F.log),
+        "floor": col_fn(F.floor), "ceil": col_fn(F.ceil),
+        "ceiling": col_fn(F.ceil),
+        "pow": col_fn(F.pow), "power": col_fn(F.pow),
+        "pmod": col_fn(F.pmod),
         "coalesce": coalesce_fn, "nvl": coalesce_fn,
-        "isnull": col_fn(F.isnull),
+        "isnull": col_fn(F.isnull), "isnan": col_fn(F.isnan),
+        "nanvl": col_fn(F.nanvl),
+        "upper": col_fn(F.upper), "ucase": col_fn(F.upper),
+        "lower": col_fn(F.lower), "lcase": col_fn(F.lower),
         "length": col_fn(F.length), "char_length": col_fn(F.length),
+        "initcap": col_fn(F.initcap),
+        "trim": col_fn(F.trim), "ltrim": col_fn(F.ltrim),
+        "rtrim": col_fn(F.rtrim),
+        "concat": col_fn(F.concat),
         "substring": col_fn(F.substring), "substr": col_fn(F.substring),
+        "instr": lit_args(F.instr, 1),
+        "replace": col_fn(F.replace),
+        "substring_index": lit_args(F.substring_index, 2),
+        "regexp_replace": col_fn(F.regexp_replace),
         "year": col_fn(F.year), "month": col_fn(F.month),
         "day": col_fn(F.dayofmonth), "dayofmonth": col_fn(F.dayofmonth),
         "dayofweek": col_fn(F.dayofweek), "dayofyear": col_fn(F.dayofyear),
-        "quarter": col_fn(F.quarter),
+        "quarter": col_fn(F.quarter), "hour": col_fn(F.hour),
+        "minute": col_fn(F.minute), "second": col_fn(F.second),
         "date_add": col_fn(F.date_add), "date_sub": col_fn(F.date_sub),
         "datediff": col_fn(F.datediff), "last_day": col_fn(F.last_day),
+        "unix_timestamp": col_fn(F.unix_timestamp),
+        "rand": rand_fn,
+        "monotonically_increasing_id":
+            lambda args: F.monotonically_increasing_id().expr,
+        "spark_partition_id": lambda args: F.spark_partition_id().expr,
+        "locate": locate_fn,
+        "concat_ws": concat_ws_fn,
     }
 
 
 _WINDOW_FNS = {"row_number", "rank", "dense_rank", "lag", "lead",
-               "sum", "min", "max", "avg", "count"}
+               "sum", "min", "max", "avg", "count", "first", "last"}
 
 
 def _window_fn(name: str, args):
@@ -182,17 +245,6 @@ def _window_fn(name: str, args):
     if not args:
         raise SqlError(f"{name}() needs a column argument")
     return getattr(F, n)(Column(args[0]))
-
-
-# CAST targets the port's Cast takes (numeric and boolean)
-_SQL_TYPES = {"boolean": _t.BOOLEAN, "bool": _t.BOOLEAN,
-              "tinyint": _t.INT8, "byte": _t.INT8,
-              "smallint": _t.INT16, "short": _t.INT16,
-              "int": _t.INT32, "integer": _t.INT32,
-              "bigint": _t.INT64, "long": _t.INT64,
-              "float": _t.FLOAT32, "real": _t.FLOAT32,
-              "double": _t.FLOAT64}
-_UNPORTED_TYPES = {"string", "varchar", "date", "timestamp"}
 
 
 # ---------------------------------------------------------------------------
@@ -483,8 +535,8 @@ class _Parser:
         while True:
             how = None
             if self.accept_kw("CROSS"):
-                raise SqlError("CROSS JOIN is not in the torch port")
-            if self.accept_kw("INNER"):
+                how = "cross"
+            elif self.accept_kw("INNER"):
                 how = "inner"
             elif self.at_kw("LEFT", "RIGHT", "FULL"):
                 side = self.next()[1].upper()
@@ -523,6 +575,9 @@ class _Parser:
             self.scope.tables[-1] = (r_alias, Schema(
                 [f for f in r_schema if f.name.lower() not in lowered]))
             return left.join(right, names, how)
+        if how == "cross":
+            return DataFrame(self.session, lp.Join(
+                left.plan, right.plan, [], [], "cross"))
         self.expect_kw("ON")
         self._on_join_refs = True
         try:
@@ -586,7 +641,7 @@ class _Parser:
         cond = None
         for t in residual:
             cond = t if cond is None else pr.And(cond, t)
-        if cond is not None and how != "inner":
+        if cond is not None and how not in ("inner", "cross"):
             raise SqlError(
                 f"non-equality JOIN ON terms on a {how} join are not "
                 "supported (inner joins only)")
@@ -739,7 +794,8 @@ class _Parser:
             return pr.Not(self.parse_not())
         return self.parse_cmp()
 
-    _CMP = {"=": pr.EqualTo, "<>": pr.NotEqual, "!=": pr.NotEqual,
+    _CMP = {"=": pr.EqualTo, "<=>": pr.EqualNullSafe,
+            "<>": pr.NotEqual, "!=": pr.NotEqual,
             "<": pr.LessThan, "<=": pr.LessThanOrEqual,
             ">": pr.GreaterThan, ">=": pr.GreaterThanOrEqual}
 
@@ -774,8 +830,13 @@ class _Parser:
                 if neg:
                     e = pr.Not(e)
                 continue
-            if self.at_kw("LIKE"):
-                raise SqlError("LIKE is not in the torch port")
+            if self.at_kw("LIKE", "RLIKE"):
+                kind = self.next()[1].upper()
+                pat = self.parse_add()
+                e = ss.Like(e, pat) if kind == "LIKE" else ss.RLike(e, pat)
+                if neg:
+                    e = pr.Not(e)
+                continue
             if self.accept_kw("BETWEEN"):
                 lo = self.parse_add()
                 self.expect_kw("AND")
@@ -797,8 +858,8 @@ class _Parser:
                 rhs = self.parse_mul()
                 e = ar.Add(e, rhs) if v == "+" else ar.Subtract(e, rhs)
             elif k == "OP" and v == "||":
-                raise SqlError("string concatenation (||) is not in the "
-                               "torch port")
+                self.next()
+                e = ss.Concat(e, self.parse_mul())
             else:
                 return e
 
@@ -853,7 +914,8 @@ class _Parser:
             self.next()
             return Literal(_dt.date.fromisoformat(self.next()[1]))
         if up == "TIMESTAMP" and self.peek(1)[0] == "STR":
-            raise SqlError("TIMESTAMP literals are not in the torch port")
+            self.next()
+            return Literal(_dt.datetime.fromisoformat(self.next()[1]))
         if up == "CAST":
             return self.parse_cast()
         if up == "CASE":
@@ -886,13 +948,13 @@ class _Parser:
         self.expect_op("(")
         e = self.parse_expr()
         self.expect_kw("AS")
-        tname = self.next()[1].lower()
-        if tname in _UNPORTED_TYPES:
-            raise SqlError(f"CAST to {tname} is not in the torch port")
-        if tname not in _SQL_TYPES:
-            raise SqlError(f"unknown type {tname}")
+        tname = self.next()[1]
+        try:
+            to = _t.from_name(tname)
+        except ValueError:
+            raise SqlError(f"unknown type {tname.lower()}") from None
         self.expect_op(")")
-        return Cast(e, _SQL_TYPES[tname])
+        return Cast(e, to)
 
     def parse_call(self, v: str):
         self.next()

@@ -241,12 +241,56 @@ def test_substring_feeds_group_by_and_isin():
 
 
 def test_unported_expressions_raise_at_planning():
+    """What the port still lacks raises when planned: a string-typed
+    window function and a first over a window frame."""
     s = _port_session()
     df = s.create_dataframe({"s": np.array(["abc", "de"]),
                              "i": np.array([1, 2])})
-    q = df.select(TF.substring("s", st.col("i"), 1).alias("x"))
-    with pytest.raises(NotImplementedError, match="literal"):
+    w = st.Window.partition_by("i").order_by("s")
+    q = df.select(TF.lag("s").over(w).alias("x"))
+    with pytest.raises(NotImplementedError, match="string-typed"):
         q.collect()
-    q = df.select(TF.year(st.lit(0, TIMESTAMP)).alias("y"))
-    with pytest.raises(NotImplementedError, match="TIMESTAMP"):
+    q = df.select(TF.first("i").over(w).alias("y"))
+    with pytest.raises(NotImplementedError, match="First over a window"):
         q.collect()
+
+
+def test_substring_column_position_matches_jax():
+    """A column position and length (the JAX package computes them on
+    its CPU engine, the port per row on the device): negative, zero and
+    null positions, negative and null lengths, multi-byte UTF-8."""
+    rng = np.random.default_rng(17)
+    n = 400
+    t = pa.table({
+        "s": pa.array(np.array(STRINGS, dtype=object)[
+            rng.integers(0, len(STRINGS), n)].tolist(),
+            mask=rng.random(n) < 0.05),
+        "p": pa.array(rng.integers(-6, 7, n).astype(np.int32),
+                      mask=rng.random(n) < 0.05),
+        "n": pa.array(rng.integers(-2, 6, n).astype(np.int32),
+                      mask=rng.random(n) < 0.05),
+    })
+
+    def build(a, df):
+        return df.select(
+            a[3].substring("s", a[0]("p"), a[0]("n")).alias("a"),
+            a[3].substring("s", a[0]("p")).alias("b"),
+            a[3].substring("s", 2, a[0]("n")).alias("c"))
+    want = build(JAX, tpu_session({"spark.rapids.sql.test.enabled": False})
+                 .create_dataframe(t)).to_arrow()
+    got = build(PORT, _port_session().create_dataframe(t)).to_arrow()
+    assert_tables_equal(got, want, ignore_order=False)
+
+
+def test_date_parts_over_timestamps_match_jax():
+    """The DATE parts of a TIMESTAMP's day (once refused), before and
+    after 1970 and across midnight UTC."""
+    rng = np.random.default_rng(23)
+    n = 500
+    us = rng.integers(-(10 ** 15) // 2, 10 ** 15 * 2, n)
+    t = pa.table({"ts": pa.array(us, pa.timestamp("us", tz="UTC"),
+                                 mask=rng.random(n) < 0.05)})
+    _check(t, lambda a, df: df.select(*[
+        getattr(a[3], f)("ts").alias(f) for f in (
+            "year", "month", "dayofmonth", "dayofweek", "dayofyear",
+            "quarter", "last_day")]))

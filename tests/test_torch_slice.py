@@ -204,8 +204,43 @@ def test_order_by_matches_jax(ascending):
 
 
 def test_planner_refuses_what_the_slice_lacks():
-    """No CPU engine to route to: a cross join is refused by name."""
+    """No CPU engine to route to: a min over a window frame is refused
+    by name."""
     s = st.TorchSession({"spark.rapids.torch.device": "cpu"})
     df = s.create_dataframe({"k": np.arange(4), "v": np.arange(4.0)})
-    with pytest.raises(NotImplementedError, match="cross join"):
-        df.join(df, on="k", how="cross").collect()
+    w = st.Window.partition_by("k").order_by("v")
+    with pytest.raises(NotImplementedError, match="Min over a window"):
+        df.select(TF.min("v").over(w).alias("m")).collect()
+
+
+def test_cross_join_matches_jax():
+    """``how="cross"`` pairs every row and ignores the keys, as the JAX
+    package does (the cross join the planner once refused)."""
+    t = pa.table({"k": pa.array(np.arange(4)),
+                  "v": pa.array([0.5, None, 2.5, -1.0])})
+    jt = tpu_session().create_dataframe(t)
+    want = jt.join(jt, on="k", how="cross").to_arrow()
+    s = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+    df = s.create_dataframe(t)
+    got = df.join(df, on="k", how="cross").to_arrow()
+    assert got.num_rows == 16
+    assert_tables_equal(got, want, ignore_order=True)
+
+
+def test_join_on_expression_keys_matches_jax():
+    """Join keys given as expressions, each bound against its own side
+    (the JAX package's ``api.py:557-560``): no key column is merged."""
+    rng = np.random.default_rng(31)
+    a = pa.table({"k": pa.array(rng.integers(0, 30, 300)),
+                  "v": pa.array(rng.normal(size=300))})
+    b = pa.table({"k": pa.array(np.arange(40)),
+                  "w": pa.array(rng.integers(0, 5, 40))})
+
+    def run(c, s):
+        return s.create_dataframe(a).join(
+            s.create_dataframe(b), on=[c("k") * 2], how="left").to_arrow()
+    want = run(col, tpu_session())
+    got = run(st.col, st.TorchSession(
+        {"spark.rapids.torch.device": "cpu"}))
+    assert got.num_rows == want.num_rows == 300
+    assert_tables_equal(got, want, ignore_order=True)
