@@ -143,14 +143,43 @@ Phases, each printing one JSON line:
    is left.  After it, kernel_path also holds the
    dense-slot kernel against its plain version on the first half of
    hash_agg_sort_2m's first update batch (2^19 rows at capacity 2^19),
-   as an out-of-memory split hands it over.
+   as an out-of-memory split hands it over;
+18. operators: every logical operator of the JAX package's device
+   engine, timed as phase 11 and checked row for row (integers,
+   strings, dates and nulls exact, f64 within rtol 1e-9).
+   range_agg_linear_keys and range_agg_1k: Spark's AggregateBenchmark
+   size, ``session.range(20 << 22)`` (83,886,080 ids in 80 batches made
+   on the card), grouped by ``id & 65535`` (sum, on the sorted route) and
+   by ``id & 511`` (count, sum, avg, through the dense-slot kernel on
+   every batch: keys 0 to 1023 and the null slot would need 1025
+   slots), both checked exactly against the closed form.  Then over
+   phase 11's tables, with what TPC-H defines and ``gen_tpch_numpy``
+   leaves out added (``operator_tables``: ``l_linenumber``,
+   ``l_shipinstruct``, ``o_totalprice``), each against the same query on
+   a CPU session: rollup_q1 (Q1's filter and aggregates over
+   ``rollup(l_returnflag, l_linestatus)`` with ``grouping_id()``, three
+   grouping sets through Expand), cube_shipmode (``cube(l_shipmode,
+   l_linenumber)`` over lineitem, four sets), union_channels (TPC-DS
+   q5/q77's UNION ALL of channels: lineitem, orders, returns, grouped by
+   tag and year), explode_horizons (``posexplode(array(7, 30, 90))`` of
+   orders, ``date_add`` by the element, grouped by position through the
+   dense-slot kernel; then ``explode_outer`` of an empty typed array over
+   nation), repartition_hash and repartition_roundrobin (orders into 16
+   partitions with ``spark_partition_id()``, collected whole, the
+   round-robin partitions within a row of each other), repartition_range
+   (by ``o_totalprice`` descending; the partitions' price ranges must not
+   overlap), window_frames (lineitem by supplier: a frame min, a running
+   max, a suffix last, a RANGE first over 30 days, a string lag and a
+   string max; collected whole, ordered by (l_orderkey, l_linenumber),
+   with its peak device memory) and bitwise_keys (``&``, ``^``, ``<<``,
+   ``~`` and ``>>>`` summed by ``l_orderkey & 7``).
 
 The dense-slot kernel's float sums take one fixed order: every
 comparison of it with its plain version (phase 3, its edge specs and
 kernel_path) also calls it 5 times and fails unless the float-add planes
 come out bit for bit alike (``float_sum_results_of_5``).
 
-Each path of phases 5 to 17 runs with the launch counts set to 0 just
+Each path of phases 5 to 18 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -161,13 +190,14 @@ join_routes (the dense FK, hashed FK and general routes, and inner,
 left, right, full, semi and anti joins, over a stream side of two
 batches).  A trace phase then
 runs the text queries, hash_join_1m, tpch_q3, window_1m, tpcxbb_q3 (the
-largest join, through the band-aware probe) and
-mortgage_etl once more
+largest join, through the band-aware probe), mortgage_etl,
+cube_shipmode, repartition_hash and window_frames once more
 under torch.profiler and prints each one's wall time, the card's busy
 time, its largest device entries, its longest idle gaps and the port's
-named ranges (``join.*``, ``window.*``); a join query's trace without a
-``join.*`` range, or window_1m's without a ``window.*`` one, fails the
-run.  Then one JSON
+named ranges (``join.*``, ``window.*``, ``exchange.*``); a join query's
+trace without a ``join.*`` range, window_1m's or window_frames' without
+a ``window.*`` one, or repartition_hash's without an ``exchange.*`` one,
+fails the run.  Then one JSON
 line lists every kernel (its launches summed over the paths), the ``nvidia-smi`` line follows, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits nonzero without that line; it also exits nonzero when
@@ -203,7 +233,7 @@ import numpy as np
 
 SEED = 7
 LINEITEM_ROWS = 6_001_215
-RANGES = ("join.", "window.")  # the port's torch.profiler ranges
+RANGES = ("join.", "window.", "exchange.")  # the port's profiler ranges
 DIM_ROWS = 10_000
 NEEDLE = "special requests"   # TPC-H Q13's two words as one 16-byte needle
 SHORT_NEEDLE = "special"
@@ -2586,6 +2616,328 @@ def phase_memory(torch, st, F, session, main, agg_data, dim, big, tpch
     emit("memory_threads", port_threads_left=left)
 
 
+# -- the operators phase -----------------------------------------------------
+
+RANGE_ROWS = 20 << 22   # Spark's AggregateBenchmark: N = 20 << 22
+SHIP_INSTRUCT = ["DELIVER IN PERSON", "COLLECT COD", "NONE",
+                 "TAKE BACK RETURN"]  # TPC-H's L_SHIPINSTRUCT values
+
+
+def operator_tables(tpch, seed: int = SEED + 12):
+    """Phase 11's tables with what TPC-H defines and ``gen_tpch_numpy``
+    leaves out: lineitem's ``l_linenumber`` (1, 2, ... within each order,
+    in row order) and ``l_shipinstruct`` (drawn from ``seed``), orders'
+    ``o_totalprice`` (the sum over its lines of extendedprice x (1 + tax)
+    x (1 - discount), to the cent)."""
+    li, od = dict(tpch["lineitem"]), dict(tpch["orders"])
+    okey = li["l_orderkey"]
+    order = np.argsort(okey, kind="stable")
+    ks = okey[order]
+    start = np.r_[True, ks[1:] != ks[:-1]]
+    first = np.flatnonzero(start)
+    line = np.empty(len(okey), np.int32)
+    line[order] = np.arange(len(okey)) - first[np.cumsum(start) - 1] + 1
+    li["l_linenumber"] = line
+    rng = np.random.default_rng(seed)
+    li["l_shipinstruct"] = np.array(SHIP_INSTRUCT)[
+        rng.integers(0, len(SHIP_INSTRUCT), len(okey))]
+    charge = li["l_extendedprice"] * (1 + li["l_tax"]) \
+        * (1 - li["l_discount"])
+    od["o_totalprice"] = np.round(np.bincount(
+        okey, weights=charge, minlength=len(od["o_orderkey"])), 2)
+    return {**tpch, "lineitem": li, "orders": od}
+
+
+def bitwise(name: str, st, *args):
+    """A bitwise expression of the port as a Column (neither functions
+    nor SQL reaches them, as in the JAX package)."""
+    from spark_rapids_tpu_torch.exprs import bitwise as bw
+    return st.Column(getattr(bw, name)(*[
+        a.expr if isinstance(a, st.Column) else st.lit(a).expr
+        for a in args]))
+
+
+def op_range_linear(st, F, s, rows: int = RANGE_ROWS):
+    idc = st.col("id")
+    return (s.range(rows)
+            .select(idc, bitwise("BitwiseAnd", st, idc, 65535).alias("k"))
+            .group_by("k").agg(F.sum(idc).alias("s")))
+
+
+def op_range_1k(st, F, s, rows: int = RANGE_ROWS):
+    # 512 keys: with the null slot, 513 of the kernel's 1024 slots (keys
+    # 0 to 1023 would need 1025, and both packages route those to the
+    # sorted path)
+    idc = st.col("id")
+    return (s.range(rows)
+            .select(idc, bitwise("BitwiseAnd", st, idc, 511).alias("k"))
+            .group_by("k").agg(F.count(idc).alias("n"),
+                               F.sum(idc).alias("s"), F.avg(idc).alias("a")))
+
+
+def op_rollup_q1(st, F, t):
+    import datetime as dt
+    col, lit = st.col, st.lit
+    disc_price = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    charge = disc_price * (lit(1.0) + col("l_tax"))
+    return (t["lineitem"]
+            .filter(col("l_shipdate") <= lit(dt.date(1998, 9, 2)))
+            .rollup("l_returnflag", "l_linestatus")
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"),
+                 F.sum(col("l_extendedprice")).alias("sum_base_price"),
+                 F.sum(disc_price).alias("sum_disc_price"),
+                 F.sum(charge).alias("sum_charge"),
+                 F.avg(col("l_quantity")).alias("avg_qty"),
+                 F.avg(col("l_extendedprice")).alias("avg_price"),
+                 F.avg(col("l_discount")).alias("avg_disc"),
+                 F.count(lit(1)).alias("count_order"),
+                 F.grouping_id().alias("gid"))
+            .order_by("l_returnflag", "l_linestatus", "gid"))
+
+
+def op_cube_shipmode(st, F, t):
+    col = st.col
+    return (t["lineitem"].cube("l_shipmode", "l_linenumber")
+            .agg(F.sum(col("l_extendedprice")).alias("price"),
+                 F.avg(col("l_discount")).alias("disc"),
+                 F.count("*").alias("n"), F.grouping_id().alias("gid"))
+            .order_by("l_shipmode", "l_linenumber", "gid"))
+
+
+def op_union_channels(st, F, t):
+    col, lit = st.col, st.lit
+    li, od = t["lineitem"], t["orders"]
+    amt = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    line = li.select(col("l_shipdate").alias("d"), amt.alias("amt"),
+                     lit("line").alias("tag"))
+    orders = od.select(col("o_orderdate").alias("d"),
+                       col("o_totalprice").alias("amt"),
+                       lit("order").alias("tag"))
+    returns = li.filter(col("l_returnflag") == lit("R")).select(
+        col("l_shipdate").alias("d"), (-amt).alias("amt"),
+        lit("return").alias("tag"))
+    return (line.union(orders).union(returns)
+            .group_by("tag", F.year(col("d")).alias("yr"))
+            .agg(F.sum(col("amt")).alias("amt"), F.count("*").alias("n"))
+            .order_by("tag", "yr"))
+
+
+def op_explode_horizons(st, F, t):
+    col = st.col
+    return (t["orders"]
+            .select("o_orderkey", "o_orderdate", "o_totalprice",
+                    F.posexplode(F.array(7, 30, 90)))
+            .with_column("due", F.date_add(col("o_orderdate"), "col"))
+            .group_by("pos")
+            .agg(F.count("*").alias("n"),
+                 F.sum(col("o_totalprice")).alias("value"),
+                 F.min(col("due")).alias("first_due"),
+                 F.max(col("due")).alias("last_due"))
+            .order_by("pos"))
+
+
+def op_explode_outer_nation(st, F, t):
+    return t["nation"].select("n_nationkey", "n_name", F.explode_outer(
+        F.array(elem_dtype="int")).alias("h"))
+
+
+def op_repartition_hash(st, F, t):
+    return t["orders"].repartition(16, "o_custkey").select(
+        "o_orderkey", "o_custkey", F.spark_partition_id().alias("pid"))
+
+
+def op_repartition_rr(st, F, t):
+    return t["orders"].repartition(16).select(
+        "o_orderkey", "o_custkey", F.spark_partition_id().alias("pid"))
+
+
+def op_repartition_range(st, F, t):
+    return t["orders"].repartition_by_range(
+        16, st.col("o_totalprice").desc()).select(
+        "o_orderkey", "o_totalprice", F.spark_partition_id().alias("pid"))
+
+
+def op_window_frames(st, F, t):
+    col, W = st.col, st.Window
+    spec = W.partition_by("l_suppkey").order_by(
+        "l_shipdate", "l_orderkey", "l_linenumber")
+    by_day = W.partition_by("l_suppkey").order_by("l_shipdate")
+    return (t["lineitem"].select(
+        "l_orderkey", "l_linenumber",
+        F.min(col("l_extendedprice")).over(spec.rows_between(-3, 3))
+        .alias("min_price"),
+        F.max(col("l_discount")).over(spec.rows_between(
+            W.unboundedPreceding, W.currentRow)).alias("max_disc"),
+        F.last(col("l_tax")).over(spec.rows_between(
+            W.currentRow, W.unboundedFollowing)).alias("last_tax"),
+        F.first(col("l_quantity")).over(by_day.range_between(-30, 0))
+        .alias("first_qty"),
+        F.lag(col("l_shipmode")).over(spec).alias("prev_mode"),
+        F.max(col("l_shipinstruct")).over(spec.rows_between(-5, 0))
+        .alias("max_instruct"))
+        .order_by("l_orderkey", "l_linenumber"))
+
+
+def op_bitwise_keys(st, F, t):
+    col = st.col
+    return (t["lineitem"].select(
+        bitwise("BitwiseAnd", st, col("l_orderkey"), 7).alias("k"),
+        bitwise("BitwiseXor", st, bitwise(
+            "BitwiseAnd", st, col("l_orderkey"), 255), col("l_partkey"))
+        .alias("x"),
+        bitwise("ShiftLeft", st, col("l_partkey"), 3).alias("shl"),
+        bitwise("BitwiseNot", st, col("l_suppkey")).alias("inv"),
+        bitwise("ShiftRightUnsigned", st, -col("l_orderkey"), 5)
+        .alias("shru"))
+        .group_by("k")
+        .agg(F.sum(col("x")).alias("x"), F.sum(col("shl")).alias("shl"),
+             F.sum(col("inv")).alias("inv"), F.sum(col("shru")).alias("shru"),
+             F.count("*").alias("n"))
+        .order_by("k"))
+
+
+def same_rows(torch, got, want, what: str, rtol: float = 1e-9) -> None:
+    """Two ``to_torch`` results equal row for row: the same rows and
+    nulls; over the valid rows integers, dates and strings exact, floats
+    within ``rtol`` (NaN equal to NaN)."""
+    (cg, mg, ng), (cw, mw, nw) = got, want
+    check(ng == nw, f"{what}: {ng} rows against {nw}")
+    check(list(cg) == list(cw), f"{what}: columns {list(cg)} / {list(cw)}")
+    for name in cw:
+        vg, vw = mg[name][:ng], mw[name][:nw].to(mg[name].device)
+        check(torch.equal(vg, vw), f"{what}: the nulls of {name} differ")
+        x, y = cg[name], cw[name]
+        if isinstance(x, tuple):
+            lg, lw = x[0][:ng], y[0][:nw].to(x[0].device)
+            check(torch.equal(lg[vg], lw[vg]),
+                  f"{what}: the lengths of {name} differ")
+            w = max(x[1].shape[1], y[1].shape[1])
+            pad = torch.nn.functional.pad
+            a = pad(x[1][:ng], (0, w - x[1].shape[1]))
+            b = pad(y[1][:nw].to(a.device), (0, w - y[1].shape[1]))
+            inside = (torch.arange(w, device=a.device)[None, :]
+                      < lg[:, None]) & vg[:, None]
+            check(torch.equal(torch.where(inside, a, 0),
+                              torch.where(inside, b, 0)),
+                  f"{what}: the strings of {name} differ")
+            continue
+        a, b = x[:ng][vg], y[:nw].to(x.device)[vg]
+        if a.dtype.is_floating_point:
+            check(bool(torch.allclose(a, b, rtol=rtol, atol=0.0,
+                                      equal_nan=True)),
+                  f"{what}: {name} beyond rtol {rtol}")
+        else:
+            check(torch.equal(a, b), f"{what}: {name} differs")
+
+
+def run_operator(torch, session, query_fn, name: str, rows_in: int,
+                 runs: int = 2, cpu_query=None, peak: bool = False):
+    """One operator query on the card: one warm-up and ``runs`` timed
+    runs, then ``cpu_query`` (the same query on the CPU session) run once
+    and compared row for row -> the card's result."""
+    if peak:
+        torch.cuda.reset_peak_memory_stats()
+    out, secs = run_timed(torch, query_fn(session), runs)
+    plan = session._last_plan
+    fields = {}
+    if peak:
+        fields["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    cpu_s = None
+    if cpu_query is not None:
+        t0 = time.perf_counter()
+        want = cpu_query.to_torch()
+        cpu_s = time.perf_counter() - t0
+        same_rows(torch, out, want, name)
+    aggs = _plan_nodes(plan, "TorchHashAggregateExec")
+    ex = _plan_nodes(plan, "TorchShuffleExchangeExec")
+    if ex:
+        fields["shuffle_partition_bytes"] = [
+            e.metrics["shufflePartitionBytes"] for e in ex]
+    emit("operators", query=name, rows=rows_in, out_rows=out[2],
+         dense_slot_batches=sum(a.metrics["pallasAggBatches"] for a in aggs),
+         host_syncs_per_run=host_syncs(plan), seconds=secs,
+         rows_per_s=rows_in / float(np.median(secs)), cpu_seconds=cpu_s,
+         **fields)
+    return out
+
+
+def phase_range_aggs(torch, st, F, session, rows: int = RANGE_ROWS) -> None:
+    """range_agg_linear_keys and range_agg_1k, each checked exactly
+    against the closed form over ``rows`` ids."""
+    ids = np.arange(rows, dtype=np.int64)
+    for name, fn, mask in (("range_agg_linear_keys", op_range_linear, 65535),
+                           ("range_agg_1k", op_range_1k, 511)):
+        cols, masks, n = run_operator(
+            torch, session, lambda s: fn(st, F, s, rows), name, rows)
+        k = cols["k"][:n].cpu().numpy()
+        order = np.argsort(k)
+        counts = np.bincount(ids & mask, minlength=mask + 1)
+        # id = k + (mask + 1) j for j < counts[k]: the sum of a key's ids
+        keys = np.arange(mask + 1, dtype=np.int64)
+        sums = counts * keys + (mask + 1) * (counts * (counts - 1) // 2)
+        check(np.array_equal(k[order], keys),
+              f"{name}: keys differ from the closed form's")
+        check(np.array_equal(cols["s"][:n].cpu().numpy()[order], sums),
+              f"{name}: sums differ from the closed form's")
+        if "n" in cols:
+            check(np.array_equal(cols["n"][:n].cpu().numpy()[order], counts),
+                  f"{name}: counts differ")
+            check(np.array_equal(cols["a"][:n].cpu().numpy()[order],
+                                 sums / counts),
+                  f"{name}: averages differ")
+
+
+# name -> (query over the tables, the table whose rows it counts)
+OPERATOR_QUERIES = {
+    "rollup_q1": (op_rollup_q1, "lineitem"),
+    "cube_shipmode": (op_cube_shipmode, "lineitem"),
+    "union_channels": (op_union_channels, "lineitem"),
+    "explode_horizons": (op_explode_horizons, "orders"),
+    "repartition_hash": (op_repartition_hash, "orders"),
+    "repartition_range": (op_repartition_range, "orders"),
+    "window_frames": (op_window_frames, "lineitem"),
+    "bitwise_keys": (op_bitwise_keys, "lineitem"),
+}
+
+
+def phase_operator(torch, st, F, session, t_gpu, t_cpu, name: str,
+                   rows: int) -> None:
+    """One of phase 18's table queries on the card against the CPU
+    session, with the checks of its own."""
+    fn = OPERATOR_QUERIES[name][0]
+    out = run_operator(torch, session, lambda s: fn(st, F, t_gpu), name,
+                       rows, cpu_query=fn(st, F, t_cpu),
+                       peak=name == "window_frames")
+    cols, masks, n = out
+    if name == "explode_horizons":
+        check(n == 3, "explode_horizons: not three horizons")
+        nat = run_operator(torch, session, lambda s: op_explode_outer_nation(
+            st, F, t_gpu), "explode_outer_nation", 25,
+            cpu_query=op_explode_outer_nation(st, F, t_cpu))
+        check(nat[2] == 25 and not bool(nat[1]["h"][:25].any()),
+              "explode_outer over nation: not 25 rows each with a null")
+    elif name == "repartition_hash":
+        rr = run_operator(torch, session, lambda s: op_repartition_rr(
+            st, F, t_gpu), "repartition_roundrobin", rows,
+            cpu_query=op_repartition_rr(st, F, t_cpu))
+        sizes = np.bincount(rr[0]["pid"][:rr[2]].cpu().numpy(),
+                            minlength=16)
+        check(rr[2] == n and sizes.max() - sizes.min() <= 1,
+              "repartition(16): round-robin partitions differ by more "
+              "than a row")
+    elif name == "repartition_range":
+        pid = cols["pid"][:n].cpu().numpy()
+        price = cols["o_totalprice"][:n].cpu().numpy()
+        check(bool(np.all(np.diff(pid) >= 0)),
+              "repartition_range: partitions out of order")
+        lo = [price[pid == p].min() for p in np.unique(pid)]
+        hi = [price[pid == p].max() for p in np.unique(pid)]
+        check(all(lo[i] >= hi[i + 1] for i in range(len(lo) - 1)),
+              "repartition_range: partitions' price ranges overlap")
+        emit("repartition_range_parts", partitions=int(len(lo)),
+             rows=[int((pid == p).sum()) for p in np.unique(pid)])
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(
@@ -2743,6 +3095,16 @@ def main(argv=None) -> int:
     drive("breadth", phase_breadth, torch, st, gpu_b, cpu_b)
     drive("memory", phase_memory, torch, st, F, session, main_data,
           agg_data, dim_data, gen_big(), tpch)
+    drive("range_aggs", phase_range_aggs, torch, st, F, session)
+    t0 = time.perf_counter()
+    ops = operator_tables(tpch)
+    ops_gpu, ops_cpu = (load_tables(s, ops) for s in (session, cpu))
+    emit("operator_data", seconds=time.perf_counter() - t0,
+         lineitem_columns=sorted(ops["lineitem"]),
+         orders_columns=sorted(ops["orders"]))
+    for qname, (_, table) in OPERATOR_QUERIES.items():
+        drive(qname, phase_operator, torch, st, F, session, ops_gpu,
+              ops_cpu, qname, len(next(iter(ops[table].values()))))
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     phase_repeat_sums(torch, st, F, session, tpch_dfs)
@@ -2778,6 +3140,11 @@ def main(argv=None) -> int:
                 expect="join.")
     phase_trace(torch, mortgage_etl(session, mortgage), "mortgage_etl",
                 expect="join.")
+    phase_trace(torch, op_cube_shipmode(st, F, ops_gpu), "cube_shipmode")
+    phase_trace(torch, op_repartition_hash(st, F, ops_gpu),
+                "repartition_hash", expect="exchange.")
+    phase_trace(torch, op_window_frames(st, F, ops_gpu), "window_frames",
+                expect="window.")
 
     emit("total", seconds=time.perf_counter() - start)
     kernels = []

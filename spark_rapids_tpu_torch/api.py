@@ -9,8 +9,12 @@ expressions and the cross join, the string predicates, ``like`` and
 and null tests of ``Column``, ``when``,
 window functions (``Column.over`` with a ``Window`` spec; each window
 expression in a select, filter or sort list moves into an ``lp.Window``
-node below it), temp views for ``session.sql`` and the actions
-``collect``, ``to_arrow`` and ``to_torch``.  Actions plan the query (``plan/planner.py``) and run it
+node below it), ``union``, ``rollup`` and ``cube`` (an ``lp.Expand`` under
+the aggregate, with ``grouping_id``), explode and posexplode of a literal
+array in a select (an ``lp.Generate`` below it), ``repartition`` and
+``repartition_by_range``, ``session.range``, temp views for
+``session.sql`` and the actions ``collect``, ``count``, ``head``,
+``take``, ``first``, ``to_numpy``, ``to_arrow`` and ``to_torch``.  Actions plan the query (``plan/planner.py``) and run it
 on the session's device.
 """
 
@@ -36,9 +40,12 @@ from spark_rapids_tpu_torch.exprs import arithmetic as ar
 from spark_rapids_tpu_torch.exprs import conditional as cond
 from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs import strings as ss
+from spark_rapids_tpu_torch.exprs.aggregates import Count
 from spark_rapids_tpu_torch.exprs.base import Alias, BoundReference, \
-    Expression, Literal, UnresolvedAttribute
+    Expression, Literal, UnresolvedAttribute, bind_expression
 from spark_rapids_tpu_torch.exprs.cast import Cast
+from spark_rapids_tpu_torch.exprs.generators import find_generators, \
+    find_stray_array_literals
 from spark_rapids_tpu_torch.exprs.nullexprs import Coalesce
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression, \
     WindowFrame, WindowFunction
@@ -330,6 +337,66 @@ def _extract_window_exprs(exprs: List[Expression], plan: lp.LogicalPlan):
     return [walk(e) for e in exprs], plan
 
 
+def _unique_name(base: str, names: set) -> str:
+    """An internal column name not in ``names`` (and added to it)."""
+    name, i = base, 0
+    while name in names:
+        i += 1
+        name = f"{base.rstrip('_')}_{i}__" if base.endswith("__") \
+            else f"{base}_{i}"
+    names.add(name)
+    return name
+
+
+def _extract_generator(exprs: List[Expression], plan: lp.LogicalPlan):
+    """Move the generator (explode / posexplode) of a select list into an
+    ``lp.Generate`` node over ``plan`` and put references to its columns
+    in its place (Spark's ExtractGenerator).  The generated columns take
+    internal names unique against ``plan``'s and are aliased back above,
+    so a generated column may replace one of the same name
+    (``with_column("v", explode(...))``).  -> (new exprs, new plan)."""
+    for e in exprs:
+        if find_stray_array_literals(e):
+            raise ValueError(
+                "F.array(...) literals are only usable inside "
+                "explode()/posexplode()")
+    gens = [g for e in exprs for g in find_generators(e)]
+    if not gens:
+        return exprs, plan
+    if len(gens) > 1:
+        raise ValueError("only one generator (explode/posexplode) is "
+                         "allowed per select")
+    gen = gens[0]
+    col_name = "col"
+    for e in exprs:
+        base = e.children[0] if isinstance(e, Alias) else e
+        if base is gen and isinstance(e, Alias):
+            col_name = e.name
+        elif base is not gen and find_generators(e):
+            raise ValueError(
+                "explode()/posexplode() must be a top-level select "
+                "column (optionally aliased), not nested in an "
+                "expression")
+    existing = {f.name for f in plan.output_schema()}
+    pos_internal = _unique_name("__gen_pos__", existing) \
+        if gen.with_pos else None
+    col_internal = _unique_name(f"__gen_{col_name}__", existing)
+    new_exprs: List[Expression] = []
+    for e in exprs:
+        base = e.children[0] if isinstance(e, Alias) else e
+        if base is gen:
+            if gen.with_pos:
+                new_exprs.append(
+                    Alias(UnresolvedAttribute(pos_internal), "pos"))
+            new_exprs.append(
+                Alias(UnresolvedAttribute(col_internal), col_name))
+        else:
+            new_exprs.append(e)
+    names = [pos_internal, col_internal] if gen.with_pos \
+        else [col_internal]
+    return new_exprs, lp.Generate(gen, names, plan)
+
+
 def _names(plan: lp.LogicalPlan) -> List[Expression]:
     return [UnresolvedAttribute(f.name) for f in plan.output_schema()]
 
@@ -376,8 +443,9 @@ class DataFrame:
     # -- transformations ----------------------------------------------------
 
     def select(self, *cols_) -> "DataFrame":
-        exprs, plan = _extract_window_exprs(
-            [_expr_or_name(c) for c in cols_], self.plan)
+        exprs, plan = _extract_generator([_expr_or_name(c) for c in cols_],
+                                         self.plan)
+        exprs, plan = _extract_window_exprs(exprs, plan)
         return DataFrame(self.session, lp.Project(exprs, plan))
 
     def with_column(self, name: str, c: Column) -> "DataFrame":
@@ -386,10 +454,15 @@ class DataFrame:
                  for e in _names(self.plan)]
         if name not in self.plan.output_schema().names:
             exprs.append(Alias(_to_expr(c), name))
-        exprs, plan = _extract_window_exprs(exprs, self.plan)
+        exprs, plan = _extract_generator(exprs, self.plan)
+        exprs, plan = _extract_window_exprs(exprs, plan)
         return DataFrame(self.session, lp.Project(exprs, plan))
 
     def filter(self, cond) -> "DataFrame":
+        if find_generators(_to_expr(cond)):
+            raise ValueError(
+                "explode()/posexplode() is not allowed in filter() — "
+                "generators are only valid in select()/with_column()")
         (e,), plan = _extract_window_exprs([_to_expr(cond)], self.plan)
         out = lp.Filter(e, plan)
         if plan is not self.plan:
@@ -418,6 +491,52 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, lp.Limit(n, self.plan))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL, by position, under this frame's column names."""
+        return DataFrame(self.session, lp.Union([self.plan, other.plan]))
+
+    def repartition(self, num_partitions: int, *cols_) -> "DataFrame":
+        """``num_partitions`` partitions by the hash of ``cols_``, or
+        round-robin without them; the result comes partition by
+        partition, each partition's rows in their input order."""
+        return DataFrame(self.session, lp.Repartition(
+            num_partitions, [_expr_or_name(c) for c in cols_], self.plan))
+
+    def repartition_by_range(self, num_partitions: int,
+                             *cols_) -> "DataFrame":
+        """``num_partitions`` partitions by ranges of the sort columns
+        (``desc()`` markers honored; Spark's default null order), their
+        bounds sampled from the input."""
+        orders = []
+        for c in cols_:
+            if isinstance(c, _SortCol):
+                orders.append((c.expr, c.ascending, c.ascending))
+            else:
+                orders.append((_expr_or_name(c), True, True))
+        if not orders:
+            raise ValueError("repartition_by_range needs at least one "
+                             "sort column")
+        return DataFrame(self.session, lp.Repartition(
+            num_partitions, [], self.plan, mode="range", orders=orders))
+
+    repartitionByRange = repartition_by_range
+
+    def rollup(self, *cols_) -> "GroupedData":
+        """Grouping sets (a, b), (a) and (): the keys dropped from the
+        right."""
+        return GroupedData(self, self._key_names(cols_), mode="rollup")
+
+    def cube(self, *cols_) -> "GroupedData":
+        """A grouping set for every subset of the keys."""
+        return GroupedData(self, self._key_names(cols_), mode="cube")
+
+    def _key_names(self, cols_) -> List[Expression]:
+        exprs = [_expr_or_name(c) for c in cols_]
+        if not all(isinstance(e, UnresolvedAttribute) for e in exprs):
+            raise ValueError(
+                "rollup/cube keys must be plain column references")
+        return exprs
 
     def agg(self, *agg_cols) -> "DataFrame":
         """A global aggregation: one row over the whole input."""
@@ -481,6 +600,50 @@ class DataFrame:
                          lp.Aggregate(_names(self.plan), [], self.plan))
 
     # -- actions ------------------------------------------------------------
+
+    @property
+    def schema(self) -> Schema:
+        return self.plan.output_schema()
+
+    @property
+    def columns(self) -> List[str]:
+        return self.plan.output_schema().names
+
+    def count(self) -> int:
+        """The number of rows (the result stays on the device)."""
+        return sum(b.num_rows for b in self._execute()[1])
+
+    def head(self, n: Optional[int] = None):
+        """pyspark's contract: ``head()`` the first row (a dict) or None,
+        ``head(n)`` a list of the first n rows."""
+        if n is None:
+            rows = self.limit(1).collect()
+            return rows[0] if rows else None
+        return self.limit(n).collect()
+
+    def take(self, n: int) -> List[dict]:
+        return self.limit(n).collect()
+
+    def first(self):
+        return self.head(1)
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """The result as numpy arrays, a numpy masked array for a column
+        with nulls; dates as datetime64[D], timestamps as datetime64[us],
+        strings as an object array."""
+        schema, cols = self._host()
+        out = {}
+        for f in schema:
+            values, valid = cols[f.name]
+            if f.dtype == STRING:
+                values = np.array(values.to_pylist(), dtype=object)
+            elif f.dtype == DATE:
+                values = values.astype("datetime64[D]")
+            elif f.dtype == TIMESTAMP:
+                values = values.astype("datetime64[us]")
+            out[f.name] = values if valid.all() else \
+                np.ma.masked_array(values, mask=~valid)
+        return out
 
     def _execute(self):
         """Plan and run the query; the device batches of its result."""
@@ -564,14 +727,87 @@ class DataFrame:
         return cols, masks, n
 
 
+GROUPING_ID_COL = "__grouping_id__"
+
+
 class GroupedData:
-    def __init__(self, df: DataFrame, groupings: List[Expression]):
+    def __init__(self, df: DataFrame, groupings: List[Expression],
+                 mode: Optional[str] = None):
         self.df = df
         self.groupings = groupings
+        self.mode = mode  # None, "rollup" or "cube"
 
     def agg(self, *agg_cols) -> DataFrame:
-        return DataFrame(self.df.session, lp.Aggregate(
-            self.groupings, [_to_expr(c) for c in agg_cols], self.df.plan))
+        aggs = [_to_expr(c) for c in agg_cols]
+        if self.mode is None:
+            return DataFrame(self.df.session, lp.Aggregate(
+                self.groupings, aggs, self.df.plan))
+        return self._grouping_sets_agg(aggs)
+
+    def count(self) -> DataFrame:
+        return self.agg(Column(Alias(Count(Literal(1)), "count")))
+
+    def _grouping_sets_agg(self, aggs: List[Expression]) -> DataFrame:
+        """rollup / cube -> an Expand (each row once a grouping set, the
+        keys it leaves out masked to null in copies of the keys, and the
+        grouping id), an Aggregate by the copies and the id, and a
+        Project that names the copies as the keys (Spark's
+        ResolveGroupingAnalytics).  The aggregates read the real
+        columns, which pass through unmasked."""
+        child_schema = self.df.plan.output_schema()
+        key_names = [k.col_name for k in self.groupings]
+        key_dtypes = [bind_expression(k, child_schema).dtype
+                      for k in self.groupings]
+        nk = len(key_names)
+        if self.mode == "rollup":
+            # the full set first, then keys dropped from the right
+            masked_sets = [set(range(nk - i, nk)) for i in range(nk + 1)]
+        else:
+            masked_sets = [{i for i in range(nk)
+                            if gid & (1 << (nk - 1 - i))}
+                           for gid in range(1 << nk)]
+        gk_names = [f"__gk_{kn}__" for kn in key_names]
+        names = [f.name for f in child_schema] + gk_names + \
+            [GROUPING_ID_COL]
+        projections = []
+        for masked in masked_sets:
+            gid = sum(1 << (nk - 1 - i) for i in masked)
+            proj: List[Expression] = [UnresolvedAttribute(f.name)
+                                      for f in child_schema]
+            for i, (kn, gkn, kd) in enumerate(zip(key_names, gk_names,
+                                                  key_dtypes)):
+                src = Literal(None, kd) if i in masked \
+                    else UnresolvedAttribute(kn)
+                proj.append(Alias(src, gkn))
+            proj.append(Alias(Literal(gid), GROUPING_ID_COL))
+            projections.append(proj)
+        expand = lp.Expand(projections, names, self.df.plan)
+        groupings = [UnresolvedAttribute(n) for n in gk_names] + \
+            [UnresolvedAttribute(GROUPING_ID_COL)]
+        # grouping_id() passes the id through; the rest aggregate
+        out_cols: List[Tuple[Optional[str], Optional[str]]] = []
+        real_aggs: List[Expression] = []
+        for a in aggs:
+            target = a.children[0] if isinstance(a, Alias) else a
+            if isinstance(target, UnresolvedAttribute) and \
+                    target.col_name == GROUPING_ID_COL:
+                out_cols.append((a.name if isinstance(a, Alias)
+                                 else "grouping_id()", GROUPING_ID_COL))
+            else:
+                real_aggs.append(a)
+                out_cols.append((None, None))
+        agg_plan = lp.Aggregate(groupings, real_aggs, expand)
+        agg_out = agg_plan.output_schema().names[nk + 1:]
+        final: List[Expression] = [
+            Alias(UnresolvedAttribute(gkn), kn)
+            for gkn, kn in zip(gk_names, key_names)]
+        it = iter(agg_out)
+        for disp, src in out_cols:
+            if src is not None:
+                final.append(Alias(UnresolvedAttribute(src), disp))
+            else:
+                final.append(UnresolvedAttribute(next(it)))
+        return DataFrame(self.df.session, lp.Project(final, agg_plan))
 
 
 class DataFrameReader:
@@ -594,3 +830,11 @@ def create_dataframe(session, data, masks=None) -> DataFrame:
     else:
         raise TypeError(f"cannot build a DataFrame from {type(data)}")
     return DataFrame(session, lp.LocalRelation(schema, cols))
+
+
+def range_df(session, start: int, end: Optional[int] = None,
+             step: int = 1) -> DataFrame:
+    """``session.range``: ``range(n)`` is 0 to n - 1."""
+    if end is None:
+        start, end = 0, start
+    return DataFrame(session, lp.Range(start, end, step))

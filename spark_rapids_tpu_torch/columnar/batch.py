@@ -235,6 +235,15 @@ class ColumnarBatch:
                                      planes[2]))
         return ColumnarBatch(cols, n, self.schema)
 
+    def gather(self, rows: torch.Tensor, n: int) -> "ColumnarBatch":
+        """The rows at ``rows`` (a string column's chars move with
+        them); the first ``n`` are live, the rest padding."""
+        live = torch.arange(rows.shape[0], device=rows.device) < n
+        cols = [DeviceColumn(c.dtype, c.data[rows], c.validity[rows] & live,
+                             n, None if c.chars is None else c.chars[rows])
+                for c in self.columns]
+        return ColumnarBatch(cols, n, self.schema)
+
     def __repr__(self):
         return (f"ColumnarBatch(rows={self.num_rows}, "
                 f"cols={len(self.columns)}, cap={self.capacity})")

@@ -112,6 +112,11 @@ IO_PREFETCH_ENABLED = register(
     "scan uploads on the thread that pulls it, so the pull has nothing "
     "to overlap and only adds a thread hand-off a batch (PERF.md).", bool)
 
+RANGE_SAMPLE_SIZE = register(
+    "spark.rapids.sql.rangePartitioning.sampleSize", 10_000,
+    "Most rows sampled to compute the bounds of a range repartition "
+    "(exec/exchange.py: compute_range_bounds).", int, _positive)
+
 
 INCOMPATIBLE_OPS = register(
     "spark.rapids.sql.incompatibleOps.enabled", False,

@@ -1,10 +1,13 @@
-"""The local scan and the limit.
+"""The local scan, the range, the union and the limit.
 
 Counterpart of ``spark_rapids_tpu/exec/basic.py``: ``TorchLocalScanExec``
 scans in-memory host columns, uploaded in batches of 1 << 20 rows, as in
-the JAX package (whatever the reader conf says); ``TorchLocalLimitExec``
-passes batches on until the limit is reached.  Project and filter run
-inside the fused stage (``exec/stage.py``).
+the JAX package (whatever the reader conf says); ``TorchRangeExec`` makes
+``[start, end)`` by ``step`` on the device in batches of 1 << 20 rows;
+``TorchUnionExec`` streams its children's batches back to back;
+``TorchLocalLimitExec`` passes batches on until the limit is reached.
+Project and filter run inside the fused stage (``exec/stage.py``).  None
+of them holds a batch, so none registers one with the spill catalog.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 )
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
     bucket_capacity
-from spark_rapids_tpu_torch.columnar.dtypes import Schema
+from spark_rapids_tpu_torch.columnar.dtypes import INT64, Field, Schema
 from spark_rapids_tpu_torch.conf import MAX_STRING_WIDTH
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 
@@ -45,6 +48,52 @@ class TorchLocalScanExec(TorchExec):
                            m[start:start + BATCH_ROWS])
                     for name, (v, m) in self.cols.items()}
             yield host_batch_to_device(self._schema, part, ctx.device, max_w)
+
+
+class TorchRangeExec(TorchExec):
+    """The int64 column ``id``: ``start`` to ``end`` (exclusive) by
+    ``step``, ``-(-(end - start) // step)`` rows (none when that is not
+    positive), made on the device in batches of ``BATCH_ROWS``.  A step
+    of 0 raises ``ZeroDivisionError`` when the range runs, as in the JAX
+    package."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 name: str = "id"):
+        super().__init__()
+        self.start, self.end, self.step = int(start), int(end), int(step)
+        self.children = []
+        self._schema = Schema([Field(name, INT64, nullable=False)])
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        total = max(0, -(-(self.end - self.start) // self.step))
+        for pos in range(0, total, BATCH_ROWS):
+            n = min(BATCH_ROWS, total - pos)
+            cap = bucket_capacity(n)
+            iota = torch.arange(cap, dtype=torch.int64, device=ctx.device)
+            data = iota * self.step + (self.start + pos * self.step)
+            yield ColumnarBatch([DeviceColumn(INT64, data, iota < n, n)], n,
+                                self._schema)
+
+
+class TorchUnionExec(TorchExec):
+    """UNION ALL: each child's batches in turn, under the first child's
+    schema; no batch is concatenated (a coalesce above sizes them)."""
+
+    def __init__(self, children):
+        super().__init__()
+        self.children = list(children)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        for child in self.children:
+            yield from child.execute(ctx)
 
 
 def head(batch: ColumnarBatch, n: int) -> ColumnarBatch:

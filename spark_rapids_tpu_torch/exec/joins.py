@@ -81,7 +81,7 @@ from spark_rapids_tpu_torch.exec.stage import emit_steps
 from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs.arithmetic import Add, Subtract
 from spark_rapids_tpu_torch.exprs.base import BoundReference, ColVal, \
-    EvalContext, Expression, Literal, colvals
+    EvalContext, Expression, Literal, colvals, take
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.predicates import string_compare
 from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
@@ -195,18 +195,13 @@ def keys_equal(a: ColVal, b: ColVal, dtype: DataType) -> torch.Tensor:
     return a.data == b.data
 
 
-def _take(cv: ColVal, rows: torch.Tensor) -> ColVal:
-    return ColVal(cv.data[rows], cv.validity[rows],
-                  None if cv.chars is None else cv.chars[rows])
-
-
 def _verify(keep: torch.Tensor, s_cvs: Sequence[ColVal],
             b_cvs: Sequence[ColVal], s_rows: torch.Tensor,
             b_rows: torch.Tensor, dtypes: Sequence[DataType]) -> torch.Tensor:
     """``keep`` and, for each key, both sides valid and equal at the
     candidate pairs (rejects hash collisions)."""
     for s_cv, b_cv, dt in zip(s_cvs, b_cvs, dtypes):
-        s, b = _take(s_cv, s_rows), _take(b_cv, b_rows)
+        s, b = take(s_cv, s_rows), take(b_cv, b_rows)
         keep = keep & s.validity & b.validity & keys_equal(s, b, dt)
     return keep
 
@@ -427,16 +422,6 @@ def one_batch(child: TorchExec, ctx: ExecContext) -> ColumnarBatch:
     return empty_batch(child.output_schema, ctx.device)
 
 
-def _select(batch: ColumnarBatch, rows: torch.Tensor,
-            n: int) -> List[DeviceColumn]:
-    """Columns of ``batch`` gathered at ``rows``, the first ``n`` of
-    them live."""
-    live = torch.arange(rows.shape[0], device=rows.device) < n
-    return [DeviceColumn(c.dtype, c.data[rows], c.validity[rows] & live, n,
-                         None if c.chars is None else c.chars[rows])
-            for c in batch.columns]
-
-
 def _compact(keep: torch.Tensor, out_cap: Optional[int] = None
              ) -> Tuple[torch.Tensor, int]:
     """Positions of ``keep``'s true entries in order, padded with the
@@ -472,7 +457,7 @@ def _side_with_nulls(batch: ColumnarBatch, mask: torch.Tensor,
     columns of the ``other`` side's fields (none for semi and anti
     joins); one host sync."""
     pos, n = _compact(mask)
-    side = _select(batch, pos, n)
+    side = batch.gather(pos, n).columns
     nulls = _null_columns(other, pos.shape[0], n, mask.device)
     cols = side + nulls if side_first else nulls + side
     return ColumnarBatch(cols, n, schema)
@@ -599,7 +584,8 @@ class TorchHashJoinExec(TorchExec):
         k = torch.arange(cap, device=sb.device).clamp(max=max(0, total - 1))
         srow = torch.div(k, max(1, nb), rounding_mode="floor")
         brow = torch.remainder(k, max(1, nb))
-        cols = _select(sb, srow, total) + _select(b_batch, brow, total)
+        cols = sb.gather(srow, total).columns \
+            + b_batch.gather(brow, total).columns
         return ColumnarBatch(cols, total, self.output_schema)
 
     def _keep_where(self, out: ColumnarBatch) -> ColumnarBatch:
@@ -642,7 +628,8 @@ class TorchHashJoinExec(TorchExec):
                            [e.dtype for e in self.left_keys])
         pos, n = _compact(keep, cap)
         self.metrics["hostSyncs"] += 1
-        cols = _select(sb, pos, n) + _select(build.batch, brow[pos], n)
+        cols = sb.gather(pos, n).columns \
+            + build.batch.gather(brow[pos], n).columns
         return ColumnarBatch(cols, n, self.output_schema)
 
     def _band_range(self, ctx: EvalContext, build: _Build, h, lo, hi,
@@ -711,8 +698,8 @@ class TorchHashJoinExec(TorchExec):
         if jt in ("inner", "left", "right", "full") and total:
             pos, n = _compact(keep, bucket_capacity(total))
             self.metrics["hostSyncs"] += 1
-            cols = _select(sb, srow[pos], n) \
-                + _select(build.batch, brow[pos], n)
+            cols = sb.gather(srow[pos], n).columns \
+                + build.batch.gather(brow[pos], n).columns
             outs.append(ColumnarBatch(cols, n, self.output_schema))
         side = {"left": (~(m_stream > 0), True), "full": (~(m_stream > 0),
                                                           True),

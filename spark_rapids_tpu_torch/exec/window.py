@@ -20,7 +20,22 @@ function of the spec:
   in the JAX package; counts and integer sums are exact.  The float
   prefix sum adds in an order fixed by the batch's capacity alone
   (``fixed_order_cumsum``), so a window's float results repeat bit for
-  bit from run to run on the card, as they do in the JAX package.
+  bit from run to run on the card, as they do in the JAX package;
+- ``min``, ``max``, ``first`` and ``last`` over any frame, as an
+  arg-select: the winning row's value is gathered, so the row chosen
+  among tied values is the JAX package's, visible in the sign of a zero
+  (a frame from the partition's start takes the latest tied row, the
+  others the earliest).  Each row gets a unique rank in the order
+  (valid, NaN rank, value, position); a frame from the partition's start
+  or to its end reads a ``torch.cummin`` of (partition, rank) packed in
+  one int64 (forward or reversed), a frame bounded on both sides a
+  sparse table of ranks, whose depth a ROWS frame's width caps;
+  ``first`` and ``last`` read the next valid row at or after the frame's
+  start (the previous at or before its end);
+- string-typed ``lag``, ``lead``, ``count``, ``min``, ``max``,
+  ``first`` and ``last``, which the JAX package runs on its CPU engine:
+  a string selects by its rank among the batch's strings, and the
+  winner's char row moves with its length.
 
 The results scatter back through the permutation, so the input rows
 keep their order and gain one column per function.  The exec reads
@@ -30,9 +45,8 @@ and ``window.eval`` name its two halves in a torch.profiler trace.
 The input collects through the spill catalog (``collect_spillable``),
 and the window runs under ``with_retry`` without a split, since a split
 would cut partitions.  Not carried over: the matmul prefix sums, the
-bitonic sort and the compiled-kernel cache (TPU workarounds).  Min, max, first and last over a frame (the JAX package's
-arg-select scans and sparse-table range query) are not in the port yet:
-the planner raises on them.
+bitonic sort, ``lax.associative_scan`` (torch has none: the scans above
+take its place) and the compiled-kernel cache (TPU workarounds).
 """
 
 from __future__ import annotations
@@ -44,14 +58,16 @@ from torch.profiler import record_function
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
-from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema, \
-    device_dtype
+from spark_rapids_tpu_torch.columnar.dtypes import FLOAT32, FLOAT64, \
+    STRING, Field, Schema, device_dtype
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
-    sort_permutation
-from spark_rapids_tpu_torch.exprs.aggregates import Average, Count, Sum
-from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, colvals
+    sort_permutation, string_order_keys
+from spark_rapids_tpu_torch.exprs.aggregates import Average, Count, First, \
+    Last, Max, Min, Sum
+from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
+    align_chars, colvals, take
 from spark_rapids_tpu_torch.exprs.windows import DenseRank, Lag, Lead, \
     Rank, RowNumber, WindowExpression, WindowFrame
 from spark_rapids_tpu_torch.memory.spill import collect_spillable, \
@@ -234,43 +250,186 @@ def _prefix_frame_sum(contrib: torch.Tensor, lo_c: torch.Tensor,
     return hi_v - lo_v
 
 
+def _select_keys(vals: torch.Tensor, chars, dtype, for_max: bool):
+    """Values -> (k1 int32, k2) selected by lexicographic min, the JAX
+    package's ``_select_keys``: a float's k1 settles NaN (greatest, as in
+    Spark: it loses a min and wins a max) and its k2 is the value with
+    -0.0 and 0.0 made one (negated for a max); an integer's k2 is the
+    value (its NOT for a max, which is safe at INT64_MIN).  A string's
+    k2 is its rank among the batch's strings (``string_rank``)."""
+    cap = vals.shape[0]
+    if dtype in (FLOAT32, FLOAT64):
+        isnan = torch.isnan(vals)
+        canon = torch.where(isnan | (vals == 0), torch.zeros_like(vals),
+                            vals)
+        if for_max:
+            return (~isnan).to(torch.int32), -canon
+        return isnan.to(torch.int32), canon
+    k = string_rank(chars, vals) if dtype == STRING else vals.to(torch.int64)
+    return torch.zeros(cap, dtype=torch.int32, device=vals.device), \
+        (~k if for_max else k)
+
+
+def string_rank(chars: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Each row's dense rank (int64) among the strings of the batch, in
+    byte order: equal strings share a rank."""
+    keys = string_order_keys(chars, lengths)
+    perm = sort_permutation(keys)
+    changed = _changed([k[perm] for k in keys],
+                       torch.zeros_like(perm, dtype=torch.bool))
+    rank = torch.empty_like(perm)
+    rank[perm] = torch.cumsum(changed.to(torch.int64), 0)
+    return rank
+
+
+def _unique_rank(valid_s, k1, k2, latest_first: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each sorted row's place in the order (valid first, k1, k2, then
+    position: earliest first, or latest first with ``latest_first``), a
+    permutation of [0, cap) -> (rank, row of each rank).  The smallest
+    rank in a frame is the JAX package's arg-select winner there."""
+    keys = [(~valid_s).to(torch.int32), k1, k2]
+    if latest_first:
+        keys.append(-torch.arange(k2.shape[0], device=k2.device))
+    order = sort_permutation(keys)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0], device=order.device)
+    return rank, order
+
+
+def _select_in_frame(valid_s, k1, k2, g: _Geometry, lo_c, hi_c, lower,
+                     upper, cap: int, static_width: int = 0):
+    """The row that wins the arg-select (lexicographic min (k1, k2) among
+    valid rows) of each row's frame -> (winner, found), each frame
+    shape with the JAX package's choice among ties (which shows in the
+    sign of a zero): a frame from the partition's start takes the latest
+    of the tied rows (its forward scan), one to the partition's end the
+    earliest (the reverse scan), and a frame bounded on both sides the
+    earliest (the sparse table, ``static_width`` capping its depth).
+    The scans are ``torch.cummin`` over (partition, rank) packed in one
+    int64, the partitions ordered so that a row's own comes first."""
+    if lower is None or upper is None:
+        rank, order = _unique_rank(valid_s, k1, k2, lower is None)
+        if lower is None:
+            packed = (cap - 1 - g.gid) * cap + rank
+            best = torch.cummin(packed, 0).values
+            at = hi_c.clamp(0, cap - 1)
+        else:
+            packed = (g.gid * cap + rank).flip(0)
+            best = torch.cummin(packed, 0).values.flip(0)
+            at = lo_c.clamp(0, cap - 1)
+        win = order[torch.remainder(best[at], cap)]
+        return win, valid_s[win]
+    rank, order = _unique_rank(valid_s, k1, k2, False)
+    win = order[_rmq_min(rank, lo_c, hi_c, cap, static_width)]
+    return win, valid_s[win] & (hi_c >= lo_c)
+
+
+def _rmq_min(vals: torch.Tensor, lo_c, hi_c, cap: int,
+             max_width: int = 0) -> torch.Tensor:
+    """min(vals[lo_c..hi_c]) a row from a sparse table: level l holds the
+    min of each run of 2**l, and a frame of length L reads two runs of
+    level floor(log2 L).  ``max_width`` > 0 (a ROWS frame's width) caps
+    the levels built, as the JAX package's ``_rmq_argmin`` does: a full
+    table of a 2**23-row batch would be 23 levels."""
+    levels = max(1, cap.bit_length() - 1)
+    if max_width > 0:
+        levels = min(levels, max(1, (max_width - 1).bit_length()))
+    table = [vals.to(torch.int32)]  # ranks, below the capacity
+    for lev in range(1, levels + 1):
+        sh = 1 << (lev - 1)
+        prev = table[-1]
+        shifted = torch.cat([prev[sh:], prev[-1:].expand(sh)])
+        table.append(torch.minimum(prev, shifted))
+    flat = torch.stack(table).reshape(-1)
+    length = (hi_c - lo_c + 1).clamp(min=1)
+    # floor(log2 L), exact: L = m * 2**e with m in [0.5, 1)
+    k = (torch.frexp(length.to(torch.float64)).exponent - 1).to(
+        torch.int64).clamp(0, levels)
+    p1 = lo_c.clamp(0, cap - 1)
+    p2 = (hi_c + 1 - (1 << k)).clamp(0, cap - 1)
+    return torch.minimum(flat[k * cap + p1], flat[k * cap + p2]).to(
+        torch.int64)
+
+
 def _eval_one(wexpr: WindowExpression, g: _Geometry, ctx: EvalContext,
-              perm: torch.Tensor, cap: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (data, validity) of one window function, in sorted order."""
+              perm: torch.Tensor, cap: int) -> ColVal:
+    """One window function's (data, validity, chars), in sorted order."""
     f = wexpr.func
     live = g.live
     if isinstance(f, RowNumber):
-        return (g.pos - g.seg_start + 1).to(torch.int32), live
+        return ColVal((g.pos - g.seg_start + 1).to(torch.int32), live)
     if isinstance(f, Rank):
-        return (g.peer_start - g.seg_start + 1).to(torch.int32), live
+        return ColVal((g.peer_start - g.seg_start + 1).to(torch.int32), live)
     if isinstance(f, DenseRank):
         first_pg = g.peer_gid[g.seg_start.clamp(0, cap - 1)]
-        return (g.peer_gid - first_pg + 1).to(torch.int32), live
+        return ColVal((g.peer_gid - first_pg + 1).to(torch.int32), live)
 
     if isinstance(f, Lag):
-        cv = f.child.emit(ctx)
-        vals_s, valid_s = cv.data[perm], cv.validity[perm]
+        cv_s = take(f.child.emit(ctx), perm)
         # Lead subclasses Lag
         src = g.pos + (f.offset if isinstance(f, Lead) else -f.offset)
         inb = (src >= g.seg_start) & (src <= g.seg_end) & live
-        srcc = src.clamp(0, cap - 1)
-        data, valid = vals_s[srcc], inb & valid_s[srcc]
+        out = take(cv_s, src.clamp(0, cap - 1))
+        data, valid, chars = out.data, inb & out.validity, out.chars
         if f.has_default:
             dflt = f.default.emit(ctx)
             data = torch.where(inb, data, dflt.data.to(data.dtype))
             valid = torch.where(inb, valid, dflt.validity & live)
-        return data.to(device_dtype(wexpr.dtype)), valid
+            if chars is not None:
+                chars, dchars = align_chars(chars, dflt.chars)
+                chars = torch.where(inb[:, None], chars, dchars)
+        return ColVal(data.to(device_dtype(wexpr.dtype)), valid, chars)
 
-    if not isinstance(f, (Count, Sum, Average)):
-        raise NotImplementedError(
-            f"window function {type(f).__name__} is not in the torch port")
-    cv = f.input_projection()[0].emit(ctx)
-    vals_s, valid_s = cv.data[perm], cv.validity[perm] & live
-    lo_c, hi_c, nonempty = _frame_bounds(wexpr.frame, g, cap)
+    proj = f.input_projection()[0]
+    cv_s = take(proj.emit(ctx), perm)
+    vals_s, valid_s = cv_s.data, cv_s.validity & live
+    fr = wexpr.frame
+    lo_c, hi_c, nonempty = _frame_bounds(fr, g, cap)
+    if isinstance(f, (Min, Max, First)):  # Last subclasses First
+        if isinstance(f, (Min, Max)):
+            # the JAX package's strategy a frame shape: the whole
+            # partition and the default RANGE frame scan forward;
+            # value-searched RANGE bounds take the full sparse table
+            if fr.is_whole_partition or fr.is_default_range:
+                lower, upper = None, 0
+            elif fr.is_offset_range:
+                lower, upper = -1, 1
+            else:
+                lower, upper = fr.lower, fr.upper
+            width = 0
+            if fr.kind == "rows" and fr.lower is not None and \
+                    fr.upper is not None:
+                width = max(1, int(fr.upper) - int(fr.lower) + 1)
+            k1, k2 = _select_keys(vals_s, cv_s.chars, proj.dtype,
+                                  isinstance(f, Max))
+            win, found = _select_in_frame(valid_s, k1, k2, g, lo_c, hi_c,
+                                          lower, upper, cap, width)
+            ok = nonempty & found
+        elif isinstance(f, Last):
+            # the latest valid row at or before the frame's end
+            prev = torch.cummax(torch.where(valid_s, g.pos,
+                                            torch.full_like(g.pos, -1)),
+                                0).values
+            win = prev[hi_c.clamp(0, cap - 1)]
+            ok = nonempty & (win >= lo_c)
+        else:
+            # the earliest valid row at or after the frame's start
+            nxt = torch.cummin(torch.where(
+                valid_s, g.pos, torch.full_like(g.pos, cap)).flip(0),
+                0).values.flip(0)
+            win = nxt[lo_c.clamp(0, cap - 1)]
+            ok = nonempty & (win <= hi_c)
+        out = take(cv_s, win.clamp(0, cap - 1))
+        return ColVal(out.data.to(device_dtype(wexpr.dtype)), ok, out.chars)
+
     cnt = _prefix_frame_sum(valid_s.to(torch.int64), lo_c, hi_c, cap)
     if isinstance(f, Count):
-        return torch.where(nonempty, cnt, torch.zeros_like(cnt)), live
+        return ColVal(torch.where(nonempty, cnt, torch.zeros_like(cnt)),
+                      live)
+    if not isinstance(f, (Sum, Average)):
+        raise NotImplementedError(
+            f"window function {type(f).__name__} is not in the torch port")
     acc = torch.float64 if isinstance(f, Average) or f.dtype.is_floating \
         else torch.int64
     contrib = torch.where(valid_s, vals_s.to(acc),
@@ -278,8 +437,9 @@ def _eval_one(wexpr: WindowExpression, g: _Geometry, ctx: EvalContext,
     s = _prefix_frame_sum(contrib, lo_c, hi_c, cap)
     ok = nonempty & (cnt > 0)
     if isinstance(f, Average):
-        return s / torch.where(ok, cnt, torch.ones_like(cnt)).to(s.dtype), ok
-    return s.to(device_dtype(wexpr.dtype)), ok
+        return ColVal(s / torch.where(ok, cnt, torch.ones_like(cnt)).to(
+            s.dtype), ok)
+    return ColVal(s.to(device_dtype(wexpr.dtype)), ok)
 
 
 class TorchWindowExec(TorchExec):
@@ -295,6 +455,14 @@ class TorchWindowExec(TorchExec):
         if any(w.spec_key() != sk for _, w in window_cols):
             raise ValueError("the window expressions of one exec must "
                              "share their partition and order spec")
+        for _, w in window_cols:
+            # as the aggregate: a sum reads a string as a number, which
+            # the JAX package parses and the port does not
+            if isinstance(w.func, (Sum, Average)) and \
+                    w.func.child.dtype == STRING:
+                raise NotImplementedError(
+                    f"{type(w.func).__name__} over strings is not in the "
+                    "torch port yet")
         self.window_cols = window_cols
         self.children = [child]
         fields = list(child.output_schema.fields)
@@ -342,10 +510,14 @@ class TorchWindowExec(TorchExec):
         cols = list(batch.columns)
         with record_function("window.eval"):
             for _, wexpr in self.window_cols:
-                data_s, valid_s = _eval_one(wexpr, g, ectx, perm, cap)
-                data = torch.empty_like(data_s)
-                data[perm] = data_s
-                valid = torch.empty_like(valid_s)
-                valid[perm] = valid_s & g.live
-                cols.append(DeviceColumn(wexpr.dtype, data, valid, n))
+                out_s = _eval_one(wexpr, g, ectx, perm, cap)
+                data = torch.empty_like(out_s.data)
+                data[perm] = out_s.data
+                valid = torch.empty_like(out_s.validity)
+                valid[perm] = out_s.validity & g.live
+                chars = None
+                if out_s.chars is not None:
+                    chars = torch.empty_like(out_s.chars)
+                    chars[perm] = out_s.chars
+                cols.append(DeviceColumn(wexpr.dtype, data, valid, n, chars))
         return ColumnarBatch(cols, n, self._schema)

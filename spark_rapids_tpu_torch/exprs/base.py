@@ -36,6 +36,12 @@ def colvals(columns) -> List[ColVal]:
     return [ColVal(c.data, c.validity, c.chars) for c in columns]
 
 
+def take(cv: ColVal, rows: torch.Tensor) -> ColVal:
+    """The values at ``rows``; a string's chars move with its length."""
+    return ColVal(cv.data[rows], cv.validity[rows],
+                  None if cv.chars is None else cv.chars[rows])
+
+
 class EvalContext:
     """Carries the batch being evaluated into ``Expression.emit``."""
 

@@ -4,18 +4,19 @@
 Counterpart of ``spark_rapids_tpu/exprs/windows.py``.  A window
 expression is ``func OVER (PARTITION BY ... ORDER BY ... frame)``; the
 window exec (``exec/window.py``) evaluates every expression of one
-(partition, order) spec over one sort.  ``unsupported`` names what the
-port cannot run yet: the JAX package runs those on its CPU engine, and
-the port, which has none, raises at planning.
+(partition, order) spec over one sort, string-typed functions too (the
+JAX package runs those on its CPU engine).  ``unsupported`` names the
+one spec neither package runs, an offset RANGE frame over a non-numeric
+order column; the planner raises ``ValueError`` on it.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
-from spark_rapids_tpu_torch.columnar.dtypes import INT32, STRING, DataType
+from spark_rapids_tpu_torch.columnar.dtypes import INT32, DataType
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction, \
-    Average, Count, First, Last, Max, Min, Sum
+    First
 from spark_rapids_tpu_torch.exprs.base import Expression, Literal
 
 # bounds beyond this are unbounded (pyspark passes +-sys.maxsize for
@@ -167,9 +168,6 @@ class Lead(Lag):
     """The value ``offset`` rows after the current row."""
 
 
-_AGG_FUNCS = (Count, Sum, Min, Max, Average, First, Last)
-
-
 class WindowExpression(Expression):
     """``func`` OVER (PARTITION BY ... ORDER BY ... ``frame``).
 
@@ -244,21 +242,15 @@ class WindowExpression(Expression):
 
     @property
     def unsupported(self) -> Optional[str]:
-        """Why the port cannot evaluate this bound expression, or None.
-        The JAX package runs string-typed functions and offset RANGE
-        frames over a non-numeric order column on its CPU engine; the
-        port also lacks min, max, first and last over a frame."""
-        f = self.func
-        if isinstance(f, (Min, Max, First, Last)):
-            return (f"{type(f).__name__} over a window frame is not in the "
-                    "torch port yet")
-        if isinstance(f, (_AGG_FUNCS, Lag)) and f.child.dtype == STRING:
-            return "string-typed window functions are not in the torch port"
+        """Why this bound expression cannot run, or None: an offset RANGE
+        frame over an order column that is not numeric, a date or a
+        timestamp, which both of the JAX package's engines refuse with a
+        ``ValueError``."""
         if self.frame.is_offset_range:
             odt = self.orders[0][0].dtype
             if not (odt.is_numeric or odt.name in ("date", "timestamp")):
-                return ("offset RANGE frames need a numeric or date order "
-                        "column")
+                return ("offset RANGE frames need a numeric/date/timestamp "
+                        "order column")
         return None
 
     def emit(self, ctx):

@@ -2,8 +2,10 @@
 (``first``/``last`` too), math (``pmod`` ... ``ceil``, ``abs``), null
 and NaN tests, the date and time parts, the string functions (case,
 trim, concat, locate, replace, substring_index, regexp_replace, rlike,
-split_part, contains), the nondeterministic functions and the window
-functions.
+split_part, contains), the nondeterministic functions, the window
+functions, ``grouping_id`` under rollup and cube, and the generators
+(``array`` literals inside ``explode``, ``explode_outer``, ``posexplode``
+and ``posexplode_outer``).
 
 Counterpart of ``spark_rapids_tpu/functions.py``.  ``upper``, ``lower``,
 ``initcap`` and ``rand`` need ``spark.rapids.sql.incompatibleOps.enabled``
@@ -14,9 +16,11 @@ from __future__ import annotations
 
 from spark_rapids_tpu_torch.api import Column, _expr_or_name, _to_expr, \
     col, lit, when
+from spark_rapids_tpu_torch.columnar.dtypes import from_name
 from spark_rapids_tpu_torch.exprs import aggregates as ag
 from spark_rapids_tpu_torch.exprs import arithmetic as ar
 from spark_rapids_tpu_torch.exprs import datetime as dte
+from spark_rapids_tpu_torch.exprs import generators as gn
 from spark_rapids_tpu_torch.exprs import math as mt
 from spark_rapids_tpu_torch.exprs import nondeterministic as nd
 from spark_rapids_tpu_torch.exprs import nullexprs as ne
@@ -24,7 +28,7 @@ from spark_rapids_tpu_torch.exprs import pallas_strings as ps
 from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs import strings as ss
 from spark_rapids_tpu_torch.exprs import windows as wn
-from spark_rapids_tpu_torch.exprs.base import Literal
+from spark_rapids_tpu_torch.exprs.base import Literal, UnresolvedAttribute
 
 __all__ = ["col", "lit", "when", "count", "sum", "min", "max", "avg",
            "first", "last", "pmod", "sqrt", "exp", "log", "pow", "floor",
@@ -36,7 +40,9 @@ __all__ = ["col", "lit", "when", "count", "sum", "min", "max", "avg",
            "concat_ws", "locate", "instr", "replace", "substring_index",
            "regexp_replace", "rlike", "split_part", "contains", "rand",
            "monotonically_increasing_id", "spark_partition_id",
-           "row_number", "rank", "dense_rank", "lag", "lead"]
+           "row_number", "rank", "dense_rank", "lag", "lead",
+           "grouping_id", "array", "explode", "explode_outer",
+           "posexplode", "posexplode_outer"]
 
 
 def count(c) -> Column:
@@ -311,3 +317,36 @@ def monotonically_increasing_id() -> Column:
 
 def spark_partition_id() -> Column:
     return Column(nd.SparkPartitionID())
+
+
+def grouping_id() -> Column:
+    """The bitmask of the grouping keys a rollup or cube set leaves out
+    (the expand's grouping-id column)."""
+    from spark_rapids_tpu_torch.api import GROUPING_ID_COL
+    return Column(UnresolvedAttribute(GROUPING_ID_COL))
+
+
+def array(*vals, elem_dtype=None) -> Column:
+    """A literal array, valid only inside explode() / posexplode();
+    ``elem_dtype`` (a DataType or a Spark type name) types an empty or
+    all-null array."""
+    if isinstance(elem_dtype, str):
+        elem_dtype = from_name(elem_dtype)
+    return Column(gn.ArrayLiteral(
+        [v.expr if isinstance(v, Column) else v for v in vals], elem_dtype))
+
+
+def explode(c) -> Column:
+    return Column(gn.Explode(_expr_or_name(c)))
+
+
+def explode_outer(c) -> Column:
+    return Column(gn.Explode(_expr_or_name(c), outer=True))
+
+
+def posexplode(c) -> Column:
+    return Column(gn.Explode(_expr_or_name(c), with_pos=True))
+
+
+def posexplode_outer(c) -> Column:
+    return Column(gn.Explode(_expr_or_name(c), with_pos=True, outer=True))

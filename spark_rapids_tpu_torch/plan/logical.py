@@ -1,7 +1,7 @@
 """Logical plan nodes produced by the DataFrame API.
 
-Counterpart of ``spark_rapids_tpu/plan/logical.py``, trimmed to the nodes
-the port lowers.  Expressions inside are unresolved (attributes by
+Counterpart of ``spark_rapids_tpu/plan/logical.py``: every node the JAX
+package lowers to its device, without the CSV and ORC relations.  Expressions inside are unresolved (attributes by
 name); the planner binds them against the child's output schema.
 """
 
@@ -10,7 +10,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch.columnar.batch import HostColumns
-from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
+from spark_rapids_tpu_torch.columnar.dtypes import INT64, Field, Schema
 from spark_rapids_tpu_torch.exprs.base import Expression, bind_expression
 
 
@@ -51,6 +51,29 @@ class ParquetRelation(LogicalPlan):
 
     def output_schema(self) -> Schema:
         return self.schema
+
+
+class Range(LogicalPlan):
+    """The int64 column ``id``: ``start`` to ``end`` (exclusive) by
+    ``step``."""
+
+    def __init__(self, start: int, end: int, step: int = 1):
+        self.start, self.end, self.step = int(start), int(end), int(step)
+        self.children = []
+
+    def output_schema(self) -> Schema:
+        return Schema([Field("id", INT64, nullable=False)])
+
+
+class Union(LogicalPlan):
+    """The children's rows back to back (UNION ALL), under the first
+    child's schema."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        self.children = list(children)
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
 
 
 class Project(LogicalPlan):
@@ -155,3 +178,55 @@ class Window(LogicalPlan):
             b = bind_expression(w, child_schema)
             fields.append(Field(name, b.dtype, b.nullable))
         return Schema(fields)
+
+
+class Expand(LogicalPlan):
+    """Every input row once per projection list, the grouping-sets
+    primitive behind rollup and cube; ``names`` names the output
+    columns."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str], child: LogicalPlan):
+        self.projections = [list(p) for p in projections]
+        self.names = list(names)
+        self.children = [child]
+
+    def output_schema(self) -> Schema:
+        from spark_rapids_tpu_torch.exec.expand import expand_schema
+        schema = self.children[0].output_schema()
+        return expand_schema([[bind_expression(e, schema) for e in p]
+                              for p in self.projections], self.names)
+
+
+class Generate(LogicalPlan):
+    """explode / posexplode of a literal array, its column (and the
+    position's) appended to the child's; ``names``: ([position name,]
+    element name)."""
+
+    def __init__(self, generator, names: Sequence[str],
+                 child: LogicalPlan):
+        self.generator = generator
+        self.names = list(names)
+        self.children = [child]
+
+    def output_schema(self) -> Schema:
+        from spark_rapids_tpu_torch.exec.generate import generate_schema
+        return generate_schema(self.generator,
+                               self.children[0].output_schema(), self.names)
+
+
+class Repartition(LogicalPlan):
+    """``mode``: hash, roundrobin, single or range.  Range partitioning
+    carries sort ``orders`` [(expr, ascending, nulls_first)] instead of
+    keys."""
+
+    def __init__(self, num_partitions: int, keys: Sequence[Expression],
+                 child: LogicalPlan, mode: str = "hash", orders=None):
+        self.num_partitions = int(num_partitions)
+        self.keys = list(keys)
+        self.orders = list(orders or [])
+        self.mode = mode
+        self.children = [child]
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()

@@ -1,10 +1,12 @@
 """Logical plan -> port operators.
 
-Counterpart of ``spark_rapids_tpu/plan/planner.py:plan_query``, trimmed
-to what the port runs.  It lowers LocalRelation, ParquetRelation,
-Project, Filter, Aggregate (grouped, global or distinct), Sort, Limit,
-Join and Window (``TorchWindowExec``, after checking each bound window
-expression's ``unsupported``);
+Counterpart of ``spark_rapids_tpu/plan/planner.py:plan_query``.  It
+lowers every node the JAX package lowers to its device but the CSV and
+ORC relations: LocalRelation, ParquetRelation, Range, Union, Project,
+Filter, Aggregate (grouped, global or distinct), Sort, Limit, Join,
+Window (``TorchWindowExec``; an offset RANGE frame over a non-numeric
+order column raises ``ValueError``, as both of the JAX package's engines
+do), Expand, Generate and Repartition (``TorchShuffleExchangeExec``);
 each maximal chain of Project and Filter becomes one fused
 ``TorchStageExec`` (the JAX package's fusion pass), an Aggregate and the
 stream side of a join read their input through the coalesce the JAX
@@ -41,10 +43,13 @@ from spark_rapids_tpu_torch.conf import BROADCAST_THRESHOLD, TorchConf
 from spark_rapids_tpu_torch.exec.aggregate import TorchHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import TorchExec
 from spark_rapids_tpu_torch.exec.basic import TorchLocalLimitExec, \
-    TorchLocalScanExec
+    TorchLocalScanExec, TorchRangeExec, TorchUnionExec
 from spark_rapids_tpu_torch.exec.broadcast import \
     TorchBroadcastExchangeExec, TorchBroadcastHashJoinExec
 from spark_rapids_tpu_torch.exec.coalesce import TorchCoalesceBatchesExec
+from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
+from spark_rapids_tpu_torch.exec.expand import TorchExpandExec
+from spark_rapids_tpu_torch.exec.generate import TorchGenerateExec
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec, TorchTopNExec
 from spark_rapids_tpu_torch.exec.stage import TorchStageExec
@@ -60,7 +65,7 @@ from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec, \
 from spark_rapids_tpu_torch.plan import logical as lp
 
 _NODES = (lp.Project, lp.Filter, lp.Aggregate, lp.Sort, lp.Limit, lp.Join,
-          lp.Window)
+          lp.Window, lp.Union, lp.Expand, lp.Generate, lp.Repartition)
 
 # results that differ from Spark's in corner cases (the JAX package's
 # incompat notes)
@@ -123,11 +128,15 @@ def _lower(node: lp.LogicalPlan, conf: TorchConf) -> TorchExec:
         return TorchLocalScanExec(node.schema, node.cols)
     if isinstance(node, lp.ParquetRelation):
         return TorchParquetScanExec(node.paths, node.schema)
+    if isinstance(node, lp.Range):
+        return TorchRangeExec(node.start, node.end, node.step)
     if not isinstance(node, _NODES):
         raise NotImplementedError(
             f"{node.node_name} is not in the torch port yet")
     if isinstance(node, lp.Join):
         return _plan_join(node, conf)
+    if isinstance(node, lp.Union):
+        return TorchUnionExec([_lower(c, conf) for c in node.children])
     if isinstance(node, lp.Limit) and isinstance(node.children[0], lp.Sort):
         # limit over sort: a top-N that never holds more than the limit
         # and one batch
@@ -154,8 +163,19 @@ def _lower(node: lp.LogicalPlan, conf: TorchConf) -> TorchExec:
         bound = [(name, bind(w)) for name, w in node.window_cols]
         for _, w in bound:
             if w.unsupported is not None:
-                raise NotImplementedError(f"{w.name}: {w.unsupported}")
+                raise ValueError(w.unsupported)
         return TorchWindowExec(bound, child)
+    if isinstance(node, lp.Expand):
+        return TorchExpandExec([[bind(e) for e in p]
+                                for p in node.projections], node.names,
+                               child)
+    if isinstance(node, lp.Generate):
+        return TorchGenerateExec(node.generator, node.names, child)
+    if isinstance(node, lp.Repartition):
+        return TorchShuffleExchangeExec(
+            node.num_partitions, [bind(e) for e in node.keys], node.mode,
+            child, orders=[(bind(e), asc, nf)
+                           for e, asc, nf in node.orders])
     if isinstance(node, lp.Aggregate):
         return TorchHashAggregateExec(
             [bind(e) for e in node.groupings],
@@ -324,7 +344,8 @@ def estimate_logical_size(node: lp.LogicalPlan) -> Optional[int]:
     """Build-side size estimate in bytes for the join strategy, as the
     JAX package estimates it: a local relation the bytes its Arrow table
     would hold (so a numpy source and its Arrow twin choose alike), a
-    parquet relation its files' sizes, Filter, Limit and Project their
+    parquet relation its files' sizes, a range 8 bytes a row, Filter,
+    Limit and Project their
     child's (an upper bound); anything else unknown (None)."""
     if isinstance(node, lp.LocalRelation):
         return sum(_host_bytes(f.dtype, *node.cols[f.name])
@@ -336,6 +357,9 @@ def estimate_logical_size(node: lp.LogicalPlan) -> Optional[int]:
             return sum(os.path.getsize(f) for f in files) if files else None
         except OSError:
             return None
+    if isinstance(node, lp.Range):
+        # the JAX package's estimate, floor division and all
+        return 8 * max(0, (node.end - node.start) // (node.step or 1))
     if isinstance(node, (lp.Filter, lp.Limit, lp.Project)):
         return estimate_logical_size(node.children[0])
     return None

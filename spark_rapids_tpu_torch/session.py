@@ -53,6 +53,12 @@ class TorchSession:
         from spark_rapids_tpu_torch.api import create_dataframe
         return create_dataframe(self, data, masks)
 
+    def range(self, start: int, end: Optional[int] = None, step: int = 1):
+        """The int64 column ``id`` from ``start`` to ``end`` (exclusive)
+        by ``step``, made on the device; ``range(n)`` is 0 to n - 1."""
+        from spark_rapids_tpu_torch.api import range_df
+        return range_df(self, start, end, step)
+
     # -- the SQL catalog ----------------------------------------------------
 
     def register_view(self, name: str, df) -> None:

@@ -241,18 +241,25 @@ def test_substring_feeds_group_by_and_isin():
 
 
 def test_unported_expressions_raise_at_planning():
-    """What the port still lacks raises when planned: a string-typed
-    window function and a first over a window frame."""
-    s = _port_session()
-    df = s.create_dataframe({"s": np.array(["abc", "de"]),
-                             "i": np.array([1, 2])})
-    w = st.Window.partition_by("i").order_by("s")
-    q = df.select(TF.lag("s").over(w).alias("x"))
-    with pytest.raises(NotImplementedError, match="string-typed"):
-        q.collect()
-    q = df.select(TF.first("i").over(w).alias("y"))
-    with pytest.raises(NotImplementedError, match="First over a window"):
-        q.collect()
+    """What the port once refused when planned now runs, equal to the JAX
+    package (its CPU engine for the string function): a string-typed
+    lag and a first over a window frame."""
+    from spark_rapids_tpu import Window as JWindow
+    t = pa.table({"s": pa.array(["abc", "de", None, "fgh", "", "ij"]),
+                  "i": pa.array([1, 2, 1, 1, 2, None]),
+                  "o": pa.array([3, 1, 2, 5, 4, 0])})
+
+    def build(a, win, df):
+        w = win.partition_by("i").order_by("o")
+        return df.select(
+            "s", "i", a[3].lag("s").over(w).alias("x"),
+            a[3].first("o").over(w.rows_between(-1, 1)).alias("y"))
+    want = build(JAX, JWindow, tpu_session(
+        {"spark.rapids.sql.test.enabled": False}).create_dataframe(t)) \
+        .to_arrow()
+    got = build(PORT, st.Window, _port_session().create_dataframe(t)) \
+        .to_arrow()
+    assert_tables_equal(got, want, ignore_order=False)
 
 
 def test_substring_column_position_matches_jax():

@@ -15,9 +15,10 @@ and the code paths are the card's but for pinning and events:
   whole; the leak warning;
 - the runtime's budget (16 GiB x allocFraction on the CPU, as in the
   JAX package, or budgetBytes) and one runtime a device;
-- the aggregate, the sort, the window and a broadcast join under the
-  JAX package's tiny-budget conf (``tests/test_spill.py:17``, 200 KiB of
-  device and 150 KiB of host), each equal to the JAX package under the
+- the aggregate, the sort, the window, a broadcast join and the hash
+  and range exchanges under the JAX package's tiny-budget conf
+  (``tests/test_spill.py:17``, 200 KiB of device and 150 KiB of host),
+  each equal to the JAX package under the
   same conf dict, with bytes on the host and the disk tiers;
 - the semaphore: re-entrant in a thread, one permit shared by two
   threads' queries with no deadlock;
@@ -408,8 +409,23 @@ def q_broadcast_join(fns, W, s, p):
         fns.sum(fns.col("v")).alias("sv"), fns.count(fns.col("v")).alias("c"))
 
 
+def q_exchange_hash(fns, W, s, p):
+    return s.read.parquet(p["fact"]).repartition(8, "k").select(
+        fns.col("k"), fns.col("v"), fns.col("s"),
+        fns.spark_partition_id().alias("p"))
+
+
+def q_exchange_range(fns, W, s, p):
+    return s.read.parquet(p["fact"]).repartition_by_range(
+        8, fns.col("v").desc(), "s").select(
+        fns.col("k"), fns.col("v"), fns.col("s"),
+        fns.spark_partition_id().alias("p"))
+
+
 QUERIES = {"aggregate": q_agg, "sort": q_sort, "window": q_window,
-           "broadcast_join": q_broadcast_join}
+           "broadcast_join": q_broadcast_join,
+           "exchange_hash": q_exchange_hash,
+           "exchange_range": q_exchange_range}
 
 
 def _jax_result(query, tables):
@@ -433,7 +449,8 @@ def test_tiny_budget_equals_the_jax_package(qname, tables, fresh_runtimes):
         assert stats["unspill_count"] > 0, stats
     assert s.runtime.catalog.audit_leaks() == 0
     assert stats["device_bytes"] == stats["host_bytes"] == 0
-    if qname == "sort":
+    if qname == "sort" or qname.startswith("exchange"):
+        # an exchange's partitions come in order, each in input order
         assert got.equals(want)
     elif qname == "window":
         scale = float(np.nansum(np.abs(
@@ -454,7 +471,10 @@ def test_tiny_budget_equals_the_jax_package(qname, tables, fresh_runtimes):
     s_big = st.TorchSession(CPU)
     again = query(TF, st.Window, s_big, tables).to_arrow()
     assert s_big.runtime.catalog.spill_to_host_count == 0
-    if qname == "sort":
+    # (not the range exchange: its bounds come from a sample of each
+    # scan batch, and the tiny budget cuts the scan into other batches,
+    # in both packages)
+    if qname in ("sort", "exchange_hash"):
         assert again.equals(got)
     assert not _port_threads()
 

@@ -12,7 +12,11 @@ site runs:
   and general join probes (``TorchHashJoinExec._fk``, ``._general``)
   fail twice, so relief fails too and the batch splits; the sort
   (``exec/sort.py: sort_batch``) and the window
-  (``TorchWindowExec._window``) fail once and retry whole;
+  (``TorchWindowExec._window``) fail once and retry whole; the
+  exchange's hash and range partitioning (``exec/exchange.py:
+  partition_batch``, ``partition_batch_by_range``) split, its
+  round-robin partitioning retries whole (a row's partition depends on
+  its position);
 - each result equals the JAX package's on the same input, uninjected,
   and the port's own uninjected run;
 - an error that is not an out-of-memory error propagates at once, with
@@ -45,6 +49,7 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, \
     host_batch_to_device, host_columns_from_numpy
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec import aggregate as agg_mod
+from spark_rapids_tpu_torch.exec import exchange as exch_mod
 from spark_rapids_tpu_torch.exec import pallas_agg as pag
 from spark_rapids_tpu_torch.exec import sort as sort_mod
 from spark_rapids_tpu_torch.exec import stage as stage_mod
@@ -111,6 +116,22 @@ def q_window(fns, W, fact, dim):
                        fns.sum(fns.col("v")).over(w).alias("run"))
 
 
+def q_exchange_hash(fns, W, fact, dim):
+    return fact.repartition(4, "k2").select(
+        fns.col("k"), fns.col("k2"), fns.col("s"),
+        fns.spark_partition_id().alias("p"))
+
+
+def q_exchange_range(fns, W, fact, dim):
+    return fact.repartition_by_range(4, fns.col("v").desc()).select(
+        fns.col("k"), fns.col("v"), fns.spark_partition_id().alias("p"))
+
+
+def q_exchange_roundrobin(fns, W, fact, dim):
+    return fact.repartition(4).select(
+        fns.col("k"), fns.col("s"), fns.spark_partition_id().alias("p"))
+
+
 def _rows_arg(i):
     return lambda a, k: a[i]
 
@@ -150,6 +171,14 @@ SITES = {
              False),
     "window": (q_window, TorchWindowExec, "_window", _rows_of_batch(1),
                None, False),
+    "exchange_hash": (q_exchange_hash, exch_mod, "partition_batch",
+                      _rows_of_batch(0), None, True),
+    "exchange_range": (q_exchange_range, exch_mod,
+                       "partition_batch_by_range", _rows_of_batch(0), None,
+                       True),
+    "exchange_roundrobin": (q_exchange_roundrobin, exch_mod,
+                            "partition_batch", _rows_of_batch(0), None,
+                            False),
 }
 
 
@@ -220,7 +249,9 @@ def _check(site, got, want):
             g.column("v").to_numpy(zero_copy_only=False))))
         assert np.array_equal(np.isnan(gr), np.isnan(wr))
         assert np.nanmax(np.abs(gr - wr)) <= 1e-12 * scale
-    elif site == "sort":
+    elif site == "sort" or site.startswith("exchange"):
+        # the rows come in one order: a split's halves partition each
+        # row as the whole batch does, the first half's rows first
         assert got.equals(want)
     else:
         assert_tables_equal(got, want, approx_float=True)

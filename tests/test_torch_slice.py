@@ -204,13 +204,22 @@ def test_order_by_matches_jax(ascending):
 
 
 def test_planner_refuses_what_the_slice_lacks():
-    """No CPU engine to route to: a min over a window frame is refused
-    by name."""
-    s = st.TorchSession({"spark.rapids.torch.device": "cpu"})
-    df = s.create_dataframe({"k": np.arange(4), "v": np.arange(4.0)})
-    w = st.Window.partition_by("k").order_by("v")
-    with pytest.raises(NotImplementedError, match="Min over a window"):
-        df.select(TF.min("v").over(w).alias("m")).collect()
+    """The min over a window frame that the planner once refused by name
+    now runs, equal to the JAX package's (a ROWS frame bounded on both
+    sides: the sparse table of ranks)."""
+    from spark_rapids_tpu import Window as JWindow
+    t = pa.table({"k": pa.array(np.arange(40) % 3),
+                  "v": pa.array(np.round(np.random.default_rng(2).normal(
+                      size=40), 1), mask=np.arange(40) % 7 == 0)})
+
+    def run(f, win, s):
+        w = win.partition_by("k").order_by("v").rows_between(-2, 1)
+        return s.create_dataframe(t).select(
+            "k", "v", f.min("v").over(w).alias("m")).to_arrow()
+    want = run(F, JWindow, tpu_session())
+    got = run(TF, st.Window, st.TorchSession(
+        {"spark.rapids.torch.device": "cpu"}))
+    assert_tables_equal(got, want, ignore_order=False)
 
 
 def test_cross_join_matches_jax():

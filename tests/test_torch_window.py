@@ -9,10 +9,11 @@ with no partition; desc order and integer sums; ``lag`` / ``lead`` with
 defaults; null and string partition keys, null order keys; a window
 over an expression; windows inside ``filter`` and ``order_by``; the
 column names; a date order column under a RANGE offset; and
-``bench.py``'s ``window_1m`` query at 20,000 rows.  What the port cannot
-run raises: ``rank`` without an order and a bare window function (as in
-the JAX package), and min, max, first and last over a frame and
-string-typed window functions (``NotImplementedError`` at planning).
+``bench.py``'s ``window_1m`` query at 20,000 rows; min, max and first
+over a sliding frame, and last against Spark's definition.  What the
+port cannot run raises: ``rank`` without an order and a bare window
+function (as in the JAX package), and an offset RANGE frame over a
+string order column (``ValueError``, as in the JAX package).
 
 Both packages keep the input's row order and gain one column a
 function, so results compare row for row.  Tolerance: ranks, counts,
@@ -303,20 +304,48 @@ def test_window_1m_query():
     assert got.num_rows == 5 * 1000
 
 
+def _last_rows_reference(table, lo: int, hi: int):
+    """Spark's ``last(v)`` (nulls ignored) over ROWS lo..hi of the
+    partition by g in order o, ties in input order, in input order."""
+    g = np.asarray(table.column("g").to_numpy())
+    o = np.asarray(table.column("o").to_numpy())
+    v = table.column("v").to_pylist()
+    out = [None] * len(v)
+    order = np.lexsort((o, g))
+    for part in np.unique(g):
+        rows = [r for r in order if g[r] == part]
+        for j, r in enumerate(rows):
+            frame = rows[max(0, j + lo):max(0, j + hi + 1)]
+            vals = [v[q] for q in frame if v[q] is not None]
+            out[r] = vals[-1] if vals else None
+    return out
+
+
 @pytest.mark.parametrize("fn", ["min", "max", "first", "last"])
 def test_frame_extrema_raise_at_planning(fn):
-    df = _port_session().create_dataframe(_table(n=20))
-    w = st.Window.partition_by("g").order_by("o").rows_between(-1, 1)
-    q = df.with_column("m", getattr(TF, fn)(st.col("v")).over(w))
-    with pytest.raises(NotImplementedError, match="window frame"):
-        q.collect()
+    """Min, max, first and last over a frame, which the planner once
+    refused, run equal to the JAX package's; ``last`` is held against
+    Spark's definition, since the JAX package's window ``last`` returns
+    the frame's first value (its ``Last`` subclasses ``First``)."""
+    def build(a, df):
+        w = a[1].partition_by("g").order_by("o").rows_between(-1, 1)
+        return df.with_column("m", getattr(a[0], fn)(a[0].col("v")).over(w))
+    if fn != "last":
+        _check(_table(), build)
+        return
+    t = _table()
+    got = build(PORT, _port_session().create_dataframe(t)).to_arrow()
+    assert got.column("m").to_pylist() == _last_rows_reference(t, -1, 1)
 
 
 def test_string_window_function_raises_at_planning():
+    """String-typed window functions run now (``test_torch_window_frames
+    .py``); an offset RANGE frame over a string order column still
+    raises, a ``ValueError`` as in the JAX package."""
     df = _port_session().create_dataframe(
         {"g": np.array([1, 1, 2]), "o": np.array([1, 2, 3]),
          "s": np.array(["b", "a", "z"])})
-    w = st.Window.partition_by("g").order_by("o")
-    q = df.with_column("p", TF.lag(st.col("s"), 1).over(w))
-    with pytest.raises(NotImplementedError, match="string"):
+    w = st.Window.partition_by("g").order_by("s").range_between(-1, 1)
+    q = df.with_column("p", TF.count(st.col("o")).over(w))
+    with pytest.raises(ValueError, match="offset RANGE frames need"):
         q.collect()
