@@ -147,7 +147,7 @@ Phases, each printing one JSON line:
 18. operators: every logical operator of the JAX package's device
    engine, timed as phase 11 and checked row for row (integers,
    strings, dates and nulls exact, f64 within rtol 1e-9).
-   range_agg_linear_keys and range_agg_1k: Spark's AggregateBenchmark
+   range_agg_linear_keys and range_agg_512: Spark's AggregateBenchmark
    size, ``session.range(20 << 22)`` (83,886,080 ids in 80 batches made
    on the card), grouped by ``id & 65535`` (sum, on the sorted route) and
    by ``id & 511`` (count, sum, avg, through the dense-slot kernel on
@@ -171,8 +171,12 @@ Phases, each printing one JSON line:
    overlap), window_frames (lineitem by supplier: a frame min, a running
    max, a suffix last, a RANGE first over 30 days, a string lag and a
    string max; collected whole, ordered by (l_orderkey, l_linenumber),
-   with its peak device memory) and bitwise_keys (``&``, ``^``, ``<<``,
-   ``~`` and ``>>>`` summed by ``l_orderkey & 7``).
+   with its peak device memory, and each function's own peak above the
+   query without it, ``window_peaks``) and bitwise_keys (``&``, ``^``,
+   ``<<``, ``~`` and ``>>>`` summed by ``l_orderkey & 7``).  After it,
+   kernel_path holds the dense-slot kernel against its plain version on
+   the first update batch of range_agg_512, explode_horizons and
+   bitwise_keys, the phase's three paths through it.
 
 The dense-slot kernel's float sums take one fixed order: every
 comparison of it with its plain version (phase 3, its edge specs and
@@ -2413,7 +2417,11 @@ def phase_oom_query(torch, st, F, data) -> None:
         try:
             return real(fn, batch, ctx, split, max_depth)
         finally:
+            # give the ballast's segment back: left in the cache, later
+            # tensors split it, it can never be released, and the
+            # allocator finds no room for a new segment of small blocks
             del ballast
+            torch.cuda.empty_cache()
 
     results, secs, dense = [], [], []
     for hook in (measuring, ballasted):
@@ -2664,10 +2672,10 @@ def op_range_linear(st, F, s, rows: int = RANGE_ROWS):
             .group_by("k").agg(F.sum(idc).alias("s")))
 
 
-def op_range_1k(st, F, s, rows: int = RANGE_ROWS):
-    # 512 keys: with the null slot, 513 of the kernel's 1024 slots (keys
-    # 0 to 1023 would need 1025, and both packages route those to the
-    # sorted path)
+def op_range_512(st, F, s, rows: int = RANGE_ROWS):
+    # AggregateBenchmark's 1,000-key shape cut to 512 keys: with the null
+    # slot, 513 of the kernel's 1024 slots (keys 0 to 1023 would need
+    # 1025, and both packages route those to the sorted path)
     idc = st.col("id")
     return (s.range(rows)
             .select(idc, bitwise("BitwiseAnd", st, idc, 511).alias("k"))
@@ -2757,25 +2765,51 @@ def op_repartition_range(st, F, t):
         "o_orderkey", "o_totalprice", F.spark_partition_id().alias("pid"))
 
 
-def op_window_frames(st, F, t):
+def window_frame_cols(st, F) -> dict:
+    """window_frames' six window functions, by their output names."""
     col, W = st.col, st.Window
     spec = W.partition_by("l_suppkey").order_by(
         "l_shipdate", "l_orderkey", "l_linenumber")
     by_day = W.partition_by("l_suppkey").order_by("l_shipdate")
-    return (t["lineitem"].select(
-        "l_orderkey", "l_linenumber",
-        F.min(col("l_extendedprice")).over(spec.rows_between(-3, 3))
-        .alias("min_price"),
-        F.max(col("l_discount")).over(spec.rows_between(
-            W.unboundedPreceding, W.currentRow)).alias("max_disc"),
-        F.last(col("l_tax")).over(spec.rows_between(
-            W.currentRow, W.unboundedFollowing)).alias("last_tax"),
-        F.first(col("l_quantity")).over(by_day.range_between(-30, 0))
-        .alias("first_qty"),
-        F.lag(col("l_shipmode")).over(spec).alias("prev_mode"),
-        F.max(col("l_shipinstruct")).over(spec.rows_between(-5, 0))
-        .alias("max_instruct"))
-        .order_by("l_orderkey", "l_linenumber"))
+    return {
+        "min_price": F.min(col("l_extendedprice")).over(
+            spec.rows_between(-3, 3)),
+        "max_disc": F.max(col("l_discount")).over(spec.rows_between(
+            W.unboundedPreceding, W.currentRow)),
+        "last_tax": F.last(col("l_tax")).over(spec.rows_between(
+            W.currentRow, W.unboundedFollowing)),
+        "first_qty": F.first(col("l_quantity")).over(
+            by_day.range_between(-30, 0)),
+        "prev_mode": F.lag(col("l_shipmode")).over(spec),
+        "max_instruct": F.max(col("l_shipinstruct")).over(
+            spec.rows_between(-5, 0))}
+
+
+def op_window_frames(st, F, t, only=None):
+    """window_frames; with ``only`` (names of ``window_frame_cols``) just
+    those functions."""
+    cols = [c.alias(n) for n, c in window_frame_cols(st, F).items()
+            if only is None or n in only]
+    return (t["lineitem"].select("l_orderkey", "l_linenumber", *cols)
+            .order_by("l_orderkey", "l_linenumber"))
+
+
+def window_peaks(torch, st, F, t) -> None:
+    """window_frames' peak device memory split by what holds it: the
+    query with no window function (the scan, the sort by key and the
+    result), then each function alone, as bytes above the memory held
+    before the run."""
+    out = {}
+    for name in [None] + list(window_frame_cols(st, F)):
+        q = op_window_frames(st, F, t, only=[] if name is None else [name])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        q.to_torch()
+        torch.cuda.synchronize()
+        out[name or "no_window"] = int(torch.cuda.max_memory_allocated()
+                                       - base)
+    emit("window_peaks", bytes_above_resident=out)
 
 
 def op_bitwise_keys(st, F, t):
@@ -2862,11 +2896,11 @@ def run_operator(torch, session, query_fn, name: str, rows_in: int,
 
 
 def phase_range_aggs(torch, st, F, session, rows: int = RANGE_ROWS) -> None:
-    """range_agg_linear_keys and range_agg_1k, each checked exactly
+    """range_agg_linear_keys and range_agg_512, each checked exactly
     against the closed form over ``rows`` ids."""
     ids = np.arange(rows, dtype=np.int64)
     for name, fn, mask in (("range_agg_linear_keys", op_range_linear, 65535),
-                           ("range_agg_1k", op_range_1k, 511)):
+                           ("range_agg_512", op_range_512, 511)):
         cols, masks, n = run_operator(
             torch, session, lambda s: fn(st, F, s, rows), name, rows)
         k = cols["k"][:n].cpu().numpy()
@@ -2909,7 +2943,9 @@ def phase_operator(torch, st, F, session, t_gpu, t_cpu, name: str,
                        rows, cpu_query=fn(st, F, t_cpu),
                        peak=name == "window_frames")
     cols, masks, n = out
-    if name == "explode_horizons":
+    if name == "window_frames":
+        window_peaks(torch, st, F, t_gpu)
+    elif name == "explode_horizons":
         check(n == 3, "explode_horizons: not three horizons")
         nat = run_operator(torch, session, lambda s: op_explode_outer_nation(
             st, F, t_gpu), "explode_outer_nation", 25,
@@ -3108,14 +3144,18 @@ def main(argv=None) -> int:
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     phase_repeat_sums(torch, st, F, session, tpch_dfs)
-    # q8, q13 and TPCx-BB q2 give the dense-slot kernel shapes of their
-    # own
+    # q8, q13, TPCx-BB q2, the hour group-by and phase 18's three paths
+    # through the kernel give it shapes of their own
     hour_sql = dict((q, sql) for q, sql, _ in BREADTH_QUERIES)[
         "timestamp_hour"]
     for path, query in [("tpch_q8", TPCH_QUERIES["q8"](tpch_dfs)),
                         ("tpch_q13", TPCH_QUERIES["q13"](tpch_dfs)),
                         ("tpcxbb_q2", session.sql(TPCXBB_QUERIES["q2"])),
-                        ("breadth_timestamp_hour", gpu_b.sql(hour_sql))]:
+                        ("breadth_timestamp_hour", gpu_b.sql(hour_sql)),
+                        ("range_agg_512", op_range_512(st, F, session)),
+                        ("explode_horizons",
+                         op_explode_horizons(st, F, ops_gpu)),
+                        ("bitwise_keys", op_bitwise_keys(st, F, ops_gpu))]:
         dsr["max_abs_err"] = max(dsr["max_abs_err"], phase_kernel_path(
             torch, pag, session, query, path))
     # the first half of hash_agg_sort_2m's first update batch, at the

@@ -45,11 +45,15 @@ def string_order_keys(chars: torch.Tensor,
     rows, w = chars.shape
     inside = torch.arange(w, device=chars.device)[None, :] \
         < lengths[:, None]
-    b = torch.where(inside, chars, torch.zeros_like(chars)).to(torch.int64)
-    b = b.view(rows, w // 4, 4)
-    packed = (b[:, :, 0] << 24) | (b[:, :, 1] << 16) | (b[:, :, 2] << 8) \
-        | b[:, :, 3]
-    return list(packed.unbind(1)) + [lengths.to(torch.int64)]
+    c = torch.where(inside, chars, torch.zeros_like(chars))
+    # a 4-byte block at a time: widening the whole matrix to int64 first
+    # would hold 8 bytes a char (2 GiB for 2^23 rows of 32 bytes)
+    keys = []
+    for j in range(0, w, 4):
+        b = c[:, j:j + 4].to(torch.int64)
+        keys.append((b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8)
+                    | b[:, 3])
+    return keys + [lengths.to(torch.int64)]
 
 
 def colval_sort_keys(cv: ColVal, dtype: DataType, ascending: bool = True,

@@ -325,6 +325,23 @@ def _select_in_frame(valid_s, k1, k2, g: _Geometry, lo_c, hi_c, lower,
     return win, valid_s[win] & (hi_c >= lo_c)
 
 
+def _sparse_table(vals: torch.Tensor, levels: int, cap: int
+                  ) -> torch.Tensor:
+    """(levels + 1, cap) int32: row l holds min(vals[i..i + 2**l - 1]),
+    the last value repeated past the end.  One allocation, each level
+    written in place from the one below (ranks are below the capacity,
+    so int32)."""
+    table = torch.empty((levels + 1, cap), dtype=torch.int32,
+                        device=vals.device)
+    table[0] = vals
+    for lev in range(1, levels + 1):
+        sh = 1 << (lev - 1)
+        prev, row = table[lev - 1], table[lev]
+        torch.minimum(prev[:cap - sh], prev[sh:], out=row[:cap - sh])
+        torch.minimum(prev[cap - sh:], prev[-1:], out=row[cap - sh:])
+    return table
+
+
 def _rmq_min(vals: torch.Tensor, lo_c, hi_c, cap: int,
              max_width: int = 0) -> torch.Tensor:
     """min(vals[lo_c..hi_c]) a row from a sparse table: level l holds the
@@ -335,13 +352,7 @@ def _rmq_min(vals: torch.Tensor, lo_c, hi_c, cap: int,
     levels = max(1, cap.bit_length() - 1)
     if max_width > 0:
         levels = min(levels, max(1, (max_width - 1).bit_length()))
-    table = [vals.to(torch.int32)]  # ranks, below the capacity
-    for lev in range(1, levels + 1):
-        sh = 1 << (lev - 1)
-        prev = table[-1]
-        shifted = torch.cat([prev[sh:], prev[-1:].expand(sh)])
-        table.append(torch.minimum(prev, shifted))
-    flat = torch.stack(table).reshape(-1)
+    flat = _sparse_table(vals, levels, cap).reshape(-1)
     length = (hi_c - lo_c + 1).clamp(min=1)
     # floor(log2 L), exact: L = m * 2**e with m in [0.5, 1)
     k = (torch.frexp(length.to(torch.float64)).exponent - 1).to(

@@ -4,8 +4,10 @@
 subnormal-free), null keys and several keys; round-robin over several
 input batches (its start carried from batch to batch); single mode;
 ``repartition_by_range`` ascending and descending, with nulls, over a
-string key, and over more than 10,000 rows in several batches (so the
-JAX package's ``default_rng(42)`` subsample runs); each collected whole
+string key, over more than 10,000 rows in several batches, and with
+``spark.rapids.sql.rangePartitioning.sampleSize`` set in both sessions
+(at 2, below one row a batch, the ``default_rng(42)`` subsample of the
+pooled sample runs); each collected whole
 with ``spark_partition_id()`` beside the rows.  Both packages return the
 partitions in order, each partition's rows in input order, and number a
 batch after the exchange by its ordinal (empty partitions skipped), so
@@ -135,8 +137,9 @@ def test_range_repartition_matches_jax(name):
 
 
 def test_range_repartition_subsamples_as_jax():
-    """More than 10,000 rows over three batches: the bounds come from the
-    ``default_rng(42)`` subsample of the per-batch samples."""
+    """More than 10,000 rows over three batches: the bounds come from
+    each batch's share of the 10,000 samples (the shares are floored, so
+    the pooled sample stays within the default size)."""
     tables = [_table(5000, 8), _table(4000, 9), _table(3500, 10)]
     got = _check(lambda f, df: _with_pid(
         f, df.repartition_by_range(8, f.col("i").desc(), "s")), tables)
@@ -151,6 +154,38 @@ def test_range_repartition_subsamples_as_jax():
     parts = sorted(hi)
     for a, b in zip(parts, parts[1:]):
         assert min(hi[a]) >= max(hi[b])
+
+
+@pytest.mark.parametrize("size", [500, 2])
+def test_range_sample_size_key_matches_jax(size, monkeypatch):
+    """The sample size key set in both sessions.  At 500 the batches
+    sample fewer rows than at the default; at 2 each of the three
+    batches still gives one row, so the pooled sample of 3 is above the
+    key and the ``default_rng(42)`` subsample runs."""
+    from spark_rapids_tpu_torch.exec import exchange as tex
+    real, pooled = tex.compute_range_bounds, []
+
+    def spy(key_rows, num_parts, sample_max=10_000):
+        pooled.append((sum(len(k[0]) for k in key_rows), sample_max))
+        return real(key_rows, num_parts, sample_max)
+    monkeypatch.setattr(tex, "compute_range_bounds", spy)
+    key = "spark.rapids.sql.rangePartitioning.sampleSize"
+    tables = [_table(5000, 8), _table(4000, 9), _table(3500, 10)]
+
+    def build(f, df):
+        return _with_pid(f, df.repartition_by_range(
+            8, f.col("i").desc(), "s"))
+    want = build(F, _frames(tpu_session({key: size}), tables)).to_arrow()
+    got = build(TF, _frames(st.TorchSession(
+        {"spark.rapids.torch.device": "cpu", key: size}), tables)).to_arrow()
+    assert got.schema == want.schema
+    assert_tables_equal(got, want, ignore_order=False)
+    rows, used = pooled[-1]
+    assert used == size and (rows > size) == (size == 2)
+    # the key moved the bounds: the partition ids differ from the default's
+    default = build(TF, _frames(_port(), tables)).to_arrow()
+    assert got.column("pid").to_pylist() != default.column(
+        "pid").to_pylist()
 
 
 def test_compute_range_bounds_matches_jax():

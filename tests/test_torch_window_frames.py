@@ -239,13 +239,14 @@ def test_sparse_table_depth_follows_the_rows_frame():
     import torch
     from spark_rapids_tpu_torch.exec import window as tw
     built = []
-    real = torch.stack
+    real = tw._sparse_table
 
-    def spy(tensors, *args, **kw):
-        built.append(len(tensors))
-        return real(tensors, *args, **kw)
+    def spy(*args, **kw):
+        table = real(*args, **kw)
+        built.append(table.shape[0])
+        return table
 
-    tw.torch.stack = spy
+    tw._sparse_table = spy
     try:
         df = st.TorchSession({"spark.rapids.torch.device": "cpu"}) \
             .create_dataframe(_table(300))
@@ -255,6 +256,6 @@ def test_sparse_table_depth_follows_the_rows_frame():
         df.select(TF.min(TF.col("v")).over(w.range_between(-2, 2))
                   .alias("m")).collect()
     finally:
-        tw.torch.stack = real
+        tw._sparse_table = real
     # a level 0 and the levels above it; 300 rows: capacity 512, 9 levels
     assert built == [1 + 3, 1 + 9]
