@@ -176,14 +176,44 @@ Phases, each printing one JSON line:
    ``<<``, ``~`` and ``>>>`` summed by ``l_orderkey & 7``).  After it,
    kernel_path holds the dense-slot kernel against its plain version on
    the first update batch of range_agg_512, explode_horizons and
-   bitwise_keys, the phase's three paths through it.
+   bitwise_keys, the phase's three paths through it;
+19. serve: the session server (``session.server()``) over
+   ``bench_serve.py``'s mix at the sizes above: tpch_q1 and tpch_q6 over
+   phase 11's tables, tpcxbb_q7 and mortgage_etl over phase 14's and
+   15's, PREP_Q6 and PREP_TOPK with their three bindings each, and two
+   classes that take the kernels inside the server: prep_kagg (a ``?``
+   template grouped by ``k`` over hash_agg_sort_2m's 2,000,000 rows,
+   three bindings; K1) and text_filter_agg_6m submitted as a DataFrame
+   (K2).  Each class runs once serially without the server (the
+   prepared ones checked against a CPU session, within rtol 1e-9 on
+   f64); then 4 closed-loop clients submit 12 queries each, round-robin
+   over the classes, under two tenants weighted 2 (interactive) and 1
+   (batch), first with the result cache off (all 48 run) and then on;
+   every result must equal its class's serial result bit for bit, and
+   K1 and K2 must launch from the server's queries.  Each pass prints
+   p50/p99 latency a class, queries/s, admission waits, cache hits and
+   misses and the kernels' launches, with the card's name and power
+   limit.  tpch_q6 is then traced alone, on the caller's thread and
+   through a server's one worker (nothing runs beside the profiler).
+   Then the checks: a re-submitted query hits the cache and
+   misses once its view is registered anew; re-binding a prepared
+   statement keeps one template; ``submit(..., timeout_ms=1)`` on
+   tpch_q1 raises ``QueryTimeoutError`` and the next query is right; a
+   tenant with ``maxDeviceBytes=1`` running a full ORDER BY over
+   lineitem raises ``QueryBudgetExceededError`` while a budget-less one
+   finishes right; ``spark.rapids.faults.server.admit=count:1`` sheds
+   the first submit typed; ``server.cache.lookup=always`` keeps results
+   right and counts its faults; the catalog's device bytes return to
+   their value after each check that ends a query early, and no
+   ``spark-rapids-torch-*`` thread is left after ``close()`` and
+   ``stop()``.
 
 The dense-slot kernel's float sums take one fixed order: every
 comparison of it with its plain version (phase 3, its edge specs and
 kernel_path) also calls it 5 times and fails unless the float-add planes
 come out bit for bit alike (``float_sum_results_of_5``).
 
-Each path of phases 5 to 18 runs with the launch counts set to 0 just
+Each path of phases 5 to 19 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -2155,7 +2185,8 @@ def idle_gaps(events, top: int = 5):
 
 def phase_trace(torch, query, name: str, top: int = 8,
                 expect: str = "") -> None:
-    """One run of ``query`` under torch.profiler: its wall seconds, the
+    """One run of ``query`` (a DataFrame, or a function that runs one)
+    under torch.profiler: its wall seconds, the
     card's busy seconds (kernels and copies), the largest device entries,
     the longest idle gaps between them, and the host time and device span
     of each of the port's named ranges (the join's build and route, the
@@ -2169,7 +2200,7 @@ def phase_trace(torch, query, name: str, top: int = 8,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        query.to_torch()
+        query() if callable(query) else query.to_torch()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     averages = prof.key_averages()
@@ -2974,6 +3005,346 @@ def phase_operator(torch, st, F, session, t_gpu, t_cpu, name: str,
              rows=[int((pid == p).sum()) for p in np.unique(pid)])
 
 
+# -- the serve phase -----------------------------------------------------------
+
+# bench_serve.py's prepared templates and bindings (bench_serve.py:94-104)
+PREP_Q6 = ("SELECT SUM(l_extendedprice * l_discount) AS revenue "
+           "FROM lineitem WHERE l_discount >= ? AND l_discount <= ? "
+           "AND l_quantity < ?")
+PREP_TOPK = ("SELECT l_orderkey, SUM(l_quantity) AS q FROM lineitem "
+             "WHERE l_quantity > ? GROUP BY l_orderkey")
+Q6_BINDINGS = [(0.02, 0.06, 24.0), (0.03, 0.07, 30.0), (0.01, 0.05, 20.0)]
+TOPK_BINDINGS = [(30.0,), (35.0,), (40.0,)]
+# the group-by template that takes K1 inside the server (keys 0 to 999)
+PREP_KAGG = ("SELECT k, COUNT(*) AS c, SUM(v) AS s, MAX(v) AS m FROM agg "
+             "WHERE v > ? GROUP BY k")
+KAGG_BINDINGS = [(-0.5,), (0.0,), (0.5,)]
+SERVE_CLIENTS = 4           # bench_serve.py:34's default
+SERVE_QUERIES = 12          # a client, bench_serve.py:35's default
+SERVE_WEIGHTS = {"interactive": 2, "batch": 1}
+
+
+def host_same_rows(got, want, what: str, rtol: float = 1e-9) -> None:
+    """Two ``HostResult``s equal row for row: the same columns, rows and
+    nulls; over the valid rows integers, dates and strings exact, floats
+    within ``rtol``."""
+    check(got.schema.names == want.schema.names,
+          f"{what}: columns {got.schema.names} / {want.schema.names}")
+    check(got.num_rows == want.num_rows,
+          f"{what}: {got.num_rows} rows against {want.num_rows}")
+    for f in want.schema:
+        (a, va), (b, vb) = got.columns[f.name], want.columns[f.name]
+        check(np.array_equal(va, vb), f"{what}: the nulls of {f.name} differ")
+        if hasattr(a, "to_bytes"):
+            oa, da = a[va].to_bytes()
+            ob, db = b[vb].to_bytes()
+            check(np.array_equal(oa, ob) and np.array_equal(da, db),
+                  f"{what}: the strings of {f.name} differ")
+        elif a.dtype.kind == "f":
+            check(np.allclose(a[va], b[vb], rtol=rtol, atol=0.0,
+                              equal_nan=True),
+                  f"{what}: {f.name} beyond rtol {rtol}")
+        else:
+            check(np.array_equal(a[va], b[vb]), f"{what}: {f.name} differs")
+
+
+def serve_classes(st, F, tpch_dfs, mortgage_df, line_df):
+    """``bench_serve.py``'s mix (bench_serve.py:106-123) and the two
+    classes that take the kernels: (class, tenant, what to submit), a
+    DataFrame, SQL text, or (template, binding)."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
+    from spark_rapids_tpu_torch.bench.tpcxbb import TPCXBB_QUERIES
+    items = [("tpch_q1", "batch", TPCH_QUERIES["q1"](tpch_dfs)),
+             ("tpch_q6", "interactive", TPCH_QUERIES["q6"](tpch_dfs)),
+             ("tpcxbb_q7", "interactive", TPCXBB_QUERIES["q7"]),
+             ("mortgage_etl", "batch", mortgage_df)]
+    for i, b in enumerate(Q6_BINDINGS):
+        items.append((f"prep_q6_{i}", "interactive", (PREP_Q6, b)))
+    for i, b in enumerate(TOPK_BINDINGS):
+        items.append((f"prep_topk_{i}", "interactive", (PREP_TOPK, b)))
+    for i, b in enumerate(KAGG_BINDINGS):
+        items.append((f"prep_kagg_{i}", "batch", (PREP_KAGG, b)))
+    items.append(("text_filter_agg_6m", "batch",
+                  text_agg_query(st, F, line_df)))
+    return items
+
+
+def serve_submit(server, spec, tenant, stmts, **kw):
+    if isinstance(spec, tuple):
+        return server.submit(stmts[spec[0]], tenant=tenant, params=spec[1],
+                             **kw)
+    return server.submit(spec, tenant=tenant, **kw)
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def serve_pass(torch, native, server, classes, serial, stmts, label: str,
+               smi: str) -> dict:
+    """SERVE_CLIENTS closed-loop clients, SERVE_QUERIES submissions each,
+    round-robin over the classes; every result bit for bit its class's
+    serial result -> the pass's numbers (printed)."""
+    before = dict(native.LAUNCHES)
+    done = []
+    errors = []
+    lock = threading.Lock()
+
+    def client(c: int) -> None:
+        try:
+            for i in range(SERVE_QUERIES):
+                name, tenant, spec = classes[(c + i) % len(classes)]
+                tk = serve_submit(server, spec, tenant, stmts)
+                res = tk.result(timeout=600)
+                with lock:
+                    done.append((name, tk, res))
+        except BaseException as e:  # raised again below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,),
+                                name=f"serve-client-{c}")
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not errors, f"serve {label}: a client failed: {errors!r}")
+    check(len(done) == SERVE_CLIENTS * SERVE_QUERIES,
+          f"serve {label}: {len(done)} results")
+    for name, _, res in done:
+        check(res.equals(serial[name]),
+              f"serve {label}: {name} differs from its serial result")
+    launches = {k: native.LAUNCHES[k] - before.get(k, 0)
+                for k in native.LAUNCHES}
+    by_class = {}
+    for name, tk, _ in done:
+        by_class.setdefault(name, []).append(tk.latency_ms)
+    waits = [(tk.started_at - tk.submitted_at) * 1e3 for _, tk, _ in done]
+    stats = server.stats()
+    out = {"pass": label, "queries": len(done), "wall_s": wall,
+           "queries_per_s": len(done) / wall,
+           "latency_ms": {n: {"p50": pct(v, 50), "p99": pct(v, 99),
+                              "n": len(v)} for n, v in by_class.items()},
+           "latency_ms_all": {"p50": pct([tk.latency_ms for _, tk, _ in
+                                          done], 50),
+                              "p99": pct([tk.latency_ms for _, tk, _ in
+                                          done], 99)},
+           "admission_wait_ms": {"p50": pct(waits, 50),
+                                 "p99": pct(waits, 99),
+                                 "max": max(waits)},
+           "cache_hits": sum(tk.cache_hit for _, tk, _ in done),
+           "cache": stats.get("cache"), "queue": stats["queue"],
+           "launches": launches, "bit_for_bit": True, "card": smi}
+    emit("serve_pass", **out)
+    return out
+
+
+def phase_serve(torch, st, F, native, tpch, tpch_dfs, xbb, mortgage, agg_data,
+                line_df, smi: str) -> None:
+    """The session server on the card: bench_serve.py's mix and the two
+    kernel classes run serially, then by four concurrent clients (cache
+    off, then on), then the deliberate checks."""
+    from spark_rapids_tpu_torch import faults, lifecycle
+    from spark_rapids_tpu_torch.bench.mortgage import mortgage_etl
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    from spark_rapids_tpu_torch.bench.tpcxbb import register_views
+    from spark_rapids_tpu_torch.io.prefetch import THREAD_PREFIX
+    from spark_rapids_tpu_torch.obs import registry
+    t_phase = time.perf_counter()
+
+    def views(s, dfs=None):
+        li = dfs["lineitem"] if dfs is not None else load_tables(
+            s, {"lineitem": tpch["lineitem"]})["lineitem"]
+        s.register_view("lineitem", li)
+        register_views(s, xbb)
+        s.create_dataframe(agg_data).create_or_replace_temp_view("agg")
+        return s
+
+    def serve_session(conf=None):
+        return views(st.TorchSession(conf or {}), tpch_dfs)
+
+    base = {f"spark.rapids.server.tenant.{t}.weight": w
+            for t, w in SERVE_WEIGHTS.items()}
+    serve = serve_session({**base,
+                           "spark.rapids.server.resultCache.enabled": False})
+    cpu = views(st.TorchSession({"spark.rapids.torch.device": "cpu"}))
+    classes = serve_classes(st, F, tpch_dfs, mortgage_etl(serve, mortgage),
+                            line_df)
+    cat = serve.runtime.catalog
+    registry.reset_histograms()
+
+    # 1. serial, no server; the prepared classes against the CPU session
+    serial, serial_s, cpu_s = {}, {}, 0.0
+    for name, _, spec in classes:
+        t0 = time.perf_counter()
+        if isinstance(spec, tuple):
+            res = serve.prepare(spec[0]).execute(*spec[1])
+        elif isinstance(spec, str):
+            res = serve.sql(spec)._host()
+        else:
+            res = spec._host()
+        torch.cuda.synchronize()
+        serial_s[name] = time.perf_counter() - t0
+        serial[name] = res
+        check(res.num_rows > 0, f"serve: {name} has no rows")
+        if isinstance(spec, tuple):
+            t0 = time.perf_counter()
+            host_same_rows(res, cpu.prepare(spec[0]).execute(*spec[1]),
+                           f"serve: {name} against the CPU session")
+            cpu_s += time.perf_counter() - t0
+    emit("serve_serial", seconds=serial_s, cpu_seconds=cpu_s, card=smi,
+         rows={n: r.num_rows for n, r in serial.items()})
+
+    # 2. concurrent: every submission runs (cache off), then the same
+    # mix with the cache on, as bench_serve.py runs it
+    server = serve.server(max_concurrency=2 * SERVE_CLIENTS)
+    stmts = {sql: server.prepare(sql)
+             for sql in (PREP_Q6, PREP_TOPK, PREP_KAGG)}
+    device0 = cat.device_bytes
+    uncached = serve_pass(torch, native, server, classes, serial, stmts,
+                          "cache_off", smi)
+    for k in ("dense_slot_reduce", "contains"):
+        check(uncached["launches"][k] > 0,
+              f"serve: {k} never launched from a server query")
+    check(all(s.template_count == 1 for s in stmts.values()),
+          "serve: a prepared statement parsed more than one template")
+    server.close()
+    cached_s = serve_session(base)
+    cached = serve_pass(torch, native, cached_s.server(
+        max_concurrency=2 * SERVE_CLIENTS), classes, serial,
+        {sql: cached_s.prepare(sql) for sql in stmts}, "cache_on", smi)
+    check(cached["cache"]["hits"] > 0, "serve: the cache never hit")
+    cached_s.stop()
+    check(cat.device_bytes == device0, "serve: device bytes left by the "
+          f"concurrent passes: {cat.device_bytes} against {device0}")
+
+    # one query traced alone, on the caller's thread and through a
+    # server's one worker (torch.profiler is not thread-safe: nothing
+    # runs beside it)
+    q6 = classes[1][2]
+    phase_trace(torch, lambda: q6._host(), "serve_tpch_q6_direct")
+    one = serve_session({**base,
+                         "spark.rapids.server.resultCache.enabled": False})
+    worker = one.server(max_concurrency=1)
+    phase_trace(torch, lambda: worker.submit(q6).result(timeout=300),
+                "serve_tpch_q6_server")
+    one.stop()
+
+    # 4. the deliberate checks
+    checks = {}
+    s = serve_session(base)
+    server = s.server(max_concurrency=4)
+    # a re-submitted query hits; its view registered anew misses
+    q = PREP_KAGG.replace("?", "0.25")
+    first, again = server.submit(q), None
+    first.result(timeout=300)
+    again = server.submit(q)
+    check(again.result(timeout=300).equals(first.result()) and
+          again.cache_hit and not first.cache_hit,
+          "serve: a re-submitted query did not hit the cache")
+    s.create_dataframe(agg_data).create_or_replace_temp_view("agg")
+    fresh = server.submit(q)
+    check(fresh.result(timeout=300).equals(first.result())
+          and not fresh.cache_hit,
+          "serve: a view registered anew still hit the cache")
+    checks["cache"] = [first.cache_hit, again.cache_hit, fresh.cache_hit]
+    # re-binding parses once a type signature
+    stmt = server.prepare(PREP_KAGG)
+    execs0 = server.stats()["prepared_execs"]
+    for b in KAGG_BINDINGS + [(0.75,)]:
+        server.submit(stmt, params=b).result(timeout=300)
+    check(server.stats()["prepared_execs"] == execs0 + 4
+          and stmt.template_count == 1,
+          "serve: re-binding parsed more than one template")
+    checks["prepared"] = {"execs": server.stats()["prepared_execs"] - execs0,
+                          "templates": stmt.template_count}
+    # a 1 ms deadline on tpch_q1 is typed; the next query is served
+    device0 = cat.device_bytes
+    q1 = classes[0][2]
+    t0 = time.perf_counter()
+    try:
+        server.submit(q1, timeout_ms=1).result(timeout=300)
+        check(False, "serve: tpch_q1 with a 1 ms deadline finished")
+    except st.QueryTimeoutError:
+        pass
+    cancel_ms = (time.perf_counter() - t0) * 1e3
+    check(server.submit(q6).result(timeout=300).equals(serial["tpch_q6"]),
+          "serve: the query after a timeout is wrong")
+    check(cat.device_bytes == device0, "serve: the timeout left device bytes")
+    checks["timeout"] = {"typed": True, "ms_to_error": cancel_ms}
+    server.close()
+    s.stop()
+    # a one-byte budget fails a full ORDER BY typed; a neighbour finishes
+    s = serve_session({**base, "spark.rapids.server.tenant.greedy."
+                       "maxDeviceBytes": 1})
+    server = s.server(max_concurrency=4)
+    device0 = cat.device_bytes
+    greedy = server.submit("SELECT l_orderkey, l_extendedprice FROM lineitem "
+                           "ORDER BY l_extendedprice, l_orderkey",
+                           tenant="greedy")
+    polite = server.submit(q6, tenant="polite")
+    try:
+        greedy.result(timeout=300)
+        check(False, "serve: the one-byte budget's ORDER BY finished")
+    except st.QueryBudgetExceededError:
+        pass
+    check(polite.result(timeout=300).equals(serial["tpch_q6"]),
+          "serve: the budget-less neighbour is wrong")
+    check(cat.device_bytes == device0, "serve: the budget left device bytes")
+    checks["budget"] = {"typed": True,
+                        "budget_spills": cat.stats()["budget_spill_count"],
+                        "exceeded": cat.stats()["budget_exceeded_count"]}
+    server.close()
+    s.stop()
+    # server.admit=count:1 sheds the first submit typed; the queue serves
+    s = serve_session({**base, "spark.rapids.faults.server.admit": "count:1"})
+    server = s.server(max_concurrency=4)
+    device0 = cat.device_bytes
+    try:
+        server.submit(q6)
+        check(False, "serve: server.admit=count:1 did not fire")
+    except faults.InjectedFault:
+        pass
+    check(server.submit(q6).result(timeout=300).equals(serial["tpch_q6"]),
+          "serve: the query after an admission fault is wrong")
+    check(cat.device_bytes == device0, "serve: the admit fault left bytes")
+    checks["admit_fault"] = {"typed": True,
+                             "waiting": server.stats()["queue"]["waiting"]}
+    server.close()
+    s.stop()
+    faults.reset()
+    # server.cache.lookup=always keeps every result right, counted
+    s = serve_session({**base, "spark.rapids.faults.server.cache.lookup":
+                       "always"})
+    server = s.server(max_concurrency=4)
+    for name in ("tpch_q6", "prep_kagg_1", "prep_kagg_1"):
+        spec = dict((n, sp) for n, _, sp in classes)[name]
+        got = serve_submit(server, spec, "batch",
+                           {PREP_KAGG: server.prepare(PREP_KAGG)})
+        check(got.result(timeout=300).equals(serial[name])
+              and not got.cache_hit, f"serve: {name} under cache faults")
+    cache = server.stats()["cache"]
+    check(cache["faults"] == 3 and cache["hits"] == 0,
+          f"serve: cache faults not counted: {cache}")
+    checks["cache_fault"] = {"faults": cache["faults"], "hits": cache["hits"]}
+    server.close()
+    s.stop()
+    faults.reset()
+    serve.stop()
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(THREAD_PREFIX)]
+    check(not left, f"serve: threads left after close and stop: {left}")
+    check(cat.audit_leaks() == 0, "serve: spill handles left")
+    hist = registry.histogram_snapshots()
+    emit("serve_checks", checks=checks, threads_left=left,
+         lifecycle=lifecycle.global_stats(),
+         admit_wait_us=hist.get("server.admit.wait.us"),
+         sem_wait_us=hist.get("tpu.semaphore.wait.us"),
+         seconds=time.perf_counter() - t_phase, card=smi)
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(
@@ -3141,6 +3512,8 @@ def main(argv=None) -> int:
     for qname, (_, table) in OPERATOR_QUERIES.items():
         drive(qname, phase_operator, torch, st, F, session, ops_gpu,
               ops_cpu, qname, len(next(iter(ops[table].values()))))
+    drive("serve", phase_serve, torch, st, F, native, tpch, tpch_dfs, xbb,
+          mortgage, agg_data, line_df, smi)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     phase_repeat_sums(torch, st, F, session, tpch_dfs)

@@ -13,9 +13,15 @@ that read parquet or produce Arrow tables.
     df.group_by("k").agg(F.sum(st.col("v")).alias("s")).order_by("k")
 """
 
-from spark_rapids_tpu_torch.api import Column, DataFrame, Window, col, lit, \
-    when
+from spark_rapids_tpu_torch.api import Column, DataFrame, HostResult, \
+    Window, col, lit, when
+from spark_rapids_tpu_torch.errors import (
+    AdmissionRejectedError, EngineError, QueryBudgetExceededError,
+    QueryCancelledError, QueryHangError, QueryTimeoutError,
+)
 from spark_rapids_tpu_torch.session import TorchSession
 
-__all__ = ["Column", "DataFrame", "TorchSession", "Window", "col", "lit",
-           "when"]
+__all__ = ["AdmissionRejectedError", "Column", "DataFrame", "EngineError",
+           "HostResult", "QueryBudgetExceededError", "QueryCancelledError",
+           "QueryHangError", "QueryTimeoutError", "TorchSession", "Window",
+           "col", "lit", "when"]

@@ -15,7 +15,10 @@ array in a select (an ``lp.Generate`` below it), ``repartition`` and
 ``repartition_by_range``, ``session.range``, temp views for
 ``session.sql`` and the actions ``collect``, ``count``, ``head``,
 ``take``, ``first``, ``to_numpy``, ``to_arrow`` and ``to_torch``.  Actions plan the query (``plan/planner.py``) and run it
-on the session's device.
+on the session's device, each inside its own ``lifecycle.query_scope``
+(the query's deadline, cancel token, device budget and resources; the
+pull of the result to the host included).  ``HostResult`` is a result
+on the host, what the session server and prepared statements return.
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import lifecycle
 from spark_rapids_tpu_torch.columnar.batch import (
-    HostColumns, concat_host_values, device_batch_to_host,
+    HostColumns, HostStrings, concat_host_values, device_batch_to_host,
     empty_host_values, host_columns_from_arrow, host_columns_from_numpy,
     host_columns_to_arrow,
 )
@@ -631,35 +635,33 @@ class DataFrame:
         """The result as numpy arrays, a numpy masked array for a column
         with nulls; dates as datetime64[D], timestamps as datetime64[us],
         strings as an object array."""
-        schema, cols = self._host()
-        out = {}
-        for f in schema:
-            values, valid = cols[f.name]
-            if f.dtype == STRING:
-                values = np.array(values.to_pylist(), dtype=object)
-            elif f.dtype == DATE:
-                values = values.astype("datetime64[D]")
-            elif f.dtype == TIMESTAMP:
-                values = values.astype("datetime64[us]")
-            out[f.name] = values if valid.all() else \
-                np.ma.masked_array(values, mask=~valid)
-        return out
+        return self._host().to_numpy()
 
     def _execute(self):
-        """Plan and run the query; the device batches of its result."""
+        """Plan and run the query, in its query scope; the device batches
+        of its result."""
         root = plan_query(self.plan, self.session.conf)
-        ctx = ExecContext(self.session.conf, self.session.device,
-                          self.session.runtime)
-        # closing the stream ends every operator's generator, and with
-        # them the handles and threads they hold, on an error as well
-        with contextlib.closing(root.execute(ctx)) as stream:
-            batches = list(stream)
+        with lifecycle.query_scope(self.session.conf) as qc:
+            ctx = ExecContext(self.session.conf, self.session.device,
+                              self.session.runtime)
+            # closing the stream ends every operator's generator, and
+            # with them the handles and threads they hold, on an error
+            # as well
+            with contextlib.closing(root.execute(ctx)) as stream:
+                batches = list(stream)
+        if qc.sem_wait_ms:
+            root.metrics["semWaitMs"] += qc.sem_wait_ms
         self.session._last_plan = root
         return root.output_schema, batches
 
-    def _host(self) -> Tuple[Schema, HostColumns]:
-        schema, batches = self._execute()
-        parts = [device_batch_to_host(b, schema) for b in batches]
+    def _host(self) -> "HostResult":
+        """The result on the host; the pulls run in the query's scope,
+        each bounded by the hang watchdog (``lifecycle.supervise``)."""
+        with lifecycle.query_scope(self.session.conf):
+            schema, batches = self._execute()
+            parts = [lifecycle.supervise(
+                lambda b=b: device_batch_to_host(b, schema))
+                for b in batches]
         cols = {}
         for f in schema:
             if parts:
@@ -669,36 +671,17 @@ class DataFrame:
             else:
                 cols[f.name] = (empty_host_values(f.dtype),
                                 np.zeros(0, np.bool_))
-        return schema, cols
+        return HostResult(schema, cols)
 
     def to_arrow(self):
         """The result as a pyarrow Table (imports pyarrow)."""
-        return host_columns_to_arrow(*self._host())
+        return self._host().to_arrow()
 
     def collect(self) -> List[dict]:
         """The result as a list of row dicts (None for null); dates come
         back as ``datetime.date``, timestamps as UTC
         ``datetime.datetime``, strings as ``str``."""
-        schema, cols = self._host()
-        out_cols = []
-        for f in schema:
-            values, valid = cols[f.name]
-            if f.dtype == STRING:
-                vals = values.to_pylist()
-            else:
-                vals = values.tolist()
-            ok = valid.tolist()
-            if f.dtype == DATE:
-                epoch = datetime.date(1970, 1, 1)
-                vals = [epoch + datetime.timedelta(days=d) if o else None
-                        for d, o in zip(vals, ok)]
-            elif f.dtype == TIMESTAMP:
-                epoch = datetime.datetime(1970, 1, 1,
-                                          tzinfo=datetime.timezone.utc)
-                vals = [epoch + datetime.timedelta(microseconds=u) if o
-                        else None for u, o in zip(vals, ok)]
-            out_cols.append([v if o else None for v, o in zip(vals, ok)])
-        return [dict(zip(schema.names, row)) for row in zip(*out_cols)]
+        return self._host().collect()
 
     def to_torch(self) -> Tuple[Dict[str, object], Dict[str, torch.Tensor],
                                 int]:
@@ -725,6 +708,103 @@ class DataFrame:
         masks = {f.name: c.validity[:n]
                  for f, c in zip(schema, batch.columns)}
         return cols, masks, n
+
+
+class HostResult:
+    """A query's result on the host: its schema and its columns
+    (``HostColumns``: each a values array, or ``HostStrings``, and a
+    validity array).  ``nbytes`` sizes it for the result cache."""
+
+    __slots__ = ("schema", "columns")
+
+    def __init__(self, schema: Schema, columns: HostColumns):
+        self.schema = schema
+        self.columns = columns
+
+    @property
+    def num_rows(self) -> int:
+        if not self.schema.fields:
+            return 0
+        return len(self.columns[self.schema.fields[0].name][1])
+
+    @property
+    def nbytes(self) -> int:
+        total = 0
+        for values, valid in self.columns.values():
+            total += valid.nbytes
+            if isinstance(values, HostStrings):
+                total += values.chars.nbytes + values.lengths.nbytes
+            else:
+                total += values.nbytes
+        return int(total)
+
+    def equals(self, other: "HostResult") -> bool:
+        """Bit for bit: the same names and types, nulls at the same
+        rows, and every valid value the same bytes (a float's bits, a
+        string's bytes)."""
+        if [(f.name, f.dtype) for f in self.schema] != \
+                [(f.name, f.dtype) for f in other.schema]:
+            return False
+        for f in self.schema:
+            (a, av), (b, bv) = self.columns[f.name], other.columns[f.name]
+            if not np.array_equal(av, bv):
+                return False
+            if isinstance(a, HostStrings):
+                la = np.where(av, a.lengths, 0)
+                if not np.array_equal(la, np.where(bv, b.lengths, 0)):
+                    return False
+                w = min(a.width, b.width)
+                inside = np.arange(max(a.width, b.width))[None, :] < \
+                    la[:, None]
+                if inside[:, w:].any() or not np.array_equal(
+                        np.where(inside[:, :w], a.chars[:, :w], 0),
+                        np.where(inside[:, :w], b.chars[:, :w], 0)):
+                    return False
+            elif not np.array_equal(a[av].view(np.uint8),
+                                    b[bv].view(np.uint8)):
+                return False
+        return True
+
+    def to_arrow(self):
+        """A pyarrow Table (imports pyarrow)."""
+        return host_columns_to_arrow(self.schema, self.columns)
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """See ``DataFrame.to_numpy``."""
+        out = {}
+        for f in self.schema:
+            values, valid = self.columns[f.name]
+            if f.dtype == STRING:
+                values = np.array(values.to_pylist(), dtype=object)
+            elif f.dtype == DATE:
+                values = values.astype("datetime64[D]")
+            elif f.dtype == TIMESTAMP:
+                values = values.astype("datetime64[us]")
+            out[f.name] = values if valid.all() else \
+                np.ma.masked_array(values, mask=~valid)
+        return out
+
+    def collect(self) -> List[dict]:
+        """See ``DataFrame.collect``."""
+        out_cols = []
+        for f in self.schema:
+            values, valid = self.columns[f.name]
+            if f.dtype == STRING:
+                vals = values.to_pylist()
+            else:
+                vals = values.tolist()
+            ok = valid.tolist()
+            if f.dtype == DATE:
+                epoch = datetime.date(1970, 1, 1)
+                vals = [epoch + datetime.timedelta(days=d) if o else None
+                        for d, o in zip(vals, ok)]
+            elif f.dtype == TIMESTAMP:
+                epoch = datetime.datetime(1970, 1, 1,
+                                          tzinfo=datetime.timezone.utc)
+                vals = [epoch + datetime.timedelta(microseconds=u) if o
+                        else None for u, o in zip(vals, ok)]
+            out_cols.append([v if o else None for v, o in zip(vals, ok)])
+        return [dict(zip(self.schema.names, row)) for row in zip(*out_cols)]
 
 
 GROUPING_ID_COL = "__grouping_id__"

@@ -42,6 +42,10 @@ def _positive(v) -> Optional[str]:
     return None if v > 0 else "must be positive"
 
 
+def _non_negative(v) -> Optional[str]:
+    return None if v >= 0 else "must be >= 0"
+
+
 DEVICE = register(
     "spark.rapids.torch.device", "cuda",
     "torch device the session runs on. The default is the card; a "
@@ -143,6 +147,150 @@ CAST_STRING_TO_TIMESTAMP = register(
     "raise at planning.", bool)
 
 
+# -- the query lifecycle (lifecycle.py) --------------------------------------
+
+QUERY_TIMEOUT_MS = register(
+    "spark.rapids.sql.queryTimeoutMs", 0,
+    "Per-query deadline in milliseconds: every operator's output (the "
+    "pull boundary, exec/base.py) and every bounded wait (the device "
+    "semaphore, the background pull's queue, the hang watchdog) checks "
+    "the query's cancel token and raises QueryTimeoutError once it has "
+    "passed; the query's registered resources then close in "
+    "registration order.  0 disables the deadline.", int, _non_negative)
+
+CANCEL_CHECK_INTERVAL_MS = register(
+    "spark.rapids.sql.cancel.checkIntervalMs", 50,
+    "Poll interval of the lifecycle's bounded waits: the longest a "
+    "cancel or a passed deadline goes unseen by a wait that nothing "
+    "wakes.", int, _positive)
+
+WATCHDOG_HANG_TIMEOUT_MS = register(
+    "spark.rapids.sql.watchdog.hangTimeoutMs", 0,
+    "Bound in milliseconds on a blocking call run through "
+    "lifecycle.supervise (fault site io.pipeline.hang): when > 0 the "
+    "call runs on a supervised thread, and one that passes the bound "
+    "raises QueryHangError.  0 runs the call inline.", int, _non_negative)
+
+# -- fault injection (faults.py) ---------------------------------------------
+
+FAULTS_SEED = register(
+    "spark.rapids.faults.seed", 0,
+    "Seed of the prob:p fault triggers (spark.rapids.faults.<site>); "
+    "count and first triggers do not use it.", int)
+
+# -- observability (obs/) ----------------------------------------------------
+
+OBS_ENABLED = register(
+    "spark.rapids.sql.obs.enabled", True,
+    "Record the log2 histograms of obs/registry.py (semaphore waits, "
+    "query wall time, the server's admission waits); false makes each "
+    "record one flag check.", bool)
+
+OBS_JOURNAL_DIR = register(
+    "spark.rapids.sql.obs.journalDir", "",
+    "When set, append a JSONL journal of typed engine events (query "
+    "start/finish/cancel/timeout/error, fault fires, watchdog trips, "
+    "admissions and cache outcomes) to <dir>/events-<pid>.jsonl.  Empty "
+    "disables it.", str)
+
+OBS_JOURNAL_MAX_EVENTS = register(
+    "spark.rapids.sql.obs.journal.maxEvents", 100_000,
+    "Cap on the events one process writes to the journal; past it "
+    "events are counted as dropped.", int, _positive)
+
+# -- the session server (server/) --------------------------------------------
+#
+# Per-tenant overrides are raw keys, tenant names being user data:
+# spark.rapids.server.tenant.<name>.weight / .timeoutMs / .maxDeviceBytes.
+SERVER_TENANT_PREFIX = "spark.rapids.server.tenant."
+
+SERVER_ENABLED = register(
+    "spark.rapids.server.enabled", False,
+    "The session server's switch.  Calling session.server() is itself "
+    "the opt-in, as in the JAX package; setting this key false makes "
+    "session.server() refuse.", bool)
+
+SERVER_MAX_CONCURRENCY = register(
+    "spark.rapids.server.maxConcurrency", 0,
+    "Worker threads that run admitted queries at once (each still "
+    "passes the device semaphore); 0 derives 2 x "
+    "spark.rapids.tpu.concurrentTasks.", int, _non_negative)
+
+SERVER_QUEUE_DEPTH = register(
+    "spark.rapids.server.admission.queueDepth", 64,
+    "Most queries waiting in the fair admission queue; a submit past it "
+    "is shed with AdmissionRejectedError.", int, _positive)
+
+SERVER_DEFAULT_WEIGHT = register(
+    "spark.rapids.server.admission.defaultWeight", 1,
+    "Fair-share weight of a tenant without its own "
+    "spark.rapids.server.tenant.<name>.weight (stride scheduling).",
+    int, _positive)
+
+SERVER_TENANT_TIMEOUT_MS = register(
+    "spark.rapids.server.tenant.defaultTimeoutMs", 0,
+    "Deadline of a server query whose tenant has no "
+    "spark.rapids.server.tenant.<name>.timeoutMs; 0 defers to "
+    "spark.rapids.sql.queryTimeoutMs.", int, _non_negative)
+
+SERVER_QUERY_MAX_DEVICE_BYTES = register(
+    "spark.rapids.server.query.maxDeviceBytes", 0,
+    "Device-resident byte budget of one query over the spill catalog's "
+    "handles: past it the query spills its own handles, then fails with "
+    "QueryBudgetExceededError.  0 disables it.", int, _non_negative)
+
+SERVER_RESULT_CACHE = register(
+    "spark.rapids.server.resultCache.enabled", True,
+    "Cache server results by (plan fingerprint with the prepared "
+    "bindings masked, input snapshot, conf fingerprint, bindings).",
+    bool)
+
+SERVER_RESULT_CACHE_ENTRIES = register(
+    "spark.rapids.server.resultCache.maxEntries", 64,
+    "Entry bound of the result cache.", int, _positive)
+
+SERVER_RESULT_CACHE_BYTES = register(
+    "spark.rapids.server.resultCache.maxBytes", 256 * 1024 * 1024,
+    "Byte bound of the result cache (host result bytes); the least "
+    "recently used entries go past either bound.", int, _positive)
+
+SERVER_RETRY_MAX_ATTEMPTS = register(
+    "spark.rapids.server.retry.maxAttempts", 2,
+    "Attempts of a server query a chip failure kills.  Replay engages "
+    "only under spark.rapids.health.enabled, which the port refuses "
+    "(ROADMAP.md, queue A8), so the port reads and never uses it.",
+    int, _positive)
+
+SERVER_RETRY_BUDGET_PER_MIN = register(
+    "spark.rapids.server.retry.budgetPerMin", 10,
+    "Replays a tenant may make a rolling minute (see "
+    "spark.rapids.server.retry.maxAttempts).", int, _non_negative)
+
+FLEET_RESULT_CACHE_DIR = register(
+    "spark.rapids.fleet.resultCache.dir", "",
+    "Directory of the on-disk result tier the result cache spills "
+    "through (entries over in-memory relations stay in memory).  Empty "
+    "disables it.", str)
+
+FLEET_RESULT_CACHE_MAX_BYTES = register(
+    "spark.rapids.fleet.resultCache.maxBytes", 256 * 1024 * 1024,
+    "Byte bound of the on-disk result tier.", int, _positive)
+
+# keys of layers the port does not have; a server built with one on
+# raises (server/core.py) instead of running without it
+HEALTH_ENABLED = register(
+    "spark.rapids.health.enabled", False,
+    "The JAX package's chip failure domain; the port raises "
+    "NotImplementedError when a server is built with it on (ROADMAP.md, "
+    "queue A8).", bool)
+
+STREAM_ENABLED = register(
+    "spark.rapids.stream.enabled", False,
+    "The JAX package's continuous queries; the port raises "
+    "NotImplementedError when a server is built with it on (ROADMAP.md, "
+    "queue A10's leftovers).", bool)
+
+
 class TorchConf:
     """Immutable view over a conf dict."""
 
@@ -169,3 +317,18 @@ class TorchConf:
 
     def set(self, key: str, value: Any) -> "TorchConf":
         return TorchConf({**self._settings, key: value})
+
+    def with_settings(self, settings: Dict[str, Any]) -> "TorchConf":
+        return TorchConf({**self._settings, **settings})
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dict(self._settings)
+
+    def get_bool(self, key: str, default: bool = True) -> bool:
+        """A raw key as a boolean, ``default`` when it is unset."""
+        raw = self._settings.get(key)
+        if raw is None:
+            return default
+        if isinstance(raw, bool):
+            return raw
+        return str(raw).strip().lower() in ("true", "1", "yes")

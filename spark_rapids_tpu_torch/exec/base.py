@@ -5,15 +5,25 @@ port streams device ``ColumnarBatch``es: there is no CPU engine to fall
 back to and no host/device transition node.  ``ExecContext`` carries the
 session's conf, its ``torch.device`` and the device's ``TorchRuntime``
 (the spill catalog and the semaphore, ``runtime.py``).
+
+Every operator's output passes one pull boundary: ``TorchExec`` wraps
+the ``execute`` each subclass defines (``__init_subclass__``) so that
+the batches it yields go through ``_pull_boundary``, the counterpart of
+the JAX package's ``_count_output``.  There a cancelled query, or one
+past its deadline, raises its typed error (``lifecycle.check_cancel``)
+within one batch of work, and closing the stream closes the operator's
+own generator.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import defaultdict
 from typing import Iterator, List, Optional
 
 import torch
 
+from spark_rapids_tpu_torch import lifecycle
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.conf import TorchConf
@@ -34,10 +44,34 @@ class ExecContext:
             TorchRuntime.get_or_create(conf, device)
 
 
+def _pull_boundary(execute):
+    """``execute`` with its output passed through ``_checked``."""
+    @functools.wraps(execute)
+    def checked_execute(self, ctx):
+        return _checked(execute(self, ctx))
+    return checked_execute
+
+
+def _checked(stream: Iterator[ColumnarBatch]) -> Iterator[ColumnarBatch]:
+    try:
+        for batch in stream:
+            lifecycle.check_cancel()
+            yield batch
+    finally:
+        close = getattr(stream, "close", None)
+        if close is not None:
+            close()
+
+
 class TorchExec:
     """A physical operator.  ``metrics`` maps a metric name to a count."""
 
     children: List["TorchExec"] = []
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if "execute" in cls.__dict__:
+            cls.execute = _pull_boundary(cls.__dict__["execute"])
 
     def __init__(self):
         self.metrics = defaultdict(int)

@@ -11,19 +11,24 @@ broadcast by its estimated size (``spark.sql.autoBroadcastJoinThreshold``)
 and swaps the sides behind a reordering projection when only the left
 side is small (``plan/planner.py``).  The build is a ``SpillableBatch``
 at ``PRIORITY_RETAIN``, so it demotes after every working batch, and
-``get()`` promotes it back; where the JAX package hands the handle to
-its query lifecycle, the port closes it when the join's stream ends or
-is closed.  The Arrow serialization of the table, for multi-process
-executors, waits for the exchange slice (queue A8).
+``get()`` promotes it back.  The join closes the handle when its stream
+ends or is closed, and the handle is also registered with the query's
+lifecycle (``lifecycle.py``), as in the JAX package, so the query's
+teardown reclaims a build whose stream was never closed.  The Arrow
+serialization of the table, for multi-process executors, waits for the
+exchange slice (queue A8).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterator, List, Optional
 
+from spark_rapids_tpu_torch import lifecycle
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
+from spark_rapids_tpu_torch.errors import QueryCancelledError
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec, one_batch
 from spark_rapids_tpu_torch.exprs.base import Expression
 from spark_rapids_tpu_torch.memory.spill import PRIORITY_RETAIN, \
@@ -41,21 +46,29 @@ class TorchBroadcastExchangeExec(TorchExec):
     def output_schema(self) -> Schema:
         return self.children[0].output_schema
 
-    def materialize(self, ctx: ExecContext) -> SpillableBatch:
+    @contextlib.contextmanager
+    def materialize(self, ctx: ExecContext) -> Iterator[SpillableBatch]:
         """The build: the child's output as one batch, registered with
-        the spill catalog in the class that demotes last.  The caller
-        closes the handle."""
+        the spill catalog in the class that demotes last and with the
+        query's lifecycle; closed when the block ends."""
         batch = one_batch(self.children[0], ctx)
         self.metrics["dataSize"] = batch.size_bytes()
-        return SpillableBatch(batch, ctx.runtime.catalog,
-                              priority=PRIORITY_RETAIN)
-
-    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        handle = self.materialize(ctx)
+        handle = SpillableBatch(batch, ctx.runtime.catalog,
+                                priority=PRIORITY_RETAIN)
+        reg = lifecycle.register_resource(handle.close, kind="broadcast",
+                                          name="broadcast-build")
+        if reg.rejected:  # closed on arrival by the query's teardown
+            raise QueryCancelledError(
+                "broadcast build raced its query's teardown")
         try:
-            yield handle.get()
+            yield handle
         finally:
             handle.close()
+            reg.release()
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        with self.materialize(ctx) as handle:
+            yield handle.get()
 
 
 class TorchBroadcastHashJoinExec(TorchHashJoinExec):
@@ -74,8 +87,5 @@ class TorchBroadcastHashJoinExec(TorchHashJoinExec):
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         # the build's handle lives as long as this query's stream: the
         # generator's end, or its close, releases it
-        handle = self.children[1].materialize(ctx)
-        try:
+        with self.children[1].materialize(ctx) as handle:
             yield from self._join(ctx, handle.get())
-        finally:
-            handle.close()

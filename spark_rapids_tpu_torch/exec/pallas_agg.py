@@ -175,16 +175,17 @@ def _check(gid: torch.Tensor, planes: Sequence[torch.Tensor],
         raise ValueError("gid and the planes must be contiguous")
 
 
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.dense_slot_reduce.argtypes = [
+        vp, ctypes.c_longlong, i, i, vp, vp, vp, vp, vp, i, i, i, i, vp]
+    lib.dense_slot_reduce.restype = i
+    lib.dense_slot_reduce_error.argtypes = [i]
+    lib.dense_slot_reduce_error.restype = ctypes.c_char_p
+
+
 def _kernel() -> ctypes.CDLL:
-    lib = native.load("dense_slot_reduce")
-    if lib.dense_slot_reduce.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dense_slot_reduce.argtypes = [
-            vp, ctypes.c_longlong, i, i, vp, vp, vp, vp, vp, i, i, i, i, vp]
-        lib.dense_slot_reduce.restype = i
-        lib.dense_slot_reduce_error.argtypes = [i]
-        lib.dense_slot_reduce_error.restype = ctypes.c_char_p
-    return lib
+    return native.load("dense_slot_reduce", _declare)
 
 
 def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
@@ -239,7 +240,7 @@ def prepare_launch(gid: torch.Tensor, planes: Sequence[torch.Tensor],
                     msg = lib.dense_slot_reduce_error(rc).decode()
                     raise RuntimeError(f"dense_slot_reduce launch failed: "
                                        f"CUDA error {rc} ({msg})")
-                native.LAUNCHES["dense_slot_reduce"] += 1
+                native.count_launch("dense_slot_reduce")
 
     return launch, outs
 

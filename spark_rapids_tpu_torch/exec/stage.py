@@ -18,7 +18,9 @@ again, then in halves, each half its own output batch.  A stage that
 holds a nondeterministic expression (``rand``,
 ``monotonically_increasing_id``, ``spark_partition_id``) retries without
 splitting, because their values depend on the row's position and the
-batch's ordinal (``partition_id``), as in the JAX package.
+batch's ordinal (``partition_id``), as in the JAX package.  Each
+attempt first asks the ``kernel.launch`` fault site (``faults.py``), as
+the JAX package's fused kernel launch does.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Iterator, List, Sequence, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch import faults
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
@@ -92,6 +95,7 @@ class TorchStageExec(TorchExec):
 
     def _run(self, batch: ColumnarBatch,
              partition_id: int = 0) -> ColumnarBatch:
+        faults.maybe_fail_oom("kernel.launch")
         cols, n = emit_steps(self.steps, colvals(batch.columns),
                              batch.num_rows, batch.capacity, batch.device,
                              partition_id)
@@ -105,7 +109,7 @@ class TorchStageExec(TorchExec):
         split = None if self.nondeterministic else split_batch_half
         for pid, batch in enumerate(self.children[0].execute(ctx)):
             results = with_retry(lambda b: self._run(b, pid), batch, ctx,
-                                 split=split)
+                                 split=split, fire_launch_site=False)
             self.metrics["stageDispatches"] += len(results)
             self.metrics["hostSyncs"] += self._filters * len(results)
             yield from results

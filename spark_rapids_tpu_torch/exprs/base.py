@@ -203,6 +203,21 @@ class Literal(Expression):
                       torch.ones(cap, dtype=torch.bool, device=dev))
 
 
+class ParamLiteral(Literal):
+    """A prepared statement's binding of a ``?`` marker (``sql.py``): a
+    ``Literal`` whose ``slot`` lets the plan fingerprint and the
+    re-binding of a template find it (``plan/fingerprint.py``).  It
+    evaluates as the Literal it is; the port has no kernel cache to
+    hoist its value out of."""
+
+    def __init__(self, slot: int, value, dtype=None):
+        super().__init__(value, dtype)
+        self.slot = int(slot)
+
+    def key(self) -> str:
+        return f"param[{self.slot}]{super().key()}"
+
+
 def _infer_literal_type(value) -> DataType:
     if value is None:
         raise ValueError("untyped null literal; pass dtype explicitly")

@@ -110,17 +110,17 @@ def _check(chars: torch.Tensor, lengths: torch.Tensor) -> None:
         raise ValueError("chars and lengths lie on different devices")
 
 
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.contains_launch.argtypes = [vp, vp, ctypes.c_longlong, i, i, i, i, i,
+                                    i, i, i, ctypes.c_char_p, vp, i, vp, vp]
+    lib.contains_launch.restype = i
+    lib.contains_error.argtypes = [i]
+    lib.contains_error.restype = ctypes.c_char_p
+
+
 def _kernel() -> ctypes.CDLL:
-    lib = native.load("contains")
-    if lib.contains_launch.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.contains_launch.argtypes = [vp, vp, ctypes.c_longlong, i, i, i,
-                                        i, i, i, i, i, ctypes.c_char_p, vp,
-                                        i, vp, vp]
-        lib.contains_launch.restype = i
-        lib.contains_error.argtypes = [i]
-        lib.contains_error.restype = ctypes.c_char_p
-    return lib
+    return native.load("contains", _declare)
 
 
 def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes
@@ -169,7 +169,7 @@ def prepare_contains(chars: torch.Tensor, lengths: torch.Tensor, pat: bytes
             msg = lib.contains_error(rc).decode()
             raise RuntimeError(f"contains launch failed: CUDA error {rc} "
                                f"({msg})")
-        native.LAUNCHES["contains"] += 1
+        native.count_launch("contains")
 
     return launch, out
 

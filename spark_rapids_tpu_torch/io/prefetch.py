@@ -21,6 +21,15 @@ are also recorded on the consumer's stream, so the allocator does not
 reuse their memory while the consumer's work is pending.  No host sync
 is added.
 
+The iterator belongs to the query that made it (``lifecycle.py``): it
+registers with the query's registry, so the query's teardown, or a
+session stop, closes it; the producer runs under the query's context,
+so the pull boundaries it drives see the query's cancel token and the
+spill handles it makes count toward the query's budget; and the
+consumer's wait polls the token.  Given ``fault_site``, the producer
+asks the fault injector at each item (``io.prefetch.decode``), and an
+injected error surfaces at the consumer like any other.
+
 ``device_lookahead`` is the use the port has: the coalesce exec pulls
 its child one batch ahead, so the child's next upload overlaps the
 current concat, when ``spark.rapids.sql.io.prefetch.enabled`` is on.
@@ -37,10 +46,14 @@ from typing import Iterator
 
 import torch
 
+from spark_rapids_tpu_torch import faults, lifecycle
 from spark_rapids_tpu_torch.conf import IO_PREFETCH_ENABLED
+from spark_rapids_tpu_torch.errors import QueryCancelledError
 
 # every thread the port starts has a name with this prefix
 THREAD_PREFIX = "spark-rapids-torch-"
+
+FAULT_SITE_DECODE = "io.prefetch.decode"
 
 
 class _Done:
@@ -74,9 +87,12 @@ class PrefetchIterator:
     _POLL_S = 0.05
 
     def __init__(self, source: Iterator, depth: int = 2,
-                 name: str = "prefetch", device=None, metrics=None):
+                 name: str = "prefetch", device=None, metrics=None,
+                 fault_site=None):
         self.depth = max(1, int(depth))
         self._source = source
+        self._fault_site = fault_site
+        self._query = lifecycle.current()
         self._device = None if device is None else torch.device(device)
         self._metrics = metrics
         self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
@@ -90,6 +106,17 @@ class PrefetchIterator:
         self._thread = threading.Thread(target=self._run,
                                         name=THREAD_PREFIX + name,
                                         daemon=True)
+        self._reg = lifecycle.register_resource(
+            self.close, kind="prefetch", name=self._thread.name)
+        if self._reg.rejected:
+            # the query's teardown closed the registry while this was
+            # being made: no producer, and the consumer gets a typed
+            # error rather than an empty stream
+            self._done = False
+            self._q.put((_Failure(QueryCancelledError(
+                "background pull made after its query's teardown")),
+                None, None))
+            return
         self._thread.start()
 
     @property
@@ -101,10 +128,14 @@ class PrefetchIterator:
     def _run(self) -> None:
         ctx = torch.cuda.device(self._device) if self._cuda \
             else contextlib.nullcontext()
-        with ctx:
+        with ctx, lifecycle.adopt(self._query):
             try:
                 while not self._stop.is_set():
                     item = next(self._source)
+                    if self._fault_site is not None:
+                        faults.maybe_fail(
+                            self._fault_site, "injected background "
+                            f"decode failure at {self._fault_site}")
                     if not self._put((item,) + self._mark()):
                         break
             except StopIteration:
@@ -150,9 +181,13 @@ class PrefetchIterator:
         t0 = time.perf_counter_ns()
         while True:
             try:
-                item, ev, stream = self._q.get(timeout=self._POLL_S)
+                item, ev, stream = self._q.get(
+                    timeout=lifecycle.poll_interval_s())
                 break
             except queue.Empty:
+                # a cancelled query, or one past its deadline, raises
+                # out of the wait
+                lifecycle.check_cancel()
                 if not self._thread.is_alive() and self._q.empty():
                     self._finish()
                     raise RuntimeError("the prefetch producer ended "
@@ -199,9 +234,14 @@ class PrefetchIterator:
         """Stop the producer, drop what it queued and join its thread."""
         self._stop.set()
         self._drain()
-        self._thread.join(timeout=self._JOIN_TIMEOUT_S)
+        if self._thread.ident is not None \
+                and self._thread is not threading.current_thread():
+            self._thread.join(timeout=self._JOIN_TIMEOUT_S)
         self._drain()
         self._finish()
+        reg = getattr(self, "_reg", None)
+        if reg is not None:  # None while a rejected registration closes
+            reg.release()
         if self._thread.is_alive():
             raise RuntimeError(f"prefetch thread {self._thread.name} did "
                                f"not stop within {self._JOIN_TIMEOUT_S} s")

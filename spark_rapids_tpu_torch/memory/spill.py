@@ -20,14 +20,27 @@ The device -> host copies are asynchronous copies into pinned memory on
 the current stream; each handle records an event after them, and
 anything that reads the host planes (a write to disk, a promotion) waits
 on that event first.  A demotion that fails raises: nothing carries on
-over a spill it could not make.
+over a spill it could not make.  The ``spill.demote`` and
+``spill.promote`` fault sites (``faults.py``) fire before a transition
+changes anything, so an injected failure leaves the handle whole on its
+tier; as any other failed demotion, it raises.
 
-Not carried over yet: the encoded columns' planes (queue A6), per-query
-budgets and the journal and observability hooks (the serving stack,
-A10), the device scan cache's entries (A7a), the conf-driven
-allocation log, and the JAX package's ``HostStagingLimiter`` on tier
-transitions: every transition here runs under the catalog's lock, so no
-two of them stage at once and a cap on them could never make one wait.
+Per-query budgets (``spark.rapids.server.query.maxDeviceBytes``, set by
+the session server's tenant confs): a handle made under a query with a
+budget carries the query's id, and when the query's device-resident
+handles pass the budget, the query's own unpinned handles demote to the
+host (priority class, then LRU, the new handle last) and never a
+neighbour's; if that cannot bring it under (its handles are pinned, as
+``materialize_all`` pins them), the query is cancelled through its
+token with ``QueryBudgetExceededError``.  A promotion re-checks the
+budget of the query that made the handle.
+
+Not carried over yet: the encoded columns' planes (queue A6), the
+journal's spill events, the device scan cache's entries (A7a), the
+conf-driven allocation log, and the JAX package's ``HostStagingLimiter``
+on tier transitions: every transition here runs under the catalog's
+lock, so no two of them stage at once and a cap on them could never
+make one wait.
 """
 
 from __future__ import annotations
@@ -46,8 +59,10 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import faults, lifecycle
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.errors import QueryBudgetExceededError
 
 TIER_DEVICE = "device"
 TIER_HOST = "host"
@@ -116,6 +131,8 @@ class SpillableBatch:
         assert self._catalog._lock._is_owned(), \
             "catalog lock must be held for tier transitions"
         assert self.tier == TIER_DEVICE
+        faults.maybe_fail("spill.demote", "injected device->host demotion "
+                          f"failure ({self.size} bytes)")
         cuda = self._cuda
         host, packed = [], []
         for triple in self._device:
@@ -151,6 +168,8 @@ class SpillableBatch:
         assert self._catalog._lock._is_owned(), \
             "catalog lock must be held for tier transitions"
         assert self.tier == TIER_HOST
+        faults.maybe_fail("spill.demote", "injected host->disk demotion "
+                          f"failure ({self.size} bytes)")
         self._wait_host()
         written: List[str] = []
         paths = []
@@ -211,13 +230,19 @@ class SpillableBatch:
     def get(self) -> ColumnarBatch:
         """The batch on its device, promoted through the tiers; room is
         made first, so a promotion can demote colder handles (never this
-        one: it is pinned meanwhile)."""
+        one: it is pinned meanwhile).  A promotion then re-checks the
+        budget of the query that made the handle."""
         cat = self._catalog
         with cat._lock:
             was_pinned = self.pinned
             self.pinned = True
+        promoted = False
         try:
             if self.tier != TIER_DEVICE:
+                faults.maybe_fail(
+                    "spill.promote", f"injected {self.tier}->device "
+                    f"promotion failure ({self.size} bytes)")
+                promoted = True
                 cat.reserve(self.size)
             with cat._lock:
                 if self.tier == TIER_DISK:
@@ -231,10 +256,15 @@ class SpillableBatch:
                 cols = [DeviceColumn(dt, d, v, self.num_rows, ch)
                         for dt, (d, v, ch) in zip(self._dtypes,
                                                   self._device)]
-                return ColumnarBatch(cols, self.num_rows, self.schema)
+                out = ColumnarBatch(cols, self.num_rows, self.schema)
         finally:
             with cat._lock:
                 self.pinned = was_pinned
+        if promoted:
+            # after the pin is back as the caller had it: the batch in
+            # hand stays valid if the check demotes this handle again
+            cat._enforce_promote_budget(self)
+        return out
 
     def host_nbytes(self) -> int:
         """Bytes the host tier holds for this handle (bit-packed planes
@@ -299,6 +329,10 @@ class BufferCatalog:
         self.unspill_count = 0
         self.demote_failure_count = 0
         self.leak_count = 0
+        # per-query budgets: demotions they forced, and queries they
+        # cancelled because demotion could not satisfy them
+        self.budget_spill_count = 0
+        self.budget_exceeded_count = 0
 
     def stats(self) -> dict:
         with self._lock:
@@ -307,7 +341,8 @@ class BufferCatalog:
                 "peak_device_bytes", "spill_to_host_count",
                 "spill_to_host_bytes", "spill_to_disk_count",
                 "spill_to_disk_bytes", "unspill_count",
-                "demote_failure_count", "leak_count")}
+                "demote_failure_count", "leak_count",
+                "budget_spill_count", "budget_exceeded_count")}
 
     @property
     def spill_dir(self) -> Optional[str]:
@@ -350,6 +385,14 @@ class BufferCatalog:
                                          self.device_bytes)
         # the new bytes may pass the budget: demote colder handles
         self.reserve(0)
+        # and the query's own budget, when it has one
+        qc = lifecycle.current()
+        if qc is not None and qc.max_device_bytes > 0:
+            with self._lock:
+                info = self._info.get(key)
+                if info is not None:
+                    info["query"] = qc.query_id
+            self._enforce_query_budget(qc, sb)
 
     def _release_bytes(self, tier: str, size: int) -> None:
         if tier == TIER_DEVICE:
@@ -418,11 +461,14 @@ class BufferCatalog:
             self.demote_failure_count += 1
             raise
 
-    def _demote_to_host(self, sb: SpillableBatch) -> None:
+    def _demote_to_host(self, sb: SpillableBatch,
+                        budget: bool = False) -> None:
         self._demote(sb, sb._to_host)
         self._move(sb.size, TIER_DEVICE, TIER_HOST)
         self.spill_to_host_count += 1
         self.spill_to_host_bytes += sb.size
+        if budget:
+            self.budget_spill_count += 1
 
     def _demote_to_disk(self, sb: SpillableBatch) -> None:
         self._demote(sb, sb._to_disk)
@@ -450,6 +496,67 @@ class BufferCatalog:
                     freed += sb.size
             self._host_overflow()
         return freed
+
+    def query_device_bytes(self, query_id: int) -> int:
+        """Device-resident bytes of the handles query ``query_id`` made
+        under its budget."""
+        with self._lock:
+            return sum(info["size"] for info in self._info.values()
+                       if info.get("query") == query_id
+                       and info["tier"] == TIER_DEVICE)
+
+    def _enforce_promote_budget(self, sb: SpillableBatch) -> None:
+        """A promotion's check: only a handle the thread's query made
+        counts toward its budget."""
+        qc = lifecycle.current()
+        if qc is None or qc.max_device_bytes <= 0:
+            return
+        info = self._info.get(id(sb))
+        if info is None or info.get("query") != qc.query_id:
+            return
+        self._enforce_query_budget(qc, sb, close_on_fail=False)
+
+    def _enforce_query_budget(self, qc, new_sb: SpillableBatch,
+                              close_on_fail: bool = True) -> None:
+        """Bring the query's device-resident bytes under its budget by
+        demoting its own unpinned handles (priority class, then LRU, the
+        new handle last); past that, cancel it through its token with
+        ``QueryBudgetExceededError`` and raise."""
+        budget = qc.max_device_bytes
+        used = self.query_device_bytes(qc.query_id)
+        if used <= budget:
+            return
+        with self._lock:
+            own = []
+            for pos, sb in enumerate(self._live(order=False)):
+                if sb.tier != TIER_DEVICE or sb.pinned:
+                    continue
+                if self._info.get(id(sb), {}).get("query") != qc.query_id:
+                    continue
+                own.append((sb is new_sb, sb.priority, pos, sb))
+            own.sort(key=lambda t: t[:3])
+            demoted = False
+            for _is_new, _prio, _pos, sb in own:
+                if used <= budget:
+                    break
+                self._demote_to_host(sb, budget=True)
+                used -= sb.size
+                demoted = True
+            if demoted:
+                # the host tier may now be past its own budget
+                self._host_overflow()
+        if used > budget:
+            self.budget_exceeded_count += 1
+            if close_on_fail:
+                # the constructor that raises cannot hand its caller the
+                # handle to close
+                new_sb.close()
+            qc.token.cancel(
+                f"query device-resident bytes ({used}) exceed "
+                f"spark.rapids.server.query.maxDeviceBytes ({budget}) and "
+                "its working set cannot spill further",
+                QueryBudgetExceededError)
+            qc.check()
 
     def reserve(self, nbytes: int) -> None:
         """Make room for ``nbytes`` of new device data: demote device

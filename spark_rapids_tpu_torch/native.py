@@ -8,8 +8,12 @@ hash of its source, so an edited source is never served a stale build.
 A failed build raises with nvcc's stderr: there is no fallback.
 ``build_all`` starts one nvcc a source, all together, and waits for them.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
-resets it to show that its main path went through the kernels.
+``LAUNCHES`` counts, per kernel, the launches its wrapper made
+(``count_launch``); a run resets it to show that its main path went
+through the kernels.  ``load``, and with it ``build_all``, runs under
+one process-wide lock, so threads that reach a kernel before it is
+built (the session server's workers) build it once, not each into the
+same temporary file.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -40,10 +45,21 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
+# held by load, build_all and the launch counts
+_LOCK = threading.RLock()
+
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``name``'s count (a wrapper calls this where it
+    launches its kernel)."""
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -70,7 +86,11 @@ def build_all(names=None) -> Dict[str, str]:
     each, all started together -> each kernel's ``-Xptxas -v`` report
     ('' when it was already built).  Raises with nvcc's stderr when any
     build fails, after every nvcc has ended."""
-    names = list(KERNELS) if names is None else list(names)
+    with _LOCK:
+        return _build_all(list(KERNELS) if names is None else list(names))
+
+
+def _build_all(names) -> Dict[str, str]:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
@@ -105,11 +125,15 @@ def build(name: str) -> str:
     return build_all([name])[name]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built at first use."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build(name)
-        lib = ctypes.CDLL(library_path(name))
-        _LOADED[name] = lib
-    return lib
+def load(name: str, declare=None) -> ctypes.CDLL:
+    """The kernel's library, built at first use; ``declare(lib)`` sets
+    its functions' ctypes signatures once, before any thread gets it."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build(name)
+            lib = ctypes.CDLL(library_path(name))
+            if declare is not None:
+                declare(lib)
+            _LOADED[name] = lib
+        return lib

@@ -17,7 +17,9 @@ package does, so both packages budget alike under one conf dict.  Not
 carried over: the compile cache, the DOUBLE-as-float policy, the
 compile service, the cost probe and the device scan cache (each waits
 for the slice of ``ROADMAP.md`` that needs it), and the semaphore's
-resize and cancel polling (the serving stack's).
+resize (the chip-health layer's, queue A8).  A wait for a permit polls
+the waiting thread's query (``lifecycle.py``): a cancelled query, or one
+past its deadline, raises its typed error out of the wait.
 """
 
 from __future__ import annotations
@@ -58,15 +60,27 @@ class TorchSemaphore:
     def acquire(self) -> None:
         depth = getattr(self._held, "depth", 0)
         if depth == 0:
+            from spark_rapids_tpu_torch import lifecycle
+            waited = None
             with self._cv:
                 self.acquire_count += 1
                 if self._in_use >= self.permits:
                     t0 = time.perf_counter_ns()
+                    # bounded slices: the waiting query's cancel or
+                    # deadline raises out of the wait, typed
                     while self._in_use >= self.permits:
-                        self._cv.wait()
+                        self._cv.wait(timeout=lifecycle.poll_interval_s())
+                        if self._in_use < self.permits:
+                            break
+                        lifecycle.check_cancel()
+                    waited = time.perf_counter_ns() - t0
                     self.wait_count += 1
-                    self.wait_ns += time.perf_counter_ns() - t0
+                    self.wait_ns += waited
                 self._in_use += 1
+            if waited is not None:
+                lifecycle.note_sem_wait(waited)
+                from spark_rapids_tpu_torch.obs import registry as obs
+                obs.record(obs.HIST_SEM_WAIT_US, waited // 1000)
         self._held.depth = depth + 1
 
     def release(self) -> None:

@@ -10,7 +10,11 @@ PyTorch version, as the tests do.  Sessions on one device share its
 them.  ``sql`` runs a SELECT over the views
 registered with ``DataFrame.create_or_replace_temp_view``
 (``spark_rapids_tpu_torch/sql.py`` says which SQL it takes; the rest
-raises).
+raises); ``prepare`` a SELECT with ``?`` markers; ``server()`` starts the
+session's multi-tenant ``SessionServer`` (``server/``).  ``stop()``
+closes the server, then cancels and tears down every live query
+through ``lifecycle.shutdown_all``; the device's runtime, shared by the
+sessions on the device, stays (``TorchRuntime.reset`` drops it).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from spark_rapids_tpu_torch.conf import DEVICE, TorchConf
+from spark_rapids_tpu_torch.conf import DEVICE, SERVER_ENABLED, TorchConf
 from spark_rapids_tpu_torch.runtime import TorchRuntime
 
 
@@ -31,11 +35,17 @@ class TorchSession:
             raise RuntimeError(
                 f"{DEVICE.key}={self.device} but torch.cuda.is_available() "
                 "is false; set it to 'cpu' to run on the CPU")
+        if self.device.type == "cuda" and self.device.index is None:
+            # an explicit card: the threads a query runs on (the server's
+            # workers, the background pull) each have a current device
+            # of their own
+            self.device = torch.device("cuda", torch.cuda.current_device())
         # the device's runtime: the spill catalog and the semaphore
         self.runtime = TorchRuntime.get_or_create(self.conf, self.device)
         # the physical plan of the last query run, for its metrics
         self._last_plan = None
         self._views: Dict[str, Any] = {}  # temp views, by lower-case name
+        self._server = None  # the SessionServer, made by server()
 
     @classmethod
     def builder(cls) -> "_Builder":
@@ -82,6 +92,52 @@ class TorchSession:
         ``NotImplementedError`` when the query is planned."""
         from spark_rapids_tpu_torch.sql import parse_sql
         return parse_sql(query, self)
+
+    def prepare(self, query: str):
+        """A ``PreparedStatement`` of a SELECT with ``?`` markers: parsed
+        once a binding type signature, run by ``.execute(*values)`` or
+        ``.bind(*values)``, or submitted to ``server()`` with its
+        values."""
+        from spark_rapids_tpu_torch.server.prepared import PreparedStatement
+        return PreparedStatement(self, query)
+
+    def server(self, max_concurrency: Optional[int] = None):
+        """The session's ``SessionServer``, started at the first call:
+        fair bounded admission, per-tenant deadlines and device budgets,
+        prepared statements and the result cache.  Refused when
+        ``spark.rapids.server.enabled`` is set false."""
+        if not self.conf.get_bool(SERVER_ENABLED.key, default=True):
+            raise RuntimeError(f"{SERVER_ENABLED.key} is false; the session "
+                               "server is disabled for this session")
+        if self._server is None or self._server.closed:
+            from spark_rapids_tpu_torch.server import SessionServer
+            self._server = SessionServer(self,
+                                         max_concurrency=max_concurrency)
+        return self._server
+
+    def engine_stats(self) -> dict:
+        """The process-wide stats snapshot (``obs/registry.py``): the
+        lifecycle's, the spill catalogs', the server's and the journal's
+        counters and the histograms."""
+        from spark_rapids_tpu_torch.obs import registry
+        return registry.snapshot()
+
+    def fleet(self):
+        """The JAX package's fleet of server processes is not in the
+        port: raises ``NotImplementedError``."""
+        raise NotImplementedError(
+            "session.fleet(): the serving fleet is not in the torch port "
+            "(ROADMAP.md, queue A10's leftovers)")
+
+    def stop(self) -> None:
+        """Close the server, then cancel and tear down every live query
+        and every resource registered outside one."""
+        if self._server is not None:
+            # first, so its queued tickets fail typed before the sweep
+            self._server.close()
+            self._server = None
+        from spark_rapids_tpu_torch import lifecycle
+        lifecycle.shutdown_all()
 
 
 class _Builder:

@@ -19,10 +19,15 @@ OVER (...), subqueries in FROM, and the JAX package's function table
 (aggregates with ``first``/``last``, math, strings, date and time,
 ``rand``).  Views come from ``DataFrame.create_or_replace_temp_view``.
 
+A ``?`` marker takes the next of the values bound to the statement
+(``parse_sql(..., params=...)``, which ``session.prepare`` and the
+session server's ``submit(..., params=...)`` use) as a ``ParamLiteral``
+of its slot; a marker without a value, a value without a marker, or a
+NULL value raises ``SqlError``.
+
 What the port cannot run raises ``SqlError`` while the text is parsed
-(``?`` parameters, which belong to the serving stack, an unknown
-function, and non-equality ON terms on a join that is neither inner nor
-cross) or ``NotImplementedError`` when the query is planned (a gated
+(an unknown function, and non-equality ON terms on a join that is
+neither inner nor cross) or ``NotImplementedError`` when the query is planned (a gated
 expression or cast whose key is off, a non-literal LIKE pattern, a
 window ``first``).  There is no fallback.
 
@@ -47,7 +52,7 @@ from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs import strings as ss
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.base import Alias, Expression, Literal, \
-    UnresolvedAttribute
+    ParamLiteral, UnresolvedAttribute
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 from spark_rapids_tpu_torch.plan import logical as lp
@@ -303,12 +308,15 @@ _JOIN_KWS = ("JOIN", "INNER", "LEFT", "RIGHT", "FULL", "CROSS", "SEMI",
 
 
 class _Parser:
-    def __init__(self, toks, session):
+    def __init__(self, toks, session, params=None):
         self.toks = toks
         self.i = 0
         self.session = session
         self.fns = _fns()
         self.scope = _Scope()
+        # the values bound to ``?`` markers, taken in order
+        self._params = params
+        self._param_pos = 0
         # ORDER BY may name select-list aliases that exist only after the
         # projection: those resolve when the plan binds
         self._lenient_refs = False
@@ -893,8 +901,22 @@ class _Parser:
             self.next()
             return Literal(v)
         if k == "OP" and v == "?":
-            raise SqlError("'?' parameters belong to prepared statements, "
-                           "which are not in the torch port")
+            self.next()
+            if self._params is None:
+                raise SqlError(
+                    "parameter marker '?' without bindings: prepare the "
+                    "statement (session.prepare) and execute it with "
+                    "values")
+            if self._param_pos >= len(self._params):
+                raise SqlError(f"statement has more '?' markers than the "
+                               f"{len(self._params)} value(s) bound")
+            slot = self._param_pos
+            self._param_pos += 1
+            value = self._params[slot]
+            if value is None:
+                raise SqlError("NULL prepared-statement bindings are not "
+                               "supported: inline NULL in the template")
+            return ParamLiteral(slot, value)
         if self.accept_op("("):
             e = self.parse_expr()
             self.expect_op(")")
@@ -1083,7 +1105,19 @@ def _auto_name(e: Expression) -> Expression:
     return Alias(e, e.name)
 
 
-def parse_sql(sql: str, session):
+def parse_sql(sql: str, session, params=None):
     """SQL text -> DataFrame; raises ``SqlError`` on what it cannot
-    parse or the port cannot run."""
-    return _Parser(tokenize(sql), session).parse()
+    parse or the port cannot run.  ``params`` binds the ``?`` markers in
+    order."""
+    p = _Parser(tokenize(sql), session, params=params)
+    df = p.parse()
+    if params is not None and p._param_pos != len(params):
+        raise SqlError(f"statement has {p._param_pos} '?' marker(s) but "
+                       f"{len(params)} value(s) were bound")
+    return df
+
+
+def count_params(sql: str) -> int:
+    """The ``?`` markers of a statement (tokenized: none inside string
+    literals or comments)."""
+    return sum(1 for k, v in tokenize(sql) if k == "OP" and v == "?")

@@ -14,10 +14,14 @@ again), so the error surfaces inside the retry scope without the sync
 the JAX package makes on every attempt for XLA's asynchronous dispatch.
 An exception's traceback holds the failed attempt's frames, and with
 them its tensors, so those frames are cleared before the relief and
-the next attempt, which run after the ``except`` block has ended.  Not
-carried over: ``Backoff`` (the shuffle's, queue A8) and the
-fault-injection site (tests and ``chip_smoke.py`` inject errors from
-outside).
+the next attempt, which run after the ``except`` block has ended.
+
+The ``kernel.launch`` fault site (``faults.py``) fires once at each
+``with_retry`` call, before its first attempt (a split's halves each
+call it again), and raises an injected out-of-memory error there; the
+fused stage (``exec/stage.py``) fires it itself on every attempt and
+passes ``fire_launch_site=False``, as in the JAX package.  Not carried
+over: ``Backoff`` (the shuffle's, queue A8).
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import traceback
 from typing import Callable, List, Optional
 
 import torch
+
+from spark_rapids_tpu_torch import faults
 
 
 def is_device_oom(e: BaseException) -> bool:
@@ -51,12 +57,14 @@ def _relieve(ctx) -> None:
         ctx.runtime.catalog.spill_all()
 
 
-def _attempt(fn: Callable, batch) -> tuple:
+def _attempt(fn: Callable, batch, fire_launch_site: bool = False) -> tuple:
     """``(True, fn(batch))``, or ``(False, error)`` after a device
     out-of-memory error; any other error propagates.  The error's
     frames are cleared first: their locals are the failed attempt's
     tensors, which must be free before the relief and the next try."""
     try:
+        if fire_launch_site:
+            faults.maybe_fail_oom("kernel.launch")
         return True, fn(batch)
     except Exception as e:  # narrowed by is_device_oom below
         if not is_device_oom(e):
@@ -67,13 +75,13 @@ def _attempt(fn: Callable, batch) -> tuple:
 
 def with_retry(fn: Callable, batch, ctx=None,
                split: Optional[Callable] = None,
-               max_depth: int = 3) -> List:
+               max_depth: int = 3, fire_launch_site: bool = True) -> List:
     """``[fn(batch)]``; on a device out-of-memory error, demote every
     spillable handle and run again, then (with ``split``) split the
     batch and recurse on each part, ``max_depth`` levels at most.  With
     ``split=None`` it retries without splitting, for an operator whose
     input must stay whole.  The results come in row order."""
-    ok, res = _attempt(fn, batch)
+    ok, res = _attempt(fn, batch, fire_launch_site)
     if ok:
         return [res]
     del res
@@ -86,7 +94,8 @@ def with_retry(fn: Callable, batch, ctx=None,
     del res
     out: List = []
     for part in _split_with_relief(split, batch, ctx):
-        out.extend(with_retry(fn, part, ctx, split, max_depth - 1))
+        out.extend(with_retry(fn, part, ctx, split, max_depth - 1,
+                              fire_launch_site))
     return out
 
 
