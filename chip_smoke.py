@@ -206,14 +206,38 @@ Phases, each printing one JSON line:
    right and counts its faults; the catalog's device bytes return to
    their value after each check that ends a query early, and no
    ``spark-rapids-torch-*`` thread is left after ``close()`` and
-   ``stop()``.
+   ``stop()``;
+20. adaptive: adaptive query execution
+   (``spark.rapids.sql.adaptive.enabled``), each query with it off and
+   on (one warm-up, 2 timed runs each), the on result equal to the off
+   one (integers and strings exact, f64 within rtol 1e-9: moved batch
+   boundaries reorder float sums) and the catalog's device bytes back
+   after every run.  hash_join_1m: the 10,000-row dimension's measured
+   bytes promote it to a broadcast build, and the fact side's shuffle is
+   elided (one shuffle exchange left); K1 launches from group_by(grp).
+   tpch_q3, q5, q8, q10 and q18 over phase 11's SF1 tables, each with
+   its replan decisions printed (K1 from q8).  tpch_q13_sql: TPC-H
+   Q13's official text, its ``LEFT OUTER JOIN ... ON c_custkey =
+   o_custkey AND o_comment NOT LIKE '%special%requests%'`` evaluated on
+   the join's candidate pairs on the card, off and on, each against the
+   same text on a CPU session (K1 from the c_count aggregate).
+   skew_join_6m: 6,001,215 fact rows (``k`` from 32 keys by the zipf law
+   of tests/fuzzer.py's gen_skewed_keys, a = 1.2; ``v`` f64, ``w``
+   int32; seed 27; six input batches) joined to a 32-row dimension with
+   broadcast off, then grouped by ``k`` (count, sum; K1), under
+   ``SKEW_CONF`` (tests/test_adaptive.py's skew conf scaled by 300):
+   the hot partition must split, and the largest partition's and group's
+   bytes print beside both times.  replan_fault: hash_join_1m under
+   ``spark.rapids.faults.aqe.replan=always``: every pass falls back,
+   ``aqeReplans`` stays 0, both exchanges stay and the result is
+   right.
 
 The dense-slot kernel's float sums take one fixed order: every
 comparison of it with its plain version (phase 3, its edge specs and
 kernel_path) also calls it 5 times and fails unless the float-add planes
 come out bit for bit alike (``float_sum_results_of_5``).
 
-Each path of phases 5 to 19 runs with the launch counts set to 0 just
+Each path of phases 5 to 20 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -225,13 +249,14 @@ left, right, full, semi and anti joins, over a stream side of two
 batches).  A trace phase then
 runs the text queries, hash_join_1m, tpch_q3, window_1m, tpcxbb_q3 (the
 largest join, through the band-aware probe), mortgage_etl,
-cube_shipmode, repartition_hash and window_frames once more
-under torch.profiler and prints each one's wall time, the card's busy
-time, its largest device entries, its longest idle gaps and the port's
-named ranges (``join.*``, ``window.*``, ``exchange.*``); a join query's
-trace without a ``join.*`` range, window_1m's or window_frames' without
-a ``window.*`` one, or repartition_hash's without an ``exchange.*`` one,
-fails the run.  Then one JSON
+cube_shipmode, repartition_hash, window_frames and hash_join_1m with
+adaptive execution on once more under torch.profiler and prints each
+one's wall time, the card's busy time, its largest device entries, its
+longest idle gaps and the port's named ranges (``join.*``, ``window.*``,
+``exchange.*``, ``plan.aqe``); a join query's trace without a
+``join.*`` range, window_1m's or window_frames' without a ``window.*``
+one, repartition_hash's without an ``exchange.*`` one, or the adaptive
+hash_join_1m's without ``plan.aqe``, fails the run.  Then one JSON
 line lists every kernel (its launches summed over the paths), the ``nvidia-smi`` line follows, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits nonzero without that line; it also exits nonzero when
@@ -267,7 +292,8 @@ import numpy as np
 
 SEED = 7
 LINEITEM_ROWS = 6_001_215
-RANGES = ("join.", "window.", "exchange.")  # the port's profiler ranges
+# the port's profiler ranges
+RANGES = ("join.", "window.", "exchange.", "plan.")
 DIM_ROWS = 10_000
 NEEDLE = "special requests"   # TPC-H Q13's two words as one 16-byte needle
 SHORT_NEEDLE = "special"
@@ -3345,6 +3371,233 @@ def phase_serve(torch, st, F, native, tpch, tpch_dfs, xbb, mortgage, agg_data,
          seconds=time.perf_counter() - t_phase, card=smi)
 
 
+# -- the adaptive phase -------------------------------------------------------
+
+AQE_QUERIES = ("q3", "q5", "q8", "q10", "q18")
+SKEW_ROWS = LINEITEM_ROWS
+SKEW_KEYS = 32
+SKEW_ZIPF_A = 1.2
+# tests/test_adaptive.py's SKEW_CONF at 20,000 rows, scaled by 300 to
+# 6,001,215 rows (its advisory 16,384 and threshold 8,192 bytes; factor 2)
+SKEW_CONF = {
+    "spark.sql.autoBroadcastJoinThreshold": -1,
+    "spark.rapids.sql.adaptive.advisoryPartitionSizeInBytes": 16_384 * 300,
+    "spark.rapids.sql.adaptive.skewJoin.skewedPartitionThresholdInBytes":
+        8_192 * 300,
+    "spark.rapids.sql.adaptive.skewJoin.skewedPartitionFactor": 2,
+}
+AQE_ON = {"spark.rapids.sql.adaptive.enabled": True}
+Q13_OFFICIAL = """
+    SELECT c_count, COUNT(*) AS custdist FROM (
+      SELECT c_custkey, COUNT(o_orderkey) AS c_count
+      FROM customer LEFT OUTER JOIN orders
+        ON c_custkey = o_custkey
+        AND o_comment NOT LIKE '%special%requests%'
+      GROUP BY c_custkey) c_orders
+    GROUP BY c_count ORDER BY custdist DESC, c_count DESC"""
+
+
+def gen_skew(n: int = SKEW_ROWS, seed: int = SEED + 20):
+    """skew_join_6m's fact and dimension: ``k`` drawn from 32 keys by
+    the zipf law of tests/fuzzer.py's gen_skewed_keys (rank r with
+    probability proportional to 1 / (r + 1) ** 1.2), ``v`` normal,
+    ``w`` int32, from ``default_rng(seed)``; the dimension one row a
+    key."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, SKEW_KEYS + 1, dtype=np.float64)
+    pmf = ranks ** -SKEW_ZIPF_A
+    pmf /= pmf.sum()
+    k = rng.choice(SKEW_KEYS, size=n, p=pmf).astype(np.int64)
+    fact = {"k": k, "v": rng.standard_normal(n),
+            "w": rng.integers(-1000, 1000, n, dtype=np.int32)}
+    dim = {"k": np.arange(SKEW_KEYS, dtype=np.int64),
+           "g": (np.arange(SKEW_KEYS, dtype=np.int64) * 7) % 5}
+    return fact, dim
+
+
+def skew_query(st, F, fact, dim):
+    """skew_join_6m: the fact joined to the dimension on ``k``, then
+    ``GROUP BY k`` with a count and a sum (the dense-slot kernel)."""
+    return (fact.join(dim, on="k", how="inner")
+                .group_by(st.col("k"))
+                .agg(F.count(st.col("w")).alias("c"),
+                     F.sum(st.col("v")).alias("s")))
+
+
+def sorted_by(torch, result, key: str):
+    """A ``to_torch`` result with its rows ordered by the integer column
+    ``key`` (for a query whose row order the plan does not fix)."""
+    cols, masks, n = result
+    order = torch.argsort(cols[key][:n], stable=True)
+    return ({k: (v[0][:n][order], v[1][:n][order]) if isinstance(v, tuple)
+             else v[:n][order] for k, v in cols.items()},
+            {k: m[:n][order] for k, m in masks.items()}, n)
+
+
+def adaptive_run(torch, native, session, query, runs: int = 2):
+    """``query`` timed as ``run_timed`` times it, with the K1 launches
+    and the catalog's device bytes of the runs -> (result, seconds,
+    launches, the adaptive wrapper or None, the plan)."""
+    from spark_rapids_tpu_torch.plan.adaptive import find_adaptive
+    cat = session.runtime.catalog
+    device0 = cat.device_bytes
+    before = native.LAUNCHES["dense_slot_reduce"]
+    out, secs = run_timed(torch, query, runs)
+    launches = native.LAUNCHES["dense_slot_reduce"] - before
+    check(cat.device_bytes == device0, "adaptive: the query left "
+          f"{cat.device_bytes - device0} device bytes in the catalog")
+    plan = session._last_plan
+    return out, secs, launches, find_adaptive(plan), plan
+
+
+def decisions(wrapper) -> list:
+    return [{k: r.get(k) for k in ("decision", "coalesced", "skew_splits",
+                                   "fallback") if r.get(k) is not None}
+            for r in wrapper.reports]
+
+
+def metric_sum(plan, name: str) -> int:
+    return plan.metrics.get(name, 0) + sum(metric_sum(c, name)
+                                           for c in plan.children)
+
+
+def phase_adaptive(torch, st, F, native, main, dim, tpch, smi: str) -> None:
+    """Adaptive execution on the card (``spark.rapids.sql.adaptive.
+    enabled``): hash_join_1m, five TPC-H queries at SF1, TPC-H Q13's
+    official text, skew_join_6m and the replan fault, each against its
+    run with adaptive execution off."""
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    t_phase = time.perf_counter()
+    off = st.TorchSession({})
+    on = st.TorchSession(dict(AQE_ON))
+
+    # 1. hash_join_1m: the dimension promoted, the fact never shuffled
+    times = {}
+    res = {}
+    for label, s in (("off", off), ("on", on)):
+        q = hash_join_query(st, F, s.create_dataframe(main),
+                            s.create_dataframe(dim))
+        out, secs, k1, w, plan = adaptive_run(torch, native, s, q)
+        res[label], times[label] = sorted_by(torch, out, "grp"), secs
+        check(k1 > 0, f"hash_join_1m ({label}): K1 never launched")
+    same_rows(torch, res["on"], res["off"], "adaptive hash_join_1m")
+    check(w is not None and [r.get("decision") for r in w.reports]
+          .count("broadcast_promoted") == 1,
+          f"hash_join_1m: no single promotion: {w and w.reports}")
+    body = w.children[0]
+    exchanges = _plan_nodes(body, "TorchShuffleExchangeExec")
+    check(len(exchanges) == 1, f"hash_join_1m: {len(exchanges)} shuffle "
+          "exchanges left, not the build stage's one")
+    check(len(_plan_nodes(body, "TorchBroadcastHashJoinExec")) == 1,
+          "hash_join_1m: the promoted join is not a broadcast join")
+    emit("adaptive", query="hash_join_1m", decisions=decisions(w),
+         seconds_off=times["off"], seconds_on=times["on"], card=smi)
+
+    # 2. the bench's TPC-H queries at SF1
+    dfs = {"off": load_tables(off, tpch), "on": load_tables(on, tpch)}
+    for qname in AQE_QUERIES:
+        for label, s in (("off", off), ("on", on)):
+            out, secs, k1, w, _ = adaptive_run(
+                torch, native, s, TPCH_QUERIES[qname](dfs[label]))
+            res[label], times[label] = out, secs
+            if label == "on":
+                check(w is not None, f"tpch_{qname}: no adaptive wrapper")
+                if qname == "q8":
+                    check(k1 > 0, "tpch_q8 (on): K1 never launched")
+        same_rows(torch, res["on"], res["off"], f"adaptive tpch_{qname}")
+        emit("adaptive", query=f"tpch_{qname}", decisions=decisions(w),
+             metrics={m: metric_sum(s._last_plan, m) for m in (
+                 "aqeReplans", "broadcastPromotions", "broadcastDemotions",
+                 "coalescedPartitions", "skewSplits")},
+             seconds_off=times["off"], seconds_on=times["on"], card=smi)
+
+    # 3. TPC-H Q13's official text: the LEFT OUTER JOIN's condition on
+    # the card, off and on, each against the same text on the CPU
+    cpu = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+    for s in (off, on, cpu):
+        for name, df in load_tables(s, {t: tpch[t] for t in (
+                "customer", "orders")}).items():
+            df.create_or_replace_temp_view(name)
+    t0 = time.perf_counter()
+    want = cpu.sql(Q13_OFFICIAL).to_torch()
+    cpu_s = time.perf_counter() - t0
+    for label, s in (("off", off), ("on", on)):
+        out, secs, k1, w, plan = adaptive_run(torch, native, s,
+                                              s.sql(Q13_OFFICIAL))
+        check(k1 > 0, f"tpch_q13_sql ({label}): K1 never launched")
+        (join,) = [j for j in _plan_nodes(plan, "TorchHashJoinExec")
+                   + _plan_nodes(plan, "TorchBroadcastHashJoinExec")]
+        check(join.condition is not None and join.route == "general",
+              f"tpch_q13_sql ({label}): the condition is not on the join")
+        same_rows(torch, out, to_device(want, out[1]["c_count"].device),
+                  f"tpch_q13_sql ({label}) against the CPU session")
+        times[label] = secs
+        res[label] = out
+    emit("adaptive", query="tpch_q13_sql", out_rows=res["on"][2],
+         decisions=decisions(w), seconds_off=times["off"],
+         seconds_on=times["on"], cpu_seconds=cpu_s, card=smi)
+
+    # 4. skew_join_6m: the hot partition splits
+    fact, sdim = gen_skew()
+    groups = {}
+    for label, conf in (("off", SKEW_CONF), ("on", {**AQE_ON,
+                                                    **SKEW_CONF})):
+        s = st.TorchSession(conf)
+        q = skew_query(st, F, s.create_dataframe(fact),
+                       s.create_dataframe(sdim))
+        out, secs, k1, w, plan = adaptive_run(torch, native, s, q)
+        check(k1 > 0, f"skew_join_6m ({label}): K1 never launched")
+        res[label], times[label] = sorted_by(torch, out, "k"), secs
+        if label == "on":
+            stream = [r for r in w.reports
+                      if r.get("decision") == "stream_side"]
+            check(len(stream) == 1, f"skew_join_6m: {w.reports}")
+            splits = metric_sum(plan, "skewSplits")
+            check(splits >= 1, "skew_join_6m: the hot partition did not "
+                  "split")
+            groups = {"largest_partition_bytes": max(
+                stream[0]["partition_bytes"]),
+                "largest_group_bytes": max(stream[0]["group_bytes"]),
+                "partition_bytes": stream[0]["partition_bytes"],
+                "group_bytes": stream[0]["group_bytes"],
+                "skew_splits": splits}
+    same_rows(torch, res["on"], res["off"], "adaptive skew_join_6m")
+    check(res["on"][2] == SKEW_KEYS, "skew_join_6m: not every key")
+    check(int(res["on"][0]["c"].sum()) == SKEW_ROWS,
+          "skew_join_6m: the counts do not add up to the rows")
+    emit("adaptive", query="skew_join_6m", rows=SKEW_ROWS,
+         conf=SKEW_CONF, seconds_off=times["off"], seconds_on=times["on"],
+         card=smi, **groups)
+
+    # 5. the replan fault: every pass falls back, the join stays shuffled
+    fconf = {**AQE_ON, "spark.rapids.faults.aqe.replan": "always"}
+    faults.configure_from_conf(fconf)
+    try:
+        s = st.TorchSession(fconf)
+        q = hash_join_query(st, F, s.create_dataframe(main),
+                            s.create_dataframe(dim))
+        out, secs, k1, w, plan = adaptive_run(torch, native, s, q, runs=1)
+        fired = faults.injector().stats()["aqe.replan"]["fired"]
+    finally:
+        faults.reset()
+    check(fired > 0 and w.reports and all("fallback" in r
+                                          for r in w.reports),
+          f"replan_fault: {w.reports}")
+    check(metric_sum(plan, "aqeReplans") == 0, "replan_fault: a replan "
+          "counted")
+    check(not _plan_nodes(plan, "TorchBroadcastHashJoinExec")
+          and len(_plan_nodes(plan, "TorchShuffleExchangeExec")) == 2,
+          "replan_fault: the join did not stay shuffled")
+    want = hash_join_query(st, F, off.create_dataframe(main),
+                           off.create_dataframe(dim)).to_torch()
+    same_rows(torch, sorted_by(torch, out, "grp"),
+              sorted_by(torch, want, "grp"), "replan_fault")
+    emit("adaptive", query="replan_fault", fired=fired, seconds=secs,
+         reports=len(w.reports), card=smi)
+    emit("adaptive_phase", seconds=time.perf_counter() - t_phase, card=smi)
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(
@@ -3514,6 +3767,8 @@ def main(argv=None) -> int:
               ops_cpu, qname, len(next(iter(ops[table].values()))))
     drive("serve", phase_serve, torch, st, F, native, tpch, tpch_dfs, xbb,
           mortgage, agg_data, line_df, smi)
+    drive("adaptive", phase_adaptive, torch, st, F, native, main_data,
+          dim_data, tpch, smi)
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     phase_repeat_sums(torch, st, F, session, tpch_dfs)
@@ -3544,6 +3799,11 @@ def main(argv=None) -> int:
     phase_trace(torch, hash_join_query(st, F, session.create_dataframe(
         main_data), session.create_dataframe(dim_data)), "hash_join_1m",
         expect="join.")
+    aqe_session = st.TorchSession(dict(AQE_ON))
+    phase_trace(torch, hash_join_query(
+        st, F, aqe_session.create_dataframe(main_data),
+        aqe_session.create_dataframe(dim_data)), "hash_join_1m_aqe",
+        expect="plan.aqe")
     phase_trace(torch, TPCH_QUERIES["q3"](tpch_dfs), "tpch_q3",
                 expect="join.")
     phase_trace(torch, window_query(st, F, session.create_dataframe(

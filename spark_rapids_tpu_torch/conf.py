@@ -76,6 +76,66 @@ BROADCAST_THRESHOLD = register(
     "Largest estimated size in bytes of a join side that is broadcast "
     "(built once into one device batch); -1 disables broadcast.", int)
 
+SHUFFLE_PARTITIONS = register(
+    "spark.sql.shuffle.partitions", 8,
+    "Number of partitions of the shuffle exchanges the planner inserts "
+    "(Spark's core conf; here the AQE join exchanges).", int, _positive)
+
+SHUFFLE_DEFAULT_NUM_PARTITIONS = register(
+    "spark.rapids.shuffle.defaultNumPartitions", 0,
+    "Reduce-partition count of the AQE-inserted join exchanges; 0 "
+    "defers to spark.sql.shuffle.partitions.  The JAX package's host "
+    "shuffle also reads it (queue A8).", int, _non_negative)
+
+# -- adaptive query execution (exec/aqe.py, plan/adaptive.py) ----------------
+
+ADAPTIVE_ENABLED = register(
+    "spark.rapids.sql.adaptive.enabled", False,
+    "Adaptive query execution: each in-process shuffle exchange becomes "
+    "a query stage whose measured per-partition bytes replan the rest of "
+    "the plan (partition coalescing, skew-split joins, broadcast "
+    "promotion and demotion against spark.sql.autoBroadcastJoinThreshold)."
+    "  Off by default, as in Spark 3.0 and the JAX package; off, no "
+    "adaptive node is built and plans are the static ones.", bool)
+
+ADAPTIVE_COALESCE_ENABLED = register(
+    "spark.rapids.sql.adaptive.coalescePartitions.enabled", True,
+    "With adaptive.enabled: merge adjacent undersized reduce partitions "
+    "toward advisoryPartitionSizeInBytes (Spark's "
+    "CoalesceShufflePartitions).  Only AQE-inserted exchanges coalesce; "
+    "an explicit repartition(n) count is a user contract.", bool)
+
+ADAPTIVE_ADVISORY_SIZE = register(
+    "spark.rapids.sql.adaptive.advisoryPartitionSizeInBytes",
+    64 * 1024 * 1024,
+    "Target bytes of a reduce partition for coalescing, and the split "
+    "target of a skewed one.", int, _positive)
+
+ADAPTIVE_MIN_PARTITIONS = register(
+    "spark.rapids.sql.adaptive.coalescePartitions.minPartitionNum", 1,
+    "Fewest reduce partitions coalescing may merge down to.", int,
+    _positive)
+
+ADAPTIVE_SKEW_ENABLED = register(
+    "spark.rapids.sql.adaptive.skewJoin.enabled", True,
+    "With adaptive.enabled: a reduce partition on the stream side of a "
+    "join whose bytes pass max(skewedPartitionFactor x median, "
+    "skewedPartitionThresholdInBytes) splits into sub-partitions, each "
+    "probing the whole build side (Spark's OptimizeSkewedJoin).", bool)
+
+ADAPTIVE_SKEW_FACTOR = register(
+    "spark.rapids.sql.adaptive.skewJoin.skewedPartitionFactor", 5,
+    "A partition is skewed when its bytes pass this multiple of the "
+    "median non-empty partition's (and the threshold below).", int,
+    _positive)
+
+ADAPTIVE_SKEW_THRESHOLD = register(
+    "spark.rapids.sql.adaptive.skewJoin.skewedPartitionThresholdInBytes",
+    256 * 1024 * 1024,
+    "Absolute floor of skew: a partition below it never splits.", int,
+    _positive)
+
+
 PALLAS_AGG = register(
     "spark.rapids.sql.tpu.pallas.agg.enabled", True,
     "Run the update phase of a single-integer-key aggregate whose key "
@@ -323,6 +383,14 @@ class TorchConf:
 
     def to_dict(self) -> Dict[str, Any]:
         return dict(self._settings)
+
+    @property
+    def aqe_initial_partitions(self) -> int:
+        """Partitions of an AQE-inserted exchange:
+        ``spark.rapids.shuffle.defaultNumPartitions`` when set, else
+        ``spark.sql.shuffle.partitions``."""
+        n = self.get(SHUFFLE_DEFAULT_NUM_PARTITIONS)
+        return n if n > 0 else self.get(SHUFFLE_PARTITIONS)
 
     def get_bool(self, key: str, default: bool = True) -> bool:
         """A raw key as a boolean, ``default`` when it is unset."""

@@ -28,13 +28,19 @@ a batch that does not fit (their ids are per row), round-robin does not
 (its ids depend on the row's position).  ``exchange.partition`` and
 ``exchange.range_bounds`` name the two halves in a torch.profiler
 trace; ``shufflePartitionBytes`` adds up the partitions' estimated
-bytes (hash, round-robin and single, as in the JAX package).
+bytes (hash, round-robin and single, as in the JAX package), through
+``record_partition_sizes``, which also feeds the process-wide adaptive
+statistics (``exec/aqe.py``), and ``last_partition_bytes`` keeps the
+last run's sizes.  ``partition_buckets`` is the map side alone: the
+buckets as spillable handles with each piece's bytes and rows, which an
+adaptive query stage (``exec/aqe.py``) holds and regroups.
+``aqe_inserted`` marks the exchanges the planner puts under a join when
+adaptive execution is on: only those may coalesce or split.
 
 Not carried over: the fused stage-and-partition kernel
 (``partition_batch_fused``, XLA dispatch fusion, like the compile cache),
-the host-egress variants (with the host shuffle, queue A8), the
-out-of-core ``salt`` (with ``exec/ooc.py``) and the process-wide AQE
-statistics (A8).
+the host-egress variants (with the host shuffle, queue A8) and the
+out-of-core ``salt`` (with ``exec/ooc.py``).
 """
 
 from __future__ import annotations
@@ -71,6 +77,15 @@ def est_batch_bytes(b: ColumnarBatch) -> int:
         else:
             total += b.num_rows * (c.data.element_size() + 1)
     return total
+
+
+def record_partition_sizes(metrics, sizes: List[int]) -> None:
+    """The one sink of an exchange's per-partition bytes: their sum to
+    ``shufflePartitionBytes``, their shape to the process-wide adaptive
+    statistics."""
+    from spark_rapids_tpu_torch.exec.aqe import record_exchange_stats
+    metrics["shufflePartitionBytes"] += sum(sizes)
+    record_exchange_stats(sizes)
 
 
 def unsigned_mod(h: torch.Tensor, n: int) -> torch.Tensor:
@@ -234,6 +249,11 @@ class TorchShuffleExchangeExec(TorchExec):
         else:
             self.mode = mode if (keys or mode == "single") else "roundrobin"
         self.children = [child]
+        # the planner's join exchanges under adaptive execution: only
+        # these may coalesce or split (a repartition(n) is the user's)
+        self.aqe_inserted = False
+        # each partition's estimated bytes in the last run (host ints)
+        self.last_partition_bytes: Optional[List[int]] = None
         self.metrics["hostSyncs"] = 0
         self.metrics["shufflePartitionBytes"] = 0
 
@@ -245,7 +265,7 @@ class TorchShuffleExchangeExec(TorchExec):
         if self.mode == "range" and self.num_partitions > 1:
             parts = self._range_buckets(ctx)
         else:
-            parts = self._buckets(ctx)
+            parts = self.partition_buckets(ctx)[0]
         try:
             for p in range(len(parts)):
                 bucket, parts[p] = parts[p], []
@@ -263,18 +283,29 @@ class TorchShuffleExchangeExec(TorchExec):
             if piece is not None:
                 parts[p].append(SpillableBatch(piece, cat))
 
-    def _buckets(self, ctx: ExecContext) -> List[List[SpillableBatch]]:
-        """Hash, round-robin and single: every input batch's rows to
-        their partitions' buckets."""
+    def partition_buckets(self, ctx: ExecContext):
+        """The map side of hash, round-robin and single: every input
+        batch's rows to their partitions' buckets -> (the buckets, a
+        list of handles a partition; each piece's estimated bytes; each
+        piece's rows), the sizes from the host row counts the partition
+        step already read."""
         n = self.num_partitions
         parts: List[List[SpillableBatch]] = [[] for _ in range(n)]
-        sizes = [0] * n
+        item_bytes: List[List[int]] = [[] for _ in range(n)]
+        item_rows: List[List[int]] = [[] for _ in range(n)]
+
+        def add(pieces) -> None:
+            for p, piece in enumerate(pieces):
+                if piece is not None:
+                    item_bytes[p].append(est_batch_bytes(piece))
+                    item_rows[p].append(piece.num_rows)
+            self._add(parts, pieces, ctx)
+
         rr = 0
         try:
             for batch in self.children[0].execute(ctx):
                 if n == 1 or self.mode == "single":
-                    sizes[0] += est_batch_bytes(batch)
-                    self._add(parts, [batch], ctx)
+                    add([batch])
                     continue
                 rr0 = rr
                 rr += batch.num_rows
@@ -287,16 +318,14 @@ class TorchShuffleExchangeExec(TorchExec):
                         else None)
                 self.metrics["hostSyncs"] += len(results)
                 for pieces in results:
-                    for p, piece in enumerate(pieces):
-                        if piece is not None:
-                            sizes[p] += est_batch_bytes(piece)
-                    self._add(parts, pieces, ctx)
+                    add(pieces)
         except BaseException:
             for bucket in parts:
                 close_all(bucket)
             raise
-        self.metrics["shufflePartitionBytes"] += sum(sizes)
-        return parts
+        self.last_partition_bytes = [sum(b) for b in item_bytes]
+        record_partition_sizes(self.metrics, self.last_partition_bytes)
+        return parts, item_bytes, item_rows
 
     def _range_buckets(self, ctx: ExecContext
                        ) -> List[List[SpillableBatch]]:

@@ -41,9 +41,17 @@ later slice).  Each stream batch's probe, on either route, runs under
 not enough.
 An inner or cross join's ``condition`` (the non-equi terms of ``ON``, or
 a predicate the planner pushed into the join) filters each joined batch
-after the probe, as the JAX package does; the planner raises on a
-condition on any other join type, since a filter after the probe cannot
-null-extend the rows whose matches all fail it.
+after the probe, as the JAX package does.  A left, right, full, semi or
+anti join's condition cannot run after the probe, since a filter there
+cannot null-extend the rows whose matches all fail it: the general route
+evaluates it over the verified candidate pairs (``_pair_condition``;
+null counts as false) before the matches are counted, so a stream row
+with no surviving pair is null-extended once (left, full) or kept (anti)
+and a semi join keeps a row with at least one, and a build row's match
+count (right, full) counts surviving pairs only.  A keyless join of
+those types pairs every row, and the condition decides the same way.
+The JAX package refuses a condition on these join types on both of its
+engines.
 
 A cross join pairs every live stream row with every live build row.
 
@@ -465,9 +473,9 @@ def _side_with_nulls(batch: ColumnarBatch, mask: torch.Tensor,
 
 class TorchHashJoinExec(TorchExec):
     """Equi-join of the left child (stream) with the right child (build),
-    of type inner, left, right, full, semi or anti; an inner join may
-    carry a ``condition`` bound against its output columns (the planner
-    refuses one on any other type)."""
+    of type inner, left, right, full, semi or anti, with an optional
+    ``condition`` bound against the left child's columns followed by
+    the right child's."""
 
     def __init__(self, left: TorchExec, right: TorchExec,
                  left_keys: List[Expression], right_keys: List[Expression],
@@ -548,7 +556,7 @@ class TorchHashJoinExec(TorchExec):
                         outs += part
                         if mb is not None:
                             m_build += mb
-                if self.condition is not None:
+                if inner and self.condition is not None:
                     outs = [self._keep_where(o) for o in outs if o.num_rows]
             yield from (o for o in outs if o.num_rows)
         if self.join_type in ("right", "full"):
@@ -599,6 +607,37 @@ class TorchHashJoinExec(TorchExec):
             [DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars)
              for f, cv in zip(self.output_schema, cols)], n,
             self.output_schema)
+
+    def _pair_condition(self, sb: ColumnarBatch, b_batch: ColumnarBatch,
+                        srow: torch.Tensor, brow: torch.Tensor,
+                        total: int) -> torch.Tensor:
+        """The condition at each candidate pair (stream row ``srow[i]``,
+        build row ``brow[i]``), null as false -> (total,) bool.  Only
+        the columns it names are gathered."""
+        ns = len(sb.columns)
+        used = set()
+
+        def walk(e):
+            if isinstance(e, BoundReference):
+                used.add(e.ordinal)
+            for c in e.children:
+                walk(c)
+        walk(self.condition)
+        cap = bucket_capacity(total)
+        pad = cap - total
+        sidx = torch.cat([srow, srow[-1:].expand(pad)]) if pad else srow
+        bidx = torch.cat([brow, brow[-1:].expand(pad)]) if pad else brow
+        cols: List[Optional[ColVal]] = []
+        for o in range(ns + len(b_batch.columns)):
+            if o not in used:
+                cols.append(None)
+                continue
+            src, idx = (sb.columns[o], sidx) if o < ns else \
+                (b_batch.columns[o - ns], bidx)
+            cols.append(take(colvals([src])[0], idx))
+        ctx = EvalContext(cols, total, cap, sb.device)
+        cv = self.condition.emit(ctx)
+        return (cv.validity & cv.data.to(torch.bool))[:total]
 
     def _fk(self, sb: ColumnarBatch, build: _Build,
             dense_cap: int) -> ColumnarBatch:
@@ -691,6 +730,13 @@ class TorchHashJoinExec(TorchExec):
         keep = _verify(torch.ones(total, dtype=torch.bool, device=dev),
                        s_cvs, build.key_cvs, srow, brow,
                        [e.dtype for e in self.left_keys])
+        if self.condition is not None and jt != "inner" and total:
+            # an outer, semi or anti join's condition decides per pair,
+            # before the matches are counted: a row none of whose pairs
+            # holds is null-extended (left, right, full) or dropped
+            # (semi), and kept by an anti join
+            keep = keep & self._pair_condition(sb, build.batch, srow, brow,
+                                               total)
         hits = keep.to(torch.int32)
         m_stream = torch.zeros(cap, dtype=torch.int32, device=dev) \
             .index_add_(0, srow, hits)

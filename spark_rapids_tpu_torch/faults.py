@@ -15,10 +15,13 @@ to fail, so tests and runs inject faults through
   ``io.pipeline.hang``     ``lifecycle.supervise``'s simulated wedge
   ``server.admit``         a session-server submit, before enqueue
   ``server.cache.lookup``  a result-cache lookup (degrades to a miss)
+  ``aqe.replan``           an adaptive replan pass, before any rewrite
+                           (the stage keeps the static plan and the
+                           query still runs; ``aqeReplans`` stays)
 
 The JAX package's other sites (shuffle, ICI, ``io.encode``, chip,
-fleet, stream, ``compile.store``, ``plan.place``, ``ooc.partition``,
-AQE) belong to modules the port does not have yet (``ROADMAP.md``).
+fleet, stream, ``compile.store``, ``plan.place``, ``ooc.partition``)
+belong to modules the port does not have yet (``ROADMAP.md``).
 
 Trigger grammar (the value of ``spark.rapids.faults.<site>``):
 

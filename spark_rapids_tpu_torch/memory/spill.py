@@ -19,11 +19,14 @@ within a class; a pinned handle (one being materialized) never demotes.
 The device -> host copies are asynchronous copies into pinned memory on
 the current stream; each handle records an event after them, and
 anything that reads the host planes (a write to disk, a promotion) waits
-on that event first.  A demotion that fails raises: nothing carries on
-over a spill it could not make.  The ``spill.demote`` and
-``spill.promote`` fault sites (``faults.py``) fire before a transition
-changes anything, so an injected failure leaves the handle whole on its
-tier; as any other failed demotion, it raises.
+on that event first.  A demotion that fails with an ``IOError`` or
+``OSError`` (a full disk, an injected fault) is bounded, as in the JAX
+package: the catalog counts it in ``demote_failure_count``, logs it,
+leaves the handle whole on its tier and tries the next handle, so one
+handle that cannot move never fails the operator that needed room; any
+other error propagates.  The ``spill.demote`` and ``spill.promote``
+fault sites (``faults.py``) fire before a transition changes anything;
+a failed promotion raises.
 
 Per-query budgets (``spark.rapids.server.query.maxDeviceBytes``, set by
 the session server's tenant confs): a handle made under a query with a
@@ -48,6 +51,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import itertools
+import logging
 import os
 import shutil
 import tempfile
@@ -63,6 +67,8 @@ from spark_rapids_tpu_torch import faults, lifecycle
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.errors import QueryBudgetExceededError
+
+log = logging.getLogger("spark_rapids_tpu_torch.spill")
 
 TIER_DEVICE = "device"
 TIER_HOST = "host"
@@ -454,27 +460,37 @@ class BufferCatalog:
 
     # -- budget enforcement -------------------------------------------------
 
-    def _demote(self, sb: SpillableBatch, transition) -> None:
+    def _demote(self, sb: SpillableBatch, transition) -> bool:
+        """Run one tier transition -> whether it moved the handle.  An
+        ``IOError``/``OSError`` is counted and logged, and the handle
+        stays whole on its tier; any other error propagates."""
         try:
             transition()
-        except Exception:
+            return True
+        except (IOError, OSError) as e:
             self.demote_failure_count += 1
-            raise
+            log.warning("spill demotion of %d bytes (tier %s) failed, "
+                        "skipping the handle: %s", sb.size, sb.tier, e)
+            return False
 
     def _demote_to_host(self, sb: SpillableBatch,
-                        budget: bool = False) -> None:
-        self._demote(sb, sb._to_host)
+                        budget: bool = False) -> bool:
+        if not self._demote(sb, sb._to_host):
+            return False
         self._move(sb.size, TIER_DEVICE, TIER_HOST)
         self.spill_to_host_count += 1
         self.spill_to_host_bytes += sb.size
         if budget:
             self.budget_spill_count += 1
+        return True
 
-    def _demote_to_disk(self, sb: SpillableBatch) -> None:
-        self._demote(sb, sb._to_disk)
+    def _demote_to_disk(self, sb: SpillableBatch) -> bool:
+        if not self._demote(sb, sb._to_disk):
+            return False
         self._move(sb.size, TIER_HOST, TIER_DISK)
         self.spill_to_disk_count += 1
         self.spill_to_disk_bytes += sb.size
+        return True
 
     def _live(self, order: bool) -> List[SpillableBatch]:
         live = [sb for sb in (r() for r in self._lru.values())
@@ -487,12 +503,13 @@ class BufferCatalog:
 
     def spill_all(self) -> int:
         """Demote every unpinned device handle to the host (the relief an
-        out-of-memory retry asks for); the bytes demoted."""
+        out-of-memory retry asks for); the bytes demoted (a handle whose
+        demotion failed is skipped and not counted)."""
         freed = 0
         with self._lock:
             for sb in self._live(order=False):
-                if sb.tier == TIER_DEVICE and not sb.pinned:
-                    self._demote_to_host(sb)
+                if sb.tier == TIER_DEVICE and not sb.pinned \
+                        and self._demote_to_host(sb):
                     freed += sb.size
             self._host_overflow()
         return freed
@@ -539,9 +556,9 @@ class BufferCatalog:
             for _is_new, _prio, _pos, sb in own:
                 if used <= budget:
                     break
-                self._demote_to_host(sb, budget=True)
-                used -= sb.size
-                demoted = True
+                if self._demote_to_host(sb, budget=True):
+                    used -= sb.size
+                    demoted = True
             if demoted:
                 # the host tier may now be past its own budget
                 self._host_overflow()
@@ -561,9 +578,9 @@ class BufferCatalog:
     def reserve(self, nbytes: int) -> None:
         """Make room for ``nbytes`` of new device data: demote device
         handles to the host, then host handles past the host budget to
-        disk.  If everything left is pinned it returns anyway: the
-        allocation may still succeed, and if it does not, the caller's
-        retry handles the error."""
+        disk.  If everything left is pinned, or a demotion fails, it
+        returns anyway: the allocation may still succeed, and if it does
+        not, the caller's retry handles the error."""
         with self._lock:
             if (self.device_bytes + nbytes <= self.device_budget
                     and self.host_bytes <= self.host_budget):

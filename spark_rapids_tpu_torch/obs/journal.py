@@ -11,8 +11,9 @@ an event::
 Each process appends to its own ``events-<pid>.jsonl``; past
 ``spark.rapids.sql.obs.journal.maxEvents`` events are counted as
 dropped.  The events are those the port's modules fire: the query
-lifecycle's, fault fires, watchdog trips and the session server's
-admission and cache outcomes.
+lifecycle's, fault fires, watchdog trips, the session server's
+admission and cache outcomes, and adaptive execution's stage
+materializations and replan passes.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ EVENT_QUERY_FINISH = "query_finish"
 EVENT_QUERY_CANCEL = "query_cancel"
 EVENT_QUERY_TIMEOUT = "query_timeout"
 EVENT_QUERY_ERROR = "query_error"
+EVENT_STAGE_MATERIALIZE = "stage_materialize"
+EVENT_AQE_REPLAN = "aqe_replan"
 EVENT_FAULT_FIRE = "fault_fire"
 EVENT_WATCHDOG_TRIP = "watchdog_trip"
 EVENT_QUERY_ADMITTED = "query_admitted"

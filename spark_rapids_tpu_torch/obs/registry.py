@@ -9,7 +9,7 @@ the snapshot in Prometheus' text format.  Units ride in the histogram's
 name (``*.us``).  Recording is gated by ``spark.rapids.sql.obs.enabled``
 (set at query-scope entry): off, ``record`` is one flag read.  The JAX
 package's sections for modules the port lacks (compressed, ooc, stream,
-the kernel cache, prefetch, d2h, fusion, AQE, ICI, placement, health,
+the kernel cache, prefetch, d2h, fusion, ICI, placement, health,
 fleet, compile) are left out.
 """
 
@@ -144,9 +144,14 @@ def _catalog_stats() -> dict:
 def snapshot() -> dict:
     """The engine-stats dict: one key a module, and the histograms."""
     from spark_rapids_tpu_torch import lifecycle
+    from spark_rapids_tpu_torch.exec import aqe
     from spark_rapids_tpu_torch.obs import journal
     from spark_rapids_tpu_torch.server import stats as server_stats
     return {
+        # adaptive execution: replans, coalesced partitions, skew
+        # splits, promotions, demotions, fallbacks, exchanges seen and
+        # the largest and median partition bytes
+        "aqe": aqe.global_stats(),
         "lifecycle": lifecycle.global_stats(),
         "catalog": _catalog_stats(),
         "server": server_stats.global_stats(),

@@ -118,9 +118,11 @@ class Limit(LogicalPlan):
 class Join(LogicalPlan):
     """An equi-join on ``left_keys[i] == right_keys[i]``; join_type is
     inner, cross (every pair; the keys are ignored), left, right, full,
-    semi or anti.  ``condition``, over the join's output columns, keeps
-    only the joined rows where it holds (inner and cross joins only; the
-    planner raises on any other)."""
+    semi or anti.  ``condition``, over the left side's columns followed
+    by the right side's, decides which key-matched pairs count: an inner
+    or cross join keeps those rows, an outer join null-extends a row
+    none of whose pairs holds, and a semi (anti) join keeps a left row
+    with at least one (with no) pair where it holds."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],

@@ -14,7 +14,11 @@ package inserts there, and a Limit over a Sort becomes a top-N.  A join
 takes the JAX package's static strategy (``_plan_join``): broadcast the
 right side when its estimated size is under
 ``spark.sql.autoBroadcastJoinThreshold``, else the left behind a swap,
-else a hash join that builds on the right.  Before lowering,
+else a hash join that builds on the right; with
+``spark.rapids.sql.adaptive.enabled`` an equi-join shuffles both sides
+instead and the plan runs under an adaptive wrapper that decides the
+broadcast from measured bytes (``plan/adaptive.py``).  A join condition
+runs on every join type (``exec/joins.py``).  Before lowering,
 ``push_join_conditions`` moves the conjuncts of a Filter over an inner
 join to the side they name, or into the join's condition.  Any other
 node raises: there is no CPU engine to route it to, so a result always
@@ -38,8 +42,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, Field
-from spark_rapids_tpu_torch.conf import BROADCAST_THRESHOLD, TorchConf
+from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, Field, \
+    Schema
+from spark_rapids_tpu_torch.conf import ADAPTIVE_ENABLED, \
+    BROADCAST_THRESHOLD, TorchConf
 from spark_rapids_tpu_torch.exec.aggregate import TorchHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import TorchExec
 from spark_rapids_tpu_torch.exec.basic import TorchLocalLimitExec, \
@@ -63,6 +69,7 @@ from spark_rapids_tpu_torch.exprs.nondeterministic import \
 from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec, \
     expand_paths
 from spark_rapids_tpu_torch.plan import logical as lp
+from spark_rapids_tpu_torch.plan.adaptive import insert_adaptive
 
 _NODES = (lp.Project, lp.Filter, lp.Aggregate, lp.Sort, lp.Limit, lp.Join,
           lp.Window, lp.Union, lp.Expand, lp.Generate, lp.Repartition)
@@ -118,9 +125,11 @@ def _stage(step, child: TorchExec) -> TorchStageExec:
 
 def plan_query(node: lp.LogicalPlan,
                conf: Optional[TorchConf] = None) -> TorchExec:
-    """The query's operators, after ``push_join_conditions``."""
+    """The query's operators, after ``push_join_conditions``; under an
+    adaptive wrapper when adaptive execution is on and the plan holds a
+    shuffle exchange (``plan/adaptive.py: insert_adaptive``)."""
     conf = conf if conf is not None else TorchConf()
-    return _lower(push_join_conditions(node), conf)
+    return insert_adaptive(_lower(push_join_conditions(node), conf), conf)
 
 
 def _lower(node: lp.LogicalPlan, conf: TorchConf) -> TorchExec:
@@ -185,46 +194,62 @@ def _lower(node: lp.LogicalPlan, conf: TorchConf) -> TorchExec:
                          child)
 
 
+def _static_broadcast_side(n: lp.Join, thresh: int) -> Optional[str]:
+    """The side the static rule broadcasts, "right", "left" or None:
+    the right side when its estimated size is under the threshold, else
+    the left (not for semi and anti joins, which must stream the left),
+    the smaller one when both qualify."""
+    if thresh < 0:
+        return None
+    r_est = estimate_logical_size(n.children[1])
+    l_est = estimate_logical_size(n.children[0])
+    r_ok = r_est is not None and r_est <= thresh
+    l_ok = l_est is not None and l_est <= thresh and n.join_type in (
+        "inner", "cross", "left", "right", "full")
+    if r_ok and l_ok:
+        return "left" if l_est < r_est else "right"
+    return "right" if r_ok else "left" if l_ok else None
+
+
 def _plan_join(n: lp.Join, conf: TorchConf) -> TorchExec:
-    """The JAX package's static join strategy (its ``_plan_join`` without
-    adaptive execution): broadcast the right side when its estimated size
-    is under the threshold, else the left side (not for semi and anti
-    joins, which must stream the left), the smaller one when both
-    qualify; else a hash join that builds on the right.  A condition
-    binds against the join's output columns."""
+    """The JAX package's join strategy (its ``_plan_join``).  Static: the
+    side ``_static_broadcast_side`` names is broadcast (the left one
+    behind a swap); else a hash join that builds on the right.  With
+    adaptive execution on, an equi-join instead shuffles both sides
+    through AQE-inserted hash exchanges of ``aqe_initial_partitions`` and
+    the broadcast decision waits for the measured bytes
+    (``plan/adaptive.py``); the join records the side the static rule
+    would have broadcast, so a contradiction counts as a demotion.  A
+    condition binds against the left side's columns followed by the
+    right side's, on every join type."""
     jt = n.join_type
-    if n.condition is not None and jt not in ("inner", "cross"):
-        raise NotImplementedError(
-            f"a join condition on a {jt} join is not supported (inner "
-            "joins only, and cross joins)")
     left, right = (_lower(c, conf) for c in n.children)
-    lkeys = [_bind(e, n.children[0].output_schema(), conf)
-             for e in n.left_keys]
-    rkeys = [_bind(e, n.children[1].output_schema(), conf)
-             for e in n.right_keys]
+    lschema = n.children[0].output_schema()
+    rschema = n.children[1].output_schema()
+    lkeys = [_bind(e, lschema, conf) for e in n.left_keys]
+    rkeys = [_bind(e, rschema, conf) for e in n.right_keys]
     cond = None if n.condition is None else \
-        _bind(n.condition, n.output_schema(), conf)
+        _bind(n.condition, Schema(lschema.fields + rschema.fields), conf)
     thresh = conf.get(BROADCAST_THRESHOLD)
-    if thresh >= 0:
-        r_est = estimate_logical_size(n.children[1])
-        l_est = estimate_logical_size(n.children[0])
-        r_ok = r_est is not None and r_est <= thresh
-        l_ok = l_est is not None and l_est <= thresh and jt in (
-            "inner", "cross", "left", "right", "full")
-        if r_ok and l_ok:
-            if l_est < r_est:
-                r_ok = False
-            else:
-                l_ok = False
-        if r_ok:
-            return TorchBroadcastHashJoinExec(
-                TorchCoalesceBatchesExec(left),
-                TorchBroadcastExchangeExec(right), lkeys, rkeys, jt, cond)
-        if l_ok:
-            return swapped_broadcast_join(
-                right, TorchBroadcastExchangeExec(left), lkeys, rkeys, jt,
-                len(n.children[0].output_schema()),
-                n.output_schema().fields, cond)
+    side = _static_broadcast_side(n, thresh)
+    if conf.get(ADAPTIVE_ENABLED) and lkeys and rkeys:
+        nparts = conf.aqe_initial_partitions
+        if nparts > 1:
+            lex = TorchShuffleExchangeExec(nparts, lkeys, "hash", left)
+            rex = TorchShuffleExchangeExec(nparts, rkeys, "hash", right)
+            lex.aqe_inserted = rex.aqe_inserted = True
+            join = TorchHashJoinExec(TorchCoalesceBatchesExec(lex), rex,
+                                     lkeys, rkeys, jt, cond)
+            join.aqe_static_side = side
+            return join
+    if side == "right":
+        return TorchBroadcastHashJoinExec(
+            TorchCoalesceBatchesExec(left),
+            TorchBroadcastExchangeExec(right), lkeys, rkeys, jt, cond)
+    if side == "left":
+        return swapped_broadcast_join(
+            right, TorchBroadcastExchangeExec(left), lkeys, rkeys, jt,
+            len(lschema), n.output_schema().fields, cond)
     return TorchHashJoinExec(TorchCoalesceBatchesExec(left), right, lkeys,
                              rkeys, jt, cond)
 

@@ -25,11 +25,15 @@ session server's ``submit(..., params=...)`` use) as a ``ParamLiteral``
 of its slot; a marker without a value, a value without a marker, or a
 NULL value raises ``SqlError``.
 
-What the port cannot run raises ``SqlError`` while the text is parsed
-(an unknown function, and non-equality ON terms on a join that is
-neither inner nor cross) or ``NotImplementedError`` when the query is planned (a gated
-expression or cast whose key is off, a non-literal LIKE pattern, a
-window ``first``).  There is no fallback.
+The terms of a JOIN's ON clause that are not equalities between the
+sides become the join's condition on every join type: an outer join
+null-extends a row none of whose matches holds it (TPC-H Q13's
+``LEFT OUTER JOIN ... AND o_comment NOT LIKE ...``), which the JAX
+package's parser refuses.  What the port cannot run raises ``SqlError``
+while the text is parsed (an unknown function) or
+``NotImplementedError`` when the query is planned (a gated expression or
+cast whose key is off, a non-literal LIKE pattern, a window ``first``).
+There is no fallback.
 
 Column references resolve by name against the FROM scope (a qualified
 ``t.col`` is checked against t's columns); a name in more than one
@@ -649,10 +653,6 @@ class _Parser:
         cond = None
         for t in residual:
             cond = t if cond is None else pr.And(cond, t)
-        if cond is not None and how not in ("inner", "cross"):
-            raise SqlError(
-                f"non-equality JOIN ON terms on a {how} join are not "
-                "supported (inner joins only)")
         return DataFrame(self.session, lp.Join(
             left.plan, right.plan, lkeys, rkeys, how, condition=cond))
 

@@ -8,7 +8,9 @@ the same spec; ``configure_from_conf``; ``corrupt``; an injected
 ``kernel.launch`` driving ``with_retry``'s relief; the same injection
 (``count:1``) through a sort and an aggregate in both packages, whose
 results stay equal (relative 1e-9 on f64 sums, which add in different
-orders); ``spill.demote`` and ``spill.promote`` leaving the handle whole;
+orders); ``spill.demote`` on the port's catalog and the JAX package's
+giving the same return values, failure counts and tiers (a failed
+demotion skips the handle); ``spill.promote`` leaving the handle whole;
 ``io.prefetch.decode`` surfacing at the consumer.  The port's injector is
 process-wide, so every test here resets it after itself.
 """
@@ -214,22 +216,69 @@ def _spillable():
     return cat, sb
 
 
+def _jax_spillable():
+    from tests.test_faults import _spillable as jax_spillable
+    return jax_spillable()
+
+
+def _demote_sequence(cat, sb, spill_all_calls: int):
+    """``spill_all`` called ``spill_all_calls`` times, each call's return
+    value, failure count and the handle's tier after it, then a promotion
+    and a second round, as one list."""
+    out = []
+    for _ in range(spill_all_calls):
+        out.append((cat.spill_all(), cat.demote_failure_count, sb.tier))
+    sb.get()
+    out.append(("promoted", sb.tier))
+    for _ in range(spill_all_calls):
+        out.append((cat.spill_all(), cat.demote_failure_count, sb.tier))
+    return out
+
+
 def test_spill_demote_fault_raises_and_keeps_the_handle():
-    # the JAX package skips a handle whose demotion failed; the port
-    # raises on a failed spill (memory/spill.py), the injected one too,
-    # and the handle stays whole on its tier either way
+    """A failed demotion keeps the handle whole on its tier, as the JAX
+    catalog does for the same ``spill.demote=count:1`` spec: the first
+    ``spill_all`` returns 0 and counts one failure, the next moves the
+    handle (the name is older than the port's bounded demotion; the
+    call no longer raises)."""
+    spec = {"spark.rapids.faults.spill.demote": "count:1"}
+    jcat, jsb = _jax_spillable()
     cat, sb = _spillable()
     try:
-        faults.configure_from_conf({"spark.rapids.faults.spill.demote":
-                                    "count:1"})
-        with pytest.raises(InjectedFault):
-            cat.spill_all()
-        assert cat.demote_failure_count == 1
-        assert sb.tier == "device"
-        assert cat.spill_all() > 0
-        assert sb.tier == "host"
+        jfaults.configure_from_conf(spec)
+        want = [(jcat.spill_all(), jcat.demote_failure_count, jsb.tier),
+                (jcat.spill_all(), jcat.demote_failure_count, jsb.tier)]
+        faults.configure_from_conf(spec)
+        got = [(cat.spill_all(), cat.demote_failure_count, sb.tier),
+               (cat.spill_all(), cat.demote_failure_count, sb.tier)]
+        assert got == want == [(0, 1, "device"), (sb.size, 1, "host")]
     finally:
+        jfaults.reset()
         sb.close()
+        jsb.close()
+    assert cat.audit_leaks() == 0
+
+
+@pytest.mark.parametrize("spec", ["count:1", "count:2", "count:1,3",
+                                  "first:2", "always", "off"])
+def test_spill_demote_fault_matches_jax_catalog(spec):
+    """The same ``spill.demote`` spec on the JAX catalog and the port's:
+    the same ``spill_all`` return values, ``demote_failure_count`` and
+    handle tiers, call after call."""
+    conf = {"spark.rapids.faults.spill.demote": spec}
+    jcat, jsb = _jax_spillable()
+    cat, sb = _spillable()
+    try:
+        jfaults.configure_from_conf(conf)
+        want = _demote_sequence(jcat, jsb, 3)
+        faults.configure_from_conf(conf)
+        got = _demote_sequence(cat, sb, 3)
+        assert got == want
+    finally:
+        jfaults.reset()
+        sb.close()
+        jsb.close()
+    assert cat.audit_leaks() == 0
 
 
 def test_spill_promote_fault_leaves_handle_recoverable():

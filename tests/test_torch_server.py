@@ -793,8 +793,8 @@ def test_stats_snapshot_and_prometheus_text(corpus):
         server = s.server(max_concurrency=1)
         server.sql("SELECT k FROM agg WHERE v > 1", result_timeout=60)
         snap = s.engine_stats()
-        assert set(snap) == {"lifecycle", "catalog", "server", "journal",
-                             "histograms"}
+        assert set(snap) == {"aqe", "lifecycle", "catalog", "server",
+                             "journal", "histograms"}
         assert snap["server"]["completed"] >= 1
         assert snap["histograms"]["server.admit.wait.us"]["count"] >= 1
         assert snap["histograms"]["query.wall.us"]["count"] >= 1

@@ -264,7 +264,9 @@ UNPORTED = [
     # a marker with no values bound raises in both packages (a bound one
     # runs: tests/test_torch_server.py)
     "SELECT id FROM items WHERE k = ?",
-    "SELECT d.k FROM dim d LEFT JOIN items i ON d.k = i.k AND i.v > 0",
+    # an unknown function (an ON condition on an outer join, which stood
+    # here, runs now: test_outer_join_on_condition_sql_matches_jax)
+    "SELECT no_such_function(id) FROM items",
     # the JAX package's SQL parses neither UNION nor explode (both run
     # through the DataFrame API)
     "SELECT id FROM items UNION SELECT id FROM dim",
@@ -320,16 +322,66 @@ def test_lifted_sql_matches_jax(incompat_sessions, sql):
 
 
 def test_condition_on_outer_join_raises_when_planned(sessions):
-    """A join condition on a join that is not inner has no plan: a filter
-    after the probe cannot null-extend the rows it drops."""
-    _, ts = sessions
+    """A join condition on a join that is not inner plans and runs on the
+    card's path (the name is older than the port's pair evaluation): its
+    rows are the JAX session's inner join under the same condition, with
+    the left rows (items, by id) or right rows (dim, by k) that no pair
+    holds null-extended, kept (anti) or dropped (semi)."""
+    from spark_rapids_tpu.api import DataFrame as JDataFrame
+    from spark_rapids_tpu.exprs import predicates as jpr
+    from spark_rapids_tpu.exprs.base import UnresolvedAttribute as JAttr
+    from spark_rapids_tpu.plan import logical as jlp
+    js, ts = sessions
     items, dim = ts.table("items"), ts.table("dim")
+    # dim's k renamed, so that the two sides' names differ
+    dim2 = dim.select(st.col("k").alias("dk"), "grp", "w")
+    from spark_rapids_tpu.api import col as jcol
+    jdim2 = js.table("dim").select(jcol("k").alias("dk"), "grp", "w")
+    pairs = JDataFrame(js, jlp.Join(
+        js.table("items").plan, jdim2.plan, [JAttr("k")], [JAttr("dk")],
+        "inner", condition=jpr.GreaterThan(JAttr("v"), JAttr("w")))) \
+        .to_arrow()
+    ids = set(pairs.column("id").to_pylist())
+    dks = set(pairs.column("dk").to_pylist())
     cond = tpr.GreaterThan(st.col("v").expr, st.col("w").expr)
     for how in ("left", "right", "full", "semi", "anti"):
-        plan = tlp.Join(items.plan, dim.plan, [st.col("k").expr],
-                        [st.col("k").expr], how, condition=cond)
-        with pytest.raises(NotImplementedError, match="inner joins only"):
-            tplanner.plan_query(plan, ts.conf)
+        plan = tlp.Join(items.plan, dim2.plan, [st.col("k").expr],
+                        [st.col("dk").expr], how, condition=cond)
+        tplanner.plan_query(plan, ts.conf)
+        got = st.api.DataFrame(ts, plan).to_arrow()
+        left_ids = [r["id"] for r in got.to_pylist()
+                    if r.get("dk") is None and r["id"] is not None]
+        if how in ("semi", "anti"):
+            want = sorted(i for i in js.table("items").to_arrow()
+                          .column("id").to_pylist()
+                          if (i in ids) == (how == "semi"))
+            assert sorted(got.column("id").to_pylist()) == want
+            continue
+        matched = [r for r in got.to_pylist()
+                   if r["id"] is not None and r.get("dk") is not None]
+        assert len(matched) == pairs.num_rows
+        if how in ("left", "full"):
+            assert sorted(left_ids) == sorted(
+                i for i in range(300) if i not in ids)
+        right_only = [r["dk"] for r in got.to_pylist() if r["id"] is None]
+        if how in ("right", "full"):
+            assert sorted(right_only) == sorted(
+                k for k in range(6) if k not in dks)
+
+
+def test_outer_join_on_condition_sql_matches_jax(sessions):
+    """The ON condition of an outer join through ``session.sql``: the
+    JAX package's parser refuses the text, so its reference is the same
+    query with the condition, which names the right side only, moved
+    into a filtered subquery."""
+    js, ts = sessions
+    got = ts.sql("SELECT d.k, i.id FROM dim d LEFT JOIN "
+                 "(SELECT k AS ik, id, v FROM items) i "
+                 "ON d.k = i.ik AND i.v > 0").to_arrow()
+    want = js.sql("SELECT d.k, i.id FROM dim d LEFT JOIN "
+                  "(SELECT k AS ik, id FROM items WHERE v > 0) i "
+                  "ON d.k = i.ik").to_arrow()
+    assert_tables_equal(got, want, ignore_order=True)
 
 
 def test_cast_the_port_lacks_raises_when_planned(sessions):
