@@ -230,14 +230,47 @@ Phases, each printing one JSON line:
    bytes print beside both times.  replan_fault: hash_join_1m under
    ``spark.rapids.faults.aqe.replan=always``: every pass falls back,
    ``aqeReplans`` stays 0, both exchanges stay and the result is
-   right.
+   right;
+21. observe: query profiles and metrics on the card, with adaptive
+   execution on, for hash_agg_sort_2m (K1), text_filter_agg_6m (K2),
+   hash_join_1m and tpch_q3 over phase 11's tables.  Each query runs a
+   warm-up, then one plain ``collect()`` and one
+   ``explain(analyze=True)`` (both times printed): the profile's root
+   must count the result's rows, every operator's ``numOutputRows``
+   must equal the CPU session's profile of the same query, operator
+   for operator, and both runs must read back the same ``hostSyncs``
+   (counting adds no sync).  ``explain()`` without ``analyze`` must
+   launch no kernel, and ``to_device_batches()`` must return CUDA
+   tensors whose rows equal the collected result exactly.
+   hash_join_1m then runs under ``spark.rapids.sql.trace.enabled`` with
+   a temporary ``trace.dir``: one Chrome trace must be written, holding
+   a K1 kernel (``dsr_*``) and a ``join.*`` range;
+22. fleet: ``session.fleet()`` with ``spark.rapids.fleet.replicas=2``
+   on the one card and bench_serve.py:278-293's other fleet settings
+   (less the compile store's keys: no compile store is ported).  The
+   replicas get ``lineitem`` (phase 11's, every column) and ``agg``
+   (hash_agg_sort_2m's) by ``register_table_view``; 4 closed-loop
+   clients x 12 queries over fleet_soak's query, TPC-H Q1 and Q6 as SQL
+   and PREP_KAGG over its three bindings (K1 inside the replicas), each
+   result bit for bit its serial result from this process's session.
+   The passes: clean; replica 0 SIGKILLed while it holds its queries
+   (``replica.slow`` shipped to it: each held for a second,
+   ``fleet/replica.py``), every result right or typed, none
+   untyped, the replays counted; ``replace_replica(0)`` and a pass;
+   ``rolling_restart()`` under a pass, no rejection; an injected
+   ``replica.fail`` replayed on the other replica; ``fleet.route=always``
+   raising typed.  Each pass prints queries/s and p50/p99; the phase
+   prints each replacement's time to hot, the bytes shipped per view,
+   each replica process's K1 launches, the card's memory in use with
+   two replicas up, and its seconds; it fails unless K1 launched in a
+   replica.  The replicas' launches join the kernels line.
 
 The dense-slot kernel's float sums take one fixed order: every
 comparison of it with its plain version (phase 3, its edge specs and
 kernel_path) also calls it 5 times and fails unless the float-add planes
 come out bit for bit alike (``float_sum_results_of_5``).
 
-Each path of phases 5 to 20 runs with the launch counts set to 0 just
+Each path of phases 5 to 22 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -315,7 +348,8 @@ _F32_RATE = 67e12  # H100 SXM float32 outside the tensor cores, op/s
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    # an operator's metric (utils/metrics.Metric) prints as its count
+    print(json.dumps({"phase": phase, **fields}, default=int), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -3598,6 +3632,400 @@ def phase_adaptive(torch, st, F, native, main, dim, tpch, smi: str) -> None:
     emit("adaptive_phase", seconds=time.perf_counter() - t_phase, card=smi)
 
 
+# -- phase 21: query profiles and metrics on the card ------------------------
+
+OBSERVE_QUERIES = ("hash_agg_sort_2m", "text_filter_agg_6m",
+                   "hash_join_1m", "tpch_q3")
+
+
+def observe_builders(st, F, agg_data, line_cols, main, dim, tpch):
+    """Each observe query as a function of a session -> its DataFrame."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    return {
+        "hash_agg_sort_2m": lambda s: agg_query(
+            st, F, s.create_dataframe(agg_data)),
+        "text_filter_agg_6m": lambda s: text_agg_query(
+            st, F, s.create_dataframe(line_cols)),
+        "hash_join_1m": lambda s: hash_join_query(
+            st, F, s.create_dataframe(main), s.create_dataframe(dim)),
+        "tpch_q3": lambda s: TPCH_QUERIES["q3"](load_tables(
+            s, {t: tpch[t] for t in ("customer", "orders", "lineitem")})),
+    }
+
+
+def profile_rows(profile) -> list:
+    """[(operator, numOutputRows)] of a ``QueryProfile``, in tree
+    order."""
+    out = []
+
+    def walk(node):
+        out.append((node.name, node.rows))
+        for c in node.children:
+            walk(c)
+    walk(profile.root)
+    return out
+
+
+def quiet(fn):
+    """``fn()`` with what it writes to stdout kept -> (value, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = fn()
+    return value, buf.getvalue()
+
+
+def phase_observe(torch, st, F, native, agg_data, line_cols, main, dim,
+                  tpch, smi: str) -> None:
+    """explain(analyze=True), the profile, hostSyncs, explain() and
+    to_device_batches() on the card against a plain collect() and the
+    CPU session's profile; then one query's trace under trace.dir."""
+    import glob
+    import tempfile
+    from spark_rapids_tpu_torch.columnar.batch import device_batch_to_host
+    t_phase = time.perf_counter()
+    gpu = st.TorchSession(dict(AQE_ON))
+    cpu = st.TorchSession({**AQE_ON, "spark.rapids.torch.device": "cpu"})
+    builders = observe_builders(st, F, agg_data, line_cols, main, dim, tpch)
+    for name in OBSERVE_QUERIES:
+        build = builders[name]
+        df = build(gpu)
+        df._host()  # warm-up
+        t0 = time.perf_counter()
+        want = df._host()
+        torch.cuda.synchronize()
+        collect_s = time.perf_counter() - t0
+        syncs_collect = host_syncs(gpu._last_plan)
+        t0 = time.perf_counter()
+        txt, _ = quiet(lambda: df.explain(analyze=True))
+        torch.cuda.synchronize()
+        explain_s = time.perf_counter() - t0
+        prof = gpu.last_query_profile()
+        syncs_explain = host_syncs(gpu._last_plan)
+        check(prof.root.rows == want.num_rows,
+              f"observe {name}: the profile's root counts "
+              f"{prof.root.rows} rows, the result has {want.num_rows}")
+        check(syncs_explain == syncs_collect,
+              f"observe {name}: {syncs_explain} host syncs under explain, "
+              f"{syncs_collect} in a plain collect")
+        quiet(lambda: build(cpu).explain(analyze=True))
+        got_rows, cpu_rows = profile_rows(prof), profile_rows(
+            cpu.last_query_profile())
+        check(got_rows == cpu_rows,
+              f"observe {name}: operator rows {got_rows} on the card, "
+              f"{cpu_rows} on the CPU")
+        if name == "hash_agg_sort_2m":
+            check("pallasAggBatches=" in txt,
+                  "observe: K1's batches missing from the profile")
+        # explain() without analyze runs nothing
+        before = dict(native.LAUNCHES)
+        plan_txt, _ = quiet(lambda: build(gpu).explain())
+        check(dict(native.LAUNCHES) == before and
+              "Physical plan:" in plan_txt,
+              f"observe {name}: explain() launched a kernel")
+        # the handoff: CUDA tensors, the collected rows
+        batches = df.to_device_batches()
+        check(all(c.data.device == gpu.device == c.validity.device
+                  for b in batches for c in b.columns),
+              f"observe {name}: a handed-off tensor is not on "
+              f"{gpu.device}")
+        schema = df.schema
+        parts = [device_batch_to_host(b, schema) for b in batches]
+        rows = sum(b.num_rows for b in batches)
+        check(rows == want.num_rows,
+              f"observe {name}: {rows} handed-off rows, {want.num_rows} "
+              "collected")
+        for f in schema:
+            a = np.concatenate([p[f.name][1] for p in parts]) if parts \
+                else np.zeros(0, bool)
+            check(np.array_equal(a, want.columns[f.name][1]),
+                  f"observe {name}: the nulls of {f.name} differ")
+            vals = [p[f.name][0] for p in parts]
+            w = want.columns[f.name][0]
+            if hasattr(w, "to_bytes"):
+                from spark_rapids_tpu_torch.columnar.batch import \
+                    concat_host_values
+                got = concat_host_values(vals).to_bytes() if vals else None
+                check(got is None or all(np.array_equal(x, y) for x, y in
+                                         zip(got, w.to_bytes())),
+                      f"observe {name}: the strings of {f.name} differ")
+            else:
+                got = np.concatenate(vals) if vals else w[:0]
+                check(np.array_equal(got[a], w[a]),
+                      f"observe {name}: {f.name} differs")
+        emit("observe", query=name, rows=want.num_rows, collect_s=collect_s,
+             explain_analyze_s=explain_s, host_syncs=syncs_collect,
+             operators=len(got_rows), handoff_batches=len(batches),
+             handoff_device=str(gpu.device),
+             explain=txt.splitlines(), card=smi)
+    # one query's capture under trace.dir: a K1 kernel and a join range
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-trace-") as tdir:
+        traced = st.TorchSession({"spark.rapids.sql.trace.enabled": True,
+                                  "spark.rapids.sql.trace.dir": tdir})
+        builders["hash_join_1m"](traced)._host()
+        files = glob.glob(os.path.join(tdir, "*.json"))
+        check(len(files) == 1, f"observe: {len(files)} traces written")
+        with open(files[0], encoding="utf-8") as fh:
+            names = {e.get("name") or "" for e in json.load(fh)[
+                "traceEvents"]}
+        kernels = sorted(n for n in names if "dsr_" in n
+                         or "contains_shift_and" in n
+                         or "contains_long" in n)
+        joins = sorted(n for n in names if n.startswith("join."))
+        check(bool(kernels) and bool(joins),
+              f"observe: the trace lacks a kernel ({kernels}) or a join "
+              f"range ({joins})")
+        emit("observe_trace", query="hash_join_1m", events=len(names),
+             kernels=kernels, join_ranges=joins,
+             bytes=os.path.getsize(files[0]))
+    emit("observe_phase", seconds=time.perf_counter() - t_phase, card=smi)
+
+
+# -- phase 22: the serving fleet on one card ---------------------------------
+
+# bench_serve.py:278-293, less the compile store's keys (no compile store
+# is ported)
+FLEET_CONF = {
+    "spark.rapids.sql.incompatibleOps.enabled": "true",
+    "spark.rapids.fleet.replicas": "2",
+    "spark.rapids.fleet.heartbeat.intervalMs": "100",
+    "spark.rapids.fleet.heartbeat.timeoutMs": "3000",
+    "spark.rapids.fleet.health.probationMs": "1000",
+    "spark.rapids.fleet.retry.budgetPerMin": "100",
+    "spark.rapids.server.resultCache.enabled": "false",
+    "spark.rapids.server.tenant.defaultTimeoutMs": "120000",
+}
+# fleet_soak's query (bench_serve.py:266-267)
+SOAK_SQL = ("SELECT l_orderkey, SUM(l_quantity) AS q FROM lineitem "
+            "WHERE l_quantity > 30.0 GROUP BY l_orderkey")
+Q1_SQL = (
+    "SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS sum_qty, "
+    "SUM(l_extendedprice) AS sum_base_price, "
+    "SUM(l_extendedprice * (1.0 - l_discount)) AS sum_disc_price, "
+    "SUM(l_extendedprice * (1.0 - l_discount) * (1.0 + l_tax)) "
+    "AS sum_charge, AVG(l_quantity) AS avg_qty, "
+    "AVG(l_extendedprice) AS avg_price, AVG(l_discount) AS avg_disc, "
+    "COUNT(*) AS count_order FROM lineitem "
+    "WHERE l_shipdate <= DATE '1998-09-02' "
+    "GROUP BY l_returnflag, l_linestatus "
+    "ORDER BY l_returnflag, l_linestatus")
+Q6_SQL = ("SELECT SUM(l_extendedprice * l_discount) AS revenue "
+          "FROM lineitem WHERE l_shipdate >= DATE '1994-01-01' "
+          "AND l_shipdate < DATE '1995-01-01' AND l_discount >= 0.05 "
+          "AND l_discount <= 0.07 AND l_quantity < 24.0")
+
+
+def fleet_classes():
+    """(class, SQL, bindings) of the fleet's mix."""
+    items = [("soak", SOAK_SQL, ()), ("tpch_q1", Q1_SQL, ()),
+             ("tpch_q6", Q6_SQL, ())]
+    items += [(f"prep_kagg_{i}", PREP_KAGG, b)
+              for i, b in enumerate(KAGG_BINDINGS)]
+    return items
+
+
+def fleet_pass(fleet, classes, serial, label: str, smi: str,
+               mid=None, through_mid: bool = False) -> dict:
+    """SERVE_CLIENTS closed-loop clients x SERVE_QUERIES submissions
+    over the classes (with ``through_mid``, on until ``mid`` returns);
+    ``mid()`` runs on this thread while they do.  Every result must
+    equal its serial one bit for bit; an error must be typed (an
+    ``EngineError``) -> the pass's numbers (printed)."""
+    from spark_rapids_tpu_torch.errors import EngineError
+    from spark_rapids_tpu_torch.fleet import stats as fleet_stats
+    before = fleet_stats.global_stats()
+    lats, wrong, typed, untyped = [], [], [], []
+    submitted = [0]
+    lock = threading.Lock()
+    mid_done = threading.Event()
+
+    def client(c: int) -> None:
+        i = 0
+        while i < SERVE_QUERIES or (through_mid and not mid_done.is_set()):
+            name, sql, params = classes[(c + i) % len(classes)]
+            i += 1
+            with lock:
+                submitted[0] += 1
+            t0 = time.perf_counter()
+            try:
+                res = fleet.submit(sql, tenant=f"{label}-{c % 2}",
+                                   params=params).result(timeout=600)
+                ok = res.equals(serial[name])
+                with lock:
+                    lats.append((time.perf_counter() - t0) * 1e3)
+                    if not ok:
+                        wrong.append(name)
+            except EngineError as e:
+                with lock:
+                    typed.append(f"{name}: {type(e).__name__}")
+            except BaseException as e:
+                with lock:
+                    untyped.append(f"{name}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,),
+                                name=f"fleet-client-{c}")
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        mid_out = mid() if mid is not None else None
+    finally:
+        mid_done.set()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    after = fleet_stats.global_stats()
+    out = {"pass": label, "submitted": submitted[0],
+           "results": len(lats), "typed": typed,
+           "wall_s": wall, "queries_per_s": len(lats) / wall,
+           "latency_ms": {"p50": pct(lats, 50), "p99": pct(lats, 99)}
+           if lats else None,
+           "replays": after["failovers"] - before["failovers"],
+           "rejected": after["rejected"] - before["rejected"],
+           "mid": mid_out, "card": smi}
+    emit("fleet_pass", **out)
+    check(not any(t.is_alive() for t in threads),
+          f"fleet {label}: a client did not finish")
+    check(not wrong, f"fleet {label}: wrong results {wrong}")
+    check(not untyped, f"fleet {label}: untyped errors {untyped}")
+    check(len(lats) + len(typed) == submitted[0],
+          f"fleet {label}: {len(lats) + len(typed)} outcomes of "
+          f"{submitted[0]} submissions")
+    return out
+
+
+def phase_fleet(torch, st, native, tpch, agg_data, smi: str,
+                replica_launches: dict) -> None:
+    """The fleet on one card; ``replica_launches`` gets the kernels'
+    launches counted in the replica processes."""
+    import signal
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.errors import EngineError
+    from spark_rapids_tpu_torch.fleet import stats as fleet_stats
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # leave the card to the replicas
+    classes = fleet_classes()
+    # the serial results, from this process's own session
+    serial_s = st.TorchSession({})
+    serial_s.create_dataframe(tpch["lineitem"]) \
+        .create_or_replace_temp_view("lineitem")
+    serial_s.create_dataframe(agg_data).create_or_replace_temp_view("agg")
+    serial = {}
+    for name, sql, params in classes:
+        serial[name] = serial_s.prepare(sql).execute(*params) if params \
+            else serial_s.sql(sql)._host()
+        check(serial[name].num_rows > 0, f"fleet: {name} has no rows")
+    shipped = {v: int(sum(a.nbytes for a in cols.values()))
+               for v, cols in (("lineitem", tpch["lineitem"]),
+                               ("agg", agg_data))}
+    session = st.TorchSession(dict(FLEET_CONF))
+    t0 = time.perf_counter()
+    fleet = session.fleet()
+    boot_s = time.perf_counter() - t0
+    seen = {}  # replica pid -> its launch counts when last read
+
+    def read_launches() -> None:
+        for idx in (0, 1):
+            snap = fleet.replica_stats(idx, timeout=120)
+            if snap is not None:
+                seen[snap["process"]["pid"]] = dict(
+                    snap["kernels"]["launches"])
+
+    try:
+        t0 = time.perf_counter()
+        fleet.register_table_view("lineitem", tpch["lineitem"])
+        fleet.register_table_view("agg", agg_data)
+        check(fleet.probe(0, timeout=600) and fleet.probe(1, timeout=600),
+              "fleet: a replica failed its probe after the views")
+        views_s = time.perf_counter() - t0
+        free, total = torch.cuda.mem_get_info()
+        emit("fleet_boot", boot_s=boot_s, views_s=views_s,
+             shipped_bytes=shipped, card_memory_used_bytes=total - free,
+             card_memory_total_bytes=total,
+             pids=[fleet.replica_pid(i) for i in (0, 1)], card=smi)
+        passes = [fleet_pass(fleet, classes, serial, "clean", smi)]
+        read_launches()
+
+        # replica 0 holds each query it gets, and dies holding them
+        check(fleet.configure_faults({"replica.slow": "always@r0"}) == 2,
+              "fleet: a replica did not take the slow spec")
+
+        def kill0():
+            deadline = time.monotonic() + 120
+            while fleet._inflight_count(0) < 1 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            held = fleet._inflight_count(0)
+            os.kill(fleet.replica_pid(0), signal.SIGKILL)
+            return {"killed": 0, "held": held}
+
+        deaths0 = fleet_stats.global_stats()["replica_deaths"]
+        killed = fleet_pass(fleet, classes, serial, "sigkill", smi,
+                            mid=kill0)
+        fleet.configure_faults({})
+        check(killed["mid"]["held"] >= 1,
+              "fleet: replica 0 held no query when it was killed")
+        check(killed["replays"] >= 1, "fleet: no query was replayed")
+        check(fleet_stats.global_stats()["replica_deaths"] > deaths0,
+              "fleet: the killed replica was not declared dead")
+        passes.append(killed)
+        hot = {"replace_0": fleet.replace_replica(0)}
+        passes.append(fleet_pass(fleet, classes, serial, "replaced", smi))
+        read_launches()
+        restarted = {}
+
+        def restart():
+            restarted.update(fleet.rolling_restart())
+            return {"hot_s": dict(restarted)}
+
+        rolled = fleet_pass(fleet, classes, serial, "rolling", smi,
+                            mid=restart, through_mid=True)
+        check(not rolled["typed"] and rolled["rejected"] == 0,
+              f"fleet: rejections under the rolling restart: "
+              f"{rolled['typed']}")
+        passes.append(rolled)
+        hot.update({f"rolling_{i}": v for i, v in restarted.items()})
+        read_launches()
+
+        # an injected replica.fail replays on the other replica
+        f0 = fleet_stats.global_stats()["failovers"]
+        faults.configure({"replica.fail": "always@r0"})
+        try:
+            res = fleet.submit(SOAK_SQL, tenant="fault").result(timeout=600)
+        finally:
+            faults.reset()
+        check(res.equals(serial["soak"]),
+              "fleet: the replayed query is wrong")
+        check(fleet_stats.global_stats()["failovers"] == f0 + 1,
+              "fleet: replica.fail did not replay once")
+        # fleet.route raises typed, nothing dispatched
+        faults.configure({"fleet.route": "always"})
+        try:
+            fleet.submit(SOAK_SQL)
+            check(False, "fleet: fleet.route=always routed a query")
+        except EngineError as e:
+            route_error = type(e).__name__
+        finally:
+            faults.reset()
+        read_launches()
+    finally:
+        session.stop()
+    for counts in seen.values():
+        for k, v in counts.items():
+            replica_launches[k] = replica_launches.get(k, 0) + v
+    check(replica_launches.get("dense_slot_reduce", 0) > 0,
+          f"fleet: K1 never launched in a replica: {seen}")
+    emit("fleet", passes=[{k: p[k] for k in ("pass", "queries_per_s",
+                                             "latency_ms", "replays")}
+                          for p in passes],
+         time_to_hot_s=hot, route_fault=route_error,
+         replica_launches=seen, shipped_bytes=shipped,
+         stats=fleet_stats.global_stats(),
+         seconds=time.perf_counter() - t_phase, card=smi)
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(
@@ -3769,6 +4197,15 @@ def main(argv=None) -> int:
           mortgage, agg_data, line_df, smi)
     drive("adaptive", phase_adaptive, torch, st, F, native, main_data,
           dim_data, tpch, smi)
+    drive("observe", phase_observe, torch, st, F, native, agg_data,
+          line[0], main_data, dim_data, tpch, smi)
+    # the replicas count their own launches; they join the kernels line
+    replica_launches = {}
+    drive("fleet", phase_fleet, torch, st, native, tpch, agg_data, smi,
+          replica_launches)
+    emit("launches", path="fleet_replicas", counts=replica_launches)
+    for k, v in replica_launches.items():
+        launches[k] += v
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     phase_repeat_sums(torch, st, F, session, tpch_dfs)

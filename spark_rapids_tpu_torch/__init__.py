@@ -18,10 +18,12 @@ from spark_rapids_tpu_torch.api import Column, DataFrame, HostResult, \
 from spark_rapids_tpu_torch.errors import (
     AdmissionRejectedError, EngineError, QueryBudgetExceededError,
     QueryCancelledError, QueryHangError, QueryTimeoutError,
+    ReplicaFailedError, RetryBudgetExhaustedError,
 )
 from spark_rapids_tpu_torch.session import TorchSession
 
 __all__ = ["AdmissionRejectedError", "Column", "DataFrame", "EngineError",
            "HostResult", "QueryBudgetExceededError", "QueryCancelledError",
-           "QueryHangError", "QueryTimeoutError", "TorchSession", "Window",
-           "col", "lit", "when"]
+           "QueryHangError", "QueryTimeoutError", "ReplicaFailedError",
+           "RetryBudgetExhaustedError", "TorchSession", "Window", "col",
+           "lit", "when"]

@@ -32,9 +32,9 @@ import torch
 
 from spark_rapids_tpu_torch import lifecycle
 from spark_rapids_tpu_torch.columnar.batch import (
-    HostColumns, HostStrings, concat_host_values, device_batch_to_host,
-    empty_host_values, host_columns_from_arrow, host_columns_from_numpy,
-    host_columns_to_arrow,
+    ColumnarBatch, HostColumns, HostStrings, concat_host_values,
+    device_batch_to_host, empty_host_values, host_columns_from_arrow,
+    host_columns_from_numpy, host_columns_to_arrow,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DATE, STRING, \
     TIMESTAMP, DataType, Schema, device_dtype, from_name
@@ -55,6 +55,7 @@ from spark_rapids_tpu_torch.exprs.windows import WindowExpression, \
     WindowFrame, WindowFunction
 from spark_rapids_tpu_torch.plan import logical as lp
 from spark_rapids_tpu_torch.plan.planner import plan_query
+from spark_rapids_tpu_torch.utils.tracing import query_trace
 
 
 def _to_expr(v) -> Expression:
@@ -433,6 +434,16 @@ class CaseWhenBuilder(Column):
         return Column(cond.CaseWhen(self._branches, _to_expr(value)))
 
 
+def _explain_lines(node: lp.LogicalPlan, depth: int = 0) -> List[str]:
+    """The logical plan, one ``* <node>`` line a node, in the JAX
+    planner's explain format; the port plans every node on its device
+    or raises."""
+    lines = ["  " * depth + "* " + node.node_name]
+    for c in node.children:
+        lines += _explain_lines(c, depth + 1)
+    return lines
+
+
 def _expr_or_name(c) -> Expression:
     return UnresolvedAttribute(c) if isinstance(c, str) else _to_expr(c)
 
@@ -474,6 +485,8 @@ class DataFrame:
             out = lp.Project(_names(self.plan), out)
         return DataFrame(self.session, out)
 
+    where = filter
+
     def order_by(self, *cols_, ascending=True) -> "DataFrame":
         ascs = ascending if isinstance(ascending, (list, tuple)) \
             else [ascending] * len(cols_)
@@ -492,6 +505,8 @@ class DataFrame:
             # drop the window columns the sort read
             out = lp.Project(_names(self.plan), out)
         return DataFrame(self.session, out)
+
+    sort = order_by
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, lp.Limit(n, self.plan))
@@ -637,11 +652,21 @@ class DataFrame:
         strings as an object array."""
         return self._host().to_numpy()
 
+    @contextlib.contextmanager
+    def _query(self):
+        """The query's scope (``lifecycle.query_scope``) under its capture
+        (``tracing.query_trace``); both reuse an enclosing one."""
+        with lifecycle.query_scope(self.session.conf) as qc, \
+                query_trace(self.session.conf):
+            yield qc
+
     def _execute(self):
         """Plan and run the query, in its query scope; the device batches
-        of its result."""
+        of its result.  The session keeps the plan and the query's
+        context once the drain succeeded (a failed query leaves the
+        earlier query's profile in place)."""
         root = plan_query(self.plan, self.session.conf)
-        with lifecycle.query_scope(self.session.conf) as qc:
+        with self._query() as qc:
             ctx = ExecContext(self.session.conf, self.session.device,
                               self.session.runtime)
             # closing the stream ends every operator's generator, and
@@ -652,12 +677,38 @@ class DataFrame:
         if qc.sem_wait_ms:
             root.metrics["semWaitMs"] += qc.sem_wait_ms
         self.session._last_plan = root
+        self.session._last_query = qc
         return root.output_schema, batches
+
+    def to_device_batches(self) -> List[ColumnarBatch]:
+        """Run the query and return its result's ``ColumnarBatch``es as
+        they are, their tensors still on the session's device (the
+        counterpart of the JAX package's handoff to ML code)."""
+        return self._execute()[1]
+
+    def explain(self, analyze: bool = False) -> str:
+        """The plan as text, also written to stdout.  ``analyze=False``
+        plans without running anything: the logical plan (``*`` marks a
+        node the port runs on its device, which is every node it
+        plans), then ``Physical plan:`` and the operators' tree.
+        ``analyze=True`` runs the query and renders the executed tree
+        with each operator's rows, batches, wall and self time and
+        every other non-zero metric (``obs/profile.py``)."""
+        import sys
+        if analyze:
+            self._execute()
+            txt = self.session.last_query_profile().render()
+        else:
+            root = plan_query(self.plan, self.session.conf)
+            txt = "\n".join(_explain_lines(self.plan)) + \
+                "\n\nPhysical plan:\n" + root.tree_string()
+        sys.stdout.write(txt + "\n")
+        return txt
 
     def _host(self) -> "HostResult":
         """The result on the host; the pulls run in the query's scope,
         each bounded by the hang watchdog (``lifecycle.supervise``)."""
-        with lifecycle.query_scope(self.session.conf):
+        with self._query():
             schema, batches = self._execute()
             parts = [lifecycle.supervise(
                 lambda b=b: device_batch_to_host(b, schema))
@@ -689,7 +740,8 @@ class DataFrame:
         validity masks, still on the session's device, trimmed to the
         row count (the counterpart of the JAX package's ``to_jax``).  A
         string column comes back as ``(lengths, chars)``."""
-        schema, batches = self._execute()
+        with self._query():
+            schema, batches = self._execute()
         if not batches:
             dev = self.session.device
             cols = {}

@@ -258,6 +258,18 @@ OBS_JOURNAL_MAX_EVENTS = register(
     "Cap on the events one process writes to the journal; past it "
     "events are counted as dropped.", int, _positive)
 
+TRACE_ENABLED = register(
+    "spark.rapids.sql.trace.enabled", False,
+    "Open the operators' named ranges (torch.profiler record_function) "
+    "for each query; they are open anyway while a torch.profiler "
+    "capture records.", bool)
+
+TRACE_DIR = register(
+    "spark.rapids.sql.trace.dir", "",
+    "When set (and trace.enabled), each collect(), to_torch() and "
+    "to_device_batches() runs under torch.profiler.profile and writes "
+    "one Chrome trace a query to this directory.", str)
+
 # -- the session server (server/) --------------------------------------------
 #
 # Per-tenant overrides are raw keys, tenant names being user data:
@@ -325,6 +337,78 @@ SERVER_RETRY_BUDGET_PER_MIN = register(
     "spark.rapids.server.retry.budgetPerMin", 10,
     "Replays a tenant may make a rolling minute (see "
     "spark.rapids.server.retry.maxAttempts).", int, _non_negative)
+
+# -- the serving fleet (fleet/) ----------------------------------------------
+#
+# All off by default: with spark.rapids.fleet.replicas unset
+# session.fleet() refuses and no replica process starts.
+
+FLEET_REPLICAS = register(
+    "spark.rapids.fleet.replicas", 0,
+    "Number of replica processes the fleet router (session.fleet()) "
+    "spawns, each with its own session and server on the conf's device "
+    "and each a failure domain: a replica dying takes only its queries "
+    "in flight, which fail over to the others.  0 (the default): no "
+    "fleet, session.fleet() refuses.", int, _non_negative)
+
+FLEET_QUEUE_DEPTH = register(
+    "spark.rapids.fleet.routing.queueDepth", 16,
+    "Bound on the queries the router has in flight on one replica.  A "
+    "full replica's traffic overflows to the other healthy replicas; "
+    "only when every healthy replica is at its bound is a query shed "
+    "(AdmissionRejectedError).", int, _positive)
+
+FLEET_HEARTBEAT_INTERVAL_MS = register(
+    "spark.rapids.fleet.heartbeat.intervalMs", 200,
+    "How often each replica's heartbeat thread reports to the router.",
+    int, _positive)
+
+FLEET_HEARTBEAT_TIMEOUT_MS = register(
+    "spark.rapids.fleet.heartbeat.timeoutMs", 10000,
+    "Heartbeat silence after which the router terminates a replica that "
+    "looks alive and declares it dead: its queries in flight fail over "
+    "and it takes no more traffic.  An exit code declares death at "
+    "once.", int, _positive)
+
+FLEET_HEALTH_SCORE_ALPHA = register(
+    "spark.rapids.fleet.health.scoreAlpha", 0.5,
+    "EWMA weight of a replica's newest outcome in its health score: "
+    "score' = alpha*outcome + (1-alpha)*score, outcome 1.0 for a clean "
+    "response, 0.25 for a slow mark (replica.slow), 0.0 for a failure "
+    "of the replica.", float, _fraction)
+
+FLEET_HEALTH_QUARANTINE_THRESHOLD = register(
+    "spark.rapids.fleet.health.quarantineThreshold", 0.4,
+    "Health score below which a replica is quarantined: routed around, "
+    "probed after probationMs, re-admitted on probation.", float,
+    _fraction)
+
+FLEET_HEALTH_PROBATION_MS = register(
+    "spark.rapids.fleet.health.probationMs", 2000,
+    "Quarantine before the router probes a replica: a passing probe "
+    "re-admits it on probation (one failure quarantines it again, one "
+    "clean response restores it), a failing one restarts the window.",
+    int, _positive)
+
+FLEET_RETRY_MAX_ATTEMPTS = register(
+    "spark.rapids.fleet.retry.maxAttempts", 2,
+    "Dispatch attempts of a query whose replica dies or fails while it "
+    "is in flight: 2 replays it once on a healthy replica, 1 never.  "
+    "Past the bound, or the tenant's budget, it fails typed "
+    "(ReplicaFailedError).", int, _positive)
+
+FLEET_RETRY_BUDGET_PER_MIN = register(
+    "spark.rapids.fleet.retry.budgetPerMin", 10,
+    "Replays a tenant may make a rolling minute; one past it is shed "
+    "with RetryBudgetExhaustedError, so a crash-looping replica cannot "
+    "double every tenant's load.", int, _non_negative)
+
+FLEET_STARTUP_TIMEOUT_MS = register(
+    "spark.rapids.fleet.startupTimeoutMs", 180000,
+    "Bound on one replica process getting ready (spawn, imports, its "
+    "session and server, and for a replacement its probe query).  A "
+    "replica past it is terminated and the fleet's construction or the "
+    "replacement fails typed.", int, _positive)
 
 FLEET_RESULT_CACHE_DIR = register(
     "spark.rapids.fleet.resultCache.dir", "",

@@ -4,10 +4,11 @@ Counterpart of ``spark_rapids_tpu/errors.py``.  Every typed failure a
 query can surface derives from ``EngineError``, so a caller (the session
 server's ticket, a client of it) catches one base class and knows the
 query failed in a supervised way: its threads, handles and permits were
-reclaimed.  Not carried over: ``ChipFailedError``,
-``ReplicaFailedError`` and ``RetryBudgetExhaustedError``, raised by the
-chip-health, fleet and replay layers, which wait for the multi-GPU
-slice (``ROADMAP.md``, queue A8 and A10's leftovers).
+reclaimed.  An error with more than a message in its constructor
+defines ``__reduce__``, so that it pickles whole across a fleet
+replica's status queue.  Not carried over: ``ChipFailedError``, raised
+by the chip-health layer, which waits for the multi-GPU slice
+(``ROADMAP.md``, queue A8).
 """
 
 from __future__ import annotations
@@ -53,3 +54,30 @@ class QueryHangError(EngineError):
                        f"{timeout_s:.1f}s hang timeout")
         self.site = site
         self.timeout_s = timeout_s
+
+    def __reduce__(self):
+        # the default pickle calls the class with the message alone
+        return (QueryHangError, (self.site, self.timeout_s, str(self)))
+
+
+class ReplicaFailedError(EngineError):
+    """A fleet replica process died, or failed, while the query was in
+    flight on it.  The router replays the query once on a healthy
+    replica when the tenant's budget allows; otherwise this error
+    surfaces, and the caller retries with backoff as after a shed."""
+
+    def __init__(self, replica: int, message: str = ""):
+        super().__init__(
+            message or f"replica {replica} failed while the query was "
+                       "in flight")
+        self.replica = int(replica)
+
+    def __reduce__(self):
+        return (ReplicaFailedError, (self.replica, str(self)))
+
+
+class RetryBudgetExhaustedError(AdmissionRejectedError):
+    """A tenant's replay budget (``spark.rapids.fleet.retry.
+    budgetPerMin``) is spent: a query that would have replayed is shed
+    instead.  An ``AdmissionRejectedError``: the caller retries with
+    backoff."""

@@ -55,8 +55,7 @@ from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
     sort_permutation
-from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction, \
-    Count, First, Max, Min
+from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.base import Alias, ColVal, EvalContext, \
     Expression, colvals
 from spark_rapids_tpu_torch.memory.spill import SpillableBatch, close_all, \
@@ -283,18 +282,17 @@ class TorchHashAggregateExec(TorchExec):
         super().__init__()
         self.groupings = list(groupings)
         self.agg_pairs = [unwrap_aggregate(e) for e in aggregates]
-        for _, f in self.agg_pairs:
-            if f.child.dtype == STRING and not isinstance(
-                    f, (Count, Min, Max, First)):
-                raise NotImplementedError(
-                    f"{type(f).__name__} over strings is not in the torch "
-                    "port yet")
         self.children = [child]
         self.spec = _AggSpec(self.groupings, self.agg_pairs)
         fields = [Field(g.name, g.dtype, g.nullable) for g in self.groupings]
         fields += [Field(n, f.dtype, f.nullable) for n, f in self.agg_pairs]
         self._schema = Schema(fields)
         self._pallas_off = False
+
+    def describe(self) -> str:
+        gs = ", ".join(g.name for g in self.groupings)
+        asx = ", ".join(n for n, _ in self.agg_pairs)
+        return f"TorchHashAggregate [keys=[{gs}], aggs=[{asx}]]"
 
     @property
     def output_schema(self) -> Schema:

@@ -42,18 +42,17 @@ import logging
 import threading
 from typing import Iterator, List, Optional
 
-from torch.profiler import record_function
-
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.memory.spill import SpillableBatch, close_all, \
     materialize_all
+from spark_rapids_tpu_torch.utils import tracing
 
 log = logging.getLogger("spark_rapids_tpu_torch.aqe")
 
-RANGE_PLAN_AQE = "plan.aqe"
+RANGE_PLAN_AQE = tracing.SPAN_PLAN_AQE
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +156,10 @@ class TorchQueryStageExec(TorchExec):
     def exchange(self) -> TorchExec:
         return self.children[0]
 
+    def describe(self) -> str:
+        state = "materialized" if self.materialized else "pending"
+        return f"TorchQueryStage [{state}]"
+
     @property
     def output_schema(self) -> Schema:
         return self.children[0].output_schema
@@ -243,6 +246,9 @@ class TorchAdaptiveSparkPlanExec(TorchExec):
         self.conf = conf
         self.reports: List[dict] = []
 
+    def describe(self) -> str:
+        return f"TorchAdaptiveSparkPlan [stages={len(self.reports)}]"
+
     @property
     def output_schema(self) -> Schema:
         return self.children[0].output_schema
@@ -274,7 +280,7 @@ class TorchAdaptiveSparkPlanExec(TorchExec):
                     break
                 stage.materialize(ctx)
                 try:
-                    with record_function(RANGE_PLAN_AQE):
+                    with tracing.trace_range(RANGE_PLAN_AQE):
                         faults.maybe_fail("aqe.replan")
                         report = rules.replan(self, stage, ctx.conf,
                                               self.metrics)

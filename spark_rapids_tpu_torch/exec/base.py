@@ -12,13 +12,19 @@ the batches it yields go through ``_pull_boundary``, the counterpart of
 the JAX package's ``_count_output``.  There a cancelled query, or one
 past its deadline, raises its typed error (``lifecycle.check_cancel``)
 within one batch of work, and closing the stream closes the operator's
-own generator.
+own generator.  The boundary also counts the operator's
+``numOutputRows`` and ``numOutputBatches`` (``batch.num_rows`` is a
+host int, so counting reads nothing back from the card) and adds the
+host wall time of each pull to ``totalTime``.  That time is host wall,
+as in the JAX package, whose dispatch is asynchronous too: it includes
+the children's pulls and whatever the card made the host wait for, and
+it is not device time.
 """
 
 from __future__ import annotations
 
 import functools
-from collections import defaultdict
+import time
 from typing import Iterator, List, Optional
 
 import torch
@@ -28,6 +34,8 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.conf import TorchConf
 from spark_rapids_tpu_torch.runtime import TorchRuntime
+from spark_rapids_tpu_torch.utils.metrics import METRIC_NUM_OUTPUT_BATCHES, \
+    METRIC_NUM_OUTPUT_ROWS, METRIC_TOTAL_TIME, MetricSet
 
 
 class ExecContext:
@@ -48,14 +56,28 @@ def _pull_boundary(execute):
     """``execute`` with its output passed through ``_checked``."""
     @functools.wraps(execute)
     def checked_execute(self, ctx):
-        return _checked(execute(self, ctx))
+        return _checked(execute(self, ctx), self.metrics)
     return checked_execute
 
 
-def _checked(stream: Iterator[ColumnarBatch]) -> Iterator[ColumnarBatch]:
+def _checked(stream: Iterator[ColumnarBatch],
+             metrics: MetricSet) -> Iterator[ColumnarBatch]:
+    rows = metrics[METRIC_NUM_OUTPUT_ROWS]
+    batches = metrics[METRIC_NUM_OUTPUT_BATCHES]
+    total = metrics[METRIC_TOTAL_TIME]
+    it = iter(stream)
     try:
-        for batch in stream:
+        while True:
+            t0 = time.perf_counter_ns()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                total.add(time.perf_counter_ns() - t0)
             lifecycle.check_cancel()
+            rows.add(batch.num_rows)
+            batches.add(1)
             yield batch
     finally:
         close = getattr(stream, "close", None)
@@ -64,7 +86,7 @@ def _checked(stream: Iterator[ColumnarBatch]) -> Iterator[ColumnarBatch]:
 
 
 class TorchExec:
-    """A physical operator.  ``metrics`` maps a metric name to a count."""
+    """A physical operator.  ``metrics`` is its ``MetricSet``."""
 
     children: List["TorchExec"] = []
 
@@ -74,7 +96,23 @@ class TorchExec:
             cls.execute = _pull_boundary(cls.__dict__["execute"])
 
     def __init__(self):
-        self.metrics = defaultdict(int)
+        self.metrics = MetricSet(owner=self.node_name)
+
+    @property
+    def node_name(self) -> str:
+        return type(self).__name__
+
+    def describe(self) -> str:
+        """One line naming the operator and what sets it apart (keys,
+        join type, route, partitioning), as the JAX operator's does."""
+        return self.node_name
+
+    def tree_string(self, indent: int = 0) -> str:
+        pad = "  " * indent
+        lines = [f"{pad}{self.describe()}"]
+        for c in self.children:
+            lines.append(c.tree_string(indent + 1))
+        return "\n".join(lines)
 
     @property
     def output_schema(self) -> Schema:

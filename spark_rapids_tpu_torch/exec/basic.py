@@ -36,12 +36,19 @@ class TorchLocalScanExec(TorchExec):
         self.children = []
 
     @property
+    def num_rows(self) -> int:
+        return len(self.cols[self._schema[0].name][0]) \
+            if len(self._schema) else 0
+
+    def describe(self) -> str:
+        return f"TorchLocalScan [rows={self.num_rows}]"
+
+    @property
     def output_schema(self) -> Schema:
         return self._schema
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        n = len(self.cols[self._schema[0].name][0]) if len(self._schema) \
-            else 0
+        n = self.num_rows
         max_w = ctx.conf.get(MAX_STRING_WIDTH)
         for start in range(0, n, BATCH_ROWS):
             part = {name: (v[start:start + BATCH_ROWS],
@@ -63,6 +70,9 @@ class TorchRangeExec(TorchExec):
         self.start, self.end, self.step = int(start), int(end), int(step)
         self.children = []
         self._schema = Schema([Field(name, INT64, nullable=False)])
+
+    def describe(self) -> str:
+        return f"TorchRange [{self.start}, {self.end}, {self.step}]"
 
     @property
     def output_schema(self) -> Schema:
@@ -86,6 +96,9 @@ class TorchUnionExec(TorchExec):
     def __init__(self, children):
         super().__init__()
         self.children = list(children)
+
+    def describe(self) -> str:
+        return f"TorchUnion [{len(self.children)} children]"
 
     @property
     def output_schema(self) -> Schema:
@@ -115,6 +128,9 @@ class TorchLocalLimitExec(TorchExec):
         super().__init__()
         self.limit = int(limit)
         self.children = [child]
+
+    def describe(self) -> str:
+        return f"TorchLocalLimit [{self.limit}]"
 
     @property
     def output_schema(self) -> Schema:

@@ -33,6 +33,8 @@ from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec, one_batch
 from spark_rapids_tpu_torch.exprs.base import Expression
 from spark_rapids_tpu_torch.memory.spill import PRIORITY_RETAIN, \
     SpillableBatch
+from spark_rapids_tpu_torch.utils.metrics import METRIC_NUM_OUTPUT_BATCHES, \
+    METRIC_NUM_OUTPUT_ROWS
 
 
 class TorchBroadcastExchangeExec(TorchExec):
@@ -42,15 +44,27 @@ class TorchBroadcastExchangeExec(TorchExec):
         super().__init__()
         self.children = [child]
 
+    def describe(self) -> str:
+        return "TorchBroadcastExchange"
+
     @property
     def output_schema(self) -> Schema:
         return self.children[0].output_schema
 
     @contextlib.contextmanager
     def materialize(self, ctx: ExecContext) -> Iterator[SpillableBatch]:
-        """The build: the child's output as one batch, registered with
-        the spill catalog in the class that demotes last and with the
-        query's lifecycle; closed when the block ends."""
+        """The build, for a join that holds it: the exchange's output,
+        counted in its metrics as a pull of one batch would be."""
+        with self._build(ctx) as handle:
+            self.metrics[METRIC_NUM_OUTPUT_ROWS] += handle.num_rows
+            self.metrics[METRIC_NUM_OUTPUT_BATCHES] += 1
+            yield handle
+
+    @contextlib.contextmanager
+    def _build(self, ctx: ExecContext) -> Iterator[SpillableBatch]:
+        """The child's output as one batch, registered with the spill
+        catalog in the class that demotes last and with the query's
+        lifecycle; closed when the block ends."""
         batch = one_batch(self.children[0], ctx)
         self.metrics["dataSize"] = batch.size_bytes()
         handle = SpillableBatch(batch, ctx.runtime.catalog,
@@ -67,7 +81,7 @@ class TorchBroadcastExchangeExec(TorchExec):
             reg.release()
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        with self.materialize(ctx) as handle:
+        with self._build(ctx) as handle:
             yield handle.get()
 
 

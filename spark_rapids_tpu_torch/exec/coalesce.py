@@ -70,6 +70,9 @@ class TorchCoalesceBatchesExec(TorchExec):
         super().__init__()
         self.children = [child]
 
+    def describe(self) -> str:
+        return "TorchCoalesceBatches"
+
     @property
     def output_schema(self):
         return self.children[0].output_schema

@@ -49,7 +49,6 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import bucket_capacity
@@ -63,6 +62,7 @@ from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, colvals
 from spark_rapids_tpu_torch.memory.spill import SpillableBatch, close_all, \
     collect_spillable, materialize_all
+from spark_rapids_tpu_torch.utils import tracing
 from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
 
 
@@ -257,6 +257,14 @@ class TorchShuffleExchangeExec(TorchExec):
         self.metrics["hostSyncs"] = 0
         self.metrics["shufflePartitionBytes"] = 0
 
+    def describe(self) -> str:
+        k = ", ".join(e.name for e in self.keys)
+        if self.mode == "range":
+            k = ", ".join(e.name + ("" if asc else " DESC")
+                          for e, asc, _ in self.orders)
+        return (f"TorchShuffleExchange [n={self.num_partitions}, "
+                f"mode={self.mode}{', keys=' + k if k else ''}]")
+
     @property
     def output_schema(self) -> Schema:
         return self.children[0].output_schema
@@ -309,7 +317,7 @@ class TorchShuffleExchangeExec(TorchExec):
                     continue
                 rr0 = rr
                 rr += batch.num_rows
-                with record_function("exchange.partition"):
+                with tracing.trace_range("exchange.partition"):
                     results = with_retry(
                         lambda b: partition_batch(b, n, self.keys,
                                                   self.mode, rr_start=rr0),
@@ -338,7 +346,7 @@ class TorchShuffleExchangeExec(TorchExec):
         try:
             if not handles:
                 return parts
-            with record_function("exchange.range_bounds"):
+            with tracing.trace_range("exchange.range_bounds"):
                 pad = 4
                 for h in handles:
                     pad = max(pad, observed_key_width(
@@ -376,7 +384,7 @@ class TorchShuffleExchangeExec(TorchExec):
             while handles:
                 b = handles.pop(0)
                 batch = materialize_all([b], ctx)[0]
-                with record_function("exchange.partition"):
+                with tracing.trace_range("exchange.partition"):
                     results = with_retry(
                         lambda bb: partition_batch_by_range(
                             bb, n, self.orders, pad, bounds),

@@ -41,6 +41,9 @@ class TorchExpandExec(TorchExec):
         self.children = [child]
         self._schema = expand_schema(projections, names)
 
+    def describe(self) -> str:
+        return f"TorchExpand [{len(self.projections)} projections]"
+
     @property
     def output_schema(self) -> Schema:
         return self._schema

@@ -58,6 +58,11 @@ class TorchGenerateExec(TorchExec):
         self.children = [child]
         self._schema = generate_schema(gen, child.output_schema, names)
 
+    def describe(self) -> str:
+        k = "posexplode" if self.gen.with_pos else "explode"
+        return (f"TorchGenerate [{k}{'_outer' if self.gen.outer else ''}, "
+                f"{len(self.gen.array.values)} elements]")
+
     @property
     def output_schema(self) -> Schema:
         return self._schema

@@ -74,7 +74,6 @@ from __future__ import annotations
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
@@ -92,6 +91,7 @@ from spark_rapids_tpu_torch.exprs.base import BoundReference, ColVal, \
     EvalContext, Expression, Literal, colvals, take
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.predicates import string_compare
+from spark_rapids_tpu_torch.utils import tracing
 from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
 
 _I64_MAX = (1 << 63) - 1
@@ -500,6 +500,14 @@ class TorchHashJoinExec(TorchExec):
                                      len(left.output_schema.fields),
                                      right.output_schema.fields)
 
+    def describe(self) -> str:
+        """The join type and keys, and the route the last run took
+        (``dense_fk``, ``fk``, ``general`` or ``cross``)."""
+        ks = ", ".join(f"{l.name}={r.name}"
+                       for l, r in zip(self.left_keys, self.right_keys))
+        route = f", route={self.route}" if self.route else ""
+        return f"{self.node_name[:-4]} [{self.join_type}, {ks}{route}]"
+
     @property
     def output_schema(self) -> Schema:
         jt = self.join_type
@@ -526,7 +534,7 @@ class TorchHashJoinExec(TorchExec):
         # the join's own work runs inside named ranges (join.build,
         # join.<route>) that a torch.profiler trace attributes time to;
         # the children's work and the consumers' stay outside them
-        with record_function("join.build"):
+        with tracing.trace_range("join.build"):
             build = _Build(b_batch, self.right_keys, probe=inner,
                            band=self.band)
         if inner:
@@ -540,7 +548,7 @@ class TorchHashJoinExec(TorchExec):
                               device=build.batch.device) \
             if self.join_type in ("right", "full") else None
         for sb in self.children[0].execute(ctx):
-            with record_function(f"join.{self.route}"):
+            with tracing.trace_range(f"join.{self.route}"):
                 # each stream batch's probe: on a device out-of-memory
                 # error, relief, then the stream batch in halves
                 if fk:
@@ -560,7 +568,7 @@ class TorchHashJoinExec(TorchExec):
                     outs = [self._keep_where(o) for o in outs if o.num_rows]
             yield from (o for o in outs if o.num_rows)
         if self.join_type in ("right", "full"):
-            with record_function(f"join.{self.route}"):
+            with tracing.trace_range(f"join.{self.route}"):
                 out = _side_with_nulls(
                     build.batch, build.live & (m_build == 0),
                     self.children[0].output_schema.fields,
@@ -576,7 +584,7 @@ class TorchHashJoinExec(TorchExec):
         self.route = "cross"
         nb = b_batch.num_rows
         for sb in self.children[0].execute(ctx):
-            with record_function("join.cross"):
+            with tracing.trace_range("join.cross"):
                 outs = with_retry(lambda b: self._cross(b, b_batch), sb, ctx,
                                   split=split_batch_half)
                 if self.condition is not None:

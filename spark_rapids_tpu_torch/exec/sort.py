@@ -49,12 +49,20 @@ def sort_batch(orders: List[Tuple[Expression, bool, bool]],
     return ColumnarBatch(out, batch.num_rows, batch.schema)
 
 
+def _orders_text(orders) -> str:
+    return ", ".join(f"{e.name} {'ASC' if a else 'DESC'}"
+                     for e, a, _ in orders)
+
+
 class TorchSortExec(TorchExec):
     def __init__(self, orders: List[Tuple[Expression, bool, bool]],
                  child: TorchExec):
         super().__init__()
         self.orders = orders
         self.children = [child]
+
+    def describe(self) -> str:
+        return "TorchSort [" + _orders_text(self.orders) + "]"
 
     @property
     def output_schema(self) -> Schema:
@@ -80,6 +88,9 @@ class TorchTopNExec(TorchExec):
         self.orders = orders
         self.limit = int(limit)
         self.children = [child]
+
+    def describe(self) -> str:
+        return f"TorchTopN [{self.limit}, " + _orders_text(self.orders) + "]"
 
     @property
     def output_schema(self) -> Schema:

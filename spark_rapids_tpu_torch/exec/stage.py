@@ -89,6 +89,12 @@ class TorchStageExec(TorchExec):
         self.nondeterministic = any(contains_nondeterministic(e)
                                     for _, es in self.steps for e in es)
 
+    def describe(self) -> str:
+        parts = [("Project[" + ", ".join(e.name for e in exprs) + "]")
+                 if kind == "project" else f"Filter[{exprs[0].name}]"
+                 for kind, exprs in self.steps]
+        return "TorchStage [" + " -> ".join(parts) + "]"
+
     @property
     def output_schema(self) -> Schema:
         return self._schema

@@ -54,7 +54,6 @@ from __future__ import annotations
 from typing import Iterator, List, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
@@ -72,6 +71,7 @@ from spark_rapids_tpu_torch.exprs.windows import DenseRank, Lag, Lead, \
     Rank, RowNumber, WindowExpression, WindowFrame
 from spark_rapids_tpu_torch.memory.spill import collect_spillable, \
     materialize_all
+from spark_rapids_tpu_torch.utils import tracing
 from spark_rapids_tpu_torch.utils.retry import with_retry
 
 
@@ -466,20 +466,18 @@ class TorchWindowExec(TorchExec):
         if any(w.spec_key() != sk for _, w in window_cols):
             raise ValueError("the window expressions of one exec must "
                              "share their partition and order spec")
-        for _, w in window_cols:
-            # as the aggregate: a sum reads a string as a number, which
-            # the JAX package parses and the port does not
-            if isinstance(w.func, (Sum, Average)) and \
-                    w.func.child.dtype == STRING:
-                raise NotImplementedError(
-                    f"{type(w.func).__name__} over strings is not in the "
-                    "torch port yet")
         self.window_cols = window_cols
         self.children = [child]
         fields = list(child.output_schema.fields)
         fields += [Field(n, w.dtype, w.nullable) for n, w in window_cols]
         self._schema = Schema(fields)
         self.metrics["hostSyncs"] = 0
+
+    def describe(self) -> str:
+        fs = ", ".join(f"{w.func.name} as {n}" for n, w in self.window_cols)
+        w0 = self.window_cols[0][1]
+        parts = ", ".join(e.name for e in w0.partition_exprs)
+        return f"TorchWindow [{fs}] partition by [{parts}]"
 
     @property
     def output_schema(self) -> Schema:
@@ -498,7 +496,7 @@ class TorchWindowExec(TorchExec):
         cap, n, dev = batch.capacity, batch.num_rows, batch.device
         ectx = EvalContext(colvals(batch.columns), n, cap, dev)
         spec = self.window_cols[0][1]
-        with record_function("window.sort"):
+        with tracing.trace_range("window.sort"):
             live = torch.arange(cap, device=dev) < n
             part_keys: List[torch.Tensor] = []
             for e in spec.partition_exprs:
@@ -519,7 +517,7 @@ class TorchWindowExec(TorchExec):
                 g.order_cv = ColVal(ocv.data[perm],
                                     ocv.validity[perm] & g.live)
         cols = list(batch.columns)
-        with record_function("window.eval"):
+        with tracing.trace_range("window.eval"):
             for _, wexpr in self.window_cols:
                 out_s = _eval_one(wexpr, g, ectx, perm, cap)
                 data = torch.empty_like(out_s.data)

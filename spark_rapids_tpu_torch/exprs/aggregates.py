@@ -84,7 +84,7 @@ class Sum(AggregateFunction):
         return FLOAT64 if self.child.dtype.is_floating else INT64
 
     def input_projection(self):
-        return [cast_to(self.child, self.dtype)]
+        return [cast_to(self.child, self.dtype, implicit=True)]
 
     def update_ops(self):
         return ["sum", "count"]
@@ -137,7 +137,7 @@ class Average(AggregateFunction):
         return FLOAT64
 
     def input_projection(self):
-        return [cast_to(self.child, FLOAT64)]
+        return [cast_to(self.child, FLOAT64, implicit=True)]
 
     def update_ops(self):
         return ["sum", "count"]

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, FLOAT64, \
-    INT64, STRING, common_type
+    INT64, common_type
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
     Expression, fixed
 from spark_rapids_tpu_torch.exprs.cast import cast_to
@@ -43,10 +43,6 @@ class BinaryArithmetic(Expression):
     def coerce(self) -> Expression:
         """Insert casts for numeric widening (findTightestCommonType)."""
         lt, rt = self.left.dtype, self.right.dtype
-        if STRING in (lt, rt):
-            raise NotImplementedError(
-                f"{type(self).__name__} over strings is not in the torch "
-                "port yet")
         if lt == rt:
             return self
         ct = common_type(lt, rt)
@@ -100,7 +96,7 @@ class Divide(BinaryArithmetic):
 
     def coerce(self) -> Expression:
         return self.with_children(
-            [cast_to(c, FLOAT64) for c in self.children])
+            [cast_to(c, FLOAT64, implicit=True) for c in self.children])
 
     def emit_binary(self, a, b):
         zero = b.data == 0
@@ -148,7 +144,8 @@ class IntegralDivide(BinaryArithmetic):
         return True  # x div 0
 
     def coerce(self) -> Expression:
-        return self.with_children([cast_to(c, INT64) for c in self.children])
+        return self.with_children(
+            [cast_to(c, INT64, implicit=True) for c in self.children])
 
     def emit_binary(self, a, b):
         zero = b.data == 0

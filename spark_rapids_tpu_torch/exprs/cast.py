@@ -86,19 +86,25 @@ def gate_key(frm: DataType, to: DataType) -> Optional[ConfEntry]:
     return None
 
 
-def cast_to(child: Expression, target: DataType) -> Expression:
+def cast_to(child: Expression, target: DataType,
+            implicit: bool = False) -> Expression:
     """``child`` as ``target``; raises when the plan is built on a cast the
-    port lacks, so an implicit cast can never reinterpret a column."""
+    port lacks, so an implicit cast can never reinterpret a column.
+    ``implicit``: an operator's own cast (``sum``/``avg`` of a string,
+    ``/``), which no ``castStringTo*`` gate holds, as in the JAX
+    package."""
     if child.dtype == target:
         return child
     _check_supported(child.dtype, target)
-    return Cast(child, target)
+    return Cast(child, target, implicit)
 
 
 class Cast(Expression):
-    def __init__(self, child: Expression, to: DataType):
+    def __init__(self, child: Expression, to: DataType,
+                 implicit: bool = False):
         self.children = (child,)
         self.to = to
+        self.implicit = implicit
 
     @property
     def dtype(self) -> DataType:
@@ -118,7 +124,7 @@ class Cast(Expression):
         return f"cast[{self.to.name},ansi=False]({self.children[0].key()})"
 
     def with_children(self, children):
-        return Cast(children[0], self.to)
+        return Cast(children[0], self.to, self.implicit)
 
     def coerce(self) -> Expression:
         _check_supported(self.children[0].dtype, self.to)

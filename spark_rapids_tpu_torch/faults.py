@@ -18,10 +18,24 @@ to fail, so tests and runs inject faults through
   ``aqe.replan``           an adaptive replan pass, before any rewrite
                            (the stage keeps the static plan and the
                            query still runs; ``aqeReplans`` stays)
+  ``fleet.route``          a fleet router's submit, before any replica
+                           is picked (raises typed; nothing dispatched)
+  ``replica.fail``         a dispatch to a fleet replica (consulted once
+                           a dispatch, with ``replica=``): the replica's
+                           health score takes a failure and the query
+                           fails over under the retry budget, else dies
+                           typed (``ReplicaFailedError``)
+  ``replica.slow``         a dispatch to a fleet replica: a slow mark on
+                           its health score; the dispatch proceeds.  In
+                           the replica's own process (a spec shipped by
+                           ``FleetRouter.configure_faults``) it holds
+                           the query for a second (``fleet/replica.py``)
+  ``worker.heartbeat``     a fleet replica's heartbeat: the thread falls
+                           silent (a hung replica)
 
 The JAX package's other sites (shuffle, ICI, ``io.encode``, chip,
-fleet, stream, ``compile.store``, ``plan.place``, ``ooc.partition``)
-belong to modules the port does not have yet (``ROADMAP.md``).
+stream, ``compile.store``, ``plan.place``, ``ooc.partition``) belong to
+modules the port does not have yet (``ROADMAP.md``).
 
 Trigger grammar (the value of ``spark.rapids.faults.<site>``):
 
@@ -37,7 +51,13 @@ Trigger grammar (the value of ``spark.rapids.faults.<site>``):
 
 A spec may carry ``@w<idx>`` (``count:2@w1``), restricting it to the
 shuffle worker of that index; the port has no shuffle workers, so such
-a spec never fires here, as in the JAX package's main process.
+a spec never fires here, as in the JAX package's main process.  A spec
+with ``@r<idx>`` (``always@r1``) fires only on the fleet router's
+consults for that replica, and counts that replica's consults apart
+(``count:2@r1`` is replica 1's second), under the stream key
+``<site>@r<idx>`` of ``stats()``.  Inside a replica process only
+``replica.slow`` consults with ``replica=`` (the replica's own index),
+so ``always@r0`` shipped to every replica slows replica 0 alone.
 """
 
 from __future__ import annotations
@@ -68,14 +88,19 @@ class _Trigger:
                  worker: Optional[int]):
         self.spec = spec
         self.active = True
+        self.replica: Optional[int] = None
         body = spec.strip()
         if "@" in body:
             body, target = body.rsplit("@", 1)
             target = target.strip()
-            if not target.startswith("w"):
+            if target.startswith("w"):
+                self.active = worker is not None and \
+                    int(target[1:]) == worker
+            elif target.startswith("r"):
+                self.replica = int(target[1:])
+            else:
                 raise ValueError(f"bad target {target!r} in {spec!r} (the "
-                                 "port takes @w<idx> only)")
-            self.active = worker is not None and int(target[1:]) == worker
+                                 "port takes @w<idx> and @r<idx>)")
         body = body.strip().lower()
         self._mode = None
         self._calls: Tuple[int, ...] = ()
@@ -106,8 +131,10 @@ class _Trigger:
         else:
             raise ValueError(f"unrecognized fault spec {spec!r}")
 
-    def fires(self, call_no: int) -> bool:
+    def fires(self, call_no: int, replica: Optional[int] = None) -> bool:
         if not self.active:
+            return False
+        if self.replica is not None and replica != self.replica:
             return False
         if self._mode == "always":
             return True
@@ -143,20 +170,32 @@ class FaultInjector:
     def signature(self) -> tuple:
         return (tuple(sorted(self._specs.items())), self.seed, self.worker)
 
-    def should_fire(self, site: str) -> bool:
-        """Count a call to ``site`` and say whether its trigger fires."""
+    def should_fire(self, site: str,
+                    replica: Optional[int] = None) -> bool:
+        """Count a call to ``site`` and say whether its trigger fires.  A
+        replica-targeted spec counts the consults for its replica apart
+        (stream ``<site>@r<idx>``)."""
         trig = self._triggers.get(site)
         with self._lock:
             n = self.calls.get(site, 0) + 1
             self.calls[site] = n
-            if trig is None or not trig.fires(n):
+            stream = site
+            if trig is not None and trig.replica is not None \
+                    and replica is not None:
+                stream = f"{site}@r{replica}"
+                n = self.calls.get(stream, 0) + 1
+                self.calls[stream] = n
+            if trig is None or not trig.fires(n, replica=replica):
                 return False
             self.fired[site] = self.fired.get(site, 0) + 1
+            if stream != site:
+                self.fired[stream] = self.fired.get(stream, 0) + 1
         # journaled outside the lock: which fault preceded which error
         from spark_rapids_tpu_torch.obs import journal
         if journal.enabled():
+            extra = {} if replica is None else {"replica": replica}
             journal.emit(journal.EVENT_FAULT_FIRE, site=site, call=n,
-                         worker=self.worker)
+                         worker=self.worker, **extra)
         return True
 
     def maybe_fail(self, site: str, message: str = "") -> None:
@@ -245,8 +284,8 @@ def maybe_fail_oom(site: str) -> None:
     _INJECTOR.maybe_fail_oom(site)
 
 
-def should_fire(site: str) -> bool:
-    return _INJECTOR.should_fire(site)
+def should_fire(site: str, replica: Optional[int] = None) -> bool:
+    return _INJECTOR.should_fire(site, replica=replica)
 
 
 def corrupt(site: str, payload: bytes) -> bytes:

@@ -76,6 +76,9 @@ class TorchParquetScanExec(TorchExec):
         self._schema = schema
         self.children = []
 
+    def describe(self) -> str:
+        return f"TorchParquetScan [{len(self.paths)} files]"
+
     @property
     def output_schema(self) -> Schema:
         return self._schema

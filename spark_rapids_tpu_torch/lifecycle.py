@@ -41,6 +41,7 @@ import itertools
 import logging
 import threading
 import time
+import weakref
 from typing import Callable, Dict, Optional
 
 from spark_rapids_tpu_torch import faults
@@ -439,6 +440,17 @@ def register_thread(thread: threading.Thread,
     return register_resource(close, kind="thread", name=thread.name)
 
 
+_TRACKED_PROCS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def track_process(proc) -> None:
+    """Keep an engine-spawned process (a fleet replica), weakly, so that
+    interpreter exit terminates it if its owner did not: the
+    ``multiprocessing`` exit handler, which runs after ours, would join
+    a live child without a bound."""
+    _TRACKED_PROCS.add(proc)
+
+
 def cancel_thread_queries(idents, reason: str) -> int:
     """Cancel the query each listed thread runs (the session server's
     close cancels its workers' queries so, and no other session's);
@@ -558,8 +570,16 @@ def supervise(fn: Callable, site: str = FAULT_SITE_PIPELINE_HANG):
 
 def _at_exit(max_wait_s: float = 15.0) -> None:
     """Tear everything down at interpreter exit, and give a watchdog
-    runner still inside device work a bounded time to return."""
+    runner still inside device work a bounded time to return, and
+    terminate the engine's processes still alive."""
     shutdown_all()
+    for p in list(_TRACKED_PROCS):
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
     deadline = time.monotonic() + max_wait_s
     for t in threading.enumerate():
         if not t.name.startswith(WATCHDOG_THREAD_PREFIX):

@@ -38,12 +38,17 @@ neighbour's; if that cannot bring it under (its handles are pinned, as
 token with ``QueryBudgetExceededError``.  A promotion re-checks the
 budget of the query that made the handle.
 
+Each tier move is journaled (``spill_demote`` / ``spill_promote`` with
+``tier_from``, ``tier_to`` and ``bytes``, the JAX package's events):
+recorded under the catalog's lock as it happens, written after the lock
+is released at the JAX package's sites (a promotion, ``spill_all``, a
+query budget's demotions and ``reserve``).
+
 Not carried over yet: the encoded columns' planes (queue A6), the
-journal's spill events, the device scan cache's entries (A7a), the
-conf-driven allocation log, and the JAX package's ``HostStagingLimiter``
-on tier transitions: every transition here runs under the catalog's
-lock, so no two of them stage at once and a cap on them could never
-make one wait.
+device scan cache's entries (A7a), the conf-driven allocation log, and
+the JAX package's ``HostStagingLimiter`` on tier transitions: every
+transition here runs under the catalog's lock, so no two of them stage
+at once and a cap on them could never make one wait.
 """
 
 from __future__ import annotations
@@ -67,12 +72,15 @@ from spark_rapids_tpu_torch import faults, lifecycle
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.errors import QueryBudgetExceededError
+from spark_rapids_tpu_torch.obs import journal
 
 log = logging.getLogger("spark_rapids_tpu_torch.spill")
 
 TIER_DEVICE = "device"
 TIER_HOST = "host"
 TIER_DISK = "disk"
+# a move to a lower rank is a promotion
+_TIER_RANK = {TIER_DEVICE: 0, TIER_HOST: 1, TIER_DISK: 2}
 
 # Lower values demote first: re-creatable data before working batches,
 # and a broadcast build every stream batch needs last.
@@ -266,6 +274,8 @@ class SpillableBatch:
         finally:
             with cat._lock:
                 self.pinned = was_pinned
+            # the moves a promotion made, the failed ones' excluded
+            cat._emit_tier_moves()
         if promoted:
             # after the pin is back as the caller had it: the batch in
             # hand stays valid if the check demotes this handle again
@@ -339,6 +349,8 @@ class BufferCatalog:
         # cancelled because demotion could not satisfy them
         self.budget_spill_count = 0
         self.budget_exceeded_count = 0
+        # tier moves not journaled yet: [(promote, from, to, bytes)]
+        self._moves: List[tuple] = []
 
     def stats(self) -> dict:
         with self._lock:
@@ -409,6 +421,8 @@ class BufferCatalog:
             self.disk_bytes = max(0, self.disk_bytes - size)
 
     def _move(self, size: int, tier_from: str, tier_to: str) -> None:
+        self._moves.append((_TIER_RANK[tier_to] < _TIER_RANK[tier_from],
+                            tier_from, tier_to, size))
         self._release_bytes(tier_from, size)
         if tier_to == TIER_DEVICE:
             self.device_bytes += size
@@ -418,6 +432,20 @@ class BufferCatalog:
             self.host_bytes += size
         else:
             self.disk_bytes += size
+
+    def _emit_tier_moves(self) -> None:
+        """Journal the tier moves recorded so far, outside the lock: a
+        journal write is file I/O, which no allocation should wait for
+        behind the catalog's lock."""
+        with self._lock:
+            moves, self._moves = self._moves, []
+        if not moves or not journal.enabled():
+            return
+        for promote, tier_from, tier_to, nbytes in moves:
+            journal.emit(journal.EVENT_SPILL_PROMOTE if promote
+                         else journal.EVENT_SPILL_DEMOTE,
+                         tier_from=tier_from, tier_to=tier_to,
+                         bytes=nbytes)
 
     def _on_dead(self, key: int) -> None:
         """A handle was collected while still registered: an operator
@@ -512,6 +540,7 @@ class BufferCatalog:
                         and self._demote_to_host(sb):
                     freed += sb.size
             self._host_overflow()
+        self._emit_tier_moves()
         return freed
 
     def query_device_bytes(self, query_id: int) -> int:
@@ -562,6 +591,7 @@ class BufferCatalog:
             if demoted:
                 # the host tier may now be past its own budget
                 self._host_overflow()
+        self._emit_tier_moves()
         if used > budget:
             self.budget_exceeded_count += 1
             if close_on_fail:
@@ -591,6 +621,7 @@ class BufferCatalog:
                 if sb.tier == TIER_DEVICE and not sb.pinned:
                     self._demote_to_host(sb)
             self._host_overflow()
+        self._emit_tier_moves()
 
     def _host_overflow(self) -> None:
         for sb in self._live(order=True):

@@ -1,7 +1,8 @@
 """Observability: the process-wide histograms and stats snapshot
-(``registry.py``) and the JSONL event journal (``journal.py``).
+(``registry.py``; ``python -m spark_rapids_tpu_torch.obs`` prints it in
+Prometheus exposition format), the JSONL event journal (``journal.py``)
+and the query profile (``profile.py``: ``df.explain(analyze=True)``,
+``session.last_query_profile()``).
 
-Counterpart of ``spark_rapids_tpu/obs/``; the query profile
-(``profile.py``) and the exporter's command line (``__main__.py``) wait
-for a later slice (``ROADMAP.md``).
+Counterpart of ``spark_rapids_tpu/obs/``.
 """

@@ -12,8 +12,10 @@ Each process appends to its own ``events-<pid>.jsonl``; past
 ``spark.rapids.sql.obs.journal.maxEvents`` events are counted as
 dropped.  The events are those the port's modules fire: the query
 lifecycle's, fault fires, watchdog trips, the session server's
-admission and cache outcomes, and adaptive execution's stage
-materializations and replan passes.
+admission and cache outcomes, adaptive execution's stage
+materializations and replan passes, the spill catalog's tier moves, and
+the fleet router's quarantines, restores, failovers and rolling
+restarts.
 """
 
 from __future__ import annotations
@@ -41,6 +43,13 @@ EVENT_QUERY_REJECTED = "query_rejected"
 EVENT_CACHE_HIT = "cache_hit"
 EVENT_CACHE_MISS = "cache_miss"
 EVENT_SERVER_DRAIN = "server_drain"
+EVENT_SPILL_DEMOTE = "spill_demote"
+EVENT_SPILL_PROMOTE = "spill_promote"
+# the serving fleet (fleet/), written by the router's process
+EVENT_REPLICA_QUARANTINE = "replica_quarantine"
+EVENT_REPLICA_RESTORE = "replica_restore"
+EVENT_REPLICA_FAILOVER = "replica_failover"
+EVENT_FLEET_ROLLING_RESTART = "fleet_rolling_restart"
 
 DEFAULT_MAX_EVENTS = 100_000
 

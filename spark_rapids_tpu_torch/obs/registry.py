@@ -145,6 +145,7 @@ def snapshot() -> dict:
     """The engine-stats dict: one key a module, and the histograms."""
     from spark_rapids_tpu_torch import lifecycle
     from spark_rapids_tpu_torch.exec import aqe
+    from spark_rapids_tpu_torch.fleet import stats as fleet_stats
     from spark_rapids_tpu_torch.obs import journal
     from spark_rapids_tpu_torch.server import stats as server_stats
     return {
@@ -155,6 +156,9 @@ def snapshot() -> dict:
         "lifecycle": lifecycle.global_stats(),
         "catalog": _catalog_stats(),
         "server": server_stats.global_stats(),
+        # the fleet router's counters (routing, overflow, failovers,
+        # quarantines, restarts); zero outside a router's process
+        "fleet": fleet_stats.global_stats(),
         "journal": journal.stats(),
         "histograms": histogram_snapshots(),
     }

@@ -91,7 +91,7 @@ def check_expression(e: Expression, conf: TorchConf) -> None:
             "spark.rapids.sql.incompatibleOps.enabled or "
             f"spark.rapids.sql.expression.{name} (the torch port has no "
             "CPU engine to run it otherwise)")
-    if isinstance(e, Cast):
+    if isinstance(e, Cast) and not e.implicit:
         gate = gate_key(e.children[0].dtype, e.to)
         if gate is not None and not conf.get(gate):
             raise NotImplementedError(

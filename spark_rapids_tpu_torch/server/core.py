@@ -123,6 +123,7 @@ class _TenantSession:
         self._base = base
         self.conf = conf
         self._last_plan = None
+        self._last_query = None
 
     def __getattr__(self, name):
         return getattr(self._base, name)

@@ -11,8 +11,12 @@ them.  ``sql`` runs a SELECT over the views
 registered with ``DataFrame.create_or_replace_temp_view``
 (``spark_rapids_tpu_torch/sql.py`` says which SQL it takes; the rest
 raises); ``prepare`` a SELECT with ``?`` markers; ``server()`` starts the
-session's multi-tenant ``SessionServer`` (``server/``).  ``stop()``
-closes the server, then cancels and tears down every live query
+session's multi-tenant ``SessionServer`` (``server/``) and ``fleet()`` a
+``FleetRouter`` over ``spark.rapids.fleet.replicas`` replica processes
+(``fleet/``).  ``last_query_profile()`` and ``last_query_metrics()``
+read the executed plan of the session's last query (``obs/profile.py``);
+``TorchSession.active()`` is the session made last.  ``stop()`` closes
+the fleet and the server, then cancels and tears down every live query
 through ``lifecycle.shutdown_all``; the device's runtime, shared by the
 sessions on the device, stays (``TorchRuntime.reset`` drops it).
 """
@@ -23,11 +27,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from spark_rapids_tpu_torch.conf import DEVICE, SERVER_ENABLED, TorchConf
+from spark_rapids_tpu_torch.conf import DEVICE, FLEET_REPLICAS, \
+    SERVER_ENABLED, TorchConf
 from spark_rapids_tpu_torch.runtime import TorchRuntime
 
 
 class TorchSession:
+    _active: Optional["TorchSession"] = None
+
     def __init__(self, conf: Optional[Dict[str, Any]] = None):
         self.conf = TorchConf(conf)
         self.device = torch.device(self.conf.get(DEVICE))
@@ -42,14 +49,47 @@ class TorchSession:
             self.device = torch.device("cuda", torch.cuda.current_device())
         # the device's runtime: the spill catalog and the semaphore
         self.runtime = TorchRuntime.get_or_create(self.conf, self.device)
-        # the physical plan of the last query run, for its metrics
+        # the physical plan of the last query that ran to its end, and
+        # that query's context (its id, and its wall time once its scope
+        # closed): stamped only after the drain succeeded
         self._last_plan = None
+        self._last_query = None
         self._views: Dict[str, Any] = {}  # temp views, by lower-case name
         self._server = None  # the SessionServer, made by server()
+        self._fleet = None  # the FleetRouter, made by fleet()
+        TorchSession._active = self
 
     @classmethod
     def builder(cls) -> "_Builder":
         return _Builder()
+
+    @classmethod
+    def active(cls) -> "TorchSession":
+        """The session made last, or a new one with the default conf
+        (on the card) when there is none."""
+        if cls._active is None:
+            cls._active = TorchSession()
+        return cls._active
+
+    def last_query_profile(self):
+        """The ``QueryProfile`` of the last query that ran to its end
+        (``render()``, ``to_dict()``), or None before the first."""
+        if self._last_plan is None:
+            return None
+        from spark_rapids_tpu_torch.obs.profile import QueryProfile
+        qc = self._last_query
+        return QueryProfile.from_plan(
+            self._last_plan,
+            query_id=qc.query_id if qc is not None else None,
+            wall_ms=qc.wall_ms if qc is not None else None)
+
+    def last_query_metrics(self) -> str:
+        """The last query's operator metrics, one line an operator with
+        its non-zero metrics (times in ms): the JAX package's format."""
+        p = self.last_query_profile()
+        if p is None:
+            return "<no query executed>"
+        return "\n".join(p.legacy_lines())
 
     def set_conf(self, key: str, value) -> None:
         self.conf = self.conf.set(key, value)
@@ -123,21 +163,38 @@ class TorchSession:
         return registry.snapshot()
 
     def fleet(self):
-        """The JAX package's fleet of server processes is not in the
-        port: raises ``NotImplementedError``."""
-        raise NotImplementedError(
-            "session.fleet(): the serving fleet is not in the torch port "
-            "(ROADMAP.md, queue A10's leftovers)")
+        """The session's ``FleetRouter`` over
+        ``spark.rapids.fleet.replicas`` spawned replica processes, each
+        with its own session and server (started at the first call):
+        tenant-aware routing with overflow, replica quarantine and
+        probation, one replay of a query in flight on a failed replica
+        under the per-tenant budget, and ``rolling_restart()``.  Refused
+        while the key is unset or below 1."""
+        if self.conf.get(FLEET_REPLICAS) < 1:
+            raise RuntimeError(
+                f"{FLEET_REPLICAS.key} is unset (or < 1); set it to the "
+                "number of replicas before calling fleet()")
+        if self._fleet is None or self._fleet.closed:
+            from spark_rapids_tpu_torch.fleet import FleetRouter
+            self._fleet = FleetRouter(self)
+        return self._fleet
 
     def stop(self) -> None:
-        """Close the server, then cancel and tear down every live query
-        and every resource registered outside one."""
+        """Close the fleet and the server, then cancel and tear down
+        every live query and every resource registered outside one."""
+        if self._fleet is not None:
+            # its replicas are whole processes with sessions of their
+            # own: closed before this process's serving plane
+            self._fleet.close()
+            self._fleet = None
         if self._server is not None:
             # first, so its queued tickets fail typed before the sweep
             self._server.close()
             self._server = None
         from spark_rapids_tpu_torch import lifecycle
         lifecycle.shutdown_all()
+        if TorchSession._active is self:
+            TorchSession._active = None
 
 
 class _Builder:
@@ -149,6 +206,5 @@ class _Builder:
         return self
 
     def get_or_create(self) -> TorchSession:
-        """A new session with the conf given (the port keeps no
-        process-wide active session)."""
+        """A new session with the conf given."""
         return TorchSession(self._conf)

@@ -2,9 +2,11 @@
 
 It imports no jax, no module of the JAX package and, on its main path
 (the TPC-H and TPCx-BB queries and the mortgage ETL from numpy tables
-included, the SQL front end with them), no pyarrow; pyarrow may be
-imported only inside functions.  A session on
-the card fails when no card is usable: nothing moves to the CPU.
+included, the SQL front end with them, query profiles, ``explain`` and
+the device handoff), no pyarrow; pyarrow may be imported only inside
+functions.  A fleet replica, a spawned process of its own, loads none
+of them either.  A session on the card fails when no card is usable:
+nothing moves to the CPU.
 """
 
 import ast
@@ -42,6 +44,12 @@ mortgage.mortgage_etl(s, mortgage.gen_mortgage_numpy(2400)).to_torch()
 tpcxbb.register_views(s, tpcxbb.gen_tpcxbb_numpy(1200))
 for sql in tpcxbb.TPCXBB_QUERIES.values():
     s.sql(sql).to_torch()
+q = tpch.TPCH_QUERIES["q1"](tables)
+q.explain()
+q.explain(analyze=True)
+assert s.last_query_profile().to_dict()["plan"]["rows"] > 0
+assert s.last_query_metrics()
+assert q.to_device_batches()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
                                     "spark_rapids_tpu"))
@@ -52,6 +60,38 @@ print("BAD=" + ",".join(bad))
 def test_main_path_imports_no_jax_or_pyarrow():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout, out.stdout
+
+
+_REPLICA_PROBE = """
+import sys
+import numpy as np
+import spark_rapids_tpu_torch as st
+if __name__ == "__main__":
+    s = st.TorchSession({"spark.rapids.torch.device": "cpu",
+                         "spark.rapids.fleet.replicas": 1})
+    fleet = s.fleet()
+    fleet.register_table_view("t", {"k": np.array([3, 1, 3, 2]),
+                                    "v": np.array([1.0, 2.0, 3.0, 4.0])})
+    r = fleet.submit("SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY k")
+    assert r.result(timeout=120).to_numpy()["s"].tolist() == [2.0, 4.0, 4.0]
+    mods = fleet.replica_stats(0)["process"]["modules"]
+    s.stop()
+    bad = sorted(m for m in list(sys.modules) + mods
+                 if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
+                                        "spark_rapids_tpu"))
+    assert "spark_rapids_tpu_torch.fleet.replica" in mods
+    print("BAD=" + ",".join(bad))
+"""
+
+
+def test_fleet_replica_imports_no_jax_or_pyarrow(tmp_path):
+    script = tmp_path / "replica_probe.py"
+    script.write_text(_REPLICA_PROBE)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, str(script)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert "BAD=\n" in out.stdout, out.stdout
 

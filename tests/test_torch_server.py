@@ -23,8 +23,8 @@ elsewhere):
   ``server.admit`` and ``server.cache.lookup`` faults behave as in the
   JAX package, and nothing (threads, handles, permits) is left after
   ``close`` and ``stop``;
-- the chip-health and stream keys, and the fleet, raise; ``native.load``
-  builds once from four threads.
+- the chip-health and stream keys raise on a server, and on a fleet's
+  replica at its boot; ``native.load`` builds once from four threads.
 
 No test waits without a bound (``ticket.result(timeout=...)``,
 ``thread.join(timeout)``).  The port's injector and journal are
@@ -708,7 +708,13 @@ def test_unported_layers_raise_on_a_server(key):
     s = st.TorchSession({**CPU, key: "true"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.server()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    s.stop()
+    # a fleet's replica is a server: built with the key on, it raises at
+    # boot and the fleet fails typed (the fleet itself is ported)
+    from spark_rapids_tpu_torch.errors import ReplicaFailedError
+    s = st.TorchSession({**CPU, key: "true",
+                         "spark.rapids.fleet.replicas": 1})
+    with pytest.raises(ReplicaFailedError, match="died during startup"):
         s.fleet()
     s.stop()
     assert not [t.name for t in threading.enumerate()
@@ -794,7 +800,7 @@ def test_stats_snapshot_and_prometheus_text(corpus):
         server.sql("SELECT k FROM agg WHERE v > 1", result_timeout=60)
         snap = s.engine_stats()
         assert set(snap) == {"aqe", "lifecycle", "catalog", "server",
-                             "journal", "histograms"}
+                             "fleet", "journal", "histograms"}
         assert snap["server"]["completed"] >= 1
         assert snap["histograms"]["server.admit.wait.us"]["count"] >= 1
         assert snap["histograms"]["query.wall.us"]["count"] >= 1
