@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--package-root DIR] [--kernels-only]
                           [--sass-dir DIR] [--layer-cost] [--string-paths]
+                          [--files-only]
 
 Phases, each printing one JSON line:
 
@@ -270,7 +271,26 @@ comparison of it with its plain version (phase 3, its edge specs and
 kernel_path) also calls it 5 times and fails unless the float-add planes
 come out bit for bit alike (``float_sum_results_of_5``).
 
-Each path of phases 5 to 22 runs with the launch counts set to 0 just
+23. files: SF1 lineitem (gen_tpch_numpy(6_001_215), every column)
+   written as CSV by the port's writer (no pyarrow), read back decoded
+   on the card with the schema inferred and with it given, every value
+   checked against the in-memory table, csvSlowFloatFields 0, TPC-H Q1
+   and Q6 over the scan equal to the in-memory ones, the device decode
+   timed apart (decode GB/s of file bytes beside the 3.35 TB/s read-once
+   bound) and the read traced (csv_lineitem_sf1); hash_agg_sort_2m's
+   table and text_filter_agg_6m's through CSV (K1; K2 and K1 on the
+   decoder's char matrix, against numpy); lineitem partitioned by
+   returnflag and linestatus, a returnflag filter reading only its
+   directories (csv_hive); a standing group_by(k) over a CSV root fed
+   hash_agg_sort_2m's rows as appended files, a grown file and a
+   rewritten one, each tick against a full recompute, the first poll
+   failed by the stream.poll fault (stream_agg, freshness p50/p99); and
+   write.parquet and read.orc raising PyarrowRequiredError without
+   pyarrow.  Its files live under ``_smoke_files/`` in the checkout and
+   are removed after it.  ``--files-only`` builds the kernels and runs
+   this phase alone.
+
+Each path of phases 5 to 23 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -4026,6 +4046,403 @@ def phase_fleet(torch, st, native, tpch, agg_data, smi: str,
          seconds=time.perf_counter() - t_phase, card=smi)
 
 
+# -- phase 23: file I/O and continuous queries --------------------------------
+
+FILES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_smoke_files")
+# the card's memory rate the decode is held against (bytes a second)
+H100_SXM_RATE = 3.35e12
+STREAM_PARTS = 8
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _tree_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _csv_files(path: str) -> list:
+    return sorted(os.path.join(d, f) for d, _, fs in os.walk(path)
+                  for f in fs if f.endswith(".csv"))
+
+
+def csv_decode_seconds(torch, files, schema) -> float:
+    """The device decode alone: every range of the files uploaded first,
+    then split and converted, timed with the card synchronized."""
+    from spark_rapids_tpu_torch.io import csv as C
+    bufs = [torch.frombuffer(b, dtype=torch.uint8).cuda()
+            for f in files for b in C.read_ranges(f)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = True
+    for buf in bufs:
+        s, ln, q = C.split_fields(buf, ",", len(schema))
+        if first:
+            s, ln, q = s[1:], ln[1:], q[1:]
+            first = False
+        for r0 in range(0, s.shape[0], 1 << 20):
+            r1 = min(s.shape[0], r0 + (1 << 20))
+            C.convert_fields(buf, s[r0:r1], ln[r0:r1], q[r0:r1], schema, 512)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _inferred_type(F64, I64, values: np.ndarray, dtype):
+    """The type pyarrow infers for a column the port wrote: a double
+    column of whole numbers prints them without a dot, so it reads back
+    as int64."""
+    if dtype == F64 and np.all(np.floor(values) == values):
+        return I64
+    return dtype
+
+
+def _csv_lineitem(torch, st, session, tpch_dfs, smi: str):
+    """Write SF1 lineitem as CSV, read it back inferred and typed, check
+    every value, run Q1 and Q6 over the scan; -> (typed DataFrame,
+    schema, path)."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
+    from spark_rapids_tpu_torch.columnar.dtypes import FLOAT64, INT64
+    mem = tpch_dfs["lineitem"]
+    path = os.path.join(FILES_DIR, "lineitem")
+    _, write_s = _timed(torch, lambda: mem.write.csv(path))
+    files = _csv_files(path)
+    nbytes = _tree_bytes(path)
+    schema = mem.plan.output_schema()
+    want = mem.to_torch()
+    inferred = session.read.csv(path)
+    check(inferred.plan.output_schema().names == schema.names,
+          "csv_lineitem_sf1: inferred names")
+    got, read_inferred_s = _timed(torch, inferred.to_torch)
+    slow_inferred = metric_sum(session._last_plan, "csvSlowFloatFields")
+    host_read_ns = metric_sum(session._last_plan, "csvReadTime")
+    upload_ns = metric_sum(session._last_plan, "uploadTime")
+    (gc, gm, gn), (wc, wm, wn) = got, want
+    check(gn == wn, f"csv_lineitem_sf1: {gn} rows read, {wn} written")
+    types = {}
+    for f, g in zip(schema, inferred.plan.output_schema()):
+        x, y = gc[f.name], wc[f.name]
+        expect = _inferred_type(FLOAT64, INT64, y[:wn].cpu().numpy(),
+                                f.dtype) if f.dtype == FLOAT64 \
+            else f.dtype
+        check(g.dtype == expect,
+              f"csv_lineitem_sf1: {f.name} inferred {g.dtype}, "
+              f"expected {expect}")
+        types[f.name] = g.dtype.name
+        check(torch.equal(gm[f.name][:gn], wm[f.name][:wn]),
+              f"csv_lineitem_sf1: nulls of {f.name}")
+        if isinstance(y, tuple):
+            check(torch.equal(x[0][:gn], y[0][:wn])
+                  and torch.equal(x[1][:gn], y[1][:wn]),
+                  f"csv_lineitem_sf1: strings of {f.name}")
+        else:
+            check(torch.equal(x[:gn].to(y.dtype), y[:wn]),
+                  f"csv_lineitem_sf1: values of {f.name}")
+    typed = session.read.schema(schema).csv(path)
+    got_typed, read_typed_s = _timed(torch, typed.to_torch)
+    slow_typed = metric_sum(session._last_plan, "csvSlowFloatFields")
+    same_result(torch, got_typed, want, "csv_lineitem_sf1 typed read")
+    check(slow_inferred == 0 and slow_typed == 0,
+          f"csvSlowFloatFields {slow_inferred}, {slow_typed} on TPC-H data")
+    decode_s = csv_decode_seconds(torch, files, schema)
+    tables = dict(tpch_dfs)
+    tables["lineitem"] = typed
+    bitwise = {}
+    for q in ("q1", "q6"):
+        a, secs = _timed(torch, TPCH_QUERIES[q](tables).to_torch)
+        b = TPCH_QUERIES[q](tpch_dfs).to_torch()
+        bitwise[q] = same_result(torch, a, b, f"tpch_{q} over csv",
+                                 float_rtol=1e-9)
+        bitwise[q + "_s"] = secs
+    emit("csv_lineitem_sf1", rows=gn, files=len(files), file_bytes=nbytes,
+         write_s=write_s, read_inferred_s=read_inferred_s,
+         read_typed_s=read_typed_s, host_read_s=host_read_ns / 1e9,
+         upload_s=upload_ns / 1e9, decode_s=decode_s,
+         decode_gbps=nbytes / decode_s / 1e9,
+         decode_bound_s=nbytes / H100_SXM_RATE,
+         csvSlowFloatFields=[slow_inferred, slow_typed],
+         inferred_types=types, queries=bitwise, nvidia_smi=smi)
+    phase_trace(torch, typed, "csv_lineitem_sf1")
+    return typed, schema, path
+
+
+def _uncounted(native, fn):
+    """``fn()`` with the launch counts left as they were: a comparison
+    of a kernel with its plain version is not a main-path launch."""
+    saved = dict(native.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        native.LAUNCHES.update(saved)
+
+
+def _csv_agg(torch, st, F, native, session, agg_data, smi: str) -> float:
+    """hash_agg_sort_2m's table through CSV; -> K1's largest f64 sum
+    error against its plain version on the scan's own update batch."""
+    mem = session.create_dataframe(agg_data)
+    path = os.path.join(FILES_DIR, "agg")
+    _, write_s = _timed(torch, lambda: mem.write.csv(path))
+    df = session.read.schema(mem.plan.output_schema()).csv(path)
+    before = native.LAUNCHES["dense_slot_reduce"]
+    (cols, masks, n), secs = _timed(torch, agg_query(st, F, df).to_torch)
+    launches = native.LAUNCHES["dense_slot_reduce"] - before
+    slow = metric_sum(session._last_plan, "csvSlowFloatFields")
+    keys, counts, sums, maxes = group_stats(agg_data["k"], agg_data["v"],
+                                            agg_data["w"])
+    check(launches > 0, "csv_hash_agg_2m: the dense-slot kernel never ran")
+    check(n == len(keys), f"csv_hash_agg_2m: {n} groups, numpy {len(keys)}")
+    check(np.array_equal(cols["k"].cpu().numpy(), keys), "csv agg keys")
+    check(np.array_equal(cols["cnt"].cpu().numpy(), counts),
+          "csv agg counts")
+    check(np.array_equal(cols["mx"].cpu().numpy(), maxes), "csv agg max")
+    check(np.allclose(cols["s"].cpu().numpy(), sums, rtol=1e-9, atol=0),
+          "csv agg sums beyond rtol 1e-9")
+    emit("csv_hash_agg_2m", rows=len(agg_data["k"]), groups=n,
+         file_bytes=_tree_bytes(path), write_s=write_s, query_s=secs,
+         kernel_launches=launches, csvSlowFloatFields=slow, nvidia_smi=smi)
+    from spark_rapids_tpu_torch.exec import pallas_agg as pag
+    return _uncounted(native, lambda: phase_kernel_path(
+        torch, pag, session, agg_query(st, F, df), "csv_hash_agg_2m"))
+
+
+def _csv_text(torch, st, F, native, session, line, smi: str) -> None:
+    """text_filter_agg_6m's table through CSV: the char matrix the
+    contains kernel reads comes from the device's decoder."""
+    mem = session.create_dataframe(line[0])
+    path = os.path.join(FILES_DIR, "text")
+    _, write_s = _timed(torch, lambda: mem.write.csv(path))
+    df = session.read.schema(mem.plan.output_schema()).csv(path)
+    before = dict(native.LAUNCHES)
+    phase_text_agg(torch, st, F, native, session, df, line,
+                   "csv_text_filter_agg_6m", 1)
+    got = {k: native.LAUNCHES[k] - before[k] for k in before}
+    check(got["contains"] > 0, "csv_text_filter_agg_6m: no contains launch")
+    emit("csv_text_filter_agg_6m_io", file_bytes=_tree_bytes(path),
+         write_s=write_s, launches=got, nvidia_smi=smi)
+
+    def hold():
+        # K2 against its plain version on the first batch the CSV scan
+        # decoded: the char matrix the card's decoder built
+        from spark_rapids_tpu_torch.exprs import pallas_strings as ps
+        batch = df.to_device_batches()[0]
+        c = batch.columns[batch.schema.field_index("l_comment")]
+        hit = ps.run_contains(c.chars, c.data, NEEDLE.encode())
+        torch.cuda.synchronize()
+        want = ps.contains_reference(c.chars, c.data, NEEDLE.encode())
+        check(torch.equal(hit, want), "contains kernel differs from its "
+              "plain version on the CSV-decoded batch")
+        emit("kernel_path", name="contains", path="csv_text_filter_agg_6m",
+             rows=batch.num_rows, width=c.chars.shape[1],
+             hits=int(want.sum()), max_abs_err=0.0)
+    _uncounted(native, hold)
+
+
+def _csv_hive(torch, st, F, session, typed, schema, smi: str) -> None:
+    """lineitem partitioned by returnflag and linestatus; a filter on the
+    returnflag reads its directories only."""
+    col = st.col
+    path = os.path.join(FILES_DIR, "hive")
+    _, write_s = _timed(torch, lambda: typed.write.partition_by(
+        "l_returnflag", "l_linestatus").csv(path))
+    dirs = sorted({os.path.relpath(os.path.dirname(f), path)
+                   for f in _csv_files(path)})
+    names = session.read.csv(path).plan.output_schema().names
+    check(names[-2:] == ["l_returnflag", "l_linestatus"],
+          f"csv_hive: partition columns last, got {names}")
+    from spark_rapids_tpu_torch.columnar.dtypes import Schema
+    keys = ("l_returnflag", "l_linestatus")
+    hive = session.read.schema(Schema(
+        [f for f in schema if f.name not in keys]
+        + [schema[schema.field_index(k)] for k in keys])).csv(path)
+
+    def q1ish(df):
+        return (df.filter(col("l_returnflag") == "R")
+                  .group_by("l_linestatus")
+                  .agg(F.count(col("l_quantity")).alias("n"),
+                       F.sum(col("l_quantity")).alias("qty"),
+                       F.sum(col("l_extendedprice")).alias("price"),
+                       F.min(col("l_orderkey")).alias("lo"),
+                       F.max(col("l_shipdate")).alias("hi"))
+                  .order_by("l_linestatus"))
+
+    got, secs = _timed(torch, q1ish(hive).to_torch)
+    read = metric_sum(session._last_plan, "numFilesRead")
+    total = metric_sum(session._last_plan, "numFilesTotal")
+    want = q1ish(typed).to_torch()
+    same_result(torch, got, want, "csv_hive against the unpartitioned read",
+                float_rtol=1e-9)
+    r_dirs = [d for d in dirs if d.startswith("l_returnflag=R")]
+    check(read == len(r_dirs) and total == len(dirs) and read < total,
+          f"csv_hive: read {read} of {total} files, R has {len(r_dirs)}")
+    emit("csv_hive", dirs=dirs, files_read=read, files_total=total,
+         write_s=write_s, query_s=secs, file_bytes=_tree_bytes(path),
+         nvidia_smi=smi)
+
+
+def _append_lines(torch, session, data, path: str) -> None:
+    """The rows of ``data`` appended to the CSV file ``path`` (no
+    header), as the writer prints them."""
+    from spark_rapids_tpu_torch.io import csvformat
+    b = session.create_dataframe(data).to_device_batches()
+    with open(path, "ab") as f:
+        for batch in b:
+            f.write(csvformat.format_rows(batch.schema, batch.columns,
+                                          batch.num_rows))
+
+
+def _stream_agg(torch, st, F, native, agg_data, smi: str) -> None:
+    """A standing group_by(k) over a CSV root fed hash_agg_sort_2m's rows
+    as appended files, a grown file and a rewritten one; each refresh
+    against a full recompute."""
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.obs import registry as obs
+    from spark_rapids_tpu_torch.stream import stats as stream_stats
+    col = st.col
+    root = os.path.join(FILES_DIR, "stream")
+    n = len(agg_data["k"])
+    tail = n // 64
+    cuts = np.linspace(0, n - tail, STREAM_PARTS + 1).astype(np.int64)
+    part = [{k: v[cuts[i]:cuts[i + 1]] for k, v in agg_data.items()}
+            for i in range(STREAM_PARTS)]
+    grown = {k: v[n - tail:] for k, v in agg_data.items()}
+    s = st.TorchSession({"spark.rapids.stream.enabled": "true",
+                         "spark.rapids.stream.pollIntervalMs": "3600000",
+                         "spark.rapids.faults.stream.poll": "count:1"})
+    schema = s.create_dataframe(part[0]).plan.output_schema()
+    s.create_dataframe(part[0]).write.csv(root)
+    stream_stats.reset()
+    obs.histogram(obs.HIST_STREAM_FRESHNESS_US).reset()
+
+    def agg(df):
+        return df.group_by("k").agg(F.count(col("v")).alias("cnt"),
+                                    F.sum(col("v")).alias("s"),
+                                    F.max(col("w")).alias("mx"))
+
+    def by_key(result):
+        out = result.to_numpy()
+        order = np.argsort(out["k"])
+        return {k: np.asarray(v)[order] for k, v in out.items()}
+
+    server = s.server(max_concurrency=2)
+    try:
+        reg = server.streaming
+        reg.register_source(root, "csv")
+        q = reg.register(agg(s.read.schema(schema).csv(root)), name="kagg")
+        check(q.incremental, f"stream_agg: not incremental ({q.reason})")
+        ticks = []
+
+        def tick(what: str) -> None:
+            t0 = time.perf_counter()
+            consumed = reg.tick()
+            secs = time.perf_counter() - t0
+            got = by_key(q.result())
+            want = by_key(agg(s.read.schema(schema).csv(root))._host())
+            check(len(got["k"]) == len(want["k"])
+                  and np.array_equal(got["k"], want["k"])
+                  and np.array_equal(got["cnt"], want["cnt"])
+                  and np.array_equal(got["mx"], want["mx"])
+                  and np.allclose(got["s"], want["s"], rtol=1e-9, atol=0),
+                  f"stream_agg: {what} differs from a full recompute")
+            ticks.append({"tick": what, "consumed": consumed,
+                          "seconds": secs,
+                          "sums_bitwise": bool(np.array_equal(
+                              got["s"].view(np.int64),
+                              want["s"].view(np.int64)))})
+
+        s.create_dataframe(part[1]).write.mode("append").csv(root)
+        check(reg.tick() == 0, "stream_agg: the stream.poll fault did not "
+              "skip the tick")
+        check(stream_stats.global_stats()["tick_faults"] == 1,
+              "stream_agg: tick fault not counted")
+        tick("append 1 after the poll fault")
+        for i in range(2, STREAM_PARTS):
+            s.create_dataframe(part[i]).write.mode("append").csv(root)
+            tick(f"append {i}")
+        _append_lines(torch, s, grown, _csv_files(root)[-1])
+        tick("grown")
+        check(stream_stats.global_stats()["batch_grown"] == 1,
+              "stream_agg: the grown file was not read as a tail")
+        before = stream_stats.global_stats()["recompute_refreshes"]
+        flipped = dict(part[0])
+        flipped["v"] = -part[0]["v"]
+        first = _csv_files(root)[0]
+        os.remove(first)
+        s.create_dataframe(flipped).write.mode("append").csv(root)
+        tick("rewritten")
+        gs = stream_stats.global_stats()
+        check(gs["recompute_refreshes"] == before + 1,
+              "stream_agg: the rewritten file was not a recompute")
+        fresh = obs.histogram(obs.HIST_STREAM_FRESHNESS_US).snapshot()
+        emit("stream_agg", rows=n, files=len(_csv_files(root)),
+             ticks=ticks, stats=gs, freshness_p50_us=fresh["p50"],
+             freshness_p99_us=fresh["p99"], refreshes=q.refreshes,
+             nvidia_smi=smi)
+    finally:
+        # the server's close joins the poller; the session's runtime is
+        # the main session's, which later phases go on using
+        server.close()
+        faults.reset()
+
+
+def _typed_errors(st, session) -> None:
+    """Parquet and ORC need pyarrow: without it they raise
+    PyarrowRequiredError (simulated where pyarrow is installed)."""
+    import importlib.util
+    real = importlib.util.find_spec("pyarrow") is None
+    saved = {m: sys.modules[m] for m in list(sys.modules)
+             if m == "pyarrow" or m.startswith("pyarrow.")}
+    if not real:
+        for m in saved:
+            del sys.modules[m]
+        sys.modules["pyarrow"] = None
+    try:
+        df = session.create_dataframe({"a": np.arange(3)})
+        for what, fn in (("write.parquet", lambda: df.write.parquet(
+                             os.path.join(FILES_DIR, "pq"))),
+                         ("read.orc", lambda: session.read.orc(
+                             os.path.join(FILES_DIR, "none.orc")))):
+            try:
+                fn()
+            except st.PyarrowRequiredError as e:
+                check("pyarrow" in str(e), f"{what}: {e}")
+            else:
+                raise SystemExit(f"{what} did not raise "
+                                 "PyarrowRequiredError")
+    finally:
+        if not real:
+            del sys.modules["pyarrow"]
+            sys.modules.update(saved)
+    emit("files_typed_errors", pyarrow_installed=not real, ok=True)
+
+
+def phase_files(torch, st, F, native, session, tpch_dfs, agg_data, line,
+                smi: str, errs: dict) -> None:
+    """Phase 23: CSV written and decoded on the card, hive partitions and
+    a standing query over tailed CSV files, each checked; K1's error on
+    the CSV scan's update batch goes into ``errs``."""
+    import shutil
+    t0 = time.perf_counter()
+    shutil.rmtree(FILES_DIR, ignore_errors=True)
+    os.makedirs(FILES_DIR)
+    try:
+        typed, schema, _ = _csv_lineitem(torch, st, session, tpch_dfs, smi)
+        errs["dense_slot_reduce"] = _csv_agg(torch, st, F, native,
+                                             session, agg_data, smi)
+        _csv_text(torch, st, F, native, session, line, smi)
+        _csv_hive(torch, st, F, session, typed, schema, smi)
+        _stream_agg(torch, st, F, native, agg_data, smi)
+        _typed_errors(st, session)
+    finally:
+        shutil.rmtree(FILES_DIR, ignore_errors=True)
+    emit("files", seconds=time.perf_counter() - t0, nvidia_smi=smi)
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(
@@ -4045,6 +4462,10 @@ def parse_args(argv):
                          "hash_join_1m, tpch_q3 and window_1m as the full "
                          "run does, and stop (to set one package's times "
                          "beside another's in one call)")
+    ap.add_argument("--files-only", action="store_true",
+                    help="build the kernels, run phase 23 (file I/O and "
+                         "a standing query over CSV) with its launch "
+                         "counts, and stop")
     ap.add_argument("--string-paths", action="store_true",
                     help="time LIKE/RLIKE's two matchers and replace's "
                          "two paths on the breadth queries' columns and "
@@ -4097,6 +4518,18 @@ def main(argv=None) -> int:
     session = st.TorchSession.builder().get_or_create()
     line_df = session.create_dataframe(line[0])
     emit("lineitem", rows=LINEITEM_ROWS, seconds=time.perf_counter() - t0)
+    if args.files_only:
+        from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy, \
+            load_tables
+        native.reset_launches()
+        phase_files(torch, st, F, native, session, load_tables(
+            session, gen_tpch_numpy(LINEITEM_ROWS)), agg_data, line, smi,
+            {})
+        emit("launches", path="files", counts=dict(native.LAUNCHES))
+        print(json.dumps({"ok": True, "files_only": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     edges = not args.kernels_only
     kern = {"dense_slot_reduce": phase_kernel(
                 torch, pag, session, agg_query(
@@ -4199,6 +4632,11 @@ def main(argv=None) -> int:
           dim_data, tpch, smi)
     drive("observe", phase_observe, torch, st, F, native, agg_data,
           line[0], main_data, dim_data, tpch, smi)
+    file_errs = {}
+    drive("files", phase_files, torch, st, F, native, session, tpch_dfs,
+          agg_data, line, smi, file_errs)
+    dsr["max_abs_err"] = max(dsr["max_abs_err"],
+                             file_errs["dense_slot_reduce"])
     # the replicas count their own launches; they join the kernels line
     replica_launches = {}
     drive("fleet", phase_fleet, torch, st, native, tpch, agg_data, smi,

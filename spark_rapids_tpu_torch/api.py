@@ -51,6 +51,7 @@ from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.generators import find_generators, \
     find_stray_array_literals
 from spark_rapids_tpu_torch.exprs.nullexprs import Coalesce
+from spark_rapids_tpu_torch.io.writers import DataFrameWriter
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression, \
     WindowFrame, WindowFunction
 from spark_rapids_tpu_torch.plan import logical as lp
@@ -734,6 +735,11 @@ class DataFrame:
         ``datetime.datetime``, strings as ``str``."""
         return self._host().collect()
 
+    @property
+    def write(self) -> "DataFrameWriter":
+        """A ``DataFrameWriter`` (``io/writers.py``)."""
+        return DataFrameWriter(self)
+
     def to_torch(self) -> Tuple[Dict[str, object], Dict[str, torch.Tensor],
                                 int]:
         """-> (columns, masks, num_rows): the result's data planes and
@@ -943,13 +949,31 @@ class GroupedData:
 
 
 class DataFrameReader:
+    """``session.read``: ``schema`` (a user schema, applied by position
+    to CSV), then ``parquet``, ``csv`` or ``orc``."""
+
     def __init__(self, session):
         self.session = session
+        self._schema: Optional[Schema] = None
+
+    def schema(self, schema: Schema) -> "DataFrameReader":
+        self._schema = schema
+        return self
 
     def parquet(self, *paths) -> DataFrame:
         from spark_rapids_tpu_torch.io.parquet import read_schema
         return DataFrame(self.session, lp.ParquetRelation(
-            list(paths), read_schema(list(paths))))
+            list(paths), self._schema or read_schema(list(paths))))
+
+    def csv(self, *paths, header: bool = True, sep: str = ",") -> DataFrame:
+        from spark_rapids_tpu_torch.io.csv import read_csv_relation
+        return DataFrame(self.session, read_csv_relation(
+            list(paths), self._schema, header=header, sep=sep))
+
+    def orc(self, *paths) -> DataFrame:
+        from spark_rapids_tpu_torch.io.orc import read_orc_relation
+        return DataFrame(self.session, read_orc_relation(
+            list(paths), self._schema))
 
 
 def create_dataframe(session, data, masks=None) -> DataFrame:

@@ -420,7 +420,7 @@ FLEET_RESULT_CACHE_MAX_BYTES = register(
     "spark.rapids.fleet.resultCache.maxBytes", 256 * 1024 * 1024,
     "Byte bound of the on-disk result tier.", int, _positive)
 
-# keys of layers the port does not have; a server built with one on
+# the key of a layer the port does not have; a server built with it on
 # raises (server/core.py) instead of running without it
 HEALTH_ENABLED = register(
     "spark.rapids.health.enabled", False,
@@ -430,9 +430,43 @@ HEALTH_ENABLED = register(
 
 STREAM_ENABLED = register(
     "spark.rapids.stream.enabled", False,
-    "The JAX package's continuous queries; the port raises "
-    "NotImplementedError when a server is built with it on (ROADMAP.md, "
-    "queue A10's leftovers).", bool)
+    "Continuous queries: the session server gains tailing sources (a "
+    "poller diffing registered parquet, ORC or CSV roots into append "
+    "micro-batches), standing queries refreshed incrementally through "
+    "the partial-aggregate merge, and maintained result-cache entries.  "
+    "Off (the default): no poller thread and no registry.", bool)
+
+STREAM_POLL_INTERVAL_MS = register(
+    "spark.rapids.stream.pollIntervalMs", 1000,
+    "Milliseconds between tailing-source polls.", int, _positive)
+
+STREAM_MAX_FILES_PER_TICK = register(
+    "spark.rapids.stream.maxFilesPerTick", 64,
+    "New files one micro-batch may carry; a larger backlog drains over "
+    "the following ticks, oldest first.  Grown files always drain whole.",
+    int, _positive)
+
+STREAM_INCREMENTAL = register(
+    "spark.rapids.stream.incremental.enabled", True,
+    "Refresh standing queries incrementally where the plan allows "
+    "(Count/Sum/Min/Max/Average group-bys, append-linear project, filter "
+    "and stream-side join chains over one tailed leaf); false makes "
+    "every refresh a full recompute (counted), with equal results.",
+    bool)
+
+STREAM_CACHE_MAINTAIN = register(
+    "spark.rapids.stream.cache.maintain", False,
+    "Maintain a result-cache entry whose snapshot differs by new files "
+    "on exactly one scanned leaf: the delta merges into the cached "
+    "result instead of invalidating it.  Any other change falls back "
+    "to a miss and a recompute, counted.  Needs "
+    "spark.rapids.stream.enabled.", bool)
+
+STREAM_REFRESH_TIMEOUT_MS = register(
+    "spark.rapids.stream.refreshTimeoutMs", 60000,
+    "Bound on one standing-query refresh's wait; one that misses it is "
+    "a counted refresh error and the query recomputes on the next tick.",
+    int, _positive)
 
 
 class TorchConf:

@@ -32,9 +32,12 @@ to fail, so tests and runs inject faults through
                            the query for a second (``fleet/replica.py``)
   ``worker.heartbeat``     a fleet replica's heartbeat: the thread falls
                            silent (a hung replica)
+  ``stream.poll``          a tailing source's poll, before anything is
+                           diffed: the tick is skipped and counted, the
+                           committed snapshot stays
 
 The JAX package's other sites (shuffle, ICI, ``io.encode``, chip,
-stream, ``compile.store``, ``plan.place``, ``ooc.partition``) belong to
+``compile.store``, ``plan.place``, ``ooc.partition``) belong to
 modules the port does not have yet (``ROADMAP.md``).
 
 Trigger grammar (the value of ``spark.rapids.faults.<site>``):

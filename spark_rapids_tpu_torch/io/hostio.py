@@ -1,0 +1,64 @@
+"""Host-side helpers the parquet and ORC scans share.
+
+Counterpart of ``spark_rapids_tpu/io/hostio.py``: ``coalesce_host_batches``
+combines the reader's record batches up to the scan's row cap before an
+upload, and ``make_uploader`` turns one ``(file index, record batch)``
+into a device batch with the file's hive partition columns appended.
+The JAX package's encoded-plane ingest (``IngestEncoder``) and its
+double-buffered upload (``pipelined_h2d``) are not ported (ROADMAP.md,
+queue A6).  The CSV scan decodes on the device and needs neither.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterator
+
+
+def _combine(rbs):
+    """Record batches -> one, or the one given."""
+    import pyarrow as pa
+    if len(rbs) == 1:
+        return rbs[0]
+    return pa.Table.from_batches(rbs).combine_chunks()
+
+
+def coalesce_host_batches(it: Iterator, target_rows: int) -> Iterator:
+    """Combine record batches host-side up to ``target_rows`` (a cap: a
+    batch that would cross it flushes the buffer first)."""
+    buf, n = [], 0
+    for rb in it:
+        if buf and n + rb.num_rows > target_rows:
+            yield _combine(buf)
+            buf, n = [], 0
+        buf.append(rb)
+        n += rb.num_rows
+        if n >= target_rows:
+            yield _combine(buf)
+            buf, n = [], 0
+    if buf:
+        yield _combine(buf)
+
+
+def make_uploader(ctx, file_schema, part_schema=None, part_values=None,
+                  schema=None, to_device=None) -> Callable:
+    """``upload((file index, record batch))`` -> the device batch at the
+    session's string width cap, the file's partition columns after its
+    own.  ``to_device`` is the host-to-device conversion
+    (``columnar/batch.py: host_batch_to_device`` unless the scan names
+    its own)."""
+    from spark_rapids_tpu_torch.columnar.batch import \
+        host_batch_to_device, host_columns_from_arrow
+    from spark_rapids_tpu_torch.conf import MAX_STRING_WIDTH
+    from spark_rapids_tpu_torch.io import hivepart
+    max_w = ctx.conf.get(MAX_STRING_WIDTH)
+    to_device = to_device or host_batch_to_device
+
+    def upload(item):
+        fi, rb = item
+        _, cols = host_columns_from_arrow(rb)
+        b = to_device(file_schema, cols, ctx.device, max_w)
+        if part_schema:
+            b = hivepart.append_partition_columns(
+                b, part_schema, part_values[fi], schema)
+        return b
+    return upload

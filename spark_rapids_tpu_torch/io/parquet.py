@@ -3,11 +3,14 @@
 Counterpart of ``spark_rapids_tpu/io/parquet.py:TpuParquetScanExec``:
 pyarrow reads each file on the host in record batches of
 ``spark.rapids.sql.reader.batchSizeRows`` rows, combines them up to that
-many rows, as the JAX package's host reader does, and each combined
-batch is uploaded.  pyarrow is imported inside the functions that read,
-so the rest of the port runs without it.  Row-group pruning by footer
-statistics is not in this slice: every row group is read, and the
-Filter above the scan does the filtering.
+many rows (``io/hostio.py``), as the JAX package's host reader does, and
+each combined batch is uploaded.  A hive-partitioned layout adds its
+partition columns to every batch of a file, and files whose partition
+values cannot satisfy the pushed predicate are not read; within a file,
+a row group whose footer min/max cannot satisfy it is not read either
+(``_stats_prune``).  The Filter above the scan stays.  pyarrow is
+imported inside the functions that read, so the rest of the port runs
+without it; they raise ``PyarrowRequiredError`` where it is missing.
 """
 
 from __future__ import annotations
@@ -16,13 +19,17 @@ import glob as _glob
 import os
 from typing import Iterator, List
 
-from spark_rapids_tpu_torch.columnar.batch import (
-    ColumnarBatch, host_batch_to_device, host_columns_from_arrow,
-)
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, \
+    host_batch_to_device
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
-from spark_rapids_tpu_torch.conf import MAX_STRING_WIDTH, \
-    READER_BATCH_SIZE_ROWS
+from spark_rapids_tpu_torch.conf import READER_BATCH_SIZE_ROWS
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
+from spark_rapids_tpu_torch.io import hivepart
+from spark_rapids_tpu_torch.io.hostio import coalesce_host_batches, \
+    make_uploader
+from spark_rapids_tpu_torch.utils.metrics import METRIC_NUM_FILES_READ, \
+    METRIC_NUM_FILES_TOTAL, METRIC_NUM_ROW_GROUPS_READ, \
+    METRIC_NUM_ROW_GROUPS_TOTAL
 
 
 def expand_paths(path) -> List[str]:
@@ -36,63 +43,117 @@ def expand_paths(path) -> List[str]:
     return [path]
 
 
+def tail_marker(path: str) -> str:
+    """A parquet file's last 8 bytes (footer length and ``PAR1``), hex:
+    a rewrite within the file system's mtime granularity at the same
+    size still changes it."""
+    with open(path, "rb") as f:
+        f.seek(0, os.SEEK_END)
+        if f.tell() < 8:
+            raise OSError(f"{path}: too short for a parquet footer")
+        f.seek(-8, os.SEEK_END)
+        return f.read(8).hex()
+
+
 def read_schema(paths) -> Schema:
+    from spark_rapids_tpu_torch.io.writers import require_pyarrow
+    require_pyarrow("reading parquet")
     import pyarrow.parquet as pq
     files = expand_paths(paths)
     if not files:
         raise FileNotFoundError(f"no parquet files at {paths!r}")
-    return Schema.from_arrow(pq.read_schema(files[0]))
+    return hivepart.with_partition_fields(
+        Schema.from_arrow(pq.read_schema(files[0])), paths, files)
 
 
-def _combine(rbs):
-    """Record batches -> one, or the one given."""
-    import pyarrow as pa
-    if len(rbs) == 1:
-        return rbs[0]
-    return pa.Table.from_batches(rbs).combine_chunks()
+def _stats_prune(md, ridx: int, checks) -> bool:
+    """True when row group ``ridx`` may hold rows the checks keep, by
+    its footer's min/max."""
+    if not checks:
+        return True
+    rg = md.row_group(ridx)
+    bounds = {}
+    for ci in range(rg.num_columns):
+        col = rg.column(ci)
+        st = col.statistics
+        if st is not None and st.has_min_max:
+            bounds[col.path_in_schema] = (st.min, st.max)
+    return hivepart.may_match(checks, bounds)
 
 
-def coalesce_host_batches(it, target_rows: int):
-    """Combine record batches host-side up to ``target_rows`` (a cap: a
-    batch that would cross it flushes the buffer first)."""
-    buf, n = [], 0
-    for rb in it:
-        if buf and n + rb.num_rows > target_rows:
-            yield _combine(buf)
-            buf, n = [], 0
-        buf.append(rb)
-        n += rb.num_rows
-        if n >= target_rows:
-            yield _combine(buf)
-            buf, n = [], 0
-    if buf:
-        yield _combine(buf)
+class ParquetPartitionReader:
+    """One file: the footer read and pruned at ``read_host``, then its
+    kept row groups' record batches."""
+
+    def __init__(self, path: str, schema: Schema, pred=None,
+                 batch_rows: int = 1 << 20):
+        self.path = path
+        self.schema = schema
+        self.pred = pred
+        self.batch_rows = batch_rows
+        self.total_row_groups = 0
+        self.read_row_groups = 0
+
+    def read_host(self) -> Iterator:
+        import pyarrow.parquet as pq
+        f = pq.ParquetFile(self.path)
+        md = f.metadata
+        checks = hivepart.simple_predicates(self.pred)
+        keep = [i for i in range(md.num_row_groups)
+                if _stats_prune(md, i, checks)]
+        self.total_row_groups = md.num_row_groups
+        self.read_row_groups = len(keep)
+        return self._iter(f, keep)
+
+    def _iter(self, f, keep) -> Iterator:
+        if not keep:
+            return
+        for b in f.iter_batches(batch_size=self.batch_rows, row_groups=keep,
+                                columns=self.schema.names):
+            if b.num_rows:
+                yield b
 
 
 class TorchParquetScanExec(TorchExec):
-    def __init__(self, paths, schema: Schema):
+    def __init__(self, paths, schema: Schema, pred=None):
         super().__init__()
         self.paths = expand_paths(paths)
+        self.part_schema, self.part_values = hivepart.discover(
+            hivepart.roots_of(paths), self.paths)
         self._schema = schema
+        self._file_schema = hivepart.file_fields(schema, self.part_schema)
+        self.pred = pred
         self.children = []
 
     def describe(self) -> str:
-        return f"TorchParquetScan [{len(self.paths)} files]"
+        extra = f", pushdown={self.pred.name}" if self.pred is not None \
+            else ""
+        if self.part_schema:
+            extra += f", partitioned by {self.part_schema.names}"
+        return f"TorchParquetScan [{len(self.paths)} files{extra}]"
 
     @property
     def output_schema(self) -> Schema:
         return self._schema
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
-        import pyarrow.parquet as pq
+        from spark_rapids_tpu_torch.io.writers import require_pyarrow
+        require_pyarrow("reading parquet")
         rows = ctx.conf.get(READER_BATCH_SIZE_ROWS)
-        max_w = ctx.conf.get(MAX_STRING_WIDTH)
-        names = self._schema.names
-        for path in self.paths:
-            f = pq.ParquetFile(path)
-            it = (b for b in f.iter_batches(batch_size=rows, columns=names)
-                  if b.num_rows)
+        files, fvals = hivepart.prune_files(
+            self.part_schema, self.part_values, self.paths, self.pred)
+        if self.part_schema:
+            self.metrics[METRIC_NUM_FILES_TOTAL] += len(self.paths)
+            self.metrics[METRIC_NUM_FILES_READ] += len(files)
+        upload = make_uploader(ctx, self._file_schema, self.part_schema,
+                               fvals, self._schema, host_batch_to_device)
+        for fi, path in enumerate(files):
+            reader = ParquetPartitionReader(path, self._file_schema,
+                                            self.pred, rows)
+            it = reader.read_host()
+            self.metrics[METRIC_NUM_ROW_GROUPS_TOTAL] += \
+                reader.total_row_groups
+            self.metrics[METRIC_NUM_ROW_GROUPS_READ] += \
+                reader.read_row_groups
             for rb in coalesce_host_batches(it, rows):
-                _, cols = host_columns_from_arrow(rb)
-                yield host_batch_to_device(self._schema, cols, ctx.device,
-                                           max_w)
+                yield upload((fi, rb))

@@ -50,6 +50,11 @@ EVENT_REPLICA_QUARANTINE = "replica_quarantine"
 EVENT_REPLICA_RESTORE = "replica_restore"
 EVENT_REPLICA_FAILOVER = "replica_failover"
 EVENT_FLEET_ROLLING_RESTART = "fleet_rolling_restart"
+# continuous queries (stream/)
+EVENT_STREAM_TICK = "stream_tick"
+EVENT_STANDING_REGISTER = "standing_register"
+EVENT_STANDING_RETIRE = "standing_retire"
+EVENT_CACHE_MAINTAIN = "cache_maintain"
 
 DEFAULT_MAX_EVENTS = 100_000
 

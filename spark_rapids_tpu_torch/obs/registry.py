@@ -8,9 +8,9 @@ server, the journal) and the histograms; ``prometheus_text()`` renders
 the snapshot in Prometheus' text format.  Units ride in the histogram's
 name (``*.us``).  Recording is gated by ``spark.rapids.sql.obs.enabled``
 (set at query-scope entry): off, ``record`` is one flag read.  The JAX
-package's sections for modules the port lacks (compressed, ooc, stream,
-the kernel cache, prefetch, d2h, fusion, ICI, placement, health,
-fleet, compile) are left out.
+package's sections for modules the port lacks (compressed, ooc, the
+kernel cache, prefetch, d2h, fusion, ICI, placement, health, compile)
+are left out.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ HIST_SEM_WAIT_US = "tpu.semaphore.wait.us"
 HIST_QUERY_WALL_US = "query.wall.us"
 # submit -> dispatch through the session server's fair admission queue
 HIST_SERVER_ADMIT_WAIT_US = "server.admit.wait.us"
+# a standing query's micro-batch detected -> its refresh done
+HIST_STREAM_FRESHNESS_US = "stream.freshness.us"
 
 
 class Histogram:
@@ -148,6 +150,7 @@ def snapshot() -> dict:
     from spark_rapids_tpu_torch.fleet import stats as fleet_stats
     from spark_rapids_tpu_torch.obs import journal
     from spark_rapids_tpu_torch.server import stats as server_stats
+    from spark_rapids_tpu_torch.stream import stats as stream_stats
     return {
         # adaptive execution: replans, coalesced partitions, skew
         # splits, promotions, demotions, fallbacks, exchanges seen and
@@ -159,6 +162,9 @@ def snapshot() -> dict:
         # the fleet router's counters (routing, overflow, failovers,
         # quarantines, restarts); zero outside a router's process
         "fleet": fleet_stats.global_stats(),
+        # continuous queries: sources, ticks, refreshes by kind, cache
+        # maintenance; all zero while spark.rapids.stream.enabled is off
+        "stream": stream_stats.global_stats(),
         "journal": journal.stats(),
         "histograms": histogram_snapshots(),
     }

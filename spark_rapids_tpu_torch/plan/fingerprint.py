@@ -13,8 +13,9 @@ for "the same query over the same data":
   expressions that differ only in state outside their children (a
   cast's type, a pattern) never share a digest.
 * ``snapshot_fingerprint``: a digest of what every leaf holds now.  A
-  parquet leaf contributes each file's path, mtime, size and footer tail
-  bytes, so a rewritten file changes the key; an in-memory relation its
+  file leaf contributes each file's path, mtime and size, a parquet
+  file its footer tail bytes too (``leaf_file_tokens``), so a rewritten
+  file changes the key; an in-memory relation its
   columns' object identity, row count and bytes, and the cache entry
   pins the columns, so a recycled ``id()`` never aliases a dead table;
   a range nothing.  A plan over a leaf whose snapshot cannot be made (a
@@ -212,34 +213,42 @@ def conf_fingerprint(conf) -> str:
 # input snapshot fingerprint
 # ---------------------------------------------------------------------------
 
-def _tail_marker(path: str) -> str:
-    """A parquet file's last 8 bytes (footer length and ``PAR1``), hex:
-    a rewrite within the file system's mtime granularity at the same
-    size still changes it."""
-    with open(path, "rb") as f:
-        f.seek(0, os.SEEK_END)
-        if f.tell() < 8:
-            raise OSError(f"{path}: too short for a parquet footer")
-        f.seek(-8, os.SEEK_END)
-        return f.read(8).hex()
-
-
-def _parquet_tokens(paths) -> Optional[List[str]]:
-    from spark_rapids_tpu_torch.io.parquet import expand_paths
+def _file_tokens(paths, expand, tail=None
+                 ) -> Optional[List[Tuple[str, str]]]:
+    """One ``(path, "path:mtime_ns:size[:tail]")`` pair a file, or None
+    when a file cannot be stat'ed or there is none."""
     try:
-        files = []
-        for p in paths:
-            files.extend(expand_paths(p))
+        files = expand(paths)
         if not files:
             return None
         out = []
         for f in files:
             st = os.stat(f)
-            out.append(f"{f}:{st.st_mtime_ns}:{st.st_size}:"
-                       f"{_tail_marker(f)}")
+            mark = f":{tail(f)}" if tail is not None else ""
+            out.append((f, f"{f}:{st.st_mtime_ns}:{st.st_size}{mark}"))
         return out
     except OSError:
         return None
+
+
+def leaf_file_tokens(node: lp.LogicalPlan
+                     ) -> Optional[List[Tuple[str, str]]]:
+    """The ``(path, token)`` pairs of a file relation (None for another
+    node, or one that cannot be snapshot): the one spelling the result
+    cache's key, its maintenance diff and the stream's tailing sources
+    share, so the three agree on what changed.  A parquet file's token
+    carries its footer tail bytes besides its mtime and size."""
+    if isinstance(node, lp.ParquetRelation):
+        from spark_rapids_tpu_torch.io.parquet import expand_paths, \
+            tail_marker
+        return _file_tokens(node.paths, expand_paths, tail_marker)
+    if isinstance(node, lp.OrcRelation):
+        from spark_rapids_tpu_torch.io.orc import expand_orc_paths
+        return _file_tokens(node.paths, expand_orc_paths)
+    if isinstance(node, lp.CsvRelation):
+        from spark_rapids_tpu_torch.io.csv import expand_csv_paths
+        return _file_tokens(node.paths, expand_csv_paths)
+    return None
 
 
 def _columns_nbytes(cols) -> int:
@@ -254,18 +263,23 @@ def _columns_nbytes(cols) -> int:
     return total
 
 
-def snapshot_fingerprint(plan: lp.LogicalPlan) -> Tuple[Optional[str], tuple]:
-    """``(digest, pins)`` of what every leaf holds now, or ``(None, ())``
-    when a leaf cannot be snapshot.  ``pins`` are the objects the cache
-    entry keeps alive (the in-memory relations' columns)."""
+def snapshot_detail(plan: lp.LogicalPlan
+                    ) -> Tuple[Optional[str], tuple, tuple]:
+    """``(digest, pins, leaves)``: ``snapshot_fingerprint`` and each file
+    relation's ``(node, ((path, token), ...))`` in walk order, which the
+    result cache's maintenance diffs; ``(None, (), ())`` when a leaf
+    cannot be snapshot."""
     parts: List[str] = []
     pins: List[object] = []
+    leaves: List[tuple] = []
 
     def walk(node: lp.LogicalPlan) -> bool:
-        if isinstance(node, lp.ParquetRelation):
-            toks = _parquet_tokens(node.paths)
-            if toks is None:
-                return False
+        pairs = leaf_file_tokens(node)
+        if pairs is not None:
+            leaves.append((node, tuple(pairs)))
+            toks = [tok for _, tok in pairs]
+        elif isinstance(node, lp.FILE_RELATIONS):
+            return False  # a file relation that cannot be snapshot
         elif isinstance(node, lp.LocalRelation):
             cols = node.cols
             pins.append(cols)
@@ -279,5 +293,14 @@ def snapshot_fingerprint(plan: lp.LogicalPlan) -> Tuple[Optional[str], tuple]:
         return all(walk(c) for c in node.children)
 
     if not walk(plan):
-        return None, ()
-    return hashlib.sha256("\n".join(parts).encode()).hexdigest(), tuple(pins)
+        return None, (), ()
+    digest = hashlib.sha256("\n".join(parts).encode()).hexdigest()
+    return digest, tuple(pins), tuple(leaves)
+
+
+def snapshot_fingerprint(plan: lp.LogicalPlan) -> Tuple[Optional[str], tuple]:
+    """``(digest, pins)`` of what every leaf holds now, or ``(None, ())``
+    when a leaf cannot be snapshot.  ``pins`` are the objects the cache
+    entry keeps alive (the in-memory relations' columns)."""
+    digest, pins, _ = snapshot_detail(plan)
+    return digest, pins

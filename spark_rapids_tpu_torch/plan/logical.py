@@ -1,8 +1,11 @@
 """Logical plan nodes produced by the DataFrame API.
 
-Counterpart of ``spark_rapids_tpu/plan/logical.py``: every node the JAX
-package lowers to its device, without the CSV and ORC relations.  Expressions inside are unresolved (attributes by
-name); the planner binds them against the child's output schema.
+Counterpart of ``spark_rapids_tpu/plan/logical.py``, with the same node
+set.  Expressions inside are unresolved (attributes by name); the
+planner binds them against the child's output schema.  A file relation's
+``pushed`` is a predicate ``plan/planner.py: push_scan_filters`` folded
+into it from the Filter above: the scan prunes hive partitions, parquet
+row groups and ORC stripes by it, and the Filter stays in the plan.
 """
 
 from __future__ import annotations
@@ -44,13 +47,57 @@ class LocalRelation(LogicalPlan):
 
 
 class ParquetRelation(LogicalPlan):
-    def __init__(self, paths, schema: Schema):
+    def __init__(self, paths, schema: Schema,
+                 pushed: Optional[Expression] = None):
         self.paths = paths
         self.schema = schema
+        self.pushed = pushed
         self.children = []
 
     def output_schema(self) -> Schema:
         return self.schema
+
+
+class CsvRelation(LogicalPlan):
+    """CSV files read with ``header`` and the delimiter ``sep``; the
+    port prunes hive partitions by ``pushed`` (the JAX package's CSV
+    scan reads every file and leaves it all to the Filter)."""
+
+    def __init__(self, paths, schema: Schema, header: bool = True,
+                 sep: str = ",", pushed: Optional[Expression] = None):
+        self.paths = paths
+        self.schema = schema
+        self.header = header
+        self.sep = sep
+        self.pushed = pushed
+        self.children = []
+
+    def output_schema(self) -> Schema:
+        return self.schema
+
+
+class OrcRelation(LogicalPlan):
+    def __init__(self, paths, schema: Schema,
+                 pushed: Optional[Expression] = None):
+        self.paths = paths
+        self.schema = schema
+        self.pushed = pushed
+        self.children = []
+
+    def output_schema(self) -> Schema:
+        return self.schema
+
+
+FILE_RELATIONS = (ParquetRelation, CsvRelation, OrcRelation)
+
+
+def with_paths(rel: LogicalPlan, paths) -> LogicalPlan:
+    """A file relation of the same kind, schema, options and pushed
+    predicate over ``paths``."""
+    if isinstance(rel, CsvRelation):
+        return CsvRelation(paths, rel.schema, rel.header, rel.sep,
+                           rel.pushed)
+    return type(rel)(paths, rel.schema, rel.pushed)
 
 
 class Range(LogicalPlan):

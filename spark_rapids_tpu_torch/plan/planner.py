@@ -1,8 +1,8 @@
 """Logical plan -> port operators.
 
 Counterpart of ``spark_rapids_tpu/plan/planner.py:plan_query``.  It
-lowers every node the JAX package lowers to its device but the CSV and
-ORC relations: LocalRelation, ParquetRelation, Range, Union, Project,
+lowers every node the JAX package lowers to its device:
+LocalRelation, the parquet, CSV and ORC relations, Range, Union, Project,
 Filter, Aggregate (grouped, global or distinct), Sort, Limit, Join,
 Window (``TorchWindowExec``; an offset RANGE frame over a non-numeric
 order column raises ``ValueError``, as both of the JAX package's engines
@@ -20,7 +20,11 @@ instead and the plan runs under an adaptive wrapper that decides the
 broadcast from measured bytes (``plan/adaptive.py``).  A join condition
 runs on every join type (``exec/joins.py``).  Before lowering,
 ``push_join_conditions`` moves the conjuncts of a Filter over an inner
-join to the side they name, or into the join's condition.  Any other
+join to the side they name, or into the join's condition, and
+``push_scan_filters`` (with ``spark.rapids.sql.format.parquet.
+filterPushdown.enabled``, on by default) folds a Filter's predicate into
+the file relation below it, whose scan prunes hive partitions, parquet
+row groups and ORC stripes by it; the Filter stays.  Any other
 node raises: there is no CPU engine to route it to, so a result always
 comes from the device.
 
@@ -66,6 +70,10 @@ from spark_rapids_tpu_torch.exprs.base import BoundReference, Expression, \
 from spark_rapids_tpu_torch.exprs.cast import Cast, gate_key
 from spark_rapids_tpu_torch.exprs.nondeterministic import \
     contains_nondeterministic
+from spark_rapids_tpu_torch.io.csv import TorchCsvScanExec, \
+    expand_csv_paths
+from spark_rapids_tpu_torch.io.orc import TorchOrcScanExec, \
+    expand_orc_paths
 from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec, \
     expand_paths
 from spark_rapids_tpu_torch.plan import logical as lp
@@ -129,14 +137,56 @@ def plan_query(node: lp.LogicalPlan,
     adaptive wrapper when adaptive execution is on and the plan holds a
     shuffle exchange (``plan/adaptive.py: insert_adaptive``)."""
     conf = conf if conf is not None else TorchConf()
-    return insert_adaptive(_lower(push_join_conditions(node), conf), conf)
+    node = push_join_conditions(node)
+    if conf.get_bool(
+            "spark.rapids.sql.format.parquet.filterPushdown.enabled", True):
+        node = push_scan_filters(node)
+    return insert_adaptive(_lower(node, conf), conf)
+
+
+def _bind_pushed(rel) -> Optional[Expression]:
+    """A relation's pushed predicate bound to its schema; pruning is only
+    ever an optimization, so one that does not bind is dropped."""
+    if rel.pushed is None:
+        return None
+    try:
+        return bind_expression(rel.pushed, rel.schema)
+    except Exception:
+        return None
+
+
+def push_scan_filters(node: lp.LogicalPlan) -> lp.LogicalPlan:
+    """Fold each Filter's predicate into the file relation directly below
+    it (through stacked Filters); nodes are rebuilt, never mutated."""
+    kids = [push_scan_filters(c) for c in node.children]
+    if isinstance(node, lp.Filter):
+        below = kids[0]
+        inner = below.children[0] if isinstance(below, lp.Filter) \
+            else below
+        if isinstance(inner, lp.FILE_RELATIONS):
+            rel = copy.copy(inner)
+            rel.pushed = node.pred if inner.pushed is None \
+                else pr.And(inner.pushed, node.pred)
+            if inner is below:
+                return lp.Filter(node.pred, rel)
+            return lp.Filter(node.pred, lp.Filter(below.pred, rel))
+    if any(a is not b for a, b in zip(kids, node.children)):
+        node = copy.copy(node)
+        node.children = kids
+    return node
 
 
 def _lower(node: lp.LogicalPlan, conf: TorchConf) -> TorchExec:
     if isinstance(node, lp.LocalRelation):
         return TorchLocalScanExec(node.schema, node.cols)
     if isinstance(node, lp.ParquetRelation):
-        return TorchParquetScanExec(node.paths, node.schema)
+        return TorchParquetScanExec(node.paths, node.schema,
+                                    _bind_pushed(node))
+    if isinstance(node, lp.CsvRelation):
+        return TorchCsvScanExec(node.paths, node.schema, node.header,
+                                node.sep, _bind_pushed(node))
+    if isinstance(node, lp.OrcRelation):
+        return TorchOrcScanExec(node.paths, node.schema, _bind_pushed(node))
     if isinstance(node, lp.Range):
         return TorchRangeExec(node.start, node.end, node.step)
     if not isinstance(node, _NODES):
@@ -375,9 +425,12 @@ def estimate_logical_size(node: lp.LogicalPlan) -> Optional[int]:
     if isinstance(node, lp.LocalRelation):
         return sum(_host_bytes(f.dtype, *node.cols[f.name])
                    for f in node.schema)
-    if isinstance(node, lp.ParquetRelation):
+    if isinstance(node, lp.FILE_RELATIONS):
+        expand = expand_csv_paths if isinstance(node, lp.CsvRelation) \
+            else expand_orc_paths if isinstance(node, lp.OrcRelation) \
+            else expand_paths
         try:
-            files = expand_paths(node.paths)
+            files = expand(node.paths)
             # no files is an unknown size, never a size of zero
             return sum(os.path.getsize(f) for f in files) if files else None
         except OSError:

@@ -21,11 +21,16 @@ from the server equals the one the session gives, bit for bit.
   serializes it as the JAX package's one device does; the spill
   catalog's transitions stay on that stream too.
 
-Out of this slice, each raising ``NotImplementedError`` when its key
-turns it on (``ROADMAP.md``): the chip-health layer and the replay of
-chip-failed queries (``spark.rapids.health.enabled``, queue A8) and the
-continuous queries with their maintained cache entries
-(``spark.rapids.stream.enabled``).  The replay's keys,
+* With ``spark.rapids.stream.enabled`` the server carries a
+  standing-query registry (``streaming``, ``stream/standing.py``) and
+  its poller thread, and with ``spark.rapids.stream.cache.maintain`` a
+  stale result-cache entry whose input grew by new files on one leaf is
+  maintained (the delta merged in, ``_try_maintain``) instead of
+  recomputed.
+
+Out of this slice, raising ``NotImplementedError`` when its key turns it
+on (``ROADMAP.md``): the chip-health layer and the replay of chip-failed
+queries (``spark.rapids.health.enabled``, queue A8).  The replay's keys,
 ``spark.rapids.server.retry.*``, are registered and engage only with
 health.
 """
@@ -34,7 +39,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 from spark_rapids_tpu_torch import faults, lifecycle
 from spark_rapids_tpu_torch.conf import (
@@ -42,7 +47,8 @@ from spark_rapids_tpu_torch.conf import (
     QUERY_TIMEOUT_MS, SERVER_DEFAULT_WEIGHT, SERVER_MAX_CONCURRENCY,
     SERVER_QUERY_MAX_DEVICE_BYTES, SERVER_QUEUE_DEPTH, SERVER_RESULT_CACHE,
     SERVER_RESULT_CACHE_BYTES, SERVER_RESULT_CACHE_ENTRIES,
-    SERVER_TENANT_PREFIX, SERVER_TENANT_TIMEOUT_MS, STREAM_ENABLED,
+    SERVER_TENANT_PREFIX, SERVER_TENANT_TIMEOUT_MS, STREAM_CACHE_MAINTAIN,
+    STREAM_ENABLED,
 )
 from spark_rapids_tpu_torch.errors import AdmissionRejectedError
 from spark_rapids_tpu_torch.io.prefetch import THREAD_PREFIX
@@ -67,12 +73,13 @@ class ServerQuery:
     ``HostResult`` or raises its one error."""
 
     __slots__ = ("tenant", "kind", "payload", "params", "timeout_ms",
-                 "submitted_at", "started_at", "finished_at", "cache_hit",
-                 "_done", "_result", "_error")
+                 "use_cache", "submitted_at", "started_at", "finished_at",
+                 "cache_hit", "_done", "_result", "_error")
 
     def __init__(self, tenant: str, kind: str, payload, params: tuple,
-                 timeout_ms: Optional[int]):
+                 timeout_ms: Optional[int], use_cache: bool = True):
         self.tenant = tenant
+        self.use_cache = use_cache
         self.kind = kind            # "sql" | "df" | "prepared"
         self.payload = payload
         self.params = params
@@ -139,12 +146,8 @@ class SessionServer:
                 "spark.rapids.health.enabled: the chip failure domain and "
                 "the replay of chip-failed queries are not in the torch "
                 "port (ROADMAP.md, queue A8: the multi-GPU slice)")
-        if conf.get(STREAM_ENABLED):
-            raise NotImplementedError(
-                "spark.rapids.stream.enabled: continuous queries and "
-                "maintained cache entries are not in the torch port "
-                "(ROADMAP.md, queue A10's leftovers)")
         self.session = session
+        self._streaming = None
         # the fault sites before any query (server.admit) need the
         # injector now; a conf without fault keys leaves it alone
         if faults.has_fault_keys(conf):
@@ -189,6 +192,10 @@ class SessionServer:
                                  daemon=True)
             self._threads.append(t)
             t.start()
+        if conf.get(STREAM_ENABLED):
+            from spark_rapids_tpu_torch.stream.standing import \
+                StandingQueryRegistry
+            self._streaming = StandingQueryRegistry(self)
         stats.bump("servers")
 
     @staticmethod
@@ -205,13 +212,25 @@ class SessionServer:
     def closed(self) -> bool:
         return self._closed.is_set()
 
+    @property
+    def streaming(self):
+        """The standing-query registry; raises unless the server was
+        built with ``spark.rapids.stream.enabled``."""
+        if self._streaming is None:
+            raise RuntimeError(
+                "streaming is disabled: set spark.rapids.stream.enabled "
+                "before building the server")
+        return self._streaming
+
     # -- submission ---------------------------------------------------------
 
     def submit(self, query, tenant: str = "default",
                timeout_ms: Optional[int] = None,
-               params: Optional[tuple] = None) -> ServerQuery:
+               params: Optional[tuple] = None,
+               use_cache: bool = True) -> ServerQuery:
         """Admit a query (SQL text, a DataFrame, or a PreparedStatement
-        with ``params``) into the fair queue; its ticket.  Raises
+        with ``params``) into the fair queue; its ticket (``use_cache``
+        False: the result cache is neither read nor written).  Raises
         ``AdmissionRejectedError`` when it is shed, and ``InjectedFault``
         when the ``server.admit`` site fires: both before anything is
         queued."""
@@ -231,7 +250,7 @@ class SessionServer:
         else:
             kind = "df"
         ticket = ServerQuery(tenant, kind, query, tuple(params or ()),
-                             timeout_ms)
+                             timeout_ms, use_cache)
         try:
             self._queue.offer(tenant, ticket)
         except AdmissionRejectedError:
@@ -289,8 +308,14 @@ class SessionServer:
             df = self._resolve(ticket, view)
             key = None
             pins: tuple = ()
-            if self._cache is not None:
-                key, pins = self._cache_key(df, ticket.params, view.conf)
+            leaves = None
+            if self._cache is not None and ticket.use_cache:
+                maintain = self._streaming is not None \
+                    and view.conf.get(STREAM_CACHE_MAINTAIN)
+                key, pins, leaves = self._cache_key(
+                    df, ticket.params, view.conf)
+                if not maintain:
+                    leaves = None
                 if key is not None:
                     hit = self._cache.lookup(key)
                     if hit is not None:
@@ -302,9 +327,16 @@ class SessionServer:
                         return
                     journal.emit(journal.EVENT_CACHE_MISS,
                                  tenant=ticket.tenant)
+                    if maintain:
+                        result = self._try_maintain(df, key, pins, leaves,
+                                                    view, ticket.tenant)
+                        if result is not None:
+                            stats.bump("completed")
+                            ticket._complete(result)
+                            return
             result = df._host()
             if key is not None:
-                self._cache.put(key, result, pins)
+                self._cache.put(key, result, pins, leaves=leaves)
             stats.bump("completed")
             ticket._complete(result)
         except BaseException as e:
@@ -344,14 +376,16 @@ class SessionServer:
         return base.with_settings(overlay) if overlay else base
 
     @staticmethod
-    def _cache_key(df, params: tuple, conf) -> Tuple[Optional[tuple], tuple]:
+    def _cache_key(df, params: tuple, conf):
+        """``(key, pins, leaves)``; ``(None, (), None)`` when the query
+        cannot be cached."""
         from spark_rapids_tpu_torch.plan.fingerprint import (
             bound_param_values, conf_fingerprint, plan_fingerprint,
-            snapshot_fingerprint,
+            snapshot_detail,
         )
-        snap, pins = snapshot_fingerprint(df.plan)
+        snap, pins, leaves = snapshot_detail(df.plan)
         if snap is None:
-            return None, ()
+            return None, (), None
         try:
             # the values read from the plan itself: a DataFrame made by
             # stmt.bind(x) and submitted with no params never meets
@@ -362,8 +396,124 @@ class SessionServer:
         except (TypeError, ValueError, RecursionError):
             # an unhashable binding, or a plan too deep to fingerprint:
             # no caching
-            return None, ()
-        return key, pins
+            return None, (), None
+        return key, pins, leaves
+
+    # -- maintained cache entries -------------------------------------------
+
+    def _try_maintain(self, df, key, pins, leaves, view, tenant: str):
+        """The stale entry of the same query maintained in place, when the
+        live snapshot differs from its own by new files on one leaf only
+        and the plan can be maintained; else None, counted a fallback,
+        and the caller recomputes."""
+        from spark_rapids_tpu_torch.stream import stats as stream_stats
+        cand = self._cache.maintain_candidate(key)
+        if cand is None:
+            return None
+        old_key, old_result, old_leaves = cand
+        if leaves is None or len(old_leaves) != len(leaves):
+            stream_stats.bump("cache_maintain_fallbacks")
+            return None
+        # one plan fingerprint, one leaf order: the snapshots zip
+        changed = []
+        for (new_leaf, new_pairs), (_old, old_pairs) in zip(leaves,
+                                                            old_leaves):
+            old_map, new_map = dict(old_pairs), dict(new_pairs)
+            if any(new_map.get(p) != tok for p, tok in old_map.items()):
+                stream_stats.bump("cache_maintain_fallbacks")
+                return None  # a committed file changed or vanished
+            appended = [p for p, _ in new_pairs if p not in old_map]
+            if appended:
+                changed.append((new_leaf, appended))
+        if len(changed) != 1:
+            stream_stats.bump("cache_maintain_fallbacks")
+            return None
+        leaf, appended = changed[0]
+        result = self._maintain_delta(df, leaf, appended, old_result, view)
+        if result is None:
+            stream_stats.bump("cache_maintain_fallbacks")
+            return None
+        self._cache.replace(old_key, key, result, pins, leaves=leaves)
+        stream_stats.bump("cache_maintains")
+        journal.emit(journal.EVENT_CACHE_MAINTAIN, tenant=tenant,
+                     files=len(appended))
+        return result
+
+    def _maintain_delta(self, df, leaf, appended, old_result, view):
+        """The cached result with the appended files merged in, or None
+        when the plan cannot be maintained without stored state: an
+        append-mode plan (old ++ delta), or a mergeable aggregate whose
+        result still holds its whole state (the chain above it only
+        renames columns, and no Average)."""
+        from spark_rapids_tpu_torch.api import DataFrame
+        from spark_rapids_tpu_torch.exec.incremental import cast_result, \
+            concat_results
+        from spark_rapids_tpu_torch.plan import incremental as inc
+        from spark_rapids_tpu_torch.stream.source import new_files_leaf
+        rewrite, _ = inc.analyze(df.plan, stream_leaf=leaf)
+        if rewrite is None:
+            return None
+        delta_leaf = new_files_leaf(leaf, appended)
+
+        def run(plan):
+            return DataFrame(view, plan)._host()
+
+        if rewrite.kind == "append":
+            return concat_results(old_result,
+                                  run(rewrite.delta_plan(delta_leaf)))
+        state = self._state_from_result(rewrite, old_result)
+        if state is None:
+            return None
+        delta_state = run(rewrite.delta_state_plan(delta_leaf))
+        merged = run(rewrite.merge_plan([state, delta_state]))
+        return cast_result(run(rewrite.finalize_plan(merged)),
+                           old_result.schema)
+
+    @staticmethod
+    def _state_from_result(rewrite, old_result):
+        """The partial state rebuilt from a cached aggregate result, or
+        None when the result does not determine it (an Average, or an
+        upper chain that is not a bijection of column renames)."""
+        from spark_rapids_tpu_torch.api import HostResult
+        from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
+        from spark_rapids_tpu_torch.exprs.base import Alias, \
+            UnresolvedAttribute
+        from spark_rapids_tpu_torch.plan import logical as lp
+        if len(rewrite._state_aggs) != len(rewrite._agg.aggregates):
+            return None
+        agg_out = (list(rewrite._group_names)
+                   + [a.out_name for a in rewrite._agg.aggregates])
+        cols = [(n, n) for n in agg_out]
+        for node in reversed(rewrite._upper):
+            if not isinstance(node, lp.Project):
+                return None  # a Filter drops groups: the state is gone
+            byname = dict(cols)
+            new = []
+            for e in node.exprs:
+                if isinstance(e, Alias) \
+                        and isinstance(e.children[0], UnresolvedAttribute):
+                    src, out = byname.get(e.children[0].col_name), \
+                        e.out_name
+                elif isinstance(e, UnresolvedAttribute):
+                    src, out = byname.get(e.col_name), e.col_name
+                else:
+                    return None  # a computed column: not invertible
+                if src is None:
+                    return None
+                new.append((out, src))
+            cols = new
+        srcs = [src for _, src in cols]
+        if sorted(srcs) != sorted(agg_out):
+            return None
+        at = {src: i for i, (_, src) in enumerate(cols)}
+        names = (list(rewrite._group_names)
+                 + [a.out_name for a in rewrite._state_aggs])
+        fields, out = [], {}
+        for sn, src in zip(names, agg_out):
+            f = old_result.schema[at[src]]
+            fields.append(Field(sn, f.dtype, f.nullable))
+            out[sn] = old_result.columns[f.name]
+        return HostResult(Schema(fields), out)
 
     # -- stats and the end --------------------------------------------------
 
@@ -380,6 +530,8 @@ class SessionServer:
                "prepared_execs": glob["prepared_execs"]}
         if self._cache is not None:
             out["cache"] = self._cache.snapshot_stats()
+        if self._streaming is not None:
+            out["stream"] = self._streaming.stats()
         return out
 
     def drain(self, timeout: float = 60.0) -> float:
@@ -417,6 +569,10 @@ class SessionServer:
             if self._closed.is_set():
                 return
             self._closed.set()
+        streaming = getattr(self, "_streaming", None)
+        if streaming is not None:
+            # the poller first: it submits to the queue about to close
+            streaming.close()
         for _tenant, ticket in self._queue.close_and_drain():
             stats.bump("failed")
             ticket._fail(AdmissionRejectedError(

@@ -24,6 +24,14 @@ entries (those over files only) through to a directory
 CRC32; a defect of any kind (bad magic, a CRC mismatch, a truncated
 file, an unpickling error, another key) is a counted miss and the file
 is removed.
+
+An entry put with ``leaves`` (``plan/fingerprint.snapshot_detail``'s
+file tokens) can be maintained: when the same plan under the same conf
+and bindings misses on a new snapshot, ``maintain_candidate`` hands the
+server the earlier result and tokens, and an append-only diff lets the
+server merge the new files in (``replace``) instead of recomputing
+(``spark.rapids.stream.cache.maintain``).  Such entries never go to
+disk as maintainable ones.
 """
 
 from __future__ import annotations
@@ -167,10 +175,16 @@ class DiskResultTier:
                     "corrupt": self.corrupt}
 
 
+def _part_key(key) -> tuple:
+    """``key`` without its snapshot: what a cached result and the same
+    query over a grown input share."""
+    return (key[0],) + tuple(key[2:])
+
+
 class ResultCache:
-    """An LRU of key -> (result, nbytes, pins), bounded by entries and
-    bytes.  With ``disk`` it writes pinless entries through and looks a
-    memory miss up there (a disk hit moves into memory)."""
+    """An LRU of key -> (result, nbytes, pins, leaves), bounded by
+    entries and bytes.  With ``disk`` it writes pinless entries through
+    and looks a memory miss up there (a disk hit moves into memory)."""
 
     def __init__(self, max_entries: int, max_bytes: int,
                  disk: Optional[DiskResultTier] = None):
@@ -181,6 +195,9 @@ class ResultCache:
         self.disk = disk
         self._lock = threading.Lock()
         self._entries: "OrderedDict" = OrderedDict()
+        # part key -> the key of the latest maintainable entry (pruned
+        # when it turns out evicted)
+        self._maintain: dict = {}
         self._bytes = 0
         self.hits = 0
         self.misses = 0
@@ -216,13 +233,40 @@ class ResultCache:
                 return result
         return None
 
-    def put(self, key, result, pins: Tuple = ()) -> None:
-        self._insert(key, result, pins)
+    def put(self, key, result, pins: Tuple = (),
+            leaves: Optional[tuple] = None) -> None:
+        self._insert(key, result, pins, leaves)
         if self.disk is not None and not pins:
             # a pinned entry's key holds an id() of this process
             self.disk.put(key, result)
 
-    def _insert(self, key, result, pins: Tuple) -> None:
+    def maintain_candidate(self, new_key):
+        """``(old_key, result, leaves)`` of the latest maintainable entry
+        of the same plan, conf and bindings under another snapshot, or
+        None."""
+        pk = _part_key(new_key)
+        with self._lock:
+            old_key = self._maintain.get(pk)
+            if old_key is None or old_key == new_key:
+                return None
+            ent = self._entries.get(old_key)
+            if ent is None or ent[3] is None:
+                self._maintain.pop(pk, None)
+                return None
+            return old_key, ent[0], ent[3]
+
+    def replace(self, old_key, new_key, result, pins: Tuple = (),
+                leaves: Optional[tuple] = None) -> None:
+        """A maintained entry under its new snapshot's key; the stale
+        one goes (it can never hit again)."""
+        with self._lock:
+            old = self._entries.pop(old_key, None)
+            if old is not None:
+                self._bytes -= old[1]
+        self.put(new_key, result, pins, leaves)
+
+    def _insert(self, key, result, pins: Tuple,
+                leaves: Optional[tuple] = None) -> None:
         nbytes = int(getattr(result, "nbytes", 0))
         if nbytes > self.max_bytes:
             return  # larger than the whole cache
@@ -231,11 +275,13 @@ class ResultCache:
             old = self._entries.pop(key, None)
             if old is not None:
                 self._bytes -= old[1]
-            self._entries[key] = (result, nbytes, pins)
+            self._entries[key] = (result, nbytes, pins, leaves)
             self._bytes += nbytes
+            if leaves is not None:
+                self._maintain[_part_key(key)] = key
             while self._entries and (len(self._entries) > self.max_entries
                                      or self._bytes > self.max_bytes):
-                _k, (_r, b, _p) = self._entries.popitem(last=False)
+                _k, (_r, b, _p, _lv) = self._entries.popitem(last=False)
                 self._bytes -= b
                 self.evictions += 1
                 evicted += 1
@@ -249,6 +295,7 @@ class ResultCache:
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
+            self._maintain.clear()
             self._bytes = 0
         stats.set_gauge("cache_bytes", 0)
         stats.set_gauge("cache_entries", 0)

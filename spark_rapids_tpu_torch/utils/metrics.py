@@ -87,6 +87,10 @@ METRIC_OOC_FALLBACKS = "oocFallbacks"
 # the port's own: the numbers an operator read back from the card, and
 # the candidate pairs the general and cross join routes lay out
 METRIC_HOST_SYNCS = "hostSyncs"
+# the CSV decode (io/csv.py): double fields converted by the exact host
+# path, and host wall of the file reads (ns)
+METRIC_CSV_SLOW_FLOAT_FIELDS = "csvSlowFloatFields"
+METRIC_CSV_READ_TIME = "csvReadTime"
 METRIC_JOIN_CANDIDATES = "joinCandidates"
 
 

@@ -3,8 +3,9 @@
 It imports no jax, no module of the JAX package and, on its main path
 (the TPC-H and TPCx-BB queries and the mortgage ETL from numpy tables
 included, the SQL front end with them, query profiles, ``explain`` and
-the device handoff), no pyarrow; pyarrow may be imported only inside
-functions.  A fleet replica, a spawned process of its own, loads none
+the device handoff; CSV written, partitioned, read back and decoded, and
+a standing query refreshed over a tailed CSV root), no pyarrow; pyarrow
+may be imported only inside functions.  A fleet replica, a spawned process of its own, loads none
 of them either.  A session on the card fails when no card is usable:
 nothing moves to the CPU.
 """
@@ -60,6 +61,47 @@ print("BAD=" + ",".join(bad))
 def test_main_path_imports_no_jax_or_pyarrow():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout, out.stdout
+
+
+_CSV_PROBE = """
+import os, sys, tempfile
+import numpy as np
+import spark_rapids_tpu_torch as st
+from spark_rapids_tpu_torch import functions as F
+root = tempfile.mkdtemp(dir=sys.argv[1])
+conf = {"spark.rapids.torch.device": "cpu",
+        "spark.rapids.stream.enabled": "true",
+        "spark.rapids.stream.pollIntervalMs": "60000"}
+s = st.TorchSession(conf)
+df = s.create_dataframe({"k": np.array([3, 1, 3, 2]),
+                         "v": np.array([1.5, 2.0, 3.0, 4.0]),
+                         "r": np.array(["a", "b", "a", "c"])})
+df.write.csv(os.path.join(root, "plain"))
+df.write.partition_by("r").csv(os.path.join(root, "hive"))
+back = s.read.csv(os.path.join(root, "hive")).filter(st.col("r") == "a")
+assert back.collect() == [{"k": 3, "v": 1.5, "r": "a"},
+                          {"k": 3, "v": 3.0, "r": "a"}], back.collect()
+server = s.server(max_concurrency=1)
+reg = server.streaming
+q = reg.register(s.read.csv(os.path.join(root, "plain")).group_by("k")
+                 .agg(F.sum(st.col("v")).alias("s")))
+df.write.mode("append").csv(os.path.join(root, "plain"))
+assert reg.tick() == 1 and q.incremental
+assert sorted(r["s"] for r in q.result().collect()) == [4.0, 8.0, 9.0]
+s.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
+                                    "spark_rapids_tpu"))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_csv_and_streams_import_no_pyarrow(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _CSV_PROBE, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD=\n" in out.stdout, out.stdout
 

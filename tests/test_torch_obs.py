@@ -406,12 +406,9 @@ def test_api_validation_lists_only_the_pyarrow_surfaces():
         validate
     missing = {c: r["missing"] for c, r in validate().items()
                if r["missing"]}
-    # file I/O (queue A12 in ROADMAP.md): a PR that ports one of these
-    # removes it here; one that loses a method fails
-    assert missing == {"DataFrame": ["write"],
-                       "DataFrameReader": ["csv", "orc"],
-                       "DataFrameWriter": ["parquet", "csv", "orc",
-                                           "mode"]}
+    # file I/O is ported (the CSV reader and writer without pyarrow):
+    # nothing is missing, and a PR that loses a method fails
+    assert missing == {}
     # the contract is the JAX package's, TpuSession read as
     # TorchSession, less the entries excluded by name
     jexp = {("TorchSession" if k == "TpuSession" else k): v

@@ -706,6 +706,16 @@ def test_concurrent_drain_and_close_claim_once(corpus):
                                  "spark.rapids.stream.enabled"])
 def test_unported_layers_raise_on_a_server(key):
     s = st.TorchSession({**CPU, key: "true"})
+    if key == "spark.rapids.stream.enabled":
+        # continuous queries are ported: the server comes up with its
+        # standing-query registry and its poller, and stops both
+        server = s.server()
+        assert not server.streaming.closed
+        s.stop()
+        assert server.streaming.closed
+        assert not [t.name for t in threading.enumerate()
+                    if t.name.startswith("spark-rapids-torch-")]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.server()
     s.stop()
@@ -800,7 +810,7 @@ def test_stats_snapshot_and_prometheus_text(corpus):
         server.sql("SELECT k FROM agg WHERE v > 1", result_timeout=60)
         snap = s.engine_stats()
         assert set(snap) == {"aqe", "lifecycle", "catalog", "server",
-                             "fleet", "journal", "histograms"}
+                             "fleet", "stream", "journal", "histograms"}
         assert snap["server"]["completed"] >= 1
         assert snap["histograms"]["server.admit.wait.us"]["count"] >= 1
         assert snap["histograms"]["query.wall.us"]["count"] >= 1
