@@ -9,14 +9,17 @@ ops on the device then
 
 1. find the line ends (a value holds no newline, pyarrow's default, so
    every ``\\n`` ends a line; a ``\\r`` before it is dropped),
-2. find the delimiters outside quotes, by the parity of the quote bytes
-   before each one within its line (a prefix sum),
-3. lay out each field's start and length, skipping empty lines, and
-   strip a field's enclosing quotes (``split_fields``),
-4. gather each column's fields into a (rows, width) byte matrix, and
-5. convert the matrices into the port's columns (``convert_fields``):
+2. walk the lines a field at a time, all lines at once: a field ends at
+   the first delimiter or line end from its start or, when it begins
+   with a quote, from the quote that closes it (found from the runs of
+   quote bytes, as Arrow's parser reads them); a quote anywhere else
+   is a byte of the text.  This lays out each field's start and
+   length, skipping empty lines (``split_fields``),
+3. gather each column's fields into a (rows, width) byte matrix, and
+4. convert the matrices into the port's columns (``convert_fields``):
    int64, double, boolean, date, timestamp and string, whose char matrix
-   is the gathered one, a ``""`` inside quotes made one ``"``.
+   is the gathered one, a ``""`` inside quotes made one ``"``
+   (``_unquote``).
 
 The values are pyarrow's, as the JAX package reads them with its
 defaults: ``NULL_VALUES`` are null in every column but a string one,
@@ -31,12 +34,8 @@ whose mantissa is below 2^53 and whose decimal exponent is at most 22
 away from 0 converts on the card in one f64 multiply or divide (both
 operands exact, so the one rounding is the right one); every other field
 goes through one exact path, counted by the scan's
-``csvSlowFloatFields``: with at most 18 significant digits and its
-decimal exponent within 22 of 0 the card divides by long division (the
-quotient by 5^k to 55 bits and a sticky bit, rounded to nearest even,
-scaled by 2^-k; ``_exact_div``), and the rest (more digits, a far
-exponent, ``inf``) is read back and parsed by numpy, Python's correctly
-rounded parser (``_exact_floats``).  Nothing is approximated.
+``csvSlowFloatFields``: it is read back and parsed by numpy, Python's
+correctly rounded parser (``_exact_floats``).  Nothing is approximated.
 
 The schema is inferred on the host from the first 1 MiB block of the
 first file (pyarrow's ``open_csv`` block), by the same splitter and
@@ -142,62 +141,104 @@ def read_ranges(path: str, range_bytes: Optional[int] = None,
 # splitting
 # ---------------------------------------------------------------------------
 
+def _closing_quotes(isq: torch.Tensor):
+    """-> a function from the positions of quotes that open fields to
+    the positions of the quotes that close them (-1 where none does),
+    as Arrow's parser reads them: past the opening quote, a run of
+    quotes of even length is that many halves of ``""``, and the first
+    run of odd length ends the quoted part with its last quote."""
+    qpos = torch.nonzero(isq).squeeze(1)
+    head = torch.ones_like(qpos, dtype=torch.bool)
+    head[1:] = qpos[1:] != qpos[:-1] + 1
+    first = torch.nonzero(head).squeeze(1)
+    starts = qpos[first]
+    runs = torch.diff(first, append=first.new_tensor([qpos.numel()]))
+    # the runs of odd length, and the last quote of each (-1: none)
+    odd = torch.nonzero(runs % 2 == 1).squeeze(1)
+    last = torch.cat([(starts + runs - 1)[odd], runs.new_tensor([-1])])
+
+    def close(opens: torch.Tensor) -> torch.Tensor:
+        i = torch.searchsorted(starts, opens)
+        n = runs[i]
+        after = last[torch.searchsorted(odd, i + 1)]
+        return torch.where(n % 2 == 0, opens + n - 1, after)
+    return close
+
+
 def split_fields(buf: torch.Tensor, sep: str, ncols: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Bytes ending at a line end -> ``(starts, lens, quoted)``, each
-    (rows, ncols), one row a non-empty line; a quoted field's start and
-    length are its content's.  ``ncols`` None takes the first line's
-    count.  Raises ``CsvParseError`` on a line with another count."""
+    (rows, ncols), one row a non-empty line.  A field that begins with a
+    quote is quoted up to the quote that closes it (delimiters inside
+    are text); its start is past the opening quote, and its length
+    stops before the closing one unless text follows it, which
+    ``_unquote`` then keeps.  A quote anywhere else is a byte of the
+    text.  ``ncols`` None takes the first line's count.  Raises
+    ``CsvParseError`` on a line with another count or a quote that no
+    quote closes within its line.
+
+    Each field's end is the first delimiter or line end at or after its
+    start, or after its closing quote: the lines are walked a field at
+    a time, all at once, over the sorted positions of those bytes."""
     dev = buf.device
     nl = buf == _NL
     ends = torch.nonzero(nl).squeeze(1)
     nlines = ends.numel()
-    if nlines == 0:
-        e = torch.zeros((0, ncols or 0), dtype=torch.int64, device=dev)
-        return e, e, e.bool()
     lstart = torch.zeros_like(ends)
     lstart[1:] = ends[:-1] + 1
     cr_end = (ends > lstart) & (buf[(ends - 1).clamp(min=0)] == _CR)
-    nonempty = (ends - lstart - cr_end.long()) > 0
-    # quotes before each byte (exclusive prefix sum), then the parity of
-    # those within the line at each delimiter byte
+    line = torch.nonzero((ends - lstart - cr_end.long()) > 0).squeeze(1)
+    if line.numel() == 0:
+        e = torch.zeros((0, ncols or 0), dtype=torch.int64, device=dev)
+        return e, e, e.bool()
     isq = buf == _QUOTE
-    qx = torch.cumsum(isq, 0, dtype=torch.int32)
-    qx -= isq.to(torch.int32)
-    cand = torch.nonzero(buf == ord(sep)).squeeze(1)
-    cline = torch.searchsorted(ends, cand)
-    outside = ((qx[cand] - qx[lstart][cline]) & 1) == 0
-    del qx
-    mark = nl.clone()
-    mark[cand[outside]] = True
-    pos = torch.nonzero(mark).squeeze(1)       # each field's end
-    del mark
-    fstart = torch.zeros_like(pos)
-    fstart[1:] = pos[:-1] + 1
-    flen = pos - fstart
-    at_end = nl[pos]
-    flen -= (at_end & (flen > 0)
-             & (buf[(pos - 1).clamp(min=0)] == _CR)).long()
-    fline = torch.cumsum(at_end, 0) - at_end.long()
-    nf = torch.bincount(fline, minlength=nlines)
-    if ncols is None:
-        first = torch.nonzero(nonempty).squeeze(1)
-        if first.numel() == 0:
-            e = torch.zeros((0, 0), dtype=torch.int64, device=dev)
-            return e, e, e.bool()
-        ncols = int(nf[first[0]])
-    bad = nonempty & (nf != ncols)
-    if bool(bad.any()):
-        i = int(torch.nonzero(bad)[0, 0])
-        raise CsvParseError(f"CSV parse error: expected {ncols} columns, "
-                            f"got {int(nf[i])} (line {i + 1} of the range)")
-    keep = nonempty[fline]
-    starts = fstart[keep].view(-1, ncols)
-    lens = flen[keep].view(-1, ncols)
-    last = buf.numel() - 1
-    quoted = (lens >= 2) & (buf[starts.clamp(max=last)] == _QUOTE) \
-        & (buf[(starts + lens - 1).clamp(0, last)] == _QUOTE)
-    return starts + quoted.long(), lens - 2 * quoted.long(), quoted
+    close_of = _closing_quotes(isq) if bool(isq.any()) else None
+    cand = torch.nonzero(nl | (buf == ord(sep))).squeeze(1)
+    lend = ends[line]
+    p = lstart[line]
+    k = torch.searchsorted(cand, p)
+    cols = []
+
+    def fail(bad: torch.Tensor, what: str):
+        i = int(line[torch.nonzero(bad)[0, 0]])
+        raise CsvParseError(f"CSV parse error: {what} (line {i + 1} of "
+                            "the range)")
+    while True:
+        q = isq[p]
+        close = torch.full_like(p, -1)
+        if close_of is not None and bool(q.any()):
+            at = torch.nonzero(q).squeeze(1)
+            close[at] = close_of(p[at])
+            shut = (close[at] >= 0) & (close[at] < lend[at])
+            if not bool(shut.all()):
+                fail(q.index_put((at,), ~shut), "a quote is not closed")
+            k[at] = torch.searchsorted(cand, close[at] + 1)
+        e = cand[k]
+        done = nl[e]
+        stop = e - (done & (e > p) & (buf[(e - 1).clamp(min=0)] == _CR)
+                    ).long()
+        cols.append((torch.where(q, p + 1, p),
+                     torch.where(q, torch.where(close == stop - 1, close,
+                                                stop) - p - 1, stop - p),
+                     q))
+        count = len(cols)
+        nd = int(done.sum())
+        if nd == done.numel():
+            if ncols is not None and count != ncols:
+                fail(done, f"expected {ncols} columns, got {count}")
+            break
+        if nd:
+            # the first line's count is the file's when none is given
+            if ncols is None and bool(done[0]):
+                fail(~done, f"expected {count} columns, got more")
+            want = ncols or f"more than {count}"
+            fail(done, f"expected {want} columns, got {count}")
+        if ncols is not None and count == ncols:
+            fail(~done, f"expected {ncols} columns, got more")
+        p = e + 1
+        k = k + 1
+    starts, lens, quoted = (torch.stack(c, 1) for c in zip(*cols))
+    return starts, lens, quoted
 
 
 def _gather(buf: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
@@ -364,58 +405,9 @@ def parse_timestamp(m: torch.Tensor, lens: torch.Tensor):
 _SPECIALS = ("inf", "infinity", "nan")
 
 
-def _bit_length(x: torch.Tensor) -> torch.Tensor:
-    """Bits of each non-negative int64 (0 for 0)."""
-    e = torch.frexp(x.to(torch.float64)).exponent.long().clamp_(max=63)
-    e = torch.where(x > 0, e, 0)
-    one = torch.ones_like(x)
-    over = (e > 0) & (x < torch.bitwise_left_shift(one, (e - 1).clamp(min=0)))
-    return e - over.long()
-
-
-def _exact_div(num: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded double of num / 10^k (num in [1, 2^63),
-    k in [0, 22]) by long division: num / 5^k to 55 bits and a sticky
-    bit, rounded to nearest even at 53, then scaled by 2^-k exactly."""
-    p5 = torch.tensor([5 ** i for i in range(23)], dtype=torch.int64,
-                      device=num.device)
-    d = p5[k]
-    q = torch.div(num, d, rounding_mode="floor")
-    r = num - q * d
-    b = _bit_length(q)
-    # a quotient of 55 bits or more: its top 55 bits, the rest sticky
-    wide = b >= 55
-    cut = (b - 55).clamp(min=0)
-    low = torch.bitwise_left_shift(torch.ones_like(q), cut) - 1
-    sticky = wide & (((q & low) != 0) | (r != 0))
-    big = torch.bitwise_right_shift(q, cut)
-    # a narrower one: more quotient bits, one at a time, until 55
-    todo = ~wide & (q < (1 << 54))
-    shifts = torch.zeros_like(q)
-    for _ in range(110):
-        r = torch.where(todo, r * 2, r)
-        bit = (r >= d) & todo
-        q = torch.where(todo, q * 2 + bit.long(), q)
-        r = torch.where(bit, r - d, r)
-        shifts += todo.long()
-        todo &= q < (1 << 54)
-    quot = torch.where(wide, big, q)
-    sticky = torch.where(wide, sticky, r != 0)
-    scale = torch.where(wide, cut, -shifts)
-    mant = torch.bitwise_right_shift(quot, 2)
-    guard = (torch.bitwise_right_shift(quot, 1) & 1) == 1
-    rest = ((quot & 1) == 1) | sticky
-    mant = mant + (guard & (rest | ((mant & 1) == 1))).long()
-    carry = mant == (1 << 53)
-    mant = torch.where(carry, mant // 2, mant)
-    return torch.ldexp(mant.to(torch.float64), scale + 2 + carry.long() - k)
-
-
 def parse_double(m: torch.Tensor, lens: torch.Tensor):
-    """-> (values, ok, slow, host): ``slow`` rows are valid and off the
-    one-operation path; the card converts those of at most 18 digits
-    within 10^+-22 by ``_exact_div``, and ``host`` rows are left to
-    ``_exact_floats`` (their values here are 0)."""
+    """-> (values, ok, slow): ``slow`` rows are valid and off the
+    one-operation path, their values here 0, left to ``_exact_floats``."""
     n, w = m.shape
     dev = m.device
     j = torch.arange(w, device=dev)
@@ -471,20 +463,7 @@ def parse_double(m: torch.Tensor, lens: torch.Tensor):
     body = low.gather(1, (off[:, None] + j).clamp_(max=w - 1))
     body = body.masked_fill_(j >= (lens - off)[:, None], 0)
     special = _matches(body, lens - off, _SPECIALS)
-    slow = (ok & ~fast) | special
-    card = ok & ~fast & ~special & (nsig <= 18) & (exp10.abs() <= 22) \
-        & (ned <= 6)
-    if bool(card.any()):
-        num = _place_values(m, sel & (nsig[:, None] <= 18), right)
-        p10 = torch.tensor(_POW10, dtype=torch.int64, device=dev)
-        up = exp10 >= 0
-        e = exp10.clamp(0, 18)
-        card &= ~up | ((exp10 <= 18)
-                       & (num <= ((1 << 63) - 1) // p10[e]))
-        num = torch.where(card, torch.where(up, num * p10[e], num), 1)
-        x = _exact_div(num, torch.where(card & ~up, -exp10, 0))
-        v = torch.where(card, torch.where(neg, -x, x), v)
-    return v, ok | special, slow, slow & ~card
+    return v, ok | special, (ok & ~fast) | special
 
 
 def _exact_floats(m: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -504,21 +483,38 @@ _PARSERS = {INT64: parse_int64, INT32: parse_int64, INT16: parse_int64,
 # fields -> columns
 # ---------------------------------------------------------------------------
 
-def _unquote_strings(m: torch.Tensor, lens: torch.Tensor,
-                     quoted: torch.Tensor):
-    """A ``""`` inside a quoted field becomes one ``"``."""
+def _unquote(m: torch.Tensor, lens: torch.Tensor, quoted: torch.Tensor):
+    """A quoted field's text as Arrow's parser reads it: up to the quote
+    that closes it (the last of the first run of odd length), each
+    ``""`` becomes one ``"`` and the closing quote goes; the bytes after
+    that are text as they are."""
     n, w = m.shape
     j = torch.arange(w, device=m.device)
     inside = j < lens[:, None]
     isq = (m == _QUOTE) & inside & quoted[:, None]
-    last_other = torch.cummax(torch.where(isq, -1, j), 1).values
-    drop = isq & (((j - last_other - 1) & 1) == 1)
+    rank = j - torch.cummax(torch.where(isq, -1, j), 1).values - 1
+    run_end = isq.clone()
+    run_end[:, :-1] &= ~isq[:, 1:]
+    odd_end = run_end & (rank % 2 == 0)
+    close = torch.where(odd_end.any(1),
+                        torch.argmax(odd_end.to(torch.uint8), 1), w)[:, None]
+    drop = isq & (j <= close) & ((rank % 2 == 1) | (j == close))
     keep = inside & ~drop
     at = keep.cumsum(1) - 1
     out = torch.zeros_like(m)
     r = torch.arange(n, device=m.device)[:, None].expand(n, w)
     out[r[keep], at[keep]] = m[keep]
     return out, keep.sum(1)
+
+
+def _fields(buf: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+            quoted: torch.Tensor, width: int):
+    """One column's fields -> (rows, width) bytes of their text, and its
+    lengths."""
+    m = _gather(buf, starts, lens, width)
+    if bool(((m == _QUOTE) & quoted[:, None]).any()):
+        return _unquote(m, lens, quoted)
+    return m, lens
 
 
 def convert_fields(buf: torch.Tensor, starts: torch.Tensor,
@@ -544,9 +540,7 @@ def convert_fields(buf: torch.Tensor, starts: torch.Tensor,
                     f"string width {width} exceeds device limit "
                     f"{max_string_width} "
                     "(spark.rapids.sql.maxDeviceStringWidth)")
-            m = _gather(buf, s, ln, width)
-            if bool(((m == _QUOTE) & q[:, None]).any()):
-                m, ln = _unquote_strings(m, ln, q)
+            m, ln = _fields(buf, s, ln, q, width)
             chars = torch.zeros((cap, width), dtype=torch.uint8, device=dev)
             chars[:n] = m
             data = torch.zeros(cap, dtype=torch.int32, device=dev)
@@ -554,13 +548,13 @@ def convert_fields(buf: torch.Tensor, starts: torch.Tensor,
             valid[:n] = True
             cols.append(DeviceColumn(STRING, data, valid, n, chars))
             continue
-        m = _gather(buf, s, ln, max(1, int(widths[i])))
+        m, ln = _fields(buf, s, ln, q, max(1, int(widths[i])))
         null = _matches(m, ln, NULL_VALUES)
         tm, tl = _trim(m, ln)
         if f.dtype in (FLOAT64, FLOAT32):
-            vals, ok, slow, host = parse_double(tm, tl)
-            slow_total += int((slow & ~null).sum())
-            idx = torch.nonzero(host & ~null).squeeze(1)
+            vals, ok, slow = parse_double(tm, tl)
+            idx = torch.nonzero(slow & ~null).squeeze(1)
+            slow_total += idx.numel()
             if idx.numel():
                 vals = vals.index_put((idx,), _exact_floats(tm[idx],
                                                             tl[idx]))
@@ -600,14 +594,6 @@ def convert_fields(buf: torch.Tensor, starts: torch.Tensor,
 # schema inference
 # ---------------------------------------------------------------------------
 
-def _field_texts(buf: torch.Tensor, starts, lens, quoted) -> List[str]:
-    out = []
-    for s, ln, q in zip(starts.tolist(), lens.tolist(), quoted.tolist()):
-        raw = bytes(buf[s:s + ln].numpy()).decode("utf-8", "replace")
-        out.append(raw.replace('""', '"') if q else raw)
-    return out
-
-
 def _infer_type(m: torch.Tensor, lens: torch.Tensor):
     null = _matches(m, lens, NULL_VALUES)
     live = ~null
@@ -646,15 +632,17 @@ def infer_file_schema(path: str, header: bool = True,
     if header:
         if starts.shape[0] == 0:
             raise ValueError(f"{path}: empty CSV file")
-        names = _field_texts(buf, starts[0], lens[0], quoted[0])
+        m, ln = _fields(buf, starts[0], lens[0], quoted[0],
+                        max(1, int(lens[0].max())))
+        names = [bytes(r[:n].numpy()).decode("utf-8", "replace")
+                 for r, n in zip(m, ln.tolist())]
         starts, lens, quoted = starts[1:], lens[1:], quoted[1:]
     else:
         names = [f"f{i}" for i in range(ncols)]
     fields = []
     for i, name in enumerate(names):
         width = max(1, int(lens[:, i].max())) if starts.shape[0] else 1
-        m = _gather(buf, starts[:, i], lens[:, i], width)
-        m, ln = _unquote_strings(m, lens[:, i], quoted[:, i])
+        m, ln = _fields(buf, starts[:, i], lens[:, i], quoted[:, i], width)
         dt = _infer_type(m, ln)
         if dt is None:
             raise TypeError("unsupported arrow type null (reference type "

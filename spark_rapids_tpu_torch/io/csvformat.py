@@ -15,9 +15,10 @@ its decimal exponent) are scaled back, and the first that gives the
 double back exactly is its digits: with m below 2^53 and |s| at most 22
 each scaling is one correctly rounded operation, and at 15 digits or
 fewer no two decimals round to one double, so the first found is the
-shortest, as ``repr``'s.  A double that needs 16 or 17 digits, and every
-float32, is printed on the host by numpy (``float_text_host``), the
-same digits, and put in place.
+shortest, as ``repr``'s.  For a double that needs 16 or 17 digits, and
+every float32, numpy prints the digits on the host
+(``shortest_text_host``), the device reads them back and puts them in
+place; one layout on the device prints every row.
 """
 
 from __future__ import annotations
@@ -38,151 +39,47 @@ _FAST_DIGITS = 15
 
 
 # ---------------------------------------------------------------------------
-# on the host: the exact fallback for doubles
+# on the host: the digits the device does not find
 # ---------------------------------------------------------------------------
 
-def _np_const(n: int, text: bytes, on=None):
-    chars = np.frombuffer(text, np.uint8)[None, :].repeat(n, 0)
-    lens = np.full(n, len(text), np.int64)
-    return chars, lens if on is None else lens * on
-
-
-def _np_concat(parts, n: int):
-    """Segments (chars (n, w), lens (n,)) side by side in each row ->
-    (chars, lens)."""
-    width = sum(c.shape[1] for c, _ in parts)
-    out = np.zeros((n, max(1, width)), np.uint8)
-    flat = out.reshape(-1)
-    base = np.arange(n, dtype=np.int64) * out.shape[1]
-    off = np.zeros(n, np.int64)
-    for chars, lens in parts:
-        w = chars.shape[1]
-        if w == 0:
-            continue
-        lens = np.minimum(lens, w)
-        mask = np.arange(w)[None, :] < lens[:, None]
-        flat[(base + off)[:, None].repeat(w, 1)[mask]
-             + np.nonzero(mask)[1]] = chars[mask]
-        off += lens
-    return out, off
-
-
-def _np_shift(chars: np.ndarray, k: np.ndarray) -> np.ndarray:
-    """Each row's bytes from ``k`` on, at column 0."""
-    w = chars.shape[1]
-    idx = np.minimum(np.arange(w)[None, :] + k[:, None], w - 1)
-    return np.take_along_axis(chars, idx, 1)
-
-
-def _np_digits(v: np.ndarray):
-    """Non-negative ints -> their decimal text."""
-    s = np.ascontiguousarray(v).astype("S20")
-    m = s.view(np.uint8).reshape(len(v), 20)
-    return m, (m != 0).sum(1)
-
-
-def float_text_host(v: np.ndarray) -> list:
-    """Floats -> Arrow's text for their shortest round-trip digits, on
-    the host, as segments (chars (n, w), lens (n,)) side by side: numpy
-    prints the digits (Python's ``repr``'s).  Between 1e-4 and 1e10
-    numpy and Arrow both print decimals, so numpy's text stands, less a
-    trailing ``.0``, after a sign; the rest is laid out again."""
-    n = len(v)
-    a = np.abs(v)
-    plain = np.isfinite(v) & (((a >= 1e-4) & (a < 1e10)) | (a == 0))
-    m = np.where(plain, a, 0).astype(v.dtype).astype("S32").view(
-        np.uint8).reshape(n, 32)
-    ln = (m != 0).sum(1)
-    dot_zero = (np.take_along_axis(m, np.maximum(ln - 2, 0)[:, None], 1)
-                == ord("."))[:, 0] & (np.take_along_axis(
-                    m, np.maximum(ln - 1, 0)[:, None], 1) == ord("0"))[:, 0]
-    segs = [_np_const(n, b"-", plain & np.signbit(v)),
-            (m, np.where(plain, ln - 2 * dot_zero, 0))]
-    rows = np.flatnonzero(~plain)
-    if rows.size:
-        c, cl = _float_text_laid_out(v[rows])
-        full = np.zeros((n, c.shape[1]), np.uint8)
-        full[rows] = c
-        lens = np.zeros(n, np.int64)
-        lens[rows] = cl
-        segs.append((full, lens))
-    return segs
-
-
-def _float_text_laid_out(v: np.ndarray):
-    """``float_text_host`` for any float: numpy's digits and exponent
-    read back and laid out as Arrow does."""
-    n = len(v)
-    fin = np.isfinite(v)
-    w = 32
-    s = np.where(fin, np.abs(v), 0).astype(v.dtype).astype(f"S{w}")
-    m = s.view(np.uint8).reshape(n, w)
-    ln = (m != 0).sum(1)
-    j = np.arange(w)[None, :]
-    is_e = m == ord("e")
-    e_pos = np.where(is_e.any(1), is_e.argmax(1), ln)
-    # the exponent numpy printed
-    esign = np.where(np.take_along_axis(
-        m, np.minimum(e_pos + 1, w - 1)[:, None], 1)[:, 0] == ord("-"),
-        -1, 1)
-    edig = (j >= (e_pos + 2)[:, None]) & (j < ln[:, None])
-    pw = np.clip(ln[:, None] - 1 - j, 0, 18)
-    expv = ((m.astype(np.int64) - 48) * edig * 10 ** pw).sum(1) * esign
-    # the mantissa's digits without the dot
-    is_dot = (m == ord(".")) & (j < e_pos[:, None])
-    dot = np.where(is_dot.any(1), is_dot.argmax(1), e_pos)
-    dig = (j < e_pos[:, None]) & ~is_dot
-    rank = j - (j > dot[:, None])
-    d = np.zeros((n, w), np.uint8)
-    rows = np.broadcast_to(np.arange(n)[:, None], (n, w))
-    d[rows[dig], rank[dig]] = m[dig]
-    nd_all = dig.sum(1)
-    inside = j < nd_all[:, None]
-    zero = (d == ord("0")) & inside
-    lead = np.cumprod(zero, 1).sum(1)
-    trail = np.cumprod(zero[:, ::-1] | ~inside[:, ::-1], 1).sum(1) \
-        - (w - nd_all)
-    nd = np.maximum(nd_all - lead - trail, 0)
-    point = dot + expv - lead
-    dg = _np_shift(d, lead)
-    is_zero = fin & (nd == 0)
-    live = fin & ~is_zero
-    exp10 = point - 1
-    dec = live & (exp10 >= -6) & (exp10 < 10)
-    sci = live & ~dec
-    neg = np.signbit(v) & ~np.isnan(v)
-    parts = [_np_const(n, b"-", neg)]
-    parts.append(_np_const(n, b"0", is_zero | (dec & (point <= 0))))
-    a_len = np.where(dec, np.clip(point, 0, nd), np.where(sci, 1, 0))
-    parts.append((dg, a_len))
-    parts.append((np.full((n, 10), ord("0"), np.uint8),
-                  np.where(dec, np.clip(point - nd, 0, 10), 0)))
-    parts.append(_np_const(n, b".", (dec & (point < nd)) | (sci & (nd > 1))))
-    parts.append((np.full((n, 8), ord("0"), np.uint8),
-                  np.where(dec & (point < 0), np.clip(-point, 0, 8), 0)))
-    b0 = np.where(dec, np.maximum(point, 0), 1)
-    parts.append((_np_shift(dg, b0), np.where(
-        (dec & (point < nd)) | (sci & (nd > 1)), nd - b0, 0)))
-    parts.append(_np_const(n, b"e+", sci))
-    em, el = _np_digits(np.abs(exp10))
-    parts.append((em, el * sci))
-    text = np.where(np.isnan(v), 1, 0)
-    parts.append(_np_const(n, b"nan", text.astype(bool)))
-    parts.append(_np_const(n, b"inf", np.isinf(v)))
-    chars, lens = _np_concat(parts, n)
-    # the exponent's sign: '-' where it is negative
-    at = np.flatnonzero(sci & (exp10 < 0))
-    if at.size:
-        pos = np.argmax(chars[at] == ord("e"), 1) + 1
-        chars[at, pos] = ord("-")
-    return chars, lens
-
-
+def shortest_text_host(v: np.ndarray) -> np.ndarray:
+    """Floats -> numpy's text of their magnitudes, (n, 32) bytes: the
+    shortest round-trip digits (Python's ``repr``'s; at most 17, 9 for
+    a float32) with a dot or an exponent."""
+    return np.abs(v).astype("S32").view(np.uint8).reshape(len(v), 32)
 
 
 # ---------------------------------------------------------------------------
 # on the device
 # ---------------------------------------------------------------------------
+
+def _text_digits(m: torch.Tensor):
+    """``shortest_text_host``'s bytes of finite nonzero floats ->
+    (mant, scale), int64 each, the magnitude being mant x 10^-scale."""
+    n, w = m.shape
+    j = torch.arange(w, device=m.device)
+    ln = (m != 0).sum(1)
+    is_e = m == ord("e")
+    e_pos = torch.where(is_e.any(1), torch.argmax(is_e.to(torch.uint8), 1),
+                        ln)
+    is_dot = (m == ord(".")) & (j < e_pos[:, None])
+    dot = torch.where(is_dot.any(1), torch.argmax(is_dot.to(torch.uint8), 1),
+                      e_pos)
+    dig = (j < e_pos[:, None]) & ~is_dot
+    # a digit's place: the mantissa digits to its right
+    right = e_pos[:, None] - 1 - j - ((j < dot[:, None])
+                                      & (dot < e_pos)[:, None]).long()
+    pw = torch.tensor([10 ** k for k in range(19)], dtype=torch.int64,
+                      device=m.device)
+    d = m.long() - 48
+    mant = (torch.where(dig, d, 0) * pw[right.clamp(0, 18)]).sum(1)
+    edig = (j > (e_pos + 1)[:, None]) & (j < ln[:, None])
+    expv = (torch.where(edig, d, 0) * pw[(ln[:, None] - 1 - j).clamp(0, 3)]
+            ).sum(1)
+    esign = m.gather(1, (e_pos + 1).clamp(max=w - 1)[:, None]).squeeze(1)
+    expv = torch.where(esign == ord("-"), -expv, expv)
+    return mant, (e_pos - dot - 1).clamp(min=0) - expv
+
 
 def _const(n: int, text: bytes, on, dev) -> Seg:
     chars = torch.tensor(list(text), dtype=torch.uint8,
@@ -325,10 +222,16 @@ def _float_segs(x: torch.Tensor) -> List[Seg]:
                 mant = torch.where(hit, m.long(), mant)
                 scale = torch.where(hit, s, scale)
                 found |= hit
+    rest = torch.nonzero(live & ~found).squeeze(1)
+    if rest.numel():
+        text = shortest_text_host(x[rest].cpu().numpy())
+        mant[rest], scale[rest] = _text_digits(
+            torch.from_numpy(text).to(dev))
+        found[rest] = True
     # the digits, trailing zeros dropped: value = digits x 10^(point - nd)
-    d, ln = _digits(mant, 16)
-    nzr = (d != 0) & (torch.arange(16, device=dev) < ln[:, None])
-    last = 15 - torch.argmax(nzr.flip(1).to(torch.uint8), 1)
+    d, ln = _digits(mant, 17)
+    nzr = (d != 0) & (torch.arange(17, device=dev) < ln[:, None])
+    last = 16 - torch.argmax(nzr.flip(1).to(torch.uint8), 1)
     nd = torch.where(found, last + 1, 0)
     point = ln - scale
     exp10 = point - 1
@@ -357,15 +260,6 @@ def _float_segs(x: torch.Tensor) -> List[Seg]:
     segs.append(((ed + 48).to(torch.uint8), el * sci))
     segs.append(_const(n, b"nan", torch.isnan(x), dev))
     segs.append(_const(n, b"inf", torch.isinf(x), dev))
-    rest = torch.nonzero(live & ~found).squeeze(1)
-    if rest.numel():
-        for chars, lens in float_text_host(x[rest].cpu().numpy()):
-            full = torch.zeros((n, chars.shape[1]), dtype=torch.uint8,
-                               device=dev)
-            full[rest] = torch.from_numpy(chars).to(dev)
-            flen = torch.zeros(n, dtype=torch.int64, device=dev)
-            flen[rest] = torch.from_numpy(lens.astype(np.int64)).to(dev)
-            segs.append((full, flen))
     return segs
 
 
@@ -379,12 +273,8 @@ def _column_segs(dtype, col, n: int) -> List[Seg]:
         f = torch.tensor(list(b"false"), dtype=torch.uint8, device=dev)
         segs = [(torch.where(data[:, None], t, f),
                  torch.where(data, 4, 5).long())]
-    elif dtype == FLOAT64:
+    elif dtype in (FLOAT64, FLOAT32):
         segs = _float_segs(data)
-    elif dtype == FLOAT32:
-        segs = [(torch.from_numpy(chars).to(dev),
-                 torch.from_numpy(lens.astype(np.int64)).to(dev))
-                for chars, lens in float_text_host(data.cpu().numpy())]
     elif dtype == DATE:
         segs = [(_date_chars(data), torch.full((n,), 10, device=dev))]
     elif dtype == TIMESTAMP:

@@ -6,7 +6,9 @@ inferred schema and every value equal: every type the reader infers
 (int64, double, boolean, date, timestamp, string) and pyarrow's traps
 as the JAX package meets them (NaN read as null in a double column,
 ``NULL`` and an empty field kept as strings, a 0/1 column as int64,
-``1e400`` as inf, quoted delimiters and doubled quotes, ``\\r\\n`` and
+``1e400`` as inf, quoted delimiters and doubled quotes, a quote inside
+an unquoted field or after a field's closing quote kept as text (also
+over hypothesis-made rows), ``\\r\\n`` and
 empty lines, no header, ``sep=";"``, spaces around numbers); a user
 schema by position; a directory of files; files larger than one host
 range and one batch; an all-empty column refused with the JAX package's
@@ -55,6 +57,9 @@ CASES = {
     "dates_invalid_are_strings": "d\n2000-02-30\n2000-01-01\n",
     "utf8": "s,n\nécole,1\n日本語,2\n\"a,é\",3\n",
     "no_trailing_newline": "a,b\n1,2\n3,4",
+    "stray_quotes": ('a,b\n5" x,1\n1"2"3,2\n"ab"c"d,3\n"a,b"x",4\n ",5\n'
+                     'x",6\n'),
+    "text_after_closing_quote": 'a,b\n"1"2,3\n"4" ,5\n"""q"""r,6\n',
 }
 
 
@@ -100,6 +105,36 @@ def test_naive_timestamps_read_as_utc(tmp_path):
     assert got.tolist() == np.array(
         ["1995-03-15T10:00:00", "2000-01-01T01:02:03.5"],
         "datetime64[us]").tolist()
+
+
+# a field that begins with a quote is a quoted one: made by _QUOTED,
+# closed on its line
+_UNQUOTED = hst.text(alphabet='a1 "', max_size=4).filter(
+    lambda t: not t.startswith('"'))
+_QUOTED = hst.builds(lambda body, tail: '"' + body + '"' + tail,
+                     hst.text(alphabet='a1 ,"', max_size=4).map(
+                         lambda t: t.replace('"', '""')),
+                     _UNQUOTED.filter(lambda t: len(t) <= 2))
+
+
+@settings(max_examples=40, deadline=None)
+@given(hst.lists(hst.lists(hst.one_of(_UNQUOTED, _QUOTED), min_size=3,
+                           max_size=3), min_size=1, max_size=6))
+def test_quotes_anywhere_split_as_jax_does(tmp_path_factory, rows):
+    # a quote opens a quoted field only at the field's start; anywhere
+    # else, and after the quote that closes a field, it is text
+    body = "x,y,z\n" + "".join(",".join(r) + "\n" for r in rows)
+    path = _write(str(tmp_path_factory.mktemp("q") / "q.csv"), body)
+    try:
+        want = tpu_session().read.csv(path).to_arrow()
+    except (ValueError, TypeError) as e:
+        with pytest.raises(type(e) if isinstance(e, TypeError)
+                           else ValueError):
+            st.TorchSession(CPU).read.csv(path).to_arrow()
+        return
+    got = st.TorchSession(CPU).read.csv(path).to_arrow()
+    assert got.schema == want.schema, body
+    assert_tables_equal(got, want, ignore_order=False)
 
 
 def test_header_less_and_semicolon_match_jax(tmp_path):
@@ -200,6 +235,14 @@ def test_int_column_meeting_a_double_later_fails_like_jax(tmp_path):
 def test_ragged_row_raises(tmp_path):
     path = _write(str(tmp_path / "r.csv"), "a,b\n1,2\n3\n")
     with pytest.raises(st.CsvParseError):
+        st.TorchSession(CPU).read.csv(path).to_arrow()
+    with pytest.raises(pa.ArrowInvalid):
+        tpu_session().read.csv(path).to_arrow()
+
+
+def test_unclosed_quote_raises(tmp_path):
+    path = _write(str(tmp_path / "q.csv"), 'a,b\n1,2\n"x,3\n')
+    with pytest.raises(st.CsvParseError, match="not closed"):
         st.TorchSession(CPU).read.csv(path).to_arrow()
     with pytest.raises(pa.ArrowInvalid):
         tpu_session().read.csv(path).to_arrow()
