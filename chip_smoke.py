@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--package-root DIR] [--kernels-only]
                           [--sass-dir DIR] [--layer-cost] [--string-paths]
-                          [--files-only]
+                          [--files-only] [--compressed-only]
 
 Phases, each printing one JSON line:
 
@@ -289,8 +289,31 @@ come out bit for bit alike (``float_sum_results_of_5``).
    pyarrow.  Its files live under ``_smoke_files/`` in the checkout and
    are removed after it.  ``--files-only`` builds the kernels and runs
    this phase alone.
+24. compressed: dictionary-encoded string columns, the port's default
+   (``spark.rapids.sql.compressed.enabled``), each cell with it on and
+   with it off in the same call, each through the result pull (codes on
+   the wire when on): TPC-H q1, q3, q12 and q16 over
+   gen_tpch_numpy(6_001_215), each on equal to off (floats within rtol
+   1e-9, whether bit for bit printed) and checked against numpy (q1,
+   q3) or a CPU session (q12, q16); compressed_shipmode_agg
+   (group_by(l_shipmode) with count, sum and max over SF1 lineitem: no
+   late decode, K1 over the codes, against numpy, K1 held against its
+   plain version on its own update batch); compressed_contains_dict
+   (a 17-byte contains over l_shipinstruct, then a count: one K2 launch
+   a run, on the 4-value dictionary, where the dense path launches one
+   a 2^20-row batch, K2 equal to its plain version
+   there, the count equal to numpy's); hash_join_1m, text_filter_agg_6m
+   and tpcxbb_q3 on and off; Q1 over Q1's columns of SF1 lineitem
+   written as CSV and read back with the strings encoded on the card,
+   bit for bit the in-memory Q1; tpch_q3 at a quarter of its catalog
+   peak through the host and disk tiers (memory_tiers).  Each line
+   prints encodedColumns, plainColumns, lateDecodes, fusedDecodes and
+   the h2d raw and wire bytes of the first run, the scans' ms and the
+   seconds of each timed run, on and off; a cell with an encoded column
+   whose wire bytes are not below its raw bytes fails.
+   ``--compressed-only`` builds the kernels and runs this phase alone.
 
-Each path of phases 5 to 23 runs with the launch counts set to 0 just
+Each path of phases 5 to 24 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -516,20 +539,22 @@ def agg_query(st, F, df):
               .order_by(col("k")))
 
 
-def main_path_inputs(pag, session, query, half: bool = False):
+def main_path_inputs(pag, session, query, half: bool = False,
+                     codes: bool = False):
     """What a path gives the kernel: the aggregate's own plane
     construction on the first update batch of ``query`` that takes the
     dense-slot path, from the root-most aggregate down (its input, a
     join's output included); with ``half``, on the first half of that
-    batch that an out-of-memory split would give it -> (gid, planes,
-    ops, K)."""
+    batch that an out-of-memory split would give it; with ``codes``,
+    through the aggregate's code view, where a key over an encoded
+    string column is its int32 codes -> (gid, planes, ops, K)."""
     from spark_rapids_tpu_torch.exec.base import ExecContext
     from spark_rapids_tpu_torch.exprs.base import colvals
     from spark_rapids_tpu_torch.plan.planner import plan_query
     # the batch the aggregate exec's own routing would send
     # (TorchHashAggregateExec._try_pallas_update)
     for agg in _plan_nodes(plan_query(query.plan), "TorchHashAggregateExec"):
-        if not pag.supports(agg.spec):
+        if not codes and not pag.supports(agg.spec):
             continue
         for batch in agg.children[0].execute(
                 ExecContext(session.conf, session.device)):
@@ -537,10 +562,15 @@ def main_path_inputs(pag, session, query, half: bool = False):
                 from spark_rapids_tpu_torch.utils.retry import \
                     split_batch_half
                 batch = split_batch_half(batch)[0]
-            if batch.capacity > pag.max_capacity(agg.spec):
+            spec = agg.spec
+            if codes:
+                spec, batch, _ = agg._agg_view("update", batch)
+                if not pag.supports(spec):
+                    break
+            if batch.capacity > pag.max_capacity(spec):
                 continue
             cols = colvals(batch.columns)
-            rng = pag.key_range(agg.spec.groupings[0], cols, batch.num_rows,
+            rng = pag.key_range(spec.groupings[0], cols, batch.num_rows,
                                 batch.capacity)
             if rng is None:
                 continue
@@ -549,7 +579,7 @@ def main_path_inputs(pag, session, query, half: bool = False):
             lo, _ = rng
             K = pag.slot_count(*rng)
             gid, planes, ops, _ = pag.update_planes(
-                agg.spec, cols, batch.num_rows, batch.capacity, lo, K)
+                spec, cols, batch.num_rows, batch.capacity, lo, K)
             return gid, planes, ops, K
     check(False, "no batch of the query takes the dense-slot path")
 
@@ -768,16 +798,17 @@ def phase_kernel(torch, pag, session, query, rate: float,
 
 
 def phase_kernel_path(torch, pag, session, query, path: str,
-                      half: bool = False) -> float:
+                      half: bool = False, codes: bool = False) -> float:
     """The dense-slot kernel against its plain version on the inputs
     another path gives it (``query``'s first update batch, or with
-    ``half`` that batch's first half), timed as phase 3 -> the largest
-    f64 sum error."""
-    gid, planes, ops, K = main_path_inputs(pag, session, query, half)
+    ``half`` that batch's first half; ``codes``: through the code view),
+    timed as phase 3 -> the largest f64 sum error."""
+    gid, planes, ops, K = main_path_inputs(pag, session, query, half, codes)
     err = compare_kernel(torch, pag, gid, planes, ops, K)
     launch, _ = pag.prepare_launch(gid, planes, ops, K)
     fsum_planes, repeats = float_sum_repeats(torch, pag, gid, planes, ops, K)
     emit("kernel_path", name="dense_slot_reduce", path=path, half=half,
+         codes=codes,
          capacity=gid.numel(), K=K,
          planes=[f"{str(p.dtype)[6:]} {op}" for p, op in zip(planes, ops)],
          max_abs_err=err, ms=per_call_ms(torch, launch),
@@ -4443,6 +4474,355 @@ def phase_files(torch, st, F, native, session, tpch_dfs, agg_data, line,
     emit("files", seconds=time.perf_counter() - t0, nvidia_smi=smi)
 
 
+# -- phase 24: the compressed domain ---------------------------------------
+
+COMPRESSED_OFF = {"spark.rapids.sql.compressed.enabled": False}
+COMPRESSED_TPCH = ("q1", "q3", "q12", "q16")
+STATS_KEYS = (("encoded_columns", "encodedColumns"),
+              ("plain_columns", "plainColumns"),
+              ("late_decodes", "lateDecodes"),
+              ("fused_decodes", "fusedDecodes"),
+              ("h2d_raw_bytes", "h2d_raw_bytes"),
+              ("h2d_wire_bytes", "h2d_wire_bytes"),
+              ("encode_faults", "encode_faults"))
+
+
+def stats_since(before: dict) -> dict:
+    """The compressed domain's counters since ``before`` (a snapshot of
+    ``encoding.compressed_stats()``), under the metric names, and the
+    host encoder's ms."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    after = encoding.compressed_stats()
+    return {**{name: after[k] - before[k] for k, name in STATS_KEYS},
+            "host_encode_ms": encode_ms_since(before)}
+
+
+def encode_ms_since(before: dict) -> float:
+    """Host ms the string encoder spent building since ``before``."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    return (encoding.compressed_stats()["host_encode_ns"]
+            - before["host_encode_ns"]) / 1e6
+
+
+def scan_ms(plan) -> float:
+    """Host wall of the plan's scans (each batch's encode and upload,
+    ms): the scans' ``totalTime``."""
+    return sum(n.metrics.get("totalTime", 0) / 1e6
+               for n in _plan_nodes(plan, "TorchLocalScanExec")
+               + _plan_nodes(plan, "TorchCsvScanExec"))
+
+
+def host_bitwise(got, want) -> bool:
+    """Whether two ``HostResult``s' float columns are bit for bit alike
+    (``host_same_rows`` has checked everything else)."""
+    for f in want.schema:
+        (a, va), (b, vb) = got.columns[f.name], want.columns[f.name]
+        if not hasattr(a, "to_bytes") and a.dtype.kind == "f" \
+                and not np.array_equal(a[va].view(np.uint8),
+                                       b[vb].view(np.uint8)):
+            return False
+    return True
+
+
+def compressed_pair(torch, st, name: str, build, verify=None,
+                    runs: int = 2, smi: str = ""):
+    """``build(session)``'s query with compressed execution on (the
+    default) and off, each one warm-up and ``runs`` timed runs through
+    the result pull (codes on the wire when on); the two results equal
+    (integers, strings, nulls exact; floats within rtol 1e-9, and
+    whether they are bit for bit is printed), ``verify(HostResult)`` the
+    reference's check of the on run.  Prints each mode's counters (of
+    its warm-up), scan ms and seconds of the warm-up (``cold_*``: on, a
+    first scan, which builds every dictionary on the host,
+    ``host_encode_ms``) and of the timed runs (on, served by the local
+    scan's memo); -> (on result, its counters)."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    res, line = {}, {}
+    for mode, conf in (("on", {}), ("off", COMPRESSED_OFF)):
+        s = st.TorchSession(conf)
+        q = build(s)
+        encoding.clear_memo()
+        before = encoding.compressed_stats()
+        t0 = time.perf_counter()
+        res[mode] = q._host()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        stats = stats_since(before)
+        cold_scan = scan_ms(s._last_plan)
+        secs, scans = [], []
+        before = encoding.compressed_stats()
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            res[mode] = q._host()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            scans.append(scan_ms(s._last_plan))
+        line[mode] = {**stats, "cold_scan_ms": cold_scan,
+                      "cold_seconds": cold, "scan_ms": scans,
+                      "seconds": secs,
+                      "warm_host_encode_ms": encode_ms_since(before)}
+    on, off = res["on"], res["off"]
+    host_same_rows(on, off, f"{name}: on against off")
+    if verify is not None:
+        verify(on)
+    st_on = line["on"]
+    check(line["off"]["encodedColumns"] == 0,
+          f"{name}: compressed off encoded a column")
+    if st_on["encodedColumns"] and st_on["h2d_raw_bytes"]:
+        check(st_on["h2d_wire_bytes"] < st_on["h2d_raw_bytes"],
+              f"{name}: wire bytes {st_on['h2d_wire_bytes']} not below raw "
+              f"{st_on['h2d_raw_bytes']}")
+    emit("compressed", cell=name, rows=on.num_rows,
+         floats_bit_for_bit=host_bitwise(on, off), on=line["on"],
+         off=line["off"], nvidia_smi=smi)
+    return on, st_on
+
+
+def _host_cols(result) -> dict:
+    """A ``HostResult`` -> {name: numpy values (strings as str)}, with
+    no null allowed."""
+    out = {}
+    for name, (values, valid) in result.columns.items():
+        check(bool(valid.all()), f"unexpected nulls in {name}")
+        out[name] = np.asarray(values.to_pylist()) \
+            if hasattr(values, "to_pylist") else values
+    return out
+
+
+def _check_host(result, want, limit, qname: str, tie_key="revenue"):
+    """``check_tpch`` over a ``HostResult``."""
+    cols = _host_cols(result)
+    n = result.num_rows
+    rows = len(next(iter(want.values())))
+    check(n == rows, f"{qname}: {n} rows, the reference has {rows}")
+    tied = np.zeros(rows, bool)
+    if limit is not None and tie_key in want:
+        near = np.isclose(want[tie_key][1:], want[tie_key][:-1],
+                          rtol=1e-9, atol=0)
+        tied[1:] |= near
+        tied[:-1] |= near
+    for name, w in want.items():
+        g, w = np.asarray(cols[name]), np.asarray(w)
+        if w.dtype.kind == "f":
+            check(np.allclose(g[~tied], w[~tied], rtol=1e-9, atol=0)
+                  and np.allclose(np.sort(g[tied]), np.sort(w[tied]),
+                                  rtol=1e-9, atol=0),
+                  f"{qname}: {name} beyond rtol 1e-9")
+        else:
+            check(np.array_equal(g[~tied], w[~tied])
+                  and sorted(g[tied].tolist()) == sorted(w[tied].tolist()),
+                  f"{qname}: {name} differs from the reference's")
+
+
+def _shipmode_agg(torch, st, F, native, pag, tpch, smi: str) -> float:
+    """group_by(l_shipmode) over SF1 lineitem: no late decode, K1 over
+    the codes, against numpy; -> K1's largest f64 sum error against its
+    plain version on the query's own update batch."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    col = st.col
+    li = tpch["lineitem"]
+    s = st.TorchSession({})
+    q = s.create_dataframe(li).group_by(col("l_shipmode")).agg(
+        F.count(col("l_quantity")).alias("c"),
+        F.sum(col("l_quantity")).alias("s"),
+        F.max(col("l_extendedprice")).alias("m"))
+    encoding.clear_memo()
+    b0 = encoding.compressed_stats()
+    t0 = time.perf_counter()
+    q._host()
+    torch.cuda.synchronize()
+    cold = {"seconds": time.perf_counter() - t0,
+            "scan_ms": scan_ms(s._last_plan),
+            "host_encode_ms": encode_ms_since(b0)}
+    before = encoding.compressed_stats()
+    k1 = native.LAUNCHES["dense_slot_reduce"]
+    t0 = time.perf_counter()
+    got = q._host()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    stats = stats_since(before)
+    launches = native.LAUNCHES["dense_slot_reduce"] - k1
+    (agg,) = _plan_nodes(s._last_plan, "TorchHashAggregateExec")
+    dense = agg.metrics["pallasAggBatches"]
+    check(stats["lateDecodes"] == 0,
+          f"compressed_shipmode_agg: {stats['lateDecodes']} late decodes")
+    check(stats["encodedColumns"] > 0 and dense > 0 and launches >= dense,
+          f"compressed_shipmode_agg: K1 took {dense} batches over codes, "
+          f"{launches} launches, {stats['encodedColumns']} encoded columns")
+    modes, inv = np.unique(li["l_shipmode"], return_inverse=True)
+    want = {"l_shipmode": modes,
+            "c": np.bincount(inv, minlength=len(modes)),
+            "s": np.bincount(inv, li["l_quantity"], minlength=len(modes)),
+            "m": np.array([li["l_extendedprice"][inv == i].max()
+                           for i in range(len(modes))])}
+    _check_host(got, want, None, "compressed_shipmode_agg")
+    emit("compressed", cell="compressed_shipmode_agg", rows=got.num_rows,
+         dense_slot_batches=dense, kernel_launches=launches, seconds=secs,
+         scan_ms=scan_ms(s._last_plan), cold=cold, on=stats, nvidia_smi=smi)
+    return _uncounted(native, lambda: phase_kernel_path(
+        torch, pag, s, q, "compressed_shipmode_agg", codes=True))
+
+
+def _contains_dict(torch, st, F, native, ps, ops, smi: str) -> None:
+    """A 17-byte contains over l_shipinstruct's 4-value dictionary, then
+    a count: K2 launches once a run, on the dictionary, equal to its
+    plain version there; the count equal to numpy's."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    col = st.col
+    li = ops["lineitem"]
+    data = {"l_shipinstruct": li["l_shipinstruct"],
+            "l_quantity": li["l_quantity"]}
+    needle = SHIP_INSTRUCT[0]
+    s = st.TorchSession({})
+    df = s.create_dataframe(data)
+    q = df.filter(F.contains(col("l_shipinstruct"), needle)).agg(
+        F.count(col("l_quantity")).alias("n"))
+    # each run evaluates the predicate once over the dictionary (one K2
+    # launch on its 8 rows, where the dense path launches one a batch)
+    # and gathers the table by code
+    encoding.clear_memo()
+    before = encoding.compressed_stats()
+    k2 = native.LAUNCHES["contains"]
+    t0 = time.perf_counter()
+    q._host()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    first = native.LAUNCHES["contains"] - k2
+    stats = stats_since(before)
+    t0 = time.perf_counter()
+    got = q._host()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = native.LAUNCHES["contains"] - k2
+    want = int((li["l_shipinstruct"] == needle).sum())
+    check(int(got.columns["n"][0][0]) == want,
+          f"compressed_contains_dict: {got.columns['n'][0][0]} rows, numpy "
+          f"{want}")
+    check(first == 1 and launches == 2,
+          f"compressed_contains_dict: {first} and {launches - first} K2 "
+          "launches in two runs, not one a run on the dictionary")
+    (batch,) = df.to_device_batches()[:1]
+    d = batch.columns[0].dict
+    pat = needle.encode()
+    got_k, plain = _uncounted(native, lambda: (
+        ps.run_contains(d.chars, d.lengths, pat),
+        ps.contains_reference(d.chars, d.lengths, pat)))
+    check(torch.equal(got_k, plain),
+          "compressed_contains_dict: K2 differs from its plain version "
+          "on the dictionary")
+    emit("compressed", cell="compressed_contains_dict", rows=len(
+        li["l_shipinstruct"]), matched=want, dictionary=d.size,
+         dictionary_rows=int(d.chars.shape[0]), needle_bytes=len(pat),
+         contains_launches=[first, launches - first], seconds=secs,
+         cold_seconds=cold, on=stats,
+         nvidia_smi=smi)
+
+
+def _csv_q1(torch, st, tpch, smi: str) -> None:
+    """Q1's columns of SF1 lineitem through CSV, read back typed with
+    compressed execution on (the strings encoded on the card) and off;
+    Q1 over both bit for bit the in-memory Q1."""
+    import shutil
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    li = tpch["lineitem"]
+    cols = ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+            "l_discount", "l_tax", "l_shipdate"]
+    path = os.path.join(FILES_DIR, "q1")
+    shutil.rmtree(path, ignore_errors=True)
+    s = st.TorchSession({})
+    mem = s.create_dataframe({c: li[c] for c in cols})
+    mem.write.csv(path)
+    schema = mem.plan.output_schema()
+    want = TPCH_QUERIES["q1"](load_tables(s, {**tpch, "lineitem": {
+        c: li[c] for c in cols}}))._host()
+
+    def build(session):
+        tables = load_tables(session, tpch)
+        tables["lineitem"] = session.read.schema(schema).csv(path)
+        return TPCH_QUERIES["q1"](tables)
+
+    def verify(result):
+        host_same_rows(result, want, "csv_lineitem_sf1 q1", rtol=1e-9)
+        check(host_bitwise(result, want),
+              "csv_lineitem_sf1 q1: not bit for bit the in-memory q1")
+    try:
+        compressed_pair(torch, st, "csv_lineitem_sf1_q1", build, verify,
+                        smi=smi)
+    finally:
+        shutil.rmtree(FILES_DIR, ignore_errors=True)
+
+
+def phase_compressed(torch, st, F, native, pag, ps, tpch, main, dim, line,
+                     xbb, ops, errs: dict, smi: str) -> None:
+    """Phase 24: dictionary-encoded string columns, each cell with
+    compressed execution on (the default) and off in one call."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    from spark_rapids_tpu_torch.bench.tpcxbb import TPCXBB_QUERIES, \
+        register_views
+    t0 = time.perf_counter()
+    cpu = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+    cpu_dfs = load_tables(cpu, tpch)
+    for qname in COMPRESSED_TPCH:
+        if qname in ("q1", "q3"):
+            want, limit = tpch_reference(tpch, qname)
+        else:
+            want = _host_cols(TPCH_QUERIES[qname](cpu_dfs)._host())
+            limit = None
+
+        def verify(result, want=want, limit=limit, qname=qname):
+            _check_host(result, want, limit, qname)
+        _, stats = compressed_pair(
+            torch, st, f"compressed_tpch_{qname}",
+            lambda s, q=qname: TPCH_QUERIES[q](load_tables(s, tpch)),
+            verify, smi=smi)
+        check(stats["encodedColumns"] > 0,
+              f"compressed_tpch_{qname}: no column was encoded")
+    errs["dense_slot_reduce"] = _shipmode_agg(torch, st, F, native, pag,
+                                              tpch, smi)
+    _contains_dict(torch, st, F, native, ps, ops, smi)
+    compressed_pair(torch, st, "hash_join_1m", lambda s: hash_join_query(
+        st, F, s.create_dataframe(main), s.create_dataframe(dim)), smi=smi)
+    compressed_pair(torch, st, "text_filter_agg_6m", lambda s: text_agg_query(
+        st, F, s.create_dataframe(line[0])), smi=smi)
+
+    def xbb_q3(s):
+        register_views(s, xbb)
+        return s.sql(TPCXBB_QUERIES["q3"])
+    compressed_pair(torch, st, "tpcxbb_q3", xbb_q3, smi=smi)
+    os.makedirs(FILES_DIR, exist_ok=True)
+    _csv_q1(torch, st, tpch, smi)
+    # the spill run: tpch_q3 with its encoded columns at a quarter of its
+    # catalog peak, through the host and disk tiers
+    from spark_rapids_tpu_torch.columnar import encoding
+    want3, limit3 = tpch_reference(tpch, "q3")
+    before = encoding.compressed_stats()
+    tier_runs(torch, st, lambda s: TPCH_QUERIES["q3"](load_tables(s, tpch)),
+              "compressed_tpch_q3", lambda out: check_tpch(
+                  torch, *out, want3, limit3, "q3"))
+    stats = stats_since(before)
+    check(stats["encodedColumns"] > 0, "compressed_tpch_q3 spilled: no "
+          "column was encoded")
+    emit("compressed_phase", seconds=time.perf_counter() - t0,
+         spill_run=stats, nvidia_smi=smi)
+
+
+def compressed_only(torch, st, F, native, pag, ps, main_data, dim_data,
+                    line, name: str, smi: str) -> int:
+    """``--compressed-only``: phase 24 and its data alone."""
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy
+    from spark_rapids_tpu_torch.bench.tpcxbb import gen_tpcxbb_numpy
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    native.reset_launches()
+    phase_compressed(torch, st, F, native, pag, ps, tpch, main_data,
+                     dim_data, line, gen_tpcxbb_numpy(TPCXBB_SALES_ROWS),
+                     operator_tables(tpch), {}, smi)
+    emit("launches", path="compressed", counts=dict(native.LAUNCHES))
+    print(json.dumps({"ok": True, "compressed_only": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(
@@ -4466,6 +4846,10 @@ def parse_args(argv):
                     help="build the kernels, run phase 23 (file I/O and "
                          "a standing query over CSV) with its launch "
                          "counts, and stop")
+    ap.add_argument("--compressed-only", action="store_true",
+                    help="build the kernels, run phase 24 (dictionary-"
+                         "encoded columns, each cell on and off) with its "
+                         "launch counts, and stop")
     ap.add_argument("--string-paths", action="store_true",
                     help="time LIKE/RLIKE's two matchers and replace's "
                          "two paths on the breadth queries' columns and "
@@ -4530,6 +4914,9 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if args.compressed_only:
+        return compressed_only(torch, st, F, native, pag, ps, main_data,
+                               dim_data, line, name, smi)
     edges = not args.kernels_only
     kern = {"dense_slot_reduce": phase_kernel(
                 torch, pag, session, agg_query(
@@ -4637,6 +5024,11 @@ def main(argv=None) -> int:
           agg_data, line, smi, file_errs)
     dsr["max_abs_err"] = max(dsr["max_abs_err"],
                              file_errs["dense_slot_reduce"])
+    comp_errs = {}
+    drive("compressed", phase_compressed, torch, st, F, native, pag, ps,
+          tpch, main_data, dim_data, line, xbb, ops, comp_errs, smi)
+    dsr["max_abs_err"] = max(dsr["max_abs_err"],
+                             comp_errs["dense_slot_reduce"])
     # the replicas count their own launches; they join the kernels line
     replica_launches = {}
     drive("fleet", phase_fleet, torch, st, native, tpch, agg_data, smi,

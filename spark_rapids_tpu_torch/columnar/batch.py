@@ -204,7 +204,7 @@ class ColumnarBatch:
 
     @property
     def device(self) -> torch.device:
-        return self.columns[0].data.device
+        return self.columns[0].validity.device
 
     def size_bytes(self) -> int:
         return sum(c.size_bytes() for c in self.columns)
@@ -218,9 +218,13 @@ class ColumnarBatch:
         if start < 0 or n < 0 or start + n > self.num_rows:
             raise ValueError(f"rows [{start}, {start + n}) are not inside "
                              f"a batch of {self.num_rows}")
+        from spark_rapids_tpu_torch.columnar.encoding import EncodedColumn
         cap = bucket_capacity(max(1, n))
         cols = []
         for c in self.columns:
+            if isinstance(c, EncodedColumn):
+                cols.append(c.slice_rows(start, n, cap))
+                continue
             planes = []
             for a in (c.data, c.validity, c.chars):
                 if a is None:
@@ -236,13 +240,15 @@ class ColumnarBatch:
         return ColumnarBatch(cols, n, self.schema)
 
     def gather(self, rows: torch.Tensor, n: int) -> "ColumnarBatch":
-        """The rows at ``rows`` (a string column's chars move with
-        them); the first ``n`` are live, the rest padding."""
+        """The rows at ``rows`` (a string column's chars move with them,
+        an encoded column's codes stay codes); the first ``n`` are live,
+        the rest padding."""
+        from spark_rapids_tpu_torch.columnar.encoding import col_planes, \
+            wrap_gathered
         live = torch.arange(rows.shape[0], device=rows.device) < n
-        cols = [DeviceColumn(c.dtype, c.data[rows], c.validity[rows] & live,
-                             n, None if c.chars is None else c.chars[rows])
-                for c in self.columns]
-        return ColumnarBatch(cols, n, self.schema)
+        outs = [(d[rows], v[rows] & live, None if ch is None else ch[rows])
+                for d, v, ch in (col_planes(c, True) for c in self.columns)]
+        return wrap_gathered(self.columns, outs, n, self.schema)
 
     def __repr__(self):
         return (f"ColumnarBatch(rows={self.num_rows}, "
@@ -295,13 +301,28 @@ def upload_column(dtype, values, validity: np.ndarray, capacity: int,
 
 
 def host_batch_to_device(schema: Schema, cols: HostColumns, device,
-                         max_string_width: Optional[int] = None
-                         ) -> ColumnarBatch:
-    """Host columns (all of one length) -> device batch."""
+                         max_string_width: Optional[int] = None,
+                         encoder=None, decided=None) -> ColumnarBatch:
+    """Host columns (all of one length) -> device batch.  ``encoder``
+    (``columnar/encoding.py: IngestEncoder``, which the scans make while
+    ``spark.rapids.sql.compressed.ingest`` is on) may take a string
+    column: it uploads codes and a dictionary instead; a column it
+    declines uploads its plain planes.  ``decided`` names the columns
+    the encoder already decided on (name -> the encoded column, or None
+    for plain)."""
     n = len(cols[schema[0].name][0]) if len(schema) else 0
     cap = bucket_capacity(n)
-    out = [upload_column(f.dtype, *cols[f.name], cap, device,
-                         max_string_width) for f in schema]
+    decided = decided or {}
+    out = []
+    for f in schema:
+        values, valid = cols[f.name]
+        if f.name in decided:
+            col = decided[f.name]
+        else:
+            col = None if encoder is None else \
+                encoder.upload_column(values, valid, f.dtype, cap)
+        out.append(col if col is not None else upload_column(
+            f.dtype, values, valid, cap, device, max_string_width))
     return ColumnarBatch(out, n, schema)
 
 
@@ -348,6 +369,9 @@ def host_columns_from_arrow(table) -> Tuple[Schema, HostColumns]:
     for f, arr in zip(schema, table.columns):
         if isinstance(arr, pa.ChunkedArray):
             arr = arr.combine_chunks()
+        if pa.types.is_dictionary(arr.type):
+            # a read_dictionary column the ingest encoder declined
+            arr = arr.cast(arr.type.value_type)
         valid = np.ones(len(arr), np.bool_) if arr.null_count == 0 \
             else np.asarray(arr.is_valid())
         if f.dtype == STRING:
@@ -389,11 +413,20 @@ def device_batch_to_host(batch: ColumnarBatch,
                          schema: Optional[Schema] = None) -> HostColumns:
     """Device batch -> host columns trimmed to the row count; a string
     column comes back as its lengths and char matrix, whole (the
-    counterpart of JAX ``columnar/batch.py:289-330``)."""
+    counterpart of JAX ``columnar/batch.py:289-330``).  While
+    ``spark.rapids.sql.compressed.egress`` is on, an encoded column
+    brings its codes and validity across and its strings are looked up
+    in the dictionary's host copy (``encoding.pull_encoded``); off, it
+    decodes on the device first."""
+    from spark_rapids_tpu_torch.columnar import encoding
     schema = schema or batch.schema
     n = batch.num_rows
     out = {}
     for f, c in zip(schema, batch.columns):
+        if isinstance(c, encoding.EncodedColumn) \
+                and encoding.egress_enabled():
+            out[f.name] = encoding.pull_encoded(c, n)
+            continue
         valid = c.validity[:n].cpu().numpy()
         if c.chars is not None:
             out[f.name] = (HostStrings(c.chars[:n].cpu().numpy(),

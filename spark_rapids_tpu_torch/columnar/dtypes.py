@@ -193,6 +193,9 @@ def from_arrow_type(t) -> DataType:
     }
     if t in table:
         return table[t]
+    if pa.types.is_dictionary(t):
+        # a parquet column read with read_dictionary
+        return from_arrow_type(t.value_type)
     if pa.types.is_timestamp(t):
         if t.tz not in (None, "UTC", "+00:00"):
             raise TypeError(f"only UTC timestamps supported, got tz={t.tz}")

@@ -143,9 +143,55 @@ PALLAS_AGG = register(
     "the sorted-segment path.", bool)
 
 
+COMPRESSED_ENABLED = register(
+    "spark.rapids.sql.compressed.enabled", True,
+    "Master switch for compressed-domain execution "
+    "(columnar/encoding.py): dictionary-encoded string columns cross "
+    "to the device as int32 codes and one small dictionary, the fused "
+    "stage rewrites predicates and projections over them to per-code "
+    "gathers of tables evaluated once over the dictionary, group-by "
+    "keys group by code (rank codes keep the output order), equi-join "
+    "keys compare as codes, and the exchange, coalesce, spill and the "
+    "result pull carry codes.  false = no column is ever encoded and "
+    "every result is the dense engine's.", bool)
+
+COMPRESSED_INGEST = register(
+    "spark.rapids.sql.compressed.ingest", True,
+    "With compressed.enabled: the local, parquet, ORC and CSV scans "
+    "upload a low-cardinality string column as codes and a dictionary "
+    "instead of its char matrix.  An injected io.encode fault (or an "
+    "I/O error while encoding) sends that column the plain way, "
+    "counted in encode_faults.  false = every column rides the plain "
+    "path, and no compressed-domain path engages.", bool)
+
+COMPRESSED_EGRESS = register(
+    "spark.rapids.sql.compressed.egress", True,
+    "With compressed.enabled: the result pull brings an encoded "
+    "column's codes and validity to the host and looks its strings up "
+    "in the dictionary's host copy.  false = the column decodes on the "
+    "device first and its char matrix crosses (the same strings).",
+    bool)
+
+
 def _fraction(v) -> Optional[str]:
     return None if 0.0 < v <= 1.0 else "must be in (0, 1]"
 
+
+COMPRESSED_MAX_DICT_FRACTION = register(
+    "spark.rapids.sql.compressed.maxDictFraction", 0.5,
+    "Encode a string column only when its distinct-value count is at "
+    "most this fraction of the batch's rows (at least 1): past it the "
+    "dictionary stops paying for the codes and the column rides the "
+    "plain path.", float, _fraction)
+
+COMPRESSED_MAX_COMPOSED_CELLS = register(
+    "spark.rapids.sql.compressed.maxComposedCells", 65536,
+    "Upper bound on the table of a two-column dictionary rewrite: a "
+    "deterministic subtree over two encoded columns evaluates once per "
+    "(code1, code2) pair, (size1 + 1) x (size2 + 1) cells with the "
+    "null slots, and becomes one gather by the combined code.  Pairs "
+    "past it keep the one-column rewrites; 0 disables the composed "
+    "rewrite.", int, _non_negative)
 
 CONCURRENT_TASKS = register(
     "spark.rapids.tpu.concurrentTasks", 2,

@@ -29,8 +29,16 @@ half's smaller capacity).  Partials wait for the merge as
 the order of float sums only, within the class ``exec/pallas_agg.py``
 documents; counts, integer sums, min and max stay exact.
 
-String grouping keys take the sorted-segment path (the dense-slot router
-rejects them, as the JAX package's does): their sort keys are the packed
+A grouping key that is a bare reference to a dictionary-encoded column
+(``columnar/encoding.py``) groups by its int32 codes: codes are ranks,
+so the groups and their order are the strings', and the key output stays
+encoded through the merge, the evaluate and the result pull.  A single
+such key is an integer key to the dense-slot router, so K1 takes it when
+its codes fit; on the CPU both routes add a group's floats in row order,
+and on the card the kernel's float sums fall in its documented class.
+
+Other string grouping keys take the sorted-segment path (the dense-slot
+router rejects them, as the JAX package's does): their sort keys are the packed
 byte blocks of ``exec/sortkeys.py``, and each group's key is gathered,
 chars and all, from its first row.  ``first`` and ``last`` gather each
 group's first or last (non-null, unless nulls are kept) row in input
@@ -46,6 +54,7 @@ from typing import Iterator, List, Sequence, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import STRING, DataType, Field, \
@@ -56,8 +65,8 @@ from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
     sort_permutation
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
-from spark_rapids_tpu_torch.exprs.base import Alias, ColVal, EvalContext, \
-    Expression, colvals
+from spark_rapids_tpu_torch.exprs.base import Alias, BoundReference, \
+    ColVal, EvalContext, Expression, colvals
 from spark_rapids_tpu_torch.memory.spill import SpillableBatch, close_all, \
     materialize_all
 from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
@@ -270,10 +279,19 @@ def evaluate(spec: _AggSpec, cols: Sequence[ColVal],
 
 
 def _to_batch(cvs: Sequence[ColVal], dtypes: Sequence[DataType], n: int,
-              schema=None) -> ColumnarBatch:
-    cols = [DeviceColumn(dt, cv.data, cv.validity, n, cv.chars)
-            for cv, dt in zip(cvs, dtypes)]
+              schema=None, wrap=None) -> ColumnarBatch:
+    """ColVals -> a batch; ``wrap`` (position -> DictPlanes) re-wraps a
+    key column of codes onto its dictionary."""
+    wrap = wrap or {}
+    cols = [encoding.EncodedColumn(cv.data, cv.validity, n, wrap[i])
+            if i in wrap else DeviceColumn(dt, cv.data, cv.validity, n,
+                                           cv.chars)
+            for i, (cv, dt) in enumerate(zip(cvs, dtypes))]
     return ColumnarBatch(cols, n, schema)
+
+
+def _string_key(spec: _AggSpec) -> bool:
+    return len(spec.groupings) == 1 and spec.groupings[0].dtype == STRING
 
 
 class TorchHashAggregateExec(TorchExec):
@@ -304,33 +322,65 @@ class TorchHashAggregateExec(TorchExec):
             out.extend(f.buffer_dtypes())
         return out
 
+    def _agg_view(self, phase: str, batch: ColumnarBatch):
+        """The phase's code view (``columnar/encoding.py``): group keys
+        over encoded columns group by their codes (ranks, so the groups
+        and their order are the strings'), and the key output stays
+        encoded.  -> (spec, batch, wrap); the identity with nothing
+        encoded."""
+        if phase == "update":
+            view = encoding.agg_code_view(
+                batch, self.groupings,
+                [p for _, f in self.agg_pairs for p in f.input_projection()])
+            if view is None:
+                return self.spec, batch, None
+            batch2, groupings2, wrap = view
+            return _AggSpec(groupings2, self.agg_pairs), batch2, wrap
+        view = encoding.key_columns_code_view(batch, len(self.groupings))
+        if view is None:
+            return self.spec, batch, None
+        batch2, overrides, wrap = view
+        groupings2 = [BoundReference(ki, overrides[ki], g.nullable, g.name)
+                      if ki in overrides else g
+                      for ki, g in enumerate(self.groupings)]
+        return _AggSpec(groupings2, self.agg_pairs), batch2, wrap
+
     def _run_phase(self, phase: str, batch: ColumnarBatch,
                    conf=None) -> ColumnarBatch:
-        cols = colvals(batch.columns)
+        spec, vbatch, wrap = self._agg_view(phase, batch)
+        cols = colvals(vbatch.columns)
         if phase == "update" and conf is not None and batch.num_rows > 0:
-            out = self._try_pallas_update(cols, batch, conf)
+            out = self._try_pallas_update(spec, cols, vbatch, conf)
             if out is not None:
-                return out
-        fn = make_agg_body(self.spec, phase, batch.capacity)
+                return _to_batch(out[1], self._buffer_dtypes(), out[0],
+                                 wrap=wrap)
+        fn = make_agg_body(spec, phase, batch.capacity)
         n_groups, keys, bufs = fn(cols, batch.num_rows)
         if self.groupings:  # the group count was read back
             self.metrics["hostSyncs"] += 1
         return _to_batch(list(keys) + list(bufs), self._buffer_dtypes(),
-                         n_groups)
+                         n_groups, wrap=wrap)
 
-    def _try_pallas_update(self, cols, batch: ColumnarBatch, conf):
+    def _try_pallas_update(self, spec: _AggSpec, cols, batch: ColumnarBatch,
+                           conf):
         """The dense-slot path when the single integer key's observed
-        domain fits (see exec/pallas_agg.py); None -> the sorted path.
-        The first batch whose domain does not fit turns the probe off for
-        this exec, so a high-cardinality aggregate stops paying for it."""
+        domain fits (see exec/pallas_agg.py) -> (groups, key and buffer
+        ColVals); None -> the sorted path.  The first batch whose domain
+        does not fit turns the probe off for this exec, so a
+        high-cardinality aggregate stops paying for it.  ``spec`` is the
+        batch's code view: a single string key over an encoded column is
+        an INT32 key of codes here, which K1 takes (the JAX package asks
+        ``supports`` of the spec before its code view, so its string keys
+        never reach its kernel; the result is the same either way)."""
         if self._pallas_off:
             return None
-        if batch.capacity > pag.max_capacity(self.spec):
+        if batch.capacity > pag.max_capacity(spec):
             return None
-        if not (pag.enabled(conf) and pag.supports(self.spec)):
-            self._pallas_off = True
+        if not (pag.enabled(conf) and pag.supports(spec)):
+            if spec is self.spec and not _string_key(spec):
+                self._pallas_off = True
             return None
-        rng = pag.key_range(self.spec.groupings[0], cols, batch.num_rows,
+        rng = pag.key_range(spec.groupings[0], cols, batch.num_rows,
                             batch.capacity)
         self.metrics["hostSyncs"] += 1
         if rng is None:
@@ -339,12 +389,11 @@ class TorchHashAggregateExec(TorchExec):
             self._pallas_off = True
             return None
         lo, hi = rng
-        fn = pag.make_update(self.spec, batch.capacity, lo, hi)
+        fn = pag.make_update(spec, batch.capacity, lo, hi)
         n_groups, keys, bufs = fn(cols, batch.num_rows, lo)
         self.metrics["hostSyncs"] += 1
         self.metrics["pallasAggBatches"] += 1
-        return _to_batch(list(keys) + list(bufs), self._buffer_dtypes(),
-                         n_groups)
+        return n_groups, list(keys) + list(bufs)
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         cat = ctx.runtime.catalog
@@ -371,6 +420,10 @@ class TorchHashAggregateExec(TorchExec):
         merged = merged_in[0]
         if len(merged_in) > 1:
             merged = self._run_phase("merge", concat_batches(merged_in))
-        outs = evaluate(self.spec, colvals(merged.columns), merged.num_rows)
+        # the evaluate passes the keys through: encoded keys as codes,
+        # re-wrapped on the way out (the result pull carries codes)
+        _, ev_batch, wrap = self._agg_view("evaluate", merged)
+        outs = evaluate(self.spec, colvals(ev_batch.columns),
+                        merged.num_rows)
         yield _to_batch(outs, [f.dtype for f in self._schema],
-                        merged.num_rows, self._schema)
+                        merged.num_rows, self._schema, wrap=wrap)

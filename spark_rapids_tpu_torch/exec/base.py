@@ -30,6 +30,7 @@ from typing import Iterator, List, Optional
 import torch
 
 from spark_rapids_tpu_torch import lifecycle
+from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.conf import TorchConf
@@ -50,6 +51,9 @@ class ExecContext:
         self.device = device
         self.runtime = runtime if runtime is not None else \
             TorchRuntime.get_or_create(conf, device)
+        # the compressed domain's switches are process-wide, installed at
+        # every execution entry, as the JAX package's ExecContext does
+        encoding.set_conf(conf)
 
 
 def _pull_boundary(execute):

@@ -2,7 +2,11 @@
 
 Counterpart of ``spark_rapids_tpu/exec/basic.py``: ``TorchLocalScanExec``
 scans in-memory host columns, uploaded in batches of 1 << 20 rows, as in
-the JAX package (whatever the reader conf says); ``TorchRangeExec`` makes
+the JAX package (whatever the reader conf says), a low-cardinality string
+column as codes and a dictionary while compressed ingest is on (the JAX
+package's local scan uploads plain planes and encodes at its
+``HostToDeviceExec`` and file scans; the port's local scan is the path
+the card's machine, which has no pyarrow, runs); ``TorchRangeExec`` makes
 ``[start, end)`` by ``step`` on the device in batches of 1 << 20 rows;
 ``TorchUnionExec`` streams its children's batches back to back;
 ``TorchLocalLimitExec`` passes batches on until the limit is reached.
@@ -22,7 +26,9 @@ from spark_rapids_tpu_torch.columnar.batch import (
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
     bucket_capacity
 from spark_rapids_tpu_torch.columnar.dtypes import INT64, Field, Schema
-from spark_rapids_tpu_torch.conf import MAX_STRING_WIDTH
+from spark_rapids_tpu_torch.columnar import encoding
+from spark_rapids_tpu_torch.conf import COMPRESSED_MAX_DICT_FRACTION, \
+    MAX_STRING_WIDTH
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 
 BATCH_ROWS = 1 << 20
@@ -50,11 +56,24 @@ class TorchLocalScanExec(TorchExec):
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         n = self.num_rows
         max_w = ctx.conf.get(MAX_STRING_WIDTH)
+        encoder = make_encoder(ctx, self.metrics, memo=True)
         for start in range(0, n, BATCH_ROWS):
             part = {name: (v[start:start + BATCH_ROWS],
                            m[start:start + BATCH_ROWS])
                     for name, (v, m) in self.cols.items()}
-            yield host_batch_to_device(self._schema, part, ctx.device, max_w)
+            yield host_batch_to_device(self._schema, part, ctx.device, max_w,
+                                       encoder)
+
+
+def make_encoder(ctx: ExecContext, metrics=None, memo: bool = False):
+    """The scan's ``IngestEncoder`` while compressed ingest is on, else
+    None (every column rides its plain planes); ``memo`` keeps its
+    encodings for the next scan of the same host arrays."""
+    if not encoding.ingest_enabled():
+        return None
+    return encoding.IngestEncoder(
+        ctx.device, metrics, ctx.conf.get(COMPRESSED_MAX_DICT_FRACTION),
+        ctx.conf.get(MAX_STRING_WIDTH), memo)
 
 
 class TorchRangeExec(TorchExec):
@@ -115,10 +134,10 @@ def head(batch: ColumnarBatch, n: int) -> ColumnarBatch:
     n = min(n, batch.num_rows)
     cap = min(batch.capacity, bucket_capacity(max(1, n)))
     live = torch.arange(cap, device=batch.device) < n
-    cols = [DeviceColumn(c.dtype, c.data[:cap], c.validity[:cap] & live, n,
-                         None if c.chars is None else c.chars[:cap])
-            for c in batch.columns]
-    return ColumnarBatch(cols, n, batch.schema)
+    outs = [(d[:cap], v[:cap] & live, None if ch is None else ch[:cap])
+            for d, v, ch in (encoding.col_planes(c, True)
+                             for c in batch.columns)]
+    return encoding.wrap_gathered(batch.columns, outs, n, batch.schema)
 
 
 class TorchLocalLimitExec(TorchExec):

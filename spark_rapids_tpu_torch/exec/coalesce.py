@@ -3,7 +3,9 @@
 Counterpart of ``spark_rapids_tpu/exec/coalesce.py``.  ``concat_batches``
 lays the live rows of several batches end to end in one batch whose
 capacity is the bucket of their total; a string column's char matrices
-are padded to the widest of them, as in the JAX package.
+are padded to the widest of them, as in the JAX package.  A column that
+every batch holds dictionary-encoded goes onto one dictionary
+(``columnar/encoding.py: unify_ordinals``) and concatenates as codes.
 ``TorchCoalesceBatchesExec`` accumulates batches up to the byte target
 and row cap the JAX package uses before an aggregate, so both packages
 hand the aggregate the same batches.  The port counts the rows a batch
@@ -22,6 +24,7 @@ from typing import Iterator, List
 
 import torch
 
+from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
     bucket_capacity
@@ -41,24 +44,33 @@ def concat_batches(batches: List[ColumnarBatch]) -> ColumnarBatch:
     total = sum(b.num_rows for b in batches)
     cap = bucket_capacity(max(1, total))
     head = batches[0]
+    # a column encoded in every batch goes onto one dictionary and
+    # concatenates as codes; where only some batches hold it encoded,
+    # those decode (counted late decodes)
+    col_lists = [list(b.columns) for b in batches]
+    shared = encoding.unify_ordinals(col_lists)
     cols = []
-    for ci, hc in enumerate(head.columns):
-        dev = hc.data.device
-        data = torch.zeros(cap, dtype=hc.data.dtype, device=dev)
+    for ci, hc in enumerate(col_lists[0]):
+        dev = hc.validity.device
+        planes = [encoding.col_planes(cl[ci], ci in shared)
+                  for cl in col_lists]
+        data = torch.zeros(cap, dtype=planes[0][0].dtype, device=dev)
         valid = torch.zeros(cap, dtype=torch.bool, device=dev)
         chars = None
-        if hc.chars is not None:
-            width = max(b.columns[ci].string_width for b in batches)
+        if planes[0][2] is not None:
+            width = max(p[2].shape[1] for p in planes)
             chars = torch.zeros((cap, width), dtype=torch.uint8, device=dev)
         off = 0
-        for b in batches:
-            c, n = b.columns[ci], b.num_rows
-            data[off:off + n] = c.data[:n]
-            valid[off:off + n] = c.validity[:n]
+        for b, (d, v, ch) in zip(batches, planes):
+            n = b.num_rows
+            data[off:off + n] = d[:n]
+            valid[off:off + n] = v[:n]
             if chars is not None:
-                chars[off:off + n, :c.string_width] = c.chars[:n]
+                chars[off:off + n, :ch.shape[1]] = ch[:n]
             off += n
-        cols.append(DeviceColumn(hc.dtype, data, valid, total, chars))
+        cols.append(encoding.EncodedColumn(data, valid, total, shared[ci])
+                    if ci in shared else
+                    DeviceColumn(hc.dtype, data, valid, total, chars))
     return ColumnarBatch(cols, total, head.schema)
 
 

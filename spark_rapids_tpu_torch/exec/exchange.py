@@ -50,6 +50,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import bucket_capacity
 from spark_rapids_tpu_torch.columnar.dtypes import STRING, Schema
@@ -58,8 +59,7 @@ from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.joins import hash_keys
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys
-from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
-    Expression, colvals
+from spark_rapids_tpu_torch.exprs.base import ColVal, Expression
 from spark_rapids_tpu_torch.memory.spill import SpillableBatch, close_all, \
     collect_spillable, materialize_all
 from spark_rapids_tpu_torch.utils import tracing
@@ -72,7 +72,8 @@ def est_batch_bytes(b: ColumnarBatch) -> int:
     column its width and a validity byte."""
     total = 0
     for c in b.columns:
-        if c.chars is not None:
+        # an encoded column counts at its dictionary's width, as dense
+        if c.dtype == STRING:
             total += b.num_rows * (c.string_width + 4 + 1)
         else:
             total += b.num_rows * (c.data.element_size() + 1)
@@ -136,7 +137,9 @@ def partition_batch(batch: ColumnarBatch, num_parts: int,
     iota = torch.arange(cap, dtype=torch.int64, device=dev)
     live = iota < batch.num_rows
     if mode == "hash":
-        ctx = EvalContext(colvals(batch.columns), batch.num_rows, cap, dev)
+        # encoded key columns hash through per-code tables, bit for bit
+        # the dense path's hash (columnar/encoding.py: stage_view)
+        ctx, keys = encoding.eval_view(keys, batch, hashed=True)
         h, _valid, _ = hash_keys(keys, ctx)
         pid = unsigned_mod(h, num_parts)
     else:
@@ -150,10 +153,9 @@ def range_sort_keys(orders, batch: ColumnarBatch,
     """The sort-key tensors of ``orders`` over ``batch``; string char
     matrices padded to ``pad_width``, so that every batch gives as many
     keys."""
-    ctx = EvalContext(colvals(batch.columns), batch.num_rows,
-                      batch.capacity, batch.device)
+    ctx, exprs = encoding.eval_view([e for e, _, _ in orders], batch)
     keys: List[torch.Tensor] = []
-    for e, asc, nf in orders:
+    for e, (_, asc, nf) in zip(exprs, orders):
         cv = e.emit(ctx)
         if e.dtype == STRING and cv.chars.shape[1] < pad_width:
             cv = ColVal(cv.data, cv.validity, torch.nn.functional.pad(
@@ -168,8 +170,7 @@ def observed_key_width(orders, batch: ColumnarBatch, conf_max: int) -> int:
     strings = [e for e, _, _ in orders if e.dtype == STRING]
     if not strings:
         return 4
-    ctx = EvalContext(colvals(batch.columns), batch.num_rows,
-                      batch.capacity, batch.device)
+    ctx, strings = encoding.eval_view(strings, batch)
     widest = max([1] + [e.emit(ctx).chars.shape[1] for e in strings])
     return min(-(-widest // 4) * 4, -(-conf_max // 4) * 4)
 

@@ -75,6 +75,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
     bucket_capacity
@@ -84,7 +85,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import FLOAT32, FLOAT64, \
     STRING, DataType, Field, Schema, device_dtype
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
-from spark_rapids_tpu_torch.exec.stage import emit_steps
+from spark_rapids_tpu_torch.exec.stage import run_steps
 from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs.arithmetic import Add, Subtract
 from spark_rapids_tpu_torch.exprs.base import BoundReference, ColVal, \
@@ -186,7 +187,11 @@ def hash_keys(key_exprs: Sequence[Expression], ctx: EvalContext
     acc = torch.zeros(ctx.capacity, dtype=torch.int64, device=ctx.device)
     valid = torch.ones(ctx.capacity, dtype=torch.bool, device=ctx.device)
     for e, cv in zip(key_exprs, cvs):
-        acc = splitmix64(acc ^ hash_colval(cv, e.dtype))
+        # a code view's key over an encoded column gathers its value's
+        # hash from the dictionary's per-code table (encoding.hash_planes)
+        h = cv.data if getattr(e, "is_precomputed_hash", False) \
+            else hash_colval(cv, e.dtype)
+        acc = splitmix64(acc ^ h)
         valid = valid & cv.validity
     return acc, valid, cvs
 
@@ -358,10 +363,14 @@ class _Build:
     key_lo, key_hi)."""
 
     def __init__(self, batch: ColumnarBatch, keys: Sequence[Expression],
-                 probe: bool, band: Optional[BandSpec] = None):
+                 probe: bool, band: Optional[BandSpec] = None,
+                 key_batch: Optional[ColumnarBatch] = None):
+        # the keys are evaluated over ``key_batch`` (a join code view's:
+        # code pairs as INT32 codes), the output gathered from ``batch``
         self.batch = batch
         cap, dev = batch.capacity, batch.device
-        ctx = EvalContext(colvals(batch.columns), batch.num_rows, cap, dev)
+        kb = batch if key_batch is None else key_batch
+        ctx = EvalContext(colvals(kb.columns), batch.num_rows, cap, dev)
         h, valid, self.key_cvs = hash_keys(keys, ctx)
         self.live = torch.arange(cap, device=dev) < batch.num_rows
         usable = valid & self.live
@@ -531,36 +540,58 @@ class TorchHashJoinExec(TorchExec):
             yield from self._cross_join(ctx, b_batch)
             return
         inner = self.join_type == "inner"
-        # the join's own work runs inside named ranges (join.build,
-        # join.<route>) that a torch.profiler trace attributes time to;
-        # the children's work and the consumers' stay outside them
-        with tracing.trace_range("join.build"):
-            build = _Build(b_batch, self.right_keys, probe=inner,
-                           band=self.band)
-        if inner:
-            self.metrics["hostSyncs"] += 1
-        fk = inner and build.max_run <= 1
-        span = build.key_hi - build.key_lo + 1
-        dense_cap = bucket_capacity(max(8, span)) \
-            if fk and 0 < span <= _DENSE_SPAN else 0
+        # key pairs over encoded columns compare as codes
+        # (columnar/encoding.py: JoinCodeView); the output is gathered
+        # from the batches as they came, so payloads stay encoded
+        view = encoding.JoinCodeView(b_batch, self.left_keys,
+                                     self.right_keys)
+        builds = {}
+
+        def build_for(tag: str):
+            """-> (the build of the ``tag`` keys, fk, dense_cap); the
+            dense build is made only for a stream batch whose pair
+            column arrived dense."""
+            if tag not in builds:
+                code = tag == "code"
+                # the join's own work runs inside named ranges
+                # (join.build, join.<route>) that a torch.profiler trace
+                # attributes time to; the children's work and the
+                # consumers' stay outside them
+                with tracing.trace_range("join.build"):
+                    b = _Build(b_batch, view.rkeys if code
+                               else self.right_keys, probe=inner,
+                               band=self.band, key_batch=view.build_keys
+                               if code else view.dense_build_keys())
+                if inner:
+                    self.metrics["hostSyncs"] += 1
+                fk = inner and b.max_run <= 1
+                span = b.key_hi - b.key_lo + 1
+                dense_cap = bucket_capacity(max(8, span)) \
+                    if fk and 0 < span <= _DENSE_SPAN else 0
+                builds[tag] = (b, fk, dense_cap)
+            return builds[tag]
+
+        build, fk, dense_cap = build_for("code")
         self.route = "dense_fk" if dense_cap else "fk" if fk else "general"
         m_build = torch.zeros(build.batch.capacity, dtype=torch.int32,
                               device=build.batch.device) \
             if self.join_type in ("right", "full") else None
         for sb in self.children[0].execute(ctx):
+            tag = view.stream_tag(sb) if view.code_keys else "code"
+            build, fk, dense_cap = build_for(tag)
             with tracing.trace_range(f"join.{self.route}"):
                 # each stream batch's probe: on a device out-of-memory
                 # error, relief, then the stream batch in halves
                 if fk:
                     outs = with_retry(
-                        lambda b: self._fk(b, build, dense_cap), sb, ctx,
-                        split=split_batch_half)
+                        lambda b: self._fk(b, build, dense_cap, view), sb,
+                        ctx, split=split_batch_half)
                     self.metrics["fkFastPathBatches"] += len(outs)
                 else:
                     outs = []
                     for part, mb in with_retry(
-                            lambda b: self._general(b, build), sb, ctx,
-                            split=split_batch_half):
+                            lambda b: self._general(b, build, view), sb,
+                            ctx, split=split_batch_half):
                         outs += part
                         if mb is not None:
                             m_build += mb
@@ -607,14 +638,9 @@ class TorchHashJoinExec(TorchExec):
     def _keep_where(self, out: ColumnarBatch) -> ColumnarBatch:
         """The joined rows of ``out`` where the condition holds; one host
         sync."""
-        cols, n = emit_steps([("filter", (self.condition,))],
-                             colvals(out.columns), out.num_rows,
-                             out.capacity, out.device)
         self.metrics["hostSyncs"] += 1
-        return ColumnarBatch(
-            [DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars)
-             for f, cv in zip(self.output_schema, cols)], n,
-            self.output_schema)
+        return run_steps([("filter", (self.condition,))], out,
+                         self.output_schema)
 
     def _pair_condition(self, sb: ColumnarBatch, b_batch: ColumnarBatch,
                         srow: torch.Tensor, brow: torch.Tensor,
@@ -647,16 +673,19 @@ class TorchHashJoinExec(TorchExec):
         cv = self.condition.emit(ctx)
         return (cv.validity & cv.data.to(torch.bool))[:total]
 
-    def _fk(self, sb: ColumnarBatch, build: _Build,
-            dense_cap: int) -> ColumnarBatch:
+    def _fk(self, sb: ColumnarBatch, build: _Build, dense_cap: int,
+            view) -> ColumnarBatch:
         """One stream batch against unique build keys: at most one match
         a stream row, so the output keeps the stream's capacity."""
         cap, dev = sb.capacity, sb.device
-        ctx = EvalContext(colvals(sb.columns), sb.num_rows, cap, dev)
+        sv = view.for_stream(sb)
+        lkeys = sv.lkeys
+        ctx = EvalContext(colvals(sv.key_batch.columns), sb.num_rows, cap,
+                          dev)
         live = torch.arange(cap, device=dev) < sb.num_rows
         b_cap = build.batch.capacity
         if dense_cap:
-            skey = self.left_keys[0].emit(ctx)
+            skey = lkeys[0].emit(ctx)
             off = skey.data.to(torch.int64) - build.key_lo
             ok = skey.validity & live & (off >= 0) & (off < dense_cap)
             brow = build.dense_lut(dense_cap)[
@@ -664,15 +693,14 @@ class TorchHashJoinExec(TorchExec):
             keep = ok & (brow >= 0)
             brow = brow.clamp(0, b_cap - 1)
         else:
-            h, valid, s_cvs = hash_keys(self.left_keys, ctx)
+            h, valid, s_cvs = hash_keys(lkeys, ctx)
             lo = torch.searchsorted(build.sorted_h, h)
             loc = lo.clamp(max=b_cap - 1)
             present = (lo < b_cap) & (build.sorted_h[loc] == h)
             brow = build.perm[loc]
             srow = torch.arange(cap, device=dev)
             keep = _verify(present & valid & live, s_cvs, build.key_cvs,
-                           srow, brow,
-                           [e.dtype for e in self.left_keys])
+                           srow, brow, [e.dtype for e in lkeys])
         pos, n = _compact(keep, cap)
         self.metrics["hostSyncs"] += 1
         cols = sb.gather(pos, n).columns \
@@ -709,16 +737,19 @@ class TorchHashJoinExec(TorchExec):
                                   not band.upper_strict, span)
         return start, torch.maximum(end, start), usable
 
-    def _general(self, sb: ColumnarBatch, build: _Build
+    def _general(self, sb: ColumnarBatch, build: _Build, view
                  ) -> Tuple[List[ColumnarBatch], Optional[torch.Tensor]]:
         """One stream batch through candidate expansion -> (output
         batches, this batch's matches of each build row for right and
         full joins)."""
         jt = self.join_type
         cap, dev = sb.capacity, sb.device
-        ctx = EvalContext(colvals(sb.columns), sb.num_rows, cap, dev)
+        sv = view.for_stream(sb)
+        lkeys = sv.lkeys
+        ctx = EvalContext(colvals(sv.key_batch.columns), sb.num_rows, cap,
+                          dev)
         live = torch.arange(cap, device=dev) < sb.num_rows
-        h, valid, s_cvs = hash_keys(self.left_keys, ctx)
+        h, valid, s_cvs = hash_keys(lkeys, ctx)
         lo = torch.searchsorted(build.sorted_h, h)
         hi = torch.searchsorted(build.sorted_h, h, right=True)
         usable = valid & live
@@ -737,7 +768,7 @@ class TorchHashJoinExec(TorchExec):
         brow = build.perm[j]
         keep = _verify(torch.ones(total, dtype=torch.bool, device=dev),
                        s_cvs, build.key_cvs, srow, brow,
-                       [e.dtype for e in self.left_keys])
+                       [e.dtype for e in lkeys])
         if self.condition is not None and jt != "inner" and total:
             # an outer, semi or anti join's condition decides per pair,
             # before the matches are counted: a row none of whose pairs

@@ -3,7 +3,8 @@
 Counterpart of ``spark_rapids_tpu/exec/sort.py``.  ``TorchSortExec``
 concatenates the whole input into one batch, sorts it by the order keys
 (``exec/sortkeys.py``) and gathers every column, a string column's chars
-included, by the permutation.  ``TorchTopNExec`` (a limit over a sort)
+included, by the permutation (a dictionary-encoded key sorts by its
+codes, and encoded columns move as codes).  ``TorchTopNExec`` (a limit over a sort)
 keeps the first ``limit`` rows of the sorted concatenation of what it
 kept so far and the next batch, so it never holds more than the limit
 and one batch.  The sort's input collects through the spill catalog
@@ -17,16 +18,15 @@ from typing import Iterator, List, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn
-from spark_rapids_tpu_torch.columnar.dtypes import Schema
+from spark_rapids_tpu_torch.columnar.dtypes import INT32, Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exec.basic import head
 from spark_rapids_tpu_torch.exec.coalesce import concat_batches
 from spark_rapids_tpu_torch.exec.sortkeys import colval_sort_keys, \
     sort_permutation
-from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression, \
-    colvals
+from spark_rapids_tpu_torch.exprs.base import ColVal, Expression
 from spark_rapids_tpu_torch.memory.spill import collect_spillable, \
     materialize_all
 from spark_rapids_tpu_torch.utils.retry import with_retry
@@ -34,19 +34,26 @@ from spark_rapids_tpu_torch.utils.retry import with_retry
 
 def sort_batch(orders: List[Tuple[Expression, bool, bool]],
                batch: ColumnarBatch) -> ColumnarBatch:
-    cap, dev = batch.capacity, batch.device
-    ctx = EvalContext(colvals(batch.columns), batch.num_rows, cap, dev)
-    live = torch.arange(cap, device=dev) < batch.num_rows
+    """``batch``'s rows in ``orders``' order.  A key that is a bare
+    reference to a dictionary-encoded column sorts by its codes (ranks:
+    the strings' order, ties alike); other keys are evaluated through
+    the batch's code view; the rows move as they are, codes as codes."""
+    live = torch.arange(batch.capacity, device=batch.device) \
+        < batch.num_rows
+    coded = [encoding.encoded_ref(e, batch) for e, _, _ in orders]
+    ctx, exprs = encoding.eval_view(
+        [e for (e, _, _), c in zip(orders, coded) if c is None], batch)
+    exprs = iter(exprs)
     keys = []
-    for expr, asc, nulls_first in orders:
-        keys.extend(colval_sort_keys(expr.emit(ctx), expr.dtype, asc,
-                                     nulls_first))
+    for (expr, asc, nulls_first), col in zip(orders, coded):
+        if col is not None:
+            keys.extend(colval_sort_keys(ColVal(col.codes, col.validity),
+                                         INT32, asc, nulls_first))
+        else:
+            keys.extend(colval_sort_keys(next(exprs).emit(ctx), expr.dtype,
+                                         asc, nulls_first))
     perm = sort_permutation(keys, live_first=live)
-    out = [DeviceColumn(c.dtype, c.data[perm], c.validity[perm] & live,
-                        batch.num_rows,
-                        None if c.chars is None else c.chars[perm])
-           for c in batch.columns]
-    return ColumnarBatch(out, batch.num_rows, batch.schema)
+    return batch.gather(perm, batch.num_rows)
 
 
 def _orders_text(orders) -> str:

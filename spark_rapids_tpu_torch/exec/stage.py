@@ -30,12 +30,13 @@ from typing import Iterator, List, Sequence, Tuple
 import torch
 
 from spark_rapids_tpu_torch import faults
+from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.exprs.base import ColVal, EvalContext, \
-    Expression, colvals
+    Expression
 from spark_rapids_tpu_torch.exprs.nondeterministic import \
     contains_nondeterministic
 from spark_rapids_tpu_torch.utils.retry import split_batch_half, with_retry
@@ -45,12 +46,13 @@ Step = Tuple[str, Tuple[Expression, ...]]
 
 
 def emit_steps(steps: Sequence[Step], cols: List[ColVal], num_rows: int,
-               capacity: int, device, partition_id: int = 0
-               ) -> Tuple[List[ColVal], int]:
-    """Run the step chain over ``cols``; returns ``(cols, num_rows)``."""
+               capacity: int, device, partition_id: int = 0,
+               aux: Sequence[ColVal] = ()) -> Tuple[List[ColVal], int]:
+    """Run the step chain over ``cols`` (``aux``: a code view's gather
+    tables); returns ``(cols, num_rows)``."""
     n = num_rows
     for kind, exprs in steps:
-        ctx = EvalContext(cols, n, capacity, device, partition_id)
+        ctx = EvalContext(cols, n, capacity, device, partition_id, aux)
         live = torch.arange(capacity, device=device) < n
         if kind == "project":
             cols = [ColVal(o.data, o.validity & live, o.chars)
@@ -70,6 +72,23 @@ def emit_steps(steps: Sequence[Step], cols: List[ColVal], num_rows: int,
                     for cv in cols]
             n = count
     return cols, n
+
+
+def run_steps(steps: Sequence[Step], batch: ColumnarBatch, schema: Schema,
+              partition_id: int = 0) -> ColumnarBatch:
+    """The step chain over one batch through its code view
+    (``columnar/encoding.py: stage_view``): encoded columns run as
+    codes, and an output that stays codes comes back encoded."""
+    view = encoding.stage_view(steps, batch)
+    cols, n = emit_steps(view.steps, view.cols, batch.num_rows,
+                         batch.capacity, batch.device, partition_id,
+                         view.aux)
+    out = []
+    for i, (f, cv) in enumerate(zip(schema, cols)):
+        col = view.wrap_column(i, cv.data, cv.validity, n)
+        out.append(col if col is not None else
+                   DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars))
+    return ColumnarBatch(out, n, schema)
 
 
 class TorchStageExec(TorchExec):
@@ -102,12 +121,7 @@ class TorchStageExec(TorchExec):
     def _run(self, batch: ColumnarBatch,
              partition_id: int = 0) -> ColumnarBatch:
         faults.maybe_fail_oom("kernel.launch")
-        cols, n = emit_steps(self.steps, colvals(batch.columns),
-                             batch.num_rows, batch.capacity, batch.device,
-                             partition_id)
-        out = [DeviceColumn(f.dtype, cv.data, cv.validity, n, cv.chars)
-               for f, cv in zip(self._schema, cols)]
-        return ColumnarBatch(out, n, self._schema)
+        return run_steps(self.steps, batch, self._schema, partition_id)
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         # rows split freely under per-row project and filter steps, but

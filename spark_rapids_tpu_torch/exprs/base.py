@@ -45,10 +45,11 @@ def take(cv: ColVal, rows: torch.Tensor) -> ColVal:
 class EvalContext:
     """Carries the batch being evaluated into ``Expression.emit``."""
 
-    __slots__ = ("cols", "num_rows", "capacity", "device", "partition_id")
+    __slots__ = ("cols", "num_rows", "capacity", "device", "partition_id",
+                 "aux")
 
     def __init__(self, cols: Sequence[ColVal], num_rows: int, capacity: int,
-                 device, partition_id: int = 0):
+                 device, partition_id: int = 0, aux: Sequence[ColVal] = ()):
         self.cols = list(cols)
         self.num_rows = num_rows
         self.capacity = capacity
@@ -57,6 +58,10 @@ class EvalContext:
         # package threads it: rand, monotonically_increasing_id and
         # spark_partition_id read it
         self.partition_id = partition_id
+        # the dictionary-domain gather tables of a code view
+        # (columnar/encoding.py DictGather): an ordinal space apart from
+        # ``cols``, so that a filter's compaction never sweeps them
+        self.aux = tuple(aux)
 
 
 class Expression:

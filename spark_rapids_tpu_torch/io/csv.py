@@ -48,7 +48,11 @@ raises ``CsvConversionError``, where the JAX scan raises pyarrow's
 ``ArrowInvalid``.  A file's batches hold
 ``spark.rapids.sql.reader.batchSizeRows`` rows each but the last, as the
 in-memory scan cuts a table, so an aggregate over a file sums in the
-same order as over the table it was written from.
+same order as over the table it was written from.  While compressed
+ingest is on, each batch's low-cardinality string columns are
+dictionary-encoded where their char matrices already are, on the device
+(``columnar/encoding.py: encode_batch_on_device``), into the dictionary
+and codes the host encoder makes of the same strings.
 """
 
 from __future__ import annotations
@@ -61,13 +65,14 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
     bucket_capacity
 from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, DATE, FLOAT32, \
     FLOAT64, INT8, INT16, INT32, INT64, STRING, TIMESTAMP, Field, Schema
-from spark_rapids_tpu_torch.conf import MAX_STRING_WIDTH, \
-    READER_BATCH_SIZE_ROWS
+from spark_rapids_tpu_torch.conf import COMPRESSED_MAX_DICT_FRACTION, \
+    MAX_STRING_WIDTH, READER_BATCH_SIZE_ROWS
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.utils.metrics import \
     METRIC_CSV_READ_TIME, METRIC_CSV_SLOW_FLOAT_FIELDS, \
@@ -762,10 +767,16 @@ class TorchCsvScanExec(TorchExec):
             self.metrics[METRIC_NUM_FILES_READ] += len(files)
         rows = ctx.conf.get(READER_BATCH_SIZE_ROWS)
         max_w = ctx.conf.get(MAX_STRING_WIDTH)
+        frac = ctx.conf.get(COMPRESSED_MAX_DICT_FRACTION)
         for path, vals in zip(files, fvals or [None] * len(files)):
             for b in decode_file(path, self._file_schema, self.header,
                                  self.sep, ctx.device, rows, max_w,
                                  self.metrics):
+                if encoding.ingest_enabled():
+                    # the char matrices are on the device already: the
+                    # dictionary and codes are made there
+                    b = encoding.encode_batch_on_device(b, frac, max_w,
+                                                        self.metrics)
                 if self.part_schema:
                     b = hivepart.append_partition_columns(
                         b, self.part_schema, vals, self._schema)

@@ -3,15 +3,17 @@
 Counterpart of ``spark_rapids_tpu/io/hostio.py``: ``coalesce_host_batches``
 combines the reader's record batches up to the scan's row cap before an
 upload, and ``make_uploader`` turns one ``(file index, record batch)``
-into a device batch with the file's hive partition columns appended.
-The JAX package's encoded-plane ingest (``IngestEncoder``) and its
-double-buffered upload (``pipelined_h2d``) are not ported (ROADMAP.md,
-queue A6).  The CSV scan decodes on the device and needs neither.
+into a device batch with the file's hive partition columns appended,
+its string columns through the scan's ``IngestEncoder``
+(``columnar/encoding.py``) while compressed ingest is on.  The JAX
+package's double-buffered upload (``pipelined_h2d``) is not ported
+(ROADMAP.md, queue A6).  The CSV scan decodes, and encodes, on the
+device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator
+from typing import Callable, Iterator, List, Optional
 
 
 def _combine(rbs):
@@ -40,25 +42,51 @@ def coalesce_host_batches(it: Iterator, target_rows: int) -> Iterator:
 
 
 def make_uploader(ctx, file_schema, part_schema=None, part_values=None,
-                  schema=None, to_device=None) -> Callable:
+                  schema=None, to_device=None, metrics=None) -> Callable:
     """``upload((file index, record batch))`` -> the device batch at the
     session's string width cap, the file's partition columns after its
     own.  ``to_device`` is the host-to-device conversion
     (``columnar/batch.py: host_batch_to_device`` unless the scan names
-    its own)."""
+    its own).  While compressed ingest is on, the scan's
+    ``IngestEncoder`` takes its string columns: a column the reader
+    gave as an Arrow dictionary (parquet's ``read_dictionary``) is
+    decided from that dictionary, any other from its host values;
+    ``encodedColumns`` counts on ``metrics``."""
     from spark_rapids_tpu_torch.columnar.batch import \
         host_batch_to_device, host_columns_from_arrow
+    from spark_rapids_tpu_torch.columnar.column import bucket_capacity
     from spark_rapids_tpu_torch.conf import MAX_STRING_WIDTH
+    from spark_rapids_tpu_torch.exec.basic import make_encoder
     from spark_rapids_tpu_torch.io import hivepart
     max_w = ctx.conf.get(MAX_STRING_WIDTH)
     to_device = to_device or host_batch_to_device
+    encoder = make_encoder(ctx, metrics)
 
     def upload(item):
+        import pyarrow as pa
         fi, rb = item
+        decided = {}
+        if encoder is not None:
+            cap = bucket_capacity(rb.num_rows)
+            for f, arr in zip(file_schema, rb.columns):
+                if pa.types.is_dictionary(arr.type):
+                    decided[f.name] = encoder.upload_arrow(arr, f.dtype, cap)
         _, cols = host_columns_from_arrow(rb)
-        b = to_device(file_schema, cols, ctx.device, max_w)
+        b = to_device(file_schema, cols, ctx.device, max_w, encoder,
+                      decided)
         if part_schema:
             b = hivepart.append_partition_columns(
                 b, part_schema, part_values[fi], schema)
         return b
     return upload
+
+
+def read_dictionary_columns(file_schema) -> Optional[List[str]]:
+    """The string columns a parquet scan reads as Arrow dictionaries
+    while compressed ingest is on (the JAX scan's ``read_dictionary``),
+    else None."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    from spark_rapids_tpu_torch.columnar.dtypes import STRING
+    if not encoding.ingest_enabled():
+        return None
+    return [f.name for f in file_schema if f.dtype == STRING] or None

@@ -143,7 +143,7 @@ class TorchOrcScanExec(TorchExec):
             self.metrics[METRIC_NUM_FILES_TOTAL] += len(self.paths)
             self.metrics[METRIC_NUM_FILES_READ] += len(files)
         upload = make_uploader(ctx, self._file_schema, self.part_schema,
-                               fvals, self._schema)
+                               fvals, self._schema, metrics=self.metrics)
         for fi, path in enumerate(files):
             reader = OrcPartitionReader(path, self._file_schema, self.pred,
                                         rows)

@@ -8,7 +8,10 @@ each combined batch is uploaded.  A hive-partitioned layout adds its
 partition columns to every batch of a file, and files whose partition
 values cannot satisfy the pushed predicate are not read; within a file,
 a row group whose footer min/max cannot satisfy it is not read either
-(``_stats_prune``).  The Filter above the scan stays.  pyarrow is
+(``_stats_prune``).  The Filter above the scan stays.  While compressed
+ingest is on, string columns are read as Arrow dictionaries
+(``read_dictionary``), so the ingest encoder takes parquet's own
+dictionary pages, as in the JAX package.  pyarrow is
 imported inside the functions that read, so the rest of the port runs
 without it; they raise ``PyarrowRequiredError`` where it is missing.
 """
@@ -26,7 +29,7 @@ from spark_rapids_tpu_torch.conf import READER_BATCH_SIZE_ROWS
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.io import hivepart
 from spark_rapids_tpu_torch.io.hostio import coalesce_host_batches, \
-    make_uploader
+    make_uploader, read_dictionary_columns
 from spark_rapids_tpu_torch.utils.metrics import METRIC_NUM_FILES_READ, \
     METRIC_NUM_FILES_TOTAL, METRIC_NUM_ROW_GROUPS_READ, \
     METRIC_NUM_ROW_GROUPS_TOTAL
@@ -86,17 +89,21 @@ class ParquetPartitionReader:
     kept row groups' record batches."""
 
     def __init__(self, path: str, schema: Schema, pred=None,
-                 batch_rows: int = 1 << 20):
+                 batch_rows: int = 1 << 20, read_dictionary=None):
         self.path = path
         self.schema = schema
         self.pred = pred
         self.batch_rows = batch_rows
+        # the string columns to read as Arrow dictionaries, so that the
+        # ingest encoder takes parquet's own dictionary pages
+        self.read_dictionary = read_dictionary
         self.total_row_groups = 0
         self.read_row_groups = 0
 
     def read_host(self) -> Iterator:
         import pyarrow.parquet as pq
-        f = pq.ParquetFile(self.path)
+        f = pq.ParquetFile(self.path,
+                           read_dictionary=self.read_dictionary or None)
         md = f.metadata
         checks = hivepart.simple_predicates(self.pred)
         keep = [i for i in range(md.num_row_groups)
@@ -146,10 +153,12 @@ class TorchParquetScanExec(TorchExec):
             self.metrics[METRIC_NUM_FILES_TOTAL] += len(self.paths)
             self.metrics[METRIC_NUM_FILES_READ] += len(files)
         upload = make_uploader(ctx, self._file_schema, self.part_schema,
-                               fvals, self._schema, host_batch_to_device)
+                               fvals, self._schema, host_batch_to_device,
+                               self.metrics)
+        read_dict = read_dictionary_columns(self._file_schema)
         for fi, path in enumerate(files):
             reader = ParquetPartitionReader(path, self._file_schema,
-                                            self.pred, rows)
+                                            self.pred, rows, read_dict)
             it = reader.read_host()
             self.metrics[METRIC_NUM_ROW_GROUPS_TOTAL] += \
                 reader.total_row_groups

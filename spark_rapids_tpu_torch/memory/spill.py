@@ -71,6 +71,8 @@ import torch
 from spark_rapids_tpu_torch import faults, lifecycle
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.encoding import EncodedColumn, \
+    col_planes
 from spark_rapids_tpu_torch.errors import QueryBudgetExceededError
 from spark_rapids_tpu_torch.obs import journal
 
@@ -122,8 +124,14 @@ class SpillableBatch:
         self.num_rows = batch.num_rows
         self.device = batch.device if batch.columns else None
         self._dtypes = [c.dtype for c in batch.columns]
+        # an encoded column spills its codes and validity, never a dense
+        # char matrix; its shared dictionary stays on the device in
+        # _dicts (small, shared with other handles) and the column
+        # re-wraps on the way back, as in the JAX package
         self._device: Optional[List[tuple]] = [
-            (c.data, c.validity, c.chars) for c in batch.columns]
+            col_planes(c, True) for c in batch.columns]
+        self._dicts = [c.dict if isinstance(c, EncodedColumn) else None
+                       for c in batch.columns]
         # host tier: CPU tensors; a bool plane is stored bit-packed and
         # its row count kept in _packed (0 for a plane stored as is)
         self._host: Optional[List[tuple]] = None
@@ -268,8 +276,10 @@ class SpillableBatch:
                     cat.unspill_count += 1
                 cat._touch(self)
                 cols = [DeviceColumn(dt, d, v, self.num_rows, ch)
-                        for dt, (d, v, ch) in zip(self._dtypes,
-                                                  self._device)]
+                        if dct is None else
+                        EncodedColumn(d, v, self.num_rows, dct)
+                        for dt, (d, v, ch), dct in zip(
+                            self._dtypes, self._device, self._dicts)]
                 out = ColumnarBatch(cols, self.num_rows, self.schema)
         finally:
             with cat._lock:

@@ -8,9 +8,8 @@ server, the journal) and the histograms; ``prometheus_text()`` renders
 the snapshot in Prometheus' text format.  Units ride in the histogram's
 name (``*.us``).  Recording is gated by ``spark.rapids.sql.obs.enabled``
 (set at query-scope entry): off, ``record`` is one flag read.  The JAX
-package's sections for modules the port lacks (compressed, ooc, the
-kernel cache, prefetch, d2h, fusion, ICI, placement, health, compile)
-are left out.
+package's sections for modules the port lacks (ooc, the kernel cache,
+prefetch, d2h, fusion, ICI, placement, health, compile) are left out.
 """
 
 from __future__ import annotations
@@ -143,6 +142,17 @@ def _catalog_stats() -> dict:
     return out
 
 
+def _compressed_stats() -> dict:
+    from spark_rapids_tpu_torch.columnar import encoding
+    raw = encoding.compressed_stats()
+    out = {"encodedColumns": raw.pop("encoded_columns"),
+           "lateDecodes": raw.pop("late_decodes"),
+           "fusedDecodes": raw.pop("fused_decodes"),
+           "compressedBytesSaved": raw.pop("bytes_saved")}
+    out.update(raw)
+    return out
+
+
 def snapshot() -> dict:
     """The engine-stats dict: one key a module, and the histograms."""
     from spark_rapids_tpu_torch import lifecycle
@@ -152,6 +162,11 @@ def snapshot() -> dict:
     from spark_rapids_tpu_torch.server import stats as server_stats
     from spark_rapids_tpu_torch.stream import stats as stream_stats
     return {
+        # compressed-domain execution (columnar/encoding.py):
+        # encodedColumns (columns ingested as codes), lateDecodes (the
+        # counted escape hatch), compressedBytesSaved (raw less wire,
+        # both directions) and the raw counters beside them
+        "compressed": _compressed_stats(),
         # adaptive execution: replans, coalesced partitions, skew
         # splits, promotions, demotions, fallbacks, exchanges seen and
         # the largest and median partition bytes

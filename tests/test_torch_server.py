@@ -810,7 +810,8 @@ def test_stats_snapshot_and_prometheus_text(corpus):
         server.sql("SELECT k FROM agg WHERE v > 1", result_timeout=60)
         snap = s.engine_stats()
         assert set(snap) == {"aqe", "lifecycle", "catalog", "server",
-                             "fleet", "stream", "journal", "histograms"}
+                             "fleet", "stream", "journal", "histograms",
+                             "compressed"}
         assert snap["server"]["completed"] >= 1
         assert snap["histograms"]["server.admit.wait.us"]["count"] >= 1
         assert snap["histograms"]["query.wall.us"]["count"] >= 1
