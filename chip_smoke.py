@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--package-root DIR] [--kernels-only]
                           [--sass-dir DIR] [--layer-cost] [--string-paths]
                           [--files-only] [--compressed-only]
+                          [--planes-only]
 
 Phases, each printing one JSON line:
 
@@ -312,8 +313,29 @@ come out bit for bit alike (``float_sum_results_of_5``).
    seconds of each timed run, on and off; a cell with an encoded column
    whose wire bytes are not below its raw bytes fails.
    ``--compressed-only`` builds the kernels and runs this phase alone.
+   The off side (the master key false) takes no plane encoding either;
+25. planes: RLE, delta-narrowed and bit-packed columns, each cell run
+   with the planes on (the default) and with their three keys false,
+   through the result pull, as phase 24 runs its cells:
+   planes_clustered_agg (hash_agg_sort_2m's table sorted by k: k RLE in
+   every batch at wire/raw 0.10 to 0.13, no late decode, one K1 launch
+   a batch, K1 held against its plain version on its update batch, the
+   result against numpy); planes_lineitem_clustered (SF1 lineitem
+   stably sorted by l_orderkey, which takes the int8 delta at 0.20 to
+   0.25: q18 against a CPU session, a group_by(l_orderkey) sum with no
+   late decode against numpy); planes_flag_filter (l_late = l_receiptdate
+   > l_commitdate bit-packed at 0.5625, a filter on it decoded by the
+   stage, a group_by(l_shipmode) count against numpy); planes_tpch (q3
+   against numpy, q5 against a CPU session, the dimension keys delta
+   and o_shippriority RLE); the RLE table at a quarter of its catalog
+   peak (memory_tiers) and one of its batches through the host and disk
+   tiers, back as the same classes with no decode; decode_times (the
+   three decodes at 2^20 rows, warm and cold, beside their read-once
+   bounds).  Each line adds the plane counters, each operator's
+   encodedColumns and the h2d bytes by encoding and by column.
+   ``--planes-only`` builds the kernels and runs this phase alone.
 
-Each path of phases 5 to 24 runs with the launch counts set to 0 just
+Each path of phases 5 to 25 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -548,11 +570,12 @@ def main_path_inputs(pag, session, query, half: bool = False,
     batch that an out-of-memory split would give it; with ``codes``,
     through the aggregate's code view, where a key over an encoded
     string column is its int32 codes -> (gid, planes, ops, K)."""
+    from spark_rapids_tpu_torch.columnar.encoding import plane_view
     from spark_rapids_tpu_torch.exec.base import ExecContext
-    from spark_rapids_tpu_torch.exprs.base import colvals
     from spark_rapids_tpu_torch.plan.planner import plan_query
     # the batch the aggregate exec's own routing would send
-    # (TorchHashAggregateExec._try_pallas_update)
+    # (TorchHashAggregateExec._try_pallas_update), its plane columns
+    # decoded as the update decodes them
     for agg in _plan_nodes(plan_query(query.plan), "TorchHashAggregateExec"):
         if not codes and not pag.supports(agg.spec):
             continue
@@ -569,7 +592,7 @@ def main_path_inputs(pag, session, query, half: bool = False,
                     break
             if batch.capacity > pag.max_capacity(spec):
                 continue
-            cols = colvals(batch.columns)
+            cols = plane_view(batch.columns)
             rng = pag.key_range(spec.groupings[0], cols, batch.num_rows,
                                 batch.capacity)
             if rng is None:
@@ -2430,6 +2453,9 @@ def tier_runs(torch, st, build, name: str, verify,
                   f"and the disk: {cat.stats()}")
     emit("memory_tiers", query=name, peak_device_bytes=peak,
          floats_bit_for_bit=bitwise, runs=runs)
+    # the sessions of later phases share the device's runtime: leave
+    # one at the default budget behind, not the quarter one
+    fresh_session(st)
 
 
 class OomCounter:
@@ -4484,7 +4510,11 @@ STATS_KEYS = (("encoded_columns", "encodedColumns"),
               ("fused_decodes", "fusedDecodes"),
               ("h2d_raw_bytes", "h2d_raw_bytes"),
               ("h2d_wire_bytes", "h2d_wire_bytes"),
-              ("encode_faults", "encode_faults"))
+              ("encode_faults", "encode_faults"),
+              ("rle_columns", "rle_columns"),
+              ("delta_columns", "delta_columns"),
+              ("packed_bool_columns", "packed_bool_columns"))
+PLANE_COUNTERS = ("rle_columns", "delta_columns", "packed_bool_columns")
 
 
 def stats_since(before: dict) -> dict:
@@ -4524,21 +4554,42 @@ def host_bitwise(got, want) -> bool:
     return True
 
 
+def op_metric(plan, name: str) -> dict:
+    """``name`` summed by operator class over a plan, zeros left out."""
+    out = {}
+
+    def walk(n):
+        v = int(n.metrics.get(name, 0))
+        if v:
+            out[type(n).__name__] = out.get(type(n).__name__, 0) + v
+        for c in n.children:
+            walk(c)
+    walk(plan)
+    return out
+
+
 def compressed_pair(torch, st, name: str, build, verify=None,
-                    runs: int = 2, smi: str = ""):
+                    runs: int = 2, smi: str = "", off=None,
+                    phase: str = "compressed", **extra):
     """``build(session)``'s query with compressed execution on (the
-    default) and off, each one warm-up and ``runs`` timed runs through
-    the result pull (codes on the wire when on); the two results equal
-    (integers, strings, nulls exact; floats within rtol 1e-9, and
-    whether they are bit for bit is printed), ``verify(HostResult)`` the
-    reference's check of the on run.  Prints each mode's counters (of
-    its warm-up), scan ms and seconds of the warm-up (``cold_*``: on, a
-    first scan, which builds every dictionary on the host,
-    ``host_encode_ms``) and of the timed runs (on, served by the local
-    scan's memo); -> (on result, its counters)."""
+    default) and ``off`` (the master key false unless given), each one
+    warm-up and ``runs`` timed runs through the result pull (codes on
+    the wire when on); the two results equal (integers, strings, nulls
+    exact; floats within rtol 1e-9, and whether they are bit for bit is
+    printed), ``verify(HostResult)`` the reference's check of the on
+    run.  Prints each mode's counters (of its warm-up), each operator's
+    ``encodedColumns``, scan ms and seconds of the warm-up (``cold_*``:
+    on, a first scan, which builds every dictionary and plane on the
+    host, ``host_encode_ms``) and of the timed runs (on, served by the
+    local scan's memo, but for a writable numpy column's plane, which
+    is planned again each scan), with the memo's host bytes after
+    them; the off side takes no plane encoding, and a run
+    that took a plane or a dictionary crossed fewer bytes than it
+    stands for; -> (on result, its counters)."""
     from spark_rapids_tpu_torch.columnar import encoding
+    off = COMPRESSED_OFF if off is None else off
     res, line = {}, {}
-    for mode, conf in (("on", {}), ("off", COMPRESSED_OFF)):
+    for mode, conf in (("on", {}), ("off", off)):
         s = st.TorchSession(conf)
         q = build(s)
         encoding.clear_memo()
@@ -4560,21 +4611,29 @@ def compressed_pair(torch, st, name: str, build, verify=None,
         line[mode] = {**stats, "cold_scan_ms": cold_scan,
                       "cold_seconds": cold, "scan_ms": scans,
                       "seconds": secs,
-                      "warm_host_encode_ms": encode_ms_since(before)}
-    on, off = res["on"], res["off"]
-    host_same_rows(on, off, f"{name}: on against off")
+                      "warm_host_encode_ms": encode_ms_since(before),
+                      "memo_host_bytes":
+                          encoding.compressed_stats()["memo_host_bytes"],
+                      "encodedColumns_by_op": op_metric(s._last_plan,
+                                                        "encodedColumns")}
+    on, res_off = res["on"], res["off"]
+    host_same_rows(on, res_off, f"{name}: on against off")
     if verify is not None:
         verify(on)
     st_on = line["on"]
-    check(line["off"]["encodedColumns"] == 0,
-          f"{name}: compressed off encoded a column")
-    if st_on["encodedColumns"] and st_on["h2d_raw_bytes"]:
+    if off is COMPRESSED_OFF:
+        check(line["off"]["encodedColumns"] == 0,
+              f"{name}: compressed off encoded a column")
+    check(not any(line["off"][c] for c in PLANE_COUNTERS),
+          f"{name}: the off side took a plane encoding: {line['off']}")
+    won = st_on["encodedColumns"] + sum(st_on[c] for c in PLANE_COUNTERS)
+    if won and st_on["h2d_raw_bytes"]:
         check(st_on["h2d_wire_bytes"] < st_on["h2d_raw_bytes"],
               f"{name}: wire bytes {st_on['h2d_wire_bytes']} not below raw "
               f"{st_on['h2d_raw_bytes']}")
-    emit("compressed", cell=name, rows=on.num_rows,
-         floats_bit_for_bit=host_bitwise(on, off), on=line["on"],
-         off=line["off"], nvidia_smi=smi)
+    emit(phase, cell=name, rows=on.num_rows,
+         floats_bit_for_bit=host_bitwise(on, res_off), on=line["on"],
+         off=line["off"], nvidia_smi=smi, **extra)
     return on, st_on
 
 
@@ -4806,6 +4865,298 @@ def phase_compressed(torch, st, F, native, pag, ps, tpch, main, dim, line,
          spill_run=stats, nvidia_smi=smi)
 
 
+PLANES_OFF = {"spark.rapids.sql.compressed.rle.enabled": False,
+              "spark.rapids.sql.compressed.delta.enabled": False,
+              "spark.rapids.sql.compressed.packedBool.enabled": False}
+
+
+def scan_encodings(df) -> tuple:
+    """The encoding each column of ``df``'s scan took, batch by batch
+    (``{column: {kind: batches}}``), the raw and wire bytes over the scan
+    of each plane encoding and of each plane-encoded column (a plane
+    column's wire is its compressed planes and validity, its raw the
+    plain planes it stands for, as the encoder counts them), and a
+    column of each plane kind from the first batch that has one."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    kinds, nbytes, first = {}, {"by_encoding": {}, "by_column": {}}, {}
+    for b in df.to_device_batches():
+        for f, c in zip(b.schema, b.columns):
+            k = c.mode if encoding.is_plane_compressed(c) else \
+                "dict" if encoding.is_encoded(c) else "plain"
+            kinds.setdefault(f.name, {})
+            kinds[f.name][k] = kinds[f.name].get(k, 0) + 1
+            if not encoding.is_plane_compressed(c):
+                continue
+            raw = c.capacity * (np.dtype(c.dtype.numpy_dtype).itemsize + 1)
+            for group, key in (("by_encoding", k), ("by_column", f.name)):
+                e = nbytes[group].setdefault(key, {"columns": 0, "raw": 0,
+                                                   "wire": 0})
+                e["columns"] += 1
+                e["raw"] += raw
+                e["wire"] += c.size_bytes()
+            first.setdefault(k, (f.name, c))
+    for group in nbytes.values():
+        for e in group.values():
+            e["wire_over_raw"] = e["wire"] / e["raw"]
+    return kinds, nbytes, first
+
+
+def check_encoding(kinds, nbytes, column: str, kind: str, lo: float,
+                   hi: float, cell: str) -> None:
+    """Every batch of ``column`` took ``kind``, and its wire/raw over the
+    scan lies in [lo, hi]."""
+    check(set(kinds[column]) == {kind},
+          f"{cell}: {column} took {kinds[column]}, not {kind} in every batch")
+    ratio = nbytes["by_column"][column]["wire_over_raw"]
+    check(lo <= ratio <= hi, f"{cell}: {column}'s {kind} wire/raw {ratio}, "
+          f"the prediction is in [{lo}, {hi}]")
+
+
+def decode_times(torch, first: dict, rate: float, smi: str) -> None:
+    """The three decodes (torch ops) on a 2^20-row column of each kind,
+    warm and with L2 cold, beside the read-once bound: the compressed
+    planes the decode reads (a delta also reads the validity) and the
+    dense plane it writes, over the card's memory rate."""
+    out = {}
+    for kind, (col_name, c) in sorted(first.items()):
+        reads = {"rle": (c.planes()[0], c.planes()[2]),
+                 "delta": c.planes(),
+                 "packed": (c.planes()[0],)}[kind]
+        nbytes = sum(t.numel() * t.element_size() for t in reads
+                     if t is not None)
+        dense = c.dense_data()
+        nbytes += dense.numel() * dense.element_size()
+        check(torch.equal(dense, c.decoded().data),
+              f"decode_times: {kind} differs from its late decode")
+        out[kind] = {"column": col_name, "rows": c.capacity,
+                     "bytes": nbytes, "ms": per_call_ms(torch, c.dense_data),
+                     "cold_ms": cold_ms(torch, c.dense_data),
+                     "bound_ms": nbytes / rate * 1e3}
+    emit("planes", cell="decode_times", decodes=out, mem_rate=rate,
+         nvidia_smi=smi)
+
+
+def _planes_clustered_agg(torch, st, F, native, pag, agg_data, smi: str):
+    """hash_agg_sort_2m's table sorted by k: k rides RLE, the update
+    decodes it (no late decode), K1 launches once a batch, K1 held
+    against its plain version on the update batch, the result against
+    numpy; -> (K1's largest f64 sum error, the data, the verifier, the
+    first RLE column)."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    col = st.col
+    order = np.argsort(agg_data["k"], kind="stable")
+    data = {c: v[order] for c, v in agg_data.items()}
+    keys, counts, sums, maxes = group_stats(data["k"], data["v"], data["w"])
+    want = {"k": keys, "cnt": counts, "s": sums, "mx": maxes}
+    kinds, nbytes, first = scan_encodings(
+        st.TorchSession({}).create_dataframe(data))
+    # about 524 runs a 2^20-row batch, rcap 1024:
+    # (1024 * 12 + 2^20) / (9 * 2^20) = 0.11
+    check_encoding(kinds, nbytes, "k", "rle", 0.1, 0.13,
+                   "planes_clustered_agg")
+
+    def build(s):
+        return agg_query(st, F, s.create_dataframe(data))
+    compressed_pair(torch, st, "planes_clustered_agg", build,
+                    lambda r: _check_host(r, want, None,
+                                          "planes_clustered_agg"),
+                    smi=smi, off=PLANES_OFF, phase="planes",
+                    encodings=kinds, h2d_by_encoding=nbytes)
+    s = st.TorchSession({})
+    q = build(s)
+    before = encoding.compressed_stats()
+    k1 = native.LAUNCHES["dense_slot_reduce"]
+    q._host()
+    torch.cuda.synchronize()
+    launches = native.LAUNCHES["dense_slot_reduce"] - k1
+    stats = stats_since(before)
+    (agg,) = _plan_nodes(s._last_plan, "TorchHashAggregateExec")
+    dense = agg.metrics["pallasAggBatches"]
+    batches = -(-len(data["k"]) // (1 << 20))
+    check(stats["lateDecodes"] == 0 and stats["fusedDecodes"] >= batches,
+          f"planes_clustered_agg: {stats['lateDecodes']} late and "
+          f"{stats['fusedDecodes']} fused decodes")
+    check(dense == batches and launches == batches,
+          f"planes_clustered_agg: K1 took {dense} of {batches} batches, "
+          f"{launches} launches")
+    emit("planes", cell="planes_clustered_agg_k1", dense_slot_batches=dense,
+         kernel_launches=launches, on=stats, nvidia_smi=smi)
+    err = _uncounted(native, lambda: phase_kernel_path(
+        torch, pag, s, q, "planes_clustered_agg"))
+
+    def verify_torch(out):
+        check_tpch(torch, *out, want, None, "planes_clustered_agg")
+    return err, build, verify_torch, data, first["rle"]
+
+
+def _planes_spill(torch, st, build, verify, data, smi: str) -> None:
+    """planes_clustered_agg at a quarter of its catalog peak (equal to
+    its unpressured run), and a scan batch of its planes through the
+    host and disk tiers, back as the same classes, decoded nowhere."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    from spark_rapids_tpu_torch.memory.spill import SpillableBatch
+    tier_runs(torch, st, build, "planes_clustered_agg", verify)
+    s = fresh_session(st)
+    batch = s.create_dataframe(data).to_device_batches()[0]
+    cat = s.runtime.catalog
+    sb = SpillableBatch(batch, cat)
+    try:
+        with cat._lock:
+            sb._to_host()
+            host = sb.host_nbytes()
+            sb._to_disk()
+        late = encoding.compressed_stats()["late_decodes"]
+        back = sb.get()
+        torch.cuda.synchronize()
+        check(encoding.compressed_stats()["late_decodes"] == late,
+              "planes spill: a promotion decoded a plane column")
+        classes = [type(c).__name__ for c in back.columns]
+        check(classes == [type(c).__name__ for c in batch.columns]
+              and classes[0] == "RleColumn",
+              f"planes spill: came back as {classes}")
+        check(all(torch.equal(a, b) for x, y in zip(back.columns,
+                                                    batch.columns)
+                  for a, b in zip(*(encoding.stored_planes(z)[0]
+                                    for z in (x, y)))
+                  if a is not None),
+              "planes spill: a plane differs after the round trip")
+    finally:
+        sb.close()
+    emit("planes", cell="planes_spill_batch", device_bytes=batch.size_bytes(),
+         host_bytes=host, classes=classes, nvidia_smi=smi)
+
+
+def _planes_lineitem_clustered(torch, st, F, tpch, cpu, smi: str):
+    """SF1 lineitem in dbgen's order (stably sorted by l_orderkey):
+    l_orderkey takes the int8 delta; q18 over it equal to a CPU session;
+    a group_by(l_orderkey) sum decoded in the update, against numpy;
+    -> (the sorted lineitem, the first delta column)."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    col = st.col
+    li = tpch["lineitem"]
+    order = np.argsort(li["l_orderkey"], kind="stable")
+    sli = {c: v[order] for c, v in li.items()}
+    tables = {**tpch, "lineitem": sli}
+    kinds, nbytes, first = scan_encodings(
+        st.TorchSession({}).create_dataframe(sli))
+    # (2^20 + 8 + 2^20) / (9 * 2^20) = 0.22
+    check_encoding(kinds, nbytes, "l_orderkey", "delta", 0.2, 0.25,
+                   "planes_lineitem_clustered")
+    want18 = _host_cols(TPCH_QUERIES["q18"](load_tables(cpu, tables))._host())
+    compressed_pair(torch, st, "planes_lineitem_clustered_q18",
+                    lambda s: TPCH_QUERIES["q18"](load_tables(s, tables)),
+                    lambda r: _check_host(r, want18, None, "q18"), runs=1,
+                    smi=smi, off=PLANES_OFF, phase="planes",
+                    encodings=kinds, h2d_by_encoding=nbytes)
+    keys, inv = np.unique(sli["l_orderkey"], return_inverse=True)
+    want = {"l_orderkey": keys,
+            "q": np.bincount(inv, sli["l_quantity"], minlength=len(keys))}
+    _, stats = compressed_pair(
+        torch, st, "planes_lineitem_orderkey_agg",
+        lambda s: s.create_dataframe(sli).group_by(col("l_orderkey")).agg(
+            F.sum(col("l_quantity")).alias("q")).order_by(col("l_orderkey")),
+        lambda r: _check_host(r, want, None, "planes_lineitem_orderkey_agg"),
+        runs=1, smi=smi, off=PLANES_OFF, phase="planes")
+    check(stats["lateDecodes"] == 0 and stats["fusedDecodes"] > 0,
+          f"planes_lineitem_orderkey_agg: {stats['lateDecodes']} late and "
+          f"{stats['fusedDecodes']} fused decodes")
+    return first["delta"]
+
+
+def _planes_flag_filter(torch, st, F, tpch, smi: str):
+    """SF1 lineitem with l_late = l_receiptdate > l_commitdate (q4's and
+    q21's predicate), bit-packed; a filter on it decoded in the stage's
+    own pass (fused), then group_by(l_shipmode) count against numpy;
+    -> the first packed column."""
+    col = st.col
+    li = tpch["lineitem"]
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    flagged = {**li, "l_late": late}
+    kinds, nbytes, first = scan_encodings(
+        st.TorchSession({}).create_dataframe(flagged))
+    # (2^20 / 8 + 2^20) / (2 * 2^20) = 0.5625
+    check_encoding(kinds, nbytes, "l_late", "packed", 0.56, 0.57,
+                   "planes_flag_filter")
+    modes, counts = np.unique(li["l_shipmode"][late], return_counts=True)
+    want = {"l_shipmode": modes, "n": counts}
+    _, stats = compressed_pair(
+        torch, st, "planes_flag_filter",
+        lambda s: s.create_dataframe(flagged).filter(col("l_late"))
+        .group_by(col("l_shipmode")).agg(F.count(col("l_quantity"))
+                                         .alias("n"))
+        .order_by(col("l_shipmode")),
+        lambda r: _check_host(r, want, None, "planes_flag_filter"),
+        runs=1, smi=smi, off=PLANES_OFF, phase="planes", encodings=kinds,
+        h2d_by_encoding=nbytes)
+    check(stats["packed_bool_columns"] > 0 and stats["fusedDecodes"] > 0,
+          f"planes_flag_filter: {stats}")
+    return first["packed"]
+
+
+def _planes_tpch(torch, st, tpch, cpu, smi: str) -> None:
+    """q3 and q5 over SF1: the dimension keys ride delta, o_shippriority
+    RLE; on equal to off and to numpy (q3) or a CPU session (q5); the
+    joins' late decodes printed, not gated on."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    s = st.TorchSession({})
+    encs = {}
+    for table, column, kind in (("orders", "o_orderkey", "delta"),
+                                ("orders", "o_shippriority", "rle"),
+                                ("customer", "c_custkey", "delta"),
+                                ("part", "p_partkey", "delta"),
+                                ("supplier", "s_suppkey", "delta")):
+        kinds, nbytes, _ = scan_encodings(s.create_dataframe(tpch[table]))
+        check(set(kinds[column]) == {kind},
+              f"planes_tpch: {column} took {kinds[column]}, not {kind}")
+        encs[table] = {"encodings": kinds, "h2d_by_encoding": nbytes}
+    emit("planes", cell="planes_tpch_tables", tables=encs, nvidia_smi=smi)
+    want3, limit3 = tpch_reference(tpch, "q3")
+    want5 = _host_cols(TPCH_QUERIES["q5"](load_tables(cpu, tpch))._host())
+    for qname, want, limit in (("q3", want3, limit3), ("q5", want5, None)):
+        def verify(result, want=want, limit=limit, qname=qname):
+            _check_host(result, want, limit, qname)
+        _, stats = compressed_pair(
+            torch, st, f"planes_tpch_{qname}",
+            lambda s, q=qname: TPCH_QUERIES[q](load_tables(s, tpch)),
+            verify, runs=1, smi=smi, off=PLANES_OFF, phase="planes")
+        check(stats["delta_columns"] > 0,
+              f"planes_tpch_{qname}: no column took the delta encoding")
+
+
+def phase_planes(torch, st, F, native, pag, tpch, agg_data, errs: dict,
+                 smi: str, rate: float) -> None:
+    """Phase 25: the plane encodings (RLE, delta-narrowed, bit-packed),
+    each cell with the planes on (the default) and with their three keys
+    false, in one call; the SF1 cells one warm run each, the 2M-row one
+    two."""
+    t0 = time.perf_counter()
+    cpu = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+    err, build, verify, data, rle = _planes_clustered_agg(
+        torch, st, F, native, pag, agg_data, smi)
+    errs["dense_slot_reduce"] = err
+    delta = _planes_lineitem_clustered(torch, st, F, tpch, cpu, smi)
+    packed = _planes_flag_filter(torch, st, F, tpch, smi)
+    _planes_tpch(torch, st, tpch, cpu, smi)
+    _planes_spill(torch, st, build, verify, data, smi)
+    decode_times(torch, {"rle": rle, "delta": delta, "packed": packed},
+                 rate, smi)
+    emit("planes_phase", seconds=time.perf_counter() - t0, nvidia_smi=smi)
+
+
+def planes_only(torch, st, F, native, pag, agg_data, name: str, smi: str,
+                rate: float) -> int:
+    """``--planes-only``: phase 25 and its data alone."""
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    native.reset_launches()
+    phase_planes(torch, st, F, native, pag, tpch, agg_data, {}, smi, rate)
+    emit("launches", path="planes", counts=dict(native.LAUNCHES))
+    print(json.dumps({"ok": True, "planes_only": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def compressed_only(torch, st, F, native, pag, ps, main_data, dim_data,
                     line, name: str, smi: str) -> int:
     """``--compressed-only``: phase 24 and its data alone."""
@@ -4850,6 +5201,10 @@ def parse_args(argv):
                     help="build the kernels, run phase 24 (dictionary-"
                          "encoded columns, each cell on and off) with its "
                          "launch counts, and stop")
+    ap.add_argument("--planes-only", action="store_true",
+                    help="build the kernels, run phase 25 (RLE, delta and "
+                         "bit-packed columns, each cell on and off) with "
+                         "its launch counts, and stop")
     ap.add_argument("--string-paths", action="store_true",
                     help="time LIKE/RLIKE's two matchers and replace's "
                          "two paths on the breadth queries' columns and "
@@ -4897,6 +5252,9 @@ def main(argv=None) -> int:
     if args.layer_cost:
         return layer_cost(torch, st, F, native, main_data, agg_data,
                           dim_data, name)
+    if args.planes_only:
+        return planes_only(torch, st, F, native, pag, agg_data, name, smi,
+                           rate)
     t0 = time.perf_counter()
     line = gen_lineitem(LINEITEM_ROWS, SEED + 2)
     session = st.TorchSession.builder().get_or_create()
@@ -5029,6 +5387,11 @@ def main(argv=None) -> int:
           tpch, main_data, dim_data, line, xbb, ops, comp_errs, smi)
     dsr["max_abs_err"] = max(dsr["max_abs_err"],
                              comp_errs["dense_slot_reduce"])
+    plane_errs = {}
+    drive("planes", phase_planes, torch, st, F, native, pag, tpch, agg_data,
+          plane_errs, smi, rate)
+    dsr["max_abs_err"] = max(dsr["max_abs_err"],
+                             plane_errs["dense_slot_reduce"])
     # the replicas count their own launches; they join the kernels line
     replica_launches = {}
     drive("fleet", phase_fleet, torch, st, native, tpch, agg_data, smi,

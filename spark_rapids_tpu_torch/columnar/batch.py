@@ -218,26 +218,9 @@ class ColumnarBatch:
         if start < 0 or n < 0 or start + n > self.num_rows:
             raise ValueError(f"rows [{start}, {start + n}) are not inside "
                              f"a batch of {self.num_rows}")
-        from spark_rapids_tpu_torch.columnar.encoding import EncodedColumn
         cap = bucket_capacity(max(1, n))
-        cols = []
-        for c in self.columns:
-            if isinstance(c, EncodedColumn):
-                cols.append(c.slice_rows(start, n, cap))
-                continue
-            planes = []
-            for a in (c.data, c.validity, c.chars):
-                if a is None:
-                    planes.append(None)
-                    continue
-                out = a[start:start + n]
-                if n < cap:
-                    out = a.new_zeros((cap,) + tuple(a.shape[1:]))
-                    out[:n] = a[start:start + n]
-                planes.append(out)
-            cols.append(DeviceColumn(c.dtype, planes[0], planes[1], n,
-                                     planes[2]))
-        return ColumnarBatch(cols, n, self.schema)
+        return ColumnarBatch([c.slice_rows(start, n, cap)
+                              for c in self.columns], n, self.schema)
 
     def gather(self, rows: torch.Tensor, n: int) -> "ColumnarBatch":
         """The rows at ``rows`` (a string column's chars move with them,
@@ -347,7 +330,7 @@ def host_columns_from_numpy(data: Dict[str, np.ndarray],
         values = np.asarray(values)
         dt = from_numpy_dtype(values.dtype)
         valid = masks.get(name)
-        valid = np.ones(len(values), np.bool_) if valid is None \
+        valid = _read_only(np.ones(len(values), np.bool_)) if valid is None \
             else np.asarray(valid, dtype=np.bool_)
         if valid.shape != values.shape:
             raise ValueError(f"mask of {name!r} has shape {valid.shape}, "
@@ -372,8 +355,9 @@ def host_columns_from_arrow(table) -> Tuple[Schema, HostColumns]:
         if pa.types.is_dictionary(arr.type):
             # a read_dictionary column the ingest encoder declined
             arr = arr.cast(arr.type.value_type)
-        valid = np.ones(len(arr), np.bool_) if arr.null_count == 0 \
-            else np.asarray(arr.is_valid())
+        valid = _read_only(np.ones(len(arr), np.bool_)
+                           if arr.null_count == 0
+                           else np.asarray(arr.is_valid()))
         if f.dtype == STRING:
             cols[f.name] = (_arrow_strings(arr), valid)
             continue
@@ -384,8 +368,23 @@ def host_columns_from_arrow(table) -> Tuple[Schema, HostColumns]:
         if arr.null_count:
             arr = pc.fill_null(arr, False if f.dtype.name == "boolean"
                                else 0)
-        cols[f.name] = (arr.to_numpy(zero_copy_only=False), valid)
+        # read zero-copy (read-only) or copied (a bool column) into an
+        # array no one else holds: either way no one writes it
+        cols[f.name] = (_read_only(arr.to_numpy(zero_copy_only=False)),
+                        valid)
     return schema, cols
+
+
+def _read_only(a: np.ndarray) -> np.ndarray:
+    """``a``, which the caller made and no one else holds, marked
+    read-only down to the array owning its memory: the local scan keeps
+    its plane decisions only for host arrays no one can write
+    (``columnar/encoding.py: _frozen``)."""
+    b = a
+    while isinstance(b, np.ndarray):
+        b.flags.writeable = False
+        b = b.base
+    return a
 
 
 def _arrow_strings(arr) -> HostStrings:

@@ -68,6 +68,23 @@ class DeviceColumn:
             total += self.chars.numel()
         return int(total)
 
+    def slice_rows(self, start: int, n: int, cap: int) -> "DeviceColumn":
+        """Rows ``start`` to ``start + n`` at capacity ``cap``, padding
+        rows zero and invalid, a string's width kept; a slice that fills
+        ``cap`` exactly is a view of these planes.  An encoded or plane
+        column (``columnar/encoding.py``) gives its own."""
+        planes = []
+        for a in (self.data, self.validity, self.chars):
+            if a is None:
+                planes.append(None)
+                continue
+            out = a[start:start + n]
+            if n < cap:
+                out = a.new_zeros((cap,) + tuple(a.shape[1:]))
+                out[:n] = a[start:start + n]
+            planes.append(out)
+        return DeviceColumn(self.dtype, planes[0], planes[1], n, planes[2])
+
     def __repr__(self):
         return (f"DeviceColumn({self.dtype}, rows={self.num_rows}, "
                 f"cap={self.capacity})")

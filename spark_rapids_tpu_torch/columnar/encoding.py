@@ -1,8 +1,8 @@
-"""Dictionary-encoded string columns, run in the code domain.
+"""Compressed columns: dictionary-encoded strings run in the code domain,
+and integer and boolean columns carried as compressed planes.
 
-Counterpart of ``spark_rapids_tpu/columnar/encoding.py`` (its
-dictionary half).  The module is the one home of every dictionary
-concern:
+Counterpart of ``spark_rapids_tpu/columnar/encoding.py``.  The module is
+the one home of every encoding concern:
 
 * ``EncodedColumn``: a STRING ``DeviceColumn`` whose device planes are
   int32 ``codes`` and a small shared dictionary (``DictPlanes``: a
@@ -14,14 +14,23 @@ concern:
   operator that knows nothing of encoding reads ``.data``/``.chars``
   off an ``EncodedColumn`` and gets the dense planes through it, so it
   stays correct.
+* the plane encodings: ``RleColumn`` (run values and cumulative run
+  ends), ``DeltaColumn`` (a base and int8 or int16 row deltas, for
+  null-free integers) and ``PackedBoolColumn`` (8 rows a byte).  Like
+  an ``EncodedColumn`` each looks like a ``DeviceColumn``: reading
+  ``.data`` decodes once through ``decode_plane_late`` (counted
+  ``late_decodes``); the fused stage (``stage_view``) and the
+  aggregate (``plane_view``) decode in their own pass instead, counted
+  ``fused_decodes``.
 * ``IngestEncoder``: decides per string column whether the upload
   carries codes or the char matrix, from the port's host columns with
-  numpy (or from an Arrow dictionary array a parquet scan read), and
-  keeps the raw and wire byte counts.  ``encode_on_device`` makes the
-  same dictionary and codes from a char matrix already on the card
-  (the CSV scan's).  The ``io.encode`` fault site: an injected fault or
-  an I/O error sends the column the plain way, counted in
-  ``encode_faults`` and logged.
+  numpy (or from an Arrow dictionary array a parquet scan read), per
+  INT32, INT64 or BOOLEAN column which plane encoding crosses the
+  fewest bytes, if any, and keeps the raw and wire byte counts.
+  ``encode_on_device`` makes the same dictionary and codes from a char
+  matrix already on the card (the CSV scan's).  The ``io.encode``
+  fault site: an injected fault or an I/O error sends the column the
+  plain way, counted in ``encode_faults`` and logged.
 * the code views: ``stage_view`` rewrites a fused stage's steps so that
   a deterministic subtree over one encoded column evaluates once over
   the dictionary and becomes a gather by code (``DictGather``), a bare
@@ -33,15 +42,19 @@ concern:
   dictionary for a concat.
 
 Everything gates on ``spark.rapids.sql.compressed.{enabled, ingest,
-egress}``; with the master key false no ``EncodedColumn`` is built and
-every view is the identity.  The JAX package's plane encodings (RLE,
-delta, packed booleans), its double-buffered transfers and its
-bit-packed egress are not ported yet (ROADMAP.md, A6).
+egress}``, the plane encodings also on ``compressed.{rle, delta,
+packedBool}.enabled``; with the master key false no compressed column
+is built and every view is the identity.  The JAX package's
+double-buffered transfers and its bit-packed egress are not ported yet
+(ROADMAP.md, A6).
 
 Where the port differs: the JAX package runs jitted kernels, so its
 views also carry a flat input list and a signature for its kernel
 cache; the port runs eagerly and has neither, so a view carries the
-``ColVal``s themselves.  The dictionary's host copy is a char matrix
+``ColVal``s themselves; for the same reason the JAX package's stage
+decodes a plane column in a prepended projection of ``PlaneDecode``
+expressions, which its jit fuses, where the port's decodes it as the
+stage reads its inputs.  The dictionary's host copy is a char matrix
 and lengths (``host_chars``, ``host_lengths``), which the result pull
 indexes by code.  pyarrow is imported only inside the functions that
 read an Arrow dictionary array.
@@ -62,8 +75,8 @@ import torch
 from spark_rapids_tpu_torch import faults
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
     bucket_capacity
-from spark_rapids_tpu_torch.columnar.dtypes import INT32, STRING, \
-    DataType
+from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, INT32, \
+    INT64, STRING, DataType
 from spark_rapids_tpu_torch.exprs.base import Alias, BoundReference, \
     ColVal, EvalContext, Expression
 
@@ -80,6 +93,9 @@ _INGEST = False
 _EGRESS = False
 _MAX_DICT_FRACTION = 0.5
 _MAX_COMPOSED_CELLS = 65536
+_RLE = False
+_DELTA = False
+_PACKED = False
 
 _STATS_LOCK = threading.Lock()
 _STATS = {
@@ -87,10 +103,14 @@ _STATS = {
     # what crossed (codes, validity and each dictionary once)
     "h2d_raw_bytes": 0, "h2d_wire_bytes": 0,
     "encoded_columns": 0, "plain_columns": 0, "encode_faults": 0,
-    # host time of the string encoder's builds (a memo hit costs none)
+    # the plane encoding each won integer or boolean column took (the
+    # string columns count under encoded_columns)
+    "rle_columns": 0, "delta_columns": 0, "packed_bool_columns": 0,
+    # host time of the encoder's builds (a memo hit costs none)
     "host_encode_ns": 0,
     # late: a separate decode; fused: a decode folded into a stage's
-    # own gather (DictGather of a bare reference); code_stages: stage
+    # own gather (DictGather of a bare reference) or a plane column
+    # decoded in its consumer's own pass; code_stages: stage
     # batches that ran with a column in the code domain
     "late_decodes": 0, "fused_decodes": 0, "code_stages": 0,
     # subtrees over two encoded columns kept in the code domain
@@ -106,12 +126,15 @@ def set_conf(conf) -> None:
     does from every ``ExecContext``)."""
     from spark_rapids_tpu_torch import conf as C
     global _ENABLED, _INGEST, _EGRESS, _MAX_DICT_FRACTION
-    global _MAX_COMPOSED_CELLS
+    global _MAX_COMPOSED_CELLS, _RLE, _DELTA, _PACKED
     _ENABLED = conf.get(C.COMPRESSED_ENABLED)
     _INGEST = _ENABLED and conf.get(C.COMPRESSED_INGEST)
     _EGRESS = _ENABLED and conf.get(C.COMPRESSED_EGRESS)
     _MAX_DICT_FRACTION = conf.get(C.COMPRESSED_MAX_DICT_FRACTION)
     _MAX_COMPOSED_CELLS = conf.get(C.COMPRESSED_MAX_COMPOSED_CELLS)
+    _RLE = _INGEST and conf.get(C.COMPRESSED_RLE)
+    _DELTA = _INGEST and conf.get(C.COMPRESSED_DELTA)
+    _PACKED = _INGEST and conf.get(C.COMPRESSED_PACKED_BOOL)
 
 
 def enabled() -> bool:
@@ -134,12 +157,14 @@ def _bump(key: str, v: int = 1) -> None:
 
 def compressed_stats() -> dict:
     """A snapshot of the counters, with ``bytes_saved`` (raw less wire,
-    both directions)."""
+    both directions) and ``memo_host_bytes``."""
     with _STATS_LOCK:
         out = dict(_STATS)
     out["bytes_saved"] = max(0, out["h2d_raw_bytes"]
                              - out["h2d_wire_bytes"]) \
         + max(0, out["d2h_raw_bytes"] - out["d2h_wire_bytes"])
+    # a level, not a counter: the host bytes the local scan's memo holds
+    out["memo_host_bytes"] = _MEMO_BYTES
     return out
 
 
@@ -188,7 +213,7 @@ class DictPlanes:
         self.lengths = torch.from_numpy(hl).to(device)
         self.chars = torch.from_numpy(hc).to(device)
         self.validity = torch.from_numpy(valid).to(device)
-        self.fingerprint = hash((d, hc[:d].tobytes(), hl[:d].tobytes()))
+        self.fingerprint = _fingerprint(hc[:d], hl[:d])
         self._aux: "OrderedDict[object, tuple]" = OrderedDict()
         self._aux_lock = threading.Lock()
 
@@ -227,15 +252,25 @@ class DictPlanes:
     def same_values(self, other: "DictPlanes") -> bool:
         if self is other:
             return True
-        return (self.size == other.size
-                and self.fingerprint == other.fingerprint
-                and np.array_equal(self.host_lengths[:self.size],
-                                   other.host_lengths[:other.size])
-                and np.array_equal(
-                    self.host_chars[:self.size, :min(self.width,
-                                                     other.width)],
-                    other.host_chars[:other.size, :min(self.width,
-                                                       other.width)]))
+        return (self.fingerprint == other.fingerprint
+                and self.holds(other.host_chars[:other.size],
+                               other.host_lengths[:other.size]))
+
+    def holds(self, chars: np.ndarray, lengths: np.ndarray) -> bool:
+        """Whether the dictionary's values are these sorted values
+        (``chars`` zero past each length), compared value by value."""
+        w = min(self.width, chars.shape[1])
+        return (self.size == lengths.shape[0]
+                and np.array_equal(self.host_lengths[:self.size], lengths)
+                and np.array_equal(self.host_chars[:self.size, :w],
+                                   chars[:, :w]))
+
+
+def _fingerprint(chars: np.ndarray, lengths: np.ndarray) -> int:
+    """A dictionary's hash of its values: where two agree, the values
+    are compared before one stands for the other."""
+    return hash((int(lengths.shape[0]), np.ascontiguousarray(chars).tobytes(),
+                 np.ascontiguousarray(lengths, np.int32).tobytes()))
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +397,294 @@ def codes_stand_in(batch, keep=()):
 
 
 # ---------------------------------------------------------------------------
+# the plane encodings: RLE, delta-narrowed and bit-packed columns
+# ---------------------------------------------------------------------------
+#
+# An integer or boolean column the link carries compressed.  Its decode
+# runs in the consumer's own pass (``stage_view`` in the fused stage,
+# ``plane_view`` in the aggregate, both counted ``fused_decodes``), or
+# for a consumer that knows nothing of encoding through the counted
+# ``decode_plane_late``: the EncodedColumn contract.  The decodes are
+# torch ops, as they are jitted jnp code (not Pallas) in the JAX
+# package.
+
+def _rle_dense(run_values: torch.Tensor, run_ends: torch.Tensor,
+               cap: int) -> torch.Tensor:
+    """Each row's run by a search over the cumulative run ends.  Padding
+    runs hold 0 and end at ``cap``, so rows past the data decode to 0;
+    null rows were filled with 0 before the runs were found."""
+    pos = torch.arange(cap, dtype=run_ends.dtype, device=run_ends.device)
+    idx = torch.searchsorted(run_ends, pos, right=True)
+    return run_values[idx.clamp_(0, run_values.shape[0] - 1)]
+
+
+def _delta_dense(deltas: torch.Tensor, base: torch.Tensor,
+                 validity: torch.Tensor) -> torch.Tensor:
+    """The base plus the running sum of the narrowed deltas, in the
+    column's own type: an INT32 sum past 2^31 wraps, as the JAX
+    package's int32 cumsum does, and base plus it is still the exact
+    value.  Delta is chosen only for null-free columns, so ``validity``
+    is the rows-below-n mask and masking with it leaves the padding 0."""
+    vals = base + torch.cumsum(deltas, 0, dtype=base.dtype)
+    return torch.where(validity, vals, torch.zeros_like(vals))
+
+
+def _packed_dense(packed: torch.Tensor, cap: int) -> torch.Tensor:
+    """8 rows a byte, the first in the lowest bit; pad bits are 0.  Each
+    byte shifts by 0 to 7 in place, in uint8."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    return ((packed[:, None] >> shifts) & 1).reshape(-1)[:cap] \
+        .to(torch.bool)
+
+
+class _PlaneColumn(DeviceColumn):
+    """What the three plane encodings share: to every consumer a
+    ``DeviceColumn`` whose ``.data`` decodes once through the counted
+    ``decode_plane_late``; ``chars`` is None.  ``gather`` and
+    ``slice_rows`` go through that decode and give dense columns."""
+
+    __slots__ = ("_cap", "_dense")
+    mode = ""
+
+    def _init(self, dtype: DataType, validity: torch.Tensor, num_rows: int,
+              capacity: int) -> None:
+        # DeviceColumn.__init__ is not called: data and chars are the
+        # lazy-decode properties below
+        self.dtype = dtype
+        self.validity = validity
+        self.num_rows = int(num_rows)
+        self._cap = int(capacity)
+        self._dense = None
+
+    def decoded(self) -> DeviceColumn:
+        if self._dense is None:
+            self._dense = decode_plane_late(self)
+        return self._dense
+
+    @property
+    def data(self):
+        return self.decoded().data
+
+    @property
+    def chars(self):
+        return None
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
+
+    def planes(self) -> tuple:
+        """The compressed planes as a ``ColVal``'s three slots (what a
+        spill stores)."""
+        raise NotImplementedError
+
+    def dense_data(self) -> torch.Tensor:
+        """The decoded data plane (uncounted: the callers count)."""
+        raise NotImplementedError
+
+    def size_bytes(self) -> int:
+        return int(sum(t.numel() * t.element_size() for t in self.planes()
+                       if t is not None))
+
+    def gather(self, rows: torch.Tensor, n: int,
+               live: Optional[torch.Tensor] = None) -> DeviceColumn:
+        if live is None:
+            live = torch.arange(rows.shape[0], device=rows.device) < n
+        d = self.decoded()
+        return DeviceColumn(self.dtype, d.data[rows], d.validity[rows] & live,
+                            n)
+
+    def slice_rows(self, start: int, n: int, cap: int) -> DeviceColumn:
+        return self.decoded().slice_rows(start, n, cap)
+
+    def __repr__(self):
+        return (f"{type(self).__name__}({self.dtype}, rows={self.num_rows}, "
+                f"cap={self._cap})")
+
+
+class RleColumn(_PlaneColumn):
+    """An INT32 or INT64 column as run values and cumulative run ends,
+    ``rcap`` of each (``bucket_capacity(runs + 1)``): the runs past
+    ``num_runs`` hold 0 and end at the capacity."""
+
+    __slots__ = ("run_values", "run_ends", "num_runs")
+    mode = "rle"
+
+    def __init__(self, dtype: DataType, run_values: torch.Tensor,
+                 run_ends: torch.Tensor, num_runs: int,
+                 validity: torch.Tensor, num_rows: int, capacity: int):
+        self._init(dtype, validity, num_rows, capacity)
+        self.run_values = run_values
+        self.run_ends = run_ends
+        self.num_runs = int(num_runs)
+
+    def planes(self) -> tuple:
+        return (self.run_values, self.validity, self.run_ends)
+
+    def dense_data(self) -> torch.Tensor:
+        return _rle_dense(self.run_values, self.run_ends, self._cap)
+
+
+class DeltaColumn(_PlaneColumn):
+    """A null-free INT32 or INT64 column as its first value (``base``,
+    one element of the column's type) and int8 or int16 deltas from
+    each row to the next (the first and the padding 0)."""
+
+    __slots__ = ("deltas", "base")
+    mode = "delta"
+
+    def __init__(self, dtype: DataType, deltas: torch.Tensor,
+                 base: torch.Tensor, validity: torch.Tensor, num_rows: int,
+                 capacity: int):
+        self._init(dtype, validity, num_rows, capacity)
+        self.deltas = deltas
+        self.base = base
+
+    def planes(self) -> tuple:
+        return (self.deltas, self.validity, self.base)
+
+    def dense_data(self) -> torch.Tensor:
+        return _delta_dense(self.deltas, self.base, self.validity)
+
+
+class PackedBoolColumn(_PlaneColumn):
+    """A BOOLEAN column bit-packed, 8 rows a byte, the first in the
+    lowest bit (``np.packbits(..., bitorder="little")``)."""
+
+    __slots__ = ("packed",)
+    mode = "packed"
+
+    def __init__(self, packed: torch.Tensor, validity: torch.Tensor,
+                 num_rows: int, capacity: int):
+        self._init(BOOLEAN, validity, num_rows, capacity)
+        self.packed = packed
+
+    def planes(self) -> tuple:
+        return (self.packed, self.validity, None)
+
+    def dense_data(self) -> torch.Tensor:
+        return _packed_dense(self.packed, self._cap)
+
+
+def is_plane_compressed(col) -> bool:
+    return isinstance(col, _PlaneColumn)
+
+
+def decode_plane_late(col: _PlaneColumn) -> DeviceColumn:
+    """THE decode of a plane column, counted in ``late_decodes``: the
+    dense column, its data plane the plain upload's (0 under nulls and
+    padding)."""
+    _bump("late_decodes")
+    return DeviceColumn(col.dtype, col.dense_data(), col.validity,
+                        col.num_rows)
+
+
+def plane_view(columns) -> List[ColVal]:
+    """A consumer's dense ``ColVal``s of ``columns``, each plane column
+    decoded here, in the consumer's own pass (counted ``fused_decodes``
+    a column and a batch), never through the late decode; any other
+    column as ``colvals`` gives it."""
+    return [_fused_colval(c) if isinstance(c, _PlaneColumn)
+            else ColVal(c.data, c.validity, c.chars) for c in columns]
+
+
+def _fused_colval(c: "_PlaneColumn") -> ColVal:
+    _bump("fused_decodes")
+    return ColVal(c.dense_data(), c.validity, None)
+
+
+def stored_planes(c) -> tuple:
+    """What a spill keeps of a column: ``(planes, dictionary, kind)``,
+    the planes as the column holds them on the device (an encoded
+    column's codes, a plane column's compressed planes, else the dense
+    planes) and what ``restore_column`` needs to rebuild it."""
+    if isinstance(c, EncodedColumn):
+        return (c.codes, c.validity, None), c.dict, None
+    if isinstance(c, RleColumn):
+        return c.planes(), None, ("rle", c.num_runs, c.capacity)
+    if isinstance(c, _PlaneColumn):
+        return c.planes(), None, (c.mode, c.capacity)
+    return (c.data, c.validity, c.chars), None, None
+
+
+def restore_column(dtype: DataType, planes: tuple, num_rows: int,
+                   dict_planes: Optional[DictPlanes] = None,
+                   kind: Optional[tuple] = None) -> DeviceColumn:
+    """``stored_planes``' inverse: the column of the same class."""
+    a, valid, b = planes
+    if dict_planes is not None:
+        return EncodedColumn(a, valid, num_rows, dict_planes)
+    if kind is None:
+        return DeviceColumn(dtype, a, valid, num_rows, b)
+    if kind[0] == "rle":
+        return RleColumn(dtype, a, b, kind[1], valid, num_rows, kind[2])
+    if kind[0] == "delta":
+        return DeltaColumn(dtype, a, b, valid, num_rows, kind[1])
+    return PackedBoolColumn(a, valid, num_rows, kind[1])
+
+
+def plan_plane(values: np.ndarray, validity: np.ndarray, dtype: DataType,
+               cap: int, rle: bool, delta: bool) -> Optional[tuple]:
+    """The JAX encoder's choice for one host INT32, INT64 or BOOLEAN
+    column of ``n`` rows at capacity ``cap`` -> ``(kind, arrays, runs,
+    wire)``, the arrays to upload beside the validity, or None when it
+    declines (the column rides plain).  BOOLEAN is always bit-packed.
+    An integer column takes RLE or the int8/int16 delta, whichever
+    crosses fewer bytes (RLE on a tie), and only if it crosses fewer
+    than ``cap * (itemsize + 1)``; delta never takes a column with
+    nulls.  Nulls are 0 (False) before the runs are found."""
+    from spark_rapids_tpu_torch.columnar.batch import host_values
+    n = len(values)
+    vals = host_values(values, dtype)
+    all_valid = bool(validity.all())
+    if not all_valid:
+        vals = np.where(validity, vals, np.zeros((), vals.dtype))
+    itemsize = vals.dtype.itemsize
+    if dtype == BOOLEAN:
+        bits = np.zeros(cap, np.uint8)
+        bits[:n] = vals
+        packed = np.packbits(bits, bitorder="little")
+        return "packed", (packed,), 0, packed.nbytes + cap
+    raw = cap * (itemsize + 1)
+    delta = delta and all_valid and n >= 1
+    if not (rle or delta):
+        return None
+    # one int64 diff serves both: a run changes where it is nonzero
+    diffs = np.diff(vals.astype(np.int64, copy=False))
+    best = None
+    if rle:
+        runs = int(np.count_nonzero(diffs)) + 1
+        rcap = bucket_capacity(max(1, runs + 1))
+        wire = rcap * (itemsize + 4) + cap
+        if wire < raw:
+            change = np.flatnonzero(diffs)
+            rv = np.zeros(rcap, vals.dtype)
+            rv[:runs] = vals[np.insert(change + 1, 0, 0)]
+            ends = np.full(rcap, cap, np.int32)
+            ends[:runs] = np.append(change + 1, n)
+            best = ("rle", (rv, ends), runs, wire)
+    if delta:
+        store = None
+        lo, hi = (int(diffs.min()), int(diffs.max())) if diffs.size \
+            else (0, 0)
+        if lo >= -128 and hi <= 127:
+            store = np.dtype(np.int8)
+        elif lo >= -32768 and hi <= 32767:
+            store = np.dtype(np.int16)
+        if store is not None and store.itemsize < itemsize:
+            wire = cap * store.itemsize + itemsize + cap
+            if wire < raw and (best is None or wire < best[3]):
+                deltas = np.zeros(cap, store)
+                deltas[1:n] = diffs
+                best = ("delta", (deltas, vals[:1].copy()), 0, wire)
+    return best
+
+
+_PLANE_STATS = {"rle": "rle_columns", "delta": "delta_columns",
+                "packed": "packed_bool_columns"}
+
+
+# ---------------------------------------------------------------------------
 # building a dictionary: the same one on the host and on the card
 # ---------------------------------------------------------------------------
 
@@ -481,13 +804,20 @@ def dictionary_device(chars: torch.Tensor, lengths: torch.Tensor,
 # a scan of the same local table in the next query uploads its codes
 # again but not the dictionary, and does not rebuild either, as the JAX
 # package's dictionary memo keys on Arrow's buffer identity.  An entry
-# holds the codes and the DictPlanes (or only the decision, for a
-# column sent plain), never the host arrays: it is dropped when the
-# array that owns any of their memory is freed, so no address in a key
-# can be reused by other data while the entry exists.
-_MEMO_BOUND = 256
+# holds the codes and the DictPlanes, or a plane column's compressed
+# host planes (or only the decision, for a column sent plain), never
+# the host arrays: it is dropped when the array that owns any of their
+# memory is freed, so no address in a key can be reused by other data
+# while the entry exists.  A plane decision is kept only for arrays no
+# one can write (``_frozen``): a string column's keyed arrays are ones
+# the port built, but an integer column is often the user's own numpy
+# array, which may be edited in place between two scans.  The entries'
+# host arrays are bounded in bytes (``memo_host_bytes`` in
+# ``compressed_stats``), the oldest dropped first.
+_MEMO_BOUND_BYTES = 1 << 30
 _MEMO: "OrderedDict[tuple, tuple]" = OrderedDict()
 _MEMO_LOCK = threading.Lock()
+_MEMO_BYTES = 0
 # keys whose arrays were freed while the lock was held (a collection
 # run inside the locked block, or another thread): dropped on next use
 _MEMO_DEAD: List[tuple] = []
@@ -505,6 +835,26 @@ def _owner(a: np.ndarray) -> np.ndarray:
     return a
 
 
+def _frozen(*arrays: np.ndarray) -> bool:
+    """Whether no one can write these arrays: the array owning each
+    one's memory is read-only.  That is an Arrow buffer read zero-copy
+    (immutable by Arrow's contract, even where it wraps a numpy array),
+    a host copy the port made and marked, or an array its user froze."""
+    return not any(_owner(a).flags.writeable for a in arrays)
+
+
+def _entry_bytes(codes_np, planes) -> int:
+    """The host bytes a memo entry holds: a string column's codes and
+    its dictionary's host copy (a dictionary several batches share
+    counts in each), or a plane column's compressed planes."""
+    if isinstance(codes_np, tuple):           # a plane decision
+        return int(sum(a.nbytes for a in codes_np[1]))
+    total = 0 if codes_np is None else codes_np.nbytes
+    if planes is not None:
+        total += planes.host_chars.nbytes + planes.host_lengths.nbytes
+    return int(total)
+
+
 def _memo_drop(key: tuple) -> None:
     # a finalizer: never waits on the lock, and never changes the memo
     # from inside a locked block of its own thread
@@ -519,10 +869,12 @@ def _memo_drop(key: tuple) -> None:
 
 def _memo_evict(key: tuple) -> None:
     """Drops ``key``'s entry and its finalizers (the lock held)."""
+    global _MEMO_BYTES
     entry = _MEMO.pop(key, None)
     if entry is not None:
         for fin in entry[2]:
             fin.detach()
+        _MEMO_BYTES -= entry[3]
 
 
 def _memo_get(key: tuple):
@@ -536,14 +888,17 @@ def _memo_get(key: tuple):
 
 
 def _memo_put(key: tuple, codes_np, planes, arrays) -> None:
+    global _MEMO_BYTES
     owners = {id(o): o for o in map(_owner, arrays)}.values()
     fins = tuple(weakref.finalize(o, _memo_drop, key) for o in owners)
     for fin in fins:
         fin.atexit = False
+    size = _entry_bytes(codes_np, planes)
     with _MEMO_LOCK:
         _memo_evict(key)
-        _MEMO[key] = (codes_np, planes, fins)
-        while len(_MEMO) > _MEMO_BOUND:
+        _MEMO[key] = (codes_np, planes, fins, size)
+        _MEMO_BYTES += size
+        while _MEMO_BYTES > _MEMO_BOUND_BYTES and len(_MEMO) > 1:
             _memo_evict(next(iter(_MEMO)))
 
 
@@ -563,7 +918,9 @@ class IngestEncoder:
     encoder's: a null dictionary value, more distinct values than
     ``max(1, int(n * maxDictFraction))`` or a dictionary wider than
     ``maxDeviceStringWidth`` send the column the plain way; nulls are
-    not values."""
+    not values.  An INT32, INT64 or BOOLEAN column takes a plane
+    encoding where ``plan_plane`` finds one, while its key is on; a
+    declined plane column counts no bytes, as in the JAX package."""
 
     def __init__(self, device, metrics=None,
                  max_dict_fraction: Optional[float] = None,
@@ -585,11 +942,16 @@ class IngestEncoder:
         return max(1, int(n * self.max_dict_fraction))
 
     def upload_column(self, values, validity: np.ndarray, dtype: DataType,
-                      cap: int) -> Optional[EncodedColumn]:
+                      cap: int) -> Optional[DeviceColumn]:
         """An ``EncodedColumn`` for host string values (a
-        ``HostStrings``) when encoding wins, else None: the caller
-        uploads the plain planes."""
-        if dtype != STRING or len(values) == 0:
+        ``HostStrings``), or a plane column for INT32, INT64 or BOOLEAN
+        values, when encoding wins, else None: the caller uploads the
+        plain planes."""
+        if dtype != STRING:
+            if dtype == BOOLEAN or dtype in (INT32, INT64):
+                return self._upload_plane(values, validity, dtype, cap)
+            return None
+        if len(values) == 0:
             return None
         n = len(values)
         dense_w = bucket_capacity(max(1, int(values.lengths.max())))
@@ -661,6 +1023,64 @@ class IngestEncoder:
 
     # -- internals -----------------------------------------------------
 
+    def _upload_plane(self, values, validity: np.ndarray, dtype: DataType,
+                      cap: int) -> Optional[DeviceColumn]:
+        """The plane column for host INT32, INT64 or BOOLEAN values, or
+        None (its key off, no byte won, nulls under delta).  An
+        ``io.encode`` fault sends it plain, counted as in the JAX
+        package: its plain bytes in raw and wire alike."""
+        rle, delta = _RLE, _DELTA
+        if not (_PACKED if dtype == BOOLEAN else rle or delta):
+            return None
+        n = len(values)
+        if n == 0:
+            return None
+        raw = cap * (np.dtype(dtype.numpy_dtype).itemsize + 1)
+        try:
+            faults.maybe_fail(FAULT_SITE_ENCODE,
+                              "injected ingest-encode failure")
+        except (IOError, OSError) as e:
+            _bump("encode_faults")
+            _bump("h2d_raw_bytes", raw)
+            _bump("h2d_wire_bytes", raw)
+            _bump("plain_columns")
+            _LOG.warning("ingest encode degraded to plain planes: %s", e)
+            return None
+        # the local scan keeps each decision over arrays no one can
+        # write, a decline too, so that a warm scan of them pays no host
+        # encode; a writable array is planned again every scan
+        key = ("plane", _array_id(values), _array_id(validity), dtype.name,
+               cap, rle, delta) \
+            if self.memo and _frozen(values, validity) else None
+        hit = None if key is None else _memo_get(key)
+        if hit is not None:
+            got = hit[0]
+        else:
+            t0 = time.perf_counter_ns()
+            got = plan_plane(values, validity, dtype, cap, rle, delta)
+            _bump("host_encode_ns", time.perf_counter_ns() - t0)
+            if key is not None:
+                _memo_put(key, got, None, (values, validity))
+        if got is None:
+            return None
+        kind, arrays, runs, wire = got
+        valid_pad = np.zeros(cap, np.bool_)
+        valid_pad[:n] = validity
+        put = [torch.from_numpy(a).to(self.device) for a in arrays]
+        valid_t = torch.from_numpy(valid_pad).to(self.device)
+        if kind == "packed":
+            col = PackedBoolColumn(put[0], valid_t, n, cap)
+        elif kind == "rle":
+            col = RleColumn(dtype, put[0], put[1], runs, valid_t, n, cap)
+        else:
+            col = DeltaColumn(dtype, put[0], put[1], valid_t, n, cap)
+        _bump("h2d_raw_bytes", raw)
+        _bump("h2d_wire_bytes", wire)
+        _bump(_PLANE_STATS[kind])
+        if self.metrics is not None:
+            self.metrics["encodedColumns"] += 1
+        return col
+
     def _encode_host(self, values, validity):
         key = None
         if self.memo:
@@ -717,11 +1137,8 @@ class IngestEncoder:
         if self.max_string_width is not None \
                 and width > self.max_string_width:
             return None, False
-        fp = hash((int(lengths.shape[0]),
-                   np.ascontiguousarray(chars[:, :width]).tobytes(),
-                   lengths.astype(np.int32).tobytes()))
-        hit = self._dicts.get(fp)
-        if hit is not None and hit.size == lengths.shape[0]:
+        hit = self._dicts.get(_fingerprint(chars[:, :width], lengths))
+        if hit is not None and hit.holds(chars, lengths):
             return hit, False
         planes = DictPlanes(chars, lengths, self.device)
         self._dicts[planes.fingerprint] = planes
@@ -1083,7 +1500,10 @@ def _deterministic(expr: Expression) -> bool:
 def stage_view(steps, batch, keys: Sequence[Expression] = (),
                keys_hash: bool = True) -> StageView:
     """The code-domain view of ``steps`` (and trailing partition-key
-    expressions) over ``batch``.  For each encoded input column:
+    expressions) over ``batch``.  Each plane column decodes here, in
+    the stage's own pass (counted ``fused_decodes``, as ``plane_view``
+    does), and the steps read it dense.  Then for each encoded input
+    column:
 
     * a deterministic subtree whose references are exactly that column
       becomes a ``DictGather`` of planes evaluated once over the
@@ -1099,15 +1519,21 @@ def stage_view(steps, batch, keys: Sequence[Expression] = (),
       ``keys_hash`` false, keys are values: a range partition's sort
       keys).
 
-    With no encoded column the view is the identity."""
-    from spark_rapids_tpu_torch.exprs.base import colvals
+    With no encoded column the steps are unchanged."""
+    cols = [_fused_colval(c) if isinstance(c, _PlaneColumn)
+            else code_colval(c) for c in batch.columns]
+    return _code_view(steps, batch, cols, keys, keys_hash)
 
+
+def _code_view(steps, batch, cols: List[ColVal],
+               keys: Sequence[Expression], keys_hash: bool) -> StageView:
+    """``stage_view``'s rewrite over the input ``cols`` the caller read
+    (an encoded column's codes among them)."""
     enc = {i: c for i, c in enumerate(batch.columns)
            if isinstance(c, EncodedColumn)}
     if not enc:
-        return StageView(tuple(steps), colvals(batch.columns), (), {},
+        return StageView(tuple(steps), cols, (), {},
                          tuple(keys) if keys else None)
-    cols = [code_colval(c) for c in batch.columns]
     aux: List[ColVal] = []
     aux_at: Dict[tuple, int] = {}
 
@@ -1187,7 +1613,8 @@ def stage_view(steps, batch, keys: Sequence[Expression] = (),
             else:
                 new_keys.append(rewrite(k, False)[0])
         new_keys = tuple(new_keys)
-    _bump("code_stages")
+    if enc:
+        _bump("code_stages")
     return StageView(tuple(out_steps), cols, tuple(aux), dict(live),
                      new_keys)
 
@@ -1205,8 +1632,11 @@ def eval_view(exprs: Sequence[Expression], batch, hashed: bool = False
     """``exprs`` over ``batch`` through its code view -> (the context,
     the rewritten expressions): encoded columns read as codes, each
     subtree over one a gather of its dictionary table; ``hashed`` takes
-    the expressions for hash keys (``stage_view``'s keys)."""
-    view = stage_view((), batch, exprs, keys_hash=hashed)
+    the expressions for hash keys (``stage_view``'s keys).  A plane
+    column reads as dense, through its late decode, which the rows'
+    gather after it reuses."""
+    view = _code_view((), batch, [code_colval(c) for c in batch.columns],
+                      exprs, hashed)
     ctx = EvalContext(view.cols, batch.num_rows, batch.capacity,
                       batch.device, aux=view.aux)
     return ctx, tuple(view.keys) if view.keys is not None else ()

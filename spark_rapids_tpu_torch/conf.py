@@ -193,6 +193,34 @@ COMPRESSED_MAX_COMPOSED_CELLS = register(
     "past it keep the one-column rewrites; 0 disables the composed "
     "rewrite.", int, _non_negative)
 
+COMPRESSED_RLE = register(
+    "spark.rapids.sql.compressed.rle.enabled", True,
+    "With compressed.ingest: the local, parquet and ORC scans upload an "
+    "INT32 or INT64 column as run values and cumulative run ends when "
+    "that crosses fewer bytes than the plain planes and the delta "
+    "encoding: a sorted or clustered column crosses as a few runs, and "
+    "the fused stage and the aggregate's update decode it in their own "
+    "pass (a searchsorted gather, counted in fused_decodes).  An "
+    "injected io.encode fault sends the column the plain way, counted.  "
+    "false = integer columns never ride RLE (the same results).", bool)
+
+COMPRESSED_DELTA = register(
+    "spark.rapids.sql.compressed.delta.enabled", True,
+    "With compressed.ingest: upload a null-free INT32 or INT64 column as "
+    "its first value and int8 or int16 row-to-row deltas when every "
+    "delta fits the narrow type and that crosses the fewest bytes: "
+    "monotonic ids and near-sorted keys cross at 1 or 2 bytes a row, "
+    "and the consuming stage or update decodes them (a cumsum, counted "
+    "in fused_decodes).  Columns with nulls or wide deltas ride plain.  "
+    "false = never delta-encode (the same results).", bool)
+
+COMPRESSED_PACKED_BOOL = register(
+    "spark.rapids.sql.compressed.packedBool.enabled", True,
+    "With compressed.ingest: upload a BOOLEAN column bit-packed (8 rows "
+    "a byte) and unpack it inside the consuming stage or update "
+    "(counted in fused_decodes).  false = booleans ride their plain "
+    "one-byte planes (the same results).", bool)
+
 CONCURRENT_TASKS = register(
     "spark.rapids.tpu.concurrentTasks", 2,
     "Number of tasks the device semaphore admits at once (runtime.py; "

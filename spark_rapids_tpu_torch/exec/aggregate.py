@@ -36,6 +36,9 @@ encoded through the merge, the evaluate and the result pull.  A single
 such key is an integer key to the dense-slot router, so K1 takes it when
 its codes fit; on the CPU both routes add a group's floats in row order,
 and on the card the kernel's float sums fall in its documented class.
+A plane column (RLE, delta-narrowed or bit-packed, ``encoding.py``)
+decodes in the phase's own pass (``plane_view``, counted
+``fused_decodes``), so the range probe and K1 see dense planes.
 
 Other string grouping keys take the sorted-segment path (the dense-slot
 router rejects them, as the JAX package's does): their sort keys are the packed
@@ -348,7 +351,10 @@ class TorchHashAggregateExec(TorchExec):
     def _run_phase(self, phase: str, batch: ColumnarBatch,
                    conf=None) -> ColumnarBatch:
         spec, vbatch, wrap = self._agg_view(phase, batch)
-        cols = colvals(vbatch.columns)
+        # a plane column (RLE, delta, packed) decodes here, in the
+        # phase's own pass, for the range probe, K1 and the sorted path
+        # alike: never through the late decode
+        cols = encoding.plane_view(vbatch.columns)
         if phase == "update" and conf is not None and batch.num_rows > 0:
             out = self._try_pallas_update(spec, cols, vbatch, conf)
             if out is not None:

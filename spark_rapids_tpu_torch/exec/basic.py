@@ -3,10 +3,12 @@
 Counterpart of ``spark_rapids_tpu/exec/basic.py``: ``TorchLocalScanExec``
 scans in-memory host columns, uploaded in batches of 1 << 20 rows, as in
 the JAX package (whatever the reader conf says), a low-cardinality string
-column as codes and a dictionary while compressed ingest is on (the JAX
-package's local scan uploads plain planes and encodes at its
-``HostToDeviceExec`` and file scans; the port's local scan is the path
-the card's machine, which has no pyarrow, runs); ``TorchRangeExec`` makes
+column as codes and a dictionary, and an integer or boolean column as an
+RLE, delta-narrowed or bit-packed plane where that crosses fewer bytes,
+while compressed ingest is on (the JAX package's local scan uploads
+plain planes and encodes at its ``HostToDeviceExec`` and file scans; the
+port's local scan is the path the card's machine, which has no pyarrow,
+runs); ``TorchRangeExec`` makes
 ``[start, end)`` by ``step`` on the device in batches of 1 << 20 rows;
 ``TorchUnionExec`` streams its children's batches back to back;
 ``TorchLocalLimitExec`` passes batches on until the limit is reached.

@@ -52,7 +52,10 @@ same order as over the table it was written from.  While compressed
 ingest is on, each batch's low-cardinality string columns are
 dictionary-encoded where their char matrices already are, on the device
 (``columnar/encoding.py: encode_batch_on_device``), into the dictionary
-and codes the host encoder makes of the same strings.
+and codes the host encoder makes of the same strings.  Its numeric
+columns stay plain: they are decoded on the device and never cross the
+link, so a plane encoding (RLE, delta, packed) would save no byte (the
+JAX package's CSV scan encodes them on the host: ROADMAP.md C).
 """
 
 from __future__ import annotations

@@ -4,11 +4,13 @@ Counterpart of ``spark_rapids_tpu/io/hostio.py``: ``coalesce_host_batches``
 combines the reader's record batches up to the scan's row cap before an
 upload, and ``make_uploader`` turns one ``(file index, record batch)``
 into a device batch with the file's hive partition columns appended,
-its string columns through the scan's ``IngestEncoder``
-(``columnar/encoding.py``) while compressed ingest is on.  The JAX
+its string, integer and boolean columns through the scan's
+``IngestEncoder`` (``columnar/encoding.py``) while compressed ingest is
+on.  The JAX
 package's double-buffered upload (``pipelined_h2d``) is not ported
 (ROADMAP.md, queue A6).  The CSV scan decodes, and encodes, on the
-device.
+device: its numeric columns never cross as host values, so they take no
+plane encoding.
 """
 
 from __future__ import annotations
@@ -48,10 +50,10 @@ def make_uploader(ctx, file_schema, part_schema=None, part_values=None,
     own.  ``to_device`` is the host-to-device conversion
     (``columnar/batch.py: host_batch_to_device`` unless the scan names
     its own).  While compressed ingest is on, the scan's
-    ``IngestEncoder`` takes its string columns: a column the reader
-    gave as an Arrow dictionary (parquet's ``read_dictionary``) is
-    decided from that dictionary, any other from its host values;
-    ``encodedColumns`` counts on ``metrics``."""
+    ``IngestEncoder`` takes its string, integer and boolean columns: a
+    column the reader gave as an Arrow dictionary (parquet's
+    ``read_dictionary``) is decided from that dictionary, any other
+    from its host values; ``encodedColumns`` counts on ``metrics``."""
     from spark_rapids_tpu_torch.columnar.batch import \
         host_batch_to_device, host_columns_from_arrow
     from spark_rapids_tpu_torch.columnar.column import bucket_capacity

@@ -44,8 +44,13 @@ recorded under the catalog's lock as it happens, written after the lock
 is released at the JAX package's sites (a promotion, ``spill_all``, a
 query budget's demotions and ``reserve``).
 
-Not carried over yet: the encoded columns' planes (queue A6), the
-device scan cache's entries (A7a), the conf-driven allocation log, and
+An encoded string column spills its codes and validity and keeps its
+shared dictionary on the device; a plane column (RLE, delta-narrowed or
+bit-packed, ``columnar/encoding.py``) spills its compressed planes; each
+comes back as the same class, never decoded.
+
+Not carried over yet: the device scan cache's entries (A7a), the
+conf-driven allocation log, and
 the JAX package's ``HostStagingLimiter`` on tier transitions: every
 transition here runs under the catalog's lock, so no two of them stage
 at once and a cap on them could never make one wait.
@@ -70,9 +75,8 @@ import torch
 
 from spark_rapids_tpu_torch import faults, lifecycle
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn
-from spark_rapids_tpu_torch.columnar.encoding import EncodedColumn, \
-    col_planes
+from spark_rapids_tpu_torch.columnar.encoding import restore_column, \
+    stored_planes
 from spark_rapids_tpu_torch.errors import QueryBudgetExceededError
 from spark_rapids_tpu_torch.obs import journal
 
@@ -127,11 +131,12 @@ class SpillableBatch:
         # an encoded column spills its codes and validity, never a dense
         # char matrix; its shared dictionary stays on the device in
         # _dicts (small, shared with other handles) and the column
-        # re-wraps on the way back, as in the JAX package
-        self._device: Optional[List[tuple]] = [
-            col_planes(c, True) for c in batch.columns]
-        self._dicts = [c.dict if isinstance(c, EncodedColumn) else None
-                       for c in batch.columns]
+        # re-wraps on the way back, as in the JAX package; a plane
+        # column spills its compressed planes (_kinds: how to rebuild)
+        stored = [stored_planes(c) for c in batch.columns]
+        self._device: Optional[List[tuple]] = [p for p, _, _ in stored]
+        self._dicts = [d for _, d, _ in stored]
+        self._kinds = [k for _, _, k in stored]
         # host tier: CPU tensors; a bool plane is stored bit-packed and
         # its row count kept in _packed (0 for a plane stored as is)
         self._host: Optional[List[tuple]] = None
@@ -275,11 +280,10 @@ class SpillableBatch:
                     cat._move(self.size, TIER_HOST, TIER_DEVICE)
                     cat.unspill_count += 1
                 cat._touch(self)
-                cols = [DeviceColumn(dt, d, v, self.num_rows, ch)
-                        if dct is None else
-                        EncodedColumn(d, v, self.num_rows, dct)
-                        for dt, (d, v, ch), dct in zip(
-                            self._dtypes, self._device, self._dicts)]
+                cols = [restore_column(dt, planes, self.num_rows, dct, kind)
+                        for dt, planes, dct, kind in zip(
+                            self._dtypes, self._device, self._dicts,
+                            self._kinds)]
                 out = ColumnarBatch(cols, self.num_rows, self.schema)
         finally:
             with cat._lock:
