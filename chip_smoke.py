@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--package-root DIR] [--kernels-only]
                           [--sass-dir DIR] [--layer-cost] [--string-paths]
                           [--files-only] [--compressed-only]
-                          [--planes-only]
+                          [--planes-only] [--transfer-only]
 
 Phases, each printing one JSON line:
 
@@ -334,8 +334,27 @@ come out bit for bit alike (``float_sum_results_of_5``).
    bounds).  Each line adds the plane counters, each operator's
    encodedColumns and the h2d bytes by encoding and by column.
    ``--planes-only`` builds the kernels and runs this phase alone.
+26. transfer: the transfer path (pinned uploads on a copy stream,
+   double-buffered through ``pipelined_scan``; the packed one-pull
+   result egress; the staging limiters), each cell with its key on and
+   off: SF1 TPC-H q1, q6 and q3 through the local scan with
+   ``spark.rapids.sql.io.prefetch.enabled`` on and off (warm scan ms,
+   query seconds, ``h2dOverlapMs``, one traced run each for the idle
+   share), against numpy; hash_agg_sort_2m the same way, K1 launched
+   and held against its plain version on the query's own update batch;
+   project_filter_1m's result with ``spark.rapids.sql.transfer.pack.
+   enabled`` on and off (bit for bit equal, 2 pulls on, wire / raw,
+   ``to_numpy`` seconds); SF1 lineitem written as CSV and read typed
+   with prefetch on and off (read seconds, the traced read's idle
+   share); the pack at 2^20 rows beside its read-once bound; q1 with
+   the three staging limiters at 64 MB (``pinnedPool.size``), equal to
+   the uncapped run, its staging waits printed.  Every pair must be
+   equal; a wrong result fails the run.  ``--transfer-only`` builds the
+   kernels and runs this phase alone; with ``--package-root`` it runs
+   the same cells over an earlier tree's package (the pack's own cell
+   is skipped where it has no ``columnar/transfer.py``).
 
-Each path of phases 5 to 25 runs with the launch counts set to 0 just
+Each path of phases 5 to 26 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -390,8 +409,10 @@ import numpy as np
 
 SEED = 7
 LINEITEM_ROWS = 6_001_215
-# the port's profiler ranges
-RANGES = ("join.", "window.", "exchange.", "plan.")
+# the port's named ranges (their device spans are not device work of
+# their own): the joins', windows', exchanges' and planner's, and the
+# transfer path's (io.h2d.overlap, io.prefetch.wait, io.d2h.*)
+RANGES = ("join.", "window.", "exchange.", "plan.", "io.")
 DIM_ROWS = 10_000
 NEEDLE = "special requests"   # TPC-H Q13's two words as one 16-byte needle
 SHORT_NEEDLE = "special"
@@ -5143,6 +5164,338 @@ def phase_planes(torch, st, F, native, pag, tpch, agg_data, errs: dict,
     emit("planes_phase", seconds=time.perf_counter() - t0, nvidia_smi=smi)
 
 
+# -- phase 26: the transfer path ---------------------------------------------
+
+PREFETCH_ON = {"spark.rapids.sql.io.prefetch.enabled": True}
+PREFETCH_OFF = {"spark.rapids.sql.io.prefetch.enabled": False}
+PACK_ON = {"spark.rapids.sql.transfer.pack.enabled": True}
+PACK_OFF = {"spark.rapids.sql.transfer.pack.enabled": False}
+PINNED_POOL_CONF = {**PREFETCH_ON,
+                    "spark.rapids.memory.pinnedPool.size": 64 << 20,
+                    "spark.rapids.memory.tpu.pooling.enabled": True}
+TRANSFER_TPCH = ("q1", "q6", "q3")
+TRANSFER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "_smoke_files", "transfer")
+
+
+def transfer_module():
+    """The driven package's ``columnar/transfer.py``, or None in a
+    package from before it (``--package-root`` of an earlier tree, which
+    phase 26 times beside this one)."""
+    import importlib.util
+    if importlib.util.find_spec(
+            "spark_rapids_tpu_torch.columnar.transfer") is None:
+        return None
+    from spark_rapids_tpu_torch.columnar import transfer
+    return transfer
+
+
+def d2h_since(before):
+    """``transfer.d2h_stats()`` since ``before`` (None without it)."""
+    tr = transfer_module()
+    if tr is None:
+        return None
+    after = tr.d2h_stats()
+    return {k: after[k] - (before or {}).get(k, 0) for k in after}
+
+
+def _d2h_now():
+    tr = transfer_module()
+    return None if tr is None else tr.d2h_stats()
+
+
+def prefetch_pair(torch, st, name: str, build, verify, runs: int = 2,
+                  smi: str = "", trace: bool = True):
+    """``build(session)``'s query with ``spark.rapids.sql.io.prefetch.
+    enabled`` on and off, each one warm-up and ``runs`` timed runs
+    through the result egress (``_host``), then (``trace``) one run under
+    torch.profiler (its ``trace`` line has the idle share): warm scan ms,
+    query seconds, the scans' ``h2dOverlapMs``, the pulls; the two
+    results bit for bit alike and ``verify``'d -> the on result."""
+    t_cell = time.perf_counter()
+    res, line = {}, {}
+    for mode, conf in (("on", PREFETCH_ON), ("off", PREFETCH_OFF)):
+        s = st.TorchSession(conf)
+        q = build(s)
+        _, first = _timed(torch, q._host)
+        secs, scans, overlap = [], [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            res[mode] = q._host()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            scans.append(scan_ms(s._last_plan))
+            overlap.append(int(metric_sum(s._last_plan, "h2dOverlapMs")))
+        line[mode] = {"first_seconds": first, "seconds": secs,
+                      "scan_ms": scans, "h2dOverlapMs": overlap,
+                      "d2hPulls": int(metric_sum(s._last_plan, "d2hPulls")),
+                      "prefetchBatches": int(metric_sum(
+                          s._last_plan, "prefetchBatches"))}
+        if trace:
+            phase_trace(torch, q._host, f"{name}_prefetch_{mode}")
+    host_same_rows(res["on"], res["off"], f"{name}: prefetch on against off")
+    check(res["on"].equals(res["off"]),
+          f"{name}: prefetch on and off differ bit for bit")
+    verify(res["on"])
+    emit("transfer", cell=name, rows=res["on"].num_rows, on=line["on"],
+         off=line["off"], cell_seconds=time.perf_counter() - t_cell,
+         nvidia_smi=smi)
+    return res["on"]
+
+
+def _transfer_tpch(torch, st, tpch, smi: str) -> dict:
+    """SF1 TPC-H q1, q6 and q3 through the local scan, prefetch on and
+    off, against numpy -> {query: on result}."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    out = {}
+    for qname in TRANSFER_TPCH:
+        want, limit = tpch_reference(tpch, qname)
+        out[qname] = prefetch_pair(
+            torch, st, f"transfer_tpch_{qname}",
+            lambda s, q=qname: TPCH_QUERIES[q](load_tables(s, tpch)),
+            lambda r, w=want, lim=limit, q=qname: _check_host(r, w, lim, q),
+            smi=smi)
+    return out
+
+
+def _transfer_agg(torch, st, F, native, pag, agg_data, smi: str) -> float:
+    """hash_agg_sort_2m over the pipelined upload, prefetch on and off:
+    K1 launches, the result against numpy, and K1 against its plain
+    version on the query's own update batch (prefetch on) -> its error."""
+    keys, counts, sums, maxes = group_stats(agg_data["k"], agg_data["v"],
+                                            agg_data["w"])
+
+    def verify(r):
+        cols = r.columns
+        check(r.num_rows == len(keys), "transfer_hash_agg_sort_2m: groups")
+        check(np.array_equal(cols["k"][0], keys)
+              and np.array_equal(cols["cnt"][0], counts)
+              and np.array_equal(cols["mx"][0], maxes)
+              and np.allclose(cols["s"][0], sums, rtol=1e-9, atol=0),
+              "transfer_hash_agg_sort_2m differs from numpy")
+
+    before = native.LAUNCHES["dense_slot_reduce"]
+    prefetch_pair(torch, st, "transfer_hash_agg_sort_2m",
+                  lambda s: agg_query(st, F, s.create_dataframe(agg_data)),
+                  verify, smi=smi, trace=False)
+    check(native.LAUNCHES["dense_slot_reduce"] > before,
+          "transfer_hash_agg_sort_2m: K1 never launched")
+    s = st.TorchSession(PREFETCH_ON)
+    return phase_kernel_path(torch, pag, s, agg_query(
+        st, F, s.create_dataframe(agg_data)), "transfer_hash_agg_sort_2m")
+
+
+def _transfer_pack_pair(torch, st, main, smi: str) -> None:
+    """project_filter_1m's result (about 450,000 rows of two doubles and
+    a long) with the pack on and off: bit for bit equal, the pulls of a
+    run, wire / raw, and the ``to_numpy`` seconds."""
+    col = st.col
+    res, line = {}, {}
+    for mode, conf in (("on", PACK_ON), ("off", PACK_OFF)):
+        s = st.TorchSession(conf)
+        q = (s.create_dataframe(main)
+             .filter((col("v") > 0.0) & (col("k") < 900))
+             .select((col("v") * 2.0 + 1.0).alias("a"),
+                     (col("v") + col("w")).alias("b"), col("k")))
+        q._host()
+        torch.cuda.synchronize()
+        secs = []
+        before = _d2h_now()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            q.to_numpy()
+            secs.append(time.perf_counter() - t0)
+        d = d2h_since(before)
+        res[mode] = q._host()
+        line[mode] = {"to_numpy_seconds": secs,
+                      "d2hPulls": int(metric_sum(s._last_plan, "d2hPulls")),
+                      "d2h_of_2_runs": d,
+                      "wire_over_raw": None if not d or not d["raw_bytes"]
+                      else d["wire_bytes"] / d["raw_bytes"]}
+    check(res["on"].equals(res["off"]),
+          "transfer_project_filter_1m: pack on and off differ")
+    k, v, w = main["k"], main["v"], main["w"]
+    keep = (v > 0.0) & (k < 900)
+    a = res["on"].columns
+    check(res["on"].num_rows == int(keep.sum())
+          and np.array_equal(a["a"][0], v[keep] * 2.0 + 1.0)
+          and np.array_equal(a["b"][0], v[keep] + w[keep].astype(np.float64))
+          and np.array_equal(a["k"][0], k[keep]),
+          "transfer_project_filter_1m differs from numpy")
+    if transfer_module() is not None:
+        check(line["on"]["d2hPulls"] == 2,
+              f"transfer_project_filter_1m: {line['on']['d2hPulls']} pulls "
+              "with the pack on, not 2 (stats, then data)")
+    emit("transfer", cell="transfer_project_filter_1m",
+         rows=res["on"].num_rows, pack_on=line["on"], pack_off=line["off"],
+         nvidia_smi=smi)
+
+
+def _transfer_csv(torch, st, tpch_dfs, smi: str) -> None:
+    """SF1 lineitem written as CSV, read typed with prefetch on and off:
+    the read seconds and each traced read's idle share (PR 13's traced
+    read: idle 0.627 of 0.711 s), every value against the in-memory
+    table."""
+    import shutil
+    mem = tpch_dfs["lineitem"]
+    shutil.rmtree(TRANSFER_DIR, ignore_errors=True)
+    path = os.path.join(TRANSFER_DIR, "lineitem")
+    _, write_s = _timed(torch, lambda: mem.write.csv(path))
+    schema = mem.plan.output_schema()
+    want = mem.to_torch()
+    line = {}
+    try:
+        for mode, conf in (("on", PREFETCH_ON), ("off", PREFETCH_OFF)):
+            s = st.TorchSession(conf)
+            df = s.read.schema(schema).csv(path)
+            got, _ = _timed(torch, df.to_torch)
+            same_result(torch, got, want, f"transfer_csv_lineitem_sf1 {mode}")
+            secs = [_timed(torch, df.to_torch)[1] for _ in range(2)]
+            line[mode] = {"read_s": secs,
+                          "host_read_s": metric_sum(s._last_plan,
+                                                    "csvReadTime") / 1e9,
+                          "upload_s": metric_sum(s._last_plan,
+                                                 "uploadTime") / 1e9,
+                          "h2dOverlapMs": int(metric_sum(s._last_plan,
+                                                         "h2dOverlapMs"))}
+            phase_trace(torch, df, f"transfer_csv_lineitem_sf1_prefetch_{mode}")
+    finally:
+        shutil.rmtree(TRANSFER_DIR, ignore_errors=True)
+    emit("transfer", cell="transfer_csv_lineitem_sf1", write_s=write_s,
+         on=line["on"], off=line["off"], nvidia_smi=smi)
+
+
+def _transfer_pack_times(torch, st, rate: float, smi: str) -> None:
+    """The pack (torch ops) at 2^20 rows of a long key, a double, a date,
+    a boolean and a 16-byte string, with the stats plan, and the stats
+    pass over the same batch, each warm and with L2 cold, beside its
+    read-once bound (the planes read and, for the pack, the wire planes
+    written, over the card's memory rate); the whole pull beside a
+    ``.cpu()`` of the same planes."""
+    tr = transfer_module()
+    if tr is None:
+        emit("transfer", cell="transfer_pack_2m20", skipped="no "
+             "columnar/transfer.py in this package", nvidia_smi=smi)
+        return
+    from spark_rapids_tpu_torch.columnar.batch import host_batch_to_device, \
+        host_columns_from_numpy
+    from spark_rapids_tpu_torch.columnar.encoding import col_planes
+    n = 1 << 20
+    rng = np.random.default_rng(SEED + 26)
+    schema, cols = host_columns_from_numpy({
+        "k": rng.integers(0, 100_000, n),
+        "v": rng.normal(size=n),
+        "d": rng.integers(8000, 11000, n).astype("datetime64[D]"),
+        "b": rng.random(n) < 0.5,
+        "s": np.array([f"{x:016d}" for x in rng.integers(0, 10 ** 15, n)])})
+    batch = host_batch_to_device(schema, cols, st.TorchSession({}).device)
+    dtypes = [f.dtype for f in schema]
+    pend = tr.pack_dispatch([batch], schema, 0)
+    flats = [[col_planes(c, False) for c in batch.columns]]
+    out_cap = tr.transfer_bucket(n)
+
+    def pack():
+        return tr._pack(flats, [n], out_cap, dtypes, pend.plans)
+
+    def stats():
+        return tr._stats(flats, [n], dtypes, {})
+
+    planes = pack()
+    read = sum(t[:n].numel() * t.element_size() for f in flats[0] for t in f
+               if t is not None)
+    wrote = sum(t.numel() * t.element_size() for p in planes for t in p
+                if t is not None)
+    # the stats read the int-like and string columns' data and validity
+    stats_read = sum(t.numel() * t.element_size()
+                     for f, (d, v, _) in zip(schema, flats[0])
+                     if f.name in ("k", "d", "s") for t in (d, v))
+    got = tr.pack_finish(pend)
+    want = {f.name: v for f, v in zip(schema, (
+        c.data[:n].cpu().numpy() for c in batch.columns))}
+    for name in ("k", "v", "d", "b"):
+        check(np.array_equal(got[name][0], want[name]),
+              f"transfer_pack_2m20: {name} differs from .cpu()")
+    _, pull_s = _timed(torch, lambda: tr.pack_and_pull([batch], schema, 0))
+    _, cpu_s = _timed(torch, lambda: [(c.data.cpu(), c.validity.cpu(),
+                                       None if c.chars is None
+                                       else c.chars.cpu())
+                                      for c in batch.columns])
+    emit("transfer", cell="transfer_pack_2m20", rows=n,
+         stores={f.name: p.store for f, p in zip(schema, pend.plans)},
+         read_bytes=read, wire_bytes=wrote, ms=per_call_ms(torch, pack),
+         cold_ms=cold_ms(torch, pack), bound_ms=(read + wrote) / rate * 1e3,
+         stats_read_bytes=stats_read, stats_ms=per_call_ms(torch, stats),
+         stats_cold_ms=cold_ms(torch, stats),
+         stats_bound_ms=stats_read / rate * 1e3,
+         pack_and_pull_s=pull_s, plain_cpu_pull_s=cpu_s, mem_rate=rate,
+         nvidia_smi=smi)
+
+
+def _transfer_pinned_pool(torch, st, tpch, want, smi: str) -> None:
+    """TPC-H q1 with prefetch on and the three staging limiters capped at
+    64 MB (pinnedPool.size, pooling on) on a runtime of its own: the
+    result equal to the uncapped run's, the staging waits printed."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    from spark_rapids_tpu_torch.obs import registry
+    from spark_rapids_tpu_torch.runtime import TorchRuntime
+    s = fresh_session(st, PINNED_POOL_CONF)
+    try:
+        q = TPCH_QUERIES["q1"](load_tables(s, tpch))
+        secs = []
+        for _ in range(3):
+            got, t = _timed(torch, q._host)
+            secs.append(t)
+            check(got.equals(want), "transfer_pinned_pool_64mb: q1 "
+                  "differs from the uncapped run")
+        cat = s.runtime.catalog
+        limiters = {name: getattr(cat, name, None) for name in
+                    ("staging", "prefetch_staging", "egress_staging")}
+        hists = registry.histogram_snapshots()
+        emit("transfer", cell="transfer_pinned_pool_64mb",
+             seconds_first_and_warm=secs,
+             caps={k: getattr(v, "cap", None) for k, v in limiters.items()},
+             waits={k: getattr(v, "wait_count", None)
+                    for k, v in limiters.items()},
+             wait_us={k: hists.get(f"staging.{k}.wait.us") for k in
+                      ("spill", "prefetch", "egress")},
+             nvidia_smi=smi)
+    finally:
+        TorchRuntime.reset()
+
+
+def phase_transfer(torch, st, F, native, pag, tpch, tpch_dfs, agg_data,
+                   main, errs: dict, smi: str, rate: float) -> None:
+    """Phase 26: the transfer path (pinned, double-buffered uploads, the
+    packed egress, the staging limiters), each cell with its key on and
+    off in one call."""
+    t0 = time.perf_counter()
+    q = _transfer_tpch(torch, st, tpch, smi)
+    errs["dense_slot_reduce"] = _transfer_agg(torch, st, F, native, pag,
+                                              agg_data, smi)
+    _transfer_pack_pair(torch, st, main, smi)
+    _transfer_csv(torch, st, tpch_dfs, smi)
+    _transfer_pack_times(torch, st, rate, smi)
+    _transfer_pinned_pool(torch, st, tpch, q["q1"], smi)
+    emit("transfer_phase", seconds=time.perf_counter() - t0, nvidia_smi=smi)
+
+
+def transfer_only(torch, st, F, native, pag, main_data, agg_data, name: str,
+                  smi: str, rate: float) -> int:
+    """``--transfer-only``: phase 26 and its data alone."""
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy, load_tables
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    session = st.TorchSession.builder().get_or_create()
+    native.reset_launches()
+    phase_transfer(torch, st, F, native, pag, tpch,
+                   load_tables(session, tpch), agg_data, main_data, {}, smi,
+                   rate)
+    emit("launches", path="transfer", counts=dict(native.LAUNCHES))
+    print(json.dumps({"ok": True, "transfer_only": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def planes_only(torch, st, F, native, pag, agg_data, name: str, smi: str,
                 rate: float) -> int:
     """``--planes-only``: phase 25 and its data alone."""
@@ -5205,6 +5558,11 @@ def parse_args(argv):
                     help="build the kernels, run phase 25 (RLE, delta and "
                          "bit-packed columns, each cell on and off) with "
                          "its launch counts, and stop")
+    ap.add_argument("--transfer-only", action="store_true",
+                    help="build the kernels, run phase 26 (pinned, "
+                         "double-buffered uploads and the packed egress, "
+                         "each cell with its key on and off) with its "
+                         "launch counts, and stop")
     ap.add_argument("--string-paths", action="store_true",
                     help="time LIKE/RLIKE's two matchers and replace's "
                          "two paths on the breadth queries' columns and "
@@ -5255,6 +5613,9 @@ def main(argv=None) -> int:
     if args.planes_only:
         return planes_only(torch, st, F, native, pag, agg_data, name, smi,
                            rate)
+    if args.transfer_only:
+        return transfer_only(torch, st, F, native, pag, main_data, agg_data,
+                             name, smi, rate)
     t0 = time.perf_counter()
     line = gen_lineitem(LINEITEM_ROWS, SEED + 2)
     session = st.TorchSession.builder().get_or_create()
@@ -5392,6 +5753,11 @@ def main(argv=None) -> int:
           plane_errs, smi, rate)
     dsr["max_abs_err"] = max(dsr["max_abs_err"],
                              plane_errs["dense_slot_reduce"])
+    transfer_errs = {}
+    drive("transfer", phase_transfer, torch, st, F, native, pag, tpch,
+          tpch_dfs, agg_data, main_data, transfer_errs, smi, rate)
+    dsr["max_abs_err"] = max(dsr["max_abs_err"],
+                             transfer_errs["dense_slot_reduce"])
     # the replicas count their own launches; they join the kernels line
     replica_launches = {}
     drive("fleet", phase_fleet, torch, st, native, tpch, agg_data, smi,

@@ -33,7 +33,7 @@ import torch
 from spark_rapids_tpu_torch import lifecycle
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch, HostColumns, HostStrings, concat_host_values,
-    device_batch_to_host, empty_host_values, host_columns_from_arrow,
+    empty_host_values, host_columns_from_arrow,
     host_columns_from_numpy, host_columns_to_arrow,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DATE, STRING, \
@@ -661,12 +661,16 @@ class DataFrame:
                 query_trace(self.session.conf):
             yield qc
 
-    def _execute(self):
-        """Plan and run the query, in its query scope; the device batches
-        of its result.  The session keeps the plan and the query's
-        context once the drain succeeded (a failed query leaves the
-        earlier query's profile in place)."""
+    def _execute(self, egress: bool = False):
+        """Plan and run the query, in its query scope -> (its schema, its
+        result): the device batches, or with ``egress`` the host parts
+        of the result egress (``exec/basic.py: device_to_host``, whose
+        pull metrics go on the root operator).  The session keeps the
+        plan and the query's context once the drain succeeded (a failed
+        query leaves the earlier query's profile in place)."""
+        from spark_rapids_tpu_torch.exec.basic import device_to_host
         root = plan_query(self.plan, self.session.conf)
+        schema = root.output_schema
         with self._query() as qc:
             ctx = ExecContext(self.session.conf, self.session.device,
                               self.session.runtime)
@@ -674,12 +678,17 @@ class DataFrame:
             # with them the handles and threads they hold, on an error
             # as well
             with contextlib.closing(root.execute(ctx)) as stream:
-                batches = list(stream)
+                if egress:
+                    with contextlib.closing(device_to_host(
+                            stream, schema, ctx, root.metrics)) as parts:
+                        out = list(parts)
+                else:
+                    out = list(stream)
         if qc.sem_wait_ms:
             root.metrics["semWaitMs"] += qc.sem_wait_ms
         self.session._last_plan = root
         self.session._last_query = qc
-        return root.output_schema, batches
+        return schema, out
 
     def to_device_batches(self) -> List[ColumnarBatch]:
         """Run the query and return its result's ``ColumnarBatch``es as
@@ -697,7 +706,7 @@ class DataFrame:
         every other non-zero metric (``obs/profile.py``)."""
         import sys
         if analyze:
-            self._execute()
+            self._execute(egress=True)
             txt = self.session.last_query_profile().render()
         else:
             root = plan_query(self.plan, self.session.conf)
@@ -707,13 +716,10 @@ class DataFrame:
         return txt
 
     def _host(self) -> "HostResult":
-        """The result on the host; the pulls run in the query's scope,
-        each bounded by the hang watchdog (``lifecycle.supervise``)."""
-        with self._query():
-            schema, batches = self._execute()
-            parts = [lifecycle.supervise(
-                lambda b=b: device_batch_to_host(b, schema))
-                for b in batches]
+        """The result on the host, through the result egress in the
+        query's scope (each pull bounded by the hang watchdog,
+        ``transfer.device_pull``)."""
+        schema, parts = self._execute(egress=True)
         cols = {}
         for f in schema:
             if parts:

@@ -9,8 +9,9 @@ matrix and int32 byte lengths the card holds, built from numpy ``U``
 arrays or from Arrow's offsets and bytes without a loop over the rows
 (``S`` and object arrays encode their values one by one).
 
-The result pull (``columnar/transfer.py:device_pull`` in the JAX
-package) is a plain ``.cpu()`` of the planes trimmed to the row count.
+Uploads go through ``columnar/transfer.py: Upload`` (pinned, on the
+copy stream, ordered before the consumer reads the batch) and every
+pull through ``columnar/transfer.py: device_pull``, one pull a batch.
 """
 
 from __future__ import annotations
@@ -187,15 +188,18 @@ HostColumns = Dict[str, Tuple[Union[np.ndarray, HostStrings], np.ndarray]]
 
 
 class ColumnarBatch:
-    """A batch of device columns sharing one row count and capacity."""
+    """A batch of device columns sharing one row count and capacity.
+    ``ready``: the event of an upload the consumer's stream has not
+    waited on yet (``transfer.await_upload``), else None."""
 
-    __slots__ = ("columns", "num_rows", "schema")
+    __slots__ = ("columns", "num_rows", "schema", "ready")
 
     def __init__(self, columns: List[DeviceColumn], num_rows: int,
                  schema: Optional[Schema] = None):
         self.columns = columns
         self.num_rows = int(num_rows)
         self.schema = schema
+        self.ready = None
 
     @property
     def capacity(self) -> int:
@@ -253,15 +257,19 @@ def host_values(values: np.ndarray, dtype) -> np.ndarray:
 
 
 def upload_column(dtype, values, validity: np.ndarray, capacity: int,
-                  device, max_string_width: Optional[int] = None
-                  ) -> DeviceColumn:
+                  device, max_string_width: Optional[int] = None,
+                  up=None) -> DeviceColumn:
     """Host values + validity -> one device column padded to capacity
-    (padding rows hold 0 and are invalid, as in the JAX package).  A
-    string column's width is the bucket of this batch's longest string;
-    past ``max_string_width`` it raises, as the JAX package does."""
+    (padding rows hold 0 and are invalid, as in the JAX package), its
+    planes copied through ``up`` (a ``transfer.Upload``; one of its own,
+    waited on at once, when None).  A string column's width is the
+    bucket of this batch's longest string; past ``max_string_width`` it
+    raises, as the JAX package does."""
+    from spark_rapids_tpu_torch.columnar import transfer
+    own = up is None
+    if own:
+        up = transfer.Upload(device)
     n = len(values)
-    valid = np.zeros(capacity, dtype=np.bool_)
-    valid[:n] = validity
     if dtype == STRING:
         width = bucket_capacity(max(1, int(values.lengths.max()) if n
                                     else 1))
@@ -269,33 +277,41 @@ def upload_column(dtype, values, validity: np.ndarray, capacity: int,
             raise ValueError(
                 f"string width {width} exceeds device limit "
                 f"{max_string_width} (spark.rapids.sql.maxDeviceStringWidth)")
-        chars = np.zeros((capacity, width), np.uint8)
-        chars[:n] = values.chars[:, :width]
-        lengths = np.zeros(capacity, np.int32)
-        lengths[:n] = values.lengths
-        return DeviceColumn(STRING, torch.from_numpy(lengths).to(device),
-                            torch.from_numpy(valid).to(device), n,
-                            torch.from_numpy(chars).to(device))
-    values = host_values(values, dtype)
-    data = np.zeros(capacity, dtype=values.dtype)
-    data[:n] = values
-    return DeviceColumn(dtype, torch.from_numpy(data).to(device),
-                        torch.from_numpy(valid).to(device), n)
+        chars = values.chars
+        if chars.shape[1] != width:
+            chars = np.pad(chars[:, :width],
+                           ((0, 0), (0, max(0, width - chars.shape[1]))))
+        col = DeviceColumn(STRING, up.plane(values.lengths, capacity),
+                           up.plane(validity, capacity), n,
+                           up.plane(chars, capacity))
+    else:
+        col = DeviceColumn(dtype, up.plane(host_values(values, dtype),
+                                           capacity),
+                           up.plane(validity, capacity), n)
+    if own:
+        transfer.await_event(up.finish())
+    return col
 
 
 def host_batch_to_device(schema: Schema, cols: HostColumns, device,
                          max_string_width: Optional[int] = None,
-                         encoder=None, decided=None) -> ColumnarBatch:
+                         encoder=None, decided=None, up=None,
+                         defer: bool = False) -> ColumnarBatch:
     """Host columns (all of one length) -> device batch.  ``encoder``
     (``columnar/encoding.py: IngestEncoder``, which the scans make while
     ``spark.rapids.sql.compressed.ingest`` is on) may take a string
     column: it uploads codes and a dictionary instead; a column it
     declines uploads its plain planes.  ``decided`` names the columns
     the encoder already decided on (name -> the encoded column, or None
-    for plain)."""
+    for plain).  Every plane goes through ``up`` (a ``transfer.Upload``,
+    made here when None); with ``defer`` the batch keeps the upload's
+    event in ``ready`` for the consumer to wait on
+    (``pipelined_h2d``), else the current stream waits on it here."""
+    from spark_rapids_tpu_torch.columnar import transfer
     n = len(cols[schema[0].name][0]) if len(schema) else 0
     cap = bucket_capacity(n)
     decided = decided or {}
+    up = up if up is not None else transfer.Upload(device)
     out = []
     for f in schema:
         values, valid = cols[f.name]
@@ -303,10 +319,14 @@ def host_batch_to_device(schema: Schema, cols: HostColumns, device,
             col = decided[f.name]
         else:
             col = None if encoder is None else \
-                encoder.upload_column(values, valid, f.dtype, cap)
+                encoder.upload_column(values, valid, f.dtype, cap, up)
         out.append(col if col is not None else upload_column(
-            f.dtype, values, valid, cap, device, max_string_width))
-    return ColumnarBatch(out, n, schema)
+            f.dtype, values, valid, cap, device, max_string_width, up))
+    batch = ColumnarBatch(out, n, schema)
+    batch.ready = up.finish()
+    if not defer:
+        transfer.await_upload(batch)
+    return batch
 
 
 def empty_batch(schema: Schema, device) -> ColumnarBatch:
@@ -408,30 +428,48 @@ def _arrow_strings(arr) -> HostStrings:
 # device -> host
 # ---------------------------------------------------------------------------
 
-def device_batch_to_host(batch: ColumnarBatch,
-                         schema: Optional[Schema] = None) -> HostColumns:
-    """Device batch -> host columns trimmed to the row count; a string
-    column comes back as its lengths and char matrix, whole (the
-    counterpart of JAX ``columnar/batch.py:289-330``).  While
-    ``spark.rapids.sql.compressed.egress`` is on, an encoded column
-    brings its codes and validity across and its strings are looked up
-    in the dictionary's host copy (``encoding.pull_encoded``); off, it
-    decodes on the device first."""
+def pull_planes(batch: ColumnarBatch) -> list:
+    """What ``device_batch_to_host`` pulls of each column: the first
+    ``num_rows`` rows of its planes, an encoded column's codes and
+    validity while ``spark.rapids.sql.compressed.egress`` is on (off, it
+    decodes on the device first)."""
     from spark_rapids_tpu_torch.columnar import encoding
-    schema = schema or batch.schema
     n = batch.num_rows
-    out = {}
-    for f, c in zip(schema, batch.columns):
+    out = []
+    for c in batch.columns:
         if isinstance(c, encoding.EncodedColumn) \
                 and encoding.egress_enabled():
-            out[f.name] = encoding.pull_encoded(c, n)
-            continue
-        valid = c.validity[:n].cpu().numpy()
-        if c.chars is not None:
-            out[f.name] = (HostStrings(c.chars[:n].cpu().numpy(),
-                                       c.data[:n].cpu().numpy()), valid)
+            out.append((c.codes[:n], c.validity[:n], None))
         else:
-            out[f.name] = (c.data[:n].cpu().numpy(), valid)
+            out.append((c.data[:n], c.validity[:n],
+                        None if c.chars is None else c.chars[:n]))
+    return out
+
+
+def device_batch_to_host(batch: ColumnarBatch,
+                         schema: Optional[Schema] = None,
+                         metrics=None, staged=None) -> HostColumns:
+    """Device batch -> host columns trimmed to the row count, every plane
+    in one pull (``transfer.device_pull``; ``staged``, a
+    ``transfer.start_host_copies`` of ``pull_planes(batch)``, when its
+    copies were started earlier).  A string column comes back as its
+    lengths and char matrix, whole (the counterpart of JAX
+    ``columnar/batch.py:331``); an encoded column's strings are looked
+    up in its dictionary's host copy (``encoding.strings_from_codes``)."""
+    from spark_rapids_tpu_torch.columnar import encoding, transfer
+    schema = schema or batch.schema
+    host = transfer.device_pull(
+        staged if staged is not None else pull_planes(batch), metrics)
+    out = {}
+    for f, c, (data, valid, chars) in zip(schema, batch.columns, host):
+        if isinstance(c, encoding.EncodedColumn) \
+                and encoding.egress_enabled():
+            out[f.name] = (encoding.strings_from_codes(c.dict, data, valid),
+                           valid)
+        elif chars is not None:
+            out[f.name] = (HostStrings(chars, data), valid)
+        else:
+            out[f.name] = (data, valid)
     return out
 
 

@@ -44,9 +44,10 @@ the one home of every encoding concern:
 Everything gates on ``spark.rapids.sql.compressed.{enabled, ingest,
 egress}``, the plane encodings also on ``compressed.{rle, delta,
 packedBool}.enabled``; with the master key false no compressed column
-is built and every view is the identity.  The JAX package's
-double-buffered transfers and its bit-packed egress are not ported yet
-(ROADMAP.md, A6).
+is built and every view is the identity.  Every upload here (codes,
+planes, a dictionary) goes through ``columnar/transfer.py: Upload``;
+the result pull's raw and wire bytes are ``transfer.d2h_stats``', which
+``compressed_stats`` reads, as the JAX package's does.
 
 Where the port differs: the JAX package runs jitted kernels, so its
 views also carry a flat input list and a signature for its kernel
@@ -115,9 +116,6 @@ _STATS = {
     "late_decodes": 0, "fused_decodes": 0, "code_stages": 0,
     # subtrees over two encoded columns kept in the code domain
     "composed_gathers": 0,
-    # the result pull: the dense planes an encoded column would have
-    # brought back, and the codes and validity that did
-    "d2h_raw_bytes": 0, "d2h_wire_bytes": 0,
 }
 
 
@@ -156,10 +154,15 @@ def _bump(key: str, v: int = 1) -> None:
 
 
 def compressed_stats() -> dict:
-    """A snapshot of the counters, with ``bytes_saved`` (raw less wire,
-    both directions) and ``memo_host_bytes``."""
+    """A snapshot of the counters, with the result pull's raw and wire
+    bytes (``transfer.d2h_stats``), ``bytes_saved`` (raw less wire, both
+    directions) and ``memo_host_bytes``."""
+    from spark_rapids_tpu_torch.columnar import transfer
     with _STATS_LOCK:
         out = dict(_STATS)
+    d2h = transfer.d2h_stats()
+    out["d2h_raw_bytes"] = d2h["raw_bytes"]
+    out["d2h_wire_bytes"] = d2h["wire_bytes"]
     out["bytes_saved"] = max(0, out["h2d_raw_bytes"]
                              - out["h2d_wire_bytes"]) \
         + max(0, out["d2h_raw_bytes"] - out["d2h_wire_bytes"])
@@ -197,7 +200,9 @@ class DictPlanes:
 
     _AUX_BOUND = 64
 
-    def __init__(self, chars: np.ndarray, lengths: np.ndarray, device):
+    def __init__(self, chars: np.ndarray, lengths: np.ndarray, device,
+                 up=None):
+        from spark_rapids_tpu_torch.columnar import transfer
         d = int(lengths.shape[0])
         self.size = d
         self.capacity = bucket_capacity(max(1, d + 1))
@@ -210,9 +215,16 @@ class DictPlanes:
         self.host_chars, self.host_lengths = hc, hl
         valid = np.zeros(self.capacity, np.bool_)
         valid[:d] = True
-        self.lengths = torch.from_numpy(hl).to(device)
-        self.chars = torch.from_numpy(hc).to(device)
-        self.validity = torch.from_numpy(valid).to(device)
+        # through the batch's upload when one is given, else its own,
+        # waited on at once
+        own = up is None
+        if own:
+            up = transfer.Upload(device)
+        self.lengths = up.plane(hl)
+        self.chars = up.plane(hc)
+        self.validity = up.plane(valid)
+        if own:
+            transfer.await_event(up.finish())
         self.fingerprint = _fingerprint(hc[:d], hl[:d])
         self._aux: "OrderedDict[object, tuple]" = OrderedDict()
         self._aux_lock = threading.Lock()
@@ -911,6 +923,18 @@ def clear_memo() -> None:
         _MEMO_DEAD.clear()
 
 
+def _own_upload(device, up, fn):
+    """``fn(up)``, through an upload of its own waited on at once when
+    ``up`` is None."""
+    from spark_rapids_tpu_torch.columnar import transfer
+    if up is not None:
+        return fn(up)
+    up = transfer.Upload(device)
+    out = fn(up)
+    transfer.await_event(up.finish())
+    return out
+
+
 class IngestEncoder:
     """One scan's encoder: decides per string column whether the upload
     carries codes or the dense planes, builds the ``EncodedColumn``, and
@@ -942,14 +966,20 @@ class IngestEncoder:
         return max(1, int(n * self.max_dict_fraction))
 
     def upload_column(self, values, validity: np.ndarray, dtype: DataType,
-                      cap: int) -> Optional[DeviceColumn]:
+                      cap: int, up=None) -> Optional[DeviceColumn]:
         """An ``EncodedColumn`` for host string values (a
         ``HostStrings``), or a plane column for INT32, INT64 or BOOLEAN
         values, when encoding wins, else None: the caller uploads the
-        plain planes."""
+        plain planes.  ``up`` is the batch's ``transfer.Upload`` (None:
+        one of its own, waited on at once)."""
+        return _own_upload(self.device, up, lambda u: self._upload_column(
+            values, validity, dtype, cap, u))
+
+    def _upload_column(self, values, validity: np.ndarray, dtype: DataType,
+                       cap: int, up) -> Optional[DeviceColumn]:
         if dtype != STRING:
             if dtype == BOOLEAN or dtype in (INT32, INT64):
-                return self._upload_plane(values, validity, dtype, cap)
+                return self._upload_plane(values, validity, dtype, cap, up)
             return None
         if len(values) == 0:
             return None
@@ -958,7 +988,7 @@ class IngestEncoder:
         try:
             faults.maybe_fail(FAULT_SITE_ENCODE,
                               "injected ingest-encode failure")
-            got = self._encode_host(values, validity)
+            got = self._encode_host(values, validity, up)
         except (IOError, OSError) as e:
             return self._fault(e, cap, dense_w)
         if got is None:
@@ -966,14 +996,19 @@ class IngestEncoder:
             return None
         codes_np, planes, fresh = got
         return self._upload(codes_np, validity, planes, fresh, n, cap,
-                            dense_w)
+                            dense_w, up)
 
-    def upload_arrow(self, arr, dtype: DataType,
-                     cap: int) -> Optional[EncodedColumn]:
+    def upload_arrow(self, arr, dtype: DataType, cap: int,
+                     up=None) -> Optional[EncodedColumn]:
         """An ``EncodedColumn`` for an Arrow dictionary array (a parquet
         scan's ``read_dictionary`` column), its dictionary sorted and
         deduplicated, as the JAX encoder does; None for anything else
-        or when encoding loses."""
+        or when encoding loses.  ``up`` as for ``upload_column``."""
+        return _own_upload(self.device, up, lambda u: self._upload_arrow(
+            arr, dtype, cap, u))
+
+    def _upload_arrow(self, arr, dtype: DataType, cap: int,
+                      up) -> Optional[EncodedColumn]:
         import pyarrow as pa
         if dtype != STRING or not pa.types.is_dictionary(arr.type):
             return None
@@ -1008,7 +1043,7 @@ class IngestEncoder:
                                   len(dvals))
             rows, dcodes = got
             planes, fresh = self._planes(dvals.chars[rows],
-                                         dvals.lengths[rows])
+                                         dvals.lengths[rows], up)
             if planes is None:
                 self._count_plain(cap, dense_w)
                 return None
@@ -1019,12 +1054,13 @@ class IngestEncoder:
             codes_np = np.where(valid, lut[idx], 0).astype(np.int32)
         except (IOError, OSError, pa.ArrowInvalid) as e:
             return self._fault(e, cap, dense_w)
-        return self._upload(codes_np, valid, planes, fresh, n, cap, dense_w)
+        return self._upload(codes_np, valid, planes, fresh, n, cap, dense_w,
+                            up)
 
     # -- internals -----------------------------------------------------
 
     def _upload_plane(self, values, validity: np.ndarray, dtype: DataType,
-                      cap: int) -> Optional[DeviceColumn]:
+                      cap: int, up) -> Optional[DeviceColumn]:
         """The plane column for host INT32, INT64 or BOOLEAN values, or
         None (its key off, no byte won, nulls under delta).  An
         ``io.encode`` fault sends it plain, counted as in the JAX
@@ -1064,10 +1100,8 @@ class IngestEncoder:
         if got is None:
             return None
         kind, arrays, runs, wire = got
-        valid_pad = np.zeros(cap, np.bool_)
-        valid_pad[:n] = validity
-        put = [torch.from_numpy(a).to(self.device) for a in arrays]
-        valid_t = torch.from_numpy(valid_pad).to(self.device)
+        put = [up.plane(a) for a in arrays]
+        valid_t = up.plane(validity, cap)
         if kind == "packed":
             col = PackedBoolColumn(put[0], valid_t, n, cap)
         elif kind == "rle":
@@ -1081,7 +1115,7 @@ class IngestEncoder:
             self.metrics["encodedColumns"] += 1
         return col
 
-    def _encode_host(self, values, validity):
+    def _encode_host(self, values, validity, up):
         key = None
         if self.memo:
             key = (_array_id(values.chars), _array_id(values.lengths),
@@ -1096,7 +1130,7 @@ class IngestEncoder:
                 self._dicts.setdefault(planes.fingerprint, planes)
                 return codes_np, planes, False
         t0 = time.perf_counter_ns()
-        got = self._build_host(values, validity)
+        got = self._build_host(values, validity, up)
         _bump("host_encode_ns", time.perf_counter_ns() - t0)
         if key is not None:
             codes_np, planes = (None, None) if got is None else got[:2]
@@ -1104,7 +1138,7 @@ class IngestEncoder:
                       (values.chars, values.lengths, validity))
         return got
 
-    def _build_host(self, values, validity):
+    def _build_host(self, values, validity, up):
         n = len(values)
         lengths = values.lengths
         vidx = None if validity.all() else np.flatnonzero(validity)
@@ -1118,7 +1152,7 @@ class IngestEncoder:
         if got is None:
             return None
         rows, vcodes = got
-        planes, fresh = self._planes(chars[rows], lv[rows])
+        planes, fresh = self._planes(chars[rows], lv[rows], up)
         if planes is None:
             return None
         if vidx is None:
@@ -1128,7 +1162,7 @@ class IngestEncoder:
             codes_np[vidx] = vcodes
         return codes_np, planes, fresh
 
-    def _planes(self, chars: np.ndarray, lengths: np.ndarray):
+    def _planes(self, chars: np.ndarray, lengths: np.ndarray, up):
         """-> (the scan's DictPlanes of these sorted values, whether they
         were uploaded now), or (None, False) when the dictionary is
         wider than the device may hold."""
@@ -1140,18 +1174,13 @@ class IngestEncoder:
         hit = self._dicts.get(_fingerprint(chars[:, :width], lengths))
         if hit is not None and hit.holds(chars, lengths):
             return hit, False
-        planes = DictPlanes(chars, lengths, self.device)
+        planes = DictPlanes(chars, lengths, self.device, up)
         self._dicts[planes.fingerprint] = planes
         return planes, True
 
     def _upload(self, codes_np, valid, planes, fresh: bool, n: int,
-                cap: int, dense_w: int) -> EncodedColumn:
-        codes_pad = np.zeros(cap, np.int32)
-        codes_pad[:n] = codes_np
-        valid_pad = np.zeros(cap, np.bool_)
-        valid_pad[:n] = valid
-        col = EncodedColumn(torch.from_numpy(codes_pad).to(self.device),
-                            torch.from_numpy(valid_pad).to(self.device),
+                cap: int, dense_w: int, up) -> EncodedColumn:
+        col = EncodedColumn(up.plane(codes_np, cap), up.plane(valid, cap),
                             n, planes)
         # the dense upload: lengths, validity and a (cap, W) char matrix
         # at the batch's own width; the dictionary crosses once a scan
@@ -1942,16 +1971,16 @@ class JoinCodeView:
 # the result pull
 # ---------------------------------------------------------------------------
 
-def pull_encoded(col: EncodedColumn, n: int):
-    """An encoded column's first ``n`` rows on the host: its codes and
-    validity cross, and the strings are looked up in the dictionary's
-    host copy (a null row reads the null slot's zeros).  -> (HostStrings,
-    validity)."""
+def strings_from_codes(d: DictPlanes, codes: np.ndarray,
+                       valid: np.ndarray):
+    """Host codes of a column on dictionary ``d`` -> its strings, looked
+    up in the dictionary's host copy (a null row reads the null slot's
+    zeros); counts the result pull's raw and wire bytes of the column
+    (codes and validity crossed, the dense planes did not)."""
+    from spark_rapids_tpu_torch.columnar import transfer
     from spark_rapids_tpu_torch.columnar.batch import HostStrings
-    d = col.dict
-    codes = col.codes[:n].cpu().numpy()
-    valid = col.validity[:n].cpu().numpy()
+    n = int(codes.shape[0])
     idx = np.where(valid, codes, d.size).clip(0, d.capacity - 1)
-    _bump("d2h_wire_bytes", n * (4 + 1))
-    _bump("d2h_raw_bytes", n * (4 + 1 + d.width))
-    return HostStrings(d.host_chars[idx], d.host_lengths[idx]), valid
+    transfer._bump_d2h("wire_bytes", n * (4 + 1))
+    transfer._bump_d2h("raw_bytes", n * (4 + 1 + d.width))
+    return HostStrings(d.host_chars[idx], d.host_lengths[idx])

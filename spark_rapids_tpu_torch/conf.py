@@ -243,12 +243,69 @@ HOST_SPILL_STORAGE_SIZE = register(
 
 IO_PREFETCH_ENABLED = register(
     "spark.rapids.sql.io.prefetch.enabled", False,
-    "Pull the child of a coalesce on a background thread one batch "
-    "ahead of the concat (io/prefetch.py: device_lookahead); false runs "
-    "the child in the consumer's thread.  Both give the same batches in "
-    "the same order.  Off by default, unlike the JAX package: the local "
-    "scan uploads on the thread that pulls it, so the pull has nothing "
-    "to overlap and only adds a thread hand-off a batch (PERF.md).", bool)
+    "Decode the file scans' next host batches (and the CSV scan's next "
+    "byte ranges) on a background thread, double-buffer the uploads of "
+    "every scan so that batch k + 1's copy is dispatched before batch k "
+    "is yielded (columnar/transfer.py: pipelined_h2d), and pull the "
+    "child of a coalesce one batch ahead (io/prefetch.py: "
+    "device_lookahead); false runs the serial decode -> upload -> "
+    "yield loop.  Both give the same batches in the same order.  Off "
+    "by default, unlike the JAX package: on an H100 (700 W) the warm "
+    "SF1 queries ran slower with it on, q1 0.349 to 0.464 s against "
+    "0.284 to 0.358 s off, q6 0.300 to 0.381 against 0.202 to 0.255, "
+    "q3 0.492 to 0.528 against 0.318 to 0.466 (chip_smoke.py phase 26; "
+    "PERF.md): the local scan's host work holds the thread that would "
+    "overlap it.", bool)
+
+IO_PREFETCH_BATCHES = register(
+    "spark.rapids.sql.io.prefetch.batches", 2,
+    "Depth of the background decode queue: how many decoded host "
+    "batches a scan may hold ahead of its consumer.  Each queued batch "
+    "is admitted through the prefetch staging limiter "
+    "(spark.rapids.memory.pinnedPool.size) first, so at most depth + 2 "
+    "batches' grants are held (queued, in the consumer's hand, and one "
+    "a producer parked on the full queue acquired).", int, _positive)
+
+IO_EGRESS_ENABLED = register(
+    "spark.rapids.sql.io.egress.enabled", True,
+    "Double-buffered result egress (columnar/transfer.py: "
+    "pipelined_d2h): group k + 1's pack and device -> host copy are "
+    "dispatched before group k's blocking pull, each pull admitted "
+    "through the egress staging limiter for its own length only; false "
+    "is the strictly serial pull-then-yield loop.  Both give the same "
+    "result.", bool)
+
+PINNED_POOL_SIZE = register(
+    "spark.rapids.memory.pinnedPool.size", 0,
+    "Bytes of host staging each of the three staging limiters admits "
+    "at once (spill, scan prefetch, egress; memory/spill.py) while "
+    "spark.rapids.memory.tpu.pooling.enabled is on; 0 disables.", int,
+    _non_negative)
+
+POOLING_ENABLED = register(
+    "spark.rapids.memory.tpu.pooling.enabled", True,
+    "Cap the host staging limiters at spark.rapids.memory.pinnedPool."
+    "size (the JAX package's key and default).", bool)
+
+TRANSFER_PACK_ENABLED = register(
+    "spark.rapids.sql.transfer.pack.enabled", False,
+    "Pack a query's result batches on the device (concatenated, rows "
+    "trimmed to a quarter-power-of-two bucket, validity and booleans "
+    "bit-packed, integers delta-narrowed, string widths trimmed) and "
+    "pull them in one pull a group of up to 256 MB; false pulls each "
+    "batch's planes as they are (columnar/transfer.py).  Off by "
+    "default, unlike the JAX package: on an H100 (700 W) "
+    "project_filter_1m's 450,303-row result crossed 0.68 of its raw "
+    "bytes packed but came back in 0.0132 to 0.0196 s against 0.0099 "
+    "to 0.0139 s unpacked (chip_smoke.py phase 26; PERF.md): the "
+    "stats pull and the pack's launches cost more than the bytes they "
+    "save on the card's host link.", bool)
+
+TRANSFER_STATS_THRESHOLD = register(
+    "spark.rapids.sql.transfer.statsThresholdBytes", 1 << 20,
+    "A packed result larger than this spends one extra small pull on "
+    "(min, max, longest string) stats to narrow the data pull; at or "
+    "below it one pull carries the data.", int, _positive)
 
 RANGE_SAMPLE_SIZE = register(
     "spark.rapids.sql.rangePartitioning.sampleSize", 10_000,

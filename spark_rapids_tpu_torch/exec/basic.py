@@ -8,7 +8,11 @@ RLE, delta-narrowed or bit-packed plane where that crosses fewer bytes,
 while compressed ingest is on (the JAX package's local scan uploads
 plain planes and encodes at its ``HostToDeviceExec`` and file scans; the
 port's local scan is the path the card's machine, which has no pyarrow,
-runs); ``TorchRangeExec`` makes
+runs).  Its batches go through ``io/hostio.py: pipelined_scan``, as the
+JAX package's ``HostToDeviceExec`` (``exec/basic.py:231``) sends a host
+child's: each slice's upload is pinned and, while
+``spark.rapids.sql.io.prefetch.enabled`` is on, double-buffered.
+``TorchRangeExec`` makes
 ``[start, end)`` by ``step`` on the device in batches of 1 << 20 rows;
 ``TorchUnionExec`` streams its children's batches back to back;
 ``TorchLocalLimitExec`` passes batches on until the limit is reached.
@@ -56,15 +60,71 @@ class TorchLocalScanExec(TorchExec):
         return self._schema
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        from spark_rapids_tpu_torch.io.hostio import host_nbytes, \
+            pipelined_scan
         n = self.num_rows
         max_w = ctx.conf.get(MAX_STRING_WIDTH)
         encoder = make_encoder(ctx, self.metrics, memo=True)
-        for start in range(0, n, BATCH_ROWS):
-            part = {name: (v[start:start + BATCH_ROWS],
-                           m[start:start + BATCH_ROWS])
-                    for name, (v, m) in self.cols.items()}
-            yield host_batch_to_device(self._schema, part, ctx.device, max_w,
-                                       encoder)
+
+        def host_items():
+            for start in range(0, n, BATCH_ROWS):
+                yield {name: (v[start:start + BATCH_ROWS],
+                              m[start:start + BATCH_ROWS])
+                       for name, (v, m) in self.cols.items()}
+
+        def upload(part):
+            return host_batch_to_device(self._schema, part, ctx.device,
+                                        max_w, encoder, defer=True)
+        yield from pipelined_scan(ctx, self.metrics, host_items(), upload,
+                                  "local-scan", host_nbytes)
+
+
+# the pack's group of result batches (the JAX DeviceToHostExec's)
+EGRESS_GROUP_BYTES = 256 * 1024 * 1024
+
+
+def device_to_host(batches: Iterator[ColumnarBatch], schema: Schema,
+                   ctx: ExecContext, metrics=None) -> Iterator[HostColumns]:
+    """A query's result batches -> its host columns, a part at a time:
+    the counterpart of the JAX package's ``DeviceToHostExec.
+    execute_host`` (``exec/basic.py:271``), the port's one result egress
+    (``DataFrame`` results, the writers, the server's and the fleet's
+    serial results).  It runs ``transfer.pipelined_d2h`` over groups of
+    up to ``EGRESS_GROUP_BYTES`` of result batches, each group packed
+    and pulled once (``pack_dispatch`` / ``pack_finish``) while
+    ``spark.rapids.sql.transfer.pack.enabled`` is on, else each batch's
+    planes copied (``start_host_copies``) and pulled
+    (``device_batch_to_host``).  ``metrics`` gets ``d2hPulls``,
+    ``d2hBytes`` and ``d2hOverlapMs``."""
+    from spark_rapids_tpu_torch.columnar.batch import device_batch_to_host, \
+        pull_planes
+    from spark_rapids_tpu_torch.columnar.transfer import pack_dispatch, \
+        pack_finish, pipelined_d2h, start_host_copies
+    from spark_rapids_tpu_torch.conf import TRANSFER_PACK_ENABLED, \
+        TRANSFER_STATS_THRESHOLD
+    if not ctx.conf.get(TRANSFER_PACK_ENABLED):
+        yield from pipelined_d2h(
+            batches, lambda b: (b, start_host_copies(pull_planes(b))),
+            lambda t: device_batch_to_host(t[0], schema, metrics, t[1]),
+            ctx, metrics, nbytes=lambda t: t[1].nbytes())
+        return
+    thresh = ctx.conf.get(TRANSFER_STATS_THRESHOLD)
+
+    def groups():
+        group, nbytes = [], 0
+        for b in batches:
+            group.append(b)
+            nbytes += b.size_bytes()
+            if nbytes >= EGRESS_GROUP_BYTES:
+                yield group
+                group, nbytes = [], 0
+        if group:
+            yield group
+
+    yield from pipelined_d2h(
+        groups(), lambda g: pack_dispatch(g, schema, thresh, metrics),
+        lambda p: pack_finish(p, metrics), ctx, metrics,
+        nbytes=lambda p: p.wire_bytes())
 
 
 def make_encoder(ctx: ExecContext, metrics=None, memo: bool = False):

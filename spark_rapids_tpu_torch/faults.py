@@ -35,10 +35,17 @@ to fail, so tests and runs inject faults through
   ``stream.poll``          a tailing source's poll, before anything is
                            diffed: the tick is skipped and counted, the
                            committed snapshot stays
+  ``io.encode``            the ingest encoder's build of one column
+                           (``columnar/encoding.py``): the column goes
+                           up plain, counted in ``encode_faults``
+  ``transfer.d2h``         a device -> host pull
+                           (``columnar/transfer.py: device_pull``),
+                           before anything is copied; the error reaches
+                           the caller
 
-The JAX package's other sites (shuffle, ICI, ``io.encode``, chip,
-``compile.store``, ``plan.place``, ``ooc.partition``) belong to
-modules the port does not have yet (``ROADMAP.md``).
+The JAX package's other sites (shuffle, ICI, chip, ``compile.store``,
+``plan.place``, ``ooc.partition``) belong to modules the port does not
+have yet (``ROADMAP.md``).
 
 Trigger grammar (the value of ``spark.rapids.faults.<site>``):
 

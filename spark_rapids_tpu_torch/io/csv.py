@@ -4,8 +4,11 @@ Counterpart of ``spark_rapids_tpu/io/csv.py``.  The JAX package parses
 text on the host with pyarrow; the port decodes it on the card, where
 RAPIDS' ``GpuCSVScan`` decodes it too (cuDF's ``Table.readCSV``).  The
 host only reads each file in byte ranges that end at a line end
-(``read_ranges``) and uploads each range once as a uint8 tensor; torch
-ops on the device then
+(``read_ranges``) and uploads each range once as a uint8 tensor, pinned,
+through ``io/hostio.py: pipelined_scan`` (``device_ranges``: while
+``spark.rapids.sql.io.prefetch.enabled`` is on the next range is read on
+a background thread and its upload dispatched before this range is
+decoded); torch ops on the device then
 
 1. find the line ends (a value holds no newline, pyarrow's default, so
    every ``\\n`` ends a line; a ``\\r`` before it is dropped),
@@ -674,35 +677,87 @@ def read_csv_schema(paths, header: bool = True, sep: str = ",") -> Schema:
 # the scan
 # ---------------------------------------------------------------------------
 
+class _Range:
+    """One byte range on the device, and its upload's event until the
+    consumer's stream waits on it."""
+
+    __slots__ = ("buf", "ready")
+
+    def __init__(self, buf: torch.Tensor, ready):
+        self.buf = buf
+        self.ready = ready
+
+
+def device_ranges(path: str, device, metrics=None, start: int = 0,
+                  range_bytes: Optional[int] = None,
+                  ctx: Optional[ExecContext] = None) -> Iterator:
+    """The file's byte ranges (``read_ranges``), each uploaded pinned
+    (``transfer.Upload``) -> uint8 tensors on ``device``.  Given the
+    query's ``ctx`` they go through ``io/hostio.py: pipelined_scan``:
+    while ``spark.rapids.sql.io.prefetch.enabled`` is on, the next
+    range's host read runs on a background thread and its upload is
+    dispatched before this range is decoded.  ``csvReadTime`` counts the
+    host reads, ``uploadTime`` the uploads' dispatch."""
+    from spark_rapids_tpu_torch.columnar import transfer
+    from spark_rapids_tpu_torch.io.hostio import pipelined_scan
+
+    def reads():
+        ranges = read_ranges(path, range_bytes, start)
+        while True:
+            t0 = time.perf_counter_ns()
+            blob = next(ranges, None)
+            if metrics is not None:
+                metrics[METRIC_CSV_READ_TIME] += time.perf_counter_ns() - t0
+            if blob is None:
+                return
+            yield blob
+
+    def upload(blob) -> _Range:
+        t0 = time.perf_counter_ns()
+        up = transfer.Upload(device)
+        buf = up.plane(np.frombuffer(blob, np.uint8))
+        r = _Range(buf, up.finish())
+        if metrics is not None:
+            metrics[METRIC_UPLOAD_TIME] += time.perf_counter_ns() - t0
+        return r
+
+    if ctx is None:
+        for blob in reads():
+            r = upload(blob)
+            transfer.await_upload(r)
+            yield r.buf
+        return
+    for r in pipelined_scan(ctx, metrics, reads(), upload, "csv-read", len):
+        yield r.buf
+
+
 def decode_file(path: str, schema: Schema, header: bool, sep: str, device,
                 batch_rows: int, max_string_width: Optional[int] = None,
                 metrics=None, start: int = 0,
-                range_bytes: Optional[int] = None
+                range_bytes: Optional[int] = None,
+                ctx: Optional[ExecContext] = None
                 ) -> Iterator[ColumnarBatch]:
     """One file's batches of ``batch_rows`` rows, the last one fewer:
     the lines a range leaves over a whole number of batches go on the
     device in front of the next range.  ``start`` > 0 reads from that
-    byte on (a grown file's new lines, no header)."""
+    byte on (a grown file's new lines, no header).  The ranges come from
+    ``device_ranges`` (pipelined given the query's ``ctx``)."""
     skip_header = header and start == 0
-    ranges = read_ranges(path, range_bytes, start)
+    bufs = device_ranges(path, device, metrics, start, range_bytes, ctx)
+    try:
+        yield from _decode_ranges(bufs, schema, skip_header, sep,
+                                  batch_rows, max_string_width, metrics)
+    finally:
+        bufs.close()
+
+
+def _decode_ranges(bufs, schema: Schema, skip_header: bool, sep: str,
+                   batch_rows: int, max_string_width: Optional[int],
+                   metrics) -> Iterator[ColumnarBatch]:
     carry = None
-
-    def next_range():
-        t0 = time.perf_counter_ns()
-        blob = next(ranges, None)
-        if metrics is not None:
-            metrics[METRIC_CSV_READ_TIME] += time.perf_counter_ns() - t0
-        if blob is None:
-            return None
-        t0 = time.perf_counter_ns()
-        buf = torch.frombuffer(blob, dtype=torch.uint8).to(device)
-        if metrics is not None:
-            metrics[METRIC_UPLOAD_TIME] += time.perf_counter_ns() - t0
-        return buf
-
-    buf = next_range()
+    buf = next(bufs, None)
     while buf is not None:
-        after = next_range()
+        after = next(bufs, None)
         if carry is not None:
             buf = torch.cat([carry, buf])
             carry = None
@@ -774,7 +829,7 @@ class TorchCsvScanExec(TorchExec):
         for path, vals in zip(files, fvals or [None] * len(files)):
             for b in decode_file(path, self._file_schema, self.header,
                                  self.sep, ctx.device, rows, max_w,
-                                 self.metrics):
+                                 self.metrics, ctx=ctx):
                 if encoding.ingest_enabled():
                     # the char matrices are on the device already: the
                     # dictionary and codes are made there

@@ -22,7 +22,7 @@ from spark_rapids_tpu_torch.conf import READER_BATCH_SIZE_ROWS
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.io import hivepart
 from spark_rapids_tpu_torch.io.hostio import coalesce_host_batches, \
-    make_uploader
+    make_uploader, pipelined_scan
 from spark_rapids_tpu_torch.utils.metrics import METRIC_NUM_FILES_READ, \
     METRIC_NUM_FILES_TOTAL, METRIC_NUM_STRIPES_READ, \
     METRIC_NUM_STRIPES_TOTAL
@@ -144,13 +144,19 @@ class TorchOrcScanExec(TorchExec):
             self.metrics[METRIC_NUM_FILES_READ] += len(files)
         upload = make_uploader(ctx, self._file_schema, self.part_schema,
                                fvals, self._schema, metrics=self.metrics)
-        for fi, path in enumerate(files):
-            reader = OrcPartitionReader(path, self._file_schema, self.pred,
-                                        rows)
-            try:
-                for rb in coalesce_host_batches(reader.read_host(), rows):
-                    yield upload((fi, rb))
-            finally:
-                self.metrics[METRIC_NUM_STRIPES_TOTAL] += \
-                    reader.total_stripes
-                self.metrics[METRIC_NUM_STRIPES_READ] += reader.read_stripes
+
+        def host_items():
+            for fi, path in enumerate(files):
+                reader = OrcPartitionReader(path, self._file_schema,
+                                            self.pred, rows)
+                try:
+                    for rb in coalesce_host_batches(reader.read_host(),
+                                                    rows):
+                        yield fi, rb
+                finally:
+                    self.metrics[METRIC_NUM_STRIPES_TOTAL] += \
+                        reader.total_stripes
+                    self.metrics[METRIC_NUM_STRIPES_READ] += \
+                        reader.read_stripes
+        yield from pipelined_scan(ctx, self.metrics, host_items(), upload,
+                                  "orc-decode", lambda t: t[1].nbytes)

@@ -4,7 +4,9 @@ Counterpart of ``spark_rapids_tpu/io/parquet.py:TpuParquetScanExec``:
 pyarrow reads each file on the host in record batches of
 ``spark.rapids.sql.reader.batchSizeRows`` rows, combines them up to that
 many rows (``io/hostio.py``), as the JAX package's host reader does, and
-each combined batch is uploaded.  A hive-partitioned layout adds its
+each combined batch is uploaded through ``io/hostio.py:
+pipelined_scan`` (the read on a background thread and the uploads
+double-buffered while ``spark.rapids.sql.io.prefetch.enabled`` is on).  A hive-partitioned layout adds its
 partition columns to every batch of a file, and files whose partition
 values cannot satisfy the pushed predicate are not read; within a file,
 a row group whose footer min/max cannot satisfy it is not read either
@@ -29,7 +31,7 @@ from spark_rapids_tpu_torch.conf import READER_BATCH_SIZE_ROWS
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.io import hivepart
 from spark_rapids_tpu_torch.io.hostio import coalesce_host_batches, \
-    make_uploader, read_dictionary_columns
+    make_uploader, pipelined_scan, read_dictionary_columns
 from spark_rapids_tpu_torch.utils.metrics import METRIC_NUM_FILES_READ, \
     METRIC_NUM_FILES_TOTAL, METRIC_NUM_ROW_GROUPS_READ, \
     METRIC_NUM_ROW_GROUPS_TOTAL
@@ -156,13 +158,17 @@ class TorchParquetScanExec(TorchExec):
                                fvals, self._schema, host_batch_to_device,
                                self.metrics)
         read_dict = read_dictionary_columns(self._file_schema)
-        for fi, path in enumerate(files):
-            reader = ParquetPartitionReader(path, self._file_schema,
-                                            self.pred, rows, read_dict)
-            it = reader.read_host()
-            self.metrics[METRIC_NUM_ROW_GROUPS_TOTAL] += \
-                reader.total_row_groups
-            self.metrics[METRIC_NUM_ROW_GROUPS_READ] += \
-                reader.read_row_groups
-            for rb in coalesce_host_batches(it, rows):
-                yield upload((fi, rb))
+
+        def host_items():
+            for fi, path in enumerate(files):
+                reader = ParquetPartitionReader(path, self._file_schema,
+                                                self.pred, rows, read_dict)
+                it = reader.read_host()
+                self.metrics[METRIC_NUM_ROW_GROUPS_TOTAL] += \
+                    reader.total_row_groups
+                self.metrics[METRIC_NUM_ROW_GROUPS_READ] += \
+                    reader.read_row_groups
+                for rb in coalesce_host_batches(it, rows):
+                    yield fi, rb
+        yield from pipelined_scan(ctx, self.metrics, host_items(), upload,
+                                  "parquet-decode", lambda t: t[1].nbytes)

@@ -126,6 +126,14 @@ def device_batches(df) -> Iterator[ColumnarBatch]:
         yield from batches
 
 
+def host_parts(df) -> Iterator:
+    """Run the DataFrame's query and yield its result on the host, a
+    part at a time, through the result egress (``exec/basic.py:
+    device_to_host``: packed pulls, double-buffered)."""
+    _, parts = df._execute(egress=True)
+    yield from parts
+
+
 def _rows(batch: ColumnarBatch, r0: int, r1: int):
     """Views of rows [r0, r1) of a batch's columns."""
     return [DeviceColumn(c.dtype, c.data[r0:r1], c.validity[r0:r1], r1 - r0,
@@ -173,10 +181,13 @@ class _ArrowW:
             self._w.write(t)
 
     def write(self, schema: Schema, batch: ColumnarBatch) -> None:
+        self.write_host(device_batch_to_host(batch, schema))
+
+    def write_host(self, cols) -> None:
+        """Host columns (``HostColumns``) of the writer's schema."""
         from spark_rapids_tpu_torch.columnar.batch import \
             host_columns_to_arrow
-        self._put(host_columns_to_arrow(
-            self._schema, device_batch_to_host(batch, schema)))
+        self._put(host_columns_to_arrow(self._schema, cols))
         self._wrote = True
 
     def close(self) -> None:
@@ -241,8 +252,14 @@ def _write(df, path: str, mode: str, partition_cols,
     if not partition_cols:
         w = open_writer(os.path.join(path, f"part-{part:05d}"), schema)
         try:
-            for b in device_batches(df):
-                w.write(schema, b)
+            if isinstance(w, _ArrowW):
+                # parquet and ORC encode on the host: the result comes
+                # back through the result egress
+                for cols in host_parts(df):
+                    w.write_host(cols)
+            else:
+                for b in device_batches(df):
+                    w.write(schema, b)
         finally:
             w.close()
         return

@@ -351,6 +351,13 @@ def check_cancel() -> None:
         qc.check()
 
 
+def cancel_requested() -> bool:
+    """Whether the thread's query is cancelled or past its deadline (an
+    abort predicate for a bounded wait)."""
+    qc = current()
+    return qc is not None and (qc.token.cancelled or qc.token.expired())
+
+
 def poll_interval_s() -> float:
     """The poll slice of a bounded wait: the query's
     ``spark.rapids.sql.cancel.checkIntervalMs``, else ``WAIT_POLL_S``."""

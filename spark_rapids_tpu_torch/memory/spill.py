@@ -49,11 +49,19 @@ shared dictionary on the device; a plane column (RLE, delta-narrowed or
 bit-packed, ``columnar/encoding.py``) spills its compressed planes; each
 comes back as the same class, never decoded.
 
-Not carried over yet: the device scan cache's entries (A7a), the
-conf-driven allocation log, and
-the JAX package's ``HostStagingLimiter`` on tier transitions: every
-transition here runs under the catalog's lock, so no two of them stage
-at once and a cap on them could never make one wait.
+Host staging admission (``HostStagingLimiter``, the JAX package's):
+the catalog holds three limiters, each capped at
+``spark.rapids.memory.pinnedPool.size`` while
+``spark.rapids.memory.tpu.pooling.enabled`` is on (0 disables):
+``staging`` bounds the tier transitions' host copies and the scans'
+serial uploads, ``prefetch_staging`` the decoded batches a scan's
+background decode holds, ``egress_staging`` the result pulls.  Three
+waiter classes with no resource between them, so none can wait on
+another.  The boolean planes a transition moves are packed by the
+egress codec's ``bitpack_plane`` (``columnar/transfer.py``).
+
+Not carried over yet: the device scan cache's entries (A6) and the
+conf-driven allocation log.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ import os
 import shutil
 import tempfile
 import threading
+import time
 import warnings
 import weakref
 from typing import Dict, Iterable, List, Optional
@@ -77,7 +86,10 @@ from spark_rapids_tpu_torch import faults, lifecycle
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.encoding import restore_column, \
     stored_planes
-from spark_rapids_tpu_torch.errors import QueryBudgetExceededError
+from spark_rapids_tpu_torch.columnar.transfer import bitpack_plane, \
+    bitunpack_plane
+from spark_rapids_tpu_torch.errors import QueryBudgetExceededError, \
+    QueryCancelledError
 from spark_rapids_tpu_torch.obs import journal
 
 log = logging.getLogger("spark_rapids_tpu_torch.spill")
@@ -94,25 +106,72 @@ PRIORITY_RECREATABLE = -100
 PRIORITY_NORMAL = 0
 PRIORITY_RETAIN = 100
 
-_BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
+class HostStagingLimiter:
+    """At most ``cap`` bytes of host staging admitted at once (the JAX
+    package's class; ``cap == 0`` disables it).  ``name`` is the waiter
+    class ("spill", "prefetch", "egress"): its waits are recorded in
+    the ``staging.<name>.wait.us`` histogram."""
 
+    _ABORT_POLL_S = 0.05
 
-def bitpack(plane: torch.Tensor) -> torch.Tensor:
-    """(n,) bool -> (ceil(n / 8),) uint8 on the same device: row r in bit
-    r % 8 of byte r // 8."""
-    n = plane.shape[0]
-    bits = plane.to(torch.int32)
-    if n % 8:
-        bits = torch.cat([bits, bits.new_zeros(8 - n % 8)])
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=plane.device)
-    return (bits.view(-1, 8) * w).sum(1).to(torch.uint8)
+    def __init__(self, cap_bytes: int = 0, name: str = ""):
+        self.cap = max(0, int(cap_bytes))
+        self.name = name
+        self._inflight = 0
+        self._cv = threading.Condition()
+        self.wait_count = 0
 
+    def acquire(self, nbytes: int, abort=None) -> int:
+        """Wait until ``nbytes``, clamped to the cap so that one transfer
+        always fits, are admitted; -> the bytes granted, for
+        ``release``.  ``abort`` (default: the calling thread's query is
+        cancelled or past its deadline) is polled while waiting: when it
+        turns true the wait gives up holding nothing and -1 is
+        returned.  ``cap == 0`` grants 0 at once."""
+        if self.cap <= 0:
+            return 0
+        if abort is None:
+            abort = lifecycle.cancel_requested
+        ask = min(int(nbytes), self.cap)
+        t0 = None
+        try:
+            with self._cv:
+                if self._inflight + ask > self.cap:
+                    self.wait_count += 1
+                    t0 = time.perf_counter_ns()
+                while self._inflight + ask > self.cap:
+                    if abort():
+                        return -1
+                    self._cv.wait(timeout=self._ABORT_POLL_S)
+                self._inflight += ask
+            return ask
+        finally:
+            if t0 is not None and self.name:
+                from spark_rapids_tpu_torch.obs import registry as obs
+                hist = obs.STAGING_WAIT_HISTS.get(self.name)
+                if hist is not None:
+                    obs.record(hist, (time.perf_counter_ns() - t0) // 1000)
 
-def bitunpack(packed: torch.Tensor, n: int) -> torch.Tensor:
-    """``bitpack``'s inverse: the first ``n`` rows as a bool plane."""
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=packed.device)
-    bits = (packed.to(torch.int32)[:, None] & w) != 0
-    return bits.reshape(-1)[:n].contiguous()
+    def release(self, granted: int) -> None:
+        if granted <= 0:
+            return
+        with self._cv:
+            self._inflight -= granted
+            self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def limit(self, nbytes: int):
+        """A section admitted for ``nbytes``; a wait the query's cancel
+        ends raises its typed error (``QueryCancelledError`` or
+        ``QueryTimeoutError``)."""
+        granted = self.acquire(nbytes)
+        if granted < 0:
+            lifecycle.check_cancel()
+            raise QueryCancelledError("host staging wait aborted")
+        try:
+            yield
+        finally:
+            self.release(granted)
 
 
 class SpillableBatch:
@@ -162,24 +221,25 @@ class SpillableBatch:
                           f"failure ({self.size} bytes)")
         cuda = self._cuda
         host, packed = [], []
-        for triple in self._device:
-            planes, rows = [], []
-            for a in triple:
-                if a is None:
-                    planes.append(None)
-                    rows.append(0)
-                    continue
-                rows.append(a.shape[0] if a.dtype == torch.bool else 0)
-                if a.dtype == torch.bool:
-                    a = bitpack(a)
-                h = torch.empty(a.shape, dtype=a.dtype, pin_memory=cuda)
-                h.copy_(a, non_blocking=cuda)
-                planes.append(h)
-            host.append(tuple(planes))
-            packed.append(tuple(rows))
-        if cuda:
-            self._ready = torch.cuda.Event()
-            self._ready.record(torch.cuda.current_stream(self.device))
+        with self._catalog.staging.limit(self.size):
+            for triple in self._device:
+                planes, rows = [], []
+                for a in triple:
+                    if a is None:
+                        planes.append(None)
+                        rows.append(0)
+                        continue
+                    rows.append(a.shape[0] if a.dtype == torch.bool else 0)
+                    if a.dtype == torch.bool:
+                        a = bitpack_plane(a)
+                    h = torch.empty(a.shape, dtype=a.dtype, pin_memory=cuda)
+                    h.copy_(a, non_blocking=cuda)
+                    planes.append(h)
+                host.append(tuple(planes))
+                packed.append(tuple(rows))
+            if cuda:
+                self._ready = torch.cuda.Event()
+                self._ready.record(torch.cuda.current_stream(self.device))
         self._host, self._packed = host, packed
         self._device = None
         self.tier = TIER_HOST
@@ -238,15 +298,16 @@ class SpillableBatch:
         assert self.tier == TIER_HOST
         self._wait_host()
         dev = []
-        for triple, rows in zip(self._host, self._packed):
-            planes = []
-            for h, n in zip(triple, rows):
-                if h is None:
-                    planes.append(None)
-                    continue
-                t = h.to(self.device, non_blocking=self._cuda)
-                planes.append(bitunpack(t, n) if n else t)
-            dev.append(tuple(planes))
+        with self._catalog.staging.limit(self.size):
+            for triple, rows in zip(self._host, self._packed):
+                planes = []
+                for h, n in zip(triple, rows):
+                    if h is None:
+                        planes.append(None)
+                        continue
+                    t = h.to(self.device, non_blocking=self._cuda)
+                    planes.append(bitunpack_plane(t, n) if n else t)
+                dev.append(tuple(planes))
         self._device = dev
         self._host = self._packed = None
         self.tier = TIER_DEVICE
@@ -336,9 +397,16 @@ class BufferCatalog:
 
     def __init__(self, device_budget_bytes: int,
                  host_budget_bytes: int = 1 << 30,
-                 spill_dir: Optional[str] = None):
+                 spill_dir: Optional[str] = None,
+                 pinned_pool_bytes: int = 0,
+                 pooling_enabled: bool = False):
         self.device_budget = int(device_budget_bytes)
         self.host_budget = int(host_budget_bytes)
+        # the three host staging limiters (see the module docstring)
+        cap = pinned_pool_bytes if pooling_enabled else 0
+        self.staging = HostStagingLimiter(cap, name="spill")
+        self.prefetch_staging = HostStagingLimiter(cap, name="prefetch")
+        self.egress_staging = HostStagingLimiter(cap, name="egress")
         self._owns_dir = spill_dir is None
         self._spill_dir = spill_dir
         self._file_ids = itertools.count()

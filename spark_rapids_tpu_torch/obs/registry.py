@@ -9,7 +9,9 @@ the snapshot in Prometheus' text format.  Units ride in the histogram's
 name (``*.us``).  Recording is gated by ``spark.rapids.sql.obs.enabled``
 (set at query-scope entry): off, ``record`` is one flag read.  The JAX
 package's sections for modules the port lacks (ooc, the kernel cache,
-prefetch, d2h, fusion, ICI, placement, health, compile) are left out.
+fusion, ICI, placement, health, compile) are left out; ``prefetch``
+(``io/prefetch.py: global_stats``) and ``d2h``
+(``columnar/transfer.py: d2h_stats``) are kept.
 """
 
 from __future__ import annotations
@@ -17,7 +19,23 @@ from __future__ import annotations
 import threading
 from typing import Dict, List
 
+# one device -> host pull (columnar/transfer.py: device_pull) and one
+# upload's dispatch (pipelined_h2d)
+HIST_D2H_PULL_US = "transfer.device_pull.us"
+HIST_D2H_PULL_BYTES = "transfer.device_pull.bytes"
+HIST_H2D_UPLOAD_US = "transfer.pipelined_h2d.us"
+HIST_H2D_UPLOAD_BYTES = "transfer.pipelined_h2d.bytes"
 HIST_SEM_WAIT_US = "tpu.semaphore.wait.us"
+# a host staging limiter's admission waits, by waiter class
+# (memory/spill.py: HostStagingLimiter)
+HIST_STAGING_SPILL_WAIT_US = "staging.spill.wait.us"
+HIST_STAGING_PREFETCH_WAIT_US = "staging.prefetch.wait.us"
+HIST_STAGING_EGRESS_WAIT_US = "staging.egress.wait.us"
+STAGING_WAIT_HISTS = {
+    "spill": HIST_STAGING_SPILL_WAIT_US,
+    "prefetch": HIST_STAGING_PREFETCH_WAIT_US,
+    "egress": HIST_STAGING_EGRESS_WAIT_US,
+}
 HIST_QUERY_WALL_US = "query.wall.us"
 # submit -> dispatch through the session server's fair admission queue
 HIST_SERVER_ADMIT_WAIT_US = "server.admit.wait.us"
@@ -156,12 +174,19 @@ def _compressed_stats() -> dict:
 def snapshot() -> dict:
     """The engine-stats dict: one key a module, and the histograms."""
     from spark_rapids_tpu_torch import lifecycle
+    from spark_rapids_tpu_torch.columnar import transfer
     from spark_rapids_tpu_torch.exec import aqe
+    from spark_rapids_tpu_torch.io import prefetch
     from spark_rapids_tpu_torch.fleet import stats as fleet_stats
     from spark_rapids_tpu_torch.obs import journal
     from spark_rapids_tpu_torch.server import stats as server_stats
     from spark_rapids_tpu_torch.stream import stats as stream_stats
     return {
+        # the scans' background decode and double-buffered uploads:
+        # batches, stall and fill ms, overlap ms
+        "prefetch": prefetch.global_stats(),
+        # the result pulls: pulls, bytes, overlap ms, raw and wire bytes
+        "d2h": transfer.d2h_stats(),
         # compressed-domain execution (columnar/encoding.py):
         # encodedColumns (columns ingested as codes), lateDecodes (the
         # counted escape hatch), compressedBytesSaved (raw less wire,

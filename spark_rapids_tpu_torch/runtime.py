@@ -34,7 +34,7 @@ import torch
 
 from spark_rapids_tpu_torch.conf import (
     ALLOC_FRACTION, BUDGET_BYTES, CONCURRENT_TASKS, HOST_SPILL_STORAGE_SIZE,
-    TorchConf,
+    PINNED_POOL_SIZE, POOLING_ENABLED, TorchConf,
 )
 
 # device memory the budget assumes where the device reports none (the
@@ -134,7 +134,9 @@ class TorchRuntime:
         override = conf.get(BUDGET_BYTES)
         self.catalog = BufferCatalog(
             override if override > 0 else self.budget_bytes,
-            conf.get(HOST_SPILL_STORAGE_SIZE))
+            conf.get(HOST_SPILL_STORAGE_SIZE),
+            pinned_pool_bytes=conf.get(PINNED_POOL_SIZE),
+            pooling_enabled=conf.get(POOLING_ENABLED))
 
     @staticmethod
     def _key(device: torch.device) -> str:

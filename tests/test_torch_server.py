@@ -811,7 +811,7 @@ def test_stats_snapshot_and_prometheus_text(corpus):
         snap = s.engine_stats()
         assert set(snap) == {"aqe", "lifecycle", "catalog", "server",
                              "fleet", "stream", "journal", "histograms",
-                             "compressed"}
+                             "compressed", "prefetch", "d2h"}
         assert snap["server"]["completed"] >= 1
         assert snap["histograms"]["server.admit.wait.us"]["count"] >= 1
         assert snap["histograms"]["query.wall.us"]["count"] >= 1
