@@ -2339,7 +2339,7 @@ def idle_gaps(events, top: int = 5):
 
 
 def phase_trace(torch, query, name: str, top: int = 8,
-                expect: str = "") -> None:
+                expect: str = "") -> float:
     """One run of ``query`` (a DataFrame, or a function that runs one)
     under torch.profiler: its wall seconds, the
     card's busy seconds (kernels and copies), the largest device entries,
@@ -2347,8 +2347,9 @@ def phase_trace(torch, query, name: str, top: int = 8,
     of each of the port's named ranges (the join's build and route, the
     window's sort and evaluation), so the device's idle share shows how
     far the host holds the card back and the ranges what a join or a
-    window takes of it.  Fails when no host range starting with
-    ``expect`` (``join.``, ``window.``) shows in the trace."""
+    window takes of it -> the idle share.  Fails when no host range
+    starting with ``expect`` (``join.``, ``window.``) shows in the
+    trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2389,6 +2390,7 @@ def phase_trace(torch, query, name: str, top: int = 8,
     check(not expect or any(k.startswith(expect) and "host_ms" in r
                             for k, r in ranges.items()),
           f"{name}: no {expect}* range in the trace")
+    return 1.0 - busy / wall
 
 
 # -- the memory phase --------------------------------------------------------
@@ -4181,12 +4183,14 @@ def _inferred_type(F64, I64, values: np.ndarray, dtype):
     return dtype
 
 
-def _csv_lineitem(torch, st, session, tpch_dfs, smi: str):
+def _csv_lineitem(torch, st, tpch_dfs, smi: str):
     """Write SF1 lineitem as CSV, read it back inferred and typed, check
     every value, run Q1 and Q6 over the scan; -> (typed DataFrame,
-    schema, path)."""
+    schema, path).  The reads run with the device scan cache off, so
+    each one reads and decodes the file (phase 27 times the cache)."""
     from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
     from spark_rapids_tpu_torch.columnar.dtypes import FLOAT64, INT64
+    session = st.TorchSession(SCAN_CACHE_OFF)
     mem = tpch_dfs["lineitem"]
     path = os.path.join(FILES_DIR, "lineitem")
     _, write_s = _timed(torch, lambda: mem.write.csv(path))
@@ -4503,21 +4507,29 @@ def phase_files(torch, st, F, native, session, tpch_dfs, agg_data, line,
                 smi: str, errs: dict) -> None:
     """Phase 23: CSV written and decoded on the card, hive partitions and
     a standing query over tailed CSV files, each checked; K1's error on
-    the CSV scan's update batch goes into ``errs``."""
+    the CSV scan's update batch goes into ``errs``.  The cells that time
+    a read or hold a kernel on a decoded batch run with the device scan
+    cache off, so each read decodes the file (phase 27 measures the
+    cache); the standing query keeps the cache at its default (on)."""
     import shutil
+    from spark_rapids_tpu_torch.runtime import TorchRuntime
     t0 = time.perf_counter()
     shutil.rmtree(FILES_DIR, ignore_errors=True)
     os.makedirs(FILES_DIR)
+    off = st.TorchSession(SCAN_CACHE_OFF)
     try:
-        typed, schema, _ = _csv_lineitem(torch, st, session, tpch_dfs, smi)
+        typed, schema, _ = _csv_lineitem(torch, st, tpch_dfs, smi)
         errs["dense_slot_reduce"] = _csv_agg(torch, st, F, native,
-                                             session, agg_data, smi)
-        _csv_text(torch, st, F, native, session, line, smi)
-        _csv_hive(torch, st, F, session, typed, schema, smi)
+                                             off, agg_data, smi)
+        _csv_text(torch, st, F, native, off, line, smi)
+        _csv_hive(torch, st, F, off, typed, schema, smi)
         _stream_agg(torch, st, F, native, agg_data, smi)
         _typed_errors(st, session)
     finally:
         shutil.rmtree(FILES_DIR, ignore_errors=True)
+        # the scan cache's entries name the removed files
+        session.runtime.scan_cache.clear()
+        TorchRuntime.invalidate_paths(FILES_DIR)
     emit("files", seconds=time.perf_counter() - t0, nvidia_smi=smi)
 
 
@@ -4591,7 +4603,7 @@ def op_metric(plan, name: str) -> dict:
 
 def compressed_pair(torch, st, name: str, build, verify=None,
                     runs: int = 2, smi: str = "", off=None,
-                    phase: str = "compressed", **extra):
+                    phase: str = "compressed", base=None, **extra):
     """``build(session)``'s query with compressed execution on (the
     default) and ``off`` (the master key false unless given), each one
     warm-up and ``runs`` timed runs through the result pull (codes on
@@ -4606,12 +4618,13 @@ def compressed_pair(torch, st, name: str, build, verify=None,
     is planned again each scan), with the memo's host bytes after
     them; the off side takes no plane encoding, and a run
     that took a plane or a dictionary crossed fewer bytes than it
-    stands for; -> (on result, its counters)."""
+    stands for; ``base`` is the conf both sides add; -> (on result, its
+    counters)."""
     from spark_rapids_tpu_torch.columnar import encoding
     off = COMPRESSED_OFF if off is None else off
     res, line = {}, {}
     for mode, conf in (("on", {}), ("off", off)):
-        s = st.TorchSession(conf)
+        s = st.TorchSession({**(base or {}), **conf})
         q = build(s)
         encoding.clear_memo()
         before = encoding.compressed_stats()
@@ -4809,7 +4822,7 @@ def _csv_q1(torch, st, tpch, smi: str) -> None:
             "l_discount", "l_tax", "l_shipdate"]
     path = os.path.join(FILES_DIR, "q1")
     shutil.rmtree(path, ignore_errors=True)
-    s = st.TorchSession({})
+    s = st.TorchSession(SCAN_CACHE_OFF)
     mem = s.create_dataframe({c: li[c] for c in cols})
     mem.write.csv(path)
     schema = mem.plan.output_schema()
@@ -4826,8 +4839,9 @@ def _csv_q1(torch, st, tpch, smi: str) -> None:
         check(host_bitwise(result, want),
               "csv_lineitem_sf1 q1: not bit for bit the in-memory q1")
     try:
+        # every run reads the file: the device scan cache off
         compressed_pair(torch, st, "csv_lineitem_sf1_q1", build, verify,
-                        smi=smi)
+                        smi=smi, base=SCAN_CACHE_OFF)
     finally:
         shutil.rmtree(FILES_DIR, ignore_errors=True)
 
@@ -5346,7 +5360,8 @@ def _transfer_csv(torch, st, tpch_dfs, smi: str) -> None:
     line = {}
     try:
         for mode, conf in (("on", PREFETCH_ON), ("off", PREFETCH_OFF)):
-            s = st.TorchSession(conf)
+            # every read reads the file: the device scan cache off
+            s = st.TorchSession({**conf, **SCAN_CACHE_OFF})
             df = s.read.schema(schema).csv(path)
             got, _ = _timed(torch, df.to_torch)
             same_result(torch, got, want, f"transfer_csv_lineitem_sf1 {mode}")
@@ -5479,6 +5494,306 @@ def phase_transfer(torch, st, F, native, pag, tpch, tpch_dfs, agg_data,
     emit("transfer_phase", seconds=time.perf_counter() - t0, nvidia_smi=smi)
 
 
+# -- phase 27: the device scan cache ----------------------------------------
+
+SCAN_CACHE_OFF = {"spark.rapids.sql.scan.deviceCacheEnabled": False}
+SCAN_CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "_smoke_files", "scan_cache")
+SCAN_CACHE_CLIENTS = 4
+
+
+def scan_cache_pair(torch, st, name: str, build, verify, runs: int = 2,
+                    smi: str = "", conf=None, trace: bool = True):
+    """``build(session)``'s query over files with the scan cache off and
+    on (the default), each one warm-up and ``runs`` timed runs through
+    the result egress (``_host``); the cache cleared before each side,
+    so the on side's warm-up reads the files and its timed runs hit.  Prints
+    each side's warm seconds and ``scanCacheHits``, the cache's entries,
+    hits and bytes a tier after the on side, and one traced hit run's
+    idle share; the results bit for bit alike and ``verify``'d -> (the
+    on result, the on side's session)."""
+    t_cell = time.perf_counter()
+    res, line, sessions = {}, {}, {}
+    # off first: the on side's entry stays for the caller
+    for mode, key in (("off", SCAN_CACHE_OFF), ("on", {})):
+        s = sessions[mode] = st.TorchSession({**(conf or {}), **key})
+        s.runtime.scan_cache.clear()
+        q = build(s)
+        _, first = _timed(torch, q._host)
+        secs, hits = [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            res[mode] = q._host()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            hits.append(int(metric_sum(s._last_plan, "scanCacheHits")))
+        line[mode] = {"first_seconds": first, "seconds": secs,
+                      "scanCacheHits": hits,
+                      "cache": s.runtime.scan_cache.stats(),
+                      "catalog": {k: v for k, v in
+                                  s.runtime.catalog.stats().items()
+                                  if k in ("spill_to_host_count",
+                                           "spill_to_disk_count",
+                                           "unspill_count")}}
+        if trace and mode == "on":
+            line[mode]["hit_idle_share"] = phase_trace(
+                torch, q._host, f"{name}_hit")
+    check(all(h >= 1 for h in line["on"]["scanCacheHits"]),
+          f"{name}: a timed run with the cache on missed: {line['on']}")
+    check(not any(line["off"]["scanCacheHits"])
+          and line["off"]["cache"]["entries"] == 0,
+          f"{name}: the cache served a run with the key off")
+    check(res["on"].equals(res["off"]),
+          f"{name}: the cache on and off differ bit for bit")
+    verify(res["on"])
+    emit("scan_cache", cell=name, rows=res["on"].num_rows, on=line["on"],
+         off=line["off"], cell_seconds=time.perf_counter() - t_cell,
+         nvidia_smi=smi)
+    return res["on"], sessions["on"]
+
+
+def _scan_cache_tpch(torch, st, tpch, path: str, schema, smi: str,
+                     conf=None, tag: str = "") -> None:
+    """SF1 TPC-H q1 and q6 over lineitem read from its CSV (a dashboard
+    refreshing over one landing file), against numpy."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
+    for qname in (("q6",) if tag else ("q1", "q6")):
+        want, limit = tpch_reference(tpch, qname)
+        scan_cache_pair(
+            torch, st, f"scan_cache_tpch_{qname}{tag}",
+            lambda s, q=qname: TPCH_QUERIES[q](
+                {"lineitem": s.read.schema(schema).csv(path)}),
+            lambda r, w=want, lim=limit, q=qname: _check_host(r, w, lim, q),
+            smi=smi, conf=conf)
+
+
+def _scan_cache_agg(torch, st, F, native, pag, agg_data, smi: str) -> float:
+    """csv_hash_agg_2m with the cache on and off (K1 on the cached
+    batches), against numpy; -> K1's largest f64 sum error against its
+    plain version on a batch the cache served."""
+    path = os.path.join(SCAN_CACHE_DIR, "agg")
+    w = st.TorchSession(SCAN_CACHE_OFF)
+    mem = w.create_dataframe(agg_data)
+    _, write_s = _timed(torch, lambda: mem.write.csv(path))
+    schema = mem.plan.output_schema()
+    keys, counts, sums, maxes = group_stats(agg_data["k"], agg_data["v"],
+                                            agg_data["w"])
+
+    def verify(r):
+        cols = _host_cols(r)
+        check(r.num_rows == len(keys)
+              and np.array_equal(cols["k"], keys)
+              and np.array_equal(cols["cnt"], counts)
+              and np.array_equal(cols["mx"], maxes)
+              and np.allclose(cols["s"], sums, rtol=1e-9, atol=0),
+              "scan_cache_csv_hash_agg_2m differs from numpy")
+    before = native.LAUNCHES["dense_slot_reduce"]
+    _, s = scan_cache_pair(
+        torch, st, "scan_cache_csv_hash_agg_2m",
+        lambda s: agg_query(st, F, s.read.schema(schema).csv(path)),
+        verify, smi=smi)
+    check(native.LAUNCHES["dense_slot_reduce"] > before,
+          "scan_cache_csv_hash_agg_2m: the dense-slot kernel never ran")
+    hits = s.runtime.scan_cache.stats()["hits"]
+    err = _uncounted(native, lambda: phase_kernel_path(
+        torch, pag, s, agg_query(st, F, s.read.schema(schema).csv(path)),
+        "scan_cache_csv_hash_agg_2m"))
+    check(s.runtime.scan_cache.stats()["hits"] == hits + 1,
+          "scan_cache_csv_hash_agg_2m: K1 was not held on a cached batch")
+    emit("scan_cache_io", cell="scan_cache_csv_hash_agg_2m",
+         file_bytes=_tree_bytes(path), write_s=write_s, nvidia_smi=smi)
+    return err
+
+
+def _scan_cache_text(torch, st, F, native, line, smi: str) -> None:
+    """csv_text_filter_agg_6m with the cache on and off (K2 on the
+    cached ``l_comment`` char matrices), against the in-memory query."""
+    path = os.path.join(SCAN_CACHE_DIR, "text")
+    w = st.TorchSession(SCAN_CACHE_OFF)
+    mem = w.create_dataframe(line[0])
+    _, write_s = _timed(torch, lambda: mem.write.csv(path))
+    schema = mem.plan.output_schema()
+    want = text_agg_query(st, F, mem)._host()
+    before = native.LAUNCHES["contains"]
+    scan_cache_pair(
+        torch, st, "scan_cache_csv_text_filter_agg_6m",
+        lambda s: text_agg_query(st, F, s.read.schema(schema).csv(path)),
+        lambda r: host_same_rows(r, want, "scan_cache_csv_text_filter_agg_"
+                                 "6m against the in-memory query"),
+        smi=smi)
+    check(native.LAUNCHES["contains"] > before,
+          "scan_cache_csv_text_filter_agg_6m: no contains launch")
+    emit("scan_cache_io", cell="scan_cache_csv_text_filter_agg_6m",
+         file_bytes=_tree_bytes(path), write_s=write_s, nvidia_smi=smi)
+
+
+def _scan_cache_demoted(torch, st, tpch, path: str, schema,
+                        smi: str) -> None:
+    """q6 on a runtime of its own whose device budget is a quarter of the
+    cached lineitem entry's bytes: the entry is demoted to the host as it
+    is stored and promoted batch by batch on each hit."""
+    from spark_rapids_tpu_torch.runtime import TorchRuntime
+    s = fresh_session(st)
+    s.read.schema(schema).csv(path).to_torch()
+    entry = s.runtime.scan_cache.stats()["device_bytes"]
+    conf = {"spark.rapids.memory.tpu.budgetBytes": max(1, entry // 4),
+            "spark.rapids.memory.host.spillStorageSize": 4 * entry}
+    try:
+        fresh_session(st, conf)
+        emit("scan_cache_budget", entry_device_bytes=entry,
+             budget_bytes=conf["spark.rapids.memory.tpu.budgetBytes"],
+             nvidia_smi=smi)
+        _scan_cache_tpch(torch, st, tpch, path, schema, smi, conf=conf,
+                         tag="_demoted")
+    finally:
+        TorchRuntime.reset()
+
+
+def _scan_cache_server(torch, st, tpch, path: str, schema, smi: str,
+                       passes: int = 2) -> None:
+    """q6 over the lineitem CSV from SCAN_CACHE_CLIENTS session.server()
+    clients at once (the result cache off), the scan cache on (cleared:
+    the first pass's clients miss together) and off; every result equal
+    to the serial one, bit for bit."""
+    import concurrent.futures as cf
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
+    want, limit = tpch_reference(tpch, "q6")
+    serial = TPCH_QUERIES["q6"]({"lineitem": st.TorchSession(
+        SCAN_CACHE_OFF).read.schema(schema).csv(path)})._host()
+    _check_host(serial, want, limit, "q6")
+    line = {}
+    for mode, key in (("on", {}), ("off", SCAN_CACHE_OFF)):
+        s = st.TorchSession(dict(key))
+        s.runtime.scan_cache.clear()
+        hits0 = s.runtime.scan_cache.stats()["hits"]
+        q = TPCH_QUERIES["q6"]({"lineitem": s.read.schema(schema).csv(path)})
+        server = s.server(max_concurrency=SCAN_CACHE_CLIENTS)
+        secs = []
+        try:
+            with cf.ThreadPoolExecutor(SCAN_CACHE_CLIENTS) as pool:
+                for _ in range(1 + passes):
+                    t0 = time.perf_counter()
+                    got = list(pool.map(
+                        lambda _i: server.submit(q, tenant="dash",
+                                                 use_cache=False)
+                        .result(timeout=600),
+                        range(SCAN_CACHE_CLIENTS)))
+                    secs.append(time.perf_counter() - t0)
+                    for r in got:
+                        check(r.equals(serial), f"scan_cache_q6_server "
+                              f"{mode}: a client's result is not the "
+                              "serial one")
+        finally:
+            server.close()
+        stats = s.runtime.scan_cache.stats()
+        line[mode] = {"first_pass_seconds": secs[0], "seconds": secs[1:],
+                      "hits": stats["hits"] - hits0,
+                      "entries": stats["entries"],
+                      "device_bytes": stats["device_bytes"],
+                      "leaked": s.runtime.catalog.audit_leaks()}
+        check(line[mode]["leaked"] == 0,
+              f"scan_cache_q6_server {mode}: handles left registered")
+    check(line["on"]["entries"] == 1
+          and line["on"]["hits"] >= passes * SCAN_CACHE_CLIENTS,
+          f"scan_cache_q6_server: {line['on']}")
+    check(line["off"]["entries"] == 0 and line["off"]["hits"] == 0,
+          f"scan_cache_q6_server: the key off was served: {line['off']}")
+    emit("scan_cache", cell="scan_cache_q6_server",
+         clients=SCAN_CACHE_CLIENTS, rows=serial.num_rows, on=line["on"],
+         off=line["off"], nvidia_smi=smi)
+
+
+def _scan_cache_rewrite(torch, st, F, tpch_dfs, tpch, path: str, schema,
+                        smi: str) -> None:
+    """q6 with the cache on, then the CSV overwritten by the port's writer
+    with every other order's rows: the next run reads the new contents
+    (a miss), the one after hits them; both against the in-memory q6 of
+    the new rows, and against a run with the key off."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
+    s = st.TorchSession({})
+    off = st.TorchSession(SCAN_CACHE_OFF)
+    q = TPCH_QUERIES["q6"]({"lineitem": s.read.schema(schema).csv(path)})
+    before = q._host()
+    q._host()
+    check(int(metric_sum(s._last_plan, "scanCacheHits")) == 1,
+          "scan_cache_rewrite: the second run before the rewrite missed")
+    half = tpch_dfs["lineitem"].filter(st.col("l_orderkey") % 2 == 0)
+    _, write_s = _timed(torch, lambda: half.write.mode("overwrite")
+                        .csv(path))
+    want = TPCH_QUERIES["q6"]({"lineitem": half})._host()
+    after, secs = _timed(torch, q._host)
+    miss = int(metric_sum(s._last_plan, "scanCacheHits"))
+    again, hit_s = _timed(torch, q._host)
+    hit = int(metric_sum(s._last_plan, "scanCacheHits"))
+    keyoff = TPCH_QUERIES["q6"]({"lineitem": off.read.schema(schema)
+                                 .csv(path)})._host()
+    check(miss == 0 and hit == 1,
+          f"scan_cache_rewrite: hits {miss}, {hit} after the rewrite")
+    host_same_rows(after, want, "scan_cache_rewrite against the new rows")
+    check(after.equals(again) and after.equals(keyoff),
+          "scan_cache_rewrite: the runs after the rewrite differ")
+    check(not after.equals(before),
+          "scan_cache_rewrite: the result did not change")
+    emit("scan_cache", cell="scan_cache_rewrite", write_s=write_s,
+         miss_seconds=secs, hit_seconds=hit_s, nvidia_smi=smi)
+
+
+def phase_scan_cache(torch, st, F, native, pag, tpch, tpch_dfs, agg_data,
+                     line, errs: dict, smi: str) -> None:
+    """Phase 27: the device scan cache, each cell with
+    ``spark.rapids.sql.scan.deviceCacheEnabled`` on and off in one call:
+    SF1 q1 and q6 over lineitem written as CSV, csv_hash_agg_2m (K1, held
+    on a cached batch), csv_text_filter_agg_6m (K2), q6 under a budget
+    that demotes the entry, q6 from 4 server clients, and a rewrite of
+    the CSV read anew.  Its files go to _smoke_files/scan_cache and are
+    removed, and the cache is cleared, at its end."""
+    import shutil
+    from spark_rapids_tpu_torch.runtime import TorchRuntime
+    t0 = time.perf_counter()
+    shutil.rmtree(SCAN_CACHE_DIR, ignore_errors=True)
+    os.makedirs(SCAN_CACHE_DIR)
+    try:
+        mem = tpch_dfs["lineitem"]
+        path = os.path.join(SCAN_CACHE_DIR, "lineitem")
+        _, write_s = _timed(torch, lambda: mem.write.csv(path))
+        schema = mem.plan.output_schema()
+        emit("scan_cache_io", cell="lineitem_sf1", rows=LINEITEM_ROWS,
+             file_bytes=_tree_bytes(path), write_s=write_s, nvidia_smi=smi)
+        _scan_cache_tpch(torch, st, tpch, path, schema, smi)
+        errs["dense_slot_reduce"] = _scan_cache_agg(
+            torch, st, F, native, pag, agg_data, smi)
+        _scan_cache_text(torch, st, F, native, line, smi)
+        _scan_cache_demoted(torch, st, tpch, path, schema, smi)
+        _scan_cache_server(torch, st, tpch, path, schema, smi)
+        _scan_cache_rewrite(torch, st, F, tpch_dfs, tpch, path, schema, smi)
+    finally:
+        shutil.rmtree(SCAN_CACHE_DIR, ignore_errors=True)
+        # the entries name the removed files: give their bytes back
+        TorchRuntime.invalidate_paths(SCAN_CACHE_DIR)
+    emit("scan_cache_phase", seconds=time.perf_counter() - t0,
+         nvidia_smi=smi)
+
+
+def scan_cache_only(torch, st, F, native, pag, agg_data, line, name: str,
+                    smi: str) -> int:
+    """``--scan-cache-only``: phase 27 and its data alone."""
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy, load_tables
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    session = st.TorchSession.builder().get_or_create()
+    native.reset_launches()
+    errs = {}
+    phase_scan_cache(torch, st, F, native, pag, tpch,
+                     load_tables(session, tpch), agg_data, line, errs, smi)
+    emit("launches", path="scan_cache", counts=dict(native.LAUNCHES),
+         dense_slot_reduce_max_abs_err=errs["dense_slot_reduce"])
+    check(all(v > 0 for v in native.LAUNCHES.values()),
+          f"scan_cache: a kernel never launched: {dict(native.LAUNCHES)}")
+    print(json.dumps({"ok": True, "scan_cache_only": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def transfer_only(torch, st, F, native, pag, main_data, agg_data, name: str,
                   smi: str, rate: float) -> int:
     """``--transfer-only``: phase 26 and its data alone."""
@@ -5563,6 +5878,10 @@ def parse_args(argv):
                          "double-buffered uploads and the packed egress, "
                          "each cell with its key on and off) with its "
                          "launch counts, and stop")
+    ap.add_argument("--scan-cache-only", action="store_true",
+                    help="build the kernels, run phase 27 (the device "
+                         "scan cache, each cell with its key on and off) "
+                         "with its launch counts, and stop")
     ap.add_argument("--string-paths", action="store_true",
                     help="time LIKE/RLIKE's two matchers and replace's "
                          "two paths on the breadth queries' columns and "
@@ -5636,6 +5955,9 @@ def main(argv=None) -> int:
     if args.compressed_only:
         return compressed_only(torch, st, F, native, pag, ps, main_data,
                                dim_data, line, name, smi)
+    if args.scan_cache_only:
+        return scan_cache_only(torch, st, F, native, pag, agg_data, line,
+                               name, smi)
     edges = not args.kernels_only
     kern = {"dense_slot_reduce": phase_kernel(
                 torch, pag, session, agg_query(
@@ -5758,6 +6080,11 @@ def main(argv=None) -> int:
           tpch_dfs, agg_data, main_data, transfer_errs, smi, rate)
     dsr["max_abs_err"] = max(dsr["max_abs_err"],
                              transfer_errs["dense_slot_reduce"])
+    cache_errs = {}
+    drive("scan_cache", phase_scan_cache, torch, st, F, native, pag, tpch,
+          tpch_dfs, agg_data, line, cache_errs, smi)
+    dsr["max_abs_err"] = max(dsr["max_abs_err"],
+                             cache_errs["dense_slot_reduce"])
     # the replicas count their own launches; they join the kernels line
     replica_launches = {}
     drive("fleet", phase_fleet, torch, st, native, tpch, agg_data, smi,

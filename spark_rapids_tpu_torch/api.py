@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import lifecycle
+from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch, HostColumns, HostStrings, concat_host_values,
     empty_host_values, host_columns_from_arrow,
@@ -693,8 +694,18 @@ class DataFrame:
     def to_device_batches(self) -> List[ColumnarBatch]:
         """Run the query and return its result's ``ColumnarBatch``es as
         they are, their tensors still on the session's device (the
-        counterpart of the JAX package's handoff to ML code)."""
-        return self._execute()[1]
+        counterpart of the JAX package's handoff to ML code).  Planes
+        that the device scan cache holds come back as copies, so a
+        write into a returned tensor changes no later query's input."""
+        return self._unshared(self._execute()[1])
+
+    def _unshared(self, batches: List[ColumnarBatch]
+                  ) -> List[ColumnarBatch]:
+        """``batches`` with copies in place of the scan cache's planes
+        (``encoding.unshare_batches``): torch tensors can be written,
+        where the JAX package's arrays cannot."""
+        return encoding.unshare_batches(
+            batches, self.session.runtime.scan_cache.storages())
 
     def explain(self, analyze: bool = False) -> str:
         """The plan as text, also written to stdout.  ``analyze=False``
@@ -751,7 +762,8 @@ class DataFrame:
         """-> (columns, masks, num_rows): the result's data planes and
         validity masks, still on the session's device, trimmed to the
         row count (the counterpart of the JAX package's ``to_jax``).  A
-        string column comes back as ``(lengths, chars)``."""
+        string column comes back as ``(lengths, chars)``.  Planes that
+        the device scan cache holds come back as copies."""
         with self._query():
             schema, batches = self._execute()
         if not batches:
@@ -764,7 +776,7 @@ class DataFrame:
             masks = {f.name: torch.empty(0, dtype=torch.bool, device=dev)
                      for f in schema}
             return cols, masks, 0
-        batch = concat_batches(batches)
+        batch, = self._unshared([concat_batches(batches)])
         n = batch.num_rows
         cols = {f.name: c.data[:n] if c.chars is None else
                 (c.data[:n], c.chars[:n])

@@ -147,6 +147,14 @@ def egress_enabled() -> bool:
     return _EGRESS
 
 
+def ingest_key() -> tuple:
+    """The switches that decide how a scan's batches are encoded
+    (compressed ingest, the three plane keys, ``maxDictFraction``): a
+    part of the device scan cache's key, so that a session never gets
+    batches encoded under another session's switches."""
+    return (_INGEST, _RLE, _DELTA, _PACKED, _MAX_DICT_FRACTION)
+
+
 def _bump(key: str, v: int = 1) -> None:
     if v:
         with _STATS_LOCK:
@@ -239,6 +247,22 @@ class DictPlanes:
     def wire_bytes(self) -> int:
         return int(self.lengths.numel() * 4 + self.chars.numel()
                    + self.validity.numel())
+
+    def clone(self) -> "DictPlanes":
+        """A dictionary of its own with the same values: its planes and
+        host arrays copied, no derived planes."""
+        out = object.__new__(DictPlanes)
+        out.size, out.capacity, out.width = self.size, self.capacity, \
+            self.width
+        out.fingerprint = self.fingerprint
+        out.host_chars = self.host_chars.copy()
+        out.host_lengths = self.host_lengths.copy()
+        out.lengths = self.lengths.clone()
+        out.chars = self.chars.clone()
+        out.validity = self.validity.clone()
+        out._aux = OrderedDict()
+        out._aux_lock = threading.Lock()
+        return out
 
     def aux(self, key, build):
         """The planes derived for ``key``, built once (bounded: a
@@ -633,6 +657,43 @@ def restore_column(dtype: DataType, planes: tuple, num_rows: int,
     if kind[0] == "delta":
         return DeltaColumn(dtype, a, b, valid, num_rows, kind[1])
     return PackedBoolColumn(a, valid, num_rows, kind[1])
+
+
+def unshare_batches(batches: list, storages: set) -> list:
+    """``batches`` with every column whose planes or dictionary lie in
+    ``storages`` (``untyped_storage().data_ptr()``s: the device scan
+    cache's) rebuilt on copies of them, so that a caller that writes
+    what it was handed cannot reach the batches the cache shares with
+    later queries.  Other columns are kept as they are."""
+    from spark_rapids_tpu_torch.columnar import transfer
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+
+    def shared(planes) -> bool:
+        return any(a is not None and a.untyped_storage().data_ptr()
+                   in storages for a in planes)
+
+    dicts = {}
+    out = []
+    for b in batches:
+        cols = []
+        for c in b.columns:
+            planes, dct, kind = stored_planes(c)
+            dshared = dct is not None and shared(
+                (dct.lengths, dct.chars, dct.validity))
+            if not (dshared or shared(planes)):
+                cols.append(c)
+                continue
+            transfer.await_upload(b)
+            if dshared:
+                if id(dct) not in dicts:
+                    dicts[id(dct)] = dct.clone()
+                dct = dicts[id(dct)]
+            planes = tuple(None if a is None else a.clone() for a in planes)
+            cols.append(restore_column(c.dtype, planes, c.num_rows, dct,
+                                       kind))
+        out.append(b if all(x is y for x, y in zip(cols, b.columns))
+                   else ColumnarBatch(cols, b.num_rows, b.schema))
+    return out
 
 
 def plan_plane(values: np.ndarray, validity: np.ndarray, dtype: DataType,

@@ -307,6 +307,16 @@ TRANSFER_STATS_THRESHOLD = register(
     "(min, max, longest string) stats to narrow the data pull; at or "
     "below it one pull carries the data.", int, _positive)
 
+SCAN_DEVICE_CACHE = register(
+    "spark.rapids.sql.scan.deviceCacheEnabled", True,
+    "Keep the parquet, CSV and ORC scans' device batches on the card "
+    "across queries (runtime.py: the scan cache, 8 entries, LRU), keyed "
+    "by each file's identity (path, mtime_ns, size, inode) and the "
+    "scan's shape and encodings, held in the spill catalog at the "
+    "lowest priority, so that memory pressure demotes them first; a "
+    "repeated read serves them and counts scanCacheHits.  The local "
+    "scan is not cached.", bool)
+
 RANGE_SAMPLE_SIZE = register(
     "spark.rapids.sql.rangePartitioning.sampleSize", 10_000,
     "Most rows sampled to compute the bounds of a range repartition "

@@ -59,6 +59,12 @@ and codes the host encoder makes of the same strings.  Its numeric
 columns stay plain: they are decoded on the device and never cross the
 link, so a plane encoding (RLE, delta, packed) would save no byte (the
 JAX package's CSV scan encodes them on the host: ROADMAP.md C).
+
+The scan's batches, encoded and with their partition columns, go through
+the device scan cache (``io/parquet.py: cached_device_scan``), keyed by
+the pruned file list, the predicate, the header and the separator; a
+hit counts ``scanCacheHits``, which the JAX package's CSV scan does not
+(ROADMAP.md C).
 """
 
 from __future__ import annotations
@@ -818,6 +824,8 @@ class TorchCsvScanExec(TorchExec):
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         from spark_rapids_tpu_torch.io import hivepart
+        from spark_rapids_tpu_torch.io.parquet import cached_device_scan, \
+            scan_cache_key
         files, fvals = hivepart.prune_files(
             self.part_schema, self.part_values, self.paths, self.pred)
         if self.part_schema:
@@ -826,16 +834,22 @@ class TorchCsvScanExec(TorchExec):
         rows = ctx.conf.get(READER_BATCH_SIZE_ROWS)
         max_w = ctx.conf.get(MAX_STRING_WIDTH)
         frac = ctx.conf.get(COMPRESSED_MAX_DICT_FRACTION)
-        for path, vals in zip(files, fvals or [None] * len(files)):
-            for b in decode_file(path, self._file_schema, self.header,
-                                 self.sep, ctx.device, rows, max_w,
-                                 self.metrics, ctx=ctx):
-                if encoding.ingest_enabled():
-                    # the char matrices are on the device already: the
-                    # dictionary and codes are made there
-                    b = encoding.encode_batch_on_device(b, frac, max_w,
-                                                        self.metrics)
-                if self.part_schema:
-                    b = hivepart.append_partition_columns(
-                        b, self.part_schema, vals, self._schema)
-                yield b
+
+        def gen():
+            for path, vals in zip(files, fvals or [None] * len(files)):
+                for b in decode_file(path, self._file_schema, self.header,
+                                     self.sep, ctx.device, rows, max_w,
+                                     self.metrics, ctx=ctx):
+                    if encoding.ingest_enabled():
+                        # the char matrices are on the device already:
+                        # the dictionary and codes are made there
+                        b = encoding.encode_batch_on_device(
+                            b, frac, max_w, self.metrics)
+                    if self.part_schema:
+                        b = hivepart.append_partition_columns(
+                            b, self.part_schema, vals, self._schema)
+                    yield b
+        # the pruned file list names the partitions the predicate kept
+        key = scan_cache_key(ctx, "csv", files, self._schema, self.pred,
+                             (self.header, self.sep))
+        yield from cached_device_scan(ctx, key, gen, self.metrics)

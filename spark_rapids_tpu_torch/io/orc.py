@@ -5,7 +5,9 @@ at a time on the host, a stripe whose decoded min/max cannot satisfy the
 pushed predicate is dropped before it is cast and uploaded
 (``_stripe_may_match``, the JAX package's search-argument analog), and
 the rest upload through ``io/hostio.py``, hive partition columns
-appended.  The Filter above the scan stays.  pyarrow is imported inside
+appended, served through the device scan cache (``io/parquet.py:
+cached_device_scan``, the stripe counts replayed on a hit).  The Filter
+above the scan stays.  pyarrow is imported inside
 the functions that read; they raise ``PyarrowRequiredError`` where it
 is missing.
 """
@@ -23,6 +25,8 @@ from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.io import hivepart
 from spark_rapids_tpu_torch.io.hostio import coalesce_host_batches, \
     make_uploader, pipelined_scan
+from spark_rapids_tpu_torch.io.parquet import cached_device_scan, \
+    scan_cache_key
 from spark_rapids_tpu_torch.utils.metrics import METRIC_NUM_FILES_READ, \
     METRIC_NUM_FILES_TOTAL, METRIC_NUM_STRIPES_READ, \
     METRIC_NUM_STRIPES_TOTAL
@@ -158,5 +162,11 @@ class TorchOrcScanExec(TorchExec):
                         reader.total_stripes
                     self.metrics[METRIC_NUM_STRIPES_READ] += \
                         reader.read_stripes
-        yield from pipelined_scan(ctx, self.metrics, host_items(), upload,
+
+        def gen():
+            return pipelined_scan(ctx, self.metrics, host_items(), upload,
                                   "orc-decode", lambda t: t[1].nbytes)
+        key = scan_cache_key(ctx, "orc", files, self._schema, self.pred)
+        yield from cached_device_scan(
+            ctx, key, gen, self.metrics,
+            (METRIC_NUM_STRIPES_TOTAL, METRIC_NUM_STRIPES_READ))

@@ -16,25 +16,34 @@ ingest is on, string columns are read as Arrow dictionaries
 dictionary pages, as in the JAX package.  pyarrow is
 imported inside the functions that read, so the rest of the port runs
 without it; they raise ``PyarrowRequiredError`` where it is missing.
+
+The parquet, ORC and CSV scans serve their device batches through
+``cached_device_scan`` (``spark.rapids.sql.scan.deviceCacheEnabled``):
+a read whose ``scan_cache_key`` the runtime's ``ScanCache`` holds
+yields the cached batches, replays the scan's pruning metrics and counts
+``scanCacheHits``; a read that runs to its end stores its batches; a
+read its consumer stops early (a limit, an error, a cancel) stores
+nothing and closes its handles at once.
 """
 
 from __future__ import annotations
 
 import glob as _glob
 import os
-from typing import Iterator, List
+from typing import Callable, Iterator, List, Optional, Sequence
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, \
     host_batch_to_device
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
-from spark_rapids_tpu_torch.conf import READER_BATCH_SIZE_ROWS
+from spark_rapids_tpu_torch.conf import MAX_STRING_WIDTH, \
+    READER_BATCH_SIZE_ROWS, SCAN_DEVICE_CACHE
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
 from spark_rapids_tpu_torch.io import hivepart
 from spark_rapids_tpu_torch.io.hostio import coalesce_host_batches, \
     make_uploader, pipelined_scan, read_dictionary_columns
 from spark_rapids_tpu_torch.utils.metrics import METRIC_NUM_FILES_READ, \
     METRIC_NUM_FILES_TOTAL, METRIC_NUM_ROW_GROUPS_READ, \
-    METRIC_NUM_ROW_GROUPS_TOTAL
+    METRIC_NUM_ROW_GROUPS_TOTAL, METRIC_SCAN_CACHE_HITS
 
 
 def expand_paths(path) -> List[str]:
@@ -123,6 +132,89 @@ class ParquetPartitionReader:
                 yield b
 
 
+def file_identity(path: str) -> tuple:
+    """``(absolute path, st_mtime_ns, st_size, st_ino)``: what changes
+    when a file is rewritten, but for a same-size rewrite in place
+    within one timestamp tick, which the writers cover by invalidating
+    (``runtime.py: TorchRuntime.invalidate_paths``)."""
+    st = os.stat(path)
+    return (os.path.abspath(path), st.st_mtime_ns, st.st_size, st.st_ino)
+
+
+def scan_cache_key(ctx: ExecContext, kind: str, paths: List[str],
+                   schema: Schema, pred, extra=()) -> Optional[tuple]:
+    """The device scan cache's key: the files' identities (the second
+    element, which ``ScanCache.invalidate_paths`` reads), the schema,
+    the pushed predicate's ``key()``, the batch rows, the string width
+    cap, the encoding switches (``encoding.ingest_key``) and the scan's
+    own ``extra`` -> None when a file cannot be stat'ed."""
+    from spark_rapids_tpu_torch.columnar import encoding
+    try:
+        ids = tuple(file_identity(p) for p in paths)
+    except OSError:
+        return None
+    return (kind, ids, tuple((f.name, f.dtype.name) for f in schema),
+            pred.key() if pred is not None else None,
+            ctx.conf.get(READER_BATCH_SIZE_ROWS),
+            ctx.conf.get(MAX_STRING_WIDTH), encoding.ingest_key(), extra)
+
+
+def cached_device_scan(ctx: ExecContext, key, gen: Callable[[], Iterator],
+                       metrics=None, metric_names: Sequence[str] = ()
+                       ) -> Iterator[ColumnarBatch]:
+    """The scan's batches through the runtime's scan cache: ``gen()``
+    makes the fresh stream.  On a hit the entry's handles are yielded
+    (promoted to the device if they were demoted), the named metrics'
+    counts from the read that stored them are added to ``metrics``, and
+    ``scanCacheHits`` counts one.  On a miss each batch is registered as
+    a ``PRIORITY_RECREATABLE`` handle with its writes guarded before it
+    is yielded, and the handles are stored once the stream has run to
+    its end; a stream closed before that closes them.  A cached batch
+    written in place raises ``CachedBatchWrittenError``, and its entry
+    is dropped: it is not read again, which would hide the write."""
+    from spark_rapids_tpu_torch.memory.spill import PRIORITY_RECREATABLE, \
+        CachedBatchWrittenError, SpillableBatch, close_all
+    if key is None or not ctx.conf.get(SCAN_DEVICE_CACHE):
+        yield from gen()
+        return
+    cache = ctx.runtime.scan_cache
+    ent = cache.get(key)
+    if ent is not None:
+        try:
+            if metrics is not None:
+                for name, v in ent.metrics.items():
+                    metrics[name] += v
+                metrics[METRIC_SCAN_CACHE_HITS] += 1
+            for h in ent.handles:
+                try:
+                    b = h.get()
+                except CachedBatchWrittenError:
+                    cache.invalidate(key)
+                    raise
+                yield b
+        finally:
+            cache.release(ent)
+        return
+    before = {n: int(metrics[n]) for n in metric_names} \
+        if metrics is not None else {}
+    handles = []
+    stored = False
+    try:
+        for b in gen():
+            h = SpillableBatch(b, ctx.runtime.catalog,
+                               priority=PRIORITY_RECREATABLE)
+            h.suppress_leak_warning = True
+            handles.append(h)
+            h.guard_writes()
+            yield b
+        snap = {n: int(metrics[n]) - before[n] for n in metric_names} \
+            if metrics is not None else {}
+        stored = cache.put(key, handles, snap)
+    finally:
+        if not stored:
+            close_all(handles)
+
+
 class TorchParquetScanExec(TorchExec):
     def __init__(self, paths, schema: Schema, pred=None):
         super().__init__()
@@ -170,5 +262,11 @@ class TorchParquetScanExec(TorchExec):
                     reader.read_row_groups
                 for rb in coalesce_host_batches(it, rows):
                     yield fi, rb
-        yield from pipelined_scan(ctx, self.metrics, host_items(), upload,
+
+        def gen():
+            return pipelined_scan(ctx, self.metrics, host_items(), upload,
                                   "parquet-decode", lambda t: t[1].nbytes)
+        key = scan_cache_key(ctx, "parquet", files, self._schema, self.pred)
+        yield from cached_device_scan(
+            ctx, key, gen, self.metrics,
+            (METRIC_NUM_ROW_GROUPS_TOTAL, METRIC_NUM_ROW_GROUPS_READ))

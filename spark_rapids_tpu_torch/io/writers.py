@@ -23,6 +23,10 @@ out as Arrow lays them: decimal when the exponent is in [-6, 10), else
 ``inf``.  The text is made on the device, a batch at a time
 (``io/csvformat.py``); only the finished bytes come back.
 
+A write drops the device scan cache's entries that name files under
+its path, in every runtime, once it ends (``runtime.py:
+TorchRuntime.invalidate_paths``).
+
 ``write_parquet`` and ``write_orc`` import pyarrow inside the function;
 where it cannot be imported they raise ``PyarrowRequiredError``, which
 names the package.
@@ -245,6 +249,18 @@ def _py_value(dtype, values, r: int):
 
 def _write(df, path: str, mode: str, partition_cols,
            open_writer: Callable[[str, Schema], object]) -> None:
+    from spark_rapids_tpu_torch.runtime import TorchRuntime
+    try:
+        _write_parts(df, path, mode, partition_cols, open_writer)
+    finally:
+        # the device scan cache must not serve what this write replaced:
+        # a same-size rewrite within one timestamp tick may keep a
+        # file's (mtime_ns, size, inode)
+        TorchRuntime.invalidate_paths(path)
+
+
+def _write_parts(df, path: str, mode: str, partition_cols,
+                 open_writer: Callable[[str, Schema], object]) -> None:
     part = _prepare_dir(path, mode)
     if part < 0:
         return

@@ -60,8 +60,16 @@ waiter classes with no resource between them, so none can wait on
 another.  The boolean planes a transition moves are packed by the
 egress codec's ``bitpack_plane`` (``columnar/transfer.py``).
 
-Not carried over yet: the device scan cache's entries (A6) and the
-conf-driven allocation log.
+The device scan cache (``runtime.py: ScanCache``) holds its batches
+here as ``PRIORITY_RECREATABLE`` handles, whose leak warning is
+suppressed and whose writes are guarded (``guard_writes``): a batch the
+cache shares across queries that a consumer wrote in place raises
+``CachedBatchWrittenError`` at its next ``get``, where the JAX
+package's arrays cannot be written at all.  ``audit_leaks`` leaves
+those handles out: they outlive their query by design, and the runtime
+clears the cache before its shutdown audit.
+
+Not carried over yet: the conf-driven allocation log.
 """
 
 from __future__ import annotations
@@ -105,6 +113,12 @@ _TIER_RANK = {TIER_DEVICE: 0, TIER_HOST: 1, TIER_DISK: 2}
 PRIORITY_RECREATABLE = -100
 PRIORITY_NORMAL = 0
 PRIORITY_RETAIN = 100
+
+
+class CachedBatchWrittenError(RuntimeError):
+    """A guarded handle's batch was written in place since it was
+    stored: an operator wrote into its input, and every later reader of
+    the shared batch would see the write."""
 
 class HostStagingLimiter:
     """At most ``cap`` bytes of host staging admitted at once (the JAX
@@ -205,11 +219,41 @@ class SpillableBatch:
         self.size = batch.size_bytes()
         self.tier = TIER_DEVICE
         self.pinned = False
+        # guard_writes: the planes' version counters when last stored,
+        # and whether a demotion found them changed
+        self._versions: Optional[tuple] = None
+        self._written = False
         catalog._register(self)
 
     @property
     def _cuda(self) -> bool:
         return self.device is not None and self.device.type == "cuda"
+
+    # -- the write guard ------------------------------------------------------
+
+    def _plane_versions(self) -> tuple:
+        """The version counters of the device planes and of the shared
+        dictionaries' planes (an in-place write bumps them)."""
+        planes = tuple(-1 if a is None else a._version
+                       for triple in self._device or () for a in triple)
+        dicts = tuple((d.lengths._version, d.chars._version,
+                       d.validity._version)
+                      for d in self._dicts if d is not None)
+        return planes, dicts
+
+    def guard_writes(self) -> None:
+        """From now on ``get`` raises ``CachedBatchWrittenError`` once a
+        plane of the batch was written in place: its version counter
+        moved, seen at ``get`` on the device or at a demotion (the host
+        copy would keep the write).  A promotion records the new planes'
+        counters."""
+        with self._catalog._lock:
+            self._versions = self._plane_versions()
+
+    def _note_writes(self) -> None:
+        if self._versions is not None and self._device is not None \
+                and self._plane_versions() != self._versions:
+            self._written = True
 
     # -- demotion (the catalog calls these under its lock) -------------------
 
@@ -219,6 +263,7 @@ class SpillableBatch:
         assert self.tier == TIER_DEVICE
         faults.maybe_fail("spill.demote", "injected device->host demotion "
                           f"failure ({self.size} bytes)")
+        self._note_writes()
         cuda = self._cuda
         host, packed = [], []
         with self._catalog.staging.limit(self.size):
@@ -311,6 +356,8 @@ class SpillableBatch:
         self._device = dev
         self._host = self._packed = None
         self.tier = TIER_DEVICE
+        if self._versions is not None:
+            self._versions = self._plane_versions()
         self._catalog._sync_info(self)
 
     # -- materialization ----------------------------------------------------
@@ -319,7 +366,9 @@ class SpillableBatch:
         """The batch on its device, promoted through the tiers; room is
         made first, so a promotion can demote colder handles (never this
         one: it is pinned meanwhile).  A promotion then re-checks the
-        budget of the query that made the handle."""
+        budget of the query that made the handle.  A guarded handle
+        (``guard_writes``) whose planes were written raises
+        ``CachedBatchWrittenError``."""
         cat = self._catalog
         with cat._lock:
             was_pinned = self.pinned
@@ -340,6 +389,12 @@ class SpillableBatch:
                     self._from_host()
                     cat._move(self.size, TIER_HOST, TIER_DEVICE)
                     cat.unspill_count += 1
+                self._note_writes()
+                if self._written:
+                    raise CachedBatchWrittenError(
+                        f"a cached batch of {self.num_rows} rows "
+                        f"({', '.join(self.schema.names)}) was written in "
+                        "place since it was stored")
                 cat._touch(self)
                 cols = [restore_column(dt, planes, self.num_rows, dct, kind)
                         for dt, planes, dct, kind in zip(
@@ -372,6 +427,16 @@ class SpillableBatch:
                 if p is not None:
                     _unlink(p)
         self._device = self._host = self._disk = None
+
+    def device_storages(self) -> set:
+        """The storages (``untyped_storage().data_ptr()``) of the batch's
+        device planes and of its dictionaries' planes."""
+        with self._catalog._lock:
+            planes = [a for triple in self._device or () for a in triple
+                      if a is not None]
+            planes += [p for d in self._dicts if d is not None
+                       for p in (d.lengths, d.chars, d.validity)]
+            return {a.untyped_storage().data_ptr() for a in planes}
 
     @property
     def suppress_leak_warning(self) -> bool:
@@ -467,9 +532,10 @@ class BufferCatalog:
 
     def audit_leaks(self) -> int:
         """Handles still registered (none when every operator closed
-        what it made)."""
+        what it made), but the device scan cache's: a handle whose leak
+        warning is suppressed outlives its query by design."""
         with self._lock:
-            return len(self._lru)
+            return sum(not self._info[k]["suppress"] for k in self._lru)
 
     # -- registry -----------------------------------------------------------
 

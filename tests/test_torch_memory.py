@@ -19,7 +19,10 @@ and the code paths are the card's but for pinning and events:
   and range exchanges under the JAX package's tiny-budget conf
   (``tests/test_spill.py:17``, 200 KiB of device and 150 KiB of host),
   each equal to the JAX package under the
-  same conf dict, with bytes on the host and the disk tiers;
+  same conf dict, with bytes on the host and the disk tiers, once with
+  the device scan cache at its default (on: its entries take the
+  lowest priority and the operators' own moves are counted apart) and
+  once with it off;
 - the semaphore: re-entrant in a thread, one permit shared by two
   threads' queries with no deadlock;
 - ``device_lookahead``: order kept, the producer's exception raised in
@@ -32,6 +35,7 @@ the JAX package's order differs) and the window's running sums (1e-12 of
 the input's sum of |v|, as ``tests/test_torch_window.py`` holds them).
 """
 
+import collections
 import gc
 import glob
 import os
@@ -69,6 +73,7 @@ TINY = {"spark.rapids.memory.tpu.budgetBytes": str(200 * 1024),
         "spark.rapids.sql.test.enabled": "false",
         "spark.rapids.sql.reader.batchSizeRows": "4096",
         "spark.rapids.sql.batchSizeBytes": str(256 * 1024)}
+SCAN_CACHE_OFF = {"spark.rapids.sql.scan.deviceCacheEnabled": "false"}
 CPU = {"spark.rapids.torch.device": "cpu"}
 
 
@@ -433,27 +438,61 @@ QUERIES = {"aggregate": q_agg, "sort": q_sort, "window": q_window,
            "exchange_range": q_exchange_range}
 
 
-def _jax_result(query, tables):
+def _jax_result(query, tables, conf):
     TpuRuntime.reset()
     try:
-        return query(F, JWindow, tpu_session(TINY), tables).to_arrow()
+        return query(F, JWindow, tpu_session(conf), tables).to_arrow()
     finally:
         TpuRuntime.reset()
 
 
+def _own_moves(monkeypatch) -> collections.Counter:
+    """The tier moves of the operators' own handles, by method: those of
+    the device scan cache (its handles are the only ones at
+    ``PRIORITY_RECREATABLE``) are left out."""
+    moves = collections.Counter()
+    for name in ("_to_host", "_to_disk", "_from_host"):
+        def counted(self, _orig=getattr(SpillableBatch, name), _name=name):
+            if self.priority != PRIORITY_RECREATABLE:
+                moves[_name] += 1
+            return _orig(self)
+        monkeypatch.setattr(SpillableBatch, name, counted)
+    return moves
+
+
 @pytest.mark.parametrize("qname", list(QUERIES))
-def test_tiny_budget_equals_the_jax_package(qname, tables, fresh_runtimes):
+def test_tiny_budget_equals_the_jax_package(qname, tables, fresh_runtimes,
+                                            monkeypatch):
+    _tiny_budget_case(qname, tables, {}, monkeypatch)
+
+
+@pytest.mark.parametrize("qname", list(QUERIES))
+def test_tiny_budget_with_the_scan_cache_off_equals_the_jax_package(
+        qname, tables, fresh_runtimes, monkeypatch):
+    _tiny_budget_case(qname, tables, SCAN_CACHE_OFF, monkeypatch)
+
+
+def _tiny_budget_case(qname, tables, extra, monkeypatch):
     query = QUERIES[qname]
-    want = _jax_result(query, tables)
-    s = st.TorchSession({**CPU, **TINY})
+    conf = {**TINY, **extra}
+    want = _jax_result(query, tables, conf)
+    moves = _own_moves(monkeypatch)
+    s = st.TorchSession({**CPU, **conf})
     got = query(TF, st.Window, s, tables).to_arrow()
     stats = s.runtime.catalog.stats()
-    assert stats["spill_to_host_count"] > 0, stats
+    cache = s.runtime.scan_cache.stats()
+    assert moves["_to_host"] > 0, (moves, stats)
     if qname in ("sort", "window"):  # the whole input is collected
-        assert stats["spill_to_disk_count"] > 0, stats
-        assert stats["unspill_count"] > 0, stats
+        assert moves["_to_disk"] > 0, (moves, stats)
+        assert moves["_from_host"] > 0, (moves, stats)
     assert s.runtime.catalog.audit_leaks() == 0
-    assert stats["device_bytes"] == stats["host_bytes"] == 0
+    # what the catalog still holds is the cache's entries' (none off)
+    assert cache["entries"] == (0 if extra else
+                                1 + (qname == "broadcast_join"))
+    assert (stats["device_bytes"], stats["host_bytes"]) == \
+        (cache["device_bytes"], cache["host_bytes"])
+    if not extra:  # the entries, the lowest priority, left the device
+        assert cache["device_bytes"] == 0 < cache["disk_bytes"], cache
     if qname == "sort" or qname.startswith("exchange"):
         # an exchange's partitions come in order, each in input order
         assert got.equals(want)
@@ -473,7 +512,7 @@ def test_tiny_budget_equals_the_jax_package(qname, tables, fresh_runtimes):
         assert_tables_equal(got, want, approx_float=True)
     # the same query at the default budget moves nothing between tiers
     TorchRuntime.reset()
-    s_big = st.TorchSession(CPU)
+    s_big = st.TorchSession({**CPU, **extra})
     again = query(TF, st.Window, s_big, tables).to_arrow()
     assert s_big.runtime.catalog.spill_to_host_count == 0
     # (not the range exchange: its bounds come from a sample of each
