@@ -5,6 +5,7 @@
                           [--sass-dir DIR] [--layer-cost] [--string-paths]
                           [--files-only] [--compressed-only]
                           [--planes-only] [--transfer-only]
+                          [--scan-cache-only] [--placement-only]
 
 Phases, each printing one JSON line:
 
@@ -248,8 +249,10 @@ Phases, each printing one JSON line:
    a temporary ``trace.dir``: one Chrome trace must be written, holding
    a K1 kernel (``dsr_*``) and a ``join.*`` range;
 22. fleet: ``session.fleet()`` with ``spark.rapids.fleet.replicas=2``
-   on the one card and bench_serve.py:278-293's other fleet settings
-   (less the compile store's keys: no compile store is ported).  The
+   on the one card and bench_serve.py:278-293's other fleet settings,
+   the compile store's keys included (its directory the one phase 28's
+   processes filled, so every replica loads the kernel libraries from
+   it and its warm pool launches each kernel once).  The
    replicas get ``lineitem`` (phase 11's, every column) and ``agg``
    (hash_agg_sort_2m's) by ``register_table_view``; 4 closed-loop
    clients x 12 queries over fleet_soak's query, TPC-H Q1 and Q6 as SQL
@@ -258,7 +261,9 @@ Phases, each printing one JSON line:
    The passes: clean; replica 0 SIGKILLed while it holds its queries
    (``replica.slow`` shipped to it: each held for a second,
    ``fleet/replica.py``), every result right or typed, none
-   untyped, the replays counted; ``replace_replica(0)`` and a pass;
+   untyped, the replays counted; ``replace_replica(0)`` (its time to
+   hot; the replacement must build no kernel and load each from the
+   store) and a pass;
    ``rolling_restart()`` under a pass, no rejection; an injected
    ``replica.fail`` replayed on the other replica; ``fleet.route=always``
    raising typed.  Each pass prints queries/s and p50/p99; the phase
@@ -353,8 +358,22 @@ come out bit for bit alike (``float_sum_results_of_5``).
    kernels and runs this phase alone; with ``--package-root`` it runs
    the same cells over an earlier tree's package (the pack's own cell
    is skipped where it has no ``columnar/transfer.py``).
+28. placement: the card's link constants as ``plan/cost.py:
+   probe_link`` measures them; ``spark.rapids.sql.placement.mode``
+   tpu, cpu and cost on project_filter_1m, hash_agg_sort_2m,
+   hash_join_1m, SF1 q1 and q6 and a 1,000-row string scan, each result
+   its tpu one's (floats within 1e-9), each cost decision beside the
+   query's measured wall, a plan on the host launching no kernel and
+   pulling nothing; one adaptive demotion over a 4,000-row in-memory
+   table (the JAX placement test's pinned link); fusion on, off and at
+   maxOps 2 on project_filter_1m and q6, bit for bit alike, with the
+   stages' dispatches a scanned batch; the compile store across two
+   plain processes: the first over an empty directory (its nvcc builds
+   and their ms), the second over the same directory (no build, the
+   load ms), each warming every kernel.  ``--placement-only`` builds
+   the kernels and runs this phase alone.
 
-Each path of phases 5 to 26 runs with the launch counts set to 0 just
+Each path of phases 5 to 28 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -400,6 +419,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -1390,10 +1410,12 @@ def phase_text_agg(torch, st, F, native, session, df, line, name: str,
     before = native.LAUNCHES["contains"]
     (cols, masks, n), secs = run_timed(torch, q, runs)
     launches = native.LAUNCHES["contains"] - before
-    stage = session._last_plan
-    while type(stage).__name__ != "TorchStageExec":
-        stage = stage.children[0]
-    batches = stage.metrics["stageDispatches"]
+    # the lone contains filter (plan/fusion.py leaves a chain of one a
+    # TorchFilterExec): one output batch an input batch
+    filt = session._last_plan
+    while type(filt).__name__ != "TorchFilterExec":
+        filt = filt.children[0]
+    batches = filt.metrics["numOutputBatches"]
     check(launches == batches * (runs + 1),
           f"{launches} contains launches for {batches} batches a run")
     # numpy: np.char.find over the raw bytes, the groups by code
@@ -3886,6 +3908,10 @@ def phase_observe(torch, st, F, native, agg_data, line_cols, main, dim,
 
 # bench_serve.py:278-293, less the compile store's keys (no compile store
 # is ported)
+# the compile store's directory: phase 28's processes fill it, phase
+# 22's replicas load from it
+COMPILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_smoke_files", "compile_store")
 FLEET_CONF = {
     "spark.rapids.sql.incompatibleOps.enabled": "true",
     "spark.rapids.fleet.replicas": "2",
@@ -3893,6 +3919,8 @@ FLEET_CONF = {
     "spark.rapids.fleet.heartbeat.timeoutMs": "3000",
     "spark.rapids.fleet.health.probationMs": "1000",
     "spark.rapids.fleet.retry.budgetPerMin": "100",
+    "spark.rapids.sql.compile.store.enabled": "true",
+    "spark.rapids.sql.compile.cacheDir": COMPILE_DIR,
     "spark.rapids.server.resultCache.enabled": "false",
     "spark.rapids.server.tenant.defaultTimeoutMs": "120000",
 }
@@ -3996,6 +4024,22 @@ def fleet_pass(fleet, classes, serial, label: str, smi: str,
     return out
 
 
+def _replica_compile(fleet, kernels: int) -> dict:
+    """Replica 0's ``compile`` section and launches once its warm pool
+    has taken every kernel (it runs beside the replica's first
+    queries)."""
+    deadline = time.monotonic() + 600
+    while True:
+        snap = fleet.replica_stats(0, timeout=120)
+        check(snap is not None, "compile store: no stats from the replica")
+        comp = snap["compile"]
+        if comp["warmPoolCompiles"] + comp["warmPoolErrors"] >= kernels \
+                or time.monotonic() > deadline:
+            return {"pid": snap["process"]["pid"], "compile": comp,
+                    "launches": snap["kernels"]["launches"]}
+        time.sleep(0.2)
+
+
 def phase_fleet(torch, st, native, tpch, agg_data, smi: str,
                 replica_launches: dict) -> None:
     """The fleet on one card; ``replica_launches`` gets the kernels'
@@ -4072,6 +4116,12 @@ def phase_fleet(torch, st, native, tpch, agg_data, smi: str,
               "fleet: the killed replica was not declared dead")
         passes.append(killed)
         hot = {"replace_0": fleet.replace_replica(0)}
+        replaced = _replica_compile(fleet, len(native.KERNELS))
+        check(replaced["compile"]["nvccBuilds"] == 0
+              and replaced["compile"]["compileStoreHits"]
+              == len(native.KERNELS),
+              f"fleet: the replacement did not load from the store: "
+              f"{replaced}")
         passes.append(fleet_pass(fleet, classes, serial, "replaced", smi))
         read_launches()
         restarted = {}
@@ -4112,6 +4162,10 @@ def phase_fleet(torch, st, native, tpch, agg_data, smi: str,
         read_launches()
     finally:
         session.stop()
+        # this process keeps no store: the later phases load from _build/
+        from spark_rapids_tpu_torch.compile import store as store_mod
+        store_mod.reset()
+        shutil.rmtree(COMPILE_DIR, ignore_errors=True)
     for counts in seen.values():
         for k, v in counts.items():
             replica_launches[k] = replica_launches.get(k, 0) + v
@@ -4120,7 +4174,8 @@ def phase_fleet(torch, st, native, tpch, agg_data, smi: str,
     emit("fleet", passes=[{k: p[k] for k in ("pass", "queries_per_s",
                                              "latency_ms", "replays")}
                           for p in passes],
-         time_to_hot_s=hot, route_fault=route_error,
+         time_to_hot_s=hot, replacement_compile=replaced["compile"],
+         pr12_time_to_hot_s=12.1, route_fault=route_error,
          replica_launches=seen, shipped_bytes=shipped,
          stats=fleet_stats.global_stats(),
          seconds=time.perf_counter() - t_phase, card=smi)
@@ -5774,6 +5829,285 @@ def phase_scan_cache(torch, st, F, native, pag, tpch, tpch_dfs, agg_data,
          nvidia_smi=smi)
 
 
+# -- phase 28: placement, fusion and the compile store ------------------------
+
+PLACEMENT_MODES = ("tpu", "cpu", "cost")
+# the JAX placement tests' remote link, with a fast upload, a card rate
+# prior and a host rate prior that keep the static pass on the card,
+# so only the measured bytes of the stage decide (the JAX test's
+# _aqe_conf)
+AQE_PLACEMENT_CONF = {
+    "spark.rapids.sql.adaptive.enabled": "true",
+    "spark.rapids.sql.placement.mode": "cost",
+    "spark.rapids.sql.placement.pullLatencyMs": "94",
+    "spark.rapids.sql.placement.h2dMBps": "100000",
+    "spark.rapids.sql.placement.d2hMBps": "100000",
+    "spark.rapids.sql.placement.cpuRowsPerSec": "1000",
+}
+FUSION_SETTINGS = {"on": {}, "off": {"spark.rapids.sql.fusion.enabled":
+                                     "false"},
+                   "max_ops_2": {"spark.rapids.sql.fusion.maxOps": "2"}}
+
+
+class conf_of:
+    """``session``'s conf with ``extra`` laid over, inside the block."""
+
+    def __init__(self, session, extra):
+        self.session, self.extra = session, extra
+
+    def __enter__(self):
+        self.old = self.session.conf
+        self.session.conf = self.old.with_settings(self.extra)
+        return self.session
+
+    def __exit__(self, *exc):
+        self.session.conf = self.old
+
+
+def _placement_cell(torch, st, native, session, name: str, build,
+                    smi: str) -> None:
+    """``build(session)``'s query under each placement mode after one
+    warm-up on the card, each result its tpu one's (floats within
+    1e-9); a plan placed on the host launches no kernel and pulls
+    nothing."""
+    from spark_rapids_tpu_torch.columnar import transfer
+    base, lines = None, {}
+    build(session)._host()  # warm-up on the card (the default mode)
+    for mode in PLACEMENT_MODES:
+        with conf_of(session, {"spark.rapids.sql.placement.mode": mode}):
+            before = dict(native.LAUNCHES)
+            pulls = transfer.d2h_stats()["pulls"]
+            t0 = time.perf_counter()
+            out = build(session)._host()
+            secs = time.perf_counter() - t0
+            plan, qc = session._last_plan, session._last_query
+        launches = {k: native.LAUNCHES[k] - before[k] for k in before}
+        pulled = transfer.d2h_stats()["pulls"] - pulls
+        if base is None:
+            base = out
+        else:
+            host_same_rows(out, base, f"placement {name} {mode}")
+        d = plan.placement[0] if plan.placement else None
+        if plan.on_host:
+            check(not any(launches.values()) and pulled == 0,
+                  f"placement {name} {mode}: a plan on the host launched "
+                  f"{launches} and pulled {pulled} times")
+        lines[mode] = {
+            "on_host": plan.on_host, "seconds": secs,
+            "measured_ms": qc.wall_ms, "launches": launches,
+            "d2h_pulls": pulled,
+            "decision": None if d is None else {
+                k: d.get(k) for k in ("engine", "tpu_ms", "cpu_ms",
+                                      "deciding", "rows", "bytes_in",
+                                      "bytes_out", "terms")}}
+    check(lines["cpu"]["on_host"] and not lines["tpu"]["on_host"],
+          f"placement {name}: mode cpu did not run on the host")
+    emit("placement", cell=name, rows=base.num_rows, modes=lines,
+         nvidia_smi=smi)
+
+
+def _placement_aqe(torch, st, native, smi: str) -> None:
+    """One adaptive demotion over an in-memory table: the static pass
+    keeps the plan on the card, the stage's measured bytes (a selective
+    filter) move the remainder to the host."""
+    from spark_rapids_tpu_torch.plan.adaptive import find_adaptive
+    rng = np.random.default_rng(SEED + 30)
+    data = {"k": rng.integers(0, 100, 4000), "v": rng.normal(size=4000)}
+    col = st.col
+
+    def q(s):
+        return (s.create_dataframe(data).filter(col("k") < 1)
+                .repartition(4, "k").select((col("v") * 2.0).alias("a"),
+                                            col("k")))
+    want = q(st.TorchSession(dict(AQE_ON)))._host()
+    s = st.TorchSession(dict(AQE_PLACEMENT_CONF))
+    got = q(s)._host()
+    host_same_rows(got, want, "placement_aqe")
+    plan = s._last_plan
+    reports = find_adaptive(plan).reports
+    demoted = [r["placement"] for r in reports
+               if r.get("decision") == "placement_demoted"]
+    names = [type(n).__name__ for n in _plan_nodes(plan, "HostToDeviceExec")
+             + _plan_nodes(plan, "DeviceToHostExec")]
+    check(len(demoted) == 1 and len(names) == 2,
+          f"placement_aqe: no adaptive demotion ({reports})")
+    emit("placement_aqe", rows=got.num_rows, static=[
+        d["engine"] for d in plan.placement], demotion={
+        k: demoted[0].get(k) for k in ("engine", "tpu_ms", "cpu_ms",
+                                       "deciding", "rows", "bytes_in")},
+        transitions=names, d2h_pulls=sum(
+            n.metrics["d2hPulls"] for n in _plan_nodes(
+                plan, "DeviceToHostExec")), nvidia_smi=smi)
+
+
+def _fusion_cells(torch, st, session, builds: dict, smi: str) -> None:
+    """Each query with fusion on, off and at maxOps 2: every result bit
+    for bit the same; the fused stages' dispatches a scanned batch."""
+    for name, build in builds.items():
+        base, lines = None, {}
+        for label, extra in FUSION_SETTINGS.items():
+            with conf_of(session, extra):
+                out = build(session)._host()
+                plan = session._last_plan
+            if base is None:
+                base = out
+            check(out.equals(base), f"fusion {name} {label}: the result "
+                  "differs from fusion on")
+            scans = [n for n in _walk_plan(plan) if not n.children]
+            batches = sum(n.metrics["numOutputBatches"] for n in scans)
+            steps = [(type(n).__name__, len(getattr(n, "steps", ())))
+                     for n in _walk_plan(plan) if hasattr(n, "steps")]
+            dispatches = sum(n.metrics["stageDispatches"]
+                             for n in _walk_plan(plan))
+            lines[label] = {"operators": steps, "scan_batches": batches,
+                            "stage_dispatches_per_batch":
+                                dispatches / max(1, batches)}
+        emit("fusion", cell=name, rows=base.num_rows, settings=lines,
+             nvidia_smi=smi)
+
+
+def _walk_plan(plan):
+    out = [plan]
+    for c in plan.children:
+        out.extend(_walk_plan(c))
+    return out
+
+
+# one fresh process over the compile store: install it from the conf,
+# let the warm pool build or load every kernel and launch it once, and
+# print the compile section, the launches and the seconds that took
+STORE_PROCESS = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from spark_rapids_tpu_torch import compile as srt_compile, native
+from spark_rapids_tpu_torch.compile import service, warm
+from spark_rapids_tpu_torch.conf import TorchConf
+torch.cuda.init()
+t0 = time.perf_counter()
+srt_compile.configure_from_conf(TorchConf({
+    "spark.rapids.sql.compile.store.enabled": "true",
+    "spark.rapids.sql.compile.cacheDir": sys.argv[2]}),
+    torch.device("cuda", 0))
+idle = warm.wait_idle(600)
+print(json.dumps({"warm_s": time.perf_counter() - t0, "idle": idle,
+                  "compile": service.snapshot(),
+                  "launches": dict(native.LAUNCHES)}))
+"""
+
+
+def _store_process(root: str) -> dict:
+    """``STORE_PROCESS`` over ``COMPILE_DIR`` -> its line and its wall
+    from spawn to exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", STORE_PROCESS, root,
+                           COMPILE_DIR], capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"compile store: a process failed "
+          f"({proc.returncode}): {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["process_s"] = wall
+    return out
+
+
+def _compile_store(st, native, smi: str) -> None:
+    """The store across two plain processes: the first over an empty
+    directory builds each kernel with nvcc, the second over the same
+    directory builds none and loads each; both warm every kernel.  The
+    directory stays for phase 22's replicas."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(st.__file__)))
+    kernels = len(native.KERNELS)
+    shutil.rmtree(COMPILE_DIR, ignore_errors=True)
+    os.makedirs(COMPILE_DIR)
+    first = _store_process(root)
+    second = _store_process(root)
+    c1, c2 = first["compile"], second["compile"]
+    check(c1["compileStoreMisses"] == kernels and c1["nvccBuilds"] == kernels,
+          f"compile store: the first process did not build each kernel: "
+          f"{first}")
+    check(c2["nvccBuilds"] == 0 and c2["compileStoreHits"] == kernels,
+          f"compile store: the second process built: {second}")
+    check(all(p["idle"] and p["compile"]["warmPoolCompiles"] == kernels
+              and all(v == 1 for v in p["launches"].values())
+              for p in (first, second)),
+          "compile store: the warm pool did not launch each kernel once")
+    emit("compile_store", first=first, second=second, nvidia_smi=smi)
+
+
+def phase_placement(torch, st, F, native, session, main, agg_data, dim,
+                    tpch_dfs, smi: str) -> None:
+    """Phase 28: the probed link constants; each placement mode on
+    project_filter_1m, hash_agg_sort_2m, hash_join_1m, SF1 q1 and q6 and
+    a tiny string scan; one adaptive demotion; fusion on, off and at
+    maxOps 2; the compile store."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
+    from spark_rapids_tpu_torch.plan import cost
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    emit("placement_link", probe=cost.probe_link(dev), nvidia_smi=smi)
+    col = st.col
+    main_df = session.create_dataframe(main)
+    agg_df = session.create_dataframe(agg_data)
+    dim_df = session.create_dataframe(dim)
+    rng = np.random.default_rng(SEED + 31)
+    tiny = session.create_dataframe({
+        "k": rng.integers(0, 50, 1000),
+        "s": np.array([f"name_{i % 13}" for i in range(1000)]),
+        "v": rng.normal(size=1000)})
+
+    def rebind(df, s):
+        # the same logical plan, run under the session's current conf
+        return type(df)(s, df.plan)
+
+    def pf(s):
+        return (rebind(main_df, s).filter((col("v") > 0.0)
+                                          & (col("k") < 900))
+                .select((col("v") * 2.0 + 1.0).alias("a"),
+                        (col("v") + col("w")).alias("b"), col("k")))
+
+    def q6(s):
+        return rebind(TPCH_QUERIES["q6"](tpch_dfs), s)
+
+    cells = {
+        "project_filter_1m": pf,
+        "hash_agg_sort_2m": lambda s: agg_query(st, F, rebind(agg_df, s)),
+        "hash_join_1m": lambda s: hash_join_query(
+            st, F, rebind(main_df, s), rebind(dim_df, s)),
+        "tpch_q1": lambda s: rebind(TPCH_QUERIES["q1"](tpch_dfs), s),
+        "tpch_q6": q6,
+        "tiny_string_scan": lambda s: rebind(tiny, s).filter(
+            col("k") < 25).select(col("s"), (col("v") + 1.0).alias("a")),
+    }
+    for name, build in cells.items():
+        _placement_cell(torch, st, native, session, name, build, smi)
+    _placement_aqe(torch, st, native, smi)
+    _fusion_cells(torch, st, session, {"project_filter_1m": pf,
+                                       "tpch_q6": q6}, smi)
+    _compile_store(st, native, smi)
+    emit("placement_phase", seconds=time.perf_counter() - t0,
+         nvidia_smi=smi)
+
+
+def placement_only(torch, st, F, native, main_data, agg_data, dim_data,
+                   name: str, smi: str) -> int:
+    """``--placement-only``: phase 28 and its data alone."""
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy, load_tables
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    session = st.TorchSession.builder().get_or_create()
+    native.reset_launches()
+    try:
+        phase_placement(torch, st, F, native, session, main_data, agg_data,
+                        dim_data, load_tables(session, tpch), smi)
+    finally:
+        shutil.rmtree(COMPILE_DIR, ignore_errors=True)
+    emit("launches", path="placement", counts=dict(native.LAUNCHES))
+    print(json.dumps({"ok": True, "placement_only": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def scan_cache_only(torch, st, F, native, pag, agg_data, line, name: str,
                     smi: str) -> int:
     """``--scan-cache-only``: phase 27 and its data alone."""
@@ -5882,6 +6216,11 @@ def parse_args(argv):
                     help="build the kernels, run phase 27 (the device "
                          "scan cache, each cell with its key on and off) "
                          "with its launch counts, and stop")
+    ap.add_argument("--placement-only", action="store_true",
+                    help="build the kernels, run phase 28 (placement "
+                         "modes, an adaptive demotion, fusion settings "
+                         "and the compile store) with its launch counts, "
+                         "and stop")
     ap.add_argument("--string-paths", action="store_true",
                     help="time LIKE/RLIKE's two matchers and replace's "
                          "two paths on the breadth queries' columns and "
@@ -5935,6 +6274,9 @@ def main(argv=None) -> int:
     if args.transfer_only:
         return transfer_only(torch, st, F, native, pag, main_data, agg_data,
                              name, smi, rate)
+    if args.placement_only:
+        return placement_only(torch, st, F, native, main_data, agg_data,
+                              dim_data, name, smi)
     t0 = time.perf_counter()
     line = gen_lineitem(LINEITEM_ROWS, SEED + 2)
     session = st.TorchSession.builder().get_or_create()
@@ -6085,6 +6427,8 @@ def main(argv=None) -> int:
           tpch_dfs, agg_data, line, cache_errs, smi)
     dsr["max_abs_err"] = max(dsr["max_abs_err"],
                              cache_errs["dense_slot_reduce"])
+    drive("placement", phase_placement, torch, st, F, native, session,
+          main_data, agg_data, dim_data, tpch_dfs, smi)
     # the replicas count their own launches; they join the kernels line
     replica_launches = {}
     drive("fleet", phase_fleet, torch, st, native, tpch, agg_data, smi,

@@ -669,19 +669,32 @@ class DataFrame:
         pull metrics go on the root operator).  The session keeps the
         plan and the query's context once the drain succeeded (a failed
         query leaves the earlier query's profile in place)."""
-        from spark_rapids_tpu_torch.exec.basic import device_to_host
-        root = plan_query(self.plan, self.session.conf)
+        from spark_rapids_tpu_torch.exec.basic import HostToDeviceExec, \
+            device_to_host, host_egress
+        conf = self.session.conf
+        root = plan_query(self.plan, conf)
         schema = root.output_schema
         with self._query() as qc:
-            ctx = ExecContext(self.session.conf, self.session.device,
+            ctx = ExecContext(conf, self.session.device,
                               self.session.runtime)
+            run = root
+            if root.on_host:
+                # placed on the host (plan/placement.py): the result
+                # egress pulls nothing, and device batches come up
+                # through a counted upload
+                if egress:
+                    ctx = ctx.on_host()
+                else:
+                    run = HostToDeviceExec(root)
             # closing the stream ends every operator's generator, and
             # with them the handles and threads they hold, on an error
             # as well
-            with contextlib.closing(root.execute(ctx)) as stream:
+            with contextlib.closing(run.execute(ctx)) as stream:
                 if egress:
-                    with contextlib.closing(device_to_host(
-                            stream, schema, ctx, root.metrics)) as parts:
+                    with contextlib.closing(
+                            host_egress(stream, schema) if root.on_host
+                            else device_to_host(stream, schema, ctx,
+                                                root.metrics)) as parts:
                         out = list(parts)
                 else:
                     out = list(stream)
@@ -689,6 +702,14 @@ class DataFrame:
             root.metrics["semWaitMs"] += qc.sem_wait_ms
         self.session._last_plan = root
         self.session._last_query = qc
+        if conf.placement_mode != "tpu":
+            # the calibration feed and the cost-error accounting
+            # (plan/cost.py, plan/placement.py); never under the
+            # default mode
+            from spark_rapids_tpu_torch.plan import cost, placement
+            cost.observe_plan(root)
+            placement.note_query(list(root.placement), qc.wall_ms,
+                                 query_id=qc.query_id)
         return schema, out
 
     def to_device_batches(self) -> List[ColumnarBatch]:

@@ -456,10 +456,27 @@ def device_batch_to_host(batch: ColumnarBatch,
     lengths and char matrix, whole (the counterpart of JAX
     ``columnar/batch.py:331``); an encoded column's strings are looked
     up in its dictionary's host copy (``encoding.strings_from_codes``)."""
-    from spark_rapids_tpu_torch.columnar import encoding, transfer
-    schema = schema or batch.schema
+    from spark_rapids_tpu_torch.columnar import transfer
     host = transfer.device_pull(
         staged if staged is not None else pull_planes(batch), metrics)
+    return _host_columns(batch, schema or batch.schema, host)
+
+
+def host_batch_columns(batch: ColumnarBatch,
+                       schema: Optional[Schema] = None) -> HostColumns:
+    """A batch whose planes are host tensors -> its host columns, as
+    ``device_batch_to_host`` gives them but with no pull: the result of
+    a plan the placement pass put on the host (``plan/placement.py``).
+    The values are copies, so a caller's write reaches no cached
+    plane."""
+    host = [tuple(None if t is None else t.numpy().copy() for t in planes)
+            for planes in pull_planes(batch)]
+    return _host_columns(batch, schema or batch.schema, host)
+
+
+def _host_columns(batch: ColumnarBatch, schema: Schema,
+                  host: list) -> HostColumns:
+    from spark_rapids_tpu_torch.columnar import encoding
     out = {}
     for f, c, (data, valid, chars) in zip(schema, batch.columns, host):
         if isinstance(c, encoding.EncodedColumn) \

@@ -25,17 +25,15 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 
-# the TPU package's smallest bucket (its f32 sublane count); kept so that
-# both packages pad every batch to the same capacity
-_MIN_BUCKET = 8
+from spark_rapids_tpu_torch.compile import buckets as _buckets
 
 
 def bucket_capacity(n: int) -> int:
-    """Smallest power of two >= ``n``, and at least 8."""
-    c = _MIN_BUCKET
-    while c < n:
-        c <<= 1
-    return c
+    """The next rung >= ``n`` of the power-of-two capacity ladder
+    (``compile/buckets.py``: at least 8, the JAX package's floor, unless
+    ``spark.rapids.sql.compile.buckets.minRows`` raises it), so both
+    packages pad every batch to the same capacity."""
+    return _buckets.bucket_capacity(n)
 
 
 class DeviceColumn:

@@ -322,6 +322,147 @@ RANGE_SAMPLE_SIZE = register(
     "Most rows sampled to compute the bounds of a range repartition "
     "(exec/exchange.py: compute_range_bounds).", int, _positive)
 
+# -- whole-stage fusion (plan/fusion.py) --------------------------------------
+
+FUSION_ENABLED = register(
+    "spark.rapids.sql.fusion.enabled", True,
+    "Collapse each maximal chain of project and filter operators into "
+    "one fused stage (exec/stage.py: TorchStageExec) that runs the "
+    "chain per batch; a chain of one stays a TorchProjectExec or "
+    "TorchFilterExec.  false keeps every operator on its own.", bool)
+
+FUSION_MAX_OPS = register(
+    "spark.rapids.sql.fusion.maxOps", 16,
+    "Most operators folded into one fused stage; a longer chain splits "
+    "into several stages.", int, _positive)
+
+# -- the compile store over the kernel libraries (compile/) -------------------
+#
+# All off by default: with spark.rapids.sql.compile.* unset no store
+# exists, native.py builds into its _build/ directory, and the capacity
+# ladder keeps its bounds.
+
+COMPILE_PREFIX = "spark.rapids.sql.compile."
+
+COMPILE_STORE_ENABLED = register(
+    "spark.rapids.sql.compile.store.enabled", False,
+    "Keep the nvcc-built kernel libraries (native.py) in a store under "
+    "spark.rapids.sql.compile.cacheDir (cuda/ and its index.jsonl), "
+    "shared by every process that names the directory (fleet "
+    "replicas, restarted servers): a library the index records is "
+    "loaded, never built again (compileStoreHits; a build counts "
+    "compileStoreMisses).  A truncated library, a corrupt index line "
+    "or an injected compile.store fault degrades to a counted fresh "
+    "build.", bool)
+
+COMPILE_CACHE_DIR = register(
+    "spark.rapids.sql.compile.cacheDir", "",
+    "Directory of the compile store.  Empty (the default): "
+    "~/.cache/srt-compile/cuda-<host fingerprint>.  Only read when "
+    "compile.store.enabled.", str)
+
+COMPILE_BUCKET_MIN_ROWS = register(
+    "spark.rapids.sql.compile.buckets.minRows", 8,
+    "Smallest rung of the power-of-two capacity ladder every batch "
+    "capacity routes through (compile/buckets.py), rounded up to a "
+    "power of two; 8 is the JAX package's floor.", int, _positive)
+
+COMPILE_BUCKET_MAX_ROWS = register(
+    "spark.rapids.sql.compile.buckets.maxRows", 0,
+    "Largest ladder rung the coalesce's row target snaps down to "
+    "(rounded up to a power of two; 0, the default, is unbounded).  A "
+    "batch larger than it still gets a capacity that holds it.", int,
+    _non_negative)
+
+COMPILE_WARM_ENABLED = register(
+    "spark.rapids.sql.compile.warm.enabled", True,
+    "With the store on: at runtime or server start, build or load every "
+    "kernel library and launch each kernel once on a tiny input, on a "
+    "lifecycle-supervised srt-compile-warm thread, so the first query "
+    "pays neither (warmPoolCompiles).  Inert unless "
+    "compile.store.enabled.", bool)
+
+# -- fragment placement (plan/cost.py, plan/placement.py) ---------------------
+#
+# The engine keys stay the JAX package's: "tpu" names the card the
+# session runs on, "cpu" the port's own operators over host tensors.
+
+
+def _one_of(*options):
+    folded = tuple(o.upper() for o in options)
+
+    def check(v):
+        return None if str(v).upper() in folded else \
+            f"must be one of {options}"
+    return check
+
+
+PLACEMENT_MODE = register(
+    "spark.rapids.sql.placement.mode", "tpu",
+    "Fragment placement.  'tpu' (the default): every plan runs on the "
+    "session's device, and the placement pass never runs.  'cost': the "
+    "plan (one fragment: the port lowers every node) is scored with "
+    "the cost model (link bytes over the measured rates, the pull "
+    "latency, calibrated rows/s) and, where the host wins, runs on "
+    "the port's own operators over host tensors (the same operators, "
+    "on torch.device('cpu') and its runtime); with adaptive execution "
+    "the remainder above a materialized stage is scored again with "
+    "its measured bytes.  'cpu': every plan runs on the host.  'tpu' "
+    "in a decision names the card.  An injected plan.place fault "
+    "degrades to the device plan, counted.", str,
+    _one_of("tpu", "cost", "cpu"))
+
+PLACEMENT_H2D_MBPS = register(
+    "spark.rapids.sql.placement.h2dMBps", 0.0,
+    "Host-to-card rate (MB/s) the cost model charges a fragment's input "
+    "with.  0 (the default): measured once a process "
+    "(plan/cost.py: probe_link); set it to pin decisions.", float,
+    _non_negative)
+
+PLACEMENT_D2H_MBPS = register(
+    "spark.rapids.sql.placement.d2hMBps", 0.0,
+    "Card-to-host rate (MB/s) the cost model charges a fragment's "
+    "result with.  0 (the default): measured by the probe.", float,
+    _non_negative)
+
+PLACEMENT_AGG_H2D_MBPS = register(
+    "spark.rapids.sql.placement.aggregateH2dMBps", 0.0,
+    "Aggregate host-to-card rate across cards for a sharded scan; read "
+    "only by a mesh session (ROADMAP.md, queue A8), so unused on one "
+    "card.", float, _non_negative)
+
+PLACEMENT_AGG_D2H_MBPS = register(
+    "spark.rapids.sql.placement.aggregateD2hMBps", 0.0,
+    "Aggregate card-to-host rate across cards; unused on one card "
+    "(queue A8).", float, _non_negative)
+
+PLACEMENT_PULL_LATENCY_MS = register(
+    "spark.rapids.sql.placement.pullLatencyMs", -1.0,
+    "Fixed latency (ms) of one card-to-host pull the cost model "
+    "charges.  Negative (the default): measured by the probe; 0 is a "
+    "valid pinned value.", float)
+
+PLACEMENT_AQE_ENABLED = register(
+    "spark.rapids.sql.placement.aqe.enabled", True,
+    "With placement.mode=cost and adaptive execution on: after each "
+    "query stage materializes, score the remainder above it again with "
+    "its measured bytes, and run it on the host (between a counted "
+    "DeviceToHostExec and HostToDeviceExec) where that wins; "
+    "placementDemotions counts it.  An error or a plan.place fault "
+    "keeps the plan.", bool)
+
+PLACEMENT_CPU_ROWS_PER_SEC = register(
+    "spark.rapids.sql.placement.cpuRowsPerSec", 5_000_000,
+    "Prior host throughput (rows/s an operator) of the cost model; "
+    "executed queries blend measured rates over it (EWMA 0.3, kept in "
+    "calibration.json beside the compile store when there is one).",
+    int, _positive)
+
+PLACEMENT_TPU_ROWS_PER_SEC = register(
+    "spark.rapids.sql.placement.tpuRowsPerSec", 50_000_000,
+    "Prior card throughput (rows/s an operator) of the cost model; "
+    "calibrated as cpuRowsPerSec is.", int, _positive)
+
 
 INCOMPATIBLE_OPS = register(
     "spark.rapids.sql.incompatibleOps.enabled", False,
@@ -650,6 +791,10 @@ class TorchConf:
         ``spark.sql.shuffle.partitions``."""
         n = self.get(SHUFFLE_DEFAULT_NUM_PARTITIONS)
         return n if n > 0 else self.get(SHUFFLE_PARTITIONS)
+
+    @property
+    def placement_mode(self) -> str:
+        return str(self.get(PLACEMENT_MODE)).strip().lower()
 
     def get_bool(self, key: str, default: bool = True) -> bool:
         """A raw key as a boolean, ``default`` when it is unset."""

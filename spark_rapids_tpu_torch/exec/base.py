@@ -1,10 +1,14 @@
 """Physical plan node protocol.
 
 Counterpart of ``spark_rapids_tpu/exec/base.py``.  Every operator of the
-port streams device ``ColumnarBatch``es: there is no CPU engine to fall
-back to and no host/device transition node.  ``ExecContext`` carries the
-session's conf, its ``torch.device`` and the device's ``TorchRuntime``
-(the spill catalog and the semaphore, ``runtime.py``).
+port streams ``ColumnarBatch``es on its context's device: there is no
+CPU engine to fall back to.  The same operators run over host tensors
+where the placement pass puts a plan, or the remainder above an
+adaptive stage, on the host (``plan/placement.py``, through the
+``HostToDeviceExec`` and ``DeviceToHostExec`` transitions of
+``exec/basic.py``).  ``ExecContext`` carries the session's conf, its
+``torch.device`` and the device's ``TorchRuntime`` (the spill catalog
+and the semaphore, ``runtime.py``).
 
 Every operator's output passes one pull boundary: ``TorchExec`` wraps
 the ``execute`` each subclass defines (``__init_subclass__``) so that
@@ -41,19 +45,31 @@ from spark_rapids_tpu_torch.utils.metrics import METRIC_NUM_OUTPUT_BATCHES, \
 
 class ExecContext:
     """Per-query execution context: the conf, the device and its runtime
-    (by default the process's runtime of that device)."""
+    (by default the process's runtime of that device).  ``parent``: the
+    device context a host section of the plan runs inside
+    (``exec/basic.py: HostToDeviceExec``), else None."""
 
-    __slots__ = ("conf", "device", "runtime")
+    __slots__ = ("conf", "device", "runtime", "parent")
 
     def __init__(self, conf: TorchConf, device: torch.device,
-                 runtime: Optional[TorchRuntime] = None):
+                 runtime: Optional[TorchRuntime] = None,
+                 parent: Optional["ExecContext"] = None):
         self.conf = conf
         self.device = device
         self.runtime = runtime if runtime is not None else \
             TorchRuntime.get_or_create(conf, device)
+        self.parent = parent
         # the compressed domain's switches are process-wide, installed at
         # every execution entry, as the JAX package's ExecContext does
         encoding.set_conf(conf)
+
+    def on_host(self) -> "ExecContext":
+        """This query's context on the host: ``torch.device("cpu")`` and
+        its runtime, with this one as its parent."""
+        cpu = torch.device("cpu")
+        return ExecContext(self.conf, cpu,
+                           TorchRuntime.get_or_create(self.conf, cpu),
+                           parent=self)
 
 
 def _pull_boundary(execute):
@@ -90,9 +106,14 @@ def _checked(stream: Iterator[ColumnarBatch],
 
 
 class TorchExec:
-    """A physical operator.  ``metrics`` is its ``MetricSet``."""
+    """A physical operator.  ``metrics`` is its ``MetricSet``.
+    ``on_host``: the placement pass put it on the host
+    (``plan/placement.py``); ``placement``: a plan root's static
+    placement decisions (none under the default mode)."""
 
     children: List["TorchExec"] = []
+    on_host = False
+    placement: tuple = ()
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)

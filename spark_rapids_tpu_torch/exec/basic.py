@@ -16,18 +16,27 @@ child's: each slice's upload is pinned and, while
 ``[start, end)`` by ``step`` on the device in batches of 1 << 20 rows;
 ``TorchUnionExec`` streams its children's batches back to back;
 ``TorchLocalLimitExec`` passes batches on until the limit is reached.
-Project and filter run inside the fused stage (``exec/stage.py``).  None
-of them holds a batch, so none registers one with the spill catalog.
+``TorchProjectExec`` and ``TorchFilterExec`` are the one-step chains the
+fusion pass leaves (``plan/fusion.py``), over the fused stage's own code
+(``exec/stage.py: StepsExec``).  ``HostToDeviceExec`` and
+``DeviceToHostExec`` are the counted transitions around a part of a plan
+the placement pass runs on the host (``plan/placement.py``): the first
+runs its child on the host and uploads each batch through ``Upload``,
+the second pulls its device child's batches through ``device_pull``.
+``host_egress`` is the result egress of a plan that ran whole on the
+host: it pulls nothing.  None of them holds a batch, so none registers
+one with the spill catalog.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterator
 
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import (
-    ColumnarBatch, HostColumns, host_batch_to_device,
+    ColumnarBatch, HostColumns, host_batch_columns, host_batch_to_device,
 )
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
     bucket_capacity
@@ -36,8 +45,106 @@ from spark_rapids_tpu_torch.columnar import encoding
 from spark_rapids_tpu_torch.conf import COMPRESSED_MAX_DICT_FRACTION, \
     MAX_STRING_WIDTH
 from spark_rapids_tpu_torch.exec.base import ExecContext, TorchExec
+from spark_rapids_tpu_torch.exec.stage import StepsExec
 
 BATCH_ROWS = 1 << 20
+
+
+class TorchProjectExec(StepsExec):
+    """A projection on its own (the JAX ``TpuProjectExec``)."""
+
+    def __init__(self, exprs, child: TorchExec):
+        super().__init__([("project", tuple(exprs))], child)
+        self.exprs = list(exprs)
+
+    def describe(self) -> str:
+        return "TorchProject [" + ", ".join(e.name for e in self.exprs) \
+            + "]"
+
+
+class TorchFilterExec(StepsExec):
+    """A filter on its own (the JAX ``TpuFilterExec``)."""
+
+    def __init__(self, pred, child: TorchExec):
+        super().__init__([("filter", (pred,))], child)
+        self.pred = pred
+
+    def describe(self) -> str:
+        return f"TorchFilter [{self.pred.name}]"
+
+
+class HostToDeviceExec(TorchExec):
+    """Runs its child on the host (``ExecContext.on_host``) and uploads
+    each non-empty batch to the query's device, through the scans' tail
+    (``io/hostio.py: pipelined_scan``, each batch one ``Upload``): the
+    JAX ``HostToDeviceExec`` (``exec/basic.py:231``)."""
+
+    def __init__(self, child: TorchExec):
+        super().__init__()
+        self.children = [child]
+
+    def describe(self) -> str:
+        return "HostToDevice"
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        from spark_rapids_tpu_torch.io.hostio import host_nbytes, \
+            pipelined_scan
+        schema = self.output_schema
+        max_w = ctx.conf.get(MAX_STRING_WIDTH)
+
+        def host_items():
+            with contextlib.closing(
+                    self.children[0].execute(ctx.on_host())) as stream:
+                for b in stream:
+                    if b.num_rows:
+                        yield host_batch_columns(b, schema)
+
+        def upload(cols):
+            return host_batch_to_device(schema, cols, ctx.device, max_w,
+                                        defer=True)
+        yield from pipelined_scan(ctx, self.metrics, host_items(), upload,
+                                  "host-to-device", host_nbytes)
+
+
+class DeviceToHostExec(TorchExec):
+    """Pulls its device child's batches (``device_pull``, counted in
+    ``d2hPulls`` and ``d2hBytes``) into host tensors: the JAX
+    ``DeviceToHostExec`` (``exec/basic.py:271``) at the bottom of a
+    remainder the placement pass put on the host.  Its child runs in the
+    device context the host one was made from."""
+
+    def __init__(self, child: TorchExec):
+        super().__init__()
+        self.children = [child]
+
+    def describe(self) -> str:
+        return "DeviceToHost"
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        from spark_rapids_tpu_torch.columnar.batch import \
+            device_batch_to_host
+        schema = self.output_schema
+        max_w = ctx.conf.get(MAX_STRING_WIDTH)
+        dev = ctx.parent if ctx.parent is not None else ctx
+        for b in self.children[0].execute(dev):
+            cols = device_batch_to_host(b, schema, self.metrics)
+            yield host_batch_to_device(schema, cols, ctx.device, max_w)
+
+
+def host_egress(batches: Iterator[ColumnarBatch],
+                schema: Schema) -> Iterator[HostColumns]:
+    """The result of a plan that ran on the host -> its host columns,
+    with no pull (``host_batch_columns``)."""
+    for b in batches:
+        yield host_batch_columns(b, schema)
 
 
 class TorchLocalScanExec(TorchExec):

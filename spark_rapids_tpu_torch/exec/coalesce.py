@@ -90,8 +90,12 @@ class TorchCoalesceBatchesExec(TorchExec):
         return self.children[0].output_schema
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        from spark_rapids_tpu_torch.compile import buckets
         target = ctx.conf.get(BATCH_SIZE_BYTES)
-        max_rows = ctx.conf.get(BATCH_SIZE_ROWS)
+        # with the capacity ladder configured, the row target is a rung
+        # (compile/buckets.py: snap_rows), as in the JAX package
+        max_rows = buckets.snap_rows(ctx.conf.get(BATCH_SIZE_ROWS)) \
+            if buckets.configured() else ctx.conf.get(BATCH_SIZE_ROWS)
         cat = ctx.runtime.catalog
         # pending batches are spillable while they wait for the goal
         pending: List[SpillableBatch] = []

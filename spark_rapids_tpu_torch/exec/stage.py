@@ -1,10 +1,13 @@
 """The fused filter + project stage.
 
 Counterpart of ``spark_rapids_tpu/exec/stage.py`` (``emit_steps``,
-``TpuStageExec``).  The planner collapses each maximal chain of project
-and filter operators into one ``TorchStageExec``, which runs the chain
-per batch.  The JAX package traces the chain into one XLA program; here
-the steps run eagerly, one after the other, on the batch's device.
+``TpuStageExec``).  The fusion pass (``plan/fusion.py``) collapses each
+maximal chain of project and filter operators into one
+``TorchStageExec``, which runs the chain per batch; a chain of one runs
+as a ``TorchProjectExec`` or ``TorchFilterExec`` (``exec/basic.py``)
+over the same code (``StepsExec``).  The JAX package traces the chain
+into one XLA program; here the steps run eagerly, one after the other,
+on the batch's device.
 
 A filter computes the keep-mask and compacts every current column to the
 front with a gather, keeping the input capacity: rows past the new count
@@ -25,6 +28,7 @@ the JAX package's fused kernel launch does.
 
 from __future__ import annotations
 
+import threading
 from typing import Iterator, List, Sequence, Tuple
 
 import torch
@@ -91,8 +95,21 @@ def run_steps(steps: Sequence[Step], batch: ColumnarBatch, schema: Schema,
     return ColumnarBatch(out, n, schema)
 
 
-class TorchStageExec(TorchExec):
-    """A fused chain of project/filter steps, run per input batch."""
+_STATS_LOCK = threading.Lock()
+_STATS = {"stages": 0, "dispatches": 0, "fused_ops": 0}
+
+
+def global_stats() -> dict:
+    """The registry's ``fusion`` section: the fused stages run, their
+    dispatches (one a batch) and the operators they folded."""
+    with _STATS_LOCK:
+        return dict(_STATS)
+
+
+class StepsExec(TorchExec):
+    """A chain of project/filter steps run per input batch: the code a
+    fused ``TorchStageExec`` and the one-step ``TorchProjectExec`` and
+    ``TorchFilterExec`` (``exec/basic.py``) share."""
 
     def __init__(self, steps: Sequence[Step], child: TorchExec):
         super().__init__()
@@ -108,12 +125,6 @@ class TorchStageExec(TorchExec):
         self.nondeterministic = any(contains_nondeterministic(e)
                                     for _, es in self.steps for e in es)
 
-    def describe(self) -> str:
-        parts = [("Project[" + ", ".join(e.name for e in exprs) + "]")
-                 if kind == "project" else f"Filter[{exprs[0].name}]"
-                 for kind, exprs in self.steps]
-        return "TorchStage [" + " -> ".join(parts) + "]"
-
     @property
     def output_schema(self) -> Schema:
         return self._schema
@@ -123,13 +134,43 @@ class TorchStageExec(TorchExec):
         faults.maybe_fail_oom("kernel.launch")
         return run_steps(self.steps, batch, self._schema, partition_id)
 
+    def _started(self) -> None:
+        """The first batch is asked for."""
+
+    def _dispatched(self, n: int) -> None:
+        """``n`` output batches of one input batch ran."""
+
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        self._started()
         # rows split freely under per-row project and filter steps, but
         # not under an expression that reads the row's position
         split = None if self.nondeterministic else split_batch_half
         for pid, batch in enumerate(self.children[0].execute(ctx)):
             results = with_retry(lambda b: self._run(b, pid), batch, ctx,
                                  split=split, fire_launch_site=False)
-            self.metrics["stageDispatches"] += len(results)
+            self._dispatched(len(results))
             self.metrics["hostSyncs"] += self._filters * len(results)
             yield from results
+
+
+class TorchStageExec(StepsExec):
+    """A fused chain of project/filter steps (``plan/fusion.py``), run
+    per input batch; ``stageDispatches`` counts its batches and
+    ``fusedOps`` its steps, as the JAX stage's do."""
+
+    def describe(self) -> str:
+        parts = [("Project[" + ", ".join(e.name for e in exprs) + "]")
+                 if kind == "project" else f"Filter[{exprs[0].name}]"
+                 for kind, exprs in self.steps]
+        return "TorchStage [" + " -> ".join(parts) + "]"
+
+    def _dispatched(self, n: int) -> None:
+        self.metrics["stageDispatches"] += n
+        with _STATS_LOCK:
+            _STATS["dispatches"] += n
+
+    def _started(self) -> None:
+        self.metrics["fusedOps"] += len(self.steps)
+        with _STATS_LOCK:
+            _STATS["stages"] += 1
+            _STATS["fused_ops"] += len(self.steps)

@@ -42,10 +42,16 @@ to fail, so tests and runs inject faults through
                            (``columnar/transfer.py: device_pull``),
                            before anything is copied; the error reaches
                            the caller
+  ``plan.place``           the placement pass and its adaptive re-score
+                           (``plan/placement.py``): the plan runs on the
+                           card, counted in ``place_faults``
+  ``compile.store``        the compile store's lookup of a kernel
+                           library (``compile/store.py``): a fresh nvcc
+                           build, counted in ``compileStoreFaults``
 
-The JAX package's other sites (shuffle, ICI, chip, ``compile.store``,
-``plan.place``, ``ooc.partition``) belong to modules the port does not
-have yet (``ROADMAP.md``).
+The JAX package's other sites (shuffle, ICI, chip, ``ooc.partition``)
+belong to modules the port does not have yet (``ROADMAP.md``, queue
+A8).
 
 Trigger grammar (the value of ``spark.rapids.faults.<site>``):
 

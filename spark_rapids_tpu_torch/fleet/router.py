@@ -712,8 +712,8 @@ class FleetRouter:
                         drain: bool = False) -> float:
         """Replace the process in slot ``idx`` with a new one, returning
         the seconds from its spawn to its probe passing (its time to
-        hot: the port has no compile store, so a replacement loads the
-        kernels ``native.py`` built before and compiles nothing else).
+        hot: a replacement loads the kernels ``native.py`` built before,
+        from the compile store's directory when the conf names one).
         With ``drain`` the incumbent drains first (its queued tickets
         re-route, untyped to the client); otherwise the incumbent (dead
         or doomed) is terminated.  The slot takes no traffic until the

@@ -389,6 +389,11 @@ def _configure_from_conf(conf) -> None:
         journal.configure_from_conf(conf)
     elif OBS_JOURNAL_MAX_EVENTS.key in settings:
         journal.set_max_events(conf.get(OBS_JOURNAL_MAX_EVENTS))
+    # the capacity ladder and the compile store are process-wide too; the
+    # runtime outlives a session, so its start alone would miss a later
+    # session's keys (the warm pool starts with a runtime or a server)
+    from spark_rapids_tpu_torch import compile as compile_pkg
+    compile_pkg.configure_from_conf(conf, start_warm=False)
 
 
 @contextlib.contextmanager

@@ -55,6 +55,9 @@ EVENT_STREAM_TICK = "stream_tick"
 EVENT_STANDING_REGISTER = "standing_register"
 EVENT_STANDING_RETIRE = "standing_retire"
 EVENT_CACHE_MAINTAIN = "cache_maintain"
+# placement (plan/placement.py) and the compile warm pool (compile/warm.py)
+EVENT_FRAGMENT_PLACED = "fragment_placed"
+EVENT_COMPILE_WARM = "compile_warm"
 
 DEFAULT_MAX_EVENTS = 100_000
 

@@ -68,19 +68,26 @@ class QueryProfile:
 
     def __init__(self, root: OperatorProfile,
                  query_id: Optional[int] = None,
-                 wall_ms: Optional[float] = None):
+                 wall_ms: Optional[float] = None,
+                 placement: Optional[List[dict]] = None):
         self.root = root
         self.query_id = query_id
         self.wall_ms = wall_ms
+        # the static placement decisions (plan/placement.py): none
+        # under the default mode, so the renderings stay as they were
+        self.placement = list(placement or [])
 
     @classmethod
     def from_plan(cls, physical, query_id: Optional[int] = None,
-                  wall_ms: Optional[float] = None) -> "QueryProfile":
+                  wall_ms: Optional[float] = None,
+                  placement: Optional[List[dict]] = None
+                  ) -> "QueryProfile":
         def walk(node) -> OperatorProfile:
             children = [walk(c) for c in node.children]
             return OperatorProfile(node.node_name, node.describe(),
                                    node.metrics.snapshot(), children)
-        return cls(walk(physical), query_id=query_id, wall_ms=wall_ms)
+        return cls(walk(physical), query_id=query_id, wall_ms=wall_ms,
+                   placement=placement)
 
     _CORE = ("numOutputRows", "numOutputBatches", "totalTime")
 
@@ -118,6 +125,11 @@ class QueryProfile:
                 walk(c, depth + 1)
 
         walk(self.root, 0)
+        for d in self.placement:
+            lines.append(
+                f"Placement: {d.get('fragment')} -> {d.get('engine')} "
+                f"[{d.get('phase')}] tpu={d.get('tpu_ms')}ms "
+                f"cpu={d.get('cpu_ms')}ms deciding={d.get('deciding')}")
         return "\n".join(lines)
 
     def to_dict(self) -> dict:
@@ -129,8 +141,11 @@ class QueryProfile:
                     "metrics": {n: v for n, v in node.metrics.items()
                                 if v},
                     "children": [walk(c) for c in node.children]}
-        return {"query_id": self.query_id, "wall_ms": self.wall_ms,
-                "plan": walk(self.root)}
+        out = {"query_id": self.query_id, "wall_ms": self.wall_ms,
+               "plan": walk(self.root)}
+        if self.placement:
+            out["placement"] = self.placement
+        return out
 
     def legacy_lines(self) -> List[str]:
         """One line an operator, its non-zero metrics sorted by name,

@@ -7,9 +7,11 @@ stats of the port's modules (lifecycle, the spill catalogs, the session
 server, the journal) and the histograms; ``prometheus_text()`` renders
 the snapshot in Prometheus' text format.  Units ride in the histogram's
 name (``*.us``).  Recording is gated by ``spark.rapids.sql.obs.enabled``
-(set at query-scope entry): off, ``record`` is one flag read.  The JAX
-package's sections for modules the port lacks (ooc, the kernel cache,
-fusion, ICI, placement, health, compile) are left out; ``prefetch``
+(set at query-scope entry): off, ``record`` is one flag read.  The
+``fusion`` (``exec/stage.py``), ``compile`` (``compile/service.py``)
+and ``placement`` (``plan/placement.py``) sections are the JAX
+package's; its sections for modules the port lacks (ooc, the kernel
+cache, ICI, health) are left out until queue A8; ``prefetch``
 (``io/prefetch.py: global_stats``) and ``d2h``
 (``columnar/transfer.py: d2h_stats``) are kept.
 """
@@ -41,6 +43,9 @@ HIST_QUERY_WALL_US = "query.wall.us"
 HIST_SERVER_ADMIT_WAIT_US = "server.admit.wait.us"
 # a standing query's micro-batch detected -> its refresh done
 HIST_STREAM_FRESHNESS_US = "stream.freshness.us"
+# a cost-placed query's |projected - actual| / actual, in percent
+# (plan/placement.py: note_query)
+HIST_PLACEMENT_COST_ERROR_PCT = "placement.cost_error.pct"
 
 
 class Histogram:
@@ -175,7 +180,9 @@ def snapshot() -> dict:
     """The engine-stats dict: one key a module, and the histograms."""
     from spark_rapids_tpu_torch import lifecycle
     from spark_rapids_tpu_torch.columnar import transfer
-    from spark_rapids_tpu_torch.exec import aqe
+    from spark_rapids_tpu_torch.compile import service as compile_service
+    from spark_rapids_tpu_torch.exec import aqe, stage
+    from spark_rapids_tpu_torch.plan import placement
     from spark_rapids_tpu_torch.io import prefetch
     from spark_rapids_tpu_torch.fleet import stats as fleet_stats
     from spark_rapids_tpu_torch.obs import journal
@@ -196,6 +203,17 @@ def snapshot() -> dict:
         # splits, promotions, demotions, fallbacks, exchanges seen and
         # the largest and median partition bytes
         "aqe": aqe.global_stats(),
+        # fused stages run, their dispatches and the operators they
+        # folded (plan/fusion.py)
+        "fusion": stage.global_stats(),
+        # the compile store over the kernel libraries: hits, misses,
+        # corrupt and faults, nvcc and load ms, the warm pool, the
+        # capacity ladder's bounds
+        "compile": compile_service.snapshot(),
+        # fragment placement: fragments scored and placed, AQE
+        # demotions, degraded passes, projected against actual ms and
+        # the cost error's quantiles
+        "placement": placement.global_stats(),
         "lifecycle": lifecycle.global_stats(),
         "catalog": _catalog_stats(),
         "server": server_stats.global_stats(),

@@ -27,10 +27,12 @@ Rules 2 and 3 apply to AQE-inserted exchanges only (``aqe_inserted``): a
 ``repartition(n)`` count is the user's.  Every rule keeps the row
 sequence; only batch boundaries and the join's build side move.
 
-Not carried over: ``unwrap_aqe_exchange`` (the mesh lowering), the host
-shuffle's branches and stats-driven reduce grouping (queue A8), and the
-placement re-score after a replan (``aqe_rescore``, queue A9; it is
-inert unless ``placement.mode=cost``, which the port has not).
+After the rules, placement's re-score (``plan/placement.py:
+aqe_rescore``, inert unless ``spark.rapids.sql.placement.mode=cost``)
+may move the remainder above the stage to the host.
+
+Not carried over: ``unwrap_aqe_exchange`` (the mesh lowering), and the
+host shuffle's branches and stats-driven reduce grouping (queue A8).
 """
 
 from __future__ import annotations
@@ -228,6 +230,17 @@ def replan(root: TorchAdaptiveSparkPlanExec, stage: TorchQueryStageExec,
             report["coalesced"] = ncoal
             report["skew_splits"] = nsplit
             report["group_bytes"] = [stage.group_bytes(g) for g in groups]
+    if not promoted:
+        # placement's re-score (plan/placement.py): with placement.mode
+        # =cost, the measured bytes may move the remainder above the
+        # stage to the host; inert otherwise, and a failure keeps the
+        # plan as the rules above do
+        from spark_rapids_tpu_torch.plan.placement import aqe_rescore
+        pd = aqe_rescore(root, stage, conf, metrics)
+        if pd is not None:
+            report["changed"] = True
+            report["decision"] = "placement_demoted"
+            report["placement"] = pd
     return report
 
 

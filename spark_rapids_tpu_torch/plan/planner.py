@@ -7,8 +7,9 @@ Filter, Aggregate (grouped, global or distinct), Sort, Limit, Join,
 Window (``TorchWindowExec``; an offset RANGE frame over a non-numeric
 order column raises ``ValueError``, as both of the JAX package's engines
 do), Expand, Generate and Repartition (``TorchShuffleExchangeExec``);
-each maximal chain of Project and Filter becomes one fused
-``TorchStageExec`` (the JAX package's fusion pass), an Aggregate and the
+a Project or Filter lowers to a ``TorchProjectExec`` or
+``TorchFilterExec``, and the fusion pass (``plan/fusion.py``) folds each
+chain of them into fused ``TorchStageExec``s; an Aggregate and the
 stream side of a join read their input through the coalesce the JAX
 package inserts there, and a Limit over a Sort becomes a top-N.  A join
 takes the JAX package's static strategy (``_plan_join``): broadcast the
@@ -52,8 +53,9 @@ from spark_rapids_tpu_torch.conf import ADAPTIVE_ENABLED, \
     BROADCAST_THRESHOLD, TorchConf
 from spark_rapids_tpu_torch.exec.aggregate import TorchHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import TorchExec
-from spark_rapids_tpu_torch.exec.basic import TorchLocalLimitExec, \
-    TorchLocalScanExec, TorchRangeExec, TorchUnionExec
+from spark_rapids_tpu_torch.exec.basic import TorchFilterExec, \
+    TorchLocalLimitExec, TorchLocalScanExec, TorchProjectExec, \
+    TorchRangeExec, TorchUnionExec
 from spark_rapids_tpu_torch.exec.broadcast import \
     TorchBroadcastExchangeExec, TorchBroadcastHashJoinExec
 from spark_rapids_tpu_torch.exec.coalesce import TorchCoalesceBatchesExec
@@ -62,7 +64,6 @@ from spark_rapids_tpu_torch.exec.expand import TorchExpandExec
 from spark_rapids_tpu_torch.exec.generate import TorchGenerateExec
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec, TorchTopNExec
-from spark_rapids_tpu_torch.exec.stage import TorchStageExec
 from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.exprs import predicates as pr
 from spark_rapids_tpu_torch.exprs.base import BoundReference, Expression, \
@@ -78,6 +79,7 @@ from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec, \
     expand_paths
 from spark_rapids_tpu_torch.plan import logical as lp
 from spark_rapids_tpu_torch.plan.adaptive import insert_adaptive
+from spark_rapids_tpu_torch.plan.fusion import fuse_physical
 
 _NODES = (lp.Project, lp.Filter, lp.Aggregate, lp.Sort, lp.Limit, lp.Join,
           lp.Window, lp.Union, lp.Expand, lp.Generate, lp.Repartition)
@@ -125,23 +127,38 @@ def _bind(e: Expression, schema, conf: TorchConf,
     return bound
 
 
-def _stage(step, child: TorchExec) -> TorchStageExec:
-    if isinstance(child, TorchStageExec):
-        return TorchStageExec(child.steps + [step], child.children[0])
-    return TorchStageExec([step], child)
-
-
 def plan_query(node: lp.LogicalPlan,
                conf: Optional[TorchConf] = None) -> TorchExec:
-    """The query's operators, after ``push_join_conditions``; under an
-    adaptive wrapper when adaptive execution is on and the plan holds a
-    shuffle exchange (``plan/adaptive.py: insert_adaptive``)."""
+    """The query's operators, after ``push_join_conditions``, with the
+    fusion pass applied (``plan/fusion.py``); under an adaptive wrapper
+    when adaptive execution is on and the plan holds a shuffle exchange
+    (``plan/adaptive.py: insert_adaptive``).  Under a placement mode
+    other than ``tpu`` the placement pass scores the plan first
+    (``plan/placement.py: place_fragments``): the root carries its
+    decisions in ``placement``, and a plan placed on the host has every
+    operator's ``on_host`` set, for the caller to run it there."""
     conf = conf if conf is not None else TorchConf()
     node = push_join_conditions(node)
     if conf.get_bool(
             "spark.rapids.sql.format.parquet.filterPushdown.enabled", True):
         node = push_scan_filters(node)
-    return insert_adaptive(_lower(node, conf), conf)
+    decisions = []
+    if conf.placement_mode != "tpu":
+        from spark_rapids_tpu_torch.plan.placement import place_fragments
+        decisions = place_fragments(node, conf)
+    plan = insert_adaptive(fuse_physical(_lower(node, conf), conf), conf)
+    if decisions:
+        plan.placement = decisions
+        if any(d["engine"] == "cpu" for d in decisions):
+            mark_on_host(plan)
+    return plan
+
+
+def mark_on_host(plan: TorchExec) -> None:
+    """Put every operator of ``plan`` on the host."""
+    plan.on_host = True
+    for c in plan.children:
+        mark_on_host(c)
 
 
 def _bind_pushed(rel) -> Optional[Expression]:
@@ -212,10 +229,9 @@ def _lower(node: lp.LogicalPlan, conf: TorchConf) -> TorchExec:
         return _bind(e, schema, conf, placed)
 
     if isinstance(node, lp.Project):
-        return _stage(("project", tuple(bind(e, True) for e in node.exprs)),
-                      child)
+        return TorchProjectExec([bind(e, True) for e in node.exprs], child)
     if isinstance(node, lp.Filter):
-        return _stage(("filter", (bind(node.pred, True),)), child)
+        return TorchFilterExec(bind(node.pred, True), child)
     if isinstance(node, lp.Limit):
         return TorchLocalLimitExec(node.n, child)
     if isinstance(node, lp.Window):
@@ -331,7 +347,7 @@ def swapped_broadcast_join(stream: TorchExec,
     reorder = tuple(BoundReference(nr + i if i < nl else i - nl, f.dtype,
                                    f.nullable, f.name)
                     for i, f in enumerate(out_fields))
-    return _stage(("project", reorder), swapped)
+    return TorchProjectExec(list(reorder), swapped)
 
 
 def push_join_conditions(node: lp.LogicalPlan) -> lp.LogicalPlan:
@@ -401,13 +417,13 @@ def push_join_conditions(node: lp.LogicalPlan) -> lp.LogicalPlan:
 
 
 def _host_bytes(dtype, values, valid) -> int:
-    """Bytes an Arrow array of these host values holds: a string column
-    its UTF-8 bytes and int32 offsets, a boolean one a bit a row, any
-    other its fixed width; plus a validity bitmap when a value is
-    null."""
+    """Bytes an Arrow array of these host values holds, as pyarrow's
+    ``nbytes`` (25.0) counts them: a string column its UTF-8 bytes and
+    an int32 offset a row, a boolean one a bit a row, any other its
+    fixed width; plus a validity bitmap when a value is null."""
     n = len(valid)
     if dtype == STRING:
-        size = int(values.lengths.astype(np.int64).sum()) + 4 * (n + 1)
+        size = int(values.lengths.astype(np.int64).sum()) + 4 * n
     elif dtype == BOOLEAN:
         size = (n + 7) // 8
     else:

@@ -13,11 +13,12 @@ it demotes to the host, and an allocation that fails anyway raises
 ``torch.OutOfMemoryError``, which ``utils/retry.py`` handles.
 
 On the CPU the budget assumes 16 GiB of device memory, as the JAX
-package does, so both packages budget alike under one conf dict.  Not
-carried over: the compile cache, the DOUBLE-as-float policy, the
-compile service and the cost probe (each waits for the slice of
-``ROADMAP.md`` that needs it), and the semaphore's resize (the
-chip-health layer's, queue A8).  A wait for a permit polls the waiting
+package does, so both packages budget alike under one conf dict.  A new
+runtime configures the compile store and starts its warm pool
+(``compile/``) and, under ``placement.mode=cost``, probes the card's
+link (``plan/cost.py: startup_probe``), as the JAX runtime does.  Not
+carried over: the DOUBLE-as-float policy and the semaphore's resize
+(the chip-health layer's, queue A8).  A wait for a permit polls the waiting
 thread's query (``lifecycle.py``): a cancelled query, or one past its
 deadline, raises its typed error out of the wait.
 
@@ -282,6 +283,12 @@ class TorchRuntime:
         # the device scan cache: its entries live in the catalog, so
         # memory pressure demotes them (lowest priority) tier by tier
         self.scan_cache = ScanCache(max_entries=8)
+        # the compile store and its warm pool (compile/), and placement's
+        # link probe (plan/cost.py), from the conf that made the runtime
+        from spark_rapids_tpu_torch import compile as compile_pkg
+        from spark_rapids_tpu_torch.plan import cost
+        compile_pkg.configure_from_conf(conf, self.device)
+        cost.startup_probe(conf, self.device)
 
     @staticmethod
     def _key(device: torch.device) -> str:

@@ -152,6 +152,11 @@ class SessionServer:
         # injector now; a conf without fault keys leaves it alone
         if faults.has_fault_keys(conf):
             faults.configure_from_conf(conf)
+        # the compile store and its warm pool at server start, so a
+        # restarted server or a fleet replica loads and launches its
+        # kernels before its first query (compile/)
+        from spark_rapids_tpu_torch import compile as compile_pkg
+        compile_pkg.configure_from_conf(conf, session.device)
         self._draining = threading.Event()
         # close() and drain() claim the end under this lock, so racing
         # callers make one sweep of each

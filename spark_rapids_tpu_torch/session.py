@@ -81,7 +81,8 @@ class TorchSession:
         return QueryProfile.from_plan(
             self._last_plan,
             query_id=qc.query_id if qc is not None else None,
-            wall_ms=qc.wall_ms if qc is not None else None)
+            wall_ms=qc.wall_ms if qc is not None else None,
+            placement=list(self._last_plan.placement))
 
     def last_query_metrics(self) -> str:
         """The last query's operator metrics, one line an operator with

@@ -39,6 +39,7 @@ from spark_rapids_tpu_torch.conf import TorchConf
 from spark_rapids_tpu_torch.exec import aqe
 from spark_rapids_tpu_torch.plan import adaptive
 from spark_rapids_tpu_torch.plan.planner import plan_query
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 AQE_ON = {"spark.rapids.sql.adaptive.enabled": "true"}
 CPU = {"spark.rapids.torch.device": "cpu"}

@@ -27,6 +27,7 @@ from tests.compare import assert_tables_equal, tpu_session
 import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch.exec import joins as tj
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _tables(seed=12, n_stream=1500, n_build=2500, keys=40):

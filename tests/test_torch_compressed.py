@@ -50,6 +50,7 @@ from spark_rapids_tpu_torch.columnar.batch import device_batch_to_host, \
 from spark_rapids_tpu_torch.columnar.dtypes import STRING
 from tests.compare import assert_tables_equal, tpu_session
 from tests.fuzzer import gen_dict_table
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = {"spark.rapids.torch.device": "cpu"}
 ON = {"spark.rapids.sql.compressed.enabled": "true",

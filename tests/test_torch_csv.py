@@ -36,6 +36,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import FLOAT64, INT64, STRING, \
     Field, Schema
 from spark_rapids_tpu_torch.io import csv as tcsv
 from tests.compare import assert_tables_equal, tpu_session
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = {"spark.rapids.torch.device": "cpu"}
 

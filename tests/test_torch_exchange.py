@@ -30,6 +30,7 @@ import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch import api as tapi
 from spark_rapids_tpu_torch import functions as TF
 from spark_rapids_tpu_torch.plan import logical as tlp
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -23,6 +23,7 @@ from tests.compare import assert_tables_equal, tpu_session
 
 import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch import functions as TF
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -53,6 +53,7 @@ from spark_rapids_tpu_torch.fleet.health import OUTCOME_FAIL, OUTCOME_SLOW, \
 from spark_rapids_tpu_torch.obs import journal
 from spark_rapids_tpu_torch.server.result_cache import DiskResultTier, \
     ResultCache
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 WAIT_S = 120  # the bound on any one result
 

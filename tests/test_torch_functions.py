@@ -49,6 +49,7 @@ from spark_rapids_tpu_torch.exprs import arithmetic as tar
 from spark_rapids_tpu_torch.exprs import datetime as tdte
 from spark_rapids_tpu_torch.exprs import math as tmt
 from spark_rapids_tpu_torch.exprs import nullexprs as tne
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 INCOMPAT = {"spark.rapids.sql.incompatibleOps.enabled": True}
 # (col, lit, functions, Column, arithmetic, math, nullexprs, datetime)

@@ -43,6 +43,7 @@ from spark_rapids_tpu_torch.exprs.base import Literal as TLiteral
 from spark_rapids_tpu_torch.exprs.base import UnresolvedAttribute as TAttr
 from spark_rapids_tpu_torch.plan import logical as tlp
 from spark_rapids_tpu_torch.plan.adaptive import find_adaptive
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = {"spark.rapids.torch.device": "cpu"}
 JOIN_TYPES = ["left", "right", "full", "semi", "anti", "inner"]

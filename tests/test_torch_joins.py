@@ -35,6 +35,7 @@ from spark_rapids_tpu_torch.exec import joins as tj
 from spark_rapids_tpu_torch.exprs.base import BoundReference, ColVal, \
     EvalContext
 from spark_rapids_tpu_torch.exprs.predicates import string_compare
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 JOIN_TYPES = ["inner", "left", "right", "full", "semi", "anti"]
 

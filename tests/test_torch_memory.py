@@ -67,6 +67,7 @@ from spark_rapids_tpu_torch.memory.spill import (
     TIER_HOST, BufferCatalog, SpillableBatch,
 )
 from spark_rapids_tpu_torch.runtime import TorchRuntime, TorchSemaphore
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 TINY = {"spark.rapids.memory.tpu.budgetBytes": str(200 * 1024),
         "spark.rapids.memory.host.spillStorageSize": str(150 * 1024),

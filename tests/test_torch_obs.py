@@ -12,8 +12,8 @@ names) and ``tests/test_aux.py`` (``api_validation``,
   TPC-H q3 with adaptive execution on.  The trees differ in three known
   ways, which ``_flat`` maps: the JAX package's ``DeviceToHost``
   transition at the root has no counterpart (the port's actions pull
-  the root's batches themselves); the JAX ``TpuProject`` and
-  ``TpuFilter`` run as the port's fused ``TorchStage``; and a JAX stage
+  the root's batches themselves); a project, a filter and a fused
+  stage all compare as ``Stage``; and a JAX stage
   directly under a shuffle exchange runs fused into the exchange's
   partition kernel and counts no output (0 rows, 0 batches), which the
   port, without that fusion, counts, so the pair is not compared.

@@ -57,6 +57,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, INT32, INT64, \
     Field, Schema, STRING
 from tests.compare import assert_tables_equal, sum_plan_metric, tpu_session
 from tests.test_compressed import _plane_table
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = {"spark.rapids.torch.device": "cpu"}
 ON = {"spark.rapids.sql.compressed.enabled": "true",

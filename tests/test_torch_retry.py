@@ -57,6 +57,7 @@ from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.utils.retry import is_device_oom, \
     split_batch_half, with_retry
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 N = 3000
 CPU = {"spark.rapids.torch.device": "cpu"}

@@ -44,6 +44,7 @@ from spark_rapids_tpu_torch.memory.spill import TIER_DEVICE, \
     CachedBatchWrittenError
 from spark_rapids_tpu_torch.runtime import TorchRuntime
 from tests.compare import assert_tables_equal, tpu_session
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = {"spark.rapids.torch.device": "cpu"}
 OFF = {"spark.rapids.sql.scan.deviceCacheEnabled": "false"}
@@ -62,17 +63,11 @@ def _fresh_runtime(monkeypatch):
     # zeroed a read
     from spark_rapids_tpu_torch.io import csv as tcsv
     monkeypatch.setattr(tcsv, "RANGE_BYTES", 64 << 10)
-    # one intra-op thread: the CSV decode's many small ops run 50 to 100
-    # times slower when every test worker's thread pool spins on the
-    # same cores
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     TorchRuntime.reset()
     yield
     from spark_rapids_tpu_torch import faults
     faults.reset()
     TorchRuntime.reset()
-    torch.set_num_threads(threads)
 
 
 def _table(n=6000, seed=5):

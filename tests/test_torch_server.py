@@ -65,6 +65,7 @@ from spark_rapids_tpu_torch.errors import (
 from spark_rapids_tpu_torch.faults import InjectedFault
 from spark_rapids_tpu_torch.obs import journal
 from spark_rapids_tpu_torch.sql import SqlError
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 LINEITEM = 4000
 SALES = 10_000
@@ -821,7 +822,8 @@ def test_stats_snapshot_and_prometheus_text(corpus):
         snap = s.engine_stats()
         assert set(snap) == {"aqe", "lifecycle", "catalog", "server",
                              "fleet", "stream", "journal", "histograms",
-                             "compressed", "prefetch", "d2h"}
+                             "compressed", "prefetch", "d2h", "fusion",
+                             "compile", "placement"}
         assert snap["server"]["completed"] >= 1
         assert snap["histograms"]["server.admit.wait.us"]["count"] >= 1
         assert snap["histograms"]["query.wall.us"]["count"] >= 1

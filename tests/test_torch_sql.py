@@ -37,6 +37,7 @@ from spark_rapids_tpu_torch.exprs import predicates as tpr
 from spark_rapids_tpu_torch.plan import logical as tlp
 from spark_rapids_tpu_torch.plan import planner as tplanner
 from spark_rapids_tpu_torch.sql import SqlError
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _tables():

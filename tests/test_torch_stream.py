@@ -29,6 +29,7 @@ import spark_rapids_tpu as jst
 import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch.stream import stats as stream_stats
 from spark_rapids_tpu_torch.stream.source import TailingSource
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = {"spark.rapids.torch.device": "cpu"}
 STREAM = {**CPU, "spark.rapids.server.enabled": "true",
@@ -229,6 +230,10 @@ def test_standing_query_lifecycle_and_parity(tmp_path):
             assert not qs.incremental and qs.reason
             assert _rows(qa.result()) == _rows(s.sql(AGG_Q))
             _write_part(fact, 1, rng, keys=("b", "c", "d", "e"))
+            # the histogram is process-wide: an earlier test in this
+            # worker may have recorded into it
+            fresh0 = s.engine_stats()["histograms"].get(
+                "stream.freshness.us", {"count": 0})["count"]
             assert reg.tick() == 1
             for q, sql in ((qa, AGG_Q), (qp, PROJ_Q), (qs, SORT_Q)):
                 assert _rows(q.result()) == _rows(s.sql(sql)), q.name
@@ -240,7 +245,7 @@ def test_standing_query_lifecycle_and_parity(tmp_path):
             assert qa.last_lag_ms is not None
             assert "stream" in server.stats()
             fresh = s.engine_stats()["histograms"]["stream.freshness.us"]
-            assert fresh["count"] == 3
+            assert fresh["count"] - fresh0 == 3
             reg.retire("sort")
             with pytest.raises(KeyError):
                 reg.query("sort")

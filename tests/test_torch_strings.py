@@ -49,6 +49,7 @@ from spark_rapids_tpu_torch.exprs import pallas_strings as tps
 from spark_rapids_tpu_torch.exprs import strings as tss
 from spark_rapids_tpu_torch.exprs.base import BoundReference, ColVal, \
     Literal
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 CONF = {"spark.rapids.sql.reader.batchSizeRows": "1024",
         "spark.rapids.sql.batchSizeRows": "1024"}
@@ -443,9 +444,11 @@ def test_text_filter_agg_matches_jax(lineitem, source):
     tt = chip_smoke.text_agg_query(st, TF, tdf).to_arrow()
     assert_tables_equal(tt, jt, ignore_order=False, approx_float=True)
     assert tt.num_rows == 6 and sum(tt.column("count_order").to_pylist()) > 0
-    stage = _find(ts._last_plan, "TorchStageExec")
-    assert type(stage.steps[0][1][0]).__name__ == "PallasContains"
-    assert stage.metrics["stageDispatches"] == \
+    # a lone filter: the fusion pass leaves it a TorchFilterExec, as the
+    # JAX pass leaves a TpuFilterExec, one output batch an input batch
+    filt = _find(ts._last_plan, "TorchFilterExec")
+    assert type(filt.pred).__name__ == "PallasContains"
+    assert filt.metrics["numOutputBatches"] == \
         (4 if source == "parquet" else 1)
 
 

@@ -27,6 +27,7 @@ from spark_rapids_tpu_torch import functions as TF
 from spark_rapids_tpu_torch.bench.tpch import BENCH_QUERIES, TPCH_QUERIES, \
     gen_tpch_numpy
 from spark_rapids_tpu_torch.bench.tpch import load_tables as tload
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 LINEITEM = 4000
 

@@ -30,6 +30,7 @@ from spark_rapids_tpu_torch.bench.tpch import BENCH_QUERIES, TPCH_QUERIES, \
     gen_tpch_numpy
 from spark_rapids_tpu_torch.bench.tpch import load_tables as tload
 from spark_rapids_tpu_torch.exec.aggregate import _segment
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 ROWS = {"q2": 20_000}
 OTHERS = [q for q in TPCH_QUERIES if q not in BENCH_QUERIES]

@@ -24,6 +24,7 @@ import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch.bench.tpcxbb import LEAD_QUERIES, \
     TPCXBB_QUERIES, gen_tpcxbb_numpy, register_views
 from spark_rapids_tpu_torch.exec.aggregate import TorchHashAggregateExec
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 SALES = 10_000
 EMPTY_AT_THIS_SIZE = {"q2"}

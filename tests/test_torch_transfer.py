@@ -57,6 +57,7 @@ from spark_rapids_tpu_torch.obs import registry as treg
 from spark_rapids_tpu_torch.runtime import TorchRuntime
 from spark_rapids_tpu import functions as JF
 from tests.compare import assert_tables_equal, tpu_session
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 CPU = {"spark.rapids.torch.device": "cpu"}
 # the JAX scan cache off, so that each JAX scan ingests afresh; small

@@ -34,6 +34,7 @@ from tests.compare import tpu_session
 
 import spark_rapids_tpu_torch as st
 from spark_rapids_tpu_torch import functions as TF
+from tests.torch_threads import _one_torch_thread  # noqa: F401
 
 JAX = (F, JWindow)
 PORT = (TF, st.Window)
