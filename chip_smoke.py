@@ -6,6 +6,7 @@
                           [--files-only] [--compressed-only]
                           [--planes-only] [--transfer-only]
                           [--scan-cache-only] [--placement-only]
+                          [--shuffle-only]
 
 Phases, each printing one JSON line:
 
@@ -372,8 +373,29 @@ come out bit for bit alike (``float_sum_results_of_5``).
    and their ms), the second over the same directory (no build, the
    load ms), each warming every kernel.  ``--placement-only`` builds
    the kernels and runs this phase alone.
+29. shuffle: the host shuffle.  hash_agg_sort_2m's table,
+   hash_join_1m's fact and dim and SF1 lineitem, each written as 8 CSV
+   files by the port's writer; the group-by and the join (broadcast
+   off) with ``spark.rapids.shuffle.workers.count`` 2 and 4 and SF1 q1
+   with 4: the map side in spawned worker processes on the host (each
+   on ``torch.device("cpu")`` with its share of the cores), the reduce
+   here on the card.  Each result against the same query in process on
+   the same session (integers exact, floats within 1e-9 relative); each
+   run's map, fetch, upload and aggregate seconds, blocks, wire and raw
+   bytes, codec and checksum; the transport must be the native one,
+   K1 must launch on the reduce side of both aggregates, no worker may
+   report a CUDA context (``torch.cuda.is_initialized()``, or
+   ``/dev/nvidia-uvm`` among its mapped files), and no process this one
+   started may map ``/dev/nvidia-uvm`` while a run lasts, as this
+   process sees them in ``/proc``; first, a child that opens a context
+   must show it both ways, the checks' negative control (``nvidia-smi
+   --query-compute-apps`` cannot tell processes apart there: it gives
+   every one pid 1).  A last run kills
+   worker 1 (``spark.rapids.faults.worker.kill=count:1@w1``): the map
+   stage reruns here and the result stays.  ``--shuffle-only`` builds
+   the kernels and runs this phase alone.
 
-Each path of phases 5 to 28 runs with the launch counts set to 0 just
+Each path of phases 5 to 29 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -1939,13 +1961,19 @@ def phase_tpch(torch, st, native, session, T, tables, qname: str,
     if cpu_tables is None:
         want, limit = tpch_reference(T, qname)
         tie_key = "revenue"
+    elif isinstance(cpu_tables, CpuReferences):
+        tie_key, limit = TIE_KEYS.get(qname, ("", None))
+        cols, masks, n = to_device((cols, masks, n), "cpu")
+        cpu_tables.defer(("tpch", qname), lambda want: check_tpch(
+            torch, cols, masks, n, want, limit, qname, tie_key))
     else:
         t0 = time.perf_counter()
         want = host_result(torch, TPCH_QUERIES[qname](cpu_tables).to_torch(),
                            f"{qname} on the CPU")
         cpu_s = time.perf_counter() - t0
         tie_key, limit = TIE_KEYS.get(qname, ("", None))
-    check_tpch(torch, cols, masks, n, want, limit, qname, tie_key)
+    if not isinstance(cpu_tables, CpuReferences):
+        check_tpch(torch, cols, masks, n, want, limit, qname, tie_key)
     joins = [(type(j).__name__, j.join_type, j.route)
              for j in _plan_nodes(plan, "TorchBroadcastHashJoinExec")
              + _plan_nodes(plan, "TorchHashJoinExec")]
@@ -2014,12 +2042,18 @@ def phase_mortgage(torch, session, cpu, tables, runs: int = 2) -> None:
     q = mortgage_etl(session, tables)
     (cols, masks, n), secs = run_timed(torch, q, runs)
     plan = session._last_plan
-    t0 = time.perf_counter()
-    want = host_result(torch, mortgage_etl(cpu, tables).to_torch(),
-                       "mortgage_etl on the CPU")
-    cpu_s = time.perf_counter() - t0
     check(n > 0, "mortgage_etl: no rows")
-    check_tpch(torch, cols, masks, n, want, None, "mortgage_etl")
+    cpu_s = None
+    if isinstance(cpu, CpuReferences):
+        host = to_device((cols, masks, n), "cpu")
+        cpu.defer(("mortgage", "etl"), lambda want: check_tpch(
+            torch, *host, want, None, "mortgage_etl"))
+    else:
+        t0 = time.perf_counter()
+        want = host_result(torch, mortgage_etl(cpu, tables).to_torch(),
+                           "mortgage_etl on the CPU")
+        cpu_s = time.perf_counter() - t0
+        check_tpch(torch, cols, masks, n, want, None, "mortgage_etl")
     loans = len(tables["acq"]["loan_id"])
     check(int(cols["loans"][:n].sum()) == loans,
           "mortgage_etl: the rollup does not count every loan")
@@ -2044,12 +2078,19 @@ def phase_tpcxbb(torch, session, cpu, qname: str, sales_rows: int,
     sql = TPCXBB_QUERIES[qname]
     (cols, masks, n), secs = run_timed(torch, session.sql(sql), runs)
     plan = session._last_plan
-    t0 = time.perf_counter()
-    want = host_result(torch, cpu.sql(sql).to_torch(), f"{qname} on the CPU")
-    cpu_s = time.perf_counter() - t0
     tie_key, limit = TPCXBB_TIE_KEYS.get(qname, ("", None))
-    check_tpch(torch, cols, masks, n, want, limit, f"tpcxbb_{qname}",
-               tie_key)
+    cpu_s = None
+    if isinstance(cpu, CpuReferences):
+        host = to_device((cols, masks, n), "cpu")
+        cpu.defer(("tpcxbb", qname), lambda want: check_tpch(
+            torch, *host, want, limit, f"tpcxbb_{qname}", tie_key))
+    else:
+        t0 = time.perf_counter()
+        want = host_result(torch, cpu.sql(sql).to_torch(),
+                           f"{qname} on the CPU")
+        cpu_s = time.perf_counter() - t0
+        check_tpch(torch, cols, masks, n, want, limit, f"tpcxbb_{qname}",
+                   tie_key)
     joins = _plan_nodes(plan, "TorchBroadcastHashJoinExec") \
         + _plan_nodes(plan, "TorchHashJoinExec")
     aggs = _plan_nodes(plan, "TorchHashAggregateExec")
@@ -2204,8 +2245,8 @@ BREADTH_QUERIES = [
 ]
 
 
-def breadth_sessions(st, tpch, line, device: str = "cuda"):
-    """(card session, CPU session), each with BREADTH_CONF and the views
+def breadth_sessions(st, tpch, line, devices=("cuda", "cpu")):
+    """A session a device (card, CPU), each with BREADTH_CONF and the views
     of the SF1 tables, ``lineitem_text`` (the text queries' lineitem,
     with l_comment) and ``lineitem_ts`` (a TIMESTAMP built here as numpy
     datetime64[us] from l_shipdate and l_orderkey)."""
@@ -2219,7 +2260,7 @@ def breadth_sessions(st, tpch, line, device: str = "cuda"):
                 "l_extendedprice": li["l_extendedprice"],
                 "l_ts": us.astype("datetime64[us]")}
     out = []
-    for dev in (device, "cpu"):
+    for dev in devices:
         s = st.TorchSession({**BREADTH_CONF, "spark.rapids.torch.device": dev})
         for name, df in load_tables(s, tpch).items():
             df.create_or_replace_temp_view(name)
@@ -2239,6 +2280,158 @@ def to_device(result, device):
             {k: v.to(device) for k, v in masks.items()}, n)
 
 
+# -- the CPU session's references, beside the card phases ----------------------
+
+REFS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_smoke_refs")
+
+
+def reference_jobs() -> list:
+    """What the references process computes, in the order the card
+    phases ask for it: the TPC-H queries not checked against numpy, the
+    TPCx-BB queries, mortgage_etl, the breadth queries, the operators'
+    table queries."""
+    from spark_rapids_tpu_torch.bench.tpch import BENCH_QUERIES, \
+        TPCH_QUERIES
+    from spark_rapids_tpu_torch.bench.tpcxbb import LEAD_QUERIES, \
+        TPCXBB_QUERIES
+    return ([("tpch", q) for q in TPCH_QUERIES if q not in BENCH_QUERIES]
+            + [("tpcxbb", q) for q in list(LEAD_QUERIES)
+               + [q for q in TPCXBB_QUERIES if q not in LEAD_QUERIES]]
+            + [("mortgage", "etl")]
+            + [("breadth", q) for q, _, _ in BREADTH_QUERIES]
+            + [("operator", q) for q in list(OPERATOR_QUERIES)
+               + list(OPERATOR_EXTRAS)])
+
+
+class CpuReferences:
+    """The CPU session's results that the TPC-H, TPCx-BB, mortgage,
+    breadth and operator phases check the card against, computed by a
+    process of its
+    own (``--cpu-references``, on half the cores) while the card phases
+    run; each phase defers its check (``defer``) and ``finish`` runs them
+    all, every one as it was, once the process has ended.  The process
+    makes the same tables from the same seeds.  It runs at nice 10, and
+    ``overlapped`` names the phases that started while it was alive:
+    their host seconds were taken beside it, under contention that runs
+    without it did not have."""
+
+    def __init__(self, package_root: str):
+        shutil.rmtree(REFS_DIR, ignore_errors=True)
+        os.makedirs(REFS_DIR)
+        self.t0 = time.perf_counter()
+        self._log = open(os.path.join(REFS_DIR, "process.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--package-root",
+             package_root, "--cpu-references", REFS_DIR],
+            stdout=self._log, stderr=subprocess.STDOUT)
+        self.pending = []
+        self.overlapped = []
+
+    def note_phase(self, path: str) -> None:
+        """A phase starts: record it if the process is still running."""
+        if self.proc.poll() is None:
+            self.overlapped.append(path)
+
+    def defer(self, job, check_fn) -> None:
+        self.pending.append((job, check_fn))
+
+    def finish(self, timeout: float = 600.0) -> None:
+        import pickle
+        waited = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        waited = time.perf_counter() - waited
+        self.close()
+        with open(os.path.join(REFS_DIR, "process.log")) as f:
+            log_tail = f.read()[-2000:]
+        check(rc == 0, f"the CPU references process ended with {rc}: "
+              f"{log_tail}")
+        seconds = {}
+        for job, check_fn in self.pending:
+            with open(self._path(job), "rb") as f:
+                out = pickle.load(f)
+            seconds[f"{job[0]}_{job[1]}"] = out["seconds"]
+            check_fn(out["want"])
+        with open(os.path.join(REFS_DIR, "summary.json")) as f:
+            summary = json.load(f)
+        emit("cpu_references", checks=len(self.pending),
+             process_s=summary["seconds"], data_s=summary["data_s"],
+             threads=summary["threads"], nice=summary["nice"],
+             waited_s=waited, since_start_s=time.perf_counter() - self.t0,
+             overlapped_phases=self.overlapped, seconds=seconds)
+        shutil.rmtree(REFS_DIR, ignore_errors=True)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._log.close()
+
+    @staticmethod
+    def _path(job) -> str:
+        return os.path.join(REFS_DIR, f"{job[0]}_{job[1]}.pkl")
+
+
+def cpu_references_main(out_dir: str) -> int:
+    """``--cpu-references DIR``: compute every ``reference_jobs`` result
+    on CPU sessions, each into DIR as it is done."""
+    import pickle
+    import torch
+    import spark_rapids_tpu_torch as st
+    from spark_rapids_tpu_torch.bench.mortgage import gen_mortgage_numpy, \
+        mortgage_etl
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, \
+        gen_tpch_numpy, load_tables
+    from spark_rapids_tpu_torch.bench.tpcxbb import TPCXBB_QUERIES, \
+        gen_tpcxbb_numpy, register_views
+    t_start = time.perf_counter()
+    # below the card phases' host work, which is what they time
+    nice = os.nice(10)
+    threads = max(1, (os.cpu_count() or 2) // 2)
+    torch.set_num_threads(threads)
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    cpu = st.TorchSession({"spark.rapids.torch.device": "cpu"})
+    cpu_dfs = load_tables(cpu, tpch)
+    register_views(cpu, gen_tpcxbb_numpy(TPCXBB_SALES_ROWS))
+    mortgage = gen_mortgage_numpy(MORTGAGE_PERF_ROWS)
+    cpu_b, = breadth_sessions(st, tpch, gen_lineitem(LINEITEM_ROWS,
+                                                     SEED + 2)[0], ("cpu",))
+    ops_cpu = load_tables(cpu, operator_tables(tpch))
+    data_s = time.perf_counter() - t_start
+    from spark_rapids_tpu_torch import functions as F
+    ops = {**{q: fn for q, (fn, _) in OPERATOR_QUERIES.items()},
+           **OPERATOR_EXTRAS}
+    sql = dict((q, text) for q, text, _ in BREADTH_QUERIES)
+    for kind, name in reference_jobs():
+        t0 = time.perf_counter()
+        if kind == "tpch":
+            want = host_result(torch, TPCH_QUERIES[name](cpu_dfs).to_torch(),
+                               f"{name} on the CPU")
+        elif kind == "tpcxbb":
+            want = host_result(torch, cpu.sql(TPCXBB_QUERIES[name])
+                               .to_torch(), f"{name} on the CPU")
+        elif kind == "mortgage":
+            want = host_result(torch, mortgage_etl(cpu, mortgage).to_torch(),
+                               "mortgage_etl on the CPU")
+        elif kind == "operator":
+            want = ops[name](st, F, ops_cpu).to_torch()
+        else:
+            want = cpu_b.sql(sql[name]).to_torch()
+        path = CpuReferences._path((kind, name))
+        path = os.path.join(out_dir, os.path.basename(path))
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump({"want": want, "seconds": time.perf_counter() - t0},
+                        f)
+        os.replace(path + ".tmp", path)
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump({"seconds": time.perf_counter() - t_start,
+                   "data_s": data_s, "threads": threads, "nice": nice}, f)
+    return 0
+
+
 def phase_breadth(torch, st, gpu, cpu, runs: int = 2) -> None:
     """Each breadth query through ``session.sql`` on the card (one
     warm-up, ``runs`` timed) against the same SQL on the CPU session:
@@ -2248,14 +2441,25 @@ def phase_breadth(torch, st, gpu, cpu, runs: int = 2) -> None:
     for qname, sql, bitwise in BREADTH_QUERIES:
         (cols, masks, n), secs = run_timed(torch, gpu.sql(sql), runs)
         plan = gpu._last_plan
-        t0 = time.perf_counter()
-        device = next(iter(masks.values())).device
-        want = to_device(cpu.sql(sql).to_torch(), device)
-        cpu_s = time.perf_counter() - t0
         check(n > 0, f"breadth {qname}: no rows")
-        floats_alike = same_result(torch, want, (cols, masks, n),
-                                   f"breadth {qname}",
-                                   float_rtol=0.0 if bitwise else 1e-9)
+        rtol = 0.0 if bitwise else 1e-9
+        floats_alike = cpu_s = None
+        if isinstance(cpu, CpuReferences):
+            host = to_device((cols, masks, n), "cpu")
+
+            def later(want, qname=qname, host=host, rtol=rtol):
+                emit("breadth_check", query=qname,
+                     floats_bit_for_bit=same_result(
+                         torch, want, host, f"breadth {qname}",
+                         float_rtol=rtol))
+            cpu.defer(("breadth", qname), later)
+        else:
+            t0 = time.perf_counter()
+            device = next(iter(masks.values())).device
+            want = to_device(cpu.sql(sql).to_torch(), device)
+            cpu_s = time.perf_counter() - t0
+            floats_alike = same_result(torch, want, (cols, masks, n),
+                                       f"breadth {qname}", float_rtol=rtol)
         joins = _plan_nodes(plan, "TorchBroadcastHashJoinExec") \
             + _plan_nodes(plan, "TorchHashJoinExec")
         aggs = _plan_nodes(plan, "TorchHashAggregateExec")
@@ -3090,7 +3294,11 @@ def run_operator(torch, session, query_fn, name: str, rows_in: int,
     if peak:
         fields["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
     cpu_s = None
-    if cpu_query is not None:
+    if isinstance(cpu_query, tuple):
+        refs, job = cpu_query
+        host = to_device(out, "cpu")
+        refs.defer(job, lambda want: same_rows(torch, host, want, name))
+    elif cpu_query is not None:
         t0 = time.perf_counter()
         want = cpu_query.to_torch()
         cpu_s = time.perf_counter() - t0
@@ -3145,15 +3353,24 @@ OPERATOR_QUERIES = {
     "window_frames": (op_window_frames, "lineitem"),
     "bitwise_keys": (op_bitwise_keys, "lineitem"),
 }
+# the second queries two of them check
+OPERATOR_EXTRAS = {"explode_outer_nation": op_explode_outer_nation,
+                   "repartition_roundrobin": op_repartition_rr}
 
 
 def phase_operator(torch, st, F, session, t_gpu, t_cpu, name: str,
                    rows: int) -> None:
     """One of phase 18's table queries on the card against the CPU
-    session, with the checks of its own."""
+    session (``t_cpu`` its tables, or a ``CpuReferences`` whose process
+    runs them), with the checks of its own."""
     fn = OPERATOR_QUERIES[name][0]
+
+    def cpu_query(query, fn):
+        if isinstance(t_cpu, CpuReferences):
+            return t_cpu, ("operator", query)
+        return fn(st, F, t_cpu)
     out = run_operator(torch, session, lambda s: fn(st, F, t_gpu), name,
-                       rows, cpu_query=fn(st, F, t_cpu),
+                       rows, cpu_query=cpu_query(name, fn),
                        peak=name == "window_frames")
     cols, masks, n = out
     if name == "window_frames":
@@ -3162,13 +3379,15 @@ def phase_operator(torch, st, F, session, t_gpu, t_cpu, name: str,
         check(n == 3, "explode_horizons: not three horizons")
         nat = run_operator(torch, session, lambda s: op_explode_outer_nation(
             st, F, t_gpu), "explode_outer_nation", 25,
-            cpu_query=op_explode_outer_nation(st, F, t_cpu))
+            cpu_query=cpu_query("explode_outer_nation",
+                                op_explode_outer_nation))
         check(nat[2] == 25 and not bool(nat[1]["h"][:25].any()),
               "explode_outer over nation: not 25 rows each with a null")
     elif name == "repartition_hash":
         rr = run_operator(torch, session, lambda s: op_repartition_rr(
             st, F, t_gpu), "repartition_roundrobin", rows,
-            cpu_query=op_repartition_rr(st, F, t_cpu))
+            cpu_query=cpu_query("repartition_roundrobin",
+                                op_repartition_rr))
         sizes = np.bincount(rr[0]["pid"][:rr[2]].cpu().numpy(),
                             minlength=16)
         check(rr[2] == n and sizes.max() - sizes.min() <= 1,
@@ -6089,6 +6308,376 @@ def phase_placement(torch, st, F, native, session, main, agg_data, dim,
          nvidia_smi=smi)
 
 
+# -- phase 29: the host shuffle --------------------------------------------------
+
+SHUFFLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_smoke_shuffle")
+SHUFFLE_FILES = 8
+# every wait of the exchange bounded well inside the script's limit
+SHUFFLE_CONF = {"spark.rapids.shuffle.stage.timeout": 300}
+
+
+def _write_parts(session, data: dict, path: str,
+                 parts: int = SHUFFLE_FILES) -> list:
+    """``data`` (numpy columns) as ``parts`` CSV files under ``path``,
+    each a slice of the rows written by the port's writer."""
+    n = len(next(iter(data.values())))
+    for i in range(parts):
+        lo, hi = i * n // parts, (i + 1) * n // parts
+        session.create_dataframe({k: v[lo:hi] for k, v in data.items()}) \
+            .write.mode("append").csv(path)
+    files = _csv_files(path)
+    check(len(files) == parts, f"{path}: {len(files)} files")
+    return files
+
+
+def _descendants() -> List[int]:
+    """The pids of this process's children and their children, from
+    ``/proc/<pid>/stat``."""
+    kids = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            ppid = int(stat.rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        kids.setdefault(ppid, []).append(int(d))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for k in kids.get(todo.pop(), []):
+            out.append(k)
+            todo.append(k)
+    return out
+
+
+def _card_files_of(pid: int) -> List[str]:
+    """The card's device files process ``pid`` maps; a CUDA context maps
+    ``/dev/nvidia-uvm`` (``card_apps_control`` shows it)."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return sorted({ln.split()[-1] for ln in f
+                           if "/dev/nvidia" in ln})
+    except OSError:
+        return []
+
+
+class _CardApps:
+    """Watches this process's descendants while a run lasts: every 0.25
+    s it reads each one's ``/proc/<pid>/maps``; ``contexts`` maps each
+    descendant seen with ``/dev/nvidia-uvm`` mapped (a CUDA context) to
+    its files, ``seen`` counts the descendants seen.  This is the
+    parent's own view of the map workers, beside what they report.  It
+    also reads the card's used memory less this process's allocator
+    reservation (``torch.cuda.mem_get_info``): ``extra_mib``, the
+    peak's rise over the first poll, and ``drop_mib``, the fall from the
+    peak once the run has ended (``settle``).  Those are recorded, not
+    checked: they cannot say which process holds the memory.
+    ``nvidia-smi --query-compute-apps`` cannot either on the card's
+    machine: it gives every process pid 1 and once listed one row while
+    two processes held contexts."""
+
+    def __init__(self, torch):
+        self._torch = torch
+        self.polls = 0
+        self.seen = set()
+        self.contexts = {}
+        self.first_mib = None
+        self.peak_mib = None
+        self.after_mib = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True,
+                                        name="smoke-card-apps")
+
+    def _read_mib(self) -> float:
+        # the larger reservation of the two reads: an allocation between
+        # them must not look like another process
+        r0 = self._torch.cuda.memory_reserved()
+        free, total = self._torch.cuda.mem_get_info()
+        r1 = self._torch.cuda.memory_reserved()
+        return (total - free - max(r0, r1)) / 2 ** 20
+
+    def others_mib(self) -> float:
+        # the lower of two readings: a segment this process has just
+        # allocated and not yet counted shows in one at most
+        return min(self._read_mib(), self._read_mib())
+
+    @property
+    def extra_mib(self) -> float:
+        return self.peak_mib - self.first_mib
+
+    @property
+    def drop_mib(self) -> float:
+        return self.peak_mib - self.after_mib
+
+    def _poll(self):
+        while not self._stop.is_set():
+            for pid in _descendants():
+                self.seen.add(pid)
+                files = _card_files_of(pid)
+                if "/dev/nvidia-uvm" in files:
+                    self.contexts[pid] = files
+            others = self.others_mib()
+            if self.first_mib is None:
+                self.first_mib = self.peak_mib = others
+            self.peak_mib = max(self.peak_mib, others)
+            self.polls += 1
+            self._stop.wait(0.25)
+
+    def settle(self, seconds: float = 0.5) -> None:
+        """The lowest memory reading over ``seconds`` once the run has
+        ended."""
+        end = time.perf_counter() + seconds
+        low = self.others_mib()
+        while time.perf_counter() < end:
+            time.sleep(0.25)
+            low = min(low, self.others_mib())
+        self.after_mib = low
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def card_apps_control(torch, smi: str, work) -> None:
+    """The negative control of the workers' card checks: a child process
+    that opens a CUDA context must report ``/dev/nvidia-uvm`` among the
+    card files it maps, as a map worker reports them
+    (``shuffle/stage.py: card_files``), and ``_CardApps`` must see it
+    from here.  ``work()`` runs meanwhile (the child takes seconds to
+    reach the card)."""
+    ready = os.path.join(SHUFFLE_DIR, "control_ready")
+    torch.cuda.synchronize()
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, time, torch\n"
+         "x = torch.ones(1 << 20, device='cuda')\n"
+         "torch.cuda.synchronize()\n"
+         "files = sorted({ln.split()[-1] for ln in open('/proc/self/maps')"
+         " if '/dev/nvidia' in ln})\n"
+         "open(sys.argv[1] + '.tmp', 'w').write('\\n'.join(files))\n"
+         "import os; os.replace(sys.argv[1] + '.tmp', sys.argv[1])\n"
+         "time.sleep(600)\n", ready])
+    try:
+        with _CardApps(torch) as apps:
+            work()
+            deadline = time.perf_counter() + 90
+            while time.perf_counter() < deadline \
+                    and not os.path.exists(ready) and child.poll() is None:
+                time.sleep(0.25)
+            seen = os.path.exists(ready)
+            # a few polls with the child's context open
+            polls = apps.polls
+            while time.perf_counter() < deadline and apps.polls < polls + 4:
+                time.sleep(0.25)
+    finally:
+        child.kill()
+        child.wait(timeout=60)
+    apps.settle()
+    check(seen, "the card-apps control's child never opened its context")
+    with open(ready) as f:
+        child_files = f.read().split()
+    check("/dev/nvidia-uvm" in child_files, "the card-apps control's child "
+          f"holds a context but maps {child_files}: a map worker's report "
+          "could not show one either")
+    check(child.pid in apps.contexts, "the watcher did not see the "
+          f"control's child's context ({apps.contexts}): it could not see "
+          "a map worker's either")
+    emit("card_apps_control", child_card_files=child_files,
+         watched_contexts=len(apps.contexts), polls=apps.polls,
+         drop_mib=apps.drop_mib, extra_mib=apps.extra_mib,
+         first_mib=apps.first_mib, nvidia_smi=smi)
+
+
+def _exchanges(plan) -> list:
+    return _plan_nodes(plan, "TorchHostShuffleExchangeExec")
+
+
+def _shuffle_run(torch, st, native, session, name: str, build, workers: int,
+                 want, key, smi: str, faults_conf=None) -> dict:
+    """``build(session)`` with ``workers`` map worker processes (under
+    ``faults_conf`` when given): its result against ``want`` (the same
+    query in process; integers exact, floats within 1e-9 relative, the
+    order-of-sums class of ``exec/pallas_agg.py``), every exchange's
+    map, fetch and upload seconds, blocks, bytes, transport, codec and
+    checksum, the workers' CUDA state, mapped card files and threads,
+    the card files the processes this one started mapped during the
+    run, the card's memory outside this process, and K1's launches on
+    the reduce side."""
+    conf = {**SHUFFLE_CONF, "spark.rapids.shuffle.workers.count": workers,
+            **(faults_conf or {})}
+    k1 = native.LAUNCHES["dense_slot_reduce"]
+    with conf_of(session, conf) as s, _CardApps(torch) as apps:
+        got, secs = _timed(torch, build(s).to_torch)
+    # the exchange has joined its workers by the time to_torch returns
+    apps.settle()
+    k1 = native.LAUNCHES["dense_slot_reduce"] - k1
+    plan = session._last_plan
+    if key is not None:
+        got = sorted_by(torch, got, key)
+    same_result(torch, got, want, f"shuffle {name} w={workers}",
+                float_rtol=1e-9)
+    exs = _exchanges(plan)
+    check(exs, f"shuffle {name}: no host exchange in the plan")
+    out = {"map_s": 0.0, "fetch_s": 0.0, "upload_s": 0.0, "blocks": 0,
+           "wire_bytes": 0, "raw_bytes": 0, "rows_written": 0,
+           "map_recomputes": 0, "partitions_recomputed": 0}
+    worker_pids, cuda, card_files, threads, native_t, codec, checksum = \
+        [], [], [], set(), set(), set(), set()
+    for ex in exs:
+        m = ex.metrics
+        out["map_s"] += m["shuffleMapTime"].value / 1e9
+        out["fetch_s"] += m["shuffleFetchTime"].value / 1e9
+        out["upload_s"] += m["uploadTime"].value / 1e9
+        out["blocks"] += int(m["shuffleBlocksFetched"])
+        out["wire_bytes"] += int(m["shuffleWireBytes"])
+        out["raw_bytes"] += int(m["shuffleRawBytes"])
+        out["rows_written"] += int(m["shuffleRowsWritten"])
+        out["map_recomputes"] += int(m["shuffleMapRecomputes"])
+        out["partitions_recomputed"] += int(
+            m["shufflePartitionsRecomputed"])
+        run = ex.last_run
+        native_t.add(run["native"])
+        codec.add(run["codec"])
+        checksum.add(run["checksum"])
+        threads.add(run["worker_threads"])
+        for info in run["workers"].values():
+            worker_pids.append(info["pid"])
+            cuda.append(info["cuda_initialized"])
+            card_files.append(info["card_files"])
+    aggs = _plan_nodes(plan, "TorchHashAggregateExec")
+    agg_s = sum((a.metrics["totalTime"].value
+                 - a.children[0].metrics["totalTime"].value) / 1e9
+                for a in aggs)
+    out.update(
+        query=name, workers=workers, seconds=secs, aggregate_s=agg_s,
+        wire_raw=out["wire_bytes"] / max(1, out["raw_bytes"]),
+        codec=sorted(codec), checksum=sorted(map(str, checksum)),
+        native_transport=native_t == {True},
+        worker_threads=sorted(threads),
+        worker_cuda_initialized=cuda, worker_pids=worker_pids,
+        worker_card_files=card_files, watched_processes=len(apps.seen),
+        watched_contexts=apps.contexts, watch_polls=apps.polls,
+        card_drop_mib=apps.drop_mib, card_extra_mib=apps.extra_mib,
+        parent_pid=os.getpid(), reduce_k1_launches=k1,
+        faults=faults_conf or {}, nvidia_smi=smi)
+    emit("shuffle", **out)
+    check(native_t == {True}, f"shuffle {name}: the transport was not "
+          f"the native one ({native_t})")
+    check(not any(cuda) and not any("/dev/nvidia-uvm" in f
+                                    for f in card_files),
+          f"shuffle {name}: a worker made a CUDA context ({card_files})")
+    check(len(apps.seen) >= len(worker_pids) and not apps.contexts,
+          f"shuffle {name}: processes this one started held a CUDA "
+          f"context during the run ({apps.contexts}; {len(apps.seen)} "
+          f"watched); only this process may hold the card")
+    return out
+
+
+def phase_shuffle(torch, st, F, native, agg_data, main, dim, tpch,
+                  smi: str) -> None:
+    """Phase 29: the host shuffle.  hash_agg_sort_2m's table, hash_join_1m's
+    fact and dim and SF1 lineitem, each written as 8 CSV files; the
+    group-by and the join (broadcast off, so both sides shuffle) with 2
+    and 4 map worker processes and SF1 q1 with 4, each against the same
+    query in process on the same session; K1 must launch on the reduce
+    side of the two aggregates.  Then the group-by with 2 workers and
+    ``worker.kill`` firing in worker 1: the map stage reruns in process
+    and the result stays."""
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES
+    from spark_rapids_tpu_torch.runtime import TorchRuntime
+    from spark_rapids_tpu_torch.shuffle import manager as shuffle_manager
+    from spark_rapids_tpu_torch.shuffle import stage as shuffle_stage
+    t_phase = time.perf_counter()
+    shutil.rmtree(SHUFFLE_DIR, ignore_errors=True)
+    os.makedirs(SHUFFLE_DIR)
+    session = st.TorchSession({**SCAN_CACHE_OFF,
+                               "spark.sql.autoBroadcastJoinThreshold": -1})
+    shuffle_manager.reset_global_stats()
+    try:
+        t0 = time.perf_counter()
+        paths = {name: os.path.join(SHUFFLE_DIR, name)
+                 for name in ("agg", "fact", "dim", "lineitem")}
+
+        def write_tables():
+            for name, data in (("agg", agg_data), ("fact", main),
+                               ("dim", dim), ("lineitem", tpch["lineitem"])):
+                _write_parts(session, data, paths[name])
+        card_apps_control(torch, smi, write_tables)
+        schemas = {name: session.create_dataframe(
+            {k: v[:1] for k, v in data.items()}).plan.output_schema()
+            for name, data in (("agg", agg_data), ("fact", main),
+                               ("dim", dim),
+                               ("lineitem", tpch["lineitem"]))}
+        emit("shuffle_data", seconds=time.perf_counter() - t0,
+             files=SHUFFLE_FILES,
+             bytes={n: _tree_bytes(p) for n, p in paths.items()},
+             worker_threads={w: shuffle_stage.worker_threads(w)
+                             for w in (2, 4)},
+             cores=os.cpu_count())
+
+        def read(s, name):
+            return s.read.schema(schemas[name]).csv(paths[name])
+
+        cells = [
+            ("hash_agg_sort_2m",
+             lambda s: agg_query(st, F, read(s, "agg")), None, (2, 4)),
+            ("hash_join_1m",
+             lambda s: hash_join_query(st, F, read(s, "fact"),
+                                       read(s, "dim")), "grp", (2, 4)),
+            ("tpch_q1_sf1",
+             lambda s: TPCH_QUERIES["q1"]({"lineitem": read(s, "lineitem")}),
+             None, (4,)),
+        ]
+        for name, build, key, counts in cells:
+            want, secs = _timed(torch, build(session).to_torch)
+            if key is not None:
+                want = sorted_by(torch, want, key)
+            emit("shuffle_in_process", query=name, seconds=secs,
+                 rows=want[2])
+            for w in counts:
+                out = _shuffle_run(torch, st, native, session, name, build,
+                                   w, want, key, smi)
+                if name != "tpch_q1_sf1":
+                    check(out["reduce_k1_launches"] > 0,
+                          f"shuffle {name} w={w}: K1 never launched on the "
+                          "reduce side")
+            if name == "hash_agg_sort_2m":
+                out = _shuffle_run(
+                    torch, st, native, session, name, build, 2, want, key,
+                    smi, {"spark.rapids.faults.worker.kill": "count:1@w1"})
+                check(out["map_recomputes"] == 1,
+                      f"shuffle fault run: {out['map_recomputes']} map "
+                      "recomputes")
+    finally:
+        shutil.rmtree(SHUFFLE_DIR, ignore_errors=True)
+        TorchRuntime.invalidate_paths(SHUFFLE_DIR)
+    emit("shuffle_phase", seconds=time.perf_counter() - t_phase,
+         stats=shuffle_manager.global_stats(), nvidia_smi=smi)
+
+
+def shuffle_only(torch, st, F, native, main_data, agg_data, dim_data,
+                 name: str, smi: str) -> int:
+    """``--shuffle-only``: phase 29 and its data alone."""
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy
+    native.reset_launches()
+    phase_shuffle(torch, st, F, native, agg_data, main_data, dim_data,
+                  gen_tpch_numpy(LINEITEM_ROWS), smi)
+    emit("launches", path="shuffle", counts=dict(native.LAUNCHES))
+    check(native.LAUNCHES["dense_slot_reduce"] > 0,
+          "shuffle: K1 never launched")
+    print(json.dumps({"ok": True, "shuffle_only": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def placement_only(torch, st, F, native, main_data, agg_data, dim_data,
                    name: str, smi: str) -> int:
     """``--placement-only``: phase 28 and its data alone."""
@@ -6221,6 +6810,13 @@ def parse_args(argv):
                          "modes, an adaptive demotion, fusion settings "
                          "and the compile store) with its launch counts, "
                          "and stop")
+    ap.add_argument("--shuffle-only", action="store_true",
+                    help="build the kernels, run phase 29 (the host "
+                         "shuffle: map worker processes on the host, the "
+                         "reduce on the card) with its launch counts, and "
+                         "stop")
+    ap.add_argument("--cpu-references", metavar="DIR",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--string-paths", action="store_true",
                     help="time LIKE/RLIKE's two matchers and replace's "
                          "two paths on the breadth queries' columns and "
@@ -6231,6 +6827,9 @@ def parse_args(argv):
 def main(argv=None) -> int:
     start = time.perf_counter()
     args = parse_args(sys.argv[1:] if argv is None else argv)
+    if args.cpu_references:
+        sys.path.insert(0, os.path.abspath(args.package_root))
+        return cpu_references_main(args.cpu_references)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -6277,6 +6876,9 @@ def main(argv=None) -> int:
     if args.placement_only:
         return placement_only(torch, st, F, native, main_data, agg_data,
                               dim_data, name, smi)
+    if args.shuffle_only:
+        return shuffle_only(torch, st, F, native, main_data, agg_data,
+                            dim_data, name, smi)
     t0 = time.perf_counter()
     line = gen_lineitem(LINEITEM_ROWS, SEED + 2)
     session = st.TorchSession.builder().get_or_create()
@@ -6319,11 +6921,18 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    # the CPU session's references run in a process of their own from
+    # here on; the phases that check against them defer their checks to
+    # refs.finish()
+    refs = CpuReferences(os.path.abspath(args.package_root))
+    import atexit
+    atexit.register(refs.close)
     # each path of the main path runs with the launch counts set to 0
     # just before it and read just after; the kernels line adds them up
     launches = {k: 0 for k in native.KERNELS}
 
     def drive(path: str, fn, *fn_args) -> None:
+        refs.note_phase(path)
         native.reset_launches()
         fn(*fn_args)
         emit("launches", path=path, counts=dict(native.LAUNCHES))
@@ -6356,46 +6965,42 @@ def main(argv=None) -> int:
         drive(f"tpch_{qname}", phase_tpch, torch, st, native, session, tpch,
               tpch_dfs, qname)
     drive("window_1m", phase_window, torch, st, F, session, main_data)
-    cpu_dfs = load_tables(st.TorchSession({"spark.rapids.torch.device":
-                                           "cpu"}), tpch)
     for qname in TPCH_QUERIES:
         if qname not in BENCH_QUERIES:
             drive(f"tpch_{qname}", phase_tpch, torch, st, native, session,
-                  tpch, tpch_dfs, qname, 2, cpu_dfs)
+                  tpch, tpch_dfs, qname, 2, refs)
     from spark_rapids_tpu_torch.bench.mortgage import gen_mortgage_numpy
     from spark_rapids_tpu_torch.bench.tpcxbb import LEAD_QUERIES, \
         TPCXBB_QUERIES, gen_tpcxbb_numpy, register_views
-    cpu = st.TorchSession({"spark.rapids.torch.device": "cpu"})
     t0 = time.perf_counter()
     mortgage = gen_mortgage_numpy(MORTGAGE_PERF_ROWS)
     xbb = gen_tpcxbb_numpy(TPCXBB_SALES_ROWS)
     register_views(session, xbb)
-    register_views(cpu, xbb)
     emit("sql_data", mortgage_perf_rows=MORTGAGE_PERF_ROWS,
          tpcxbb_sales_rows=TPCXBB_SALES_ROWS,
          rows={t: len(next(iter(c.values()))) for t, c in xbb.items()},
          seconds=time.perf_counter() - t0)
-    drive("mortgage_etl", phase_mortgage, torch, session, cpu, mortgage)
+    drive("mortgage_etl", phase_mortgage, torch, session, refs, mortgage)
     # the bench's lead queries first, as bench.py:_tpcxbb_suites runs them
     for qname in list(LEAD_QUERIES) + [q for q in TPCXBB_QUERIES
                                        if q not in LEAD_QUERIES]:
-        drive(f"tpcxbb_{qname}", phase_tpcxbb, torch, session, cpu, qname,
+        drive(f"tpcxbb_{qname}", phase_tpcxbb, torch, session, refs, qname,
               TPCXBB_SALES_ROWS)
-    gpu_b, cpu_b = breadth_sessions(st, tpch, line[0])
+    gpu_b, = breadth_sessions(st, tpch, line[0], ("cuda",))
     emit("breadth_conf", conf=BREADTH_CONF)
-    drive("breadth", phase_breadth, torch, st, gpu_b, cpu_b)
+    drive("breadth", phase_breadth, torch, st, gpu_b, refs)
     drive("memory", phase_memory, torch, st, F, session, main_data,
           agg_data, dim_data, gen_big(), tpch)
     drive("range_aggs", phase_range_aggs, torch, st, F, session)
     t0 = time.perf_counter()
     ops = operator_tables(tpch)
-    ops_gpu, ops_cpu = (load_tables(s, ops) for s in (session, cpu))
+    ops_gpu = load_tables(session, ops)
     emit("operator_data", seconds=time.perf_counter() - t0,
          lineitem_columns=sorted(ops["lineitem"]),
          orders_columns=sorted(ops["orders"]))
     for qname, (_, table) in OPERATOR_QUERIES.items():
         drive(qname, phase_operator, torch, st, F, session, ops_gpu,
-              ops_cpu, qname, len(next(iter(ops[table].values()))))
+              refs, qname, len(next(iter(ops[table].values()))))
     drive("serve", phase_serve, torch, st, F, native, tpch, tpch_dfs, xbb,
           mortgage, agg_data, line_df, smi)
     drive("adaptive", phase_adaptive, torch, st, F, native, main_data,
@@ -6429,6 +7034,11 @@ def main(argv=None) -> int:
                              cache_errs["dense_slot_reduce"])
     drive("placement", phase_placement, torch, st, F, native, session,
           main_data, agg_data, dim_data, tpch_dfs, smi)
+    # every deferred check, before the shuffle's map workers want the
+    # host's cores
+    refs.finish()
+    drive("shuffle", phase_shuffle, torch, st, F, native, agg_data,
+          main_data, dim_data, tpch, smi)
     # the replicas count their own launches; they join the kernels line
     replica_launches = {}
     drive("fleet", phase_fleet, torch, st, native, tpch, agg_data, smi,

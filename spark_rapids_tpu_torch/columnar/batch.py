@@ -463,13 +463,16 @@ def device_batch_to_host(batch: ColumnarBatch,
 
 
 def host_batch_columns(batch: ColumnarBatch,
-                       schema: Optional[Schema] = None) -> HostColumns:
+                       schema: Optional[Schema] = None,
+                       copy: bool = True) -> HostColumns:
     """A batch whose planes are host tensors -> its host columns, as
     ``device_batch_to_host`` gives them but with no pull: the result of
     a plan the placement pass put on the host (``plan/placement.py``).
-    The values are copies, so a caller's write reaches no cached
-    plane."""
-    host = [tuple(None if t is None else t.numpy().copy() for t in planes)
+    The values are copies, so a caller's write reaches no cached plane;
+    ``copy=False`` shares the planes, for a batch no one else holds (a
+    gather's output)."""
+    host = [tuple(None if t is None else
+                  (t.numpy().copy() if copy else t.numpy()) for t in planes)
             for planes in pull_planes(batch)]
     return _host_columns(batch, schema or batch.schema, host)
 

@@ -53,9 +53,11 @@ Counterpart of ``spark_rapids_tpu/columnar/transfer.py`` on one card.
   JAX package.  ``pack_finish`` returns the port's host format,
   ``HostColumns``.
 
-Not ported here: ``place_on_device``, ``parallel_device_pull`` and the
-partition egress (``pack_partitions_*``), whose consumers (the mesh,
-the sharded scan, the host shuffle) are queue A8 (ROADMAP.md).
+Not carried over: the partition egress (``pack_partitions_*``).  The
+port's host shuffle partitions on the host, in its map workers, where
+there is nothing to pull (``exec/exchange.py: partition_batch_to_host``).
+Not ported here: ``place_on_device`` and ``parallel_device_pull``,
+whose consumers (the mesh, the sharded scan) are queue A8b (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -83,9 +83,10 @@ SHUFFLE_PARTITIONS = register(
 
 SHUFFLE_DEFAULT_NUM_PARTITIONS = register(
     "spark.rapids.shuffle.defaultNumPartitions", 0,
-    "Reduce-partition count of the AQE-inserted join exchanges; 0 "
-    "defers to spark.sql.shuffle.partitions.  The JAX package's host "
-    "shuffle also reads it (queue A8).", int, _non_negative)
+    "Reduce-partition count of the shuffle exchanges that carry no "
+    "count of their own: the host shuffle's (0 = workers x 2) and the "
+    "AQE-inserted join exchanges' (0 = spark.sql.shuffle.partitions).",
+    int, _non_negative)
 
 # -- adaptive query execution (exec/aqe.py, plan/adaptive.py) ----------------
 
@@ -749,6 +750,134 @@ STREAM_REFRESH_TIMEOUT_MS = register(
     "Bound on one standing-query refresh's wait; one that misses it is "
     "a counted refresh error and the query recomputes on the next tick.",
     int, _positive)
+
+# -- the host shuffle (shuffle/) ------------------------------------------------
+#
+# The JAX package's keys, defaults and validators
+# (spark_rapids_tpu/conf.py:554-814).  Off by default: with
+# spark.rapids.shuffle.workers.count at 0 or 1 no worker process starts.
+
+
+def _fraction_inclusive(v) -> Optional[str]:
+    return None if 0.0 <= v <= 1.0 else "must be in [0, 1]"
+
+
+SHUFFLE_MODE = register(
+    "spark.rapids.shuffle.mode", "host",
+    "Shuffle data plane.  'host': partition blocks move through host "
+    "memory (in-process gathers, or the socket transport with "
+    "spark.rapids.shuffle.workers.count > 1).  'ici' asks for the "
+    "on-device mesh exchange (queue A8b): with one visible GPU, or with "
+    "map workers, the host path stays, as in the JAX package; on two or "
+    "more GPUs the port raises, since its mesh is not ported yet.", str,
+    _one_of("host", "ici"))
+
+MESH_DEVICES = register(
+    "spark.rapids.sql.mesh.devices", 0,
+    "Width of the device mesh (queue A8b).  The port reads it only for "
+    "the shuffle mode's rule that an explicit mesh wins over 'ici'.",
+    int, _non_negative)
+
+HOST_SHUFFLE_WORKERS = register(
+    "spark.rapids.shuffle.workers.count", 0,
+    "Worker processes the host shuffle spreads map-side work (scan, the "
+    "work below the exchange, hash partitioning) across, each on "
+    "torch.device('cpu'); 0 or 1 = in-process execution.  The reduce "
+    "side runs in the parent, on the session's device.", int)
+
+SHUFFLE_MAX_METADATA_SIZE = register(
+    "spark.rapids.shuffle.maxMetadataSize", 50 * 1024,
+    "Largest frame header schema (bytes) a block may carry; a wider one "
+    "raises at the write.", int, _positive)
+
+SHUFFLE_MAX_INFLIGHT_BYTES = register(
+    "spark.rapids.shuffle.maxBytesInFlight", 1024 * 1024 * 1024,
+    "Bytes of fetches in flight at once (each fetch reserves its peer's "
+    "stat first; one fetch always fits).", int, _positive)
+
+SHUFFLE_BOUNCE_BUFFER_SIZE = register(
+    "spark.rapids.shuffle.bounceBuffers.size", 4 * 1024 * 1024,
+    "Chunk size of the Python transport's payload reads.", int, _positive)
+
+SHUFFLE_BOUNCE_BUFFER_COUNT = register(
+    "spark.rapids.shuffle.bounceBuffers.count", 8,
+    "Payload reads the Python transport stages at once.", int, _positive)
+
+SHUFFLE_COMPRESSION_CODEC = register(
+    "spark.rapids.shuffle.compression.codec", "zstd",
+    "Codec of shuffle blocks: none, lz4 or zstd.  Frames say their "
+    "codec; lz4 is zstd, and zstd is none where the zstandard module is "
+    "missing (the card's machine has none).", str,
+    _one_of("none", "lz4", "zstd"))
+
+SHUFFLE_CONNECT_TIMEOUT = register(
+    "spark.rapids.shuffle.timeout.connect", 5.0,
+    "Seconds a client waits for a TCP connect to a peer.", float,
+    _positive)
+
+SHUFFLE_READ_TIMEOUT = register(
+    "spark.rapids.shuffle.timeout.read", 30.0,
+    "Seconds a client (and a server mid-frame) waits for the next "
+    "bytes before it takes the peer for dead.", float, _positive)
+
+SHUFFLE_FETCH_RETRIES = register(
+    "spark.rapids.shuffle.fetch.retries", 3,
+    "Retries of a failed peer operation before it surfaces as "
+    "FetchFailedError.", int, _non_negative)
+
+SHUFFLE_RETRY_BACKOFF_BASE = register(
+    "spark.rapids.shuffle.retry.backoff.base", 0.05,
+    "Base delay (s) of the backoff between retries (attempt k sleeps "
+    "about base x 2^k, capped and jittered).", float, _positive)
+
+SHUFFLE_RETRY_BACKOFF_CAP = register(
+    "spark.rapids.shuffle.retry.backoff.cap", 2.0,
+    "Longest single backoff delay (s).", float, _positive)
+
+SHUFFLE_RETRY_BACKOFF_JITTER = register(
+    "spark.rapids.shuffle.retry.backoff.jitter", 0.2,
+    "Jitter fraction: each delay is scaled by a uniform factor in "
+    "[1 - jitter, 1].", float, _fraction_inclusive)
+
+SHUFFLE_CHECKSUM = register(
+    "spark.rapids.shuffle.checksum", "crc32c",
+    "Checksum stamped on blocks and verified at decode: crc32c, crc32 or "
+    "off; crc32c is zlib's crc32 where google-crc32c is missing.  A "
+    "mismatch refetches the block.", str, _one_of("crc32c", "crc32", "off"))
+
+SHUFFLE_CORRUPT_REFETCHES = register(
+    "spark.rapids.shuffle.corrupt.refetches", 2,
+    "Refetches of a block that failed its checksum or decode before "
+    "FetchFailedError.", int, _non_negative)
+
+SHUFFLE_PEER_MAX_FAILURES = register(
+    "spark.rapids.shuffle.peer.maxFailures", 3,
+    "Consecutive failed fetches from one peer before it is blacklisted "
+    "and its fetches fail fast.", int, _positive)
+
+SHUFFLE_RECOMPUTE_ENABLED = register(
+    "spark.rapids.shuffle.recompute.enabled", True,
+    "Re-run the map work in the parent (on its device) when a map worker "
+    "dies or a reduce fetch fails for good, instead of failing the "
+    "query.", bool)
+
+SHUFFLE_STAGE_TIMEOUT = register(
+    "spark.rapids.shuffle.stage.timeout", 3600.0,
+    "Seconds the exchange waits for its map stage.", float, _positive)
+
+WORKER_HEARTBEAT_INTERVAL = register(
+    "spark.rapids.shuffle.worker.heartbeat.interval", 0.5,
+    "Seconds between a distributed_groupby worker's heartbeats.", float,
+    _positive)
+
+WORKER_HEARTBEAT_TIMEOUT = register(
+    "spark.rapids.shuffle.worker.heartbeat.timeout", 20.0,
+    "Seconds of silence (the process alive) before a worker is taken "
+    "for hung, terminated and its stripe reassigned.", float, _positive)
+
+MULTITHREADED_SHUFFLE_THREADS = register(
+    "spark.rapids.shuffle.multiThreaded.threads", 4,
+    "Threads that fetch reduce partitions at once.", int, _positive)
 
 
 class TorchConf:

@@ -37,10 +37,16 @@ adaptive query stage (``exec/aqe.py``) holds and regroups.
 ``aqe_inserted`` marks the exchanges the planner puts under a join when
 adaptive execution is on: only those may coalesce or split.
 
+``partition_batch_to_host`` is the host shuffle's map egress
+(``shuffle/stage.py``): the same partition ids, the batch gathered along
+their permutation and cut into one ``HostBlock`` a partition.  The JAX
+package packs the permuted batch and pulls it in one transfer
+(``pack_partitions_*``); the port's map workers run on the host, where
+there is nothing to pull, so their blocks are the gathered planes.
+
 Not carried over: the fused stage-and-partition kernel
-(``partition_batch_fused``, XLA dispatch fusion, like the compile cache),
-the host-egress variants (with the host shuffle, queue A8) and the
-out-of-core ``salt`` (with ``exec/ooc.py``).
+(``partition_batch_fused``, XLA dispatch fusion, like the compile cache)
+and the out-of-core ``salt`` (with ``exec/ooc.py``, queue A8b).
 """
 
 from __future__ import annotations
@@ -128,11 +134,11 @@ def slice_partitions(batch: ColumnarBatch, counts: List[int],
     return out
 
 
-def partition_batch(batch: ColumnarBatch, num_parts: int,
-                    keys: Sequence[Expression], mode: str,
-                    rr_start: int = 0) -> List[Optional[ColumnarBatch]]:
-    """Split one batch into ``num_parts`` batches (None for an empty
-    one) by the hash of ``keys`` or round-robin from ``rr_start``."""
+def partition_ids(batch: ColumnarBatch, num_parts: int,
+                  keys: Sequence[Expression], mode: str,
+                  rr_start: int = 0):
+    """-> (the partition id a row, which rows are live) by the hash of
+    ``keys`` or round-robin from ``rr_start``."""
     cap, dev = batch.capacity, batch.device
     iota = torch.arange(cap, dtype=torch.int64, device=dev)
     live = iota < batch.num_rows
@@ -144,8 +150,43 @@ def partition_batch(batch: ColumnarBatch, num_parts: int,
         pid = unsigned_mod(h, num_parts)
     else:
         pid = (iota + rr_start) % num_parts
+    return pid, live
+
+
+def partition_batch(batch: ColumnarBatch, num_parts: int,
+                    keys: Sequence[Expression], mode: str,
+                    rr_start: int = 0) -> List[Optional[ColumnarBatch]]:
+    """Split one batch into ``num_parts`` batches (None for an empty
+    one) by the hash of ``keys`` or round-robin from ``rr_start``."""
+    pid, live = partition_ids(batch, num_parts, keys, mode, rr_start)
     counts, perm = pid_to_counts_perm(pid, live, num_parts)
     return slice_partitions(batch, counts, perm)
+
+
+def partition_batch_to_host(batch: ColumnarBatch, num_parts: int,
+                            keys: Optional[Sequence[Expression]] = None,
+                            mode: str = "hash", rr_start: int = 0) -> list:
+    """The host shuffle's map egress: ``partition_batch``'s partition
+    ids (hash without keys is round-robin), the batch gathered along
+    their permutation and cut into one ``HostBlock`` a partition (None
+    for an empty one).  ``batch`` lies on the host, as the map
+    workers' batches do, so the gathered planes become the blocks'
+    arrays with no pull and no copy."""
+    from spark_rapids_tpu_torch.columnar.batch import host_batch_columns
+    from spark_rapids_tpu_torch.shuffle.serializer import HostBlock
+    if not (mode == "hash" and keys):
+        mode, keys = "roundrobin", []
+    pid, live = partition_ids(batch, num_parts, keys, mode, rr_start)
+    counts, perm = pid_to_counts_perm(pid, live, num_parts)
+    n = sum(counts)
+    permuted = batch.gather(perm, n)
+    block = HostBlock(batch.schema, host_batch_columns(permuted, copy=False),
+                      n)
+    out, off = [], 0
+    for c in counts:
+        out.append(block.slice(off, c) if c else None)
+        off += c
+    return out
 
 
 def range_sort_keys(orders, batch: ColumnarBatch,

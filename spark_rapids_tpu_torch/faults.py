@@ -49,9 +49,22 @@ to fail, so tests and runs inject faults through
                            library (``compile/store.py``): a fresh nvcc
                            build, counted in ``compileStoreFaults``
 
-The JAX package's other sites (shuffle, ICI, chip, ``ooc.partition``)
-belong to modules the port does not have yet (``ROADMAP.md``, queue
-A8).
+  ``transport.connect``    a shuffle client's construction
+                           (``shuffle/transport.py``), before it connects
+  ``transport.fetch``      a shuffle client's fetch, before any byte
+                           moves; the manager retries it on its backoff
+  ``serializer.deserialize`` a fetched block before its decode: one bit
+                           flipped (``corrupt``), so the checksum fails
+                           and the manager refetches
+  ``worker.kill``          a host shuffle map worker, before each batch
+                           it partitions, and a ``distributed_groupby``
+                           worker before each row group: SIGKILL itself
+  ``worker.hang``          a ``distributed_groupby`` worker before each
+                           row group: its heartbeats stop and it parks
+                           until the watchdog terminates it
+
+The JAX package's other sites (ICI, chip, ``ooc.partition``) belong to
+modules the port does not have yet (``ROADMAP.md``, queues A8b and A8c).
 
 Trigger grammar (the value of ``spark.rapids.faults.<site>``):
 
@@ -66,8 +79,10 @@ Trigger grammar (the value of ``spark.rapids.faults.<site>``):
   ``always`` / ``off``
 
 A spec may carry ``@w<idx>`` (``count:2@w1``), restricting it to the
-shuffle worker of that index; the port has no shuffle workers, so such
-a spec never fires here, as in the JAX package's main process.  A spec
+host shuffle's worker process of that index: each worker declares its
+index with ``set_worker_index`` before anything configures its
+injector, so the spec the parent ships fires in worker 1 alone (its own
+count of calls), and never in the parent, whose index is None.  A spec
 with ``@r<idx>`` (``always@r1``) fires only on the fleet router's
 consults for that replica, and counts that replica's consults apart
 (``count:2@r1`` is replica 1's second), under the stream key
@@ -243,6 +258,16 @@ class FaultInjector:
 
 _INJECTOR = FaultInjector()
 _CONFIG_LOCK = threading.Lock()
+_WORKER_INDEX: Optional[int] = None
+
+
+def set_worker_index(idx: Optional[int]) -> None:
+    """Declare this process's shuffle worker index (once, at the
+    worker's start, before anything configures the injector): every
+    later ``configure_from_conf`` matches ``@w<idx>`` specs against
+    it."""
+    global _WORKER_INDEX
+    _WORKER_INDEX = idx
 
 
 def injector() -> FaultInjector:
@@ -272,7 +297,10 @@ def configure(specs: Dict[str, str], seed: int = 0,
 def configure_from_conf(conf: Any, worker: Optional[int] = None
                         ) -> FaultInjector:
     """Install the ``spark.rapids.faults.*`` keys of a TorchConf or a
-    dict; a conf without them installs a disabled injector."""
+    dict; a conf without them installs a disabled injector.  ``worker``
+    defaults to the index ``set_worker_index`` declared."""
+    if worker is None:
+        worker = _WORKER_INDEX
     settings = conf if isinstance(conf, dict) else conf.to_dict()
     specs = {}
     seed = 0

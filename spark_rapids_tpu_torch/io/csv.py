@@ -804,8 +804,11 @@ class TorchCsvScanExec(TorchExec):
         super().__init__()
         from spark_rapids_tpu_torch.io import hivepart
         self.paths = expand_csv_paths(paths)
+        # kept for the host shuffle, which discovers a stripe's hive
+        # values again (shuffle/stage.py: _restrict_to_split)
+        self.roots = hivepart.roots_of(paths)
         self.part_schema, self.part_values = hivepart.discover(
-            hivepart.roots_of(paths), self.paths)
+            self.roots, self.paths)
         self._schema = schema
         self._file_schema = hivepart.file_fields(schema, self.part_schema)
         self.header = header

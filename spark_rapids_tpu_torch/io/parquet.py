@@ -219,8 +219,11 @@ class TorchParquetScanExec(TorchExec):
     def __init__(self, paths, schema: Schema, pred=None):
         super().__init__()
         self.paths = expand_paths(paths)
+        # kept for the host shuffle, which discovers a stripe's hive
+        # values again (shuffle/stage.py: _restrict_to_split)
+        self.roots = hivepart.roots_of(paths)
         self.part_schema, self.part_values = hivepart.discover(
-            hivepart.roots_of(paths), self.paths)
+            self.roots, self.paths)
         self._schema = schema
         self._file_schema = hivepart.file_fields(schema, self.part_schema)
         self.pred = pred

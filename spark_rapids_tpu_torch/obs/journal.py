@@ -58,6 +58,8 @@ EVENT_CACHE_MAINTAIN = "cache_maintain"
 # placement (plan/placement.py) and the compile warm pool (compile/warm.py)
 EVENT_FRAGMENT_PLACED = "fragment_placed"
 EVENT_COMPILE_WARM = "compile_warm"
+# the host shuffle's distributed_groupby driver (shuffle/worker.py)
+EVENT_WORKER_DEATH = "worker_death"
 
 DEFAULT_MAX_EVENTS = 100_000
 

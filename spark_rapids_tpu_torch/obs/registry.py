@@ -11,7 +11,10 @@ name (``*.us``).  Recording is gated by ``spark.rapids.sql.obs.enabled``
 ``fusion`` (``exec/stage.py``), ``compile`` (``compile/service.py``)
 and ``placement`` (``plan/placement.py``) sections are the JAX
 package's; its sections for modules the port lacks (ooc, the kernel
-cache, ICI, health) are left out until queue A8; ``prefetch``
+cache, ICI, health) are left out until queues A8b and A8c; ``shuffle``
+(``shuffle/manager.py: global_stats``, the host shuffle's exchanges,
+workers, blocks, wire and raw bytes, recomputes and the managers'
+failure counters) is the port's own; ``prefetch``
 (``io/prefetch.py: global_stats``) and ``d2h``
 (``columnar/transfer.py: d2h_stats``) are kept.
 """
@@ -187,6 +190,7 @@ def snapshot() -> dict:
     from spark_rapids_tpu_torch.fleet import stats as fleet_stats
     from spark_rapids_tpu_torch.obs import journal
     from spark_rapids_tpu_torch.server import stats as server_stats
+    from spark_rapids_tpu_torch.shuffle import manager as shuffle_manager
     from spark_rapids_tpu_torch.stream import stats as stream_stats
     return {
         # the scans' background decode and double-buffered uploads:
@@ -223,6 +227,11 @@ def snapshot() -> dict:
         # continuous queries: sources, ticks, refreshes by kind, cache
         # maintenance; all zero while spark.rapids.stream.enabled is off
         "stream": stream_stats.global_stats(),
+        # the host shuffle: exchanges, workers spawned, blocks and their
+        # wire and raw bytes, map and partition recomputes, the
+        # managers' retries, refetches, fetch failures and blacklists,
+        # and how many managers ran the native transport
+        "shuffle": shuffle_manager.global_stats(),
         "journal": journal.stats(),
         "histograms": histogram_snapshots(),
     }

@@ -31,8 +31,14 @@ After the rules, placement's re-score (``plan/placement.py:
 aqe_rescore``, inert unless ``spark.rapids.sql.placement.mode=cost``)
 may move the remainder above the stage to the host.
 
-Not carried over: ``unwrap_aqe_exchange`` (the mesh lowering), and the
-host shuffle's branches and stats-driven reduce grouping (queue A8).
+The host shuffle's exchange (``shuffle/stage.py``) ships its child to
+worker processes, so nothing inside it is wrapped in a stage here
+(``_subtree_has_exchange``, ``next_stage``); it groups its reduce
+uploads from its own map-output statistics with the same
+``greedy_partition_groups``.
+
+Not carried over: ``unwrap_aqe_exchange`` (the mesh lowering, queue
+A8b).
 """
 
 from __future__ import annotations
@@ -60,6 +66,12 @@ from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 def _subtree_has_exchange(node: TorchExec) -> bool:
     if isinstance(node, TorchShuffleExchangeExec) and node.mode != "range":
         return True
+    from spark_rapids_tpu_torch.shuffle.stage import \
+        TorchHostShuffleExchangeExec
+    if isinstance(node, TorchHostShuffleExchangeExec):
+        # its child is pickled to the workers: no stage inside it, and
+        # the exchange adapts its own reduce grouping
+        return False
     return any(_subtree_has_exchange(c) for c in node.children)
 
 
@@ -95,9 +107,14 @@ def next_stage(root: TorchAdaptiveSparkPlanExec
     join's build side runs before its stream side: the order that lets
     a small build side cancel the stream side's shuffle."""
 
+    from spark_rapids_tpu_torch.shuffle.stage import \
+        TorchHostShuffleExchangeExec
+
     def find(node, parent, idx):
         if isinstance(node, TorchQueryStageExec) and node.materialized:
             return None
+        if isinstance(node, TorchHostShuffleExchangeExec):
+            return None  # its fragment ships to the workers
         for i in reversed(range(len(node.children))):
             found = find(node.children[i], node, i)
             if found is not None:

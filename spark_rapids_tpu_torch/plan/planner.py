@@ -50,7 +50,8 @@ import numpy as np
 from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, Field, \
     Schema
 from spark_rapids_tpu_torch.conf import ADAPTIVE_ENABLED, \
-    BROADCAST_THRESHOLD, TorchConf
+    BROADCAST_THRESHOLD, HOST_SHUFFLE_WORKERS, \
+    SHUFFLE_DEFAULT_NUM_PARTITIONS, TorchConf
 from spark_rapids_tpu_torch.exec.aggregate import TorchHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import TorchExec
 from spark_rapids_tpu_torch.exec.basic import TorchFilterExec, \
@@ -146,12 +147,65 @@ def plan_query(node: lp.LogicalPlan,
     if conf.placement_mode != "tpu":
         from spark_rapids_tpu_torch.plan.placement import place_fragments
         decisions = place_fragments(node, conf)
-    plan = insert_adaptive(fuse_physical(_lower(node, conf), conf), conf)
+    from spark_rapids_tpu_torch.shuffle.manager import select_shuffle_mode
+    select_shuffle_mode(conf)  # raises where the mesh would be elected
+    plan = _lower(node, conf)
+    if conf.get(HOST_SHUFFLE_WORKERS) > 1:
+        plan = host_shuffle_lower(plan, conf)
+    plan = insert_adaptive(fuse_physical(plan, conf), conf)
     if decisions:
         plan.placement = decisions
         if any(d["engine"] == "cpu" for d in decisions):
             mark_on_host(plan)
     return plan
+
+
+def host_shuffle_lower(plan: TorchExec, conf: TorchConf) -> TorchExec:
+    """The JAX package's ``host_shuffle_lower``: with
+    ``spark.rapids.shuffle.workers.count`` > 1, a
+    ``TorchHostShuffleExchangeExec`` goes under a grouped aggregate whose
+    input is map-splittable (``shuffle/stage.py: splittable``), and under
+    both sides of an equi-join when both are, or under neither (the two
+    sides shuffle with the same count and key positions).  A broadcast
+    join's build side is never split.  The port's aggregate and the
+    stream side of its join read through a coalesce, which stays above
+    the exchange, where the JAX planner inserts it later.
+    ``spark.rapids.shuffle.defaultNumPartitions`` (0: workers x 2) sets
+    the count."""
+    from spark_rapids_tpu_torch.shuffle.stage import \
+        TorchHostShuffleExchangeExec, splittable
+    n = conf.get(HOST_SHUFFLE_WORKERS)
+    nparts = conf.get(SHUFFLE_DEFAULT_NUM_PARTITIONS) or None
+
+    def under(node: TorchExec, keys) -> TorchExec:
+        """``node`` with the exchange under its coalesce, if it has one."""
+        if isinstance(node, TorchCoalesceBatchesExec):
+            node.children = [TorchHostShuffleExchangeExec(
+                keys, node.children[0], n, num_partitions=nparts)]
+            return node
+        return TorchHostShuffleExchangeExec(keys, node, n,
+                                            num_partitions=nparts)
+
+    def input_of(node: TorchExec) -> TorchExec:
+        return node.children[0] \
+            if isinstance(node, TorchCoalesceBatchesExec) else node
+
+    def rewrite(node: TorchExec) -> TorchExec:
+        node.children = [rewrite(c) for c in node.children]
+        if isinstance(node, TorchHostShuffleExchangeExec):
+            return node
+        if isinstance(node, TorchHashAggregateExec) and node.groupings \
+                and splittable(input_of(node.children[0])):
+            node.children = [under(node.children[0], node.groupings)]
+        elif isinstance(node, TorchHashJoinExec) and node.left_keys \
+                and node.right_keys:
+            left, right = node.children
+            if splittable(input_of(left)) and splittable(input_of(right)):
+                node.children = [under(left, node.left_keys),
+                                 under(right, node.right_keys)]
+        return node
+
+    return rewrite(plan)
 
 
 def mark_on_host(plan: TorchExec) -> None:
@@ -298,7 +352,12 @@ def _plan_join(n: lp.Join, conf: TorchConf) -> TorchExec:
         _bind(n.condition, Schema(lschema.fields + rschema.fields), conf)
     thresh = conf.get(BROADCAST_THRESHOLD)
     side = _static_broadcast_side(n, thresh)
-    if conf.get(ADAPTIVE_ENABLED) and lkeys and rkeys:
+    # with host shuffle workers the join keeps the static strategy: an
+    # AQE exchange under it would leave nothing splittable for the
+    # workers (the JAX planner's deferral); the host exchange adapts
+    # its reduce grouping itself
+    if conf.get(ADAPTIVE_ENABLED) and lkeys and rkeys \
+            and conf.get(HOST_SHUFFLE_WORKERS) <= 1:
         nparts = conf.aqe_initial_partitions
         if nparts > 1:
             lex = TorchShuffleExchangeExec(nparts, lkeys, "hash", left)

@@ -78,6 +78,14 @@ METRIC_ENCODED_COLUMNS = "encodedColumns"
 METRIC_LATE_DECODES = "lateDecodes"
 METRIC_COMPRESSED_BYTES_SAVED = "compressedBytesSaved"
 METRIC_SHUFFLE_ROWS_WRITTEN = "shuffleRowsWritten"
+# the host shuffle (shuffle/stage.py): the map stage's and the reduce
+# fetches' host wall (ns), the blocks fetched and their wire and raw
+# (Arrow-counted) bytes
+METRIC_SHUFFLE_MAP_TIME = "shuffleMapTime"
+METRIC_SHUFFLE_FETCH_TIME = "shuffleFetchTime"
+METRIC_SHUFFLE_BLOCKS_FETCHED = "shuffleBlocksFetched"
+METRIC_SHUFFLE_WIRE_BYTES = "shuffleWireBytes"
+METRIC_SHUFFLE_RAW_BYTES = "shuffleRawBytes"
 METRIC_SHUFFLE_MAP_RECOMPUTES = "shuffleMapRecomputes"
 METRIC_SHUFFLE_PARTITIONS_RECOMPUTED = "shufflePartitionsRecomputed"
 METRIC_OOC_PARTITIONS = "oocPartitions"
@@ -123,6 +131,16 @@ class Metric:
     def __init__(self, name: str):
         self.name = name
         self._value = 0
+        self._lock = threading.Lock()
+
+    def __getstate__(self):
+        """A plan ships to the host shuffle's worker processes by pickle
+        (``shuffle/stage.py``): the lock stays behind."""
+        return {"name": self.name, "_value": self._value}
+
+    def __setstate__(self, state):
+        self.name = state["name"]
+        self._value = state["_value"]
         self._lock = threading.Lock()
 
     def add(self, v) -> None:

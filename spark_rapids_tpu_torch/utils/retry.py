@@ -20,12 +20,17 @@ The ``kernel.launch`` fault site (``faults.py``) fires once at each
 ``with_retry`` call, before its first attempt (a split's halves each
 call it again), and raises an injected out-of-memory error there; the
 fused stage (``exec/stage.py``) fires it itself on every attempt and
-passes ``fire_launch_site=False``, as in the JAX package.  Not carried
-over: ``Backoff`` (the shuffle's, queue A8).
+passes ``fire_launch_site=False``, as in the JAX package.
+
+``Backoff`` is the shuffle manager's delay between peer retries
+(``shuffle/manager.py``): the JAX package's exponential delays, cap and
+jitter, the same sequence for the same seed.
 """
 
 from __future__ import annotations
 
+import random
+import time
 import traceback
 from typing import Callable, List, Optional
 
@@ -42,6 +47,32 @@ def is_device_oom(e: BaseException) -> bool:
     s = str(e)
     return ("RESOURCE_EXHAUSTED" in s or "Out of memory" in s
             or "out of memory" in s)
+
+
+class Backoff:
+    """Exponential backoff with a cap and jitter: attempt ``k`` (from 0)
+    sleeps ``min(cap, base * 2**k)`` scaled by a uniform factor in
+    ``[1 - jitter, 1]`` from ``random.Random(seed)``, so a seed replays
+    the JAX package's delays exactly."""
+
+    def __init__(self, base: float = 0.05, cap: float = 2.0,
+                 jitter: float = 0.2, seed: Optional[int] = None):
+        self.base = max(0.0, float(base))
+        self.cap = max(0.0, float(cap))
+        self.jitter = min(1.0, max(0.0, float(jitter)))
+        self._rng = random.Random(seed)
+
+    def delay(self, attempt: int) -> float:
+        d = min(self.cap, self.base * (2 ** max(0, attempt)))
+        if self.jitter > 0.0:
+            d *= 1.0 - self.jitter * self._rng.random()
+        return d
+
+    def sleep(self, attempt: int) -> float:
+        d = self.delay(attempt)
+        if d > 0.0:
+            time.sleep(d)
+        return d
 
 
 def split_batch_half(batch):

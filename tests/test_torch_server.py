@@ -823,7 +823,7 @@ def test_stats_snapshot_and_prometheus_text(corpus):
         assert set(snap) == {"aqe", "lifecycle", "catalog", "server",
                              "fleet", "stream", "journal", "histograms",
                              "compressed", "prefetch", "d2h", "fusion",
-                             "compile", "placement"}
+                             "compile", "placement", "shuffle"}
         assert snap["server"]["completed"] >= 1
         assert snap["histograms"]["server.admit.wait.us"]["count"] >= 1
         assert snap["histograms"]["query.wall.us"]["count"] >= 1
