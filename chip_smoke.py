@@ -69,7 +69,7 @@ Phases, each printing one JSON line:
    partsupp 480,096 rows), each checked against a numpy version of the
    query (keys, counts, dates and strings exact, f64 within rtol 1e-9, a
    top-N's order exact but among revenues tied within that tolerance),
-   one warm-up and 2 timed runs, with the host syncs of a run;
+   one warm-up and 1 timed run, with the host syncs of a run;
 12. window_1m: ``bench.py:q_window`` on phase 5's 1,000,000-row table
    (row_number and a running sum of v over partition_by(k).order_by(v),
    then rn <= 5), checked against numpy (a lexsort by (k, v)): the
@@ -213,7 +213,7 @@ Phases, each printing one JSON line:
    ``stop()``;
 20. adaptive: adaptive query execution
    (``spark.rapids.sql.adaptive.enabled``), each query with it off and
-   on (one warm-up, 2 timed runs each), the on result equal to the off
+   on (one warm-up, 1 timed run each), the on result equal to the off
    one (integers and strings exact, f64 within rtol 1e-9: moved batch
    boundaries reorder float sums) and the catalog's device bytes back
    after every run.  hash_join_1m: the 10,000-row dimension's measured
@@ -394,8 +394,26 @@ come out bit for bit alike (``float_sum_results_of_5``).
    worker 1 (``spark.rapids.faults.worker.kill=count:1@w1``): the map
    stage reruns here and the result stays.  ``--shuffle-only`` builds
    the kernels and runs this phase alone.
+30. mesh: the mesh exchange over 4 shards on the one card
+   (``parallel/mesh.py: virtual_pool(4)``), each cell against
+   the single-device run of the same query in the same call (integers
+   bit for bit, floats within 1e-9 relative): hash_agg_sort_2m and
+   hash_join_1m at ``spark.rapids.sql.mesh.devices=4`` (their mesh
+   operators in the plan, the join draining the broadcast exchange, K1
+   once a shard, and K1 held against its plain version on shard 0's
+   update batch, its live rows as the update passes them and, timed
+   beside them, padded to the shard's capacity), SF1 q1 and q3 there, then ``spark.rapids.shuffle.
+   mode=ici`` over hash_join_1m (broadcast off) and hash_agg_sort_2m:
+   clean (no pull in a hash exchange, the sort's bounds sample once),
+   with the collective's first call faulted (one fragment degrades)
+   and at ``maxStageBytes`` 1 MiB (every fragment over it degrades);
+   then ``parallel/dryrun.py`` on the card.  Its K1 launches are
+   printed split into the mesh runs', the single-device references' and
+   the dry run's.  It runs before the CPU
+   references' checks.  ``--mesh-only`` builds the kernels and runs
+   this phase alone.
 
-Each path of phases 5 to 29 runs with the launch counts set to 0 just
+Each path of phases 5 to 30 runs with the launch counts set to 0 just
 before it and read just after (one ``launches`` line each), so they
 show that the main path went through each kernel.  Two checks follow
 that hold the joins' device-dependent work on the card to the same
@@ -889,12 +907,20 @@ def phase_kernel_path(torch, pag, session, query, path: str,
     another path gives it (``query``'s first update batch, or with
     ``half`` that batch's first half; ``codes``: through the code view),
     timed as phase 3 -> the largest f64 sum error."""
-    gid, planes, ops, K = main_path_inputs(pag, session, query, half, codes)
+    return hold_k1(torch, pag, main_path_inputs(pag, session, query, half,
+                                                codes), path, half=half,
+                   codes=codes)
+
+
+def hold_k1(torch, pag, inputs, path: str, **fields) -> float:
+    """K1 against its plain version on ``inputs`` (gid, planes, ops, K),
+    timed warm and cold beside the plain version, its float sums
+    repeated 5 times -> the largest f64 sum error."""
+    gid, planes, ops, K = inputs
     err = compare_kernel(torch, pag, gid, planes, ops, K)
     launch, _ = pag.prepare_launch(gid, planes, ops, K)
     fsum_planes, repeats = float_sum_repeats(torch, pag, gid, planes, ops, K)
-    emit("kernel_path", name="dense_slot_reduce", path=path, half=half,
-         codes=codes,
+    emit("kernel_path", name="dense_slot_reduce", path=path, **fields,
          capacity=gid.numel(), K=K,
          planes=[f"{str(p.dtype)[6:]} {op}" for p, op in zip(planes, ops)],
          max_abs_err=err, ms=per_call_ms(torch, launch),
@@ -3282,7 +3308,7 @@ def same_rows(torch, got, want, what: str, rtol: float = 1e-9) -> None:
 
 
 def run_operator(torch, session, query_fn, name: str, rows_in: int,
-                 runs: int = 2, cpu_query=None, peak: bool = False):
+                 runs: int = 1, cpu_query=None, peak: bool = False):
     """One operator query on the card: one warm-up and ``runs`` timed
     runs, then ``cpu_query`` (the same query on the CPU session) run once
     and compared row for row -> the card's result."""
@@ -3809,7 +3835,7 @@ def sorted_by(torch, result, key: str):
             {k: m[:n][order] for k, m in masks.items()}, n)
 
 
-def adaptive_run(torch, native, session, query, runs: int = 2):
+def adaptive_run(torch, native, session, query, runs: int = 1):
     """``query`` timed as ``run_timed`` times it, with the K1 launches
     and the catalog's device bytes of the runs -> (result, seconds,
     launches, the adaptive wrapper or None, the plan)."""
@@ -4876,7 +4902,7 @@ def op_metric(plan, name: str) -> dict:
 
 
 def compressed_pair(torch, st, name: str, build, verify=None,
-                    runs: int = 2, smi: str = "", off=None,
+                    runs: int = 1, smi: str = "", off=None,
                     phase: str = "compressed", base=None, **extra):
     """``build(session)``'s query with compressed execution on (the
     default) and ``off`` (the master key false unless given), each one
@@ -5492,7 +5518,7 @@ def _d2h_now():
     return None if tr is None else tr.d2h_stats()
 
 
-def prefetch_pair(torch, st, name: str, build, verify, runs: int = 2,
+def prefetch_pair(torch, st, name: str, build, verify, runs: int = 1,
                   smi: str = "", trace: bool = True):
     """``build(session)``'s query with ``spark.rapids.sql.io.prefetch.
     enabled`` on and off, each one warm-up and ``runs`` timed runs
@@ -5776,7 +5802,7 @@ SCAN_CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 SCAN_CACHE_CLIENTS = 4
 
 
-def scan_cache_pair(torch, st, name: str, build, verify, runs: int = 2,
+def scan_cache_pair(torch, st, name: str, build, verify, runs: int = 1,
                     smi: str = "", conf=None, trace: bool = True):
     """``build(session)``'s query over files with the scan cache off and
     on (the default), each one warm-up and ``runs`` timed runs through
@@ -6662,6 +6688,260 @@ def phase_shuffle(torch, st, F, native, agg_data, main, dim, tpch,
          stats=shuffle_manager.global_stats(), nvidia_smi=smi)
 
 
+# -- phase 30: the mesh exchange ---------------------------------------------
+
+MESH_SHARDS = 4
+MESH_STATIC = {"spark.rapids.sql.mesh.devices": MESH_SHARDS}
+MESH_ICI = {"spark.rapids.shuffle.mode": "ici"}
+NO_BROADCAST = {"spark.sql.autoBroadcastJoinThreshold": -1}
+
+
+def mesh_shard_inputs(pag, session, query):
+    """K1's inputs on the first shard of ``query``'s mesh aggregate: its
+    drained input cut by ``shard_table`` as the aggregate cuts it, then
+    the update's own plane construction (the live rows) -> ((gid,
+    planes, ops, K), the shard's rows, its capacity)."""
+    from spark_rapids_tpu_torch.columnar.encoding import plane_view
+    from spark_rapids_tpu_torch.exec.aggregate import TorchHashAggregateExec
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    from spark_rapids_tpu_torch.exec.meshexec import _drain, _mesh
+    from spark_rapids_tpu_torch.parallel.mesh import shard_table
+    from spark_rapids_tpu_torch.plan.planner import plan_query
+    (node,) = _plan_nodes(plan_query(query.plan, session.conf),
+                          "TorchMeshAggregateExec")
+    ctx = ExecContext(session.conf, session.device)
+    shards, _, _ = shard_table(_drain(node.children[0], ctx),
+                               node.n_devices, _mesh(node, ctx).devices)
+    shard = shards[0]
+    spec = TorchHashAggregateExec(node.groupings, node.aggregates, None).spec
+    cols = plane_view(shard.columns)
+    rng = pag.key_range(spec.groupings[0], cols, shard.num_rows,
+                        shard.capacity)
+    check(rng is not None and pag.fits(*rng),
+          "the mesh shard's keys do not fit the dense-slot path")
+    K = pag.slot_count(*rng)
+    gid, planes, ops, _ = pag.update_planes(spec, cols, shard.num_rows,
+                                            shard.capacity, rng[0], K)
+    return (gid, planes, ops, K), shard.num_rows, shard.capacity
+
+
+def padded_inputs(torch, pag, inputs, capacity: int):
+    """``inputs`` padded to ``capacity`` rows as ``update_planes`` once
+    padded them: gid 0 (the null slot), the occupancy and add planes 0,
+    the min/max planes at their op's neutral."""
+    gid, planes, ops, K = inputs
+    extra = capacity - gid.numel()
+
+    def pad(t, value):
+        return torch.cat([t, torch.full((extra,), value, dtype=t.dtype,
+                                        device=t.device)])
+    return (pad(gid, 0), [pad(p, 0 if op == "add" else
+                              pag.neutral(op, p.dtype))
+                          for p, op in zip(planes, ops)], ops, K)
+
+
+def _mesh_run(torch, native, session, build, key=None, warm=True):
+    """A warm-up (with ``warm``) and one timed run of ``build(session)``
+    -> (result, seconds, K1 launches of the timed run, plan, ici stats
+    of the timed run)."""
+    from spark_rapids_tpu_torch.exec import meshexec
+    if warm:
+        build(session).to_torch()
+    meshexec.reset_ici_stats()
+    before = native.LAUNCHES["dense_slot_reduce"]
+    out, secs = _timed(torch, build(session).to_torch)
+    launches = native.LAUNCHES["dense_slot_reduce"] - before
+    if key is not None:
+        out = sorted_by(torch, out, key)
+    return out, secs, launches, session._last_plan, meshexec.ici_stats()
+
+
+def _mesh_cell(torch, st, native, name: str, build, conf: dict, want,
+               single_s: float, smi: str, key=None, expect=(), warm=True):
+    """``build`` under ``conf`` against the single-device result ``want``
+    (integers bit for bit, float sums within rtol 1e-9), its plan
+    holding every operator of ``expect`` -> (plan, ici stats, K1
+    launches)."""
+    session = st.TorchSession(conf)
+    out, secs, launches, plan, ici = _mesh_run(torch, native, session, build,
+                                               key, warm)
+    tree = plan.tree_string()
+    for op in expect:
+        check(op in tree, f"{name}: no {op} in the plan:\n{tree}")
+    bitwise = same_result(torch, out, want, name, float_rtol=1e-9)
+    emit(name, conf=conf, shards=MESH_SHARDS,
+         rows=out[2], seconds=secs, single_device_seconds=single_s,
+         k1_launches=launches, ici=ici, float_bitwise=bitwise,
+         plan=tree.splitlines(), nvidia_smi=smi)
+    return plan, ici, launches
+
+
+def phase_mesh(torch, st, F, native, pag, agg_data, main, dim, tpch,
+               smi: str, errs: dict) -> None:
+    """Phase 30 inside a pool of 4 shards on the one card
+    (``parallel/mesh.py: virtual_pool``), put back after it."""
+    from spark_rapids_tpu_torch.parallel.mesh import virtual_pool
+    with virtual_pool(MESH_SHARDS):
+        _phase_mesh(torch, st, F, native, pag, agg_data, main, dim, tpch,
+                    smi, errs)
+
+
+def _phase_mesh(torch, st, F, native, pag, agg_data, main, dim, tpch,
+                smi: str, errs: dict) -> None:
+    """Phase 30: the mesh exchange over 4 shards on the one card, each
+    cell against
+    the single-device run of the same query in the same call:
+    hash_agg_sort_2m and hash_join_1m at ``mesh.devices=4`` (the
+    plans' mesh operators checked, K1 launched on every shard and held
+    against its plain version on shard 0's update batch), SF1 TPC-H q1
+    and q3 at ``mesh.devices=4``, the ``ici`` mode over hash_join_1m
+    (broadcast off) and hash_agg_sort_2m clean, with the collective's
+    first call faulted and with ``maxStageBytes`` at 1 MiB, and the dry
+    run on the card."""
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.bench.tpch import TPCH_QUERIES, load_tables
+    from spark_rapids_tpu_torch.parallel.dryrun import dryrun_multichip
+    t_phase = time.perf_counter()
+    single = st.TorchSession({})
+
+    def agg(s):
+        return agg_query(st, F, s.create_dataframe(agg_data))
+
+    def join(s):
+        return hash_join_query(st, F, s.create_dataframe(main),
+                               s.create_dataframe(dim))
+
+    def tpch_q(q):
+        return lambda s: TPCH_QUERIES[q](load_tables(s, tpch))
+
+    def k1():
+        return native.LAUNCHES["dense_slot_reduce"]
+
+    k1_refs = k1()
+    wants = {}
+    for name, build, key, conf in (
+            ("hash_agg_sort_2m", agg, None, {}),
+            ("hash_join_1m", join, "grp", {}),
+            ("hash_join_1m_no_broadcast", join, "grp", NO_BROADCAST),
+            ("tpch_q1", tpch_q("q1"), None, {}),
+            ("tpch_q3", tpch_q("q3"), None, {})):
+        s = single if not conf else st.TorchSession(conf)
+        out, secs, _, _, _ = _mesh_run(torch, native, s, build, key)
+        wants[name] = (out, secs)
+    k1_refs = k1() - k1_refs
+    k1_mesh = k1()
+    # K1 launches of the mesh cells' timed runs
+    k1_timed = 0
+
+    plan, _, launches = _mesh_cell(
+        torch, st, native, "mesh_hash_agg_sort_2m", agg, MESH_STATIC,
+        *wants["hash_agg_sort_2m"], smi,
+        expect=("TorchMeshAggregate", "TorchMeshSort"))
+    (magg,) = _plan_nodes(plan, "TorchMeshAggregateExec")
+    check(launches == magg.metrics["pallasAggBatches"] == MESH_SHARDS,
+          f"mesh_hash_agg_sort_2m: {launches} K1 launches, "
+          f"{magg.metrics['pallasAggBatches']} dense shard batches")
+    k1_timed += launches
+    inputs, rows, capacity = mesh_shard_inputs(
+        pag, st.TorchSession(MESH_STATIC), agg(st.TorchSession(MESH_STATIC)))
+    # the live rows the update passes, then the same padded to the
+    # shard's capacity with every padding row on slot 0
+    errs["dense_slot_reduce"] = _uncounted(native, lambda: max(
+        hold_k1(torch, pag, inputs, "mesh_hash_agg_sort_2m", shard=0,
+                shard_rows=rows),
+        hold_k1(torch, pag, padded_inputs(torch, pag, inputs, capacity),
+                "mesh_hash_agg_sort_2m", shard=0, shard_rows=rows,
+                padded_to=capacity)))
+
+    plan, _, launches = _mesh_cell(
+        torch, st, native, "mesh_hash_join_1m", join, MESH_STATIC,
+        *wants["hash_join_1m"], smi, key="grp",
+        expect=("TorchMeshAggregate", "TorchMeshHashJoin"))
+    (mjoin,) = _plan_nodes(plan, "TorchMeshHashJoinExec")
+    check(type(mjoin.children[1]).__name__ == "TorchBroadcastExchangeExec",
+          "mesh_hash_join_1m: the mesh join does not drain the broadcast "
+          "exchange as its right side")
+    check(launches > 0, "mesh_hash_join_1m: K1 never launched on a shard")
+    k1_timed += launches
+    for q in ("q1", "q3"):
+        k1_timed += _mesh_cell(torch, st, native, f"mesh_tpch_{q}",
+                               tpch_q(q), MESH_STATIC, *wants[f"tpch_{q}"],
+                               smi, expect=("TorchMesh",))[2]
+
+    # the over-budget cell: every fragment whose input is over 1 MiB
+    # degrades (the join and the aggregate over 1M rows; the aggregate
+    # over 2M rows, but not the sort of its 1,000 groups)
+    for name, build, key, extra, sorts, over in (
+            ("hash_join_1m", join, "grp", NO_BROADCAST, 0, (2, 0)),
+            ("hash_agg_sort_2m", agg, None, {}, 1, (1, 1))):
+        want = wants["hash_join_1m_no_broadcast" if extra else name]
+        conf = {**MESH_ICI, **extra}
+        _, ici, launches = _mesh_cell(
+            torch, st, native, f"mesh_ici_{name}", build, conf, *want, smi,
+            key=key, expect=("TorchMesh",))
+        k1_timed += launches
+        # a hash exchange pulls nothing; a range exchange pulls its
+        # bounds sample once
+        check(ici["exchange_pulls"] == sorts and ici["fallbacks"] == 0,
+              f"mesh_ici_{name}: {ici}")
+        check(ici["exchanges"] >= (3 if key else 2),
+              f"mesh_ici_{name}: {ici['exchanges']} exchanges")
+        # the collective site's first call faulted: that fragment
+        # degrades, the others run on the mesh (one run, warm already)
+        faults.reset()
+        try:
+            _, ici, launches = _mesh_cell(
+                torch, st, native, f"mesh_ici_{name}_fault", build,
+                {**conf, "spark.rapids.faults.shuffle.ici.collective":
+                 "first:1"}, *want, smi, key=key, warm=False)
+        finally:
+            faults.reset()
+        k1_timed += launches
+        check(ici["fallbacks"] == ici["fallbacks_injected"] == 1
+              and ici["exchanges"] >= 1, f"mesh_ici_{name}_fault: {ici}")
+        _, ici, launches = _mesh_cell(
+            torch, st, native, f"mesh_ici_{name}_over_budget", build,
+            {**conf, "spark.rapids.shuffle.ici.maxStageBytes": 1 << 20},
+            *want, smi, key=key, warm=False)
+        k1_timed += launches
+        check(ici["fallbacks"] == ici["fallbacks_over_budget"] == over[0]
+              and ici["exchanges"] == over[1],
+              f"mesh_ici_{name}_over_budget: {ici}")
+
+    k1_mesh = k1() - k1_mesh
+    t0 = time.perf_counter()
+    k1_dry = k1()
+    got = dryrun_multichip(MESH_SHARDS, "cuda")
+    torch.cuda.synchronize()
+    k1_dry = k1() - k1_dry
+    emit("mesh_dryrun", seconds=time.perf_counter() - t0, shards=MESH_SHARDS,
+         results=got, k1_launches=k1_dry, nvidia_smi=smi)
+    # the phase's K1 launches: the mesh cells (warm-ups included; their
+    # timed runs apart), the single-device references, the dry run
+    emit("mesh_phase", seconds=time.perf_counter() - t_phase,
+         k1_launches={"mesh_cells": k1_mesh, "mesh_timed_runs": k1_timed,
+                      "single_device_references": k1_refs,
+                      "dryrun": k1_dry}, nvidia_smi=smi)
+
+
+def mesh_only(torch, st, F, native, pag, main_data, agg_data, dim_data,
+              name: str, smi: str) -> int:
+    """``--mesh-only``: phase 30 and its data alone."""
+    from spark_rapids_tpu_torch.bench.tpch import gen_tpch_numpy
+    tpch = gen_tpch_numpy(LINEITEM_ROWS)
+    native.reset_launches()
+    errs = {}
+    phase_mesh(torch, st, F, native, pag, agg_data, main_data, dim_data,
+               tpch, smi, errs)
+    emit("launches", path="mesh", counts=dict(native.LAUNCHES),
+         dense_slot_reduce_max_abs_err=errs["dense_slot_reduce"])
+    check(native.LAUNCHES["dense_slot_reduce"] > 0, "mesh: K1 never launched")
+    print(json.dumps({"ok": True, "mesh_only": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def shuffle_only(torch, st, F, native, main_data, agg_data, dim_data,
                  name: str, smi: str) -> int:
     """``--shuffle-only``: phase 29 and its data alone."""
@@ -6815,6 +7095,11 @@ def parse_args(argv):
                          "shuffle: map worker processes on the host, the "
                          "reduce on the card) with its launch counts, and "
                          "stop")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels, run phase 30 (the mesh "
+                         "exchange over 4 shards on the one card, static "
+                         "and ici, against the single-device runs) with "
+                         "its launch counts, and stop")
     ap.add_argument("--cpu-references", metavar="DIR",
                     help=argparse.SUPPRESS)
     ap.add_argument("--string-paths", action="store_true",
@@ -6879,6 +7164,9 @@ def main(argv=None) -> int:
     if args.shuffle_only:
         return shuffle_only(torch, st, F, native, main_data, agg_data,
                             dim_data, name, smi)
+    if args.mesh_only:
+        return mesh_only(torch, st, F, native, pag, main_data, agg_data,
+                         dim_data, name, smi)
     t0 = time.perf_counter()
     line = gen_lineitem(LINEITEM_ROWS, SEED + 2)
     session = st.TorchSession.builder().get_or_create()
@@ -6961,14 +7249,16 @@ def main(argv=None) -> int:
     emit("tpch_data", lineitem_rows=LINEITEM_ROWS,
          rows={t: len(next(iter(c.values()))) for t, c in tpch.items()},
          seconds=time.perf_counter() - t0)
+    # one timed run a query in the whole script (phase 30 took the room
+    # of the second; the checks are unchanged)
     for qname in BENCH_QUERIES:
         drive(f"tpch_{qname}", phase_tpch, torch, st, native, session, tpch,
-              tpch_dfs, qname)
+              tpch_dfs, qname, 1)
     drive("window_1m", phase_window, torch, st, F, session, main_data)
     for qname in TPCH_QUERIES:
         if qname not in BENCH_QUERIES:
             drive(f"tpch_{qname}", phase_tpch, torch, st, native, session,
-                  tpch, tpch_dfs, qname, 2, refs)
+                  tpch, tpch_dfs, qname, 1, refs)
     from spark_rapids_tpu_torch.bench.mortgage import gen_mortgage_numpy
     from spark_rapids_tpu_torch.bench.tpcxbb import LEAD_QUERIES, \
         TPCXBB_QUERIES, gen_tpcxbb_numpy, register_views
@@ -6980,15 +7270,15 @@ def main(argv=None) -> int:
          tpcxbb_sales_rows=TPCXBB_SALES_ROWS,
          rows={t: len(next(iter(c.values()))) for t, c in xbb.items()},
          seconds=time.perf_counter() - t0)
-    drive("mortgage_etl", phase_mortgage, torch, session, refs, mortgage)
+    drive("mortgage_etl", phase_mortgage, torch, session, refs, mortgage, 1)
     # the bench's lead queries first, as bench.py:_tpcxbb_suites runs them
     for qname in list(LEAD_QUERIES) + [q for q in TPCXBB_QUERIES
                                        if q not in LEAD_QUERIES]:
         drive(f"tpcxbb_{qname}", phase_tpcxbb, torch, session, refs, qname,
-              TPCXBB_SALES_ROWS)
+              TPCXBB_SALES_ROWS, 1)
     gpu_b, = breadth_sessions(st, tpch, line[0], ("cuda",))
     emit("breadth_conf", conf=BREADTH_CONF)
-    drive("breadth", phase_breadth, torch, st, gpu_b, refs)
+    drive("breadth", phase_breadth, torch, st, gpu_b, refs, 1)
     drive("memory", phase_memory, torch, st, F, session, main_data,
           agg_data, dim_data, gen_big(), tpch)
     drive("range_aggs", phase_range_aggs, torch, st, F, session)
@@ -7034,6 +7324,11 @@ def main(argv=None) -> int:
                              cache_errs["dense_slot_reduce"])
     drive("placement", phase_placement, torch, st, F, native, session,
           main_data, agg_data, dim_data, tpch_dfs, smi)
+    mesh_errs = {}
+    drive("mesh", phase_mesh, torch, st, F, native, pag, agg_data,
+          main_data, dim_data, tpch, smi, mesh_errs)
+    dsr["max_abs_err"] = max(dsr["max_abs_err"],
+                             mesh_errs["dense_slot_reduce"])
     # every deferred check, before the shuffle's map workers want the
     # host's cores
     refs.finish()

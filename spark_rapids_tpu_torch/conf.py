@@ -227,6 +227,20 @@ CONCURRENT_TASKS = register(
     "Number of tasks the device semaphore admits at once (runtime.py; "
     "the JAX package's key and default).", int, _positive)
 
+CONCURRENT_TPU_TASKS = register(
+    "spark.rapids.sql.concurrentTpuTasks", 0,
+    "Legacy alias for spark.rapids.tpu.concurrentTasks: a positive value "
+    "overrides that key when the runtime sizes its semaphore; 0 defers "
+    "(the JAX package's key and rule).", int, _non_negative)
+
+SQL_ENABLED = register(
+    "spark.rapids.sql.enabled", True,
+    "Master switch of the device engine.  false runs the whole plan on "
+    "the port's own operators over host tensors, as "
+    "spark.rapids.sql.placement.mode=cpu runs it: no kernel is launched "
+    "and the result egress pulls nothing (the JAX package sends every "
+    "node to its CPU engine, which the port does not have).", bool)
+
 ALLOC_FRACTION = register(
     "spark.rapids.memory.tpu.allocFraction", 0.9,
     "Fraction of the card's total memory the spill catalog budgets for "
@@ -707,9 +721,9 @@ FLEET_RESULT_CACHE_MAX_BYTES = register(
 # raises (server/core.py) instead of running without it
 HEALTH_ENABLED = register(
     "spark.rapids.health.enabled", False,
-    "The JAX package's chip failure domain; the port raises "
-    "NotImplementedError when a server is built with it on (ROADMAP.md, "
-    "queue A8).", bool)
+    "The JAX package's chip failure domain (queue A8c); the port raises "
+    "NotImplementedError when a server is built with it on, and on a "
+    "plan that holds a mesh fragment.", bool)
 
 STREAM_ENABLED = register(
     "spark.rapids.stream.enabled", False,
@@ -766,17 +780,46 @@ SHUFFLE_MODE = register(
     "spark.rapids.shuffle.mode", "host",
     "Shuffle data plane.  'host': partition blocks move through host "
     "memory (in-process gathers, or the socket transport with "
-    "spark.rapids.shuffle.workers.count > 1).  'ici' asks for the "
-    "on-device mesh exchange (queue A8b): with one visible GPU, or with "
-    "map workers, the host path stays, as in the JAX package; on two or "
-    "more GPUs the port raises, since its mesh is not ported yet.", str,
+    "spark.rapids.shuffle.workers.count > 1).  'ici': with no map "
+    "workers, no explicit spark.rapids.sql.mesh.devices and a pool of "
+    "two or more devices (parallel/mesh.py: visible_pool), the planner "
+    "lowers grouped aggregates, global sorts and equi-joins onto the "
+    "mesh exchange (exec/meshexec.py: ici_lower), each fragment keeping "
+    "its single-device operator as the host-path fallback; otherwise "
+    "the host path stays, as in the JAX package.", str,
     _one_of("host", "ici"))
 
 MESH_DEVICES = register(
     "spark.rapids.sql.mesh.devices", 0,
-    "Width of the device mesh (queue A8b).  The port reads it only for "
-    "the shuffle mode's rule that an explicit mesh wins over 'ici'.",
+    "Width of the device mesh.  Above 1, and with a pool at least that "
+    "wide, the planner lowers grouped aggregates, global sorts and "
+    "equi-joins onto that many shards (exec/meshexec.py: mesh_lower, "
+    "the static lowering: no fallback); a narrower pool keeps the "
+    "single-device plan, as in the JAX package.", int, _non_negative)
+
+SHUFFLE_ICI_DEVICES = register(
+    "spark.rapids.shuffle.ici.devices", 0,
+    "Width of the mesh that spark.rapids.shuffle.mode=ici exchanges run "
+    "over; 0 = the whole pool, a larger value is capped at the pool.",
     int, _non_negative)
+
+SHUFFLE_ICI_MAX_STAGE_BYTES = register(
+    "spark.rapids.shuffle.ici.maxStageBytes", 1 << 30,
+    "Estimated input bytes above which a spark.rapids.shuffle.mode=ici "
+    "fragment keeps its single-device path (counted iciFallbacks, "
+    "reason over_budget); checked at execution against the drained "
+    "input.", int, _positive)
+
+SHUFFLE_ICI_SHARDED_SCAN = register(
+    "spark.rapids.shuffle.ici.shardedScan.enabled", False,
+    "The sharded scan ingest of mesh fragments: queue A8b-2, not in the "
+    "port yet.  true raises on a plan that holds a mesh fragment.",
+    bool)
+
+OOC_ENABLED = register(
+    "spark.rapids.sql.ooc.enabled", False,
+    "Out-of-core mesh fragments: queue A8b-2, not in the port yet.  "
+    "true raises on a plan that holds a mesh fragment.", bool)
 
 HOST_SHUFFLE_WORKERS = register(
     "spark.rapids.shuffle.workers.count", 0,
@@ -924,6 +967,14 @@ class TorchConf:
     @property
     def placement_mode(self) -> str:
         return str(self.get(PLACEMENT_MODE)).strip().lower()
+
+    @property
+    def concurrent_tasks(self) -> int:
+        """The semaphore's permits: the legacy
+        ``spark.rapids.sql.concurrentTpuTasks`` when positive, else
+        ``spark.rapids.tpu.concurrentTasks`` (the JAX package's rule)."""
+        legacy = self.get(CONCURRENT_TPU_TASKS)
+        return legacy if legacy > 0 else self.get(CONCURRENT_TASKS)
 
     def get_bool(self, key: str, default: bool = True) -> bool:
         """A raw key as a boolean, ``default`` when it is unset."""

@@ -147,3 +147,23 @@ class TorchExec:
         raise NotImplementedError(type(self).__name__)
 
 
+class DrainedSource(TorchExec):
+    """Replays drained batches: into a mesh fragment's fallback operator
+    (``exec/meshexec.py``; the child subtree never runs twice), and into
+    a shard's join (``parallel/distjoin.py``)."""
+
+    def __init__(self, batches: List[ColumnarBatch], schema: Schema):
+        super().__init__()
+        self.children = []
+        self._batches = list(batches)
+        self._schema = schema
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def describe(self) -> str:
+        return f"IciDrainedSource [{len(self._batches)} batches]"
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        return iter(self._batches)

@@ -338,7 +338,11 @@ def update_planes(spec, cols: Sequence[ColVal], num_rows: int,
                   capacity: int, lo: int, K: int):
     """The kernel's inputs for one update batch -> ``(gid, planes, ops,
     post)``: gid, one plane per update op (after the occupancy plane) and
-    the post-processing that turns the reduced planes into buffers."""
+    the post-processing that turns the reduced planes into buffers.
+    gid and the planes hold the ``num_rows`` live rows only: a padding
+    row would carry gid 0, and a tail of them (a mesh shard's 500,000
+    rows in 524,288) piles one slot's shared-memory atomics onto the
+    kernel's last blocks."""
     grouping = spec.groupings[0]
     device = cols[0].data.device
     ctx = EvalContext(cols, num_rows, capacity, device)
@@ -393,7 +397,7 @@ def update_planes(spec, cols: Sequence[ColVal], num_rows: int,
                     m, v32, torch.full_like(v32, neutral(op, cv.data.dtype))))
                 ops.append(op)
                 post.append(("cast", len(planes) - 1, cv.data.dtype))
-    return gid, planes, ops, post
+    return gid[:num_rows], [p[:num_rows] for p in planes], ops, post
 
 
 def make_update(spec, capacity: int, lo_hint: int, hi_hint: int):

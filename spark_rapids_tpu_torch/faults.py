@@ -63,8 +63,17 @@ to fail, so tests and runs inject faults through
                            row group: its heartbeats stop and it parks
                            until the watchdog terminates it
 
-The JAX package's other sites (ICI, chip, ``ooc.partition``) belong to
-modules the port does not have yet (``ROADMAP.md``, queues A8b and A8c).
+  ``shuffle.ici.collective`` a guarded mesh fragment
+                           (``exec/meshexec.py: _guarded_collective``),
+                           before its exchange: the fragment degrades to
+                           its single-device operator (``iciFallbacks``)
+  ``shuffle.ici.hang``     the same gate's ``lifecycle.supervise``: the
+                           exchange wedges until the watchdog gives up
+                           and the fragment degrades
+
+The JAX package's other sites (``shuffle.ici.ingest``, chip,
+``ooc.partition``) belong to modules the port does not have yet
+(``ROADMAP.md``, queues A8b-2 and A8c).
 
 Trigger grammar (the value of ``spark.rapids.faults.<site>``):
 

@@ -55,6 +55,8 @@ log = logging.getLogger("spark_rapids_tpu_torch.lifecycle")
 WAIT_POLL_S = 0.05
 
 FAULT_SITE_PIPELINE_HANG = "io.pipeline.hang"
+# a wedged mesh exchange (exec/meshexec.py: _guarded_collective)
+FAULT_SITE_ICI_HANG = "shuffle.ici.hang"
 
 # an injected hang with no watchdog and no deadline still ends
 _PARK_CAP_S = 3600.0

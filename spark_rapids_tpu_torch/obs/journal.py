@@ -60,6 +60,8 @@ EVENT_FRAGMENT_PLACED = "fragment_placed"
 EVENT_COMPILE_WARM = "compile_warm"
 # the host shuffle's distributed_groupby driver (shuffle/worker.py)
 EVENT_WORKER_DEATH = "worker_death"
+# a mesh fragment degraded to its single-device path (exec/meshexec.py)
+EVENT_ICI_FALLBACK = "ici_fallback"
 
 DEFAULT_MAX_EVENTS = 100_000
 

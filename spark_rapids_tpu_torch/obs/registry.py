@@ -10,8 +10,12 @@ name (``*.us``).  Recording is gated by ``spark.rapids.sql.obs.enabled``
 (set at query-scope entry): off, ``record`` is one flag read.  The
 ``fusion`` (``exec/stage.py``), ``compile`` (``compile/service.py``)
 and ``placement`` (``plan/placement.py``) sections are the JAX
-package's; its sections for modules the port lacks (ooc, the kernel
-cache, ICI, health) are left out until queues A8b and A8c; ``shuffle``
+package's, and so is ``ici`` (``exec/meshexec.py: ici_stats``, without
+the keys only queues A8b-2 and A8c move: ``sharded``,
+``fallbacks_width``, ``fallbacks_ingest``, ``gather_pulls`` and
+``gather_overlap_ms``); its sections for modules the port
+lacks (ooc, the kernel cache, health) are left out until queues A8b-2
+and A8c; ``shuffle``
 (``shuffle/manager.py: global_stats``, the host shuffle's exchanges,
 workers, blocks, wire and raw bytes, recomputes and the managers'
 failure counters) is the port's own; ``prefetch``
@@ -184,7 +188,7 @@ def snapshot() -> dict:
     from spark_rapids_tpu_torch import lifecycle
     from spark_rapids_tpu_torch.columnar import transfer
     from spark_rapids_tpu_torch.compile import service as compile_service
-    from spark_rapids_tpu_torch.exec import aqe, stage
+    from spark_rapids_tpu_torch.exec import aqe, meshexec, stage
     from spark_rapids_tpu_torch.plan import placement
     from spark_rapids_tpu_torch.io import prefetch
     from spark_rapids_tpu_torch.fleet import stats as fleet_stats
@@ -232,6 +236,10 @@ def snapshot() -> dict:
         # managers' retries, refetches, fetch failures and blacklists,
         # and how many managers ran the native transport
         "shuffle": shuffle_manager.global_stats(),
+        # the mesh exchange (exec/meshexec.py): exchanges, bytes,
+        # fallbacks by reason, the pulls made while exchanges ran, and
+        # the gather counters
+        "ici": meshexec.ici_stats(),
         "journal": journal.stats(),
         "histograms": histogram_snapshots(),
     }

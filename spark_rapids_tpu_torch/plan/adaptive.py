@@ -37,8 +37,11 @@ worker processes, so nothing inside it is wrapped in a stage here
 uploads from its own map-output statistics with the same
 ``greedy_partition_groups``.
 
-Not carried over: ``unwrap_aqe_exchange`` (the mesh lowering, queue
-A8b).
+``unwrap_aqe_exchange`` strips an AQE-inserted hash exchange off a
+join input for the ``ici`` mesh lowering (``exec/meshexec.py``), whose
+join is the exchange.  A plan under ``spark.rapids.sql.mesh.devices`` > 1
+stays static (``insert_adaptive``): its exchanges run inside the mesh
+operators.
 """
 
 from __future__ import annotations
@@ -75,10 +78,30 @@ def _subtree_has_exchange(node: TorchExec) -> bool:
     return any(_subtree_has_exchange(c) for c in node.children)
 
 
+def unwrap_aqe_exchange(node: TorchExec
+                        ) -> Tuple[TorchExec, Optional[TorchExec]]:
+    """A join input with its AQE-inserted hash exchange (and any coalesce
+    over it) taken off, for the ``ici`` mesh lowering -> (the input, the
+    exchange or None).  Only ``aqe_inserted`` exchanges unwrap: a
+    ``repartition(n)`` is the user's."""
+    inner = node
+    while isinstance(inner, TorchCoalesceBatchesExec):
+        inner = inner.children[0]
+    if isinstance(inner, TorchShuffleExchangeExec) and \
+            inner.aqe_inserted and inner.mode == "hash":
+        return inner.children[0], inner
+    return node, None
+
+
 def insert_adaptive(plan: TorchExec, conf) -> TorchExec:
     """``plan`` under an adaptive wrapper when adaptive execution is on
     and the plan holds an exchange a stage can measure (a range
-    exchange samples its whole input first and stays static)."""
+    exchange samples its whole input first and stays static).  A plan
+    under ``spark.rapids.sql.mesh.devices`` > 1 stays static, as in the
+    JAX package: its exchanges run inside the mesh operators."""
+    from spark_rapids_tpu_torch.conf import MESH_DEVICES
+    if conf.get(MESH_DEVICES) > 1:
+        return plan
     if conf.get(ADAPTIVE_ENABLED) and _subtree_has_exchange(plan):
         return TorchAdaptiveSparkPlanExec(plan, conf)
     return plan

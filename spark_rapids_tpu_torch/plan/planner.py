@@ -50,8 +50,8 @@ import numpy as np
 from spark_rapids_tpu_torch.columnar.dtypes import BOOLEAN, STRING, Field, \
     Schema
 from spark_rapids_tpu_torch.conf import ADAPTIVE_ENABLED, \
-    BROADCAST_THRESHOLD, HOST_SHUFFLE_WORKERS, \
-    SHUFFLE_DEFAULT_NUM_PARTITIONS, TorchConf
+    BROADCAST_THRESHOLD, HOST_SHUFFLE_WORKERS, MESH_DEVICES, \
+    SHUFFLE_DEFAULT_NUM_PARTITIONS, SQL_ENABLED, TorchConf
 from spark_rapids_tpu_torch.exec.aggregate import TorchHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import TorchExec
 from spark_rapids_tpu_torch.exec.basic import TorchFilterExec, \
@@ -137,26 +137,47 @@ def plan_query(node: lp.LogicalPlan,
     other than ``tpu`` the placement pass scores the plan first
     (``plan/placement.py: place_fragments``): the root carries its
     decisions in ``placement``, and a plan placed on the host has every
-    operator's ``on_host`` set, for the caller to run it there."""
+    operator's ``on_host`` set, for the caller to run it there.  With
+    ``spark.rapids.sql.enabled`` false the whole plan is placed on the
+    host so, unscored (the JAX package sends every node to its CPU
+    engine).  A plan on the device takes the mesh passes
+    (``_mesh_lower``) before fusion, as in the JAX planner."""
     conf = conf if conf is not None else TorchConf()
     node = push_join_conditions(node)
     if conf.get_bool(
             "spark.rapids.sql.format.parquet.filterPushdown.enabled", True):
         node = push_scan_filters(node)
     decisions = []
-    if conf.placement_mode != "tpu":
+    sql_enabled = conf.get(SQL_ENABLED)
+    if sql_enabled and conf.placement_mode != "tpu":
         from spark_rapids_tpu_torch.plan.placement import place_fragments
         decisions = place_fragments(node, conf)
-    from spark_rapids_tpu_torch.shuffle.manager import select_shuffle_mode
-    select_shuffle_mode(conf)  # raises where the mesh would be elected
+    on_host = not sql_enabled or \
+        any(d["engine"] == "cpu" for d in decisions)
     plan = _lower(node, conf)
+    if not on_host:
+        plan = _mesh_lower(plan, conf)
     if conf.get(HOST_SHUFFLE_WORKERS) > 1:
         plan = host_shuffle_lower(plan, conf)
     plan = insert_adaptive(fuse_physical(plan, conf), conf)
     if decisions:
         plan.placement = decisions
-        if any(d["engine"] == "cpu" for d in decisions):
-            mark_on_host(plan)
+    if on_host:
+        mark_on_host(plan)
+    return plan
+
+
+def _mesh_lower(plan: TorchExec, conf: TorchConf) -> TorchExec:
+    """The JAX planner's mesh passes: ``spark.rapids.sql.mesh.devices``
+    > 1 takes the static lowering; otherwise, where the shuffle manager
+    elects ``ici``, the guarded one (``exec/meshexec.py``)."""
+    from spark_rapids_tpu_torch.exec.meshexec import ici_lower, mesh_lower
+    from spark_rapids_tpu_torch.shuffle.manager import SHUFFLE_MODE_ICI, \
+        select_shuffle_mode
+    if conf.get(MESH_DEVICES) > 1:
+        return mesh_lower(plan, conf)
+    if select_shuffle_mode(conf) == SHUFFLE_MODE_ICI:
+        return ici_lower(plan, conf)
     return plan
 
 

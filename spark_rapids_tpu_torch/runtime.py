@@ -46,7 +46,7 @@ from typing import Dict, List, Optional
 import torch
 
 from spark_rapids_tpu_torch.conf import (
-    ALLOC_FRACTION, BUDGET_BYTES, CONCURRENT_TASKS, HOST_SPILL_STORAGE_SIZE,
+    ALLOC_FRACTION, BUDGET_BYTES, HOST_SPILL_STORAGE_SIZE,
     PINNED_POOL_SIZE, POOLING_ENABLED, TorchConf,
 )
 
@@ -271,7 +271,7 @@ class TorchRuntime:
         from spark_rapids_tpu_torch.memory.spill import BufferCatalog
         self.conf = conf
         self.device = torch.device(device)
-        self.semaphore = TorchSemaphore(conf.get(CONCURRENT_TASKS))
+        self.semaphore = TorchSemaphore(conf.concurrent_tasks)
         self.budget_bytes = int(device_total_bytes(self.device)
                                 * conf.get(ALLOC_FRACTION))
         override = conf.get(BUDGET_BYTES)

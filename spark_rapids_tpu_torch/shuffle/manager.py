@@ -19,10 +19,10 @@ block's header schema is capped by ``maxMetadataSize``.  ``stats()``
 gives the counters, which ``stop`` adds to the process-wide
 ``global_stats()`` (the registry's ``shuffle`` section).
 
-``select_shuffle_mode`` keeps the JAX package's rules, one for one.
-Where they elect ``ici`` (the mesh exchange) the port raises
-``MeshNotPortedError``: the mesh is queue A8b, and a conf that asks for
-it on two or more GPUs must not quietly take the host path.
+``select_shuffle_mode`` keeps the JAX package's rules, one for one,
+over the port's device pool (``parallel/mesh.py: visible_pool``); where
+they elect ``ici`` the planner lowers onto the mesh
+(``exec/meshexec.py: ici_lower``), over ``ici_mesh_width`` shards.
 """
 
 from __future__ import annotations
@@ -66,9 +66,9 @@ class FetchFailedError(EngineError, IOError):
 
 
 class MeshNotPortedError(EngineError, NotImplementedError):
-    """``spark.rapids.shuffle.mode=ici`` qualified (two or more GPUs, no
-    map workers, no explicit mesh), but the port's mesh exchange is
-    queue A8b."""
+    """A key of a layer the port's mesh does not have yet (the sharded
+    scan ingest and out-of-core, queue A8b-2; chip health, A8c) is on
+    for a plan that holds a mesh operator (``exec/meshexec.py``)."""
 
 
 # the recoverable failures the shuffle plane itself makes, which a map
@@ -82,12 +82,11 @@ SHUFFLE_MODE_ICI = "ici"
 
 
 def select_shuffle_mode(conf, n_devices: Optional[int] = None) -> str:
-    """The shuffle mode this session takes: ``host`` unless the conf
-    asks for ``ici``, there are no map workers
+    """The shuffle mode this session takes, by the JAX package's rules:
+    ``ici`` when the conf asks for it, there are no map workers
     (``workers.count`` <= 1), no explicit mesh (``mesh.devices`` <= 1)
-    and at least two devices (``torch.cuda.device_count()`` unless
-    given).  Where all hold, the JAX package lowers onto its mesh; the
-    port raises ``MeshNotPortedError``."""
+    and a pool of at least two devices (``parallel/mesh.py:
+    visible_pool`` unless given); else ``host``."""
     from spark_rapids_tpu_torch.conf import HOST_SHUFFLE_WORKERS, \
         MESH_DEVICES, SHUFFLE_MODE
     if str(conf.get(SHUFFLE_MODE)).strip().lower() != SHUFFLE_MODE_ICI:
@@ -97,15 +96,24 @@ def select_shuffle_mode(conf, n_devices: Optional[int] = None) -> str:
     if conf.get(MESH_DEVICES) > 1:
         return SHUFFLE_MODE_HOST
     if n_devices is None:
-        import torch
-        n_devices = torch.cuda.device_count() \
-            if torch.cuda.is_available() else 1
+        from spark_rapids_tpu_torch.parallel.mesh import visible_pool
+        n_devices = len(visible_pool(conf))
     if n_devices < 2:
         return SHUFFLE_MODE_HOST
-    raise MeshNotPortedError(
-        f"spark.rapids.shuffle.mode=ici on {n_devices} GPUs needs the mesh "
-        "exchange, which the torch port has not yet (queue A8b: "
-        "parallel/, exec/meshexec.py); set spark.rapids.shuffle.mode=host")
+    return SHUFFLE_MODE_ICI
+
+
+def ici_mesh_width(conf, n_devices: Optional[int] = None) -> int:
+    """The width ``ici`` exchanges run over:
+    ``spark.rapids.shuffle.ici.devices`` capped at the pool, 0 = the
+    whole pool (the JAX package's rule without its health ladder, queue
+    A8c)."""
+    from spark_rapids_tpu_torch.conf import SHUFFLE_ICI_DEVICES
+    if n_devices is None:
+        from spark_rapids_tpu_torch.parallel.mesh import visible_pool
+        n_devices = len(visible_pool(conf))
+    want = conf.get(SHUFFLE_ICI_DEVICES)
+    return n_devices if want <= 0 else min(want, n_devices)
 
 
 # -- process-wide stats (the registry's ``shuffle`` section) ------------------

@@ -13,6 +13,13 @@ package's lint does not cover the port):
 Plus every ``join()`` of a thread or process carries a timeout.  A hang
 in the shuffle costs every later run its whole time limit, and this
 sandbox has no per-test timeout.
+
+Over the mesh exchange (``spark_rapids_tpu_torch/parallel/`` and
+``exec/meshexec.py``): the first rule, and the JAX lint's rule 8: every
+mesh operator's ``execute`` reaches its exchange through
+``_guarded_collective`` (directly, or through the shared
+``_single_child_collective``, which must call it), the one gate with the
+fault site, the stage-bytes test and the single-device fallback.
 """
 
 import ast
@@ -20,8 +27,8 @@ import os
 
 import pytest
 
-from tests.lint_robustness import _call_has_timeout, _is_silent_swallow, \
-    _queueish_receiver
+from tests.lint_robustness import _call_has_timeout, _is_call_named, \
+    _is_silent_swallow, _queueish_receiver
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "spark_rapids_tpu_torch")
@@ -84,3 +91,41 @@ def test_joins_are_bounded(path):
                  and n.func.attr == "join" and not n.args
                  and not n.keywords]
     assert not offenders, f"{path}: unbounded joins at {offenders}"
+
+
+MESHEXEC = os.path.join(PKG, "exec", "meshexec.py")
+MESH_SOURCES = [MESHEXEC] + sorted(
+    os.path.join(PKG, "parallel", f)
+    for f in os.listdir(os.path.join(PKG, "parallel")) if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", MESH_SOURCES,
+                         ids=[os.path.relpath(p, REPO) for p in MESH_SOURCES])
+def test_no_silent_exception_swallows_in_the_mesh(path):
+    offenders = [n.lineno for n in ast.walk(_tree(path))
+                 if isinstance(n, ast.ExceptHandler)
+                 and _is_silent_swallow(n)]
+    assert not offenders, f"{path}: silent swallows at {offenders}"
+
+
+def test_every_mesh_operator_routes_through_guarded_collective():
+    tree = _tree(MESHEXEC)
+    checked, offenders = 0, []
+    for cls in tree.body:
+        if not (isinstance(cls, ast.ClassDef)
+                and cls.name.startswith("TorchMesh")):
+            continue
+        for fn in cls.body:
+            if isinstance(fn, ast.FunctionDef) and fn.name == "execute":
+                checked += 1
+                if not any(isinstance(n, ast.Call) and (
+                        _is_call_named(n, "_guarded_collective")
+                        or _is_call_named(n, "_single_child_collective"))
+                        for n in ast.walk(fn)):
+                    offenders.append(cls.name)
+    helper = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "_single_child_collective"]
+    assert helper and any(isinstance(n, ast.Call) and _is_call_named(
+        n, "_guarded_collective") for n in ast.walk(helper[0]))
+    assert checked == 3, checked
+    assert not offenders, f"mesh operators outside the gate: {offenders}"

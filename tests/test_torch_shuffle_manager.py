@@ -26,7 +26,7 @@ from spark_rapids_tpu_torch import faults
 from spark_rapids_tpu_torch.columnar.batch import host_columns_from_arrow
 from spark_rapids_tpu_torch.conf import TorchConf
 from spark_rapids_tpu_torch.shuffle.manager import FetchFailedError, \
-    MeshNotPortedError, TorchShuffleManager, select_shuffle_mode
+    TorchShuffleManager, select_shuffle_mode
 from spark_rapids_tpu_torch.shuffle.serializer import HostBlock
 from tests.torch_threads import _one_torch_thread  # noqa: F401
 
@@ -354,8 +354,4 @@ def test_shuffle_mode_rules_match_jax(conf, n, want):
     from spark_rapids_tpu.conf import TpuConf
     from spark_rapids_tpu.shuffle.manager import select_shuffle_mode as jsel
     assert jsel(TpuConf(dict(conf)), n_devices=n) == want
-    if want == "ici":
-        with pytest.raises(MeshNotPortedError, match="A8b"):
-            select_shuffle_mode(TorchConf(conf), n_devices=n)
-    else:
-        assert select_shuffle_mode(TorchConf(conf), n_devices=n) == want
+    assert select_shuffle_mode(TorchConf(conf), n_devices=n) == want
